@@ -11,8 +11,10 @@ setup(
     description="TPU-native multimodal Chinese chat framework (CLIP-ViT + visual resampler + LLaMA)",
     license="Apache-2.0",
     license_files=["LICENSE", "NOTICE"],
-    packages=find_packages(include=["visualcla_tpu", "visualcla_tpu.*"]),
-    package_data={"visualcla_tpu": ["configs/*.json"]},
+    packages=find_packages(include=["visualcla_tpu", "visualcla_tpu.*",
+                                    "visualcla_tpu_torch", "visualcla_tpu_torch.*"]),
+    package_data={"visualcla_tpu": ["configs/*.json"],
+                  "visualcla_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",
