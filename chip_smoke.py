@@ -7,15 +7,17 @@ Phases, one line of findings each:
                versions; no CUDA device is an error, never a CPU run;
   2. build   — build the CUDA kernels from ``visualcla_tpu_torch/csrc``;
   3. kernels — each kernel against its plain PyTorch version on the card, in
-               bf16 at the 7B head shapes (MHA and GQA), with device times;
+               bf16 at the 7B head shapes (MHA and GQA) and at the main
+               path's own shapes (32 layers, the chat prompt's bucket), with
+               device times;
   4. slice   — VisualCLA-7B at full width on seeded random bf16 weights made
                on the card: prefill logits through the kernels against the
                plain attention versions (loosely in bf16, tightly on an fp32
                copy of the weights); greedy ``chat``, ``chat_in_stream``
                (same ids), the default sampled ``chat``; a B=2 ``generate``
                of uneven prompts whose rows equal their single-row runs (in
-               fp32: bf16 GEMMs round by batch shape); the launch counters;
-               TTFT and B=1 decode tokens/s;
+               fp32: bf16 GEMMs round by batch shape); the launch counters
+               of the greedy chat alone; TTFT and B=1 decode tokens/s;
   5. the kernel summary as one JSON line, then the result line.
 Exits non-zero if any phase fails.  Needs no network and no JAX.
 """
@@ -32,39 +34,38 @@ import torch
 
 from visualcla_tpu.core.config import visualcla_config_for_size
 from visualcla_tpu.processor import ImageProcessor
-from visualcla_tpu.text import DEFAULT_SPECIALS, VisualCLATokenizer, build_test_model
 from visualcla_tpu.text.prompt import encoding_text, img_marker_positions
 from visualcla_tpu_torch import api
 from visualcla_tpu_torch.engine.generate import PROMPT_BUCKETS, pick_bucket
 from visualcla_tpu_torch.engine.sampling import SamplingConfig
-from visualcla_tpu_torch.models import llama as llama_mod
+from visualcla_tpu_torch.fixtures import (PROMPT, SEED, make_tokenizer, plain_attention,
+                                          random_image)
 from visualcla_tpu_torch.models.visualcla import VisualCLAModel, init_random_
 from visualcla_tpu_torch.ops.cuda import build
 from visualcla_tpu_torch.ops.cuda import flash_attention as fa
 
-SEED = 0
 ATOL = RTOL = 2e-2  # bf16 output rounding plus another summation order
 KERNEL_SOURCE = "visualcla_tpu_torch/csrc/flash_attention.cu"
 REPLACES = {
     "flash_decode": "visualcla_tpu/ops/pallas/flash_attention.py:120",  # _decode_kernel
     "flash_prefill": "visualcla_tpu/ops/pallas/flash_attention.py:29",  # _flash_kernel
 }
-PROMPT = "请详细描述这张图片。"
 
 
 def device_ms(fn, calls: int = 10, replays: int = 5) -> float:
-    """Device time of one ``fn()`` call: a CUDA graph of ``calls`` calls,
-    replayed and timed with events, so host launch overhead is excluded."""
+    """Device time of one call: ``fn(0) .. fn(calls - 1)`` captured in a CUDA
+    graph, replayed and timed with events, so host launch overhead is
+    excluded."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
+        for i in range(3):
+            fn(i)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
+        for i in range(calls):
+            fn(i)
     graph.replay()
     times = []
     for _ in range(replays):
@@ -127,6 +128,26 @@ def _kernel_case(kind, B, Sq, N, Nkv, gen, L=2, S=2048, hd=128, slot0=272):
     return q, kc, vc, valid, slot
 
 
+def _wrapper_and_plain(kind):
+    if kind == "prefill":
+        return fa.flash_prefill_stacked, fa.flash_prefill_stacked_ref
+    return fa.flash_decode_stacked, fa.flash_decode_stacked_ref
+
+
+def _against_plain(kind, q, kc, vc, valid, slot, layer):
+    """The kernel's output against its plain version, computed in fp32 from
+    the same bf16 inputs: (max abs error, within tolerance and finite)."""
+    wrapper, plain = _wrapper_and_plain(kind)
+    out = wrapper(q, kc, vc, valid, slot, layer)
+    torch.cuda.synchronize()
+    ref = plain(q.float(), kc.float(), vc.float(), valid, slot, layer)
+    err = (out.float() - ref).abs()
+    ok = bool((err <= ATOL + RTOL * ref.abs()).all()) and bool(torch.isfinite(out).all())
+    if kind == "decode" and q.shape[0] == 8:
+        ok = ok and bool((out[5] == 0).all())  # the fully masked row
+    return err.max().item(), ok
+
+
 def phase_kernels(prompt_bucket: int) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     worst = {"flash_decode": 0.0, "flash_prefill": 0.0}
@@ -137,63 +158,44 @@ def phase_kernels(prompt_bucket: int) -> dict:
             name = "flash_" + kind
             for B, Sq in shapes:
                 q, kc, vc, valid, slot = _kernel_case(kind, B, Sq, N, Nkv, gen)
-                wrapper = fa.flash_prefill_stacked if kind == "prefill" else fa.flash_decode_stacked
-                plain = (fa.flash_prefill_stacked_ref if kind == "prefill"
-                         else fa.flash_decode_stacked_ref)
-                out = wrapper(q, kc, vc, valid, slot, 1)
-                torch.cuda.synchronize()
-                # the plain version in fp32 from the same bf16 inputs
-                ref = plain(q.float(), kc.float(), vc.float(), valid, slot, 1)
-                err = (out.float() - ref).abs()
-                ok = bool((err <= ATOL + RTOL * ref.abs()).all()) and bool(torch.isfinite(out).all())
-                if kind == "decode" and B == 8:
-                    ok = ok and bool((out[5] == 0).all())
-                worst[name] = max(worst[name], err.max().item())
-                ms = device_ms(lambda: wrapper(q, kc, vc, valid, slot, 1))
-                plain_ms = device_ms(lambda: plain(q, kc, vc, valid, slot, 1), calls=2)
-                cases.append(f"{kind}(N{N}/{Nkv},B{B},Sq{Sq}) err={err.max().item():.2e} "
+                wrapper, plain = _wrapper_and_plain(kind)
+                err, ok = _against_plain(kind, q, kc, vc, valid, slot, 1)
+                worst[name] = max(worst[name], err)
+                ms = device_ms(lambda i: wrapper(q, kc, vc, valid, slot, 1))
+                plain_ms = device_ms(lambda i: plain(q, kc, vc, valid, slot, 1), calls=2)
+                cases.append(f"{kind}(N{N}/{Nkv},B{B},Sq{Sq}) err={err:.2e} "
                              f"{ms * 1e3:.1f}us/plain {plain_ms * 1e3:.1f}us")
                 if not ok:
                     failures.append(cases[-1])
-                del q, kc, vc, out, ref
-    print(f"[3 kernels] bf16, L=2 S=2048 hd=128, tol atol=rtol={ATOL}: " + "; ".join(cases),
-          flush=True)
-    if failures:
-        raise RuntimeError(f"kernels disagree with their plain versions: {failures}")
-    # device times at the main path's shapes: the B=1 chat prompt's bucket in
-    # the default 2048-slot cache; decode 16 tokens into the answer
-    main = {}
+                del q, kc, vc
+    # the main path's shapes: the B=1 chat prompt's bucket in the default
+    # 2048-slot cache of all 32 layers; decode 16 tokens into the answer.
+    # Checked at layer 7, then timed two ways: over all 32 layers in turn, as
+    # a decode step reads them (each layer's K/V comes from HBM), and on
+    # layer 7 alone (its K/V stays in the 50 MB L2 between calls)
+    main, main_cases = {}, []
     for kind, B, Sq in (("prefill", 1, prompt_bucket), ("decode", 1, 1)):
+        name = "flash_" + kind
         q, kc, vc, valid, slot = _kernel_case(kind, B, Sq, 32, 32, gen, L=32,
                                               slot0=prompt_bucket + 16)
-        wrapper = fa.flash_prefill_stacked if kind == "prefill" else fa.flash_decode_stacked
-        plain = fa.flash_prefill_stacked_ref if kind == "prefill" else fa.flash_decode_stacked_ref
-        main["flash_" + kind] = (device_ms(lambda: wrapper(q, kc, vc, valid, slot, 7)),
-                                 device_ms(lambda: plain(q, kc, vc, valid, slot, 7), calls=2))
+        err, ok = _against_plain(kind, q, kc, vc, valid, slot, 7)
+        worst[name] = max(worst[name], err)
+        wrapper, plain = _wrapper_and_plain(kind)
+        L = kc.shape[0]
+        main[name] = (device_ms(lambda i: wrapper(q, kc, vc, valid, slot, i % L), calls=L),
+                      device_ms(lambda i: plain(q, kc, vc, valid, slot, i % L), calls=L))
+        warm = device_ms(lambda i: wrapper(q, kc, vc, valid, slot, 7))
+        main_cases.append(f"{kind}(N32/32,B1,Sq{Sq},L32) err={err:.2e} "
+                          f"{main[name][0] * 1e3:.1f}us/plain {main[name][1] * 1e3:.1f}us "
+                          f"over the 32 layers, {warm * 1e3:.1f}us on one layer")
+        if not ok:
+            failures.append(main_cases[-1])
         del q, kc, vc
+    print(f"[3 kernels] bf16, L=2 S=2048 hd=128, tol atol=rtol={ATOL}: " + "; ".join(cases)
+          + "; at the main path's shapes: " + "; ".join(main_cases), flush=True)
+    if failures:
+        raise RuntimeError(f"kernels disagree with their plain versions: {failures}")
     return {"worst": worst, "main": main}
-
-
-def make_tokenizer(vocab_size: int) -> VisualCLATokenizer:
-    """An in-process SentencePiece vocabulary of exactly ``vocab_size`` ids
-    (with the 4 specials), so every id the model can emit decodes."""
-    chars = sorted(set("abcdefghijklmnopqrstuvwxyz0123456789 .,!?:#\n"
-                       "图片里有什么这是一只猫狗在上的和描述张请详细回答问题。"))
-    singles = [chr(c) for c in range(0x4E00, 0x9FA6) if chr(c) not in chars]
-    n_needed = vocab_size - len(DEFAULT_SPECIALS) - 3 - 256 - len(chars) - len(singles)
-    side = int(np.ceil(np.sqrt(n_needed)))
-    pairs = [a + b for a in singles[:side] for b in singles[:side]][:n_needed]
-    vocab = chars + singles + pairs
-    scores = [-100.0] * (len(chars) + len(singles)) + [-float(i + 1) for i in range(len(pairs))]
-    tok = VisualCLATokenizer(build_test_model(vocab, scores))
-    tok.add_special_tokens(DEFAULT_SPECIALS)
-    assert len(tok) == vocab_size, (len(tok), vocab_size)
-    return tok
-
-
-def plain_attention(q, k_cache, v_cache, kv_valid, write_slot, *, layer_index):
-    fn = fa.flash_decode_stacked_ref if q.shape[1] == 1 else fa.flash_prefill_stacked_ref
-    return fn(q, k_cache, v_cache, kv_valid, write_slot, layer_index)
 
 
 def phase_slice(smi: str, cfg, tokenizer) -> dict:
@@ -204,7 +206,7 @@ def phase_slice(smi: str, cfg, tokenizer) -> dict:
     bundle = api.VisualCLA(model, cfg, tokenizer, ImageProcessor(image_size=224),
                            max_seq_len=2048)
     setup_s = time.perf_counter() - t0
-    image = np.random.default_rng(SEED).integers(0, 256, (480, 640, 3), dtype=np.uint8)
+    image = random_image(SEED)
     greedy = SamplingConfig.greedy(max_new_tokens=32)
 
     # the full-width prefill against the same model with plain attention;
@@ -227,16 +229,15 @@ def phase_slice(smi: str, cfg, tokenizer) -> dict:
              verbose=False)  # warm-up
     torch.cuda.synchronize()
 
+    # the main path's run: one greedy chat, its launches counted from zero
     fa.reset_launch_counts()
-    counts_before = dict(fa.LAUNCHES)
-
-    def launched(before):
-        return {k: fa.LAUNCHES[k] - before[k] for k in fa.LAUNCHES}
-
-    # greedy chat, and the same prompt through generate for its ids
-    before = dict(fa.LAUNCHES)
     response, _ = api.chat(bundle, image, PROMPT, [], greedy, verbose=False)
-    chat_counts = launched(before)
+    chat_counts = dict(fa.LAUNCHES)
+    for name, n in chat_counts.items():
+        if n == 0:
+            raise RuntimeError(f"kernel {name} was never launched by the main path")
+    # the same prompt through generate for its ids: one prefill, then one
+    # decode step per token after the first, each through all L layers
     ids = bundle.generate(enc["input_ids"], pixel_values=pv, generation_config=greedy)[0]
     n_gen = len(ids)
     expect = {"flash_prefill": L, "flash_decode": L * (n_gen - 1)}
@@ -328,10 +329,6 @@ def phase_slice(smi: str, cfg, tokenizer) -> dict:
             raise RuntimeError(f"fp32 B=2 row {i} continues past its single-row EOS")
     del bundle32, model32
     torch.cuda.empty_cache()
-    counts = launched(counts_before)
-    for name, n in counts.items():
-        if n == 0:
-            raise RuntimeError(f"kernel {name} was never launched by the main path")
     ttft = statistics.median(ttfts)
     rate = statistics.median(rates)
     print(f"[4 slice] VisualCLA-7B bf16 full width (ViT-L/14 24L, resampler 6L/64q, "
@@ -343,10 +340,10 @@ def phase_slice(smi: str, cfg, tokenizer) -> dict:
           f"fp32 {b2_diff32:.3e}; fp32 B=2 rows equal their single-row runs over "
           f"{greedy.max_new_tokens} tokens; "
           f"sampled chat "
-          f"{sampled_s:.2f} s; launches {counts}; TTFT {ttft * 1e3:.1f} ms (median of 3, "
+          f"{sampled_s:.2f} s; greedy chat launches {chat_counts}; TTFT {ttft * 1e3:.1f} ms (median of 3, "
           f"preprocess + encode + prefill + first token), B=1 decode {rate:.1f} tok/s; "
           f"card {smi}", flush=True)
-    return {"launches": counts, "ttft_ms": ttft * 1e3, "decode_tok_s": rate}
+    return {"launches": chat_counts, "ttft_ms": ttft * 1e3, "decode_tok_s": rate}
 
 
 def _kernels_vs_plain_logits(engine, input_ids, pixel_values, img_pos):
@@ -354,12 +351,8 @@ def _kernels_vs_plain_logits(engine, input_ids, pixel_values, img_pos):
     with the plain attention versions swapped in."""
     text = engine.model.text
     kernel = text.logits(_last_hidden(engine, input_ids, pixel_values, img_pos))
-    orig = llama_mod.cached_attention
-    llama_mod.cached_attention = plain_attention
-    try:
+    with plain_attention():
         plain = text.logits(_last_hidden(engine, input_ids, pixel_values, img_pos))
-    finally:
-        llama_mod.cached_attention = orig
     return kernel, plain
 
 

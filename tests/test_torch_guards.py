@@ -68,3 +68,39 @@ def test_unported_generation_options_raise(ckpt):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         vt.get_model_and_tokenizer_and_processor(text_model=ckpt, vision_model=ckpt,
                                                  device="cpu")
+
+
+def test_full_width_tokenizer_has_the_model_vocab():
+    from visualcla_tpu.core.config import visualcla_config_for_size
+    from visualcla_tpu_torch import fixtures
+
+    vocab = visualcla_config_for_size("7B").text_config.vocab_size
+    tok = fixtures.make_tokenizer(vocab)
+    assert len(tok) == vocab
+    ids = tok.encode(fixtures.PROMPT)
+    assert ids and max(ids) < vocab
+    assert tok.decode(ids).strip() == fixtures.PROMPT
+    assert fixtures.random_image(0).shape == (480, 640, 3)
+    assert np.array_equal(fixtures.random_image(0), fixtures.random_image(0))
+
+
+@pytest.mark.parametrize("Sq", [1, 5], ids=["decode", "prefill"])
+def test_plain_attention_switch(Sq):
+    from visualcla_tpu_torch import fixtures
+    from visualcla_tpu_torch.models import llama as llama_mod
+    from visualcla_tpu_torch.ops import attention as t_attn
+
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(2, Sq, 4, 8, generator=g)
+    kc, vc = torch.randn(2, 3, 2, 2, 16, 8, generator=g).unbind(0)
+    valid = torch.ones(2, 16, dtype=torch.bool)
+    valid[1, :3] = False
+    slot = torch.tensor([6, 9])
+    orig = llama_mod.cached_attention
+    with fixtures.plain_attention():
+        assert llama_mod.cached_attention is t_attn.cached_attention_ref
+        ref = llama_mod.cached_attention(q, kc, vc, valid, slot, layer_index=1)
+    assert llama_mod.cached_attention is orig
+    # on CPU tensors the dispatch runs the same plain versions
+    got = t_attn.cached_attention(q, kc, vc, valid, slot, layer_index=1)
+    torch.testing.assert_close(got, ref, atol=0, rtol=0)

@@ -6,12 +6,14 @@ VisualCLA-7B at full width on seeded random bf16 weights (as chip_smoke.py
 builds it).  Measures, for the B=1 chat prompt: the TTFT parts (host
 preprocess, image encode, Engine.start), the decode rate with the CUDA
 kernels and with their plain PyTorch versions swapped in, and a
-torch.profiler breakdown of 10 decode steps (wall vs device time, the
-largest kernels).  Prints one JSON object (and writes it to ``--out``).
+torch.profiler breakdown of 10 decode steps (wall vs device time, device
+time by kind of kernel, the largest kernels).  Prints one JSON object (and
+writes it to ``--out``).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import statistics
@@ -20,17 +22,25 @@ import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
-import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-import chip_smoke as cs  # noqa: E402
 from visualcla_tpu.core.config import visualcla_config_for_size  # noqa: E402
 from visualcla_tpu.processor import ImageProcessor  # noqa: E402
 from visualcla_tpu.text.prompt import encoding_text, img_marker_positions  # noqa: E402
 from visualcla_tpu_torch import api  # noqa: E402
 from visualcla_tpu_torch.engine.sampling import SamplingConfig  # noqa: E402
-from visualcla_tpu_torch.models import llama as llama_mod  # noqa: E402
+from visualcla_tpu_torch.fixtures import (PROMPT, SEED, make_tokenizer,  # noqa: E402
+                                          plain_attention, random_image)
 from visualcla_tpu_torch.models import visualcla as vmod  # noqa: E402
+
+
+def kernel_kind(name: str) -> str:
+    """The kind of a device kernel, by its name."""
+    if "flash_decode" in name or "flash_prefill" in name:
+        return "flash_attention"
+    if any(k in name for k in ("nvjet", "gemm", "gemv", "splitKreduce", "cutlass")):
+        return "gemm"
+    return "other"
 
 
 def main(argv=None) -> int:
@@ -44,14 +54,14 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     cfg = visualcla_config_for_size("7B")
-    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
     model = vmod.init_random_(
         vmod.VisualCLAModel(cfg, device="cuda", dtype=torch.bfloat16), gen)
-    tok = cs.make_tokenizer(cfg.text_config.vocab_size)
+    tok = make_tokenizer(cfg.text_config.vocab_size)
     bundle = api.VisualCLA(model, cfg, tok, ImageProcessor(image_size=224))
     eng = bundle.engine
-    image = np.random.default_rng(cs.SEED).integers(0, 256, (480, 640, 3), dtype=np.uint8)
-    ids = encoding_text([], cs.PROMPT, bundle.num_patch, tok)["input_ids"]
+    image = random_image(SEED)
+    ids = encoding_text([], PROMPT, bundle.num_patch, tok)["input_ids"]
     pos = img_marker_positions(ids, tok.img_start_token_id)
     greedy = SamplingConfig.greedy(max_new_tokens=args.new_tokens)
     res = {"device": torch.cuda.get_device_name(0), "prompt_tokens": int(ids.shape[1]),
@@ -59,7 +69,7 @@ def main(argv=None) -> int:
     sync = torch.cuda.synchronize
 
     for _ in range(2):  # warm-up
-        api.chat(bundle, image, cs.PROMPT, [], SamplingConfig.greedy(4), verbose=False)
+        api.chat(bundle, image, PROMPT, [], SamplingConfig.greedy(4), verbose=False)
     parts = {"preprocess_ms": [], "encode_image_ms": [], "start_ms": []}
     for _ in range(5):
         sync()
@@ -96,13 +106,11 @@ def main(argv=None) -> int:
         return (time.perf_counter() - t0) * 1e3
 
     # kernels, plain versions, kernels: compared within this one run
-    orig = llama_mod.cached_attention
-    for label, attn in (("kernels", orig), ("plain", cs.plain_attention),
-                        ("kernels_again", orig)):
-        llama_mod.cached_attention = attn
-        res[f"decode_tok_s_{label}"] = statistics.median(decode_rate() for _ in range(3))
-        res[f"start_ms_{label}"] = statistics.median(start_ms() for _ in range(3))
-    llama_mod.cached_attention = orig
+    for label, attn in (("kernels", contextlib.nullcontext), ("plain", plain_attention),
+                        ("kernels_again", contextlib.nullcontext)):
+        with attn():
+            res[f"decode_tok_s_{label}"] = statistics.median(decode_rate() for _ in range(3))
+            res[f"start_ms_{label}"] = statistics.median(start_ms() for _ in range(3))
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -125,6 +133,10 @@ def main(argv=None) -> int:
     kernels.sort(reverse=True)
     res["profiled_step_wall_ms"] = wall / n * 1e3
     res["profiled_step_device_ms"] = sum(k[0] for k in kernels)
+    by_kind = {}
+    for ms, _, name in kernels:
+        by_kind[kernel_kind(name)] = by_kind.get(kernel_kind(name), 0.0) + ms
+    res["device_ms_per_step_by_kind"] = by_kind
     res["top_kernels_ms_per_step"] = [list(k) for k in kernels[:15]]
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

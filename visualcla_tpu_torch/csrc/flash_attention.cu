@@ -410,9 +410,6 @@ int vcla_flash_decode(const void* q, const void* k, const void* v, const void* k
   if (head_dim == 128)
     return is_bf16 ? launch_decode<__nv_bfloat16, 128>(q, k, v, kv_valid, slots, out, B, N, Nkv, S, scale, st)
                    : launch_decode<float, 128>(q, k, v, kv_valid, slots, out, B, N, Nkv, S, scale, st);
-  if (head_dim == 64)
-    return is_bf16 ? launch_decode<__nv_bfloat16, 64>(q, k, v, kv_valid, slots, out, B, N, Nkv, S, scale, st)
-                   : launch_decode<float, 64>(q, k, v, kv_valid, slots, out, B, N, Nkv, S, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -423,9 +420,6 @@ int vcla_flash_prefill(const void* q, const void* k, const void* v, const void* 
   if (head_dim == 128)
     return is_bf16 ? launch_prefill<__nv_bfloat16, 128>(q, k, v, kv_valid, slots, out, B, Sq, N, Nkv, S, scale, st)
                    : launch_prefill<float, 128>(q, k, v, kv_valid, slots, out, B, Sq, N, Nkv, S, scale, st);
-  if (head_dim == 64)
-    return is_bf16 ? launch_prefill<__nv_bfloat16, 64>(q, k, v, kv_valid, slots, out, B, Sq, N, Nkv, S, scale, st)
-                   : launch_prefill<float, 64>(q, k, v, kv_valid, slots, out, B, Sq, N, Nkv, S, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

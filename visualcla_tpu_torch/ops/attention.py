@@ -12,7 +12,8 @@ from typing import Optional
 
 import torch
 
-from .cuda.flash_attention import flash_decode_stacked, flash_prefill_stacked
+from .cuda.flash_attention import (flash_decode_stacked, flash_decode_stacked_ref,
+                                   flash_prefill_stacked, flash_prefill_stacked_ref)
 
 NEG_INF = torch.finfo(torch.float32).min
 
@@ -81,4 +82,11 @@ def cached_attention(
     its own.  Sq == 1 goes to the decode kernel (B1), Sq > 1 to the prefill
     kernel (B2); on CPU tensors both run their plain PyTorch versions."""
     fn = flash_decode_stacked if q.shape[1] == 1 else flash_prefill_stacked
+    return fn(q, k_cache, v_cache, kv_valid, write_slot, layer_index)
+
+
+def cached_attention_ref(q, k_cache, v_cache, kv_valid, write_slot, *, layer_index):
+    """``cached_attention`` through the kernels' plain PyTorch versions, on any
+    device: what the kernels are held against end to end."""
+    fn = flash_decode_stacked_ref if q.shape[1] == 1 else flash_prefill_stacked_ref
     return fn(q, k_cache, v_cache, kv_valid, write_slot, layer_index)

@@ -30,7 +30,7 @@ import torch
 from . import build
 
 NEG_INF = -1e30
-KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_HEAD_DIMS = (128,)  # every LLaMA size in core/config.py
 LAUNCHES = {"flash_decode": 0, "flash_prefill": 0}
 
 _lib = None
