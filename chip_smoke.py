@@ -5,11 +5,15 @@
 Phases, one line of findings each:
   1. device  — the card's name and power limit (nvidia-smi), torch and CUDA
                versions; no CUDA device is an error, never a CPU run;
-  2. build   — build the CUDA kernels from ``visualcla_tpu_torch/csrc``;
-  3. kernels — each kernel against its plain PyTorch version on the card, in
-               bf16 at the 7B head shapes (MHA and GQA) and at the main
-               path's own shapes (32 layers, the chat prompt's bucket), with
-               device times;
+  2. build   — build the CUDA kernels from ``visualcla_tpu_torch/csrc``, one
+               ``nvcc`` per source, all at once;
+  3. kernels — each kernel against its plain PyTorch version on the card, with
+               device times: B1/B2 in bf16 and with the int8 KV cache at the
+               7B head shapes (MHA and GQA) and at the main path's own shapes
+               (32 layers, the chat prompt's bucket); B3 (int4 matmul) at the
+               7B text tower's shapes for 1, 8 and 512 tokens, per decoder
+               layer at the main path's token counts, and at the decode /
+               prefill crossover;
   4. slice   — VisualCLA-7B at full width on seeded random bf16 weights made
                on the card: prefill logits through the kernels against the
                plain attention versions (loosely in bf16, tightly on an fp32
@@ -18,11 +22,20 @@ Phases, one line of findings each:
                of uneven prompts whose rows equal their single-row runs (in
                fp32: bf16 GEMMs round by batch shape); the launch counters
                of the greedy chat alone; TTFT and B=1 decode tokens/s;
-  5. the kernel summary as one JSON line, then the result line.
+  5. int4    — the same model made anew, its text tower quantized on the card
+               to int4 (``quantize_text_tower_``), with the int8 KV cache:
+               prefill logits through the kernels against the plain versions
+               of B3 and the int8-K/V attention; greedy ``chat`` with exact
+               launch counts, ``chat_in_stream`` (same ids as ``generate``),
+               TTFT and B=1 decode tokens/s;
+  6. int8    — the same at the int8 weight tier (bf16 cache): one short
+               greedy chat, finite prefill logits, its times;
+  7. the kernel summary as one JSON line, then the result line.
 Exits non-zero if any phase fails.  Needs no network and no JAX.
 """
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -38,18 +51,35 @@ from visualcla_tpu.text.prompt import encoding_text, img_marker_positions
 from visualcla_tpu_torch import api
 from visualcla_tpu_torch.engine.generate import PROMPT_BUCKETS, pick_bucket
 from visualcla_tpu_torch.engine.sampling import SamplingConfig
-from visualcla_tpu_torch.fixtures import (PROMPT, SEED, make_tokenizer, plain_attention,
+from visualcla_tpu_torch.fixtures import (PROMPT, SEED, make_tokenizer, plain_kernels,
                                           random_image)
-from visualcla_tpu_torch.models.visualcla import VisualCLAModel, init_random_
+from visualcla_tpu_torch.models.visualcla import (VisualCLAModel, init_random_,
+                                                  quantize_text_tower_)
 from visualcla_tpu_torch.ops.cuda import build
 from visualcla_tpu_torch.ops.cuda import flash_attention as fa
+from visualcla_tpu_torch.ops.cuda import int4_matmul as i4
+from visualcla_tpu_torch.ops.quantization import quantize_grouped, quantize_kv
 
 ATOL = RTOL = 2e-2  # bf16 output rounding plus another summation order
-KERNEL_SOURCE = "visualcla_tpu_torch/csrc/flash_attention.cu"
-REPLACES = {
-    "flash_decode": "visualcla_tpu/ops/pallas/flash_attention.py:120",  # _decode_kernel
-    "flash_prefill": "visualcla_tpu/ops/pallas/flash_attention.py:29",  # _flash_kernel
+# B3 against its plain version in fp32 on the same bf16 x and carrier:
+# |err| <= B3_TOL * max|ref| + B3_TOL * |ref| (the prefill form rounds the
+# dequantized weight to bf16, as the TPU's scratch form does)
+B3_TOL = 1e-2
+FLASH_SOURCE = "visualcla_tpu_torch/csrc/flash_attention.cu"
+INT4_SOURCE = "visualcla_tpu_torch/csrc/int4_matmul.cu"
+KERNELS = {  # name -> (source, the TPU kernel it replaces)
+    "flash_decode": (FLASH_SOURCE, "visualcla_tpu/ops/pallas/flash_attention.py:120"),
+    "flash_prefill": (FLASH_SOURCE, "visualcla_tpu/ops/pallas/flash_attention.py:29"),
+    "flash_decode_kv8": (FLASH_SOURCE, "visualcla_tpu/ops/pallas/flash_attention.py:120"),
+    "flash_prefill_kv8": (FLASH_SOURCE, "visualcla_tpu/ops/pallas/flash_attention.py:29"),
+    "int4_matmul_decode": (INT4_SOURCE, "visualcla_tpu/ops/pallas/int4_matmul.py:85"),
+    "int4_matmul_prefill": (INT4_SOURCE, "visualcla_tpu/ops/pallas/int4_matmul.py:172"),
 }
+# the 7B text tower's int4 matmuls, (in, out): one decoder layer, and the head
+LAYER_SHAPES = {"q_proj": (4096, 4096), "k_proj": (4096, 4096), "v_proj": (4096, 4096),
+                "o_proj": (4096, 4096), "gate_proj": (4096, 11008),
+                "up_proj": (4096, 11008), "down_proj": (11008, 4096)}
+HEAD_SHAPE = (4096, 49958)
 
 
 def device_ms(fn, calls: int = 10, replays: int = 5) -> float:
@@ -95,10 +125,12 @@ def phase_device() -> dict:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
+    build.build(["flash_attention", "int4_matmul"])
     fa.build_kernels()
-    print(f"[2 build] flash_attention.cu built and loaded in "
-          f"{time.perf_counter() - t0:.2f} s (nvcc {build.build_seconds.get('flash_attention', 0.0):.2f} s)",
-          flush=True)
+    i4.build_kernels()
+    nvcc = ", ".join(f"{k}.cu {v:.2f} s" for k, v in build.build_seconds.items())
+    print(f"[2 build] flash_attention.cu and int4_matmul.cu built in parallel and loaded in "
+          f"{time.perf_counter() - t0:.2f} s (nvcc: {nvcc})", flush=True)
 
 
 def _kernel_case(kind, B, Sq, N, Nkv, gen, L=2, S=2048, hd=128, slot0=272):
@@ -134,13 +166,24 @@ def _wrapper_and_plain(kind):
     return fa.flash_decode_stacked, fa.flash_decode_stacked_ref
 
 
-def _against_plain(kind, q, kc, vc, valid, slot, layer):
+def _quantized_cache(kc, vc):
+    """The int8 KV cache of the same values: (k, v, {"k_scale", "v_scale"})."""
+    (kq, ks), (vq, vs) = quantize_kv(kc), quantize_kv(vc)
+    return kq, vq, {"k_scale": ks, "v_scale": vs}
+
+
+def _against_plain(kind, q, kc, vc, valid, slot, layer, scales=None):
     """The kernel's output against its plain version, computed in fp32 from
-    the same bf16 inputs: (max abs error, within tolerance and finite)."""
+    the same bf16 (or int8) inputs: (max abs error, within tolerance and
+    finite)."""
     wrapper, plain = _wrapper_and_plain(kind)
-    out = wrapper(q, kc, vc, valid, slot, layer)
+    scales = scales or {}
+    out = wrapper(q, kc, vc, valid, slot, layer, **scales)
     torch.cuda.synchronize()
-    ref = plain(q.float(), kc.float(), vc.float(), valid, slot, layer)
+    if scales:
+        ref = plain(q.float(), kc, vc, valid, slot, layer, **scales)
+    else:
+        ref = plain(q.float(), kc.float(), vc.float(), valid, slot, layer)
     err = (out.float() - ref).abs()
     ok = bool((err <= ATOL + RTOL * ref.abs()).all()) and bool(torch.isfinite(out).all())
     if kind == "decode" and q.shape[0] == 8:
@@ -150,62 +193,158 @@ def _against_plain(kind, q, kc, vc, valid, slot, layer):
 
 def phase_kernels(prompt_bucket: int) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    worst = {"flash_decode": 0.0, "flash_prefill": 0.0}
-    cases, failures = [], []
-    for N, Nkv in ((32, 32), (32, 8)):
-        for kind, shapes in (("prefill", [(B, Sq) for Sq in (256, 2048) for B in (1, 2)]),
-                             ("decode", [(B, 1) for B in (1, 8)])):
-            name = "flash_" + kind
-            for B, Sq in shapes:
-                q, kc, vc, valid, slot = _kernel_case(kind, B, Sq, N, Nkv, gen)
-                wrapper, plain = _wrapper_and_plain(kind)
-                err, ok = _against_plain(kind, q, kc, vc, valid, slot, 1)
-                worst[name] = max(worst[name], err)
-                ms = device_ms(lambda i: wrapper(q, kc, vc, valid, slot, 1))
-                plain_ms = device_ms(lambda i: plain(q, kc, vc, valid, slot, 1), calls=2)
-                cases.append(f"{kind}(N{N}/{Nkv},B{B},Sq{Sq}) err={err:.2e} "
-                             f"{ms * 1e3:.1f}us/plain {plain_ms * 1e3:.1f}us")
-                if not ok:
-                    failures.append(cases[-1])
-                del q, kc, vc
-    # the main path's shapes: the B=1 chat prompt's bucket in the default
-    # 2048-slot cache of all 32 layers; decode 16 tokens into the answer.
-    # Checked at layer 7, then timed two ways: over all 32 layers in turn, as
-    # a decode step reads them (each layer's K/V comes from HBM), and on
-    # layer 7 alone (its K/V stays in the 50 MB L2 between calls)
-    main, main_cases = {}, []
-    for kind, B, Sq in (("prefill", 1, prompt_bucket), ("decode", 1, 1)):
-        name = "flash_" + kind
-        q, kc, vc, valid, slot = _kernel_case(kind, B, Sq, 32, 32, gen, L=32,
-                                              slot0=prompt_bucket + 16)
-        err, ok = _against_plain(kind, q, kc, vc, valid, slot, 7)
-        worst[name] = max(worst[name], err)
-        wrapper, plain = _wrapper_and_plain(kind)
-        L = kc.shape[0]
-        main[name] = (device_ms(lambda i: wrapper(q, kc, vc, valid, slot, i % L), calls=L),
-                      device_ms(lambda i: plain(q, kc, vc, valid, slot, i % L), calls=L))
-        warm = device_ms(lambda i: wrapper(q, kc, vc, valid, slot, 7))
-        main_cases.append(f"{kind}(N32/32,B1,Sq{Sq},L32) err={err:.2e} "
-                          f"{main[name][0] * 1e3:.1f}us/plain {main[name][1] * 1e3:.1f}us "
-                          f"over the 32 layers, {warm * 1e3:.1f}us on one layer")
-        if not ok:
-            failures.append(main_cases[-1])
-        del q, kc, vc
-    print(f"[3 kernels] bf16, L=2 S=2048 hd=128, tol atol=rtol={ATOL}: " + "; ".join(cases)
-          + "; at the main path's shapes: " + "; ".join(main_cases), flush=True)
+    worst = {name: 0.0 for name in KERNELS}
+    main, lines, failures = {}, [], []
+    for kv8 in (False, True):
+        suffix = "_kv8" if kv8 else ""
+        cases = []
+        for N, Nkv in ((32, 32), (32, 8)):
+            for kind, shapes in (("prefill", [(B, Sq) for Sq in (256, 2048) for B in (1, 2)]),
+                                 ("decode", [(B, 1) for B in (1, 8)])):
+                name = "flash_" + kind + suffix
+                for B, Sq in shapes:
+                    q, kc, vc, valid, slot = _kernel_case(kind, B, Sq, N, Nkv, gen)
+                    sc = {}
+                    if kv8:
+                        kc, vc, sc = _quantized_cache(kc, vc)
+                    wrapper, plain = _wrapper_and_plain(kind)
+                    err, ok = _against_plain(kind, q, kc, vc, valid, slot, 1, sc)
+                    worst[name] = max(worst[name], err)
+                    ms = device_ms(lambda i: wrapper(q, kc, vc, valid, slot, 1, **sc))
+                    plain_ms = device_ms(lambda i: plain(q, kc, vc, valid, slot, 1, **sc),
+                                         calls=2)
+                    cases.append(f"{kind}(N{N}/{Nkv},B{B},Sq{Sq}) err={err:.2e} "
+                                 f"{ms * 1e3:.1f}us/plain {plain_ms * 1e3:.1f}us")
+                    if not ok:
+                        failures.append(name + " " + cases[-1])
+                    del q, kc, vc, sc
+        # the main path's shapes: the B=1 chat prompt's bucket in the default
+        # 2048-slot cache of all 32 layers; decode 16 tokens into the answer.
+        # Checked at layer 7, then timed two ways: over all 32 layers in
+        # turn, as a decode step reads them (each layer's K/V comes from
+        # HBM), and on layer 7 alone (its K/V stays in the 50 MB L2)
+        main_cases = []
+        for kind, B, Sq in (("prefill", 1, prompt_bucket), ("decode", 1, 1)):
+            name = "flash_" + kind + suffix
+            q, kc, vc, valid, slot = _kernel_case(kind, B, Sq, 32, 32, gen, L=32,
+                                                  slot0=prompt_bucket + 16)
+            sc = {}
+            if kv8:
+                kc, vc, sc = _quantized_cache(kc, vc)
+            err, ok = _against_plain(kind, q, kc, vc, valid, slot, 7, sc)
+            worst[name] = max(worst[name], err)
+            wrapper, plain = _wrapper_and_plain(kind)
+            L = kc.shape[0]
+            main[name] = (
+                device_ms(lambda i: wrapper(q, kc, vc, valid, slot, i % L, **sc), calls=L),
+                device_ms(lambda i: plain(q, kc, vc, valid, slot, i % L, **sc), calls=L))
+            warm = device_ms(lambda i: wrapper(q, kc, vc, valid, slot, 7, **sc))
+            main_cases.append(f"{kind}(N32/32,B1,Sq{Sq},L32) err={err:.2e} "
+                              f"{main[name][0] * 1e3:.1f}us/plain {main[name][1] * 1e3:.1f}us "
+                              f"over the 32 layers, {warm * 1e3:.1f}us on one layer")
+            if not ok:
+                failures.append(name + " " + main_cases[-1])
+            del q, kc, vc, sc
+        lines.append(f"[3 kernels] B1/B2 {'int8 K/V' if kv8 else 'bf16'}, L=2 S=2048 hd=128, "
+                     f"tol atol=rtol={ATOL}: " + "; ".join(cases)
+                     + "; at the main path's shapes: " + "; ".join(main_cases))
+        print(lines[-1], flush=True)
+    b3_main, b3_line = _b3_cases(gen, prompt_bucket, worst, failures)
+    main.update(b3_main)
+    print(b3_line, flush=True)
     if failures:
         raise RuntimeError(f"kernels disagree with their plain versions: {failures}")
     return {"worst": worst, "main": main}
 
 
+def _b3_weight(gen, in_dim, out):
+    """A random bf16 (in, out) weight quantized on the card: (carrier, scale)."""
+    w = (torch.randn(in_dim, out, generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
+    wq = quantize_grouped(w, group=128)
+    return wq["q"], wq["scale"]
+
+
+def _b3_check(x, q, s, out_dtype):
+    """B3 against its plain version in fp32 on the same bf16 x and carrier:
+    (max abs error, within tolerance and finite)."""
+    y = i4.int4_matmul(x, q, s, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    ref = i4.int4_matmul_ref(x.float(), q, s)
+    err = (y.float() - ref).abs()
+    tol = B3_TOL * ref.abs().max() + B3_TOL * ref.abs()
+    ok = bool((err <= tol).all()) and bool(torch.isfinite(y).all())
+    return err.max().item(), ok
+
+
+def _b3_cases(gen, prompt_bucket, worst, failures):
+    """B3 at the 7B shapes: each (in, out) alone at 1, 8 and 512 tokens
+    (layers write bf16, the head f32, as on the main path); one decoder
+    layer's seven matmuls in turn (99.5 MB of carrier, more than the L2) at
+    the main path's token counts, 1 and the prompt's bucket; and the decode
+    and prefill forms side by side around ``DECODE_MAX_TOKENS``."""
+    cases, main = [], {}
+    weights = {name: _b3_weight(gen, *shape) for name, shape in LAYER_SHAPES.items()}
+    weights["lm_head"] = _b3_weight(gen, *HEAD_SHAPE)
+    seen = set()
+    for name, (q, s) in weights.items():
+        in_dim, out = 2 * q.shape[0] * q.shape[1], q.shape[2]
+        if (in_dim, out) in seen:
+            continue
+        seen.add((in_dim, out))
+        out_dtype = torch.float32 if name == "lm_head" else torch.bfloat16
+        for T in (1, 8, 512):
+            x = torch.randn(T, in_dim, generator=gen, device="cuda").to(torch.bfloat16)
+            form = "int4_matmul_decode" if T <= i4.DECODE_MAX_TOKENS else "int4_matmul_prefill"
+            err, ok = _b3_check(x, q, s, out_dtype)
+            worst[form] = max(worst[form], err)
+            ms = device_ms(lambda i: i4.int4_matmul(x, q, s, out_dtype=out_dtype))
+            plain_ms = device_ms(lambda i: i4.int4_matmul_ref(x, q, s, out_dtype=out_dtype),
+                                 calls=2)
+            cases.append(f"({in_dim},{out})xT{T} err={err:.2e} {ms * 1e3:.1f}us/plain "
+                         f"{plain_ms * 1e3:.1f}us")
+            if not ok:
+                failures.append(form + " " + cases[-1])
+    layer = [weights[n] for n in LAYER_SHAPES]
+    per_layer = []
+    for form, T in (("int4_matmul_decode", 1), ("int4_matmul_prefill", prompt_bucket)):
+        xs = {k: torch.randn(T, k, generator=gen, device="cuda").to(torch.bfloat16)
+              for k in (4096, 11008)}
+
+        def run(fn, i):
+            for q, s in layer:
+                fn(xs[2 * q.shape[0] * q.shape[1]], q, s)
+
+        ms = device_ms(lambda i: run(i4.int4_matmul, i), calls=2) / len(layer)
+        plain_ms = device_ms(lambda i: run(i4.int4_matmul_ref, i), calls=2) / len(layer)
+        main[form] = (ms, plain_ms)
+        per_layer.append(f"T{T}: {ms * 1e3:.1f}us/plain {plain_ms * 1e3:.1f}us per call")
+    cross = []
+    q, s = weights["gate_proj"]
+    for T in (4, 8, 12, 16, 32):
+        x = torch.randn(T, 4096, generator=gen, device="cuda").to(torch.bfloat16)
+        t = {}
+        for form, limit in (("decode", 1 << 30), ("prefill", 0)):
+            keep, i4.DECODE_MAX_TOKENS = i4.DECODE_MAX_TOKENS, limit
+            try:
+                err, ok = _b3_check(x, q, s, torch.bfloat16)
+                t[form] = device_ms(lambda i: i4.int4_matmul(x, q, s))
+            finally:
+                i4.DECODE_MAX_TOKENS = keep
+            if not ok:
+                failures.append(f"int4_matmul_{form} crossover T{T} err={err:.2e}")
+        cross.append(f"T{T} decode {t['decode'] * 1e3:.1f}us prefill {t['prefill'] * 1e3:.1f}us")
+    line = (f"[3 kernels] B3 int4 (gs 128), tol {B3_TOL}*max|ref| + {B3_TOL}*|ref|, decode "
+            f"form up to T={i4.DECODE_MAX_TOKENS}: " + "; ".join(cases)
+            + "; one decoder layer's 7 matmuls in turn: " + "; ".join(per_layer)
+            + "; crossover on (4096,11008): " + "; ".join(cross))
+    return main, line
+
+
 def phase_slice(smi: str, cfg, tokenizer) -> dict:
     L = cfg.text_config.num_hidden_layers
-    t0 = time.perf_counter()
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    model = init_random_(VisualCLAModel(cfg, device="cuda", dtype=torch.bfloat16), gen)
+    model, setup_s = _random_model(cfg)
     bundle = api.VisualCLA(model, cfg, tokenizer, ImageProcessor(image_size=224),
                            max_seq_len=2048)
-    setup_s = time.perf_counter() - t0
     image = random_image(SEED)
     greedy = SamplingConfig.greedy(max_new_tokens=32)
 
@@ -216,52 +355,20 @@ def phase_slice(smi: str, cfg, tokenizer) -> dict:
     pv = bundle.image_processor(image)["pixel_values"]
     eng = bundle.engine
     pos = img_marker_positions(enc["input_ids"], tokenizer.img_start_token_id)
-    kernel_logits, plain_logits = _kernels_vs_plain_logits(eng, enc["input_ids"], pv, pos)
-    if not bool(torch.isfinite(kernel_logits).all()):
-        raise RuntimeError("non-finite logits at full width")
-    logit_diff = (kernel_logits - plain_logits).abs().max().item()
-    logit_scale = plain_logits.abs().max().item()
-    if logit_diff > 0.25 * logit_scale:
-        raise RuntimeError(f"bf16 full-width logits: kernels vs plain differ by "
-                           f"{logit_diff} (scale {logit_scale})")
-
+    logit_diff, logit_scale = _loose_logits_check(eng, enc["input_ids"], pv, pos, "bf16")
     api.chat(bundle, image, PROMPT, [], SamplingConfig.greedy(max_new_tokens=4),
              verbose=False)  # warm-up
     torch.cuda.synchronize()
 
     # the main path's run: one greedy chat, its launches counted from zero
-    fa.reset_launch_counts()
-    response, _ = api.chat(bundle, image, PROMPT, [], greedy, verbose=False)
-    chat_counts = dict(fa.LAUNCHES)
-    for name, n in chat_counts.items():
-        if n == 0:
-            raise RuntimeError(f"kernel {name} was never launched by the main path")
+    response, chat_counts = _counted_chat(bundle, image, greedy)
     # the same prompt through generate for its ids: one prefill, then one
     # decode step per token after the first, each through all L layers
     ids = bundle.generate(enc["input_ids"], pixel_values=pv, generation_config=greedy)[0]
     n_gen = len(ids)
-    expect = {"flash_prefill": L, "flash_decode": L * (n_gen - 1)}
-    if chat_counts != expect:
-        raise RuntimeError(f"greedy chat launched {chat_counts}, expected {expect}")
+    _check_counts(chat_counts, {"flash_prefill": L, "flash_decode": L * (n_gen - 1)})
 
-    # greedy chat_in_stream: same ids as generate, same text as chat; TTFT
-    # and decode rate from the stream's clock
-    ttfts, rates = [], []
-    for _ in range(3):
-        t_call = time.perf_counter()
-        stamps, final = [], ""
-        for final, _ in api.chat_in_stream(bundle, image, PROMPT, [], greedy,
-                                           verbose=False):
-            stamps.append(time.perf_counter())
-        ttfts.append(stamps[0] - t_call)
-        if len(stamps) > 1:
-            rates.append((len(stamps) - 1) / (stamps[-1] - stamps[0]))
-    if final.lstrip(" ") != response.lstrip(" "):
-        raise RuntimeError(f"chat_in_stream {final!r} != chat {response!r}")
-    stream_ids = [int(t[0]) for t in bundle.stream_generate(
-        enc["input_ids"], pv, greedy)]
-    if stream_ids != [int(t) for t in ids]:
-        raise RuntimeError(f"stream ids {stream_ids} != generate ids {ids.tolist()}")
+    ttft, rate = _streams(bundle, image, greedy, response, enc["input_ids"], pv, ids)
 
     # the default sampled config (temperature .5, top-k 40, top-p .9,
     # repetition penalty 1.1, no-repeat-ngram 15, up to 512 new tokens)
@@ -329,8 +436,6 @@ def phase_slice(smi: str, cfg, tokenizer) -> dict:
             raise RuntimeError(f"fp32 B=2 row {i} continues past its single-row EOS")
     del bundle32, model32
     torch.cuda.empty_cache()
-    ttft = statistics.median(ttfts)
-    rate = statistics.median(rates)
     print(f"[4 slice] VisualCLA-7B bf16 full width (ViT-L/14 24L, resampler 6L/64q, "
           f"LLaMA-7B 32L vocab {cfg.text_config.vocab_size}), random weights seed {SEED}, "
           f"built in {setup_s:.1f} s; prompt {len(enc['input_ids'][0])} tokens (bucket "
@@ -346,12 +451,144 @@ def phase_slice(smi: str, cfg, tokenizer) -> dict:
     return {"launches": chat_counts, "ttft_ms": ttft * 1e3, "decode_tok_s": rate}
 
 
+def _random_model(cfg, bits=None):
+    """VisualCLA-7B on seeded random bf16 weights made on the card, its text
+    tower quantized in place to ``bits`` (4 or 8) if given; seconds taken."""
+    gc.collect()  # the previous phase's model, before its memory is reused
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    model = init_random_(VisualCLAModel(cfg, device="cuda", dtype=torch.bfloat16), gen)
+    if bits:
+        quantize_text_tower_(model, bits)
+    torch.cuda.synchronize()
+    return model, time.perf_counter() - t0
+
+
+def _counted_chat(bundle, image, sampling):
+    """One chat with every launch counter set to 0 just before it: (response,
+    the counters read just after)."""
+    fa.reset_launch_counts()
+    i4.reset_launch_counts()
+    response, _ = api.chat(bundle, image, PROMPT, [], sampling, verbose=False)
+    torch.cuda.synchronize()
+    return response, {**fa.LAUNCHES, **i4.LAUNCHES}
+
+
+def _check_counts(counts, expect):
+    """Every kernel of the path launched exactly as expected, every other not."""
+    want = {name: expect.get(name, 0) for name in counts}
+    for name, n in expect.items():
+        if n == 0 or counts.get(name, 0) == 0:
+            raise RuntimeError(f"kernel {name} was never launched by the main path")
+    if counts != want:
+        raise RuntimeError(f"greedy chat launched {counts}, expected {want}")
+
+
+def _streams(bundle, image, greedy, response, input_ids, pv, ids):
+    """Three greedy ``chat_in_stream`` runs: the same text as ``chat``, the
+    stream's ids equal to ``generate``'s; -> median TTFT (s), median decode
+    tokens/s, from the stream's clock."""
+    ttfts, rates = [], []
+    for _ in range(3):
+        t_call = time.perf_counter()
+        stamps, final = [], ""
+        for final, _ in api.chat_in_stream(bundle, image, PROMPT, [], greedy,
+                                           verbose=False):
+            stamps.append(time.perf_counter())
+        ttfts.append(stamps[0] - t_call)
+        if len(stamps) > 1:
+            rates.append((len(stamps) - 1) / (stamps[-1] - stamps[0]))
+    if final.lstrip(" ") != response.lstrip(" "):
+        raise RuntimeError(f"chat_in_stream {final!r} != chat {response!r}")
+    stream_ids = [int(t[0]) for t in bundle.stream_generate(input_ids, pv, greedy)]
+    if stream_ids != [int(t) for t in ids]:
+        raise RuntimeError(f"stream ids {stream_ids} != generate ids {ids.tolist()}")
+    return statistics.median(ttfts), statistics.median(rates)
+
+
+def _loose_logits_check(engine, input_ids, pv, pos, label):
+    """Prefill logits through the kernels against the plain versions on the
+    same model, finite and within a quarter of the logit scale (bf16
+    rounding through 32 random layers): (max diff, scale)."""
+    kernel_logits, plain_logits = _kernels_vs_plain_logits(engine, input_ids, pv, pos)
+    if not bool(torch.isfinite(kernel_logits).all()):
+        raise RuntimeError(f"non-finite {label} logits at full width")
+    logit_diff = (kernel_logits - plain_logits).abs().max().item()
+    logit_scale = plain_logits.abs().max().item()
+    if logit_diff > 0.25 * logit_scale:
+        raise RuntimeError(f"{label} full-width logits: kernels vs plain differ by "
+                           f"{logit_diff} (scale {logit_scale})")
+    return logit_diff, logit_scale
+
+
+def phase_int4(smi: str, cfg, tokenizer) -> dict:
+    """The int4 tier with the int8 KV cache: B3 and the int8-K/V kernels."""
+    L = cfg.text_config.num_hidden_layers
+    model, setup_s = _random_model(cfg, bits=4)
+    bundle = api.VisualCLA(model, cfg, tokenizer, ImageProcessor(image_size=224),
+                           max_seq_len=2048, kv_quant="int8")
+    image = random_image(SEED)
+    greedy = SamplingConfig.greedy(max_new_tokens=32)
+    enc = encoding_text([], PROMPT, bundle.num_patch, tokenizer)
+    pv = bundle.image_processor(image)["pixel_values"]
+    pos = img_marker_positions(enc["input_ids"], tokenizer.img_start_token_id)
+    logit_diff, logit_scale = _loose_logits_check(bundle.engine, enc["input_ids"], pv, pos,
+                                                  "int4 + int8-KV")
+    api.chat(bundle, image, PROMPT, [], SamplingConfig.greedy(max_new_tokens=4),
+             verbose=False)  # warm-up
+    response, counts = _counted_chat(bundle, image, greedy)
+    ids = bundle.generate(enc["input_ids"], pixel_values=pv, generation_config=greedy)[0]
+    n_gen = len(ids)
+    # the prompt: 7 matmuls a layer in the prefill form, the head on the last
+    # token in the decode form; each later token: 7 a layer plus the head
+    _check_counts(counts, {
+        "int4_matmul_prefill": 7 * L, "int4_matmul_decode": 1 + (7 * L + 1) * (n_gen - 1),
+        "flash_prefill_kv8": L, "flash_decode_kv8": L * (n_gen - 1)})
+    ttft, rate = _streams(bundle, image, greedy, response, enc["input_ids"], pv, ids)
+    weight_gb = sum(t.numel() * t.element_size() for t in model.text.parameters()) / 1e9
+    print(f"[5 int4] VisualCLA-7B int4 text tower (gs 128, quantized on the card) + int8 KV "
+          f"cache, random weights seed {SEED}, built and quantized in {setup_s:.1f} s, text "
+          f"tower {weight_gb:.2f} GB; prefill logits kernels vs plain max diff "
+          f"{logit_diff:.3e} (scale {logit_scale:.2f}); greedy chat {n_gen} tokens, stream ids "
+          f"equal; greedy chat launches {counts}; TTFT {ttft * 1e3:.1f} ms (median of 3), "
+          f"B=1 decode {rate:.1f} tok/s; card {smi}", flush=True)
+    return {"launches": counts, "ttft_ms": ttft * 1e3, "decode_tok_s": rate}
+
+
+def phase_int8(smi: str, cfg, tokenizer) -> dict:
+    """The int8 weight tier (bf16 cache): one short greedy chat."""
+    model, setup_s = _random_model(cfg, bits=8)
+    bundle = api.VisualCLA(model, cfg, tokenizer, ImageProcessor(image_size=224),
+                           max_seq_len=2048)
+    image = random_image(SEED)
+    greedy = SamplingConfig.greedy(max_new_tokens=8)
+    enc = encoding_text([], PROMPT, bundle.num_patch, tokenizer)
+    pv = bundle.image_processor(image)["pixel_values"]
+    pos = img_marker_positions(enc["input_ids"], tokenizer.img_start_token_id)
+    logits = model.text.logits(_last_hidden(bundle.engine, enc["input_ids"], pv, pos))
+    if not bool(torch.isfinite(logits).all()):
+        raise RuntimeError("non-finite int8 logits at full width")
+    api.chat(bundle, image, PROMPT, [], SamplingConfig.greedy(max_new_tokens=2),
+             verbose=False)  # warm-up
+    t0 = time.perf_counter()
+    stamps = []
+    for _ in api.chat_in_stream(bundle, image, PROMPT, [], greedy, verbose=False):
+        stamps.append(time.perf_counter())
+    rate = (len(stamps) - 1) / (stamps[-1] - stamps[0]) if len(stamps) > 1 else float("nan")
+    print(f"[6 int8] VisualCLA-7B int8 text tower (quantized on the card), bf16 cache, built "
+          f"and quantized in {setup_s:.1f} s; prefill logits finite (scale "
+          f"{logits.abs().max().item():.2f}); greedy chat_in_stream {len(stamps)} tokens: TTFT "
+          f"{(stamps[0] - t0) * 1e3:.1f} ms, B=1 decode {rate:.1f} tok/s (one stream); card "
+          f"{smi}", flush=True)
+
+
 def _kernels_vs_plain_logits(engine, input_ids, pixel_values, img_pos):
     """Last-token prefill logits through the kernels and, on the same model,
-    with the plain attention versions swapped in."""
+    with the kernels' plain versions swapped in."""
     text = engine.model.text
     kernel = text.logits(_last_hidden(engine, input_ids, pixel_values, img_pos))
-    with plain_attention():
+    with plain_kernels():
         plain = text.logits(_last_hidden(engine, input_ids, pixel_values, img_pos))
     return kernel, plain
 
@@ -370,13 +607,16 @@ def main() -> int:
     tokenizer = make_tokenizer(cfg.text_config.vocab_size)
     prompt_len = len(encoding_text([], PROMPT, cfg.num_image_tokens, tokenizer)["input_ids"][0])
     kern = phase_kernels(pick_bucket(PROMPT_BUCKETS, prompt_len))
-    sl = phase_slice(info["smi"], cfg, tokenizer)
+    launches = phase_slice(info["smi"], cfg, tokenizer)["launches"]
+    launches4 = phase_int4(info["smi"], cfg, tokenizer)["launches"]
+    phase_int8(info["smi"], cfg, tokenizer)
     kernels = []
-    for name in ("flash_decode", "flash_prefill"):
+    for name, (source, replaces) in KERNELS.items():
         ms, plain_ms = kern["main"][name]
-        kernels.append({"name": name, "route": "cuda", "source": KERNEL_SOURCE,
-                        "replaces": REPLACES[name], "launches": sl["launches"][name],
-                        "max_abs_err": kern["worst"][name], "ms": ms, "plain_ms": plain_ms})
+        n = launches4[name] if name.endswith("_kv8") or name.startswith("int4") else launches[name]
+        kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                        "launches": n, "max_abs_err": kern["worst"][name], "ms": ms,
+                        "plain_ms": plain_ms})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

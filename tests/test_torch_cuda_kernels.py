@@ -1,4 +1,5 @@
-"""The CUDA kernels B1 (decode) and B2 (prefill) against their plain PyTorch
+"""The CUDA kernels B1 (decode) and B2 (prefill), with bf16/f32 and int8 K/V,
+and B3 (int4 matmul, decode and prefill forms) against their plain PyTorch
 versions on the card.  Needs an NVIDIA GPU and nvcc; skipped without them.
 
 On the machine with the card (which has no JAX, hence no conftest):
@@ -6,11 +7,15 @@ On the machine with the card (which has no JAX, hence no conftest):
 
 Tolerance: fp32 inputs atol 1e-4 (another summation order); bf16 inputs
 atol = rtol = 2e-2 against the plain version run in fp32 on the same bf16
-values (the output's bf16 rounding)."""
+values (the output's bf16 rounding).  B3: |err| <= 1e-2 * max|ref| +
+1e-2 * |ref| against the plain version in fp32 on the same bf16 x and carrier
+(the prefill form rounds the dequantized weight to bf16)."""
 import pytest
 import torch
 
 from visualcla_tpu_torch.ops.cuda import flash_attention as fa
+from visualcla_tpu_torch.ops.cuda import int4_matmul as i4
+from visualcla_tpu_torch.ops.quantization import quantize_grouped, quantize_kv
 
 pytestmark = pytest.mark.cuda
 
@@ -76,3 +81,66 @@ def test_kernel_rejects_unsupported_head_dim(dev):
     q, kc, vc, valid, slot = make_case(dev, torch.bfloat16, 1, 1, 2, 2, 32, decode=True)
     with pytest.raises(ValueError, match="head dims"):
         fa.flash_decode_stacked(q, kc, vc, valid, slot, 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+@pytest.mark.parametrize("N,Nkv", [(8, 8), (8, 2)], ids=["mha", "gqa"])
+def test_kv8_kernels_match_plain(dev, dtype, kind, N, Nkv):
+    decode = kind == "decode"
+    q, kc, vc, valid, slot = make_case(dev, dtype, 4 if decode else 3, 1 if decode else 100,
+                                       N, Nkv, 128, decode=decode)
+    (kq, ks), (vq, vs) = quantize_kv(kc), quantize_kv(vc)
+    wrapper = fa.flash_decode_stacked if decode else fa.flash_prefill_stacked
+    plain = fa.flash_decode_stacked_ref if decode else fa.flash_prefill_stacked_ref
+    name = f"flash_{kind}_kv8"
+    before = fa.LAUNCHES[name]
+    out = wrapper(q, kq, vq, valid, slot, 1, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES[name] == before + 1
+    ref = plain(q.float(), kq, vq, valid, slot, 1, k_scale=ks, v_scale=vs)
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), ref, atol=TOL[dtype], rtol=TOL[dtype])
+    assert bool((out[-1] == 0).all()) if decode else bool((out[-1, 0] == 0).all())
+
+
+@pytest.mark.parametrize("T", [1, 3, 8, 16, 64, 130])
+@pytest.mark.parametrize("in_dim,out,gs", [(512, 384, 128), (384, 250, 128), (256, 200, 64),
+                                           (256, 66, 32), (96, 40, 16), (256, 49, 128)])
+def test_int4_kernel_matches_plain(dev, T, in_dim, out, gs):
+    g = torch.Generator(device=dev).manual_seed(T + out)
+    w = (torch.randn(in_dim, out, generator=g, device=dev) * 0.02).to(torch.bfloat16)
+    wq = quantize_grouped(w, group=gs)
+    x = torch.randn(T, in_dim, generator=g, device=dev).to(torch.bfloat16)
+    ref = i4.int4_matmul_ref(x.float(), wq["q"], wq["scale"])
+    form = ("int4_matmul_decode" if T <= i4.DECODE_MAX_TOKENS or (gs // 2) % 32
+            else "int4_matmul_prefill")
+    for out_dtype in (torch.float32, torch.bfloat16):
+        before = i4.LAUNCHES[form]
+        y = i4.int4_matmul(x, wq["q"], wq["scale"], out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert i4.LAUNCHES[form] == before + 1
+        assert y.dtype == out_dtype and y.shape == (T, out)
+        tol = 1e-2 * ref.abs().max() + 1e-2 * ref.abs()
+        assert bool(((y.float() - ref).abs() <= tol).all())
+
+
+def test_int4_kernel_forms_agree_and_stacked_layer(dev):
+    g = torch.Generator(device=dev).manual_seed(1)
+    w = (torch.randn(3, 256, 192, generator=g, device=dev) * 0.02).to(torch.bfloat16)
+    wq = [quantize_grouped(w[i], group=128) for i in range(3)]
+    q = torch.stack([d["q"] for d in wq])
+    s = torch.stack([d["scale"] for d in wq])
+    x = torch.randn(32, 256, generator=g, device=dev)  # f32 x: rounded to bf16
+    keep = i4.DECODE_MAX_TOKENS
+    try:  # layer 2 of a stacked carrier: a view at an offset
+        i4.DECODE_MAX_TOKENS = 1 << 30
+        dec = i4.int4_matmul(x, q[2], s[2])
+        i4.DECODE_MAX_TOKENS = 0
+        pre = i4.int4_matmul(x, q[2], s[2])
+    finally:
+        i4.DECODE_MAX_TOKENS = keep
+    ref = i4.int4_matmul_ref(x.to(torch.bfloat16).float(), q[2], s[2])
+    assert dec.dtype == torch.float32
+    for y in (dec, pre):
+        assert bool(((y - ref).abs() <= 1e-2 * ref.abs().max() + 1e-2 * ref.abs()).all())

@@ -80,7 +80,8 @@ def test_cached_attention_dispatch_and_counters():
         args = torch_args(q, kc, vc, kv_valid, 30)
         got = t_attn.cached_attention(*args, layer_index=1)
         np.testing.assert_array_equal(got.numpy(), ref(*args, 1).numpy())
-    assert fa.LAUNCHES == {"flash_decode": 0, "flash_prefill": 0}
+    assert set(fa.LAUNCHES) >= {"flash_decode", "flash_prefill"}
+    assert not any(fa.LAUNCHES.values()), fa.LAUNCHES
 
 
 def test_wrapper_rejects_bad_arguments():

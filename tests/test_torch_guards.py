@@ -1,5 +1,6 @@
 """Guards of the PyTorch port: it never imports jax, chip_smoke.py refuses to
-run without a GPU, and what is not ported yet raises NotImplementedError."""
+run without a GPU, the quantized load options load, and what is not ported
+yet raises NotImplementedError."""
 import os
 import subprocess
 import sys
@@ -23,6 +24,10 @@ def _env(**extra):
 def test_port_never_imports_jax():
     code = ("import sys, visualcla_tpu_torch, visualcla_tpu_torch.api, chip_smoke\n"
             "from visualcla_tpu_torch.checkpoint import serialize, from_jax\n"
+            "from visualcla_tpu_torch.ops import quantization, linear\n"
+            "from visualcla_tpu_torch.ops.cuda import int4_matmul, flash_attention, build\n"
+            "from visualcla_tpu_torch.models import visualcla, llama\n"
+            "from visualcla_tpu_torch import fixtures\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
             "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
@@ -47,12 +52,42 @@ def ckpt(tmp_path_factory):
     return path
 
 
-@pytest.mark.parametrize("kw", [{"load_in_8bit": True}, {"load_in_4bit": True},
-                                {"kv_quant": "int8"}, {"mesh": object()}],
-                         ids=["int8", "int4", "kv_int8", "mesh"])
+@pytest.mark.parametrize("kw", [{"mesh": object()}], ids=["mesh"])
 def test_unported_load_options_raise(ckpt, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         vt.get_model_and_tokenizer_and_processor(visualcla_model=ckpt, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw,linear,table,cache", [
+    ({"load_in_8bit": True}, "Int8Linear", "Int8Table", torch.bfloat16),
+    ({"load_in_4bit": True}, "Int4Linear", "Int8Table", torch.bfloat16),
+    ({"load_in_8bit": True, "load_in_4bit": True}, "Int4Linear", "Int8Table", torch.bfloat16),
+    ({"kv_quant": "int8"}, "Linear", None, torch.int8),
+], ids=["int8", "int4", "int4_wins", "kv_int8"])
+def test_quantized_load_options_load(ckpt, kw, linear, table, cache):
+    from visualcla_tpu_torch.ops import linear as t_linear
+
+    model, _, _ = vt.get_model_and_tokenizer_and_processor(
+        visualcla_model=ckpt, device="cpu", max_seq_len=256, **kw)
+    text = model.model.text
+    assert type(text.layers[0].q_proj) is getattr(t_linear, linear)
+    assert type(text.lm_head) is getattr(t_linear, linear)
+    if table:
+        assert type(text.embed_tokens) is getattr(t_linear, table)
+    else:
+        assert text.embed_tokens.dtype == torch.bfloat16
+    assert model.engine.dtype == torch.bfloat16  # from a float leaf at every tier
+    assert model.engine.kv_quant == kw.get("kv_quant", "none")
+    state = model.engine.start(np.array([[1, 5, 6]]), None, None,
+                               t_samp.SamplingConfig.greedy(2))
+    assert state.cache["k"].dtype == cache
+
+
+def test_unknown_kv_quant_raises(ckpt):
+    """As the JAX package's Engine: only "none" and "int8"."""
+    with pytest.raises(ValueError, match="kv_quant"):
+        vt.get_model_and_tokenizer_and_processor(visualcla_model=ckpt, device="cpu",
+                                                 kv_quant="int4")
 
 
 def test_unported_generation_options_raise(ckpt):
@@ -96,11 +131,16 @@ def test_plain_attention_switch(Sq):
     valid = torch.ones(2, 16, dtype=torch.bool)
     valid[1, :3] = False
     slot = torch.tensor([6, 9])
+    from visualcla_tpu_torch.ops import linear as linear_mod
+    from visualcla_tpu_torch.ops.cuda import int4_matmul as i4
+
     orig = llama_mod.cached_attention
-    with fixtures.plain_attention():
+    with fixtures.plain_kernels():
         assert llama_mod.cached_attention is t_attn.cached_attention_ref
+        assert linear_mod.int4_matmul is i4.int4_matmul_ref
         ref = llama_mod.cached_attention(q, kc, vc, valid, slot, layer_index=1)
     assert llama_mod.cached_attention is orig
+    assert linear_mod.int4_matmul is i4.int4_matmul
     # on CPU tensors the dispatch runs the same plain versions
     got = t_attn.cached_attention(q, kc, vc, valid, slot, layer_index=1)
     torch.testing.assert_close(got, ref, atol=0, rtol=0)

@@ -164,11 +164,23 @@ def test_checkpoint_writer_roundtrip(tmp_path):
 
 
 def test_quantized_checkpoint_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="quantized"):
-        params_from_jax({"text/layers/q_proj/q": np.zeros((1, 2, 2), np.int8)},
+    """Quantized leaves are ported now (per layer, int8 transposed to
+    (out, in), the int4 carrier and the scales as they are); LoRA leaves and
+    unknown tiers still raise."""
+    q8 = np.arange(12, dtype=np.int8).reshape(2, 3, 2)  # (L, in, out)
+    q4 = np.arange(8, dtype=np.uint8).reshape(1, 2, 2, 2)  # (L, G, gs/2, out)
+    state = params_from_jax({"text/layers/q_proj/q": q8,
+                             "text/layers/k_proj/q": q4,
+                             "text/layers/k_proj/scale": np.ones((1, 2, 2), np.float32)},
+                            tiny_visualcla_config())
+    np.testing.assert_array_equal(state["text.layers.1.q_proj.q"].numpy(), q8[1].T)
+    np.testing.assert_array_equal(state["text.layers.0.k_proj.q"].numpy(), q4[0])
+    assert state["text.layers.0.k_proj.scale"].shape == (2, 2)
+    with pytest.raises(NotImplementedError, match="LoRA"):
+        params_from_jax({"text/layers/q_proj/lora_A": np.zeros((1, 2, 2), np.float32)},
                         tiny_visualcla_config())
-    with pytest.raises(NotImplementedError, match="quantized tiers"):
-        t_ser.load_checkpoint(str(tmp_path), quantize="int8")
+    with pytest.raises(ValueError, match="quantize"):
+        t_ser.load_checkpoint(str(tmp_path), quantize="int2")
 
 
 def test_llama_config_rejects_attention_bias():

@@ -132,4 +132,5 @@ def test_slice_counts_no_kernel_launch_on_cpu(both):
     _, tm, cfg, _ = both
     fa.reset_launch_counts()
     tm.generate(np.array([[1, 5, 6]]), generation_config=t_samp.SamplingConfig.greedy(3))
-    assert fa.LAUNCHES == {"flash_decode": 0, "flash_prefill": 0}
+    assert set(fa.LAUNCHES) >= {"flash_decode", "flash_prefill"}
+    assert not any(fa.LAUNCHES.values()), fa.LAUNCHES

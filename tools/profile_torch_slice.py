@@ -1,9 +1,10 @@
 """Where the PyTorch port's chat slice spends its time on one NVIDIA GPU.
 
-    python3 tools/profile_torch_slice.py [--out profile.json]
+    python3 tools/profile_torch_slice.py [--out profile.json] [--bits 4|8] [--kv_quant int8]
 
 VisualCLA-7B at full width on seeded random bf16 weights (as chip_smoke.py
-builds it).  Measures, for the B=1 chat prompt: the TTFT parts (host
+builds it), its text tower quantized on the card with ``--bits``, its KV
+cache int8 with ``--kv_quant int8``.  Measures, for the B=1 chat prompt: the TTFT parts (host
 preprocess, image encode, Engine.start), the decode rate with the CUDA
 kernels and with their plain PyTorch versions swapped in, and a
 torch.profiler breakdown of 10 decode steps (wall vs device time, device
@@ -30,7 +31,7 @@ from visualcla_tpu.text.prompt import encoding_text, img_marker_positions  # noq
 from visualcla_tpu_torch import api  # noqa: E402
 from visualcla_tpu_torch.engine.sampling import SamplingConfig  # noqa: E402
 from visualcla_tpu_torch.fixtures import (PROMPT, SEED, make_tokenizer,  # noqa: E402
-                                          plain_attention, random_image)
+                                          plain_kernels, random_image)
 from visualcla_tpu_torch.models import visualcla as vmod  # noqa: E402
 
 
@@ -38,6 +39,8 @@ def kernel_kind(name: str) -> str:
     """The kind of a device kernel, by its name."""
     if "flash_decode" in name or "flash_prefill" in name:
         return "flash_attention"
+    if "int4_" in name:
+        return "int4_matmul"
     if any(k in name for k in ("nvjet", "gemm", "gemv", "splitKreduce", "cutlass")):
         return "gemm"
     return "other"
@@ -47,6 +50,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--out", default=None)
     ap.add_argument("--new_tokens", type=int, default=64)
+    ap.add_argument("--bits", type=int, choices=(4, 8), default=None,
+                    help="quantize the text tower to int4 or int8")
+    ap.add_argument("--kv_quant", choices=("none", "int8"), default="none")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_slice: needs a CUDA device")
@@ -57,14 +63,18 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     model = vmod.init_random_(
         vmod.VisualCLAModel(cfg, device="cuda", dtype=torch.bfloat16), gen)
+    if args.bits:
+        vmod.quantize_text_tower_(model, args.bits)
     tok = make_tokenizer(cfg.text_config.vocab_size)
-    bundle = api.VisualCLA(model, cfg, tok, ImageProcessor(image_size=224))
+    bundle = api.VisualCLA(model, cfg, tok, ImageProcessor(image_size=224),
+                           kv_quant=args.kv_quant)
     eng = bundle.engine
     image = random_image(SEED)
     ids = encoding_text([], PROMPT, bundle.num_patch, tok)["input_ids"]
     pos = img_marker_positions(ids, tok.img_start_token_id)
     greedy = SamplingConfig.greedy(max_new_tokens=args.new_tokens)
-    res = {"device": torch.cuda.get_device_name(0), "prompt_tokens": int(ids.shape[1]),
+    res = {"device": torch.cuda.get_device_name(0), "bits": args.bits or 16,
+           "kv_quant": args.kv_quant, "prompt_tokens": int(ids.shape[1]),
            "bucket": eng.bucket_len(ids.shape[1])}
     sync = torch.cuda.synchronize
 
@@ -106,7 +116,7 @@ def main(argv=None) -> int:
         return (time.perf_counter() - t0) * 1e3
 
     # kernels, plain versions, kernels: compared within this one run
-    for label, attn in (("kernels", contextlib.nullcontext), ("plain", plain_attention),
+    for label, attn in (("kernels", contextlib.nullcontext), ("plain", plain_kernels),
                         ("kernels_again", contextlib.nullcontext)):
         with attn():
             res[f"decode_tok_s_{label}"] = statistics.median(decode_rate() for _ in range(3))

@@ -1,10 +1,13 @@
 """Public API (port of visualcla_tpu/api.py): ``VisualCLA``, ``chat``,
 ``chat_in_stream`` and ``get_model_and_tokenizer_and_processor`` on PyTorch.
 
+The weight tiers load as in the JAX package: ``load_in_8bit`` (int8 text
+tower), ``load_in_4bit`` (grouped int4 text tower, kernel B3; it wins when
+both are set), and ``kv_quant="int8"`` (int8 KV cache) with either.
 Not ported yet, and raising ``NotImplementedError`` with the ROADMAP item
-that brings them: int8/int4 weights and the int8 KV cache (open item 1),
-beam search (7), speculative decoding (5), multi-device meshes (11), and
-loading from reference-layout or unmerged/LoRA directories (9).
+that brings them: beam search (7), speculative decoding (5), multi-device
+meshes (11), and loading from reference-layout or unmerged/LoRA directories
+(9).
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ from visualcla_tpu.processor import ImageProcessor, VisualCLAProcessor
 from visualcla_tpu.text import VisualCLATokenizer, encoding_text
 from visualcla_tpu.text.prompt import all_img_marker_positions, img_marker_positions
 
-from .checkpoint.from_jax import params_from_jax
+from .checkpoint.from_jax import params_from_jax, weight_tier
 from .engine.generate import Engine
 from .engine.sampling import SamplingConfig
 from .models.visualcla import VisualCLAModel
@@ -54,7 +57,8 @@ class VisualCLA:
 
     ``params_or_modules`` is a ``VisualCLAModel`` (used as it is) or the JAX
     package's parameter tree, nested or flat, as numpy arrays (converted and
-    placed on ``device`` in ``dtype``)."""
+    placed on ``device`` in ``dtype``; quantized leaves keep their tier).
+    ``kv_quant``: "none" or "int8"."""
 
     def __init__(self, params_or_modules, config: VisualCLAConfig,
                  tokenizer: VisualCLATokenizer, image_processor: ImageProcessor, *,
@@ -62,13 +66,13 @@ class VisualCLA:
                  kv_quant: str = "none", mesh=None):
         if mesh is not None:
             raise _not_ported("a multi-device mesh", "11: multi-device")
-        if kv_quant != "none":
-            raise _not_ported(f"kv_quant={kv_quant!r}", "1: quantized tiers")
         if isinstance(params_or_modules, VisualCLAModel):
             model = params_or_modules
         else:
-            model = VisualCLAModel(config, device=device or _default_device(), dtype=dtype)
-            model.load_state_dict(params_from_jax(_flatten(params_or_modules), config))
+            flat = _flatten(params_or_modules)
+            model = VisualCLAModel(config, device=device or _default_device(), dtype=dtype,
+                                   quant=weight_tier(flat))
+            model.load_state_dict(params_from_jax(flat, config))
         self.model = model
         self.config = config
         self.tokenizer = tokenizer
@@ -77,7 +81,7 @@ class VisualCLA:
         self.num_patch = config.num_image_tokens
         self.engine = Engine(model, config, eos_token_id=tokenizer.eos_token_id,
                              pad_token_id=tokenizer.pad_token_id,
-                             max_seq_len=max_seq_len)
+                             max_seq_len=max_seq_len, kv_quant=kv_quant)
 
     def _img_positions(self, input_ids, pixel_values) -> np.ndarray:
         """Marker positions: (B,) for one image per row, (B, K) for K images
@@ -161,13 +165,12 @@ def get_model_and_tokenizer_and_processor(
     kv_quant: str = "none",
 ):
     """Load (model, tokenizer, processor) from a native checkpoint directory
-    (``params.safetensors`` + ``config.json`` + tokenizer files)."""
+    (``params.safetensors`` + ``config.json`` + tokenizer files), with the
+    text tower at the int4 tier if ``load_in_4bit``, else int8 if
+    ``load_in_8bit``, quantized on the host while it streams."""
     from .checkpoint.serialize import load_checkpoint
 
-    if load_in_8bit or load_in_4bit:
-        raise _not_ported("load_in_8bit / load_in_4bit", "1: quantized tiers")
-    if kv_quant != "none":
-        raise _not_ported(f"kv_quant={kv_quant!r}", "1: quantized tiers")
+    quantize = "int4" if load_in_4bit else ("int8" if load_in_8bit else "none")
     if mesh is not None:
         raise _not_ported("a multi-device mesh", "11: multi-device")
     if visualcla_model is None or lora_model is not None:
@@ -178,7 +181,7 @@ def get_model_and_tokenizer_and_processor(
                           "9: checkpoint conversion")
     tokenizer = VisualCLATokenizer.from_pretrained(visualcla_model)
     model, cfg = load_checkpoint(visualcla_model, device=device or _default_device(),
-                                 dtype=dtype)
+                                 dtype=dtype, quantize=quantize)
     if os.path.exists(os.path.join(visualcla_model, "preprocessor_config.json")):
         image_processor = ImageProcessor.from_pretrained(visualcla_model)
     else:  # size to the vision tower so the patch count matches its table

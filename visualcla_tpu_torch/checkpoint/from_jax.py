@@ -7,6 +7,12 @@ L per-layer tensors under ``<tower>.layers.<l>.``, each matmul weight is
 transposed to torch's ``(out, in)``, and each ``<name>_bias`` leaf becomes
 ``<name>.bias``.  The native checkpoint loader and the parity tests (which
 hand both packages the same weights) go through here.
+
+Quantized text-tower leaves are ``<leaf>/q`` and ``<leaf>/scale``
+(``ops.quantization``) and map onto ``<module>.q`` / ``<module>.scale``: an
+int8 ``q`` (in, out) is transposed like a dense weight; the int4 carrier
+(G, gs/2, out) uint8, every scale, and the embedding table's int8 rows keep
+the JAX orientation.
 """
 from __future__ import annotations
 
@@ -40,15 +46,34 @@ def _tensor(x) -> torch.Tensor:
     return torch.from_numpy(arr if arr.flags.writeable else arr.copy())
 
 
+def _quantized_leaf(parts, t):
+    """(state suffix, tensor) of one layer's (or one top leaf's) q / scale."""
+    kind = parts[-1]
+    if kind == "q" and t.dtype == torch.int8 and parts[-2] != "embed_tokens":
+        return "q", t.t()  # per-channel int8 matmul weight: (in, out) -> (out, in)
+    return kind, t
+
+
 def leaf_to_state(key: str, value) -> Iterator[Tuple[str, torch.Tensor]]:
     """Map one JAX leaf to (state key, tensor) pairs of ``VisualCLAModel``."""
     parts = key.split("/")
-    if parts[-1] in ("q", "scale") or any(p.startswith("lora_") for p in parts):
+    if any(p.startswith("lora_") for p in parts):
         raise NotImplementedError(
-            f"leaf {key!r}: quantized and LoRA leaves are not ported yet "
-            "(ROADMAP, open item 1: quantized tiers)")
+            f"leaf {key!r}: LoRA leaves are not ported yet (ROADMAP, open item 9: "
+            "checkpoint conversion)")
     t = _tensor(value)
     tower = parts[0]
+    if parts[-1] in ("q", "scale"):
+        if tower != "text":
+            raise ValueError(f"leaf {key!r}: only the text tower is quantized")
+        if len(parts) > 3 and parts[1] == "layers":
+            for l in range(t.shape[0]):
+                suffix, tl = _quantized_leaf(parts, t[l])
+                yield f"text.layers.{l}.{parts[2]}.{suffix}", tl
+        else:
+            suffix, tt = _quantized_leaf(parts, t)
+            yield f"text.{parts[1]}.{suffix}", tt
+        return
     if len(parts) > 2 and parts[1] == "layers":
         name, rest = parts[2], parts[3:]
         bias_of = {b: w for w, b in _LAYER_LINEARS[tower].items() if b}
@@ -71,6 +96,15 @@ def leaf_to_state(key: str, value) -> Iterator[Tuple[str, torch.Tensor]]:
         yield key.replace("/", ".") + ".weight", t
     else:
         yield key.replace("/", "."), t
+
+
+def weight_tier(flat: Dict[str, object]) -> str:
+    """The text tower's weight tier of a flat JAX tree: "int4" when any
+    carrier is uint8, "int8" when any leaf is quantized, else "none"."""
+    qs = [np.asarray(v).dtype for k, v in flat.items() if k.endswith("/q")]
+    if any(dt == np.uint8 for dt in qs):
+        return "int4"
+    return "int8" if qs else "none"
 
 
 def params_from_jax(flat: Dict[str, object], cfg: VisualCLAConfig) -> Dict[str, torch.Tensor]:

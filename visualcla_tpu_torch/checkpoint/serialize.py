@@ -19,6 +19,8 @@ import torch
 
 from visualcla_tpu.core.config import VisualCLAConfig
 
+from ..ops.quantization import (INT8_TEXT_LEAVES, effective_group, quantize_grouped_np,
+                                 quantize_np)
 from .from_jax import leaf_to_state
 
 # safetensors dtype tag -> (numpy storage dtype, torch dtype)
@@ -74,26 +76,63 @@ def write_safetensors(path: str, tensors: Dict[str, torch.Tensor]) -> None:
 def load_checkpoint(ckpt_dir: str, *, device=None, dtype=torch.bfloat16,
                     quantize: str = "none"):
     """-> (VisualCLAModel on ``device`` in ``dtype``, VisualCLAConfig).  Leaves
-    stream from the file one at a time straight into the module's tensors."""
+    stream from the file one at a time straight into the module's tensors.
+
+    ``quantize="int8"`` (the reference's load_in_8bit scope) or ``"int4"``
+    quantizes the text tower on the host while it streams, one leading-axis
+    slice at a time, as the JAX loader does: the layer matmuls and the LM
+    head per output channel (int8) or grouped (int4, group
+    ``effective_group(in)``), the embedding table per row (int8 at both
+    tiers).  The dense original of a quantized leaf never reaches the device."""
     from ..models.visualcla import VisualCLAModel
 
-    if quantize != "none":
-        raise NotImplementedError(
-            f"quantize={quantize!r} is not ported yet (ROADMAP, open item 1: "
-            "quantized tiers)")
+    if quantize not in ("none", "int8", "int4"):
+        raise ValueError(f"quantize must be none/int8/int4, got {quantize!r}")
     cfg = VisualCLAConfig.from_pretrained(ckpt_dir)
-    model = VisualCLAModel(cfg, device=device, dtype=dtype)
+    model = VisualCLAModel(cfg, device=device, dtype=dtype, quant=quantize)
     state = model.state_dict()
     seen = set()
-    for key, value in iter_safetensors(os.path.join(ckpt_dir, "params.safetensors")):
-        if not cfg.use_visual_resampler and key.startswith("resampler/"):
-            continue
+
+    def put(key, value):
         for name, t in leaf_to_state(key, value):
             if name not in state:
                 raise KeyError(f"checkpoint leaf {key!r} maps to unknown {name!r}")
             state[name].copy_(t)
             seen.add(name)
+
+    for key, value in iter_safetensors(os.path.join(ckpt_dir, "params.safetensors")):
+        if not cfg.use_visual_resampler and key.startswith("resampler/"):
+            continue
+        if quantize != "none" and key in INT8_TEXT_LEAVES:
+            for sub, arr in _quantize_leaf(key, value, quantize).items():
+                put(f"{key}/{sub}", arr)
+        else:
+            put(key, value)
     missing = sorted(set(state) - seen - {"resampler.head_mask"})
     if missing:
         raise KeyError(f"checkpoint lacks {missing[:5]} ({len(missing)} tensors)")
     return model, cfg
+
+
+def _quantize_leaf(key: str, value: torch.Tensor, quantize: str) -> dict:
+    """{"q", "scale"} numpy arrays of one text-tower leaf at the given tier,
+    quantized one leading-axis slice at a time into preallocated outputs."""
+    eff = (effective_group(value.shape[-2])
+           if quantize == "int4" and key != "text/embed_tokens" else None)
+    if eff is not None:
+        def fn(a):
+            return quantize_grouped_np(a, group=eff)
+    else:
+        def fn(a, ax=INT8_TEXT_LEAVES[key]):
+            return quantize_np(a, axis=ax)
+    if value.dim() < 3:
+        qd = fn(value.float().numpy())
+        return {"q": qd["q"], "scale": qd["scale"]}
+    out = {}
+    for i in range(value.shape[0]):
+        qd = fn(value[i].float().numpy())
+        for name in ("q", "scale"):
+            if i == 0:
+                out[name] = np.empty((value.shape[0],) + qd[name].shape, qd[name].dtype)
+            out[name][i] = qd[name]
+    return out

@@ -7,7 +7,12 @@
 //
 // Contract (both kernels, same as the TPU kernels):
 //   q (B, Sq, N, HD); one layer of the cache k, v (B, Nkv, S, HD), passed as a
-//   pointer into the stacked (L, B, Nkv, S, HD) buffer (no slice is copied);
+//   pointer into the stacked (L, B, Nkv, S, HD) buffer (no slice is copied),
+//   in q's type or in int8 with per-slot f32 scales ks, vs (B, Nkv, S) (one
+//   layer of the (L, B, Nkv, S) scale buffers).  The int8 scales fold in after
+//   the dots, as the TPU kernels do (flash_attention.py:77-108, 165-200): the
+//   score is (q . k_int8) * ks[j], and p is multiplied by vs[j] before p @ V
+//   (the softmax denominator sums the unscaled p);
 //   kv_valid (B, S) uint8; slots (B,) int32 = cache slot of each row's first
 //   query.  Query i of row b sits at slot slots[b] + i and sees kv slot j iff
 //   kv_valid[b, j] and j <= slots[b] + i.  Query head n reads kv head
@@ -16,7 +21,7 @@
 //   fully masked query row has l == 0 and emits zeros.  Output is q's dtype.
 //
 // What bounds them on the card, and what the design does about it:
-//   decode reads the cache: bytes.  One block per (row, kv head) streams that
+//   decode reads the cache: bytes (int8 K/V halve them).  One block per (row, kv head) streams that
 //   head's K and V once, only up to the row's slot, and serves all N / Nkv
 //   query heads of the group from it.  Each thread loads its share of the
 //   next 32-slot tile into registers while the current one is computed, so a
@@ -39,6 +44,11 @@ constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(int8_t x) { return static_cast<float>(x); }
+
+// the cache is int8 with per-slot scales, or in q's type without them
+template <typename KV>
+constexpr bool kQuantKV = sizeof(KV) == 1;
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -71,8 +81,8 @@ constexpr int kSlotsPerWarp = kDecodeTile / kDecodeWarps;
 // This thread's share of one kv tile, in registers: the HD / 32 elements of
 // each K row its warp scores, and the V column ``threadIdx.x`` for every slot.
 // All loads of a tile are issued together, one tile ahead of the compute.
-template <typename T, int HD>
-__device__ __forceinline__ void load_decode_tile(const T* k_head, const T* v_head, int j0,
+template <typename KV, int HD>
+__device__ __forceinline__ void load_decode_tile(const KV* k_head, const KV* v_head, int j0,
                                                  int S, float (&kr)[kSlotsPerWarp][HD / 32],
                                                  float (&vr)[kDecodeTile]) {
   constexpr int kPerLane = HD / 32;
@@ -93,10 +103,11 @@ __device__ __forceinline__ void load_decode_tile(const T* k_head, const T* v_hea
   }
 }
 
-template <typename T, int HD>
+template <typename T, typename KV, int HD>
 __global__ void __launch_bounds__(kDecodeThreads)
-flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const uint8_t* __restrict__ kv_valid,
+flash_decode_kernel(const T* __restrict__ q, const KV* __restrict__ k,
+                    const KV* __restrict__ v, const float* __restrict__ ks,
+                    const float* __restrict__ vs, const uint8_t* __restrict__ kv_valid,
                     const int* __restrict__ slots, T* __restrict__ out, int N,
                     int Nkv, int S, float scale) {
   static_assert(HD % 32 == 0 && HD <= kDecodeThreads, "one V column per thread");
@@ -130,17 +141,18 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int last = min(slot, S - 1);  // last visible slot
   const int n_tiles = slot < 0 ? 0 : last / kDecodeTile + 1;
   const size_t head_off = ((size_t)b * Nkv + kvh) * (size_t)S * HD;
-  const T* k_head = k + head_off;
-  const T* v_head = v + head_off;
+  const KV* k_head = k + head_off;
+  const KV* v_head = v + head_off;
+  const size_t scale_off = ((size_t)b * Nkv + kvh) * (size_t)S;
   const uint8_t* ok_row = kv_valid + (size_t)b * S;
 
   float k_cur[kSlotsPerWarp][kPerLane], v_cur[kDecodeTile];
-  if (n_tiles > 0) load_decode_tile<T, HD>(k_head, v_head, 0, S, k_cur, v_cur);
+  if (n_tiles > 0) load_decode_tile<KV, HD>(k_head, v_head, 0, S, k_cur, v_cur);
   for (int t = 0; t < n_tiles; ++t) {
     const int j0 = t * kDecodeTile;
     const bool more = t + 1 < n_tiles;
     float k_nxt[kSlotsPerWarp][kPerLane], v_nxt[kDecodeTile];
-    if (more) load_decode_tile<T, HD>(k_head, v_head, j0 + kDecodeTile, S, k_nxt, v_nxt);
+    if (more) load_decode_tile<KV, HD>(k_head, v_head, j0 + kDecodeTile, S, k_nxt, v_nxt);
     // scores: warp w takes slots j0 + w, j0 + w + kDecodeWarps, ...; each
     // lane holds HD / 32 contiguous elements of the K row
 #pragma unroll
@@ -161,13 +173,18 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     {
       const int j = j0 + lane;
       const bool ok = j <= last && ok_row[j] != 0;
+      float k_sc = 1.f, v_sc = 1.f;
+      if (kQuantKV<KV> && ok) {
+        k_sc = ks[scale_off + j];
+        v_sc = vs[scale_off + j];
+      }
       for (int r = warp; r < rep; r += kDecodeWarps) {
-        const float s = ok ? p_sh[r * kDecodeTile + lane] : kNegInf;
+        const float s = ok ? p_sh[r * kDecodeTile + lane] * k_sc : kNegInf;
         const float m_old = m_sh[r];
         const float m_new = fmaxf(m_old, warp_max(s));
         const float p = ok ? expf(s - m_new) : 0.f;
         const float sum = warp_sum(p);
-        p_sh[r * kDecodeTile + lane] = p;
+        p_sh[r * kDecodeTile + lane] = p * v_sc;
         if (lane == 0) {
           const float alpha = expf(m_old - m_new);
           m_sh[r] = m_new;
@@ -222,13 +239,14 @@ constexpr size_t prefill_smem_bytes() {
                           + (size_t)HD * (kBK + 1)  // K tile, transposed
                           + (size_t)kBK * HD        // V tile
                           + (size_t)kBQ * (kBK + 1) // p tile
-                          + kBK);                   // slot validity
+                          + 3 * kBK);               // slot validity, k and v scales
 }
 
-template <typename T, int HD>
+template <typename T, typename KV, int HD>
 __global__ void __launch_bounds__(kPrefillThreads)
-flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const uint8_t* __restrict__ kv_valid,
+flash_prefill_kernel(const T* __restrict__ q, const KV* __restrict__ k,
+                     const KV* __restrict__ v, const float* __restrict__ ks,
+                     const float* __restrict__ vs, const uint8_t* __restrict__ kv_valid,
                      const int* __restrict__ slots, T* __restrict__ out, int Sq,
                      int N, int Nkv, int S, float scale) {
   constexpr int kOCols = HD / 16;  // output columns per thread
@@ -247,6 +265,8 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* v_sh = kt_sh + HD * (kBK + 1);
   float* p_sh = v_sh + kBK * HD;
   float* ok_sh = p_sh + kBQ * (kBK + 1);
+  float* ks_sh = ok_sh + kBK;
+  float* vs_sh = ks_sh + kBK;
 
   for (int idx = threadIdx.x; idx < kBQ * HD; idx += kPrefillThreads) {
     const int r = idx / HD, d = idx % HD;
@@ -268,8 +288,9 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q_last = slot0 + min(q0 + kBQ, Sq) - 1;  // slot of the tile's last query
   const int n_tiles = q_last < 0 ? 0 : min((S + kBK - 1) / kBK, q_last / kBK + 1);
   const size_t head_off = ((size_t)b * Nkv + kvh) * (size_t)S * HD;
-  const T* k_head = k + head_off;
-  const T* v_head = v + head_off;
+  const KV* k_head = k + head_off;
+  const KV* v_head = v + head_off;
+  const size_t scale_off = ((size_t)b * Nkv + kvh) * (size_t)S;
   const uint8_t* ok_row = kv_valid + (size_t)b * S;
 
   for (int t = 0; t < n_tiles; ++t) {
@@ -281,8 +302,12 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
       kt_sh[d * (kBK + 1) + j] = in ? to_f32(k_head[(size_t)(j0 + j) * HD + d]) : 0.f;
       v_sh[j * HD + d] = in ? to_f32(v_head[(size_t)(j0 + j) * HD + d]) : 0.f;
     }
-    for (int j = threadIdx.x; j < kBK; j += kPrefillThreads)
-      ok_sh[j] = (j0 + j < S && ok_row[j0 + j] != 0) ? 1.f : 0.f;
+    for (int j = threadIdx.x; j < kBK; j += kPrefillThreads) {
+      const bool in = j0 + j < S;
+      ok_sh[j] = (in && ok_row[j0 + j] != 0) ? 1.f : 0.f;
+      ks_sh[j] = (kQuantKV<KV> && in) ? ks[scale_off + j0 + j] : 1.f;
+      vs_sh[j] = (kQuantKV<KV> && in) ? vs[scale_off + j0 + j] : 1.f;
+    }
     __syncthreads();
 
     float s[kRows][kSCols];
@@ -312,7 +337,7 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int c = 0; c < kSCols; ++c) {
         const int jj = tx + 16 * c;
         ok[c] = ok_sh[jj] != 0.f && j0 + jj <= q_slot;
-        s[i][c] = ok[c] ? s[i][c] : kNegInf;
+        s[i][c] = ok[c] ? s[i][c] * ks_sh[jj] : kNegInf;
         mx = fmaxf(mx, s[i][c]);
       }
       for (int o = 8; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
@@ -321,7 +346,7 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < kSCols; ++c) {
         const float p = ok[c] ? expf(s[i][c] - m_new) : 0.f;
-        p_sh[(ty + 16 * i) * (kBK + 1) + tx + 16 * c] = p;
+        p_sh[(ty + 16 * i) * (kBK + 1) + tx + 16 * c] = p * vs_sh[tx + 16 * c];
         sum += p;
       }
       for (int o = 8; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
@@ -358,40 +383,44 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HD>
-cudaError_t launch_decode(const void* q, const void* k, const void* v,
-                          const void* kv_valid, const void* slots, void* out, int B,
-                          int N, int Nkv, int S, float scale, cudaStream_t stream) {
+template <typename T, typename KV, int HD>
+cudaError_t launch_decode(const void* q, const void* k, const void* v, const void* ks,
+                          const void* vs, const void* kv_valid, const void* slots, void* out,
+                          int B, int N, int Nkv, int S, float scale, cudaStream_t stream) {
   const int rep = N / Nkv;
   const size_t smem = sizeof(float) * (2 * (size_t)rep * HD + (size_t)rep * kDecodeTile + 3 * rep);
-  if (smem > 48 * 1024) {
+  static size_t allowed = 48 * 1024;  // raised once per size: stays out of graph capture
+  if (smem > allowed) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_decode_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        flash_decode_kernel<T, KV, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
+    allowed = smem;
   }
-  flash_decode_kernel<T, HD><<<dim3(Nkv, B), kDecodeThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+  flash_decode_kernel<T, KV, HD><<<dim3(Nkv, B), kDecodeThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const KV*>(k), static_cast<const KV*>(v),
+      static_cast<const float*>(ks), static_cast<const float*>(vs),
       static_cast<const uint8_t*>(kv_valid), static_cast<const int*>(slots),
       static_cast<T*>(out), N, Nkv, S, scale);
   return cudaGetLastError();
 }
 
-template <typename T, int HD>
-cudaError_t launch_prefill(const void* q, const void* k, const void* v,
-                           const void* kv_valid, const void* slots, void* out, int B,
-                           int Sq, int N, int Nkv, int S, float scale,
+template <typename T, typename KV, int HD>
+cudaError_t launch_prefill(const void* q, const void* k, const void* v, const void* ks,
+                           const void* vs, const void* kv_valid, const void* slots, void* out,
+                           int B, int Sq, int N, int Nkv, int S, float scale,
                            cudaStream_t stream) {
   constexpr size_t smem = prefill_smem_bytes<HD>();
   static bool configured = false;  // once per process: keeps the call out of graph capture
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_prefill_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        flash_prefill_kernel<T, KV, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     configured = true;
   }
   const dim3 grid((Sq + kBQ - 1) / kBQ, N, B);
-  flash_prefill_kernel<T, HD><<<grid, kPrefillThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+  flash_prefill_kernel<T, KV, HD><<<grid, kPrefillThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const KV*>(k), static_cast<const KV*>(v),
+      static_cast<const float*>(ks), static_cast<const float*>(vs),
       static_cast<const uint8_t*>(kv_valid), static_cast<const int*>(slots),
       static_cast<T*>(out), Sq, N, Nkv, S, scale);
   return cudaGetLastError();
@@ -407,20 +436,47 @@ int vcla_flash_decode(const void* q, const void* k, const void* v, const void* k
                       const void* slots, void* out, int B, int N, int Nkv, int S,
                       int head_dim, int is_bf16, float scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (head_dim == 128)
-    return is_bf16 ? launch_decode<__nv_bfloat16, 128>(q, k, v, kv_valid, slots, out, B, N, Nkv, S, scale, st)
-                   : launch_decode<float, 128>(q, k, v, kv_valid, slots, out, B, N, Nkv, S, scale, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (head_dim != 128) return static_cast<int>(cudaErrorInvalidValue);
+  return is_bf16 ? launch_decode<__nv_bfloat16, __nv_bfloat16, 128>(
+                       q, k, v, nullptr, nullptr, kv_valid, slots, out, B, N, Nkv, S, scale, st)
+                 : launch_decode<float, float, 128>(
+                       q, k, v, nullptr, nullptr, kv_valid, slots, out, B, N, Nkv, S, scale, st);
 }
 
 int vcla_flash_prefill(const void* q, const void* k, const void* v, const void* kv_valid,
                        const void* slots, void* out, int B, int Sq, int N, int Nkv, int S,
                        int head_dim, int is_bf16, float scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (head_dim == 128)
-    return is_bf16 ? launch_prefill<__nv_bfloat16, 128>(q, k, v, kv_valid, slots, out, B, Sq, N, Nkv, S, scale, st)
-                   : launch_prefill<float, 128>(q, k, v, kv_valid, slots, out, B, Sq, N, Nkv, S, scale, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (head_dim != 128) return static_cast<int>(cudaErrorInvalidValue);
+  return is_bf16 ? launch_prefill<__nv_bfloat16, __nv_bfloat16, 128>(
+                       q, k, v, nullptr, nullptr, kv_valid, slots, out, B, Sq, N, Nkv, S, scale, st)
+                 : launch_prefill<float, float, 128>(
+                       q, k, v, nullptr, nullptr, kv_valid, slots, out, B, Sq, N, Nkv, S, scale, st);
+}
+
+// int8 K/V: k, v int8 (B, Nkv, S, HD) and ks, vs f32 (B, Nkv, S) of one layer
+int vcla_flash_decode_kv8(const void* q, const void* k, const void* v, const void* ks,
+                          const void* vs, const void* kv_valid, const void* slots, void* out,
+                          int B, int N, int Nkv, int S, int head_dim, int is_bf16, float scale,
+                          void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (head_dim != 128) return static_cast<int>(cudaErrorInvalidValue);
+  return is_bf16 ? launch_decode<__nv_bfloat16, int8_t, 128>(
+                       q, k, v, ks, vs, kv_valid, slots, out, B, N, Nkv, S, scale, st)
+                 : launch_decode<float, int8_t, 128>(
+                       q, k, v, ks, vs, kv_valid, slots, out, B, N, Nkv, S, scale, st);
+}
+
+int vcla_flash_prefill_kv8(const void* q, const void* k, const void* v, const void* ks,
+                           const void* vs, const void* kv_valid, const void* slots, void* out,
+                           int B, int Sq, int N, int Nkv, int S, int head_dim, int is_bf16,
+                           float scale, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (head_dim != 128) return static_cast<int>(cudaErrorInvalidValue);
+  return is_bf16 ? launch_prefill<__nv_bfloat16, int8_t, 128>(
+                       q, k, v, ks, vs, kv_valid, slots, out, B, Sq, N, Nkv, S, scale, st)
+                 : launch_prefill<float, int8_t, 128>(
+                       q, k, v, ks, vs, kv_valid, slots, out, B, Sq, N, Nkv, S, scale, st);
 }
 
 const char* vcla_error_string(int code) {

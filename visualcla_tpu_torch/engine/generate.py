@@ -65,7 +65,11 @@ class Engine:
         eos_token_id: int,
         pad_token_id: int = 0,
         max_seq_len: int = 2048,
+        kv_quant: str = "none",  # "int8": int8 K/V with per-token-per-head scales
     ):
+        if kv_quant not in ("none", "int8"):
+            raise ValueError(f"kv_quant must be 'none' or 'int8', got {kv_quant!r}")
+        self.kv_quant = kv_quant
         self.model = model
         self.cfg = cfg
         self.eos_token_id = eos_token_id
@@ -75,7 +79,7 @@ class Engine:
         if not self.prompt_buckets:
             raise ValueError(f"no prompt bucket <= max_seq_len={max_seq_len} "
                              f"(buckets={PROMPT_BUCKETS})")
-        p = model.text.embed_tokens
+        p = model.text.final_norm.weight  # a float leaf at every weight tier
         self.device, self.dtype = p.device, p.dtype
 
     def bucket_len(self, prompt_len: int) -> int:
@@ -114,7 +118,7 @@ class Engine:
         if pixel_values is not None:
             pixel_values = torch.as_tensor(np.asarray(pixel_values)).to(dev, self.dtype)
         cache = llama.init_kv_cache(self.cfg.text_config, B, cache_len, self.dtype,
-                                    device=dev)
+                                    device=dev, kv_quant=self.kv_quant)
         mask_t = torch.as_tensor(mask, device=dev)
         embeds = visualcla.multimodal_embeds(
             self.model, self.cfg, torch.as_tensor(padded, device=dev), img_pos,

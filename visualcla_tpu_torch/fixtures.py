@@ -1,7 +1,7 @@
 """Inputs for driving the port at full width without files: an in-process
 tokenizer of the model's exact vocabulary size, a seeded image, the chat
-prompt, and a switch that routes the LLaMA layers' cached attention through
-the kernels' plain PyTorch versions.  ``chip_smoke.py`` and
+prompt, and a switch that routes the LLaMA layers' kernels (cached attention,
+the int4 matmul) through their plain PyTorch versions.  ``chip_smoke.py`` and
 ``tools/profile_torch_slice.py`` share them, so both measure the same prompt
 (same length, same bucket) against the same plain attention."""
 from __future__ import annotations
@@ -13,7 +13,9 @@ import numpy as np
 from visualcla_tpu.text import DEFAULT_SPECIALS, VisualCLATokenizer, build_test_model
 
 from .models import llama as llama_mod
+from .ops import linear as linear_mod
 from .ops.attention import cached_attention_ref
+from .ops.cuda.int4_matmul import int4_matmul_ref
 
 SEED = 0
 PROMPT = "请详细描述这张图片。"
@@ -42,12 +44,14 @@ def random_image(seed: int) -> np.ndarray:
 
 
 @contextlib.contextmanager
-def plain_attention():
-    """Within the block, the LLaMA layers attend through the kernels' plain
-    PyTorch versions instead of the kernels."""
-    orig = llama_mod.cached_attention
+def plain_kernels():
+    """Within the block, the LLaMA layers run the kernels' plain PyTorch
+    versions instead of the kernels: cached attention (B1/B2, int8 K/V
+    included) and the int4 matmul (B3)."""
+    orig = llama_mod.cached_attention, linear_mod.int4_matmul
     llama_mod.cached_attention = cached_attention_ref
+    linear_mod.int4_matmul = int4_matmul_ref
     try:
         yield
     finally:
-        llama_mod.cached_attention = orig
+        llama_mod.cached_attention, linear_mod.int4_matmul = orig

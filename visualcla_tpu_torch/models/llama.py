@@ -5,7 +5,11 @@ softmax, fp32 logits.  One ``forward`` covers prefill and decode: the KV
 cache is a fixed (L, B, Nkv, S, hd) buffer per tensor, each layer writes its
 chunk's K/V at ``(l, write_slot)`` in place and then attends over layer ``l``
 of the whole buffer (``ops.attention.cached_attention``: the CUDA kernels B1
-and B2 on the card).  Causality follows cache slot order, so left-padded
+and B2 on the card).  ``kv_quant="int8"`` stores the cache in int8 with
+per-token-per-head f32 scales (L, B, Nkv, S).  ``quant`` builds the text
+tower at the int8 or int4 weight tier (``ops.linear``): every layer matmul
+and the LM head quantized, the embedding table per-row int8.  Causality
+follows cache slot order, so left-padded
 rows work; ``rope_positions`` carries the HF position ids.  The cache-free
 training forward (``kv_cache=None``) is not ported yet.
 """
@@ -22,26 +26,35 @@ from visualcla_tpu.core.config import LlamaConfig
 from ..ops.activations import ACT2FN
 from ..ops.attention import cached_attention
 from ..ops.cuda.flash_attention import slot_vector
-from ..ops.linear import Linear
+from ..ops.linear import Int8Table, make_linear
 from ..ops.norms import RMSNorm
+from ..ops.quantization import quantize_kv
 from ..ops.rope import apply_rope, rope_table
 
 WriteSlot = Union[int, torch.Tensor]  # int, or (B,) per-row slots
 
 
 def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int, dtype, *,
-                  device=None) -> dict:
-    """Zeroed {'k', 'v'} buffers of shape (L, B, Nkv, max_len, hd), in the
-    model's dtype (the int8 cache is ROADMAP item 1)."""
+                  device=None, kv_quant: str = "none") -> dict:
+    """Zeroed {'k', 'v'} buffers of shape (L, B, Nkv, max_len, hd) in the
+    model's dtype; ``kv_quant="int8"``: int8 buffers plus {'k_scale',
+    'v_scale'} (L, B, Nkv, max_len) f32 scales that start at one."""
     shape = (cfg.num_hidden_layers, batch, cfg.num_key_value_heads, max_len, cfg.head_dim)
+    if kv_quant == "int8":
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.ones(shape[:-1], dtype=torch.float32, device=device),
+                "v_scale": torch.ones(shape[:-1], dtype=torch.float32, device=device)}
+    if kv_quant != "none":
+        raise ValueError(f"unknown kv_quant {kv_quant!r}")
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 def put_chunk(buf: torch.Tensor, chunk: torch.Tensor, l: int,
               write_slot: WriteSlot) -> None:
-    """Write chunk (B, Nkv, Sq, hd) into buf (L, B, Nkv, S, hd) at layer l,
-    slots ``write_slot + [0, Sq)``, in place."""
+    """Write chunk (B, Nkv, Sq[, hd]) into buf (L, B, Nkv, S[, hd]) at layer
+    l, slots ``write_slot + [0, Sq)``, in place (values or int8 scales)."""
     Sq = chunk.shape[2]
     if not isinstance(write_slot, torch.Tensor):
         buf[l, :, :, write_slot:write_slot + Sq] = chunk
@@ -50,27 +63,28 @@ def put_chunk(buf: torch.Tensor, chunk: torch.Tensor, l: int,
     rows = torch.arange(B, device=buf.device)[:, None]
     idx = write_slot.to(buf.device).long().reshape(-1, 1) + torch.arange(
         Sq, device=buf.device)[None, :]
-    # (B, S, Nkv, hd) view of the layer: advanced indexing writes through it
-    buf[l].permute(0, 2, 1, 3)[rows, idx] = chunk.permute(0, 2, 1, 3)
+    # (B, S, Nkv[, hd]) view of the layer: advanced indexing writes through it
+    buf[l].transpose(1, 2)[rows, idx] = chunk.transpose(1, 2)
 
 
 class DecoderLayer(nn.Module):
-    def __init__(self, cfg: LlamaConfig, *, device=None, dtype=None):
+    def __init__(self, cfg: LlamaConfig, *, device=None, dtype=None, quant: str = "none"):
         super().__init__()
         H, I = cfg.hidden_size, cfg.intermediate_size
         N, Nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
         kw = dict(device=device, dtype=dtype)
+        lin = dict(quant=quant, **kw)
         self.cfg = cfg
         self.act = ACT2FN[cfg.hidden_act]
         self.input_norm = RMSNorm(H, cfg.rms_norm_eps, **kw)
-        self.q_proj = Linear(H, N * hd, False, **kw)
-        self.k_proj = Linear(H, Nkv * hd, False, **kw)
-        self.v_proj = Linear(H, Nkv * hd, False, **kw)
-        self.o_proj = Linear(N * hd, H, False, **kw)
+        self.q_proj = make_linear(H, N * hd, **lin)
+        self.k_proj = make_linear(H, Nkv * hd, **lin)
+        self.v_proj = make_linear(H, Nkv * hd, **lin)
+        self.o_proj = make_linear(N * hd, H, **lin)
         self.post_norm = RMSNorm(H, cfg.rms_norm_eps, **kw)
-        self.gate_proj = Linear(H, I, False, **kw)
-        self.up_proj = Linear(H, I, False, **kw)
-        self.down_proj = Linear(I, H, False, **kw)
+        self.gate_proj = make_linear(H, I, **lin)
+        self.up_proj = make_linear(H, I, **lin)
+        self.down_proj = make_linear(I, H, **lin)
 
     def forward(self, h, cos, sin, cache: dict, kv_valid, write_slot: WriteSlot,
                 slots: torch.Tensor, l: int) -> torch.Tensor:
@@ -84,10 +98,16 @@ class DecoderLayer(nn.Module):
         k = self.k_proj(x).reshape(B, Sq, Nkv, hd)
         v = self.v_proj(x).reshape(B, Sq, Nkv, hd)
         q, k = apply_rope(q, k, cos, sin)
-        for name, chunk in (("k", k), ("v", v)):  # cache order (B, Nkv, Sq, hd)
-            put_chunk(cache[name], chunk.transpose(1, 2).to(cache[name].dtype), l,
-                      write_slot)
+        k, v = k.transpose(1, 2), v.transpose(1, 2)  # cache order (B, Nkv, Sq, hd)
+        if "k_scale" in cache:  # int8 cache: K and V quantized per token and head, together
+            (kq, vq), (ks, vs) = (t.unbind(0) for t in quantize_kv(torch.stack((k, v))))
+            writes = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+        else:
+            writes = {"k": k.to(cache["k"].dtype), "v": v.to(cache["v"].dtype)}
+        for name, chunk in writes.items():
+            put_chunk(cache[name], chunk, l, write_slot)
         attn = cached_attention(q, cache["k"], cache["v"], kv_valid, slots,
+                                k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
                                 layer_index=l)
         h = h + self.o_proj(attn.reshape(B, Sq, N * hd))
         x2 = self.post_norm(h)
@@ -95,21 +115,29 @@ class DecoderLayer(nn.Module):
 
 
 class Llama(nn.Module):
-    def __init__(self, cfg: LlamaConfig, *, device=None, dtype=None):
+    """``quant``: the text tower's weight tier, "none" (dense), "int8" or "int4"."""
+
+    def __init__(self, cfg: LlamaConfig, *, device=None, dtype=None, quant: str = "none"):
         super().__init__()
         if cfg.attention_bias:
             raise NotImplementedError("attention_bias=true checkpoints are not supported")
         kw = dict(device=device, dtype=dtype)
         self.cfg = cfg
-        self.embed_tokens = nn.Parameter(
-            torch.empty(cfg.vocab_size, cfg.hidden_size, **kw), requires_grad=False)
+        if quant == "none":
+            self.embed_tokens = nn.Parameter(
+                torch.empty(cfg.vocab_size, cfg.hidden_size, **kw), requires_grad=False)
+        else:
+            self.embed_tokens = Int8Table(cfg.vocab_size, cfg.hidden_size, device=device)
         self.layers = nn.ModuleList(
-            DecoderLayer(cfg, **kw) for _ in range(cfg.num_hidden_layers))
+            DecoderLayer(cfg, quant=quant, **kw)
+            for _ in range(cfg.num_hidden_layers))
         self.final_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, **kw)
-        self.lm_head = Linear(cfg.hidden_size, cfg.vocab_size, False, **kw)
+        self.lm_head = make_linear(cfg.hidden_size, cfg.vocab_size, quant, **kw)
 
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
-        """(B, S) ids -> (B, S, H)."""
+        """(B, S) ids -> (B, S, H) in the model's dtype."""
+        if isinstance(self.embed_tokens, Int8Table):
+            return self.embed_tokens(input_ids).to(self.final_norm.weight.dtype)
         return F.embedding(input_ids, self.embed_tokens)
 
     def forward(
@@ -135,25 +163,18 @@ class Llama(nn.Module):
         return self.final_norm(h), kv_cache
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
-        """LM head, accumulated and returned in fp32."""
-        w = self.lm_head.weight
-        if hidden.dtype == torch.float32:
-            return F.linear(hidden, w.float())
-        if hidden.is_cuda:
-            # fp32 accumulation and output without an fp32 copy of the head
-            flat = torch.mm(hidden.reshape(-1, hidden.shape[-1]), w.t(),
-                            out_dtype=torch.float32)
-            return flat.reshape(*hidden.shape[:-1], w.shape[0])
-        return F.linear(hidden.float(), w.float())
+        """LM head, accumulated and returned in fp32 (dense, int8 or int4)."""
+        return self.lm_head.forward_f32(hidden)
 
     def forward_logits(self, input_ids: torch.Tensor,
-                       attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       attention_mask: Optional[torch.Tensor] = None,
+                       kv_quant: str = "none") -> torch.Tensor:
         """Full-sequence forward for tests: (B, S) ids -> (B, S, V) logits."""
         B, S = input_ids.shape
         if attention_mask is None:
             attention_mask = torch.ones(B, S, dtype=torch.int64, device=input_ids.device)
         positions = (attention_mask.long().cumsum(-1) - 1).clamp(min=0)
         cache = init_kv_cache(self.cfg, B, S, self.final_norm.weight.dtype,
-                              device=input_ids.device)
+                              device=input_ids.device, kv_quant=kv_quant)
         h, _ = self(self.embed(input_ids), positions, cache, attention_mask.bool(), 0)
         return self.logits(h)

@@ -16,7 +16,7 @@ from torch import nn
 
 from visualcla_tpu.core.config import VisualCLAConfig
 
-from ..ops.linear import Linear
+from ..ops.linear import Int8Table, Linear, quantize_linear
 from .clip_vit import CLIPVisionTower
 from .llama import Llama
 from .resampler import Resampler
@@ -24,9 +24,11 @@ from .resampler import Resampler
 
 class VisualCLAModel(nn.Module):
     """All weights of the model, built directly on ``device`` in ``dtype``.
-    Matrices start uninitialised: load a checkpoint or call ``init_random_``."""
+    Matrices start uninitialised: load a checkpoint or call ``init_random_``.
+    ``quant`` ("none", "int8", "int4") is the text tower's weight tier; the
+    ViT, resampler and projection stay dense, as in the JAX package."""
 
-    def __init__(self, cfg: VisualCLAConfig, *, device=None, dtype=None):
+    def __init__(self, cfg: VisualCLAConfig, *, device=None, dtype=None, quant: str = "none"):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.cfg = cfg
@@ -35,7 +37,31 @@ class VisualCLAModel(nn.Module):
                           if cfg.use_visual_resampler else None)
         self.projection = Linear(cfg.vision_config.hidden_size,
                                  cfg.text_config.hidden_size, True, **kw)
-        self.text = Llama(cfg.text_config, **kw)
+        self.text = Llama(cfg.text_config, quant=quant, **kw)
+
+
+@torch.no_grad()
+def quantize_text_tower_(model: VisualCLAModel, bits: int) -> VisualCLAModel:
+    """Quantize the text tower of a dense model in place, where its weights
+    lie: every layer matmul and the LM head to int8 (``bits=8``) or grouped
+    int4 (``bits=4``, group ``effective_group(in)``), the embedding
+    table to per-row int8.  Each dense original is dropped as soon as its
+    quantized form exists, so the peak is one weight above the result."""
+    quant = {8: "int8", 4: "int4"}.get(bits)
+    if quant is None:
+        raise ValueError(f"bits must be 8 or 4, got {bits}")
+    text = model.text
+    if not isinstance(text.lm_head, Linear):
+        raise ValueError("the text tower is quantized already")
+    for layer in text.layers:
+        for name in ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj",
+                     "down_proj"):
+            setattr(layer, name, quantize_linear(getattr(layer, name), quant))
+    text.lm_head = quantize_linear(text.lm_head, quant)
+    table = text.embed_tokens
+    del text.embed_tokens  # the Parameter: the attribute becomes a module
+    text.embed_tokens = Int8Table.from_dense(table)
+    return model
 
 
 @torch.no_grad()

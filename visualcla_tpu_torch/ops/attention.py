@@ -70,23 +70,29 @@ def causal_bias(
 
 def cached_attention(
     q: torch.Tensor,  # (B, Sq, N, hd)
-    k_cache: torch.Tensor,  # (L, B, Nkv, S, hd) — the FULL stacked cache
+    k_cache: torch.Tensor,  # (L, B, Nkv, S, hd) — the FULL stacked cache (int8 or q's dtype)
     v_cache: torch.Tensor,
     kv_valid: torch.Tensor,  # (B, S) bool
     write_slot,  # int, () or (B,) — cache slot of the first query
     *,
+    k_scale: Optional[torch.Tensor] = None,  # (L, B, Nkv, S) f32 when k/v are int8
+    v_scale: Optional[torch.Tensor] = None,
     layer_index: int,
 ) -> torch.Tensor:
     """Causal attention of q over layer ``layer_index`` of the stacked cache.
     Query i sits at slot ``write_slot + i`` and sees the valid kv slots up to
     its own.  Sq == 1 goes to the decode kernel (B1), Sq > 1 to the prefill
-    kernel (B2); on CPU tensors both run their plain PyTorch versions."""
+    kernel (B2), both reading an int8 cache with its scales in place; on CPU
+    tensors both run their plain PyTorch versions."""
     fn = flash_decode_stacked if q.shape[1] == 1 else flash_prefill_stacked
-    return fn(q, k_cache, v_cache, kv_valid, write_slot, layer_index)
+    return fn(q, k_cache, v_cache, kv_valid, write_slot, layer_index,
+              k_scale=k_scale, v_scale=v_scale)
 
 
-def cached_attention_ref(q, k_cache, v_cache, kv_valid, write_slot, *, layer_index):
+def cached_attention_ref(q, k_cache, v_cache, kv_valid, write_slot, *, k_scale=None,
+                         v_scale=None, layer_index):
     """``cached_attention`` through the kernels' plain PyTorch versions, on any
     device: what the kernels are held against end to end."""
     fn = flash_decode_stacked_ref if q.shape[1] == 1 else flash_prefill_stacked_ref
-    return fn(q, k_cache, v_cache, kv_valid, write_slot, layer_index)
+    return fn(q, k_cache, v_cache, kv_valid, write_slot, layer_index,
+              k_scale=k_scale, v_scale=v_scale)

@@ -1,0 +1,157 @@
+"""Grouped-int4 matmul: the CUDA kernel B3, its plain PyTorch version, and the
+wrapper.
+
+B3 ``int4_matmul`` replaces ``int4_matmul`` (visualcla_tpu/ops/pallas/
+int4_matmul.py) -> ``_kernel`` / ``_kernel_scratch`` / ``_kernel_scratch_tiled``.
+The kernels live in ``csrc/int4_matmul.cu``; its header says what bounds each
+form on the card (decode: carrier bytes; prefill: flops) and what the design
+does about it.
+
+Contract: x (..., in); the v2 carrier q (G, gs/2, out) uint8 and scale
+(G, out) f32 of one weight (``ops.quantization``).  Returns x @ W4
+(..., out) in ``out_dtype`` (default x's dtype).
+
+The kernel takes x in bf16 (an f32 x is rounded to bf16 first, as the TPU
+kernel does) and accumulates in fp32.  Up to ``DECODE_MAX_TOKENS`` tokens go
+to the decode form, more to the prefill form (tensor cores, which needs
+gs % 64 == 0; other group sizes stay on the decode form).
+
+The plain version follows the JAX package's XLA path
+(``ops/quantization.py:_q_matmul_grouped``) in x's dtype with fp32
+accumulation: up to gs/2 tokens one product per group on the exact nibbles,
+scaled in fp32 and summed over groups; more tokens one product with the
+weight dequantized (f32, then rounded to x's dtype).
+
+A wrapper given CPU tensors runs the plain version; given CUDA tensors it
+launches the kernel or raises.  ``LAUNCHES`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..quantization import dequantize_grouped, unpack_s4_halves
+from . import build
+
+# Token count up to which the decode form serves a call; above it the
+# prefill form.  Chosen on an H100 (PERF.md, B3 crossover).
+DECODE_MAX_TOKENS = 24
+_DECODE_GROUPS_PER_BLOCK = 4  # the decode form's group split: kDecWarps in the source
+LAUNCHES = {"int4_matmul_decode": 0, "int4_matmul_prefill": 0}
+
+_lib = None
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def build_kernels() -> ctypes.CDLL:
+    """Build (if needed) and load the kernels' library."""
+    global _lib
+    if _lib is None:
+        lib = build.load("int4_matmul")
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.vcla_int4_matmul_decode.argtypes = [
+            ptr, ptr, ptr, ptr, ptr,  # x q scale partial out
+            i32, i32, i32, i32, i32, i32, i32,  # T in G gsh out out_bf16 tokens_per_block
+            ptr]  # stream
+        lib.vcla_int4_matmul_decode.restype = i32
+        lib.vcla_int4_matmul_prefill.argtypes = [
+            ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr]
+        lib.vcla_int4_matmul_prefill.restype = i32
+        lib.vcla_int4_error_string.argtypes = [i32]
+        lib.vcla_int4_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def _check(x, q, scale):
+    """The checks the kernel and the plain version share."""
+    if q.dim() != 3 or q.dtype != torch.uint8:
+        raise ValueError(f"expected a uint8 (G, gs/2, out) carrier, got {q.dtype} "
+                         f"{tuple(q.shape)}")
+    G, gsh, out = q.shape
+    if tuple(scale.shape) != (G, out) or scale.dtype != torch.float32:
+        raise ValueError(f"scale {scale.dtype} {tuple(scale.shape)} does not match the "
+                         f"carrier {tuple(q.shape)}")
+    if x.shape[-1] != G * 2 * gsh:
+        raise ValueError(f"x in-dim {x.shape[-1]} != G*gs = {G}*{2 * gsh}")
+    if len({x.device, q.device, scale.device}) != 1:
+        raise ValueError(f"x on {x.device}, weight on {q.device}, scale on {scale.device}")
+
+
+def int4_matmul_ref(x, q, scale, *, out_dtype=None):
+    """Plain version of B3: ``_q_matmul_grouped``'s numerics, any device."""
+    _check(x, q, scale)
+    G, gsh, out = q.shape
+    out_dtype = out_dtype or x.dtype
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    T = x2.shape[0]
+    if T * 4 > 2 * gsh * 2:  # the (G, T, out) fp32 partials outweigh one weight temp
+        y = x2 @ dequantize_grouped(q, scale, x.dtype)
+    else:
+        lo, hi = unpack_s4_halves(q)
+        xg = x2.reshape(T, G, 2 * gsh).transpose(0, 1).float()  # (G, T, gs), exact upcast
+        y = xg[..., :gsh] @ lo.float() + xg[..., gsh:] @ hi.float()  # (G, T, out) fp32
+        y = (y * scale[:, None, :]).sum(0)
+    return y.to(out_dtype).reshape(*lead, out)
+
+
+def int4_matmul(x, q, scale, *, out_dtype=None):
+    """B3: x @ W4 through the kernel on CUDA tensors, the plain version on CPU
+    tensors."""
+    if x.device.type == "cpu":
+        return int4_matmul_ref(x, q, scale, out_dtype=out_dtype)
+    _check(x, q, scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"the kernel runs on CUDA tensors, got {x.device}")
+    out_dtype = out_dtype or x.dtype
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"kernel writes bfloat16 or float32, got {out_dtype}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"kernel takes bfloat16 (or float32, rounded to bfloat16), got {x.dtype}")
+    if x.device.index != torch.cuda.current_device():
+        raise ValueError(f"tensors on {x.device}, current device is "
+                         f"cuda:{torch.cuda.current_device()}")
+    G, gsh, out = q.shape
+    in_dim = 2 * gsh * G
+    lead = x.shape[:-1]
+    xb = x.reshape(-1, in_dim).to(torch.bfloat16)
+    if not xb.is_contiguous() or xb.data_ptr() % 16:
+        xb = xb.clone(memory_format=torch.contiguous_format)
+    if not q.is_contiguous() or not scale.is_contiguous() or q.data_ptr() % 16:
+        raise ValueError("carrier and scale must be contiguous (and the carrier 16-byte aligned)")
+    T = xb.shape[0]
+    y = torch.empty(T, out, dtype=out_dtype, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    lib = build_kernels()
+    ptrs = (xb.data_ptr(), q.data_ptr(), scale.data_ptr())
+    shape = (T, in_dim, G, gsh, out, int(out_dtype == torch.bfloat16))
+    if T <= DECODE_MAX_TOKENS or gsh % 32:
+        name = "int4_matmul_decode"
+        # one fp32 partial per split of the groups, summed by a second launch
+        splits = -(-G // _DECODE_GROUPS_PER_BLOCK)
+        partial = torch.empty(splits, T, out, dtype=torch.float32, device=x.device)
+        err = lib.vcla_int4_matmul_decode(*ptrs, partial.data_ptr(), y.data_ptr(), *shape,
+                                          decode_tokens_per_block(T), stream)
+    else:
+        name = "int4_matmul_prefill"
+        err = lib.vcla_int4_matmul_prefill(*ptrs, y.data_ptr(), *shape, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           f"{lib.vcla_int4_error_string(err).decode()}")
+    LAUNCHES[name] += 1
+    return y.reshape(*lead, out)
+
+
+def decode_tokens_per_block(T: int) -> int:
+    """Tokens one decode-form block serves: 1, 2, 4 or 8, the least power of
+    two that covers T up to 8 (more tokens run as several blocks)."""
+    tt = 1
+    while tt < min(T, 8):
+        tt *= 2
+    return tt

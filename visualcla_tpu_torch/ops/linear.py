@@ -1,14 +1,32 @@
-"""Dense linear layer (port of the dense leaf of visualcla_tpu/ops/linear.py).
+"""Linear layers (port of visualcla_tpu/ops/linear.py and the matmul side of
+visualcla_tpu/ops/quantization.py): dense, int8 and int4 weights.
 
-Weights are stored as torch's ``(out, in)``; the checkpoint converter
-transposes the JAX package's ``(in, out)`` leaves.  The int8, int4 and LoRA
-leaves are not ported yet (ROADMAP, open item 1 "Quantized tiers").
+Dense weights are stored as torch's ``(out, in)``; the checkpoint converter
+transposes the JAX package's ``(in, out)`` leaves.  The quantized forms keep
+the JAX numerics (``ops/quantization.py:q_matmul``):
+- ``Int8Linear``: q (out, in) int8, scale (1, out) f32; ``x @ q`` in x's
+  dtype, then times the scale rounded to x's dtype (plain torch: the JAX
+  package leaves this product to XLA too);
+- ``Int4Linear``: the v2 carrier q (G, gs/2, out) uint8 and scale (G, out)
+  f32 in the JAX orientation; ``x @ W4`` through kernel B3
+  (``ops.cuda.int4_matmul``), returned in x's dtype;
+- ``Int8Table``: the per-row int8 embedding table, q (V, H), scale (V, 1).
+``forward_f32`` is the LM head's product: fp32 accumulation and fp32 out.
+The layer kind is the module's type, as the JAX package tells a quantized
+leaf by its structure.  LoRA leaves are not ported yet (ROADMAP item 9).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .cuda.int4_matmul import int4_matmul
+from .quantization import effective_group, q_take, quantize, quantize_grouped
+
+
+def _frozen(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
 
 
 class Linear(nn.Module):
@@ -19,11 +37,126 @@ class Linear(nn.Module):
     def __init__(self, in_features: int, out_features: int, bias: bool, *,
                  device=None, dtype=None):
         super().__init__()
-        self.weight = nn.Parameter(
-            torch.empty(out_features, in_features, device=device, dtype=dtype),
-            requires_grad=False)
-        self.bias = (nn.Parameter(torch.zeros(out_features, device=device, dtype=dtype),
-                                  requires_grad=False) if bias else None)
+        self.weight = _frozen(torch.empty(out_features, in_features, device=device, dtype=dtype))
+        self.bias = (_frozen(torch.zeros(out_features, device=device, dtype=dtype))
+                     if bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x, self.weight, self.bias)
+
+    def forward_f32(self, x: torch.Tensor) -> torch.Tensor:
+        """fp32-accumulated product in fp32 (the LM head)."""
+        w = self.weight
+        if x.dtype == torch.float32:
+            return F.linear(x, w.float())
+        if x.is_cuda:  # fp32 accumulation and output without an fp32 copy of w
+            flat = torch.mm(x.reshape(-1, x.shape[-1]), w.t(), out_dtype=torch.float32)
+            return flat.reshape(*x.shape[:-1], w.shape[0])
+        return F.linear(x.float(), w.float())
+
+
+class Int8Linear(nn.Module):
+    """Per-output-channel int8 weight, no bias."""
+
+    def __init__(self, in_features: int, out_features: int, *, device=None):
+        super().__init__()
+        self.q = _frozen(torch.empty(out_features, in_features, dtype=torch.int8, device=device))
+        self.scale = _frozen(torch.empty(1, out_features, dtype=torch.float32, device=device))
+
+    @classmethod
+    def from_dense(cls, weight: torch.Tensor) -> "Int8Linear":
+        """Quantize a dense (out, in) weight where it lies."""
+        out_f, in_f = weight.shape
+        mod = cls(in_f, out_f, device="meta")
+        wq = quantize(weight.t(), axis=-2)  # the JAX (in, out) orientation
+        mod.q = _frozen(wq["q"].t().contiguous())
+        mod.scale = _frozen(wq["scale"])
+        return mod
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.q.to(x.dtype)) * self.scale.to(x.dtype)
+
+    def forward_f32(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == torch.float32:
+            y = F.linear(x, self.q.float())
+        elif x.is_cuda:
+            flat = torch.mm(x.reshape(-1, x.shape[-1]), self.q.to(x.dtype).t(),
+                            out_dtype=torch.float32)
+            y = flat.reshape(*x.shape[:-1], self.q.shape[0])
+        else:
+            y = F.linear(x.float(), self.q.float())
+        return y * self.scale
+
+
+class Int4Linear(nn.Module):
+    """Grouped int4 weight (v2 carrier), no bias; the product is kernel B3."""
+
+    def __init__(self, in_features: int, out_features: int, group: int, *, device=None):
+        super().__init__()
+        if in_features % group or group % 2:
+            raise ValueError(f"group {group} must be even and divide in_features {in_features}")
+        G = in_features // group
+        self.q = _frozen(torch.empty(G, group // 2, out_features, dtype=torch.uint8,
+                                     device=device))
+        self.scale = _frozen(torch.empty(G, out_features, dtype=torch.float32, device=device))
+
+    @classmethod
+    def from_dense(cls, weight: torch.Tensor, group: int) -> "Int4Linear":
+        out_f, in_f = weight.shape
+        mod = cls(in_f, out_f, group, device="meta")
+        wq = quantize_grouped(weight.t(), group=group)
+        mod.q, mod.scale = _frozen(wq["q"]), _frozen(wq["scale"])
+        return mod
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return int4_matmul(x, self.q, self.scale)
+
+    def forward_f32(self, x: torch.Tensor) -> torch.Tensor:
+        return int4_matmul(x, self.q, self.scale, out_dtype=torch.float32)
+
+
+class Int8Table(nn.Module):
+    """Per-row int8 embedding table; lookups return f32."""
+
+    def __init__(self, num: int, dim: int, *, device=None):
+        super().__init__()
+        self.q = _frozen(torch.empty(num, dim, dtype=torch.int8, device=device))
+        self.scale = _frozen(torch.empty(num, 1, dtype=torch.float32, device=device))
+
+    @classmethod
+    def from_dense(cls, table: torch.Tensor) -> "Int8Table":
+        mod = cls(*table.shape, device="meta")
+        wq = quantize(table, axis=-1)
+        mod.q, mod.scale = _frozen(wq["q"]), _frozen(wq["scale"])
+        return mod
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return q_take({"q": self.q, "scale": self.scale}, ids)
+
+
+def make_linear(in_features: int, out_features: int, quant: str = "none", *, device=None,
+                dtype=None) -> nn.Module:
+    """A bias-free text-tower linear of the given tier: dense, int8, or int4
+    with group ``effective_group(in_features)`` (per-channel int8 where no
+    group >= 8 divides in_features, as the JAX loader falls back)."""
+    if quant == "none":
+        return Linear(in_features, out_features, False, device=device, dtype=dtype)
+    if quant == "int4":
+        gs = effective_group(in_features)
+        if gs is not None:
+            return Int4Linear(in_features, out_features, gs, device=device)
+    elif quant != "int8":
+        raise ValueError(f"quant must be 'none', 'int8' or 'int4', got {quant!r}")
+    return Int8Linear(in_features, out_features, device=device)
+
+
+def quantize_linear(mod: Linear, quant: str) -> nn.Module:
+    """The quantized form of a bias-free dense linear (its tier as ``make_linear``)."""
+    w = mod.weight
+    if quant == "int4":
+        gs = effective_group(w.shape[1])
+        if gs is not None:
+            return Int4Linear.from_dense(w, gs)
+    elif quant != "int8":
+        raise ValueError(f"quant must be 'int8' or 'int4', got {quant!r}")
+    return Int8Linear.from_dense(w)
