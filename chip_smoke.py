@@ -13,7 +13,11 @@ Phases, one line of findings each:
                (32 layers, the chat prompt's bucket); B3 (int4 matmul) at the
                7B text tower's shapes for 1, 8 and 512 tokens, per decoder
                layer at the main path's token counts, and at the decode /
-               prefill crossover;
+               prefill crossover; B4 (paged append attention) with bf16 and
+               int8 pools at the 7B heads, B=4 ragged (a parked row, block
+               edges), GQA and B=8 x 2048, pools bitwise equal; each with its
+               bound and, where one PyTorch call computes the same function,
+               that call's time;
   4. slice   — VisualCLA-7B at full width on seeded random bf16 weights made
                on the card: prefill logits through the kernels against the
                plain attention versions (loosely in bf16, tightly on an fp32
@@ -30,35 +34,59 @@ Phases, one line of findings each:
                TTFT and B=1 decode tokens/s;
   6. int8    — the same at the int8 weight tier (bf16 cache): one short
                greedy chat, finite prefill logits, its times;
-  7. the kernel summary as one JSON line, then the result line.
+  7. serve   — paged serving at full width: ``PagedServingEngine`` (4 rows,
+               64-token blocks) under the ``Scheduler`` and the HTTP handler on
+               127.0.0.1; 8 concurrent requests (4 greedy, 2 of them over
+               /chat and /chat_stream; default sampled, TFS, top-a,
+               mirostat-2) complete, every block comes back, B4 launches once
+               a layer per decode step and B2 once a layer per prefill or
+               chunk; decode logits through B4 against its plain version;
+               aggregate decode rate and device time a step with 4 rows busy;
+               an fp32 pool of 3 equal to single-stream generation token for
+               token;
+  8. serve int4 — the int4 tier with the int8 KV pool: 3 requests, exact
+               launch counts of B4's int8 form, finite decode logits;
+  9. the kernel summary as one JSON line, then the result line.
 Exits non-zero if any phase fails.  Needs no network and no JAX.
 """
 from __future__ import annotations
 
+import base64
+import contextlib
+import dataclasses
 import gc
+import io
 import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import urllib.request
+from http.server import ThreadingHTTPServer
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from visualcla_tpu.core.config import visualcla_config_for_size
-from visualcla_tpu.processor import ImageProcessor
-from visualcla_tpu.text.prompt import encoding_text, img_marker_positions
+from visualcla_tpu_torch.core.config import visualcla_config_for_size
+from visualcla_tpu_torch.processor import ImageProcessor
+from visualcla_tpu_torch.text.prompt import encoding_text, img_marker_positions
 from visualcla_tpu_torch import api
+from visualcla_tpu_torch.apps import serve as serve_app
+from visualcla_tpu_torch.engine import paged as paged_mod
+from visualcla_tpu_torch.engine import server as server_mod
 from visualcla_tpu_torch.engine.generate import PROMPT_BUCKETS, pick_bucket
 from visualcla_tpu_torch.engine.sampling import SamplingConfig
-from visualcla_tpu_torch.fixtures import (PROMPT, SEED, make_tokenizer, plain_kernels,
-                                          random_image)
+from visualcla_tpu_torch.fixtures import (PROMPT, SEED, make_tokenizer, paged_case,
+                                          plain_kernels, random_image)
 from visualcla_tpu_torch.models.visualcla import (VisualCLAModel, init_random_,
                                                   quantize_text_tower_)
 from visualcla_tpu_torch.ops.cuda import build
 from visualcla_tpu_torch.ops.cuda import flash_attention as fa
 from visualcla_tpu_torch.ops.cuda import int4_matmul as i4
-from visualcla_tpu_torch.ops.quantization import quantize_grouped, quantize_kv
+from visualcla_tpu_torch.ops.cuda import paged_attention as pa
+from visualcla_tpu_torch.ops.quantization import dequantize_grouped, quantize_grouped, quantize_kv
 
 ATOL = RTOL = 2e-2  # bf16 output rounding plus another summation order
 # B3 against its plain version in fp32 on the same bf16 x and carrier:
@@ -67,6 +95,7 @@ ATOL = RTOL = 2e-2  # bf16 output rounding plus another summation order
 B3_TOL = 1e-2
 FLASH_SOURCE = "visualcla_tpu_torch/csrc/flash_attention.cu"
 INT4_SOURCE = "visualcla_tpu_torch/csrc/int4_matmul.cu"
+PAGED_SOURCE = "visualcla_tpu_torch/csrc/paged_attention.cu"
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "flash_decode": (FLASH_SOURCE, "visualcla_tpu/ops/pallas/flash_attention.py:120"),
     "flash_prefill": (FLASH_SOURCE, "visualcla_tpu/ops/pallas/flash_attention.py:29"),
@@ -74,7 +103,14 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "flash_prefill_kv8": (FLASH_SOURCE, "visualcla_tpu/ops/pallas/flash_attention.py:29"),
     "int4_matmul_decode": (INT4_SOURCE, "visualcla_tpu/ops/pallas/int4_matmul.py:85"),
     "int4_matmul_prefill": (INT4_SOURCE, "visualcla_tpu/ops/pallas/int4_matmul.py:172"),
+    "paged_append": (PAGED_SOURCE, "visualcla_tpu/ops/pallas/paged_attention.py:261"),
+    "paged_append_kv8": (PAGED_SOURCE, "visualcla_tpu/ops/pallas/paged_attention.py:261"),
 }
+# the card's published peaks (H100 SXM data sheet): the least time a call can
+# take is the larger of its bytes over the memory rate and its operations
+# over the bf16 tensor-core rate
+HBM_BYTES_PER_S = 3.35e12
+BF16_OPS_PER_S = 989e12
 # the 7B text tower's int4 matmuls, (in, out): one decoder layer, and the head
 LAYER_SHAPES = {"q_proj": (4096, 4096), "k_proj": (4096, 4096), "v_proj": (4096, 4096),
                 "o_proj": (4096, 4096), "gate_proj": (4096, 11008),
@@ -108,6 +144,17 @@ def device_ms(fn, calls: int = 10, replays: int = 5) -> float:
     return statistics.median(times)
 
 
+def bound(nbytes: float, ops: float):
+    """(least ms, what bounds it) for a call moving ``nbytes`` and doing
+    ``ops`` operations."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
 def phase_device() -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -125,11 +172,13 @@ def phase_device() -> dict:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    build.build(["flash_attention", "int4_matmul"])
+    build.build(["flash_attention", "int4_matmul", "paged_attention"])
     fa.build_kernels()
     i4.build_kernels()
+    pa.build_kernels()
     nvcc = ", ".join(f"{k}.cu {v:.2f} s" for k, v in build.build_seconds.items())
-    print(f"[2 build] flash_attention.cu and int4_matmul.cu built in parallel and loaded in "
+    print(f"[2 build] flash_attention.cu, int4_matmul.cu and paged_attention.cu built in "
+          f"parallel and loaded in "
           f"{time.perf_counter() - t0:.2f} s (nvcc: {nvcc})", flush=True)
 
 
@@ -235,13 +284,20 @@ def phase_kernels(prompt_bucket: int) -> dict:
             worst[name] = max(worst[name], err)
             wrapper, plain = _wrapper_and_plain(kind)
             L = kc.shape[0]
-            main[name] = (
-                device_ms(lambda i: wrapper(q, kc, vc, valid, slot, i % L, **sc), calls=L),
-                device_ms(lambda i: plain(q, kc, vc, valid, slot, i % L, **sc), calls=L))
+            main[name] = {
+                "ms": device_ms(lambda i: wrapper(q, kc, vc, valid, slot, i % L, **sc),
+                                calls=L),
+                "plain_ms": device_ms(lambda i: plain(q, kc, vc, valid, slot, i % L, **sc),
+                                      calls=L),
+                **_flash_bound_and_library(kind, q, kc, vc, valid, slot, sc)}
             warm = device_ms(lambda i: wrapper(q, kc, vc, valid, slot, 7, **sc))
+            m = main[name]
+            lib = "none" if m["library_ms"] is None else f"{m['library_ms'] * 1e3:.1f}us"
             main_cases.append(f"{kind}(N32/32,B1,Sq{Sq},L32) err={err:.2e} "
-                              f"{main[name][0] * 1e3:.1f}us/plain {main[name][1] * 1e3:.1f}us "
-                              f"over the 32 layers, {warm * 1e3:.1f}us on one layer")
+                              f"{m['ms'] * 1e3:.1f}us/plain {m['plain_ms'] * 1e3:.1f}us "
+                              f"over the 32 layers, {warm * 1e3:.1f}us on one layer; bound "
+                              f"{m['bound_ms'] * 1e3:.2f}us ({m['bound_by']}); "
+                              f"scaled_dot_product_attention {lib}")
             if not ok:
                 failures.append(name + " " + main_cases[-1])
             del q, kc, vc, sc
@@ -252,9 +308,106 @@ def phase_kernels(prompt_bucket: int) -> dict:
     b3_main, b3_line = _b3_cases(gen, prompt_bucket, worst, failures)
     main.update(b3_main)
     print(b3_line, flush=True)
+    main.update(_b4_cases(worst, failures))
     if failures:
         raise RuntimeError(f"kernels disagree with their plain versions: {failures}")
     return {"worst": worst, "main": main}
+
+
+def _flash_bound_and_library(kind, q, kc, vc, valid, slot, sc):
+    """B1/B2 at the main path's shapes (one layer a call): the bound from
+    the K/V slots the call must read (a decode reads the slots up to its
+    query's, a prefill the prompt's) and the time of the one PyTorch call
+    that computes the same attention, ``scaled_dot_product_attention``, over
+    the 32 layers in turn (bf16 cache only: it takes no int8 K/V)."""
+    B, Sq, N, hd = q.shape
+    Nkv = kc.shape[2]
+    n_kv = int(slot[0]) + 1 if kind == "decode" else Sq
+    kv_bytes = 2 * B * Nkv * n_kv * hd * kc.element_size()
+    if sc:
+        kv_bytes += 2 * B * Nkv * n_kv * 4
+    pairs = B * N * (n_kv if kind == "decode" else Sq * (Sq + 1) // 2)
+    b_ms, b_by = bound(2 * nbytes(q) + kv_bytes + nbytes(valid), 4 * hd * pairs)
+    if sc:
+        return {"bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    L = kc.shape[0]
+    qt = q.transpose(1, 2)
+    if kind == "decode":
+        mask = valid[:, None, None, :n_kv]
+        lib = device_ms(lambda i: F.scaled_dot_product_attention(
+            qt, kc[i % L][:, :, :n_kv], vc[i % L][:, :, :n_kv], attn_mask=mask), calls=L)
+    else:
+        lib = device_ms(lambda i: F.scaled_dot_product_attention(
+            qt, kc[i % L][:, :, :Sq], vc[i % L][:, :, :Sq], is_causal=True), calls=L)
+    return {"bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+
+
+def _b4_case_bytes(case) -> tuple:
+    """(bytes, operations) B4 must move and do on this case: q, the new
+    K/V, every row's old context (and its int8 scales) read once, the output
+    and the appended K/V written once."""
+    q, kp = case["q"], case["k_pool"]
+    B, N, hd = q.shape
+    Nkv = case["k_new"].shape[1]
+    ctx = int((case["lens"] - 1).sum())
+    per_token = 2 * Nkv * hd * kp.element_size() + (2 * Nkv * 4 if kp.dtype == torch.int8 else 0)
+    new = nbytes(case["k_new"], case["v_new"], case.get("k_new_scales"),
+                 case.get("v_new_scales"))
+    moved = (2 * nbytes(q) + 2 * new + ctx * per_token
+             + nbytes(case["tables"], case["lens"], case["blk"], case["off"]))
+    return moved, 4 * hd * N * int(case["lens"].sum())
+
+
+POOL_KEYS = ("k_pool", "v_pool", "k_scales", "v_scales")
+
+
+def _b4_cases(worst, failures) -> dict:
+    """B4 against its plain version on the card, float (bf16) and int8
+    pools, 7B heads (hd 128, BS 64, L 32, layer 7): B=4 rows of ragged
+    lengths around 330 (offsets 0 and BS-1, and a parked row: lens 1, dummy
+    block 0), MHA and GQA (8 kv heads), and B=8 x 2048; outputs within the
+    tolerance, pools and scales after the call bitwise equal.  Times over the
+    32 layers in turn.  -> the main-path entries (B=4 ragged, MHA)."""
+    main, cases = {}, []
+    ragged = [320, 383, 330, -1]
+    for kv8 in (False, True):
+        name = "paged_append_kv8" if kv8 else "paged_append"
+        for label, ctx, Nkv in (("B4 ragged", ragged, 32), ("B4 ragged GQA", ragged, 8),
+                                ("B8x2048", [2047] * 8, 32)):
+            case = paged_case(ctx, 32, Nkv, L=32, layer=7, dtype=torch.bfloat16, kv_int8=kv8,
+                              device="cuda", seed=SEED + len(cases))
+            ref_case = {k: (v.clone() if k in POOL_KEYS and v is not None else v)
+                        for k, v in case.items()}
+            out = pa.paged_append_attention(**case)
+            torch.cuda.synchronize()
+            ref = pa.paged_append_attention_ref(**ref_case)
+            err_t = (out.float() - ref.float()).abs()
+            err = err_t.max().item()
+            ok = (bool((err_t <= ATOL + RTOL * ref.float().abs()).all())
+                  and bool(torch.isfinite(out).all())
+                  and all(torch.equal(case[k], ref_case[k]) for k in POOL_KEYS
+                          if case.get(k) is not None))
+            worst[name] = max(worst[name], err)
+            L = case["k_pool"].shape[0]
+            ms = device_ms(lambda i: pa.paged_append_attention(**{**case, "layer": i % L}),
+                           calls=L)
+            plain_ms = device_ms(
+                lambda i: pa.paged_append_attention_ref(**{**case, "layer": i % L}), calls=2)
+            b_ms, b_by = bound(*_b4_case_bytes(case))
+            cases.append(f"{'int8' if kv8 else 'bf16'} {label} (N32/{Nkv}) err={err:.2e} "
+                         f"pools bitwise {'equal' if ok else 'DIFFER'} {ms * 1e3:.1f}us/plain "
+                         f"{plain_ms * 1e3:.1f}us, bound {b_ms * 1e3:.2f}us ({b_by})")
+            if not ok:
+                failures.append(name + " " + cases[-1])
+            if label == "B4 ragged":
+                main[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                              "bound_by": b_by, "library_ms": None}
+            del case, ref_case, out, ref
+            torch.cuda.empty_cache()
+    print(f"[3 kernels] B4 paged append attention, hd 128 BS 64 L 32 layer 7, tol "
+          f"atol=rtol={ATOL}, times over the 32 layers in turn: " + "; ".join(cases),
+          flush=True)
+    return main
 
 
 def _b3_weight(gen, in_dim, out):
@@ -316,8 +469,19 @@ def _b3_cases(gen, prompt_bucket, worst, failures):
 
         ms = device_ms(lambda i: run(i4.int4_matmul, i), calls=2) / len(layer)
         plain_ms = device_ms(lambda i: run(i4.int4_matmul_ref, i), calls=2) / len(layer)
-        main[form] = (ms, plain_ms)
-        per_layer.append(f"T{T}: {ms * 1e3:.1f}us/plain {plain_ms * 1e3:.1f}us per call")
+        # the yardstick: a bf16 torch.matmul of the same shapes on the
+        # dequantized weights (the same function)
+        dense = [dequantize_grouped(q, s, torch.bfloat16) for q, s in layer]
+        lib_ms = device_ms(lambda i: [xs[w.shape[0]] @ w for w in dense], calls=2) / len(layer)
+        del dense
+        moved = sum(nbytes(q, s) + T * 2 * (2 * q.shape[0] * q.shape[1] + q.shape[2])
+                    for q, s in layer) / len(layer)
+        ops = sum(2 * T * 2 * q.shape[0] * q.shape[1] * q.shape[2] for q, _ in layer) / len(layer)
+        b_ms, b_by = bound(moved, ops)
+        main[form] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                      "library_ms": lib_ms}
+        per_layer.append(f"T{T}: {ms * 1e3:.1f}us/plain {plain_ms * 1e3:.1f}us/bf16 matmul "
+                         f"{lib_ms * 1e3:.1f}us per call, bound {b_ms * 1e3:.2f}us ({b_by})")
     cross = []
     q, s = weights["gate_proj"]
     for T in (4, 8, 12, 16, 32):
@@ -583,6 +747,309 @@ def phase_int8(smi: str, cfg, tokenizer) -> dict:
           f"{smi}", flush=True)
 
 
+GREEDY_OVERRIDES = {"do_sample": False, "repetition_penalty": 1.0, "no_repeat_ngram_size": 0}
+SERVE_NEW_TOKENS = 32
+SERVE_KW = dict(pool_size=4, block_size=64, num_blocks=64, max_new_tokens_cap=64,
+                max_seq_len=2048)
+
+
+def _npy_b64(image: np.ndarray) -> str:
+    buf = io.BytesIO()
+    np.save(buf, image)
+    return base64.b64encode(buf.getvalue()).decode()
+
+
+def _chat_request(bundle, tokenizer, image, text=PROMPT):
+    """(prompt ids (S,), pixel values, marker position) of a chat turn."""
+    ids = encoding_text([], text, bundle.num_patch, tokenizer)["input_ids"]
+    pv = bundle.image_processor(image)["pixel_values"]
+    return ids[0], pv, int(img_marker_positions(ids, tokenizer.img_start_token_id)[0])
+
+
+def _http(port: int, path: str, body: dict, record: dict) -> None:
+    """POST to the serve handler; streams record the first partial's time."""
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    record["t0"] = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=600) as r:
+        if path == "/chat":
+            record["result"] = json.loads(r.read())
+        else:
+            lines = []
+            for raw in r:
+                if not lines:
+                    record["t_first"] = time.perf_counter()
+                lines.append(json.loads(raw))
+            record["result"] = lines[-1]
+            record["partials"] = len(lines) - 1
+    record["t_end"] = time.perf_counter()
+
+
+def _direct(scheduler, req, overrides, record) -> None:
+    """A request streamed straight from the scheduler (no HTTP)."""
+    ids, pv, img = req
+    record["t0"] = time.perf_counter()
+    toks = []
+    for kind, payload in server_mod.generate_stream(scheduler, ids, pv, img,
+                                                    max_new_tokens=SERVE_NEW_TOKENS,
+                                                    sampling_overrides=overrides):
+        if kind == "token":
+            if not toks:
+                record["t_first"] = time.perf_counter()
+            toks.append(payload)
+        else:
+            record["result"] = payload
+    record["t_end"] = time.perf_counter()
+
+
+def _run_all(fns) -> None:
+    threads = [threading.Thread(target=f) for f in fns]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+
+
+def _step_logits(engine, ctx):
+    """The logits of the engine's next decode step for its live rows, on
+    copies of the pools (nothing is committed), inside context ``ctx``."""
+    s = engine._state
+    run_h = engine._host_active & ~engine._host_finished
+    tables, lens, run, blk, off, lens_attn = engine.decode_inputs(engine.ctx_len + run_h)
+    copy = dataclasses.replace(s, **{k: (getattr(s, k).clone() if getattr(s, k) is not None
+                                         else None) for k in POOL_KEYS})
+    text = engine.model.text
+    with ctx:
+        hidden = paged_mod.paged_decode_forward(text, text.embed(s.last_token[:, None]),
+                                                s.positions, copy, tables, blk, off, lens_attn)
+        return text.logits(hidden)[:, 0]
+
+
+def _counters() -> dict:
+    return {**fa.LAUNCHES, **i4.LAUNCHES, **pa.LAUNCHES}
+
+
+def _reset_counters() -> None:
+    fa.reset_launch_counts()
+    i4.reset_launch_counts()
+    pa.reset_launch_counts()
+
+
+def _check_serve_counts(engine, stats0, stats1, counts, L, b4_name):
+    """B4 launched once a layer per decode step, B2 once a layer per prefill
+    and per prefill chunk; every other attention kernel never."""
+    prefills = (stats1["prefills"] - stats0["prefills"]
+                + stats1["prefill_chunks"] - stats0["prefill_chunks"])
+    expect = {b4_name: L * engine.decode_steps, "flash_prefill": L * prefills}
+    for name in ("paged_append", "paged_append_kv8", "flash_decode", "flash_decode_kv8",
+                 "flash_prefill_kv8"):
+        expect.setdefault(name, 0)
+    bad = {k: (counts[k], v) for k, v in expect.items() if counts[k] != v}
+    if bad or engine.decode_steps == 0 or prefills == 0:
+        raise RuntimeError(f"serve launches (got, expected): {bad}; decode steps "
+                           f"{engine.decode_steps}, prefills and chunks {prefills}")
+    return prefills
+
+
+def phase_serve(smi: str, cfg, tokenizer) -> dict:
+    """Paged serving at full width: 8 concurrent requests (4 greedy, 2 of
+    them over HTTP; the default sampled config, TFS, top-a, mirostat-2) on a
+    4-row pool of 64-token blocks, then its numbers, then the fp32 pool
+    against single-stream generation."""
+    L = cfg.text_config.num_hidden_layers
+    model, setup_s = _random_model(cfg)
+    bundle = api.VisualCLA(model, cfg, tokenizer,
+                           ImageProcessor(image_size=cfg.vision_config.image_size),
+                           max_seq_len=2048)
+    worker = serve_app.PoolWorker(bundle, **{k: v for k, v in SERVE_KW.items()
+                                             if k != "max_seq_len"})
+    engine, sched = worker.engine, worker.scheduler
+    server = ThreadingHTTPServer(("127.0.0.1", 0), serve_app.make_handler(worker))
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    port = server.server_address[1]
+    reqs = [_chat_request(bundle, tokenizer, random_image(SEED + i)) for i in range(8)]
+    prompt_len = len(reqs[0][0])
+    # warm-up: one request, compiles nothing but fills caches and allocators
+    server_mod.generate_sync(sched, *reqs[0], max_new_tokens=4,
+                             sampling_overrides=GREEDY_OVERRIDES)
+
+    gc_greedy = {**GREEDY_OVERRIDES, "max_new_tokens": SERVE_NEW_TOKENS}
+    records = [{} for _ in range(8)]
+    fns = [lambda: _http(port, "/chat", {"text": PROMPT, "generation_config": gc_greedy,
+                                         "image_b64": _npy_b64(random_image(SEED))},
+                         records[0]),
+           lambda: _http(port, "/chat_stream", {"text": PROMPT, "generation_config": gc_greedy,
+                                                "image_b64": _npy_b64(random_image(SEED + 1))},
+                         records[1])]
+    overrides = [GREEDY_OVERRIDES, GREEDY_OVERRIDES, None, {"tfs": 0.9}, {"top_a": 0.2},
+                 {"mirostat_mode": 2}]
+    for i, ov in enumerate(overrides):
+        fns.append(lambda i=i, ov=ov: _direct(sched, reqs[i + 2], ov, records[i + 2]))
+    _reset_counters()
+    engine.decode_steps = 0
+    stats0 = sched.stats()
+    t0 = time.perf_counter()
+    _run_all(fns)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, stats1 = _counters(), sched.stats()
+    server.shutdown()
+    server.server_close()
+    worker.close()
+    for i, r in enumerate(records):
+        res = r.get("result")
+        if res is None:
+            raise RuntimeError(f"serve request {i} did not complete: {r}")
+        if i < 2:
+            if not isinstance(res.get("response"), str) or "history" not in res:
+                raise RuntimeError(f"HTTP request {i} returned {res}")
+        elif not 1 <= len(res) <= SERVE_NEW_TOKENS or int(res.max()) >= cfg.text_config.vocab_size:
+            raise RuntimeError(f"serve request {i} returned {res}")
+    if records[1].get("partials", 0) < 1:
+        raise RuntimeError("/chat_stream sent no partial response")
+    if len(engine._free) != engine.NB - 1 or engine.num_active() != 0:
+        raise RuntimeError(f"blocks not returned: {len(engine._free)} free of "
+                           f"{engine.NB - 1}, {engine.num_active()} rows active")
+    if stats1["chunked_admissions"] == stats0["chunked_admissions"]:
+        raise RuntimeError(f"no chunked admission ran: {stats1}")
+    prefills = _check_serve_counts(engine, stats0, stats1, counts, L, "paged_append")
+    steps = engine.decode_steps
+    ttfts = sorted((r["t_first"] - r["t0"]) * 1e3 for r in records if "t_first" in r)
+    n_tokens = sum(len(r["result"]) for r in records[2:])
+
+    # 4 rows busy: the decode logits through B4 and its plain version, the
+    # aggregate decode rate and the device time a step
+    for row in range(4):
+        engine.prefill_row(row, *reqs[row], 64, overrides=GREEDY_OVERRIDES)
+    k_logits = _step_logits(engine, contextlib.nullcontext())
+    p_logits = _step_logits(engine, plain_kernels())
+    if not bool(torch.isfinite(k_logits).all()):
+        raise RuntimeError("non-finite paged decode logits")
+    b4_diff = (k_logits - p_logits).abs().max().item()
+    b4_scale = p_logits.abs().max().item()
+    if b4_diff > 0.25 * b4_scale:
+        raise RuntimeError(f"paged decode logits: B4 vs plain differ by {b4_diff} "
+                           f"(scale {b4_scale})")
+    gen0 = int(engine.snapshot()["gen_len"].sum())
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(32):
+        engine.step()
+    snap = engine.snapshot()
+    busy_rate = (int(snap["gen_len"].sum()) - gen0) / (time.perf_counter() - t1)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(8):
+            engine.step()
+        torch.cuda.synchronize()
+    step_dev_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA) / 8 / 1e3
+    engine.release_rows(range(4))
+    pool_bf16 = engine.pool_bytes()
+    del worker, engine, sched
+
+    # fp32: requests served together through the pool equal, token for
+    # token, each one's single-stream Engine.generate (the bf16 pool is not
+    # bitwise: cuBLAS rounds by batch shape)
+    model32 = VisualCLAModel(cfg, device="cuda", dtype=torch.float32)
+    model32.load_state_dict(model.state_dict())
+    del bundle, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    bundle32 = api.VisualCLA(model32, cfg, tokenizer,
+                             ImageProcessor(image_size=cfg.vision_config.image_size),
+                             max_seq_len=2048)
+    greedy = SamplingConfig.greedy(SERVE_NEW_TOKENS)
+    eng32 = paged_mod.PagedServingEngine(
+        model32, cfg, eos_token_id=tokenizer.eos_token_id, pad_token_id=tokenizer.pad_token_id,
+        sampling=greedy, **{**SERVE_KW, "pool_size": 3})
+    sched32 = server_mod.Scheduler(eng32)
+    texts = [PROMPT, "图片里有什么？请回答这个问题，并且详细描述图片中的猫和狗在做什么。", PROMPT]
+    reqs32 = [_chat_request(bundle32, tokenizer, random_image(SEED + 10 + i), t)
+              for i, t in enumerate(texts)]
+    outs32 = [None] * 3
+
+    def serve32(i):
+        outs32[i] = server_mod.generate_sync(sched32, *reqs32[i],
+                                             max_new_tokens=SERVE_NEW_TOKENS)
+
+    _run_all([lambda i=i: serve32(i) for i in range(3)])
+    chunked32 = sched32.stats()["chunked_admissions"]
+    sched32.stop()
+    for i, (ids, pv, img) in enumerate(reqs32):
+        single = bundle32.generate(ids[None], pixel_values=pv, generation_config=greedy)[0]
+        if [int(t) for t in outs32[i]] != [int(t) for t in single]:
+            raise RuntimeError(f"fp32 pool request {i} {list(outs32[i])} != single-stream "
+                               f"{single.tolist()}")
+    del bundle32, model32, eng32, sched32
+    print(f"[7 serve] VisualCLA-7B bf16 full width, random weights seed {SEED}, built in "
+          f"{setup_s:.1f} s; PagedServingEngine pool 4 rows, 64-token blocks x 64, cap 64 new, "
+          f"Smax 2048, Scheduler + HTTP handler on 127.0.0.1; chat prompt {prompt_len} tokens "
+          f"(bucket {pick_bucket((128, 256, 512, 1024), prompt_len)}); 8 concurrent requests "
+          f"x {SERVE_NEW_TOKENS} new (4 greedy: /chat, /chat_stream, 2 direct; default sampled, "
+          f"tfs 0.9, top-a 0.2, mirostat-2) all complete in {wall:.2f} s, {n_tokens} tokens on "
+          f"the 6 direct ones; TTFT p50 {statistics.median(ttfts):.1f} ms, max {ttfts[-1]:.1f} "
+          f"ms over the {len(ttfts)} streamed; {steps} decode steps, {prefills} prefills and "
+          f"chunks ({stats1['chunked_admissions'] - stats0['chunked_admissions']} chunked "
+          f"admissions); launches {counts}; every block back on the free list; 4 rows busy: "
+          f"decode {busy_rate:.1f} tok/s aggregate, device {step_dev_ms:.2f} ms a step "
+          f"(torch.profiler, 8 steps); B4 vs plain decode logits max diff {b4_diff:.3e} (scale "
+          f"{b4_scale:.2f}); fp32 pool of 3 ({chunked32} chunked admissions) equals single-stream "
+          f"generate token for token; bf16 pool {pool_bf16 / 1e9:.3f} GB; card {smi}",
+          flush=True)
+    return {"launches": counts, "ttft_p50_ms": statistics.median(ttfts),
+            "decode_tok_s_4_rows": busy_rate, "step_device_ms": step_dev_ms,
+            "pool_bytes": pool_bf16}
+
+
+def phase_serve_int4(smi: str, cfg, tokenizer) -> dict:
+    """A short serve at the int4 tier with the int8 KV pool: 3 greedy
+    requests, exact launch counts of B4's int8 form, finite decode logits."""
+    L = cfg.text_config.num_hidden_layers
+    model, setup_s = _random_model(cfg, bits=4)
+    bundle = api.VisualCLA(model, cfg, tokenizer,
+                           ImageProcessor(image_size=cfg.vision_config.image_size),
+                           max_seq_len=2048)
+    engine = paged_mod.PagedServingEngine(
+        model, cfg, eos_token_id=tokenizer.eos_token_id, pad_token_id=tokenizer.pad_token_id,
+        sampling=SamplingConfig.greedy(SERVE_NEW_TOKENS), kv_quant="int8", **SERVE_KW)
+    sched = server_mod.Scheduler(engine)
+    reqs = [_chat_request(bundle, tokenizer, random_image(SEED + 20 + i)) for i in range(3)]
+    server_mod.generate_sync(sched, *reqs[0], max_new_tokens=2)  # warm-up
+    _reset_counters()
+    engine.decode_steps = 0
+    stats0 = sched.stats()
+    outs = [None] * 3
+
+    def serve(i):
+        outs[i] = server_mod.generate_sync(sched, *reqs[i], max_new_tokens=SERVE_NEW_TOKENS)
+
+    _run_all([lambda i=i: serve(i) for i in range(3)])
+    torch.cuda.synchronize()
+    counts, stats1 = _counters(), sched.stats()
+    sched.stop()
+    prefills = _check_serve_counts(engine, stats0, stats1, counts, L, "paged_append_kv8")
+    if counts["int4_matmul_decode"] == 0 or counts["int4_matmul_prefill"] == 0:
+        raise RuntimeError(f"the int4 serve did not launch B3: {counts}")
+    if any(o is None or len(o) == 0 for o in outs) or len(engine._free) != engine.NB - 1:
+        raise RuntimeError(f"int4 serve: outputs {outs}, {len(engine._free)} blocks free")
+    engine.prefill_row(0, *reqs[0], 8)
+    logits = _step_logits(engine, contextlib.nullcontext())
+    if not bool(torch.isfinite(logits).all()):
+        raise RuntimeError("non-finite int4 + int8-pool decode logits")
+    engine.release_rows([0])
+    pool_int8 = engine.pool_bytes()
+    print(f"[8 serve int4] VisualCLA-7B int4 text tower (quantized on the card) with the int8 "
+          f"KV pool, built in {setup_s:.1f} s; 3 concurrent greedy requests x "
+          f"{SERVE_NEW_TOKENS} new complete ({[len(o) for o in outs]} tokens); "
+          f"{engine.decode_steps} decode steps, {prefills} prefills and chunks; launches "
+          f"{counts}; decode logits finite (scale {logits.abs().max().item():.2f}); int8 pool "
+          f"{pool_int8 / 1e9:.3f} GB with its scales; card {smi}", flush=True)
+    return {"launches": counts, "pool_bytes": pool_int8}
+
+
 def _kernels_vs_plain_logits(engine, input_ids, pixel_values, img_pos):
     """Last-token prefill logits through the kernels and, on the same model,
     with the kernels' plain versions swapped in."""
@@ -610,13 +1077,21 @@ def main() -> int:
     launches = phase_slice(info["smi"], cfg, tokenizer)["launches"]
     launches4 = phase_int4(info["smi"], cfg, tokenizer)["launches"]
     phase_int8(info["smi"], cfg, tokenizer)
+    serve = phase_serve(info["smi"], cfg, tokenizer)
+    serve4 = phase_serve_int4(info["smi"], cfg, tokenizer)
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        ms, plain_ms = kern["main"][name]
-        n = launches4[name] if name.endswith("_kv8") or name.startswith("int4") else launches[name]
+        if name == "paged_append":
+            n = serve["launches"][name]
+        elif name == "paged_append_kv8":
+            n = serve4["launches"][name]
+        elif name.endswith("_kv8") or name.startswith("int4"):
+            n = launches4[name]
+        else:
+            n = launches[name]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": n, "max_abs_err": kern["worst"][name], "ms": ms,
-                        "plain_ms": plain_ms})
+                        "launches": n, "max_abs_err": kern["worst"][name],
+                        **kern["main"][name]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
 """The CUDA kernels B1 (decode) and B2 (prefill), with bf16/f32 and int8 K/V,
-and B3 (int4 matmul, decode and prefill forms) against their plain PyTorch
-versions on the card.  Needs an NVIDIA GPU and nvcc; skipped without them.
+B3 (int4 matmul, decode and prefill forms) and B4 (paged append attention,
+float and int8 pools) against their plain PyTorch versions on the card.  Needs an NVIDIA GPU and nvcc; skipped without them.
 
 On the machine with the card (which has no JAX, hence no conftest):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
@@ -9,12 +9,17 @@ Tolerance: fp32 inputs atol 1e-4 (another summation order); bf16 inputs
 atol = rtol = 2e-2 against the plain version run in fp32 on the same bf16
 values (the output's bf16 rounding).  B3: |err| <= 1e-2 * max|ref| +
 1e-2 * |ref| against the plain version in fp32 on the same bf16 x and carrier
-(the prefill form rounds the dequantized weight to bf16)."""
+(the prefill form rounds the dequantized weight to bf16).  B4: the output as
+B1's against the plain version on the same inputs (which rounds where the
+kernel does, at other running maxima), bf16's tolerance for an int8 pool
+(it computes in bf16), and the pools after the call bitwise equal."""
 import pytest
 import torch
 
+from visualcla_tpu_torch.fixtures import paged_case
 from visualcla_tpu_torch.ops.cuda import flash_attention as fa
 from visualcla_tpu_torch.ops.cuda import int4_matmul as i4
+from visualcla_tpu_torch.ops.cuda import paged_attention as pa
 from visualcla_tpu_torch.ops.quantization import quantize_grouped, quantize_kv
 
 pytestmark = pytest.mark.cuda
@@ -144,3 +149,40 @@ def test_int4_kernel_forms_agree_and_stacked_layer(dev):
     assert dec.dtype == torch.float32
     for y in (dec, pre):
         assert bool(((y - ref).abs() <= 1e-2 * ref.abs().max() + 1e-2 * ref.abs()).all())
+
+
+POOL_KEYS = ("k_pool", "v_pool", "k_scales", "v_scales")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv_int8", [False, True], ids=["float_pool", "int8_pool"])
+@pytest.mark.parametrize("N,Nkv", [(8, 8), (8, 2)], ids=["mha", "gqa"])
+@pytest.mark.parametrize("BS", [16, 64])
+def test_paged_append_kernel_matches_plain(dev, dtype, kv_int8, N, Nkv, BS):
+    # a parked row, offsets 0 and BS-1, one token, a long row
+    ctx = [-1, 2 * BS, 3 * BS - 1, 0, 5 * BS + 7, 300]
+    case = paged_case(ctx, N, Nkv, block_size=BS, dtype=dtype, kv_int8=kv_int8, device=dev,
+                      seed=BS + N + Nkv)
+    ref_case = {k: (v.clone() if k in POOL_KEYS else v) for k, v in case.items()}
+    name = "paged_append_kv8" if kv_int8 else "paged_append"
+    before = pa.LAUNCHES[name]
+    out = pa.paged_append_attention(**case)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES[name] == before + 1
+    ref = pa.paged_append_attention_ref(**ref_case)
+    assert out.dtype == dtype and out.shape == case["q"].shape
+    # an int8 pool computes in bf16 (q and p rounded to it), whatever q's type
+    tol = TOL[torch.bfloat16 if kv_int8 else dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    for key in POOL_KEYS:
+        if case.get(key) is not None:
+            assert torch.equal(case[key], ref_case[key]), key
+
+
+def test_paged_append_kernel_rejects_bad_inputs(dev):
+    case = paged_case([3, 9], 4, 4, block_size=16, device=dev)
+    with pytest.raises(TypeError):
+        pa.paged_append_attention(**{**case, "k_new": case["k_new"].float()})
+    with pytest.raises(ValueError, match="contiguous"):
+        pa.paged_append_attention(**{**case, "q": case["q"].transpose(0, 1).contiguous()
+                                     .transpose(0, 1)})

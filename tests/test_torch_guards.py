@@ -1,5 +1,6 @@
-"""Guards of the PyTorch port: it never imports jax, chip_smoke.py refuses to
-run without a GPU, the quantized load options load, and what is not ported
+"""Guards of the PyTorch port: it never imports jax nor the JAX package, its
+entry points and chip_smoke.py refuse to run without a GPU unless asked for
+the CPU, the quantized load options load, and what is not ported
 yet raises NotImplementedError."""
 import os
 import subprocess
@@ -22,17 +23,61 @@ def _env(**extra):
 
 
 def test_port_never_imports_jax():
+    """Neither jax nor any module of the JAX package ``visualcla_tpu`` is
+    loaded by importing every module of the port, chip_smoke.py and the
+    profiler."""
     code = ("import sys, visualcla_tpu_torch, visualcla_tpu_torch.api, chip_smoke\n"
+            "sys.path.insert(0, 'tools'); import profile_torch_slice\n"
             "from visualcla_tpu_torch.checkpoint import serialize, from_jax\n"
             "from visualcla_tpu_torch.ops import quantization, linear\n"
-            "from visualcla_tpu_torch.ops.cuda import int4_matmul, flash_attention, build\n"
+            "from visualcla_tpu_torch.ops.cuda import (int4_matmul, flash_attention, build,\n"
+            "                                          paged_attention)\n"
             "from visualcla_tpu_torch.models import visualcla, llama\n"
-            "from visualcla_tpu_torch import fixtures\n"
-            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
+            "from visualcla_tpu_torch.engine import generate, sampling, paged, server\n"
+            "from visualcla_tpu_torch.apps import serve\n"
+            "from visualcla_tpu_torch import fixtures, text, processor, host_build\n"
+            "from visualcla_tpu_torch.core import config\n"
+            "from visualcla_tpu_torch.text import native_tok, sp_bpe\n"
+            "from visualcla_tpu_torch.processor import native_img, pil_resample\n"
+            "bad = sorted(m for m in sys.modules if m in ('jax', 'visualcla_tpu')\n"
+            "             or m.startswith(('jax.', 'visualcla_tpu.')))\n"
             "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_entry_points_raise_without_a_gpu(tmp_path):
+    """Called without ``device`` and without a GPU, the factory and
+    ``VisualCLA`` raise instead of running on the CPU."""
+    from tests.test_api import make_native_ckpt
+
+    path, _ = make_native_ckpt(str(tmp_path))
+    code = ("import sys, torch, numpy as np, visualcla_tpu_torch as vt\n"
+            "from visualcla_tpu_torch.checkpoint.serialize import read_safetensors\n"
+            "from visualcla_tpu_torch.core.config import VisualCLAConfig\n"
+            "assert not torch.cuda.is_available()\n"
+            "ckpt = sys.argv[1]\n"
+            "try:\n"
+            "    vt.get_model_and_tokenizer_and_processor(visualcla_model=ckpt)\n"
+            "    raise SystemExit('factory ran without a GPU')\n"
+            "except RuntimeError as e:\n"
+            "    assert 'device=\"cpu\"' in str(e), e\n"
+            "m, tok, proc = vt.get_model_and_tokenizer_and_processor(visualcla_model=ckpt,\n"
+            "                                                       device='cpu')\n"
+            "flat = {k: v.numpy() for k, v in read_safetensors(ckpt + '/params.safetensors').items()}\n"
+            "try:\n"
+            "    vt.VisualCLA(flat, VisualCLAConfig.from_pretrained(ckpt), tok,\n"
+            "                 m.image_processor)\n"
+            "    raise SystemExit('VisualCLA ran without a GPU')\n"
+            "except RuntimeError as e:\n"
+            "    assert 'no CUDA device' in str(e), e\n"
+            "print('raised')\n")
+    proc = subprocess.run([sys.executable, "-c", code, path], cwd=ROOT,
+                          env=_env(CUDA_VISIBLE_DEVICES=""), capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr + proc.stdout
+    assert "raised" in proc.stdout
 
 
 def test_chip_smoke_fails_without_a_gpu():
@@ -95,9 +140,7 @@ def test_unported_generation_options_raise(ckpt):
         visualcla_model=ckpt, dtype=torch.float32, device="cpu", max_seq_len=256)
     ids = np.array([[1, 5, 6]])
     for gc, kw in ((t_samp.SamplingConfig(num_beams=2), {}),
-                   (t_samp.SamplingConfig.greedy(4), {"speculative": True}),
-                   (t_samp.SamplingConfig(mirostat_mode=2), {}),
-                   (t_samp.SamplingConfig(tfs=0.9), {})):
+                   (t_samp.SamplingConfig.greedy(4), {"speculative": True})):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             model.generate(ids, generation_config=gc, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -106,7 +149,7 @@ def test_unported_generation_options_raise(ckpt):
 
 
 def test_full_width_tokenizer_has_the_model_vocab():
-    from visualcla_tpu.core.config import visualcla_config_for_size
+    from visualcla_tpu_torch.core.config import visualcla_config_for_size
     from visualcla_tpu_torch import fixtures
 
     vocab = visualcla_config_for_size("7B").text_config.vocab_size

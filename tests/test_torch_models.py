@@ -11,11 +11,12 @@ import pytest
 import torch
 
 from visualcla_tpu.checkpoint.serialize import flatten_tree, load_checkpoint, save_checkpoint
-from visualcla_tpu.core.config import LlamaConfig, tiny_visualcla_config
+from visualcla_tpu.core.config import tiny_visualcla_config
 from visualcla_tpu.models import clip_vit as j_vit
 from visualcla_tpu.models import llama as j_llama
 from visualcla_tpu.models import resampler as j_res
 from visualcla_tpu.models import visualcla as j_vcla
+from tests.test_torch_host import port_config
 from visualcla_tpu_torch.checkpoint import serialize as t_ser
 from visualcla_tpu_torch.checkpoint.from_jax import params_from_jax
 from visualcla_tpu_torch.models import visualcla as t_vcla
@@ -33,8 +34,9 @@ def build_pair(cfg, seed=0):
             for k, v in flatten_tree(params).items()}
     from visualcla_tpu.checkpoint.serialize import unflatten_tree
     jparams = jax.tree.map(lambda a: jnp.asarray(a, jnp.float32), unflatten_tree(flat))
-    model = t_vcla.VisualCLAModel(cfg, device="cpu", dtype=torch.float32)
-    model.load_state_dict(params_from_jax(flat, cfg))  # strict: every tensor set
+    tcfg = port_config(cfg)
+    model = t_vcla.VisualCLAModel(tcfg, device="cpu", dtype=torch.float32)
+    model.load_state_dict(params_from_jax(flat, tcfg))  # strict: every tensor set
     return jparams, model
 
 
@@ -140,8 +142,8 @@ def test_checkpoint_reader_matches_jax_writer(tmp_path, dtype):
     for k, v in read.items():
         np.testing.assert_array_equal(v.float().numpy(), want[k])
     model, tcfg = t_ser.load_checkpoint(ckpt, device="cpu", dtype=torch.float32)
-    assert tcfg == cfg
-    state = params_from_jax(want, cfg)
+    assert tcfg == port_config(cfg)
+    state = params_from_jax(want, tcfg)
     for name, t in model.state_dict().items():
         if name in state:
             np.testing.assert_array_equal(t.numpy(), state[name].numpy())
@@ -172,18 +174,19 @@ def test_quantized_checkpoint_not_ported(tmp_path):
     state = params_from_jax({"text/layers/q_proj/q": q8,
                              "text/layers/k_proj/q": q4,
                              "text/layers/k_proj/scale": np.ones((1, 2, 2), np.float32)},
-                            tiny_visualcla_config())
+                            port_config(tiny_visualcla_config()))
     np.testing.assert_array_equal(state["text.layers.1.q_proj.q"].numpy(), q8[1].T)
     np.testing.assert_array_equal(state["text.layers.0.k_proj.q"].numpy(), q4[0])
     assert state["text.layers.0.k_proj.scale"].shape == (2, 2)
     with pytest.raises(NotImplementedError, match="LoRA"):
         params_from_jax({"text/layers/q_proj/lora_A": np.zeros((1, 2, 2), np.float32)},
-                        tiny_visualcla_config())
+                        port_config(tiny_visualcla_config()))
     with pytest.raises(ValueError, match="quantize"):
         t_ser.load_checkpoint(str(tmp_path), quantize="int2")
 
 
 def test_llama_config_rejects_attention_bias():
+    from visualcla_tpu_torch.core.config import LlamaConfig
     from visualcla_tpu_torch.models.llama import Llama
 
     with pytest.raises(NotImplementedError):

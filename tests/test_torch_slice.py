@@ -47,7 +47,7 @@ def test_greedy_chat_token_identical(both, with_image):
     j_resp2, _ = j_chat(jm, pix, "cd", j_hist, j_gc, verbose=False)
     t_resp2, _ = t_chat(tm, pix, "cd", t_hist, t_gc, verbose=False)
     assert t_resp2 == j_resp2
-    from visualcla_tpu.text import encoding_text
+    from visualcla_tpu_torch.text import encoding_text
 
     ids = encoding_text([], "ab你好", tm.num_patch, tm.tokenizer)["input_ids"]
     np.testing.assert_array_equal(tm.generate(ids, pixel_values=pix, generation_config=t_gc),

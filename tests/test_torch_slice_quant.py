@@ -11,10 +11,11 @@ import torch
 import visualcla_tpu as vj
 import visualcla_tpu_torch as vt
 from tests.test_api import make_native_ckpt
+from tests.test_torch_host import port_config
 from visualcla_tpu.api import chat as j_chat
 from visualcla_tpu.checkpoint.serialize import flatten_tree
 from visualcla_tpu.engine import sampling as j_samp
-from visualcla_tpu.text import encoding_text
+from visualcla_tpu_torch.text import encoding_text
 from visualcla_tpu_torch.api import chat as t_chat
 from visualcla_tpu_torch.api import chat_in_stream as t_chat_in_stream
 from visualcla_tpu_torch.engine import sampling as t_samp
@@ -132,7 +133,7 @@ def test_from_jax_round_trip_of_quantized_leaves(pairs, ckpt):
     to the port's ``VisualCLA``: the same weights, the same greedy tokens."""
     jm, tm = pairs["int4_kv8"]
     flat = {k: np.asarray(v) for k, v in flatten_tree(jm.params).items()}
-    bundle = vt.VisualCLA(flat, ckpt[1], tm.tokenizer, tm.image_processor,
+    bundle = vt.VisualCLA(flat, port_config(ckpt[1]), tm.tokenizer, tm.image_processor,
                           dtype=torch.float32, device="cpu", max_seq_len=256,
                           kv_quant="int8")
     assert isinstance(bundle.model.text.lm_head, t_linear.Int4Linear)

@@ -25,9 +25,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."
 
 import torch  # noqa: E402
 
-from visualcla_tpu.core.config import visualcla_config_for_size  # noqa: E402
-from visualcla_tpu.processor import ImageProcessor  # noqa: E402
-from visualcla_tpu.text.prompt import encoding_text, img_marker_positions  # noqa: E402
+from visualcla_tpu_torch.core.config import visualcla_config_for_size  # noqa: E402
+from visualcla_tpu_torch.processor import ImageProcessor  # noqa: E402
+from visualcla_tpu_torch.text.prompt import encoding_text, img_marker_positions  # noqa: E402
 from visualcla_tpu_torch import api  # noqa: E402
 from visualcla_tpu_torch.engine.sampling import SamplingConfig  # noqa: E402
 from visualcla_tpu_torch.fixtures import (PROMPT, SEED, make_tokenizer,  # noqa: E402

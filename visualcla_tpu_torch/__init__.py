@@ -5,13 +5,14 @@ its module names and public surface (``chat``, ``chat_in_stream``,
 ``get_model_and_tokenizer_and_processor``, ``VisualCLA``) on PyTorch, with the
 Pallas kernels of the main path replaced by hand-written CUDA kernels
 (``csrc/``).  Host-only code (configs, tokenizer, prompt protocol, image
-preprocessing) is imported from ``visualcla_tpu``, whose package import pulls
-in only its config module.  This package never imports jax.
+preprocessing, and their C++ cores under ``csrc/host/``) is the package's own
+copy of the JAX package's host modules, under the same names.  This package
+imports neither jax nor anything of ``visualcla_tpu``.
 """
 
 __version__ = "0.1.0"
 
-from visualcla_tpu.core.config import (  # noqa: F401
+from .core.config import (  # noqa: F401
     LlamaConfig,
     ResamplerConfig,
     ViTConfig,

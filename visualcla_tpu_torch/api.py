@@ -19,10 +19,10 @@ from typing import Iterator, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from visualcla_tpu.core.config import VisualCLAConfig
-from visualcla_tpu.processor import ImageProcessor, VisualCLAProcessor
-from visualcla_tpu.text import VisualCLATokenizer, encoding_text
-from visualcla_tpu.text.prompt import all_img_marker_positions, img_marker_positions
+from .core.config import VisualCLAConfig
+from .processor import ImageProcessor, VisualCLAProcessor
+from .text import VisualCLATokenizer, encoding_text
+from .text.prompt import all_img_marker_positions, img_marker_positions
 
 from .checkpoint.from_jax import params_from_jax, weight_tier
 from .engine.generate import Engine
@@ -48,7 +48,13 @@ def _flatten(tree, prefix=""):
 
 
 def _default_device() -> torch.device:
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The card: the port's entry points run on a CUDA device unless the
+    caller passes ``device="cpu"``; without a GPU they raise."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; the port runs on the GPU by default. "
+            'Pass device="cpu" to run on the CPU.')
+    return torch.device("cuda")
 
 
 class VisualCLA:

@@ -21,7 +21,7 @@ from typing import Dict, Iterator, Tuple
 import numpy as np
 import torch
 
-from visualcla_tpu.core.config import VisualCLAConfig
+from ..core.config import VisualCLAConfig
 
 # matmul weight leaf -> its bias leaf (None: no bias), per tower
 _LAYER_LINEARS = {

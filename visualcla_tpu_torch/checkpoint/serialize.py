@@ -17,7 +17,7 @@ from typing import Dict, Iterator, Tuple
 import numpy as np
 import torch
 
-from visualcla_tpu.core.config import VisualCLAConfig
+from ..core.config import VisualCLAConfig
 
 from ..ops.quantization import (INT8_TEXT_LEAVES, effective_group, quantize_grouped_np,
                                  quantize_np)

@@ -18,10 +18,10 @@ from typing import Iterator, Optional, Tuple
 import numpy as np
 import torch
 
-from visualcla_tpu.core.config import VisualCLAConfig
+from ..core.config import VisualCLAConfig
 
 from ..models import llama, visualcla
-from .sampling import SamplingConfig, check_supported, sample_step
+from .sampling import SamplingConfig, sample_step
 
 PROMPT_BUCKETS = (128, 256, 512, 1024, 2048)
 
@@ -47,6 +47,7 @@ class DecodeState:
     last_token: torch.Tensor  # (B,)
     finished: torch.Tensor  # (B,) bool
     generator: torch.Generator
+    mu: torch.Tensor  # (B,) fp32 mirostat state
 
     def done(self, max_new_tokens: int) -> bool:
         return (self.gen_len >= max_new_tokens
@@ -133,7 +134,6 @@ class Engine:
     def start(self, input_ids, pixel_values, img_start_pos, sampling: SamplingConfig,
               seed: int = 0) -> DecodeState:
         """Prefill and sample the first token."""
-        check_supported(sampling)
         B, S = np.asarray(input_ids).shape
         Sb = self.bucket_len(S)
         # the cache holds the bucket plus every new token, in 256-slot steps
@@ -146,13 +146,14 @@ class Engine:
         generator = torch.Generator(device=dev).manual_seed(seed)
         gen_ids = torch.zeros(B, sampling.max_new_tokens, dtype=torch.int64, device=dev)
         zeros = torch.zeros(B, dtype=torch.int64, device=dev)
-        token = sample_step(last_logits, gen_ids, zeros, generator, sampling)
+        mu = torch.full((B,), 2.0 * sampling.mirostat_tau, device=dev)
+        token, mu = sample_step(last_logits, gen_ids, zeros, generator, mu, sampling)
         gen_ids[:, 0] = token
         return DecodeState(
             cache=cache, kv_valid=kv_valid, cur_slot=Sb,
             positions=positions[:, -1] + 1, gen_ids=gen_ids, gen_len=1,
             last_token=token, finished=token == self.eos_token_id,
-            generator=generator)
+            generator=generator, mu=mu)
 
     @torch.no_grad()
     def step(self, state: DecodeState, sampling: SamplingConfig) -> DecodeState:
@@ -166,8 +167,8 @@ class Engine:
         step_logits = text.logits(hidden)[:, 0]
         gen_len_b = torch.full((B,), state.gen_len, dtype=torch.int64,
                                device=self.device)
-        token = sample_step(step_logits, state.gen_ids, gen_len_b, state.generator,
-                            sampling)
+        token, state.mu = sample_step(step_logits, state.gen_ids, gen_len_b,
+                                      state.generator, state.mu, sampling)
         token = torch.where(state.finished, torch.full_like(token, self.pad_token_id),
                             token)
         state.gen_ids[:, state.gen_len] = token

@@ -1,0 +1,567 @@
+"""Paged-KV continuous-batching engine (port of visualcla_tpu/engine/paged.py).
+
+The same scheduling surface as the JAX package's (``server.Scheduler`` drives
+``prefill_row`` / ``begin_prefill`` / ``step`` / ``step_n`` / ``snapshot`` /
+``release_rows``), with the KV cache in a global block pool:
+
+- ``(L, NB, BS, Nkv*hd)`` pools (int8 with ``(L, NB, BS, Nkv)`` f32 scales
+  at ``kv_quant="int8"``) and a host free-list allocator whose block 0 is the
+  dummy target of unused table entries and parked rows: it is never handed
+  out;
+- per-row block tables and context lengths on the host, copied into fresh
+  device tensors at every step (the host mutates its arrays between steps);
+- every decode step runs kernel B4 (``ops.cuda.paged_attention``) once per
+  layer: the new token's K/V are appended to the pool and attended over in
+  one launch;
+- a prefill runs the text tower over a contiguous scratch cache (kernel B2)
+  and scatters the prompt's blocks into the pool; prompts are RIGHT-padded to
+  a bucket, so the real tokens sit in slots 0..S-1.
+
+A row costs ceil(len / BS) blocks, so the pool admits requests by tokens,
+not by rows x max_seq_len.  ``step_n`` is a Python loop of steps that stops
+when a row finishes (the JAX package's fused device loops and their flat /
+nested choice are TPU workarounds, not ported).  Speculative decoding
+(``spec_k > 0``) and meshes are not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ..core.config import VisualCLAConfig
+from ..models import llama, visualcla
+from ..ops.cuda.paged_attention import paged_append_attention
+from ..ops.quantization import quantize_kv
+from ..ops.rope import apply_rope, rope_table
+from .generate import pick_bucket
+from .sampling import SamplingConfig, rowwise_flags, sample_step_rowwise
+from .server import _check_serving_sampling, knob_kwargs, sampling_knobs
+
+
+def init_pools(cfg, num_blocks: int, block_size: int, dtype=torch.bfloat16,
+               kv_quant: str = "none", *, device=None):
+    """-> (k_pool, v_pool, k_scales | None, v_scales | None): zeroed pools
+    (L, NB, BS, Nkv*hd) in ``dtype``, or int8 with scales that start at one."""
+    L, Nkv, hd = cfg.num_hidden_layers, cfg.num_key_value_heads, cfg.head_dim
+    shape = (L, num_blocks, block_size, Nkv * hd)
+    if kv_quant == "int8":
+        sshape = (L, num_blocks, block_size, Nkv)
+        return (torch.zeros(shape, dtype=torch.int8, device=device),
+                torch.zeros(shape, dtype=torch.int8, device=device),
+                torch.ones(sshape, dtype=torch.float32, device=device),
+                torch.ones(sshape, dtype=torch.float32, device=device))
+    if kv_quant != "none":
+        raise ValueError(f"kv_quant must be 'none' or 'int8', got {kv_quant!r}")
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device), None, None)
+
+
+def paged_layer_step(layer: llama.DecoderLayer, h, cos, sin, state: "PagedState",
+                     tables, lens, blk, off, l: int):
+    """One decoder layer over the pool for one new token a row: qkv -> rope
+    -> (int8 pool: quantize K and V) -> B4 (append + attention) -> o_proj ->
+    MLP.  The pools are updated in place."""
+    B = h.shape[0]
+    cfg = layer.cfg
+    N, Nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    x = layer.input_norm(h)
+    q = layer.q_proj(x).reshape(B, 1, N, hd)
+    k = layer.k_proj(x).reshape(B, 1, Nkv, hd)
+    v = layer.v_proj(x).reshape(B, 1, Nkv, hd)
+    q, k = apply_rope(q, k, cos, sin)
+    if state.k_scales is not None:  # K and V quantized per token and head, together
+        (kq, vq), (ksc, vsc) = (t.unbind(0) for t in quantize_kv(torch.stack((k[:, 0], v[:, 0]))))
+        attn = paged_append_attention(q[:, 0], kq, vq, state.k_pool, state.v_pool, tables,
+                                      lens, blk, off, l, ksc, vsc, state.k_scales,
+                                      state.v_scales)
+    else:
+        dt = state.k_pool.dtype
+        attn = paged_append_attention(q[:, 0], k[:, 0].to(dt), v[:, 0].to(dt), state.k_pool,
+                                      state.v_pool, tables, lens, blk, off, l)
+    h = h + layer.o_proj(attn.reshape(B, 1, N * hd))
+    x2 = layer.post_norm(h)
+    return h + layer.down_proj(layer.act(layer.gate_proj(x2)) * layer.up_proj(x2))
+
+
+def paged_decode_forward(text: llama.Llama, embeds, positions, state: "PagedState",
+                         tables, blk, off, lens):
+    """One decode step over the pool: embeds (B, 1, H), rope positions (B,),
+    ``lens`` (B,) INCLUDING the new token.  -> final-normed hidden (B, 1, H)."""
+    cos, sin = rope_table(positions[:, None], text.cfg.head_dim, text.cfg.rope_theta)
+    h = embeds
+    for l, layer in enumerate(text.layers):
+        h = paged_layer_step(layer, h, cos, sin, state, tables, lens, blk, off, l)
+    return text.final_norm(h)
+
+
+@dataclasses.dataclass
+class PagedState:
+    """The pool's device state (every tensor has the pool's rows first but
+    the pools).  The speculative token history of the JAX package's state
+    (``all_ids``) comes with speculative decoding (ROADMAP, open item 5)."""
+
+    k_pool: torch.Tensor  # (L, NB, BS, Nkv*hd)
+    v_pool: torch.Tensor
+    k_scales: Optional[torch.Tensor]  # (L, NB, BS, Nkv) f32 at kv_quant="int8"
+    v_scales: Optional[torch.Tensor]
+    last_token: torch.Tensor  # (B,) int64
+    positions: torch.Tensor  # (B,) next rope position
+    gen_ids: torch.Tensor  # (B, T)
+    gen_len: torch.Tensor  # (B,)
+    max_len: torch.Tensor  # (B,) per-request max_new_tokens
+    active: torch.Tensor  # (B,) bool
+    finished: torch.Tensor  # (B,) bool: hit EOS or a limit, awaiting collection
+    mu: torch.Tensor  # (B,) f32 mirostat state
+    knobs: torch.Tensor  # (B, 11) f32 per-request knobs (server.sampling_knobs)
+    generator: torch.Generator
+
+
+class PagedServingEngine:
+    """Block-paged pool engine for one model on one device; duck-type
+    compatible with ``server.Scheduler``."""
+
+    def __init__(
+        self,
+        model: visualcla.VisualCLAModel,
+        cfg: VisualCLAConfig,
+        *,
+        eos_token_id: int,
+        pad_token_id: int,
+        pool_size: int = 8,  # concurrent rows
+        block_size: int = 64,
+        num_blocks: int = 256,  # KV budget: num_blocks * block_size tokens
+        max_seq_len: int = 2048,
+        max_new_tokens_cap: int = 1024,
+        prompt_buckets=(128, 256, 512, 1024),
+        sampling: Optional[SamplingConfig] = None,
+        kv_quant: str = "none",  # "int8": halve the pool's bytes (per-token scales)
+        seed: int = 0,
+        mesh=None,
+        spec_k: int = 0,
+    ):
+        if mesh is not None:
+            raise NotImplementedError(
+                "a paged pool over a multi-device mesh is not ported yet "
+                "(ROADMAP, open item 11: multi-device)")
+        if spec_k > 0:
+            raise NotImplementedError(
+                "speculative decoding in the paged pool is not ported yet "
+                "(ROADMAP, open item 5: speculative decoding)")
+        self.model = model
+        self.cfg = cfg
+        self.kv_quant = kv_quant
+        self.eos = eos_token_id
+        self.pad = pad_token_id
+        self.B = pool_size
+        self.BS = block_size
+        self.NB = num_blocks
+        self.Smax = max_seq_len
+        self.T = max_new_tokens_cap
+        self.max_blocks = (max_seq_len + block_size - 1) // block_size
+        self.prompt_buckets = tuple(b for b in prompt_buckets if b <= max_seq_len)
+        bad = [b for b in self.prompt_buckets if b % block_size]
+        if bad:
+            raise ValueError(f"prompt buckets {bad} are not multiples of "
+                             f"block_size={block_size} (prefill scatters whole blocks)")
+        self.sampling = _check_serving_sampling(sampling or SamplingConfig())
+        p = model.text.final_norm.weight  # a float leaf at every weight tier
+        self.device, self.dtype = p.device, p.dtype
+        self.decode_steps = 0  # decode steps run (each launches B4 once per layer)
+
+        # host allocator: block 0 is the dummy target for unused table slots
+        self._free: List[int] = list(range(num_blocks - 1, 0, -1))
+        self.tables = np.zeros((self.B, self.max_blocks), np.int32)
+        self.row_blocks: List[List[int]] = [[] for _ in range(self.B)]
+        self.ctx_len = np.zeros((self.B,), np.int32)
+        # host mirrors: active is host-driven; finished lags one snapshot,
+        # which only delays parking a finished row by one harmless step
+        self._host_active = np.zeros((self.B,), bool)
+        self._host_finished = np.zeros((self.B,), bool)
+        default_knobs = sampling_knobs(self.sampling, None)
+        self._host_knobs = np.tile(default_knobs, (self.B, 1))
+
+        dev, B, T = self.device, self.B, self.T
+        k_pool, v_pool, k_scales, v_scales = init_pools(
+            cfg.text_config, num_blocks, block_size, self.dtype, kv_quant, device=dev)
+        self._state = PagedState(
+            k_pool=k_pool, v_pool=v_pool, k_scales=k_scales, v_scales=v_scales,
+            last_token=torch.zeros(B, dtype=torch.int64, device=dev),
+            positions=torch.zeros(B, dtype=torch.int64, device=dev),
+            gen_ids=torch.zeros(B, T, dtype=torch.int64, device=dev),
+            gen_len=torch.zeros(B, dtype=torch.int64, device=dev),
+            max_len=torch.zeros(B, dtype=torch.int64, device=dev),
+            active=torch.zeros(B, dtype=torch.bool, device=dev),
+            finished=torch.zeros(B, dtype=torch.bool, device=dev),
+            mu=torch.full((B,), 2.0 * self.sampling.mirostat_tau, device=dev),
+            knobs=torch.as_tensor(self._host_knobs, device=dev),
+            generator=torch.Generator(device=dev).manual_seed(seed),
+        )
+
+    def pool_bytes(self) -> int:
+        """Device bytes of the K/V pools and their scales."""
+        s = self._state
+        return sum(t.numel() * t.element_size()
+                   for t in (s.k_pool, s.v_pool, s.k_scales, s.v_scales) if t is not None)
+
+    # -- allocator -------------------------------------------------------------
+
+    def can_admit(self, prompt_len: int) -> bool:
+        """Worst-case block need for this prompt (prefill_row's allocation,
+        bucket padding included) against the free pool."""
+        try:
+            L = self.bucket_len(prompt_len)
+        except ValueError:
+            return False  # longer than the largest bucket: never admissible
+        nb_prompt = (L + self.BS - 1) // self.BS
+        nb_total = (prompt_len + self.T + 1 + self.BS - 1) // self.BS
+        # decode stops at Smax (hit_cap), so no row uses more blocks
+        need = min(max(nb_total, nb_prompt), self.max_blocks)
+        return len(self._free) >= need
+
+    def _alloc_blocks(self, row: int, n: int) -> List[int]:
+        if len(self._free) < n:
+            raise RuntimeError("KV block pool exhausted")
+        blocks = [self._free.pop() for _ in range(n)]
+        self.row_blocks[row].extend(blocks)
+        tb = self.row_blocks[row]
+        self.tables[row, :] = 0
+        self.tables[row, :len(tb)] = tb
+        return blocks
+
+    def _free_row(self, row: int) -> None:
+        self._free.extend(self.row_blocks[row])
+        self.row_blocks[row] = []
+        self.tables[row, :] = 0
+        self.ctx_len[row] = 0
+
+    def bucket_len(self, n: int) -> int:
+        try:
+            return pick_bucket(self.prompt_buckets, n)
+        except ValueError:
+            # past the buckets: a block-size multiple up to Smax (decode
+            # stops at Smax via hit_cap)
+            L = -(-n // self.BS) * self.BS
+            if L <= self.Smax:
+                return L
+            raise
+
+    # -- admission -------------------------------------------------------------
+
+    def _prepare_admission(self, row: int, input_ids, img_start_pos, pixel_values,
+                           max_new_tokens: int):
+        """Shared one-shot / chunked admission: RIGHT-pad to the bucket (slots
+        0..S-1 hold the prompt), normalize the image marker, reserve every
+        block the request can touch.
+        -> (ids, mask, img_pos, pixel_values, blocks, nb_prompt, S, L)."""
+        input_ids = np.asarray(input_ids).reshape(-1)
+        S = len(input_ids)
+        L = self.bucket_len(S)
+        ids = np.full((1, L), self.pad, np.int64)
+        mask = np.zeros((1, L), np.int64)
+        ids[0, :S] = input_ids
+        mask[0, :S] = 1
+        if img_start_pos is not None and np.ndim(img_start_pos) > 0:
+            # multi-image admission: (K,) markers with (1, K, 3, H, W) pixels
+            img_pos = np.asarray(img_start_pos, np.int64).reshape(1, -1)
+        else:
+            img_pos = np.asarray([-1 if img_start_pos is None or img_start_pos < 0
+                                  else img_start_pos], np.int64)
+        visualcla.check_img_start_pos(img_pos, self.cfg.num_image_tokens, L)
+        if pixel_values is not None:
+            pixel_values = torch.as_tensor(np.asarray(pixel_values)).to(self.device, self.dtype)
+            if img_pos.ndim == 2 and pixel_values.dim() == 4:
+                pixel_values = pixel_values[None]  # (1, K, 3, H, W)
+        self._free_row(row)
+        # blocks for the whole padded prompt + headroom for decode, never
+        # past Smax or the table's max_blocks entries
+        nb_prompt = -(-L // self.BS)
+        nb_total = (S + min(max_new_tokens, self.T) + 1 + self.BS - 1) // self.BS
+        nb_total = min(max(nb_total, nb_prompt), self.max_blocks)
+        blocks = self._alloc_blocks(row, nb_total)
+        return ids, mask, img_pos, pixel_values, blocks, nb_prompt, S, L
+
+    def _scratch(self, L: int) -> dict:
+        return llama.init_kv_cache(self.cfg.text_config, 1, L, self.dtype, device=self.device)
+
+    def _scatter_scratch(self, scratch: dict, block_ids) -> None:
+        """Copy a contiguous scratch cache's prompt K/V (L, 1, Nkv, S, hd)
+        into the pool blocks ``block_ids`` (int8 pool: quantized per token and
+        head on the way)."""
+        s = self._state
+        Lyr, _, Nkv, S, hd = scratch["k"].shape
+        nb = S // self.BS
+        idx = torch.as_tensor(np.asarray(block_ids, np.int64), device=self.device)
+
+        def blocks(t):  # (L, 1, Nkv, S, hd) -> (L, nb, BS, Nkv, hd)
+            return t[:, 0].transpose(1, 2).reshape(Lyr, nb, self.BS, Nkv, hd)
+
+        kb, vb = blocks(scratch["k"]), blocks(scratch["v"])
+        if s.k_scales is not None:
+            (kb, vb), (ks, vs) = (t.unbind(0) for t in quantize_kv(torch.stack((kb, vb))))
+            s.k_scales[:, idx] = ks
+            s.v_scales[:, idx] = vs
+        s.k_pool[:, idx] = kb.reshape(Lyr, nb, self.BS, Nkv * hd).to(s.k_pool.dtype)
+        s.v_pool[:, idx] = vb.reshape(Lyr, nb, self.BS, Nkv * hd).to(s.v_pool.dtype)
+
+    def _admit_row(self, row: int, hidden_last, last_idx: int, max_new_tokens: int,
+                   knobs: np.ndarray) -> None:
+        """Sample the first token from the last REAL prompt position's hidden
+        and activate the row (shared by the one-shot and chunked prefills)."""
+        s = self._state
+        logits = self.model.text.logits(hidden_last)[:, 0]  # (1, V)
+        kn = torch.as_tensor(knobs, device=self.device)[None]  # (1, 11)
+        mu0 = 2.0 * kn[:, 7]
+        token, mu_row = sample_step_rowwise(
+            logits, torch.zeros(1, self.T, dtype=torch.int64, device=self.device),
+            torch.zeros(1, dtype=torch.int64, device=self.device), s.generator,
+            self.sampling, **knob_kwargs(kn, mu0), flags=_flags(knobs[None]))
+        s.last_token[row] = token[0]
+        s.positions[row] = last_idx + 1
+        s.gen_ids[row] = 0
+        s.gen_ids[row, 0] = token[0]
+        s.gen_len[row] = 1
+        s.max_len[row] = max_new_tokens
+        s.active[row] = True
+        # the admission commits token 1: a max_new_tokens=1 request is complete
+        s.finished[row] = (token[0] == self.eos) | (max_new_tokens <= 1)
+        s.mu[row] = mu_row[0]
+        s.knobs[row] = kn[0]
+        self._host_knobs[row] = knobs
+        self.ctx_len[row] = last_idx + 1
+        self._host_active[row] = True
+        self._host_finished[row] = False
+
+    @torch.no_grad()
+    def prefill_row(self, row: int, input_ids: np.ndarray, pixel_values, img_start_pos,
+                    max_new_tokens: int, overrides: Optional[dict] = None) -> None:
+        """One-shot admission: the whole padded prompt through the text tower
+        into a scratch cache, its blocks into the pool, the first token."""
+        ids, mask, img_pos, pixel_values, blocks, nb_prompt, S, L = (
+            self._prepare_admission(row, input_ids, img_start_pos, pixel_values,
+                                    max_new_tokens))
+        try:
+            knobs = sampling_knobs(self.sampling, overrides)
+            dev = self.device
+            embeds = visualcla.multimodal_embeds(
+                self.model, self.cfg, torch.as_tensor(ids, device=dev), img_pos, pixel_values)
+            mask_t = torch.as_tensor(mask, device=dev)
+            positions = (mask_t.cumsum(-1) - 1).clamp(min=0)
+            scratch = self._scratch(L)
+            hidden, scratch = self.model.text(embeds, positions, scratch, mask_t.bool(), 0)
+            self._scatter_scratch(scratch, blocks[:nb_prompt])
+            # prompts are RIGHT-padded: sample from the last REAL token
+            self._admit_row(row, hidden[:, S - 1:S], S - 1, min(max_new_tokens, self.T),
+                            knobs)
+        except Exception:
+            # roll the allocator back: no leaked blocks, no dead active row
+            self._free_row(row)
+            self._host_active[row] = False
+            raise
+
+    def begin_prefill(self, row: int, input_ids: np.ndarray, pixel_values, img_start_pos,
+                      max_new_tokens: int, overrides: Optional[dict] = None,
+                      chunk: int = 256) -> "PendingPrefill":
+        """Start a CHUNKED admission: the prompt goes through the text tower
+        ``chunk`` tokens a call of ``step()`` on the returned object, so the
+        scheduler can run decode steps for the other rows between chunks.
+        Same tokens as ``prefill_row``; blocks are reserved up front and
+        ``abort()`` returns them."""
+        return PendingPrefill(self, row, input_ids, pixel_values, img_start_pos,
+                              max_new_tokens, overrides, chunk)
+
+    # -- decode ----------------------------------------------------------------
+
+    def decode_inputs(self, lens_host: np.ndarray):
+        """The device inputs of a decode step appending at ``lens_host`` - 1:
+        (tables, lens, run, blk, off, lens_attn).  Rows that do not run
+        append into dummy block 0 and attend over length 1."""
+        s = self._state
+        dev = self.device
+        # fresh device copies: the host mutates tables / ctx_len later
+        tables = torch.tensor(self.tables, device=dev)
+        lens = torch.tensor(lens_host, dtype=torch.int64, device=dev)
+        run = s.active & ~s.finished
+        new_slot = lens - 1
+        blk = torch.gather(tables, 1, (new_slot // self.BS).clamp(min=0)[:, None])[:, 0]
+        blk = torch.where(run, blk, torch.zeros_like(blk))
+        off = new_slot % self.BS
+        return tables, lens, run, blk, off, torch.where(run, lens, torch.ones_like(lens))
+
+    def _decode(self, lens_host: np.ndarray) -> None:
+        """One decode step for every row; ``lens_host`` includes the new
+        token; the outputs of rows that do not run are dropped."""
+        s = self._state
+        tables, lens, run, blk, off, lens_attn = self.decode_inputs(lens_host)
+        text = self.model.text
+        hidden = paged_decode_forward(text, text.embed(s.last_token[:, None]), s.positions,
+                                      s, tables, blk, off, lens_attn)
+        self._finish_step(run, lens, text.logits(hidden)[:, 0])
+        self.decode_steps += 1
+
+    def _finish_step(self, run, lens, step_logits) -> None:
+        s = self._state
+        B = self.B
+        rows = torch.arange(B, device=self.device)
+        token, new_mu = sample_step_rowwise(
+            step_logits, s.gen_ids, s.gen_len, s.generator, self.sampling,
+            **knob_kwargs(s.knobs, s.mu), flags=_flags(self._host_knobs[self._host_active]))
+        s.mu = torch.where(run, new_mu, s.mu)
+        token = torch.where(run, token, torch.full_like(token, self.pad))
+        idx = s.gen_len.clamp(max=self.T - 1)
+        s.gen_ids[rows, idx] = torch.where(run, token, s.gen_ids[rows, idx])
+        s.gen_len = s.gen_len + run.long()
+        hit_eos = run & (token == self.eos)
+        hit_cap = run & ((s.gen_len >= s.max_len) | (lens + 1 >= self.Smax))
+        s.last_token = torch.where(run, token, s.last_token)
+        s.positions = s.positions + run.long()
+        s.finished = s.finished | hit_eos | hit_cap
+
+    @torch.no_grad()
+    def step(self) -> None:
+        run = self._host_active & ~self._host_finished
+        self.ctx_len[run] += 1  # the token being appended this step
+        self._decode(self.ctx_len)
+
+    @torch.no_grad()
+    def step_n(self, n: int) -> None:
+        """Up to ``n`` decode steps; stops early when a row finishes (so its
+        retirement and the next admission are not delayed) or none runs.
+        Prefill reserved every block a request can touch, so the steps need
+        no allocator call.  One device-to-host copy of the run flags a step
+        keeps the host context lengths exact."""
+        s = self._state
+        finished0 = s.finished.clone()
+        for _ in range(n):
+            flags = torch.stack((s.active & ~s.finished, s.finished & ~finished0)).cpu().numpy()
+            run, newly_done = flags[0], flags[1]
+            if not run.any() or newly_done.any():
+                break
+            self.ctx_len[run] += 1
+            self._decode(self.ctx_len)
+
+    def snapshot(self) -> dict:
+        """The rows' control fields in one device-to-host copy."""
+        s = self._state
+        packed = torch.cat([s.last_token[:, None], s.gen_len[:, None], s.active[:, None].long(),
+                            s.finished[:, None].long(), s.gen_ids], dim=1).cpu().numpy()
+        snap = {"last_token": packed[:, 0], "gen_len": packed[:, 1],
+                "active": packed[:, 2].astype(bool), "finished": packed[:, 3].astype(bool),
+                "gen_ids": packed[:, 4:]}
+        self._host_finished = snap["finished"].copy()
+        return snap
+
+    def release_row(self, row: int) -> None:
+        self.release_rows([row])
+
+    def release_rows(self, rows) -> None:
+        """Deactivate finished rows without a device fetch and return their
+        blocks to the allocator."""
+        rows = list(rows)
+        idx = torch.as_tensor(rows, dtype=torch.int64, device=self.device)
+        self._state.active[idx] = False
+        self._state.finished[idx] = False
+        for row in rows:
+            self._host_active[row] = False
+            self._host_finished[row] = False
+            self._free_row(row)
+
+    def collect_row(self, row: int) -> np.ndarray:
+        gen_len = int(self._state.gen_len[row])
+        ids = self._state.gen_ids[row, :gen_len].cpu().numpy()
+        self.release_row(row)
+        return ids
+
+    def num_active(self) -> int:
+        return int(self._state.active.sum())
+
+
+def _flags(knobs: np.ndarray) -> dict:
+    """``rowwise_flags`` from host knob rows (B', 11), see server.sampling_knobs."""
+    return rowwise_flags(top_p=knobs[:, 1], repetition_penalty=knobs[:, 2],
+                         do_sample=knobs[:, 3] > 0.5, tfs=knobs[:, 4], top_a=knobs[:, 5],
+                         mirostat=knobs[:, 6] > 1.5, top_k=knobs[:, 9], ngram=knobs[:, 10])
+
+
+class PendingPrefill:
+    """Host state machine for one chunked admission (see ``begin_prefill``).
+
+    Each ``step()`` runs one bounded stage: 0. the image encode and splice
+    over the whole padded prompt; 1..n. a text-tower chunk into the scratch
+    cache; the last chunk's call also scatters the scratch into the pool,
+    samples the first token and activates the row.  The row stays parked
+    (inactive) until then, so decode, snapshot and release never see a
+    half-admitted row."""
+
+    def __init__(self, eng: PagedServingEngine, row, input_ids, pixel_values, img_start_pos,
+                 max_new_tokens, overrides, chunk):
+        self.eng = eng
+        self.row = int(row)
+        (ids, mask, img_pos, pixel_values, self.blocks, self.nb_prompt, S, L) = (
+            eng._prepare_admission(row, input_ids, img_start_pos, pixel_values,
+                                   max_new_tokens))
+        BS = eng.BS
+        chunk = max(BS, (int(chunk) // BS) * BS)
+        chunk = min(chunk, L)  # a window must fit the padded bucket
+        # chunk START slots: every window is ``chunk`` wide, and the last one
+        # shifts LEFT to end at the bucket's edge; it re-forwards slots done
+        # already, whose recomputed K/V are the same values, and every query
+        # still sees exactly the kv slots up to its own
+        n_chunks = -(-S // chunk)
+        self.starts = [min(i * chunk, L - chunk) for i in range(n_chunks)]
+        self.n_chunks = n_chunks
+        self.S, self.L, self.chunk = S, L, chunk
+        self.i = 0
+        self.ids, self.mask, self.img_pos = ids, mask, img_pos
+        self.pixel_values = pixel_values
+        self.max_new = min(max_new_tokens, eng.T)
+        self.knobs = sampling_knobs(eng.sampling, overrides)
+        self.done = False
+        self._embeds = self._positions = self._mask = self._scratch = None
+
+    @torch.no_grad()
+    def step(self) -> bool:
+        """Run the next stage; True once the row is live."""
+        eng = self.eng
+        if self.done:
+            return True
+        try:
+            dev = eng.device
+            if self._embeds is None:
+                self._embeds = visualcla.multimodal_embeds(
+                    eng.model, eng.cfg, torch.as_tensor(self.ids, device=dev), self.img_pos,
+                    self.pixel_values)
+                self._mask = torch.as_tensor(self.mask, device=dev).bool()
+                self._positions = (self._mask.long().cumsum(-1) - 1).clamp(min=0)
+                self._scratch = eng._scratch(self.L)
+                return False
+            c0, c1 = self.starts[self.i], self.starts[self.i] + self.chunk
+            # real slots before the chunk's end: a query at slot j sees the
+            # valid kv slots <= j, exactly the one-shot prefill's set
+            kv_valid = self._mask & (torch.arange(self.L, device=dev) < c1)[None]
+            hidden, self._scratch = eng.model.text(
+                self._embeds[:, c0:c1], self._positions[:, c0:c1], self._scratch,
+                kv_valid, c0)
+            self.i += 1
+            if self.i < self.n_chunks:
+                return False
+            eng._scatter_scratch(self._scratch, self.blocks[:self.nb_prompt])
+            j = self.S - 1 - self.starts[-1]  # the last real token, in the last chunk
+            eng._admit_row(self.row, hidden[:, j:j + 1], self.S - 1, self.max_new, self.knobs)
+            self.done = True
+            self._embeds = self._scratch = None
+            return True
+        except Exception:
+            self.abort()
+            raise
+
+    def abort(self) -> None:
+        """Return the reserved blocks (a failed or cancelled admission)."""
+        if not self.done:
+            eng = self.eng
+            eng._free_row(self.row)
+            eng._host_active[self.row] = False
+            self._embeds = self._scratch = None
+            self.done = True

@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from visualcla_tpu.core.config import LlamaConfig
+from ..core.config import LlamaConfig
 
 from ..ops.activations import ACT2FN
 from ..ops.attention import cached_attention

@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from visualcla_tpu.core.config import ResamplerConfig
+from ..core.config import ResamplerConfig
 
 from ..ops.activations import ACT2FN
 from ..ops.attention import full_attention

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from visualcla_tpu.core.config import VisualCLAConfig
+from ..core.config import VisualCLAConfig
 
 from ..ops.linear import Int8Table, Linear, quantize_linear
 from .clip_vit import CLIPVisionTower
