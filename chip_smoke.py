@@ -15,9 +15,13 @@ Phases, one line of findings each:
                layer at the main path's token counts, and at the decode /
                prefill crossover; B4 (paged append attention) with bf16 and
                int8 pools at the 7B heads, B=4 ragged (a parked row, block
-               edges), GQA and B=8 x 2048, pools bitwise equal; each with its
-               bound and, where one PyTorch call computes the same function,
-               that call's time;
+               edges), GQA and B=8 x 2048, pools bitwise equal; B5 (paged
+               verify attention, the speculative step) at Sq 5 and 9 on the
+               same rows (an append across a block edge), GQA and B=8 x 2048,
+               running rows' outputs and pools (outside the dummy block 0)
+               checked; B6 (paged decode attention, f32) at B4's shapes; B2 at
+               Sq 9 with per-row write slots; each with its bound and, where
+               one PyTorch call computes the same function, that call's time;
   4. slice   — VisualCLA-7B at full width on seeded random bf16 weights made
                on the card: prefill logits through the kernels against the
                plain attention versions (loosely in bf16, tightly on an fp32
@@ -25,13 +29,18 @@ Phases, one line of findings each:
                (same ids), the default sampled ``chat``; a B=2 ``generate``
                of uneven prompts whose rows equal their single-row runs (in
                fp32: bf16 GEMMs round by batch shape); the launch counters
-               of the greedy chat alone; TTFT and B=1 decode tokens/s;
+               of the greedy chat alone; TTFT and B=1 decode tokens/s; a
+               greedy speculative chat of 64 tokens on a prompt that invites
+               copying (B2 once a layer a verify chunk, B1 never), its
+               stream's ids equal to its ``generate``'s, tokens a chunk,
+               acceptance, TTFT and decode rate;
   5. int4    — the same model made anew, its text tower quantized on the card
                to int4 (``quantize_text_tower_``), with the int8 KV cache:
                prefill logits through the kernels against the plain versions
                of B3 and the int8-K/V attention; greedy ``chat`` with exact
                launch counts, ``chat_in_stream`` (same ids as ``generate``),
-               TTFT and B=1 decode tokens/s;
+               TTFT and B=1 decode tokens/s; a greedy speculative chat (B3 and
+               the int8-K/V B2 at K+1 tokens), exact launch counts;
   6. int8    — the same at the int8 weight tier (bf16 cache): one short
                greedy chat, finite prefill logits, its times;
   7. serve   — paged serving at full width: ``PagedServingEngine`` (4 rows,
@@ -42,10 +51,17 @@ Phases, one line of findings each:
                a layer per decode step and B2 once a layer per prefill or
                chunk; decode logits through B4 against its plain version;
                aggregate decode rate and device time a step with 4 rows busy;
-               an fp32 pool of 3 equal to single-stream generation token for
-               token;
+               then the speculative pool (``spec_k=4``, same rows): 6 requests
+               (4 greedy, 2 of them repetitive; default sampled, TFS) complete
+               under the Scheduler with speculative dispatches, B5 launches
+               once a layer a speculative iteration, B4 once a layer a plain
+               step; its aggregate rate and tokens a speculative step with 4
+               rows busy; an fp32 pool of 3 equal to single-stream generation
+               token for token, and so are fp32 speculative ``generate`` and
+               an fp32 speculative pool of 3;
   8. serve int4 — the int4 tier with the int8 KV pool: 3 requests, exact
-               launch counts of B4's int8 form, finite decode logits;
+               launch counts of B4's int8 form, finite decode logits; then 2
+               greedy requests on a speculative int8 pool (B5's int8 form);
   9. the kernel summary as one JSON line, then the result line.
 Exits non-zero if any phase fails.  Needs no network and no JAX.
 """
@@ -68,6 +84,7 @@ from http.server import ThreadingHTTPServer
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.profiler import ProfilerActivity, profile
 
 from visualcla_tpu_torch.core.config import visualcla_config_for_size
 from visualcla_tpu_torch.processor import ImageProcessor
@@ -79,7 +96,8 @@ from visualcla_tpu_torch.engine import server as server_mod
 from visualcla_tpu_torch.engine.generate import PROMPT_BUCKETS, pick_bucket
 from visualcla_tpu_torch.engine.sampling import SamplingConfig
 from visualcla_tpu_torch.fixtures import (PROMPT, SEED, make_tokenizer, paged_case,
-                                          plain_kernels, random_image)
+                                          paged_decode_args, paged_verify_case, plain_kernels,
+                                          random_image)
 from visualcla_tpu_torch.models.visualcla import (VisualCLAModel, init_random_,
                                                   quantize_text_tower_)
 from visualcla_tpu_torch.ops.cuda import build
@@ -105,7 +123,16 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "int4_matmul_prefill": (INT4_SOURCE, "visualcla_tpu/ops/pallas/int4_matmul.py:172"),
     "paged_append": (PAGED_SOURCE, "visualcla_tpu/ops/pallas/paged_attention.py:261"),
     "paged_append_kv8": (PAGED_SOURCE, "visualcla_tpu/ops/pallas/paged_attention.py:261"),
+    "paged_verify": (PAGED_SOURCE, "visualcla_tpu/ops/pallas/paged_attention.py:589"),
+    "paged_verify_kv8": (PAGED_SOURCE, "visualcla_tpu/ops/pallas/paged_attention.py:589"),
+    "paged_decode": (PAGED_SOURCE, "visualcla_tpu/ops/pallas/paged_attention.py:56"),
+    "paged_decode_kv8": (PAGED_SOURCE, "visualcla_tpu/ops/pallas/paged_attention.py:56"),
 }
+# B6 has no caller in either package: its launches are an op-level pass over
+# the 32 layers in phase 3, and its summary row says so
+B6_NOTE = ("launches: one op-level pass over the 32 layers at the B=4 shape (no path of "
+           "the package calls B6)")
+SPEC_K = 4  # the serve phases' speculative pools: B5 at Sq = SPEC_K + 1
 # the card's published peaks (H100 SXM data sheet): the least time a call can
 # take is the larger of its bytes over the memory rate and its operations
 # over the bf16 tensor-core rate
@@ -309,9 +336,13 @@ def phase_kernels(prompt_bucket: int) -> dict:
     main.update(b3_main)
     print(b3_line, flush=True)
     main.update(_b4_cases(worst, failures))
+    main.update(_b5_cases(worst, failures))
+    b6_main, b6_launches = _b6_cases(worst, failures)
+    main.update(b6_main)
+    _b2_verify_case(gen, worst, failures)
     if failures:
         raise RuntimeError(f"kernels disagree with their plain versions: {failures}")
-    return {"worst": worst, "main": main}
+    return {"worst": worst, "main": main, "b6_launches": b6_launches}
 
 
 def _flash_bound_and_library(kind, q, kc, vc, valid, slot, sc):
@@ -361,6 +392,24 @@ def _b4_case_bytes(case) -> tuple:
 POOL_KEYS = ("k_pool", "v_pool", "k_scales", "v_scales")
 
 
+def _paged_check(wrapper, plain, case, rows, pool_from=0):
+    """A paged kernel against its plain version on a copy of the same inputs:
+    (max abs error over ``rows``, whether those rows are within the
+    tolerance and finite and the pools (and scales) from block ``pool_from``
+    on bitwise equal)."""
+    ref_case = {k: (v.clone() if k in POOL_KEYS and v is not None else v)
+                for k, v in case.items()}
+    out = wrapper(**case)
+    torch.cuda.synchronize()
+    ref = plain(**ref_case)
+    got, want = out[rows].float(), ref[rows].float()
+    err = (got - want).abs()
+    ok = (bool((err <= ATOL + RTOL * want.abs()).all()) and bool(torch.isfinite(got).all())
+          and all(torch.equal(case[k][:, pool_from:], ref_case[k][:, pool_from:])
+                  for k in POOL_KEYS if case.get(k) is not None))
+    return err.max().item(), ok
+
+
 def _b4_cases(worst, failures) -> dict:
     """B4 against its plain version on the card, float (bf16) and int8
     pools, 7B heads (hd 128, BS 64, L 32, layer 7): B=4 rows of ragged
@@ -376,17 +425,8 @@ def _b4_cases(worst, failures) -> dict:
                                 ("B8x2048", [2047] * 8, 32)):
             case = paged_case(ctx, 32, Nkv, L=32, layer=7, dtype=torch.bfloat16, kv_int8=kv8,
                               device="cuda", seed=SEED + len(cases))
-            ref_case = {k: (v.clone() if k in POOL_KEYS and v is not None else v)
-                        for k, v in case.items()}
-            out = pa.paged_append_attention(**case)
-            torch.cuda.synchronize()
-            ref = pa.paged_append_attention_ref(**ref_case)
-            err_t = (out.float() - ref.float()).abs()
-            err = err_t.max().item()
-            ok = (bool((err_t <= ATOL + RTOL * ref.float().abs()).all())
-                  and bool(torch.isfinite(out).all())
-                  and all(torch.equal(case[k], ref_case[k]) for k in POOL_KEYS
-                          if case.get(k) is not None))
+            err, ok = _paged_check(pa.paged_append_attention, pa.paged_append_attention_ref,
+                                   case, slice(None))
             worst[name] = max(worst[name], err)
             L = case["k_pool"].shape[0]
             ms = device_ms(lambda i: pa.paged_append_attention(**{**case, "layer": i % L}),
@@ -402,12 +442,157 @@ def _b4_cases(worst, failures) -> dict:
             if label == "B4 ragged":
                 main[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                               "bound_by": b_by, "library_ms": None}
-            del case, ref_case, out, ref
+            del case
             torch.cuda.empty_cache()
     print(f"[3 kernels] B4 paged append attention, hd 128 BS 64 L 32 layer 7, tol "
           f"atol=rtol={ATOL}, times over the 32 layers in turn: " + "; ".join(cases),
           flush=True)
     return main
+
+
+def _b5_case_bytes(case) -> tuple:
+    """(bytes, operations) B5 must move and do: q, every row's old context
+    (and its int8 scales) and the new K/V read once, the output and the
+    appended K/V written once; query j of a row scores lens - Sq + j + 1
+    slots."""
+    q, kp = case["q"], case["k_pool"]
+    B, Sq, N, hd = q.shape
+    Nkv = case["k_new"].shape[2]
+    base = case["lens"].long() - Sq
+    per_token = 2 * Nkv * hd * kp.element_size() + (2 * Nkv * 4 if kp.dtype == torch.int8 else 0)
+    new = nbytes(case["k_new"], case["v_new"], case.get("k_new_scales"),
+                 case.get("v_new_scales"))
+    moved = (2 * nbytes(q) + 2 * new + int(base.sum()) * per_token
+             + nbytes(case["tables"], case["lens"]))
+    pairs = int((Sq * base + Sq * (Sq + 1) // 2).sum())
+    return moved, 4 * hd * N * pairs
+
+
+def _b5_cases(worst, failures) -> dict:
+    """B5 against its plain version, bf16 and int8 pools, 7B heads (hd 128,
+    BS 64, L 32, layer 7): B=4 rows of old contexts 318/383/330 and a parked
+    row (lens Sq, zeroed table) at Sq 5 (row 0's append crosses a block edge:
+    318 % 64 = 62) and Sq 9, GQA (8 kv heads) at Sq 9, and B=8 x 2048 at Sq 9;
+    the running rows' outputs within the tolerance, the pools and scales
+    after the call bitwise equal outside the dummy block 0 (parked rows all
+    write it).  Times over the 32 layers in turn.  -> the main-path entries
+    (B=4, Sq = SPEC_K + 1, MHA: the serve phase's verify)."""
+    main, cases = {}, []
+    ragged = [318, 383, 330, -1]
+    for kv8 in (False, True):
+        name = "paged_verify_kv8" if kv8 else "paged_verify"
+        for label, ctx, Sq, Nkv in (("B4 ragged", ragged, SPEC_K + 1, 32),
+                                    ("B4 ragged", ragged, 9, 32),
+                                    ("B4 ragged GQA", ragged, 9, 8),
+                                    ("B8x2048", [2048 - 9] * 8, 9, 32)):
+            case = paged_verify_case(ctx, Sq, 32, Nkv, L=32, layer=7, dtype=torch.bfloat16,
+                                     kv_int8=kv8, device="cuda", seed=SEED + 50 + len(cases))
+            rows = [b for b, c in enumerate(ctx) if c >= 0]
+            err, ok = _paged_check(pa.paged_verify_attention, pa.paged_verify_attention_ref,
+                                   case, rows, pool_from=1)
+            worst[name] = max(worst[name], err)
+            L = case["k_pool"].shape[0]
+            ms = device_ms(lambda i: pa.paged_verify_attention(**{**case, "layer": i % L}),
+                           calls=L)
+            plain_ms = device_ms(
+                lambda i: pa.paged_verify_attention_ref(**{**case, "layer": i % L}), calls=2)
+            b_ms, b_by = bound(*_b5_case_bytes(case))
+            cases.append(f"{'int8' if kv8 else 'bf16'} {label} Sq{Sq} (N32/{Nkv}) err={err:.2e} "
+                         f"pools bitwise {'equal' if ok else 'DIFFER'} {ms * 1e3:.1f}us/plain "
+                         f"{plain_ms * 1e3:.1f}us, bound {b_ms * 1e3:.2f}us ({b_by})")
+            if not ok:
+                failures.append(name + " " + cases[-1])
+            if label == "B4 ragged" and Sq == SPEC_K + 1:
+                main[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                              "bound_by": b_by, "library_ms": None}
+            del case
+            torch.cuda.empty_cache()
+    print(f"[3 kernels] B5 paged verify attention (append of Sq tokens + causal attention), "
+          f"hd 128 BS 64 L 32 layer 7, tol atol=rtol={ATOL} on the running rows, times over "
+          f"the 32 layers in turn; no single PyTorch call appends into a block pool and "
+          f"attends, so no library time: " + "; ".join(cases), flush=True)
+    return main
+
+
+def _b6_cases(worst, failures):
+    """B6 against its f32 plain version at B4's shapes (its bf16 or int8 pool
+    layer 7 of 32, lens counting every old token; the parked row has lens 0
+    and must give zeros), then one op-level pass over the 32 layers with the
+    launch counter from zero.  -> (main-path entries at B=4 MHA, the pass's
+    launches)."""
+    main, cases, launches = {}, [], {}
+    ragged = [320, 383, 330, -1]
+    for kv8 in (False, True):
+        name = "paged_decode_kv8" if kv8 else "paged_decode"
+        for label, ctx, Nkv in (("B4 ragged", ragged, 32), ("B4 ragged GQA", ragged, 8),
+                                ("B8x2048", [2047] * 8, 32)):
+            case = paged_case(ctx, 32, Nkv, L=32, layer=7, dtype=torch.bfloat16, kv_int8=kv8,
+                              device="cuda", seed=SEED + 70 + len(cases))
+            args = paged_decode_args(case)
+            err, ok = _paged_check(pa.paged_decode_attention, pa.paged_decode_attention_ref,
+                                   args, slice(None))
+            parked = [b for b, c in enumerate(ctx) if c < 0]
+            out = pa.paged_decode_attention(**args)
+            ok = ok and bool((out[parked] == 0).all())
+            worst[name] = max(worst[name], err)
+            L = case["k_pool"].shape[0]
+            ms = device_ms(lambda i: pa.paged_decode_attention(**paged_decode_args(case, i % L)),
+                           calls=L)
+            plain_ms = device_ms(
+                lambda i: pa.paged_decode_attention_ref(**paged_decode_args(case, i % L)),
+                calls=2)
+            _, N, hd = args["q"].shape
+            kv = args["k_pool"]
+            per_token = 2 * kv[0, 0].numel() * kv.element_size() + (
+                2 * kv.shape[2] * 4 if kv8 else 0)
+            n_ctx = int(args["lens"].sum())
+            b_ms, b_by = bound(2 * nbytes(args["q"]) + n_ctx * per_token
+                               + nbytes(args["tables"], args["lens"]), 4 * hd * N * n_ctx)
+            cases.append(f"{'int8' if kv8 else 'bf16'} {label} (N32/{Nkv}) err={err:.2e} "
+                         f"{ms * 1e3:.1f}us/plain {plain_ms * 1e3:.1f}us, bound "
+                         f"{b_ms * 1e3:.2f}us ({b_by})")
+            if not ok:
+                failures.append(name + " " + cases[-1])
+            if label == "B4 ragged":
+                main[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                              "bound_by": b_by, "library_ms": None}
+                torch.cuda.synchronize()
+                pa.reset_launch_counts()
+                for layer in range(L):
+                    pa.paged_decode_attention(**paged_decode_args(case, layer))
+                torch.cuda.synchronize()
+                launches[name] = pa.LAUNCHES[name]
+            del case, args
+            torch.cuda.empty_cache()
+    print(f"[3 kernels] B6 paged decode attention (f32 arithmetic, no append), hd 128 BS 64, "
+          f"layer 7 of 32, tol atol=rtol={ATOL}, the parked row zeros, times over the 32 "
+          f"layers in turn, no library time (no single PyTorch call reads a block pool): "
+          + "; ".join(cases) + f"; op-level pass launches {launches}", flush=True)
+    return main, launches
+
+
+def _b2_verify_case(gen, worst, failures) -> None:
+    """B2 at the speculative chat's shape: Sq 9 queries a row at per-row
+    write slots 600 and 700 (B=2, ragged left padding), bf16 and int8 K/V,
+    against its plain version."""
+    cases = []
+    for kv8 in (False, True):
+        q, kc, vc, _, _ = _kernel_case("prefill", 2, 9, 32, 32, gen)
+        slot = torch.tensor([600, 700], dtype=torch.int32, device="cuda")
+        valid = torch.arange(kc.shape[3], device="cuda")[None, :] < slot[:, None].long() + 9
+        valid[0, :3], valid[1, :40] = False, False
+        sc = {}
+        if kv8:
+            kc, vc, sc = _quantized_cache(kc, vc)
+        err, ok = _against_plain("prefill", q, kc, vc, valid, slot, 1, sc)
+        name = "flash_prefill_kv8" if kv8 else "flash_prefill"
+        worst[name] = max(worst[name], err)
+        ms = device_ms(lambda i: fa.flash_prefill_stacked(q, kc, vc, valid, slot, 1, **sc))
+        cases.append(f"{'int8 K/V' if kv8 else 'bf16'} err={err:.2e} {ms * 1e3:.1f}us")
+        if not ok:
+            failures.append(name + " Sq9 per-row slots " + cases[-1])
+    print(f"[3 kernels] B2 at the speculative chunk's shape (B=2, Sq 9, write slots 600/700, "
+          f"N32, S 2048), tol atol=rtol={ATOL}: " + "; ".join(cases), flush=True)
 
 
 def _b3_weight(gen, in_dim, out):
@@ -533,6 +718,8 @@ def phase_slice(smi: str, cfg, tokenizer) -> dict:
     _check_counts(chat_counts, {"flash_prefill": L, "flash_decode": L * (n_gen - 1)})
 
     ttft, rate = _streams(bundle, image, greedy, response, enc["input_ids"], pv, ids)
+    # speculative: one prefill, then one verify chunk of K+1 tokens at a time
+    spec = _spec_chat(bundle, image, lambda chunks: {"flash_prefill": L * (1 + chunks)})
 
     # the default sampled config (temperature .5, top-k 40, top-p .9,
     # repetition penalty 1.1, no-repeat-ngram 15, up to 512 new tokens)
@@ -611,8 +798,9 @@ def phase_slice(smi: str, cfg, tokenizer) -> dict:
           f"sampled chat "
           f"{sampled_s:.2f} s; greedy chat launches {chat_counts}; TTFT {ttft * 1e3:.1f} ms (median of 3, "
           f"preprocess + encode + prefill + first token), B=1 decode {rate:.1f} tok/s; "
-          f"card {smi}", flush=True)
-    return {"launches": chat_counts, "ttft_ms": ttft * 1e3, "decode_tok_s": rate}
+          f"{_spec_line(spec)}; card {smi}", flush=True)
+    return {"launches": chat_counts, "ttft_ms": ttft * 1e3, "decode_tok_s": rate,
+            "spec": spec}
 
 
 def _random_model(cfg, bits=None):
@@ -629,12 +817,13 @@ def _random_model(cfg, bits=None):
     return model, time.perf_counter() - t0
 
 
-def _counted_chat(bundle, image, sampling):
+def _counted_chat(bundle, image, sampling, text=PROMPT, speculative=False):
     """One chat with every launch counter set to 0 just before it: (response,
     the counters read just after)."""
     fa.reset_launch_counts()
     i4.reset_launch_counts()
-    response, _ = api.chat(bundle, image, PROMPT, [], sampling, verbose=False)
+    response, _ = api.chat(bundle, image, text, [], sampling, verbose=False,
+                           speculative=speculative)
     torch.cuda.synchronize()
     return response, {**fa.LAUNCHES, **i4.LAUNCHES}
 
@@ -649,7 +838,8 @@ def _check_counts(counts, expect):
         raise RuntimeError(f"greedy chat launched {counts}, expected {want}")
 
 
-def _streams(bundle, image, greedy, response, input_ids, pv, ids):
+def _streams(bundle, image, greedy, response, input_ids, pv, ids, text=PROMPT,
+             speculative=False):
     """Three greedy ``chat_in_stream`` runs: the same text as ``chat``, the
     stream's ids equal to ``generate``'s; -> median TTFT (s), median decode
     tokens/s, from the stream's clock."""
@@ -657,18 +847,52 @@ def _streams(bundle, image, greedy, response, input_ids, pv, ids):
     for _ in range(3):
         t_call = time.perf_counter()
         stamps, final = [], ""
-        for final, _ in api.chat_in_stream(bundle, image, PROMPT, [], greedy,
-                                           verbose=False):
+        for final, _ in api.chat_in_stream(bundle, image, text, [], greedy, verbose=False,
+                                           speculative=speculative):
             stamps.append(time.perf_counter())
         ttfts.append(stamps[0] - t_call)
         if len(stamps) > 1:
             rates.append((len(stamps) - 1) / (stamps[-1] - stamps[0]))
     if final.lstrip(" ") != response.lstrip(" "):
         raise RuntimeError(f"chat_in_stream {final!r} != chat {response!r}")
-    stream_ids = [int(t[0]) for t in bundle.stream_generate(input_ids, pv, greedy)]
+    stream_ids = [int(t[0]) for t in bundle.stream_generate(input_ids, pv, greedy,
+                                                             speculative=speculative)]
     if stream_ids != [int(t) for t in ids]:
         raise RuntimeError(f"stream ids {stream_ids} != generate ids {ids.tolist()}")
     return statistics.median(ttfts), statistics.median(rates)
+
+
+SPEC_NEW_TOKENS = 64
+COPY_PROMPT = "请重复三遍：图片里有一只猫和一只狗。图片里有一只猫和一只狗。图片里有一只猫和一只狗。"
+
+
+def _spec_chat(bundle, image, expect) -> dict:
+    """The greedy speculative chat (spec_k 8, max n-gram 3) of
+    SPEC_NEW_TOKENS on a prompt that invites copying: its launches, counted
+    from zero, exactly ``expect(chunks)``; ``chat_in_stream``'s text and
+    ``stream_generate``'s ids equal to the blocking ones; -> its numbers."""
+    greedy = SamplingConfig.greedy(max_new_tokens=SPEC_NEW_TOKENS)
+    api.chat(bundle, image, COPY_PROMPT, [], SamplingConfig.greedy(max_new_tokens=12),
+             verbose=False, speculative=True)  # warm-up
+    response, counts = _counted_chat(bundle, image, greedy, COPY_PROMPT, speculative=True)
+    stats = dict(bundle.speculative_decoder().last_stats)
+    _check_counts(counts, expect(stats["chunks"]))
+    enc = encoding_text([], COPY_PROMPT, bundle.num_patch, bundle.tokenizer)
+    pv = bundle.image_processor(image)["pixel_values"]
+    ids = bundle.generate(enc["input_ids"], pixel_values=pv, generation_config=greedy,
+                          speculative=True)[0]
+    ttft, rate = _streams(bundle, image, greedy, response, enc["input_ids"], pv, ids,
+                          COPY_PROMPT, speculative=True)
+    return {"launches": counts, "tokens": len(ids), "ttft_ms": ttft * 1e3,
+            "decode_tok_s": rate, **stats}
+
+
+def _spec_line(spec: dict) -> str:
+    return (f"speculative greedy chat (spec_k 8, copy prompt) {spec['tokens']} tokens in "
+            f"{spec['chunks']} chunks: {spec['tokens_per_chunk']:.2f} tokens a chunk, "
+            f"acceptance {spec['acceptance']:.3f}, stream ids equal, launches "
+            f"{spec['launches']}, TTFT {spec['ttft_ms']:.1f} ms, B=1 decode "
+            f"{spec['decode_tok_s']:.1f} tok/s")
 
 
 def _loose_logits_check(engine, input_ids, pv, pos, label):
@@ -710,14 +934,19 @@ def phase_int4(smi: str, cfg, tokenizer) -> dict:
         "int4_matmul_prefill": 7 * L, "int4_matmul_decode": 1 + (7 * L + 1) * (n_gen - 1),
         "flash_prefill_kv8": L, "flash_decode_kv8": L * (n_gen - 1)})
     ttft, rate = _streams(bundle, image, greedy, response, enc["input_ids"], pv, ids)
+    # a verify chunk runs the 7 matmuls a layer and the head on K+1 tokens:
+    # the decode form
+    spec = _spec_chat(bundle, image, lambda chunks: {
+        "int4_matmul_prefill": 7 * L, "int4_matmul_decode": 1 + (7 * L + 1) * chunks,
+        "flash_prefill_kv8": L * (1 + chunks)})
     weight_gb = sum(t.numel() * t.element_size() for t in model.text.parameters()) / 1e9
     print(f"[5 int4] VisualCLA-7B int4 text tower (gs 128, quantized on the card) + int8 KV "
           f"cache, random weights seed {SEED}, built and quantized in {setup_s:.1f} s, text "
           f"tower {weight_gb:.2f} GB; prefill logits kernels vs plain max diff "
           f"{logit_diff:.3e} (scale {logit_scale:.2f}); greedy chat {n_gen} tokens, stream ids "
           f"equal; greedy chat launches {counts}; TTFT {ttft * 1e3:.1f} ms (median of 3), "
-          f"B=1 decode {rate:.1f} tok/s; card {smi}", flush=True)
-    return {"launches": counts, "ttft_ms": ttft * 1e3, "decode_tok_s": rate}
+          f"B=1 decode {rate:.1f} tok/s; {_spec_line(spec)}; card {smi}", flush=True)
+    return {"launches": counts, "ttft_ms": ttft * 1e3, "decode_tok_s": rate, "spec": spec}
 
 
 def phase_int8(smi: str, cfg, tokenizer) -> dict:
@@ -748,6 +977,9 @@ def phase_int8(smi: str, cfg, tokenizer) -> dict:
 
 
 GREEDY_OVERRIDES = {"do_sample": False, "repetition_penalty": 1.0, "no_repeat_ngram_size": 0}
+# a pure argmax chain, the rows a speculative pool accepts drafts for (the
+# engine-wide default keeps top-k 40, which makes a row ineligible)
+SPEC_GREEDY = {**GREEDY_OVERRIDES, "top_k": 0}
 SERVE_NEW_TOKENS = 32
 SERVE_KW = dict(pool_size=4, block_size=64, num_blocks=64, max_new_tokens_cap=64,
                 max_seq_len=2048)
@@ -836,19 +1068,26 @@ def _reset_counters() -> None:
     pa.reset_launch_counts()
 
 
-def _check_serve_counts(engine, stats0, stats1, counts, L, b4_name):
-    """B4 launched once a layer per decode step, B2 once a layer per prefill
-    and per prefill chunk; every other attention kernel never."""
+def _check_serve_counts(engine, stats0, stats1, counts, L, b4_name, b5_name=None):
+    """B4 launched once a layer per plain decode step, B5 (``b5_name``, a
+    speculative pool's) once a layer per speculative iteration, B2 once a
+    layer per prefill and per prefill chunk; every other attention kernel
+    never."""
     prefills = (stats1["prefills"] - stats0["prefills"]
                 + stats1["prefill_chunks"] - stats0["prefill_chunks"])
     expect = {b4_name: L * engine.decode_steps, "flash_prefill": L * prefills}
-    for name in ("paged_append", "paged_append_kv8", "flash_decode", "flash_decode_kv8",
+    if b5_name:
+        expect[b5_name] = L * engine.spec_steps
+    for name in ("paged_append", "paged_append_kv8", "paged_verify", "paged_verify_kv8",
+                 "paged_decode", "paged_decode_kv8", "flash_decode", "flash_decode_kv8",
                  "flash_prefill_kv8"):
         expect.setdefault(name, 0)
     bad = {k: (counts[k], v) for k, v in expect.items() if counts[k] != v}
-    if bad or engine.decode_steps == 0 or prefills == 0:
+    stepped = engine.spec_steps if b5_name else engine.decode_steps
+    if bad or stepped == 0 or prefills == 0:
         raise RuntimeError(f"serve launches (got, expected): {bad}; decode steps "
-                           f"{engine.decode_steps}, prefills and chunks {prefills}")
+                           f"{engine.decode_steps}, speculative steps {engine.spec_steps}, "
+                           f"prefills and chunks {prefills}")
     return prefills
 
 
@@ -938,8 +1177,6 @@ def phase_serve(smi: str, cfg, tokenizer) -> dict:
         engine.step()
     snap = engine.snapshot()
     busy_rate = (int(snap["gen_len"].sum()) - gen0) / (time.perf_counter() - t1)
-    from torch.profiler import ProfilerActivity, profile
-
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(8):
             engine.step()
@@ -949,6 +1186,7 @@ def phase_serve(smi: str, cfg, tokenizer) -> dict:
     engine.release_rows(range(4))
     pool_bf16 = engine.pool_bytes()
     del worker, engine, sched
+    spec = phase_serve_spec(smi, cfg, tokenizer, model, bundle, reqs[:4], busy_rate)
 
     # fp32: requests served together through the pool equal, token for
     # token, each one's single-stream Engine.generate (the bf16 pool is not
@@ -978,11 +1216,34 @@ def phase_serve(smi: str, cfg, tokenizer) -> dict:
     _run_all([lambda i=i: serve32(i) for i in range(3)])
     chunked32 = sched32.stats()["chunked_admissions"]
     sched32.stop()
+    # and the speculative pool of 3 on the same requests
+    eng32 = paged_mod.PagedServingEngine(
+        model32, cfg, eos_token_id=tokenizer.eos_token_id, pad_token_id=tokenizer.pad_token_id,
+        sampling=greedy, spec_k=SPEC_K, **{**SERVE_KW, "pool_size": 3})
+    sched32 = server_mod.Scheduler(eng32)
+    spec32 = [None] * 3
+
+    def serve32_spec(i):
+        spec32[i] = server_mod.generate_sync(sched32, *reqs32[i],
+                                             max_new_tokens=SERVE_NEW_TOKENS)
+
+    _run_all([lambda i=i: serve32_spec(i) for i in range(3)])
+    spec_dispatches32 = sched32.stats()["spec_dispatches"]
+    sched32.stop()
+    if spec_dispatches32 == 0:
+        raise RuntimeError("the fp32 speculative pool ran no speculative dispatch")
+    singles = []
     for i, (ids, pv, img) in enumerate(reqs32):
         single = bundle32.generate(ids[None], pixel_values=pv, generation_config=greedy)[0]
-        if [int(t) for t in outs32[i]] != [int(t) for t in single]:
-            raise RuntimeError(f"fp32 pool request {i} {list(outs32[i])} != single-stream "
-                               f"{single.tolist()}")
+        single_spec = bundle32.generate(ids[None], pixel_values=pv, generation_config=greedy,
+                                        speculative=True)[0]
+        for label, got in (("pool", outs32[i]), ("speculative pool", spec32[i]),
+                           ("speculative generate", single_spec)):
+            if [int(t) for t in got] != [int(t) for t in single]:
+                raise RuntimeError(f"fp32 {label}, request {i}: {list(got)} != single-stream "
+                                   f"{single.tolist()}")
+        singles.append([int(t) for t in single])
+    oracle = _oracle_drafts(bundle32, cfg, tokenizer, reqs32, singles)
     del bundle32, model32, eng32, sched32
     print(f"[7 serve] VisualCLA-7B bf16 full width, random weights seed {SEED}, built in "
           f"{setup_s:.1f} s; PagedServingEngine pool 4 rows, 64-token blocks x 64, cap 64 new, "
@@ -996,17 +1257,161 @@ def phase_serve(smi: str, cfg, tokenizer) -> dict:
           f"admissions); launches {counts}; every block back on the free list; 4 rows busy: "
           f"decode {busy_rate:.1f} tok/s aggregate, device {step_dev_ms:.2f} ms a step "
           f"(torch.profiler, 8 steps); B4 vs plain decode logits max diff {b4_diff:.3e} (scale "
-          f"{b4_scale:.2f}); fp32 pool of 3 ({chunked32} chunked admissions) equals single-stream "
-          f"generate token for token; bf16 pool {pool_bf16 / 1e9:.3f} GB; card {smi}",
+          f"{b4_scale:.2f}); fp32 pool of 3 ({chunked32} chunked admissions), fp32 "
+          f"speculative pool of 3 (spec_k {SPEC_K}, {spec_dispatches32} speculative dispatches) "
+          f"and fp32 speculative generate (spec_k 8) equal single-stream generate token for "
+          f"token; with oracle drafts (the single-stream output) every draft is accepted and "
+          f"the tokens stay the same: speculative generate {oracle['generate']:.2f} tokens a "
+          f"chunk (acceptance {oracle['acceptance']:.3f}), speculative pool of 3 "
+          f"{oracle['pool']:.2f} tokens a step; bf16 pool {pool_bf16 / 1e9:.3f} GB; card {smi}",
           flush=True)
     return {"launches": counts, "ttft_p50_ms": statistics.median(ttfts),
             "decode_tok_s_4_rows": busy_rate, "step_device_ms": step_dev_ms,
-            "pool_bytes": pool_bf16}
+            "pool_bytes": pool_bf16, "spec": spec}
+
+
+def _oracle_drafts(bundle32, cfg, tokenizer, reqs, singles) -> dict:
+    """The acceptance path with drafts known to be right: each row's drafter
+    returns its next K tokens of the single-stream output, so in fp32 every
+    draft is accepted and the tokens must stay the single-stream ones.  The
+    speculative decoder (spec_k 8, one request at a time) and an fp32
+    speculative pool of 3 (spec_k SPEC_K, rows driven directly) -> tokens a
+    chunk and acceptance, tokens a pool step."""
+    from visualcla_tpu_torch.engine import paged_spec, speculative
+
+    greedy = SamplingConfig.greedy(SERVE_NEW_TOKENS)
+    width = SERVE_NEW_TOKENS + 16
+    future = torch.tensor([w + [0] * (width - len(w)) for w in singles], device="cuda")
+    prompt_len = torch.tensor([len(ids) for ids, _, _ in reqs], device="cuda")
+
+    def ahead(rows, gen_len, k):  # future[rows, gen_len + j], j < k
+        idx = (gen_len[:, None] + torch.arange(k, device="cuda")[None, :]).clamp(max=width - 1)
+        return future[rows][torch.arange(len(rows), device="cuda")[:, None], idx]
+
+    saved = speculative.ngram_draft, paged_spec.draft_all_rows
+    tpc, acc = [], []
+    try:
+        dec = bundle32.speculative_decoder()
+        for i, (ids, pv, img) in enumerate(reqs):
+            bucket = bundle32.engine.bucket_len(len(ids))
+            speculative.ngram_draft = (
+                lambda ctx, start, end, k, n, i=i, bucket=bucket: ahead([i], end - bucket, k))
+            got = dec.generate(ids[None], pv, np.array([img]), greedy)[0]
+            if [int(t) for t in got] != singles[i]:
+                raise RuntimeError(f"fp32 speculative generate with oracle drafts, request {i}: "
+                                   f"{got.tolist()} != {singles[i]}")
+            tpc.append(dec.last_stats["tokens_per_chunk"])
+            acc.append(dec.last_stats["acceptance"])
+        engine = paged_mod.PagedServingEngine(
+            bundle32.model, cfg, eos_token_id=tokenizer.eos_token_id,
+            pad_token_id=tokenizer.pad_token_id, sampling=greedy, spec_k=SPEC_K,
+            **{**SERVE_KW, "pool_size": 3})
+        paged_spec.draft_all_rows = (
+            lambda all_ids, total_len, k, n: ahead(list(range(3)), total_len - prompt_len, k))
+        for row, (ids, pv, img) in enumerate(reqs):
+            engine.prefill_row(row, ids, pv, img, SERVE_NEW_TOKENS)
+        while not engine.snapshot()["finished"][:3].all():
+            engine.spec_step_n(8)
+        snap = engine.snapshot()
+        for row in range(3):
+            got = [int(t) for t in snap["gen_ids"][row][:snap["gen_len"][row]]]
+            if got != singles[row]:
+                raise RuntimeError(f"fp32 speculative pool with oracle drafts, row {row}: "
+                                   f"{got} != {singles[row]}")
+        pool = (int(snap["gen_len"][:3].sum()) - 3) / max(engine.spec_steps, 1)
+    finally:
+        speculative.ngram_draft, paged_spec.draft_all_rows = saved
+    if min(acc) < 0.5:
+        raise RuntimeError(f"oracle drafts were rejected: acceptance {acc}")
+    return {"generate": statistics.mean(tpc), "acceptance": min(acc), "pool": pool}
+
+
+REPEAT_TEXTS = ("猫狗猫狗猫狗猫狗猫狗猫狗猫狗猫狗猫狗猫狗猫狗猫狗猫狗猫狗猫狗猫狗",
+                "图片里有一只猫。图片里有一只猫。图片里有一只猫。图片里有一只猫。")
+
+
+def phase_serve_spec(smi: str, cfg, tokenizer, model, bundle, busy_reqs, plain_rate) -> dict:
+    """The speculative pool on phase 7's bf16 model: ``PagedServingEngine(
+    spec_k=SPEC_K)``, 4 rows, under the Scheduler; 6 requests (4 greedy, 2
+    of them repetitive; the default sampled config; TFS) complete with
+    speculative dispatches and exact launch counts; then the aggregate rate
+    and tokens a speculative step with phase 7's 4 busy rows."""
+    L = cfg.text_config.num_hidden_layers
+    engine = paged_mod.PagedServingEngine(
+        model, cfg, eos_token_id=tokenizer.eos_token_id, pad_token_id=tokenizer.pad_token_id,
+        spec_k=SPEC_K, **SERVE_KW)
+    sched = server_mod.Scheduler(engine)
+    texts = (PROMPT, PROMPT) + REPEAT_TEXTS + (PROMPT, PROMPT)
+    overrides = [SPEC_GREEDY] * 4 + [None, {"tfs": 0.9}]
+    reqs = [_chat_request(bundle, tokenizer, random_image(SEED + 30 + i), t)
+            for i, t in enumerate(texts)]
+    server_mod.generate_sync(sched, *reqs[0], max_new_tokens=4,
+                             sampling_overrides=SPEC_GREEDY)  # warm-up
+    _reset_counters()
+    engine.decode_steps = engine.spec_steps = 0
+    stats0 = sched.stats()
+    records = [{} for _ in reqs]
+    t0 = time.perf_counter()
+    _run_all([lambda i=i: _direct(sched, reqs[i], overrides[i], records[i])
+              for i in range(len(reqs))])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, stats1 = _counters(), sched.stats()
+    sched.stop()
+    for i, r in enumerate(records):
+        res = r.get("result")
+        if res is None or not 1 <= len(res) <= SERVE_NEW_TOKENS:
+            raise RuntimeError(f"speculative serve request {i}: {r}")
+    if len(engine._free) != engine.NB - 1 or engine.num_active() != 0:
+        raise RuntimeError(f"speculative serve: {len(engine._free)} blocks free of "
+                           f"{engine.NB - 1}, {engine.num_active()} rows active")
+    dispatches = stats1["spec_dispatches"] - stats0["spec_dispatches"]
+    if dispatches == 0:
+        raise RuntimeError(f"the speculative pool ran no speculative dispatch: {stats1}")
+    prefills = _check_serve_counts(engine, stats0, stats1, counts, L, "paged_append",
+                                   "paged_verify")
+    spec_steps, decode_steps = engine.spec_steps, engine.decode_steps
+    n_tokens = sum(len(r["result"]) for r in records)
+
+    # 4 rows busy, phase 7's requests: speculative iterations only
+    for row in range(4):
+        engine.prefill_row(row, *busy_reqs[row], 64, overrides=SPEC_GREEDY)
+    gen0, steps0 = int(engine.snapshot()["gen_len"].sum()), engine.spec_steps
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(12):
+        engine.spec_step_n(1)
+    gained = int(engine.snapshot()["gen_len"].sum()) - gen0
+    busy_rate = gained / (time.perf_counter() - t1)
+    per_step = gained / max(engine.spec_steps - steps0, 1)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            engine.spec_step_n(1)
+        torch.cuda.synchronize()
+    step_dev_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA) / 4 / 1e3
+    engine.release_rows(range(4))
+    print(f"[7b serve spec] the same model, PagedServingEngine spec_k {SPEC_K} (max n-gram "
+          f"{engine.spec_max_ngram}, speculative up to {engine.spec_max_active} rows), 4 rows, "
+          f"Scheduler; 6 concurrent requests x {SERVE_NEW_TOKENS} new (4 greedy, 2 of them "
+          f"repetitive; default sampled; tfs 0.9) all complete in {wall:.2f} s, {n_tokens} "
+          f"tokens; {dispatches} speculative and "
+          f"{stats1['chunk_dispatches'] - stats0['chunk_dispatches']} plain chunk dispatches, "
+          f"{spec_steps} speculative iterations, {decode_steps} plain decode steps, "
+          f"{prefills} prefills and chunks; launches {counts}; every block back; 4 rows busy "
+          f"(phase 7's requests, greedy): {per_step:.2f} tokens a speculative step "
+          f"({per_step / 4:.2f} a row), decode {busy_rate:.1f} tok/s aggregate against phase "
+          f"7's plain {plain_rate:.1f}, device {step_dev_ms:.2f} ms a speculative step "
+          f"(torch.profiler, 4 steps); card {smi}", flush=True)
+    return {"launches": counts, "decode_tok_s_4_rows": busy_rate,
+            "tokens_per_spec_step": per_step, "step_device_ms": step_dev_ms}
 
 
 def phase_serve_int4(smi: str, cfg, tokenizer) -> dict:
     """A short serve at the int4 tier with the int8 KV pool: 3 greedy
-    requests, exact launch counts of B4's int8 form, finite decode logits."""
+    requests, exact launch counts of B4's int8 form, finite decode logits;
+    then 2 greedy requests on a speculative int8 pool (B5's int8 form, B3 at
+    B(K+1) tokens)."""
     L = cfg.text_config.num_hidden_layers
     model, setup_s = _random_model(cfg, bits=4)
     bundle = api.VisualCLA(model, cfg, tokenizer,
@@ -1041,13 +1446,44 @@ def phase_serve_int4(smi: str, cfg, tokenizer) -> dict:
         raise RuntimeError("non-finite int4 + int8-pool decode logits")
     engine.release_rows([0])
     pool_int8 = engine.pool_bytes()
+    decode_steps = engine.decode_steps
+    del engine, sched
+
+    spec = paged_mod.PagedServingEngine(
+        model, cfg, eos_token_id=tokenizer.eos_token_id, pad_token_id=tokenizer.pad_token_id,
+        sampling=SamplingConfig.greedy(SERVE_NEW_TOKENS), kv_quant="int8", spec_k=SPEC_K,
+        **SERVE_KW)
+    sched = server_mod.Scheduler(spec)
+    server_mod.generate_sync(sched, *reqs[0], max_new_tokens=4)  # warm-up
+    _reset_counters()
+    spec.decode_steps = spec.spec_steps = 0
+    stats0 = sched.stats()
+    spec_outs = [None] * 2
+
+    def serve_spec(i):
+        spec_outs[i] = server_mod.generate_sync(sched, *reqs[i], max_new_tokens=SERVE_NEW_TOKENS)
+
+    _run_all([lambda i=i: serve_spec(i) for i in range(2)])
+    torch.cuda.synchronize()
+    spec_counts, stats1 = _counters(), sched.stats()
+    sched.stop()
+    spec_prefills = _check_serve_counts(spec, stats0, stats1, spec_counts, L, "paged_append_kv8",
+                                        "paged_verify_kv8")
+    if spec_counts["int4_matmul_decode"] == 0 or any(o is None or len(o) == 0
+                                                     for o in spec_outs):
+        raise RuntimeError(f"int4 speculative serve: outputs {spec_outs}, launches "
+                           f"{spec_counts}")
     print(f"[8 serve int4] VisualCLA-7B int4 text tower (quantized on the card) with the int8 "
           f"KV pool, built in {setup_s:.1f} s; 3 concurrent greedy requests x "
           f"{SERVE_NEW_TOKENS} new complete ({[len(o) for o in outs]} tokens); "
-          f"{engine.decode_steps} decode steps, {prefills} prefills and chunks; launches "
+          f"{decode_steps} decode steps, {prefills} prefills and chunks; launches "
           f"{counts}; decode logits finite (scale {logits.abs().max().item():.2f}); int8 pool "
-          f"{pool_int8 / 1e9:.3f} GB with its scales; card {smi}", flush=True)
-    return {"launches": counts, "pool_bytes": pool_int8}
+          f"{pool_int8 / 1e9:.3f} GB with its scales; speculative int8 pool (spec_k {SPEC_K}, "
+          f"speculative up to {spec.spec_max_active} rows at this tier): 2 greedy requests "
+          f"({[len(o) for o in spec_outs]} tokens), {spec.spec_steps} speculative iterations, "
+          f"{spec.decode_steps} plain steps, {spec_prefills} prefills and chunks, launches "
+          f"{spec_counts}; card {smi}", flush=True)
+    return {"launches": counts, "pool_bytes": pool_int8, "spec_launches": spec_counts}
 
 
 def _kernels_vs_plain_logits(engine, input_ids, pixel_values, img_pos):
@@ -1079,19 +1515,25 @@ def main() -> int:
     phase_int8(info["smi"], cfg, tokenizer)
     serve = phase_serve(info["smi"], cfg, tokenizer)
     serve4 = phase_serve_int4(info["smi"], cfg, tokenizer)
+    # each kernel's launches from the run of the path that drives it
+    runs = {"paged_append": serve["launches"], "paged_append_kv8": serve4["launches"],
+            "paged_verify": serve["spec"]["launches"],
+            "paged_verify_kv8": serve4["spec_launches"], **kern["b6_launches"]}
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        if name == "paged_append":
-            n = serve["launches"][name]
-        elif name == "paged_append_kv8":
-            n = serve4["launches"][name]
+        if name.startswith("paged_decode"):
+            n = runs[name]
+        elif name.startswith("paged"):
+            n = runs[name][name]
         elif name.endswith("_kv8") or name.startswith("int4"):
             n = launches4[name]
         else:
             n = launches[name]
-        kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": n, "max_abs_err": kern["worst"][name],
-                        **kern["main"][name]})
+        row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+               "launches": n, "max_abs_err": kern["worst"][name], **kern["main"][name]}
+        if name.startswith("paged_decode"):
+            row["note"] = B6_NOTE
+        kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

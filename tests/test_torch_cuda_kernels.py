@@ -1,6 +1,8 @@
 """The CUDA kernels B1 (decode) and B2 (prefill), with bf16/f32 and int8 K/V,
-B3 (int4 matmul, decode and prefill forms) and B4 (paged append attention,
-float and int8 pools) against their plain PyTorch versions on the card.  Needs an NVIDIA GPU and nvcc; skipped without them.
+B3 (int4 matmul, decode and prefill forms), B4 (paged append attention), B5
+(paged verify attention) and B6 (paged decode attention), with float and int8
+pools, against their plain PyTorch versions on the card.  Needs an NVIDIA GPU
+and nvcc; skipped without them.
 
 On the machine with the card (which has no JAX, hence no conftest):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
@@ -12,11 +14,13 @@ values (the output's bf16 rounding).  B3: |err| <= 1e-2 * max|ref| +
 (the prefill form rounds the dequantized weight to bf16).  B4: the output as
 B1's against the plain version on the same inputs (which rounds where the
 kernel does, at other running maxima), bf16's tolerance for an int8 pool
-(it computes in bf16), and the pools after the call bitwise equal."""
+(it computes in bf16), and the pools after the call bitwise equal.  B5 as
+B4, on the running rows' outputs, the pools bitwise outside the dummy block
+0.  B6 computes in f32 whatever the pool: the tolerance of q's type."""
 import pytest
 import torch
 
-from visualcla_tpu_torch.fixtures import paged_case
+from visualcla_tpu_torch.fixtures import paged_case, paged_decode_args, paged_verify_case
 from visualcla_tpu_torch.ops.cuda import flash_attention as fa
 from visualcla_tpu_torch.ops.cuda import int4_matmul as i4
 from visualcla_tpu_torch.ops.cuda import paged_attention as pa
@@ -186,3 +190,47 @@ def test_paged_append_kernel_rejects_bad_inputs(dev):
     with pytest.raises(ValueError, match="contiguous"):
         pa.paged_append_attention(**{**case, "q": case["q"].transpose(0, 1).contiguous()
                                      .transpose(0, 1)})
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv_int8", [False, True], ids=["float_pool", "int8_pool"])
+@pytest.mark.parametrize("N,Nkv", [(8, 8), (8, 2)], ids=["mha", "gqa"])
+@pytest.mark.parametrize("BS,Sq", [(16, 3), (64, 9)])
+def test_paged_verify_kernel_matches_plain(dev, dtype, kv_int8, N, Nkv, BS, Sq):
+    # a parked row, appends from offsets 0 and BS-2 (straddling a block edge),
+    # an empty context, a long row
+    ctx = [-1, 2 * BS, 3 * BS - 2, 0, 5 * BS + 7, 300]
+    case = paged_verify_case(ctx, Sq, N, Nkv, block_size=BS, dtype=dtype, kv_int8=kv_int8,
+                             device=dev, seed=BS + Sq + N + Nkv)
+    ref_case = {k: (v.clone() if k in POOL_KEYS else v) for k, v in case.items()}
+    name = "paged_verify_kv8" if kv_int8 else "paged_verify"
+    before = pa.LAUNCHES[name]
+    out = pa.paged_verify_attention(**case)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES[name] == before + 1
+    ref = pa.paged_verify_attention_ref(**ref_case)
+    assert out.dtype == dtype and out.shape == case["q"].shape
+    tol = TOL[torch.bfloat16 if kv_int8 else dtype]
+    # the parked row's output is dropped (it reads the dummy block)
+    torch.testing.assert_close(out[1:].float(), ref[1:].float(), atol=tol, rtol=tol)
+    for key in POOL_KEYS:
+        if case.get(key) is not None:
+            assert torch.equal(case[key][:, 1:], ref_case[key][:, 1:]), key
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv_int8", [False, True], ids=["float_pool", "int8_pool"])
+@pytest.mark.parametrize("N,Nkv", [(8, 8), (8, 2)], ids=["mha", "gqa"])
+def test_paged_decode_kernel_matches_plain(dev, dtype, kv_int8, N, Nkv):
+    case = paged_case([-1, 128, 191, 0, 327, 300], N, Nkv, block_size=64, dtype=dtype,
+                      kv_int8=kv_int8, device=dev, seed=N + Nkv)
+    args = paged_decode_args(case)
+    name = "paged_decode_kv8" if kv_int8 else "paged_decode"
+    before = pa.LAUNCHES[name]
+    out = pa.paged_decode_attention(**args)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES[name] == before + 1
+    ref = pa.paged_decode_attention_ref(**args)
+    assert out.dtype == dtype and out.shape == args["q"].shape
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype], rtol=TOL[dtype])
+    assert bool((out[0] == 0).all())  # lens 0: zeros

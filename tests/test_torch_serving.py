@@ -433,8 +433,6 @@ def test_unported_serving_options_raise(models):
 
     _, tm = models["fp32"]
     kw = dict(eos_token_id=2, pad_token_id=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*5"):
-        TPaged(tm.model, tm.config, spec_k=2, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP.*11"):
         TPaged(tm.model, tm.config, mesh=object(), **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP.*12"):

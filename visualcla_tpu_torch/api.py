@@ -4,10 +4,12 @@
 The weight tiers load as in the JAX package: ``load_in_8bit`` (int8 text
 tower), ``load_in_4bit`` (grouped int4 text tower, kernel B3; it wins when
 both are set), and ``kv_quant="int8"`` (int8 KV cache) with either.
-Not ported yet, and raising ``NotImplementedError`` with the ROADMAP item
-that brings them: beam search (7), speculative decoding (5), multi-device
-meshes (11), and loading from reference-layout or unmerged/LoRA directories
-(9).
+``speculative=True`` decodes with prompt-lookup speculative decoding
+(``engine/speculative.py``; greedy: token-identical in exact arithmetic;
+mirostat-2 configs take the plain engine).  Not ported yet, and raising
+``NotImplementedError`` with the ROADMAP item that brings them: beam search
+(7), multi-device meshes (11), and loading from reference-layout or
+unmerged/LoRA directories (9).
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from .text.prompt import all_img_marker_positions, img_marker_positions
 from .checkpoint.from_jax import params_from_jax, weight_tier
 from .engine.generate import Engine
 from .engine.sampling import SamplingConfig
+from .engine.speculative import SpeculativeDecoder
 from .models.visualcla import VisualCLAModel
 
 DEFAULT_GENERATION_CONFIG = SamplingConfig()  # the reference's default sampled config
@@ -88,6 +91,7 @@ class VisualCLA:
         self.engine = Engine(model, config, eos_token_id=tokenizer.eos_token_id,
                              pad_token_id=tokenizer.pad_token_id,
                              max_seq_len=max_seq_len, kv_quant=kv_quant)
+        self._spec_decoders: dict = {}  # (spec_k, max_ngram) -> SpeculativeDecoder
 
     def _img_positions(self, input_ids, pixel_values) -> np.ndarray:
         """Marker positions: (B,) for one image per row, (B, K) for K images
@@ -106,19 +110,30 @@ class VisualCLA:
                                   np.int32)], axis=1)
         return img_pos[:, :K]
 
-    def _check(self, sampling: SamplingConfig, speculative: bool) -> None:
+    def speculative_decoder(self, spec_k: int = 8, max_ngram: int = 3):
+        """The cached prompt-lookup speculative decoder over this model's
+        engine (see ``engine/speculative.py``)."""
+        key = (spec_k, max_ngram)
+        if key not in self._spec_decoders:
+            self._spec_decoders[key] = SpeculativeDecoder(self.engine, spec_k, max_ngram)
+        return self._spec_decoders[key]
+
+    def _decoder(self, sampling: SamplingConfig, speculative: bool, spec_k: int):
+        """The engine or the speculative decoder (mirostat-2 configs take
+        the plain engine); beams raise."""
         if sampling.num_beams > 1:
             raise _not_ported("beam search", "7: beams")
-        if speculative:
-            raise _not_ported("speculative decoding", "5: speculative decoding")
+        if speculative and sampling.mirostat_mode != 2:
+            return self.speculative_decoder(spec_k)
+        return self.engine
 
     def generate(self, input_ids, attention_mask=None, pixel_values=None,
-                 generation_config=None, seed: int = 0,
-                 speculative: bool = False) -> np.ndarray:
+                 generation_config=None, seed: int = 0, speculative: bool = False,
+                 spec_k: int = 8) -> np.ndarray:
         """Generated-only ids (B, <= max_new_tokens), the reference's
         VisualCLAModel.generate contract."""
         sampling = as_sampling_config(generation_config)
-        self._check(sampling, speculative)
+        decoder = self._decoder(sampling, speculative, spec_k)
         nrs = sampling.num_return_sequences
         if nrs > 1:
             if not sampling.do_sample:
@@ -130,14 +145,14 @@ class VisualCLA:
             if pixel_values is not None:
                 pixel_values = np.repeat(np.asarray(pixel_values), nrs, axis=0)
         img_pos = self._img_positions(input_ids, pixel_values)
-        return self.engine.generate(input_ids, pixel_values, img_pos, sampling, seed=seed)
+        return decoder.generate(input_ids, pixel_values, img_pos, sampling, seed=seed)
 
     def stream_generate(self, input_ids, pixel_values=None, generation_config=None,
-                        seed: int = 0, speculative: bool = False):
+                        seed: int = 0, speculative: bool = False, spec_k: int = 8):
         sampling = as_sampling_config(generation_config)
-        self._check(sampling, speculative)
+        decoder = self._decoder(sampling, speculative, spec_k)
         img_pos = self._img_positions(input_ids, pixel_values)
-        return self.engine.stream(input_ids, pixel_values, img_pos, sampling, seed=seed)
+        return decoder.stream(input_ids, pixel_values, img_pos, sampling, seed=seed)
 
 
 def as_sampling_config(gc) -> SamplingConfig:

@@ -1,8 +1,14 @@
-// Paged decode attention with the new token's K/V appended, for Hopper (sm_90a).
+// Paged attention over a block-pooled KV cache, for Hopper (sm_90a).
 //
-// Replaces the Pallas kernel of the paged serving engine's decode step
+// Replaces the Pallas kernels of the paged serving engine
 // (visualcla_tpu/ops/pallas/paged_attention.py):
 //   paged_append_kernel  <- paged_append_attention -> _append_kernel   (B4)
+//   paged_verify_kernel<kAppend=true>  <- paged_verify_attention
+//                                          -> _verify_kernel           (B5)
+//   paged_verify_kernel<kAppend=false, kExact=true>
+//                        <- paged_decode_attention -> _paged_kernel    (B6)
+//
+// B4 is described first; B5 and B6 share one kernel, described above it.
 //
 // Contract (the TPU kernel's):
 //   q (B, N, HD); k_new, v_new (B, Nkv, HD) in the pool's type; the pools
@@ -321,6 +327,212 @@ cudaError_t launch(const void* q, const void* k_new, const void* v_new, void* k_
   return cudaGetLastError();
 }
 
+// B5, the speculative verify step: Sq new tokens a row.  Contract (the TPU
+// kernel's): q (B, Sq, N, HD); k_new, v_new (B, Sq, Nkv, HD) in the pool's
+// type (int8 with f32 scales ksn, vsn (B, Sq, Nkv)); pools and tables as B4;
+// lens (B,) the context length INCLUDING the Sq new tokens.  New token j of
+// row b goes to slot base + j, base = lens[b] - Sq (block tables[b, slot /
+// BS], offset slot % BS; a slot past the table goes to dummy block 0, offset
+// 0), and query j attends over the slots <= base + j.  The numerics follow
+// the TPU kernel: the new tokens go through the same path as the old ones
+// (they are part of the block content there), so their probabilities are
+// rounded to the compute type too, unlike B4's analytic new-token term.
+//
+// B6, decode without an append: Sq = 1, one layer's pool, lens counting every
+// token (query 0 attends over the slots <= lens - 1), and kExact: all
+// arithmetic in f32, q * scale and p not rounded.
+//
+// The design is B4's: one block per (kv head, row), 32-token tiles of the
+// row's table, K rows as 4-element vectors, the next tile loaded while the
+// current one is computed.  All (N / Nkv) * Sq query rows of the group are
+// served from one read of each tile (row r is query r / rep of head r % rep).
+// The append comes first: each block writes only its own kv-head slice of
+// the Sq new tokens (and their scales), then __syncthreads() makes those
+// writes visible to its own threads, and the attention reads them like any
+// other token.  No other block reads that slice (each (row, kv head) pair is
+// one block), so there is no race; only parked rows share bytes (dummy block
+// 0), and their outputs are dropped.  The TPU kernel's block-diagonal query
+// matrix, its selection matmuls (pick_rows, substituted), its two-block
+// output index map and scalar prefetch answer the TPU and are not carried
+// over.  What bounds it on the card: the bytes of the rows' context, as B4.
+template <typename T, typename KV, int HD, bool kAppend, bool kExact>
+__global__ void __launch_bounds__(kThreads)
+paged_verify_kernel(const T* __restrict__ q, const KV* __restrict__ k_new,
+                    const KV* __restrict__ v_new, KV* k_pool, KV* v_pool,
+                    const int* __restrict__ tables, const int* __restrict__ lens,
+                    const float* __restrict__ ksn, const float* __restrict__ vsn,
+                    float* ks_pool, float* vs_pool, T* __restrict__ out, int N, int Nkv,
+                    int Sq, int NB, int BS, int max_blocks, int layer, float scale) {
+  static_assert(HD % 32 == 0 && HD <= kThreads, "one V column per thread");
+  constexpr int kPerLane = HD / 32;
+  const int kvh = blockIdx.x;
+  const int b = blockIdx.y;
+  const int rep = N / Nkv;
+  const int R = rep * Sq;  // query rows of the group
+  const int KVL = Nkv * HD;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int d = threadIdx.x;
+
+  extern __shared__ float smem[];
+  float* q_sh = smem;                // R x HD: q * scale (rounded unless kExact)
+  float* acc_sh = q_sh + R * HD;     // R x HD
+  float* p_sh = acc_sh + R * HD;     // R x kTile: scores, then p * vs
+  float* m_sh = p_sh + R * kTile;    // R
+  float* l_sh = m_sh + R;            // R
+  float* alpha_sh = l_sh + R;        // R
+
+  const int length = lens[b];
+  const int base = length - Sq;  // slot of new token 0
+  const int* table = tables + (size_t)b * max_blocks;
+  const long long layer_rows = (long long)layer * NB * BS;
+
+  if (kAppend) {
+    // this block's kv-head slice of the Sq new tokens, into the pool
+    for (int j = 0; j < Sq; ++j) {
+      const int slot = base + j;
+      const bool in_table = slot >= 0 && slot / BS < max_blocks;
+      const long long row =
+          layer_rows + (in_table ? (long long)table[slot / BS] * BS + slot % BS : 0);
+      const size_t src = ((size_t)(b * Sq + j) * Nkv + kvh);
+      if (d < HD) {
+        k_pool[row * KVL + (long long)kvh * HD + d] = k_new[src * HD + d];
+        v_pool[row * KVL + (long long)kvh * HD + d] = v_new[src * HD + d];
+      }
+      if (kQuantKV<KV> && d == 0) {
+        ks_pool[row * Nkv + kvh] = ksn[src];
+        vs_pool[row * Nkv + kvh] = vsn[src];
+      }
+    }
+  }
+  for (int i = threadIdx.x; i < R * HD; i += kThreads) {
+    const int r = i / HD, e = i % HD;
+    const int j = r / rep, h = r % rep;
+    const float x = to_f32(q[((size_t)(b * Sq + j) * N + kvh * rep + h) * HD + e]) * scale;
+    q_sh[i] = kExact ? x : round_compute<KV>(x);
+    acc_sh[i] = 0.f;
+  }
+  for (int r = threadIdx.x; r < R; r += kThreads) {
+    m_sh[r] = kNegInf;
+    l_sh[r] = 0.f;
+  }
+  __syncthreads();  // the append is visible to every thread of the block
+
+  const int ctx = min(length, max_blocks * BS);  // the slots the table covers
+  const int n_tiles = ctx > 0 ? (ctx + kTile - 1) / kTile : 0;
+
+  float k_cur[kTokensPerWarp][kPerLane], v_cur[kTile];
+  long long row_cur = -1;
+  if (n_tiles > 0) {
+    row_cur = token_row(table, 0, ctx, BS, layer_rows);
+    load_tile<KV, HD>(k_pool, v_pool, row_cur, KVL, kvh, k_cur, v_cur);
+  }
+  for (int t = 0; t < n_tiles; ++t) {
+    const int j0 = t * kTile;
+    const bool more = t + 1 < n_tiles;
+    float k_nxt[kTokensPerWarp][kPerLane], v_nxt[kTile];
+    long long row_nxt = -1;
+    if (more) {
+      row_nxt = token_row(table, j0 + kTile, ctx, BS, layer_rows);
+      load_tile<KV, HD>(k_pool, v_pool, row_nxt, KVL, kvh, k_nxt, v_nxt);
+    }
+    // scores: warp w takes tokens j0 + w, j0 + w + kWarps, ...
+#pragma unroll
+    for (int i = 0; i < kTokensPerWarp; ++i) {
+      const int jj = warp + kWarps * i;
+      for (int r = 0; r < R; ++r) {
+        const float* qr = q_sh + r * HD + lane * kPerLane;
+        float dot = 0.f;
+#pragma unroll
+        for (int e = 0; e < kPerLane; ++e) dot = fmaf(qr[e], k_cur[i][e], dot);
+        dot = warp_sum(dot);
+        if (lane == 0) p_sh[r * kTile + jj] = dot;
+      }
+    }
+    __syncthreads();
+    // online softmax: warp w takes rows w, w + kWarps, ...; lane = token;
+    // query j sees the slots <= base + j
+    {
+      const int slot = j0 + lane;
+      float k_sc = 1.f, v_sc = 1.f;
+      if (kQuantKV<KV> && row_cur >= 0) {
+        k_sc = ks_pool[row_cur * Nkv + kvh];
+        v_sc = vs_pool[row_cur * Nkv + kvh];
+      }
+      for (int r = warp; r < R; r += kWarps) {
+        const bool ok = row_cur >= 0 && slot <= base + r / rep;
+        const float s = ok ? p_sh[r * kTile + lane] * k_sc : kNegInf;
+        const float m_old = m_sh[r];
+        const float m_new = fmaxf(m_old, warp_max(s));
+        const float p = ok ? expf(s - m_new) : 0.f;
+        const float sum = warp_sum(p);
+        p_sh[r * kTile + lane] = kExact ? p * v_sc : round_compute<KV>(p * v_sc);
+        if (lane == 0) {
+          const float alpha = expf(m_old - m_new);
+          m_sh[r] = m_new;
+          l_sh[r] = l_sh[r] * alpha + sum;
+          alpha_sh[r] = alpha;
+        }
+      }
+    }
+    __syncthreads();
+    // p @ v: thread d owns head-dim column d
+    if (d < HD) {
+      for (int r = 0; r < R; ++r) {
+        float a = acc_sh[r * HD + d] * alpha_sh[r];
+#pragma unroll
+        for (int jj = 0; jj < kTile; ++jj) a = fmaf(p_sh[r * kTile + jj], v_cur[jj], a);
+        acc_sh[r * HD + d] = a;
+      }
+    }
+    __syncthreads();
+    if (more) {
+#pragma unroll
+      for (int i = 0; i < kTokensPerWarp; ++i)
+#pragma unroll
+        for (int e = 0; e < kPerLane; ++e) k_cur[i][e] = k_nxt[i][e];
+#pragma unroll
+      for (int jj = 0; jj < kTile; ++jj) v_cur[jj] = v_nxt[jj];
+      row_cur = row_nxt;
+    }
+  }
+
+  if (d < HD) {
+    for (int r = 0; r < R; ++r) {
+      const int j = r / rep, h = r % rep;
+      const float l = l_sh[r];
+      out[((size_t)(b * Sq + j) * N + kvh * rep + h) * HD + d] =
+          from_f32<T>(acc_sh[r * HD + d] / (l == 0.f ? 1.f : l));
+    }
+  }
+}
+
+template <typename T, typename KV, int HD, bool kAppend, bool kExact>
+cudaError_t launch_verify(const void* q, const void* k_new, const void* v_new, void* k_pool,
+                          void* v_pool, const void* tables, const void* lens, const void* ksn,
+                          const void* vsn, void* ks_pool, void* vs_pool, void* out, int B,
+                          int Sq, int N, int Nkv, int NB, int BS, int max_blocks, int layer,
+                          float scale, cudaStream_t stream) {
+  const size_t R = (size_t)(N / Nkv) * Sq;
+  const size_t smem = sizeof(float) * (2 * R * HD + R * kTile + 3 * R);
+  static size_t allowed = 48 * 1024;  // raised once per size: stays out of graph capture
+  if (smem > allowed) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        paged_verify_kernel<T, KV, HD, kAppend, kExact>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    allowed = smem;
+  }
+  paged_verify_kernel<T, KV, HD, kAppend, kExact><<<dim3(Nkv, B), kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const KV*>(k_new), static_cast<const KV*>(v_new),
+      static_cast<KV*>(k_pool), static_cast<KV*>(v_pool), static_cast<const int*>(tables),
+      static_cast<const int*>(lens), static_cast<const float*>(ksn),
+      static_cast<const float*>(vsn), static_cast<float*>(ks_pool),
+      static_cast<float*>(vs_pool), static_cast<T*>(out), N, Nkv, Sq, NB, BS, max_blocks,
+      layer, scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C interface, loaded with ctypes.  Every pointer is a device pointer
@@ -346,6 +558,49 @@ int vcla_paged_append(const void* q, const void* k_new, const void* v_new, void*
   return is_bf16 ? launch<__nv_bfloat16, __nv_bfloat16, 128>(VCLA_PAGED_ARGS)
                  : launch<float, float, 128>(VCLA_PAGED_ARGS);
 #undef VCLA_PAGED_ARGS
+}
+
+// B5: the pools are (L, NB, BS, Nkv * head_dim) and updated in place.
+int vcla_paged_verify(const void* q, const void* k_new, const void* v_new, void* k_pool,
+                      void* v_pool, const void* tables, const void* lens, const void* ksn,
+                      const void* vsn, void* ks_pool, void* vs_pool, void* out, int B, int Sq,
+                      int N, int Nkv, int NB, int BS, int max_blocks, int layer, int head_dim,
+                      int is_bf16, int kv_int8, float scale, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (head_dim != 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return 0;
+#define VCLA_VERIFY_ARGS                                                                   \
+  q, k_new, v_new, k_pool, v_pool, tables, lens, ksn, vsn, ks_pool, vs_pool, out, B, Sq, N, \
+      Nkv, NB, BS, max_blocks, layer, scale, st
+  if (kv_int8)
+    return is_bf16 ? launch_verify<__nv_bfloat16, int8_t, 128, true, false>(VCLA_VERIFY_ARGS)
+                   : launch_verify<float, int8_t, 128, true, false>(VCLA_VERIFY_ARGS);
+  return is_bf16 ? launch_verify<__nv_bfloat16, __nv_bfloat16, 128, true, false>(VCLA_VERIFY_ARGS)
+                 : launch_verify<float, float, 128, true, false>(VCLA_VERIFY_ARGS);
+#undef VCLA_VERIFY_ARGS
+}
+
+// B6: one layer's pools (NB, BS, Nkv, head_dim), read only.
+int vcla_paged_decode(const void* q, const void* k_pool, const void* v_pool, const void* tables,
+                      const void* lens, const void* ks_pool, const void* vs_pool, void* out,
+                      int B, int N, int Nkv, int NB, int BS, int max_blocks, int head_dim,
+                      int is_bf16, int kv_int8, float scale, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (head_dim != 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return 0;
+  void* kp = const_cast<void*>(k_pool);  // never written without the append
+  void* vp = const_cast<void*>(v_pool);
+  void* ks = const_cast<void*>(ks_pool);
+  void* vs = const_cast<void*>(vs_pool);
+#define VCLA_DECODE_ARGS \
+  q, nullptr, nullptr, kp, vp, tables, lens, nullptr, nullptr, ks, vs, out, B, 1, N, Nkv, NB, \
+      BS, max_blocks, 0, scale, st
+  if (kv_int8)
+    return is_bf16 ? launch_verify<__nv_bfloat16, int8_t, 128, false, true>(VCLA_DECODE_ARGS)
+                   : launch_verify<float, int8_t, 128, false, true>(VCLA_DECODE_ARGS);
+  return is_bf16 ? launch_verify<__nv_bfloat16, __nv_bfloat16, 128, false, true>(VCLA_DECODE_ARGS)
+                 : launch_verify<float, float, 128, false, true>(VCLA_DECODE_ARGS);
+#undef VCLA_DECODE_ARGS
 }
 
 const char* vcla_paged_error_string(int code) {

@@ -132,12 +132,13 @@ class Engine:
 
     @torch.no_grad()
     def start(self, input_ids, pixel_values, img_start_pos, sampling: SamplingConfig,
-              seed: int = 0) -> DecodeState:
-        """Prefill and sample the first token."""
+              seed: int = 0, extra_slots: int = 0) -> DecodeState:
+        """Prefill and sample the first token.  ``extra_slots`` adds cache
+        headroom (a speculative verify chunk writes K+1 slots at once)."""
         B, S = np.asarray(input_ids).shape
         Sb = self.bucket_len(S)
         # the cache holds the bucket plus every new token, in 256-slot steps
-        cache_len = max(self.max_seq_len, Sb + sampling.max_new_tokens)
+        cache_len = max(self.max_seq_len, Sb + sampling.max_new_tokens + extra_slots)
         cache_len = -(-cache_len // 256) * 256
         hidden, cache, kv_valid, positions = self.prefill(
             input_ids, pixel_values, img_start_pos, cache_len)

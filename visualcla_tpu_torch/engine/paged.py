@@ -20,8 +20,10 @@ The same scheduling surface as the JAX package's (``server.Scheduler`` drives
 A row costs ceil(len / BS) blocks, so the pool admits requests by tokens,
 not by rows x max_seq_len.  ``step_n`` is a Python loop of steps that stops
 when a row finishes (the JAX package's fused device loops and their flat /
-nested choice are TPU workarounds, not ported).  Speculative decoding
-(``spec_k > 0``) and meshes are not ported yet.
+nested choice are TPU workarounds, not ported).  With ``spec_k > 0``,
+``spec_step_n`` runs speculative iterations instead (``engine/paged_spec.py``,
+kernel B5): each commits 1..spec_k+1 tokens a greedy row.  Meshes are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ import torch
 from ..core.config import VisualCLAConfig
 from ..models import llama, visualcla
 from ..ops.cuda.paged_attention import paged_append_attention
+from ..ops.linear import Int4Linear
 from ..ops.quantization import quantize_kv
 from ..ops.rope import apply_rope, rope_table
 from .generate import pick_bucket
@@ -59,49 +62,53 @@ def init_pools(cfg, num_blocks: int, block_size: int, dtype=torch.bfloat16,
             torch.zeros(shape, dtype=dtype, device=device), None, None)
 
 
-def paged_layer_step(layer: llama.DecoderLayer, h, cos, sin, state: "PagedState",
-                     tables, lens, blk, off, l: int):
-    """One decoder layer over the pool for one new token a row: qkv -> rope
-    -> (int8 pool: quantize K and V) -> B4 (append + attention) -> o_proj ->
-    MLP.  The pools are updated in place."""
-    B = h.shape[0]
+def pool_layer(layer: llama.DecoderLayer, h, cos, sin, state: "PagedState", attend):
+    """One decoder layer over the pool for Sq new tokens a row: qkv -> rope
+    -> (int8 pool: K and V quantized per token and head, together) ->
+    ``attend(q, k, v, k_scales, v_scales)``, a paged kernel that appends the
+    new K/V to the pools in place and attends -> o_proj -> MLP."""
+    B, Sq, _ = h.shape
     cfg = layer.cfg
     N, Nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     x = layer.input_norm(h)
-    q = layer.q_proj(x).reshape(B, 1, N, hd)
-    k = layer.k_proj(x).reshape(B, 1, Nkv, hd)
-    v = layer.v_proj(x).reshape(B, 1, Nkv, hd)
+    q = layer.q_proj(x).reshape(B, Sq, N, hd)
+    k = layer.k_proj(x).reshape(B, Sq, Nkv, hd)
+    v = layer.v_proj(x).reshape(B, Sq, Nkv, hd)
     q, k = apply_rope(q, k, cos, sin)
-    if state.k_scales is not None:  # K and V quantized per token and head, together
-        (kq, vq), (ksc, vsc) = (t.unbind(0) for t in quantize_kv(torch.stack((k[:, 0], v[:, 0]))))
-        attn = paged_append_attention(q[:, 0], kq, vq, state.k_pool, state.v_pool, tables,
-                                      lens, blk, off, l, ksc, vsc, state.k_scales,
-                                      state.v_scales)
+    if state.k_scales is not None:
+        (k, v), (ksc, vsc) = (t.unbind(0) for t in quantize_kv(torch.stack((k, v))))
     else:
-        dt = state.k_pool.dtype
-        attn = paged_append_attention(q[:, 0], k[:, 0].to(dt), v[:, 0].to(dt), state.k_pool,
-                                      state.v_pool, tables, lens, blk, off, l)
-    h = h + layer.o_proj(attn.reshape(B, 1, N * hd))
+        k, v, ksc, vsc = k.to(state.k_pool.dtype), v.to(state.v_pool.dtype), None, None
+    h = h + layer.o_proj(attend(q, k, v, ksc, vsc).reshape(B, Sq, N * hd))
     x2 = layer.post_norm(h)
     return h + layer.down_proj(layer.act(layer.gate_proj(x2)) * layer.up_proj(x2))
 
 
 def paged_decode_forward(text: llama.Llama, embeds, positions, state: "PagedState",
                          tables, blk, off, lens):
-    """One decode step over the pool: embeds (B, 1, H), rope positions (B,),
-    ``lens`` (B,) INCLUDING the new token.  -> final-normed hidden (B, 1, H)."""
+    """One decode step over the pool, kernel B4 in every layer: embeds
+    (B, 1, H), rope positions (B,), ``lens`` (B,) INCLUDING the new token.
+    -> final-normed hidden (B, 1, H)."""
     cos, sin = rope_table(positions[:, None], text.cfg.head_dim, text.cfg.rope_theta)
+
+    def first(t):
+        return None if t is None else t[:, 0]
+
     h = embeds
     for l, layer in enumerate(text.layers):
-        h = paged_layer_step(layer, h, cos, sin, state, tables, lens, blk, off, l)
+        def attend(q, k, v, ksc, vsc, l=l):
+            return paged_append_attention(
+                q[:, 0], k[:, 0], v[:, 0], state.k_pool, state.v_pool, tables, lens, blk, off,
+                l, first(ksc), first(vsc), state.k_scales, state.v_scales)[:, None]
+
+        h = pool_layer(layer, h, cos, sin, state, attend)
     return text.final_norm(h)
 
 
 @dataclasses.dataclass
 class PagedState:
     """The pool's device state (every tensor has the pool's rows first but
-    the pools).  The speculative token history of the JAX package's state
-    (``all_ids``) comes with speculative decoding (ROADMAP, open item 5)."""
+    the pools)."""
 
     k_pool: torch.Tensor  # (L, NB, BS, Nkv*hd)
     v_pool: torch.Tensor
@@ -111,6 +118,9 @@ class PagedState:
     positions: torch.Tensor  # (B,) next rope position
     gen_ids: torch.Tensor  # (B, T)
     gen_len: torch.Tensor  # (B,)
+    # (B, Smax) prompt + generated tokens a row, the speculative drafts'
+    # source; valid length positions + 1 (the last token is not in the pool)
+    all_ids: torch.Tensor
     max_len: torch.Tensor  # (B,) per-request max_new_tokens
     active: torch.Tensor  # (B,) bool
     finished: torch.Tensor  # (B,) bool: hit EOS or a limit, awaiting collection
@@ -140,16 +150,15 @@ class PagedServingEngine:
         kv_quant: str = "none",  # "int8": halve the pool's bytes (per-token scales)
         seed: int = 0,
         mesh=None,
-        spec_k: int = 0,
+        spec_k: int = 0,  # >0: speculative iterations of spec_k drafts (spec_step_n)
+        spec_max_active: Optional[int] = None,  # the Scheduler speculates up to this
+        #   many live rows (None: 2 at the int4 tier, else 4)
+        spec_max_ngram: int = 3,
     ):
         if mesh is not None:
             raise NotImplementedError(
                 "a paged pool over a multi-device mesh is not ported yet "
                 "(ROADMAP, open item 11: multi-device)")
-        if spec_k > 0:
-            raise NotImplementedError(
-                "speculative decoding in the paged pool is not ported yet "
-                "(ROADMAP, open item 5: speculative decoding)")
         self.model = model
         self.cfg = cfg
         self.kv_quant = kv_quant
@@ -170,6 +179,13 @@ class PagedServingEngine:
         p = model.text.final_norm.weight  # a float leaf at every weight tier
         self.device, self.dtype = p.device, p.dtype
         self.decode_steps = 0  # decode steps run (each launches B4 once per layer)
+        self.spec_steps = 0  # speculative iterations run (each launches B5 once per layer)
+        self.spec_k = int(spec_k)
+        if spec_max_active is None:
+            int4 = any(isinstance(m, Int4Linear) for m in model.text.modules())
+            spec_max_active = 2 if int4 else 4
+        self.spec_max_active = int(spec_max_active)
+        self.spec_max_ngram = int(spec_max_ngram)
 
         # host allocator: block 0 is the dummy target for unused table slots
         self._free: List[int] = list(range(num_blocks - 1, 0, -1))
@@ -192,6 +208,7 @@ class PagedServingEngine:
             positions=torch.zeros(B, dtype=torch.int64, device=dev),
             gen_ids=torch.zeros(B, T, dtype=torch.int64, device=dev),
             gen_len=torch.zeros(B, dtype=torch.int64, device=dev),
+            all_ids=torch.zeros(B, max_seq_len, dtype=torch.int64, device=dev),
             max_len=torch.zeros(B, dtype=torch.int64, device=dev),
             active=torch.zeros(B, dtype=torch.bool, device=dev),
             finished=torch.zeros(B, dtype=torch.bool, device=dev),
@@ -307,9 +324,11 @@ class PagedServingEngine:
         s.v_pool[:, idx] = vb.reshape(Lyr, nb, self.BS, Nkv * hd).to(s.v_pool.dtype)
 
     def _admit_row(self, row: int, hidden_last, last_idx: int, max_new_tokens: int,
-                   knobs: np.ndarray) -> None:
+                   knobs: np.ndarray, ids: np.ndarray) -> None:
         """Sample the first token from the last REAL prompt position's hidden
-        and activate the row (shared by the one-shot and chunked prefills)."""
+        and activate the row (shared by the one-shot and chunked prefills).
+        The right-padded prompt ``ids`` (1, L) seeds the row's token history,
+        the first token goes to its index last_idx + 1."""
         s = self._state
         logits = self.model.text.logits(hidden_last)[:, 0]  # (1, V)
         kn = torch.as_tensor(knobs, device=self.device)[None]  # (1, 11)
@@ -319,6 +338,8 @@ class PagedServingEngine:
             torch.zeros(1, dtype=torch.int64, device=self.device), s.generator,
             self.sampling, **knob_kwargs(kn, mu0), flags=_flags(knobs[None]))
         s.last_token[row] = token[0]
+        s.all_ids[row, :ids.shape[1]] = torch.as_tensor(ids[0], device=self.device)
+        s.all_ids[row, min(last_idx + 1, self.Smax - 1)] = token[0]
         s.positions[row] = last_idx + 1
         s.gen_ids[row] = 0
         s.gen_ids[row, 0] = token[0]
@@ -354,7 +375,7 @@ class PagedServingEngine:
             self._scatter_scratch(scratch, blocks[:nb_prompt])
             # prompts are RIGHT-padded: sample from the last REAL token
             self._admit_row(row, hidden[:, S - 1:S], S - 1, min(max_new_tokens, self.T),
-                            knobs)
+                            knobs, ids)
         except Exception:
             # roll the allocator back: no leaked blocks, no dead active row
             self._free_row(row)
@@ -413,6 +434,10 @@ class PagedServingEngine:
         idx = s.gen_len.clamp(max=self.T - 1)
         s.gen_ids[rows, idx] = torch.where(run, token, s.gen_ids[rows, idx])
         s.gen_len = s.gen_len + run.long()
+        # the token history's next index is positions + 1
+        aidx = (s.positions + 1).clamp(max=self.Smax - 1)
+        s.all_ids[rows, aidx] = torch.where(run & (s.positions + 1 < self.Smax), token,
+                                            s.all_ids[rows, aidx])
         hit_eos = run & (token == self.eos)
         hit_cap = run & ((s.gen_len >= s.max_len) | (lens + 1 >= self.Smax))
         s.last_token = torch.where(run, token, s.last_token)
@@ -441,6 +466,94 @@ class PagedServingEngine:
                 break
             self.ctx_len[run] += 1
             self._decode(self.ctx_len)
+
+    # -- speculative decoding inside the pool (engine/paged_spec.py) -----------
+
+    def spec_ready(self) -> bool:
+        """Whether a speculative iteration can gain anything: ``spec_k > 0``
+        and a running row is ``spec_eligible``, from the host mirrors (no
+        device sync)."""
+        from .paged_spec import spec_eligible
+
+        run = self._host_active & ~self._host_finished
+        return self.spec_k > 0 and bool((run & spec_eligible(self._host_knobs)).any())
+
+    def _spec_finish(self, run, lens, logits, drafts, k: int):
+        """Acceptance and bookkeeping of one verify step, in place: logits
+        (B, k+1, V), drafts (B, k), lens (B,) the committed context.  Eligible
+        rows commit the longest draft prefix matching their argmax chain plus
+        one token; every other running row commits ONE token, sampled from
+        the j = 0 logits by the plain step's row-wise sampler.  Commits never
+        pass max_new_tokens or Smax, and stop after an EOS.  -> new lens."""
+        from .paged_spec import spec_eligible
+
+        s = self._state
+        B, Sq, dev = self.B, k + 1, self.device
+        jj = torch.arange(Sq, device=dev)[None, :]
+        lf = logits.float()
+        chain = lf.argmax(dim=-1)  # (B, Sq)
+        tok0, new_mu = sample_step_rowwise(
+            lf[:, 0], s.gen_ids, s.gen_len, s.generator, self.sampling,
+            **knob_kwargs(s.knobs, s.mu), flags=_flags(self._host_knobs[self._host_active]))
+        clean = spec_eligible(s.knobs)
+        # draft j is accepted iff it equals the prediction at position j
+        accepted = (drafts == chain[:, :k]).long().cumprod(dim=1).sum(dim=1)
+        n_new = torch.where(clean, accepted + 1, torch.ones_like(accepted))
+        cap = torch.minimum(s.max_len - s.gen_len, self.Smax - 1 - lens).clamp(min=1)
+        toks = torch.where(clean[:, None], chain, tok0[:, None].expand(B, Sq))
+        eos_pos = torch.where(toks == self.eos, jj, Sq).amin(dim=1)
+        n_commit = torch.minimum(torch.minimum(n_new, cap), eos_pos + 1)
+        n_commit = torch.where(run, n_commit, torch.zeros_like(n_commit))
+
+        def commit_into(buf, first):  # toks[:, :n_commit] at columns first + j
+            rel = torch.arange(buf.shape[1], device=dev)[None, :] - first[:, None]
+            put = (rel >= 0) & (rel < n_commit[:, None])
+            return torch.where(put, torch.gather(toks, 1, rel.clamp(0, Sq - 1)), buf)
+
+        s.gen_ids = commit_into(s.gen_ids, s.gen_len)
+        s.all_ids = commit_into(s.all_ids, s.positions + 1)
+        last = torch.gather(toks, 1, (n_commit - 1).clamp(min=0)[:, None])[:, 0]
+        lens = lens + n_commit
+        s.gen_len = s.gen_len + n_commit
+        hit_eos = run & (eos_pos < n_commit)
+        hit_cap = run & ((s.gen_len >= s.max_len) | (lens + 1 >= self.Smax))
+        s.last_token = torch.where(run, last, s.last_token)
+        s.positions = s.positions + n_commit
+        s.finished = s.finished | hit_eos | hit_cap
+        s.mu = torch.where(run, new_mu, s.mu)
+        return lens
+
+    @torch.no_grad()
+    def spec_step_n(self, n: int) -> None:
+        """Up to ``n`` speculative iterations (``spec_k > 0``), stopping as
+        ``step_n`` does; each drafts spec_k tokens a row from its token
+        history, verifies every row's k+1 tokens in one forward (B5 in every
+        layer) and commits 1..spec_k+1 tokens a running row.  One
+        device-to-host copy of the run flags and context lengths an
+        iteration."""
+        from .paged_spec import draft_all_rows, paged_verify_forward
+
+        if self.spec_k <= 0:
+            raise ValueError("spec_step_n needs an engine built with spec_k > 0")
+        s = self._state
+        k, dev, text = self.spec_k, self.device, self.model.text
+        finished0 = s.finished.clone()
+        tables = torch.tensor(self.tables, device=dev)  # the host does not touch them here
+        lens = torch.tensor(self.ctx_len, dtype=torch.int64, device=dev)
+        jj = torch.arange(k + 1, device=dev)[None, :]
+        for i in range(n + 1):
+            ctl = torch.stack(((s.active & ~s.finished).long(),
+                               (s.finished & ~finished0).long(), lens)).cpu().numpy()
+            self.ctx_len = ctl[2].astype(np.int32)
+            if i == n or not ctl[0].any() or ctl[1].any():
+                break
+            run = s.active & ~s.finished
+            drafts = draft_all_rows(s.all_ids, s.positions + 1, k, self.spec_max_ngram)
+            embeds = text.embed(torch.cat([s.last_token[:, None], drafts], dim=1))
+            hidden = paged_verify_forward(text, embeds, s.positions[:, None] + jj, s, tables,
+                                          lens, run)
+            lens = self._spec_finish(run, lens, text.logits(hidden), drafts, k)
+            self.spec_steps += 1
 
     def snapshot(self) -> dict:
         """The rows' control fields in one device-to-host copy."""
@@ -549,7 +662,8 @@ class PendingPrefill:
                 return False
             eng._scatter_scratch(self._scratch, self.blocks[:self.nb_prompt])
             j = self.S - 1 - self.starts[-1]  # the last real token, in the last chunk
-            eng._admit_row(self.row, hidden[:, j:j + 1], self.S - 1, self.max_new, self.knobs)
+            eng._admit_row(self.row, hidden[:, j:j + 1], self.S - 1, self.max_new, self.knobs,
+                           self.ids)
             self.done = True
             self._embeds = self._scratch = None
             return True

@@ -107,7 +107,8 @@ class Scheduler:
         # wall-clock attribution of the loop (seconds / counts), via stats()
         self._stats = {
             "iterations": 0, "prefills": 0, "chunked_admissions": 0, "prefill_chunks": 0,
-            "chunk_dispatches": 0, "single_steps": 0, "idle_sleeps": 0, "collects": 0,
+            "chunk_dispatches": 0, "spec_dispatches": 0, "single_steps": 0, "idle_sleeps": 0,
+            "collects": 0,
             "t_prefill": 0.0, "t_step": 0.0, "t_snapshot": 0.0, "t_collect": 0.0,
             "t_stream": 0.0,
         }
@@ -253,8 +254,16 @@ class Scheduler:
                 t0 = time.perf_counter()
                 if (self.step_chunk > 1 and self._pending is None
                         and (nothing_waiting or pool_full or block_bound)):
-                    eng.step_n(self.step_chunk)
-                    st["chunk_dispatches"] += 1
+                    # at low occupancy, speculative iterations commit up to
+                    # spec_k+1 tokens a greedy row for about one step's
+                    # weight reads; only when some running row can accept
+                    # drafts (an ineligible row commits one token either way)
+                    if len(self._rows) <= eng.spec_max_active and eng.spec_ready():
+                        eng.spec_step_n(self.step_chunk)
+                        st["spec_dispatches"] += 1
+                    else:
+                        eng.step_n(self.step_chunk)
+                        st["chunk_dispatches"] += 1
                 else:
                     eng.step()
                     st["single_steps"] += 1
