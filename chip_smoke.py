@@ -20,8 +20,13 @@ Phases, one line of findings each:
                same rows (an append across a block edge), GQA and B=8 x 2048,
                running rows' outputs and pools (outside the dummy block 0)
                checked; B6 (paged decode attention, f32) at B4's shapes; B2 at
-               Sq 9 with per-row write slots; each with its bound and, where
-               one PyTorch call computes the same function, that call's time;
+               Sq 9 with per-row write slots; B2u (flash attention over
+               unstacked K/V) at the ViT's shape (257 tokens, 16 x 64, B=1 and
+               8, bf16 and f32), at 448 px (1025 tokens), at the resampler's
+               (64 queries over 321 slots) and in the mesh form (bnsh, causal,
+               hd 128, per-row slots, bf16 and int8 K/V, a fully masked row);
+               each with its bound and, where one PyTorch call computes the
+               same function, that call's time;
   4. slice   — VisualCLA-7B at full width on seeded random bf16 weights made
                on the card: prefill logits through the kernels against the
                plain attention versions (loosely in bf16, tightly on an fp32
@@ -34,6 +39,14 @@ Phases, one line of findings each:
                copying (B2 once a layer a verify chunk, B1 never), its
                stream's ids equal to its ``generate``'s, tokens a chunk,
                acceptance, TTFT and decode rate;
+  4v vision  — phase 4's model with VISUALCLA_VIT_ATTN=flash: encode_image
+               on 1 and 8 images with exactly 30 B2u launches a call, a greedy
+               chat with exact B2u / B2 / B1 counts, VisionPipeline on 8
+               images, evaluate on the first 8 vendored llava questions,
+               device_preprocess against the host processor, the fp32 vision
+               towers' embeddings flash vs dense within 1e-4 relative, then
+               extend_to_resolution(448) and the same chat (B2u at 1025
+               tokens); encode ms and TTFT flash vs dense at 224 and 448 px;
   5. int4    — the same model made anew, its text tower quantized on the card
                to int4 (``quantize_text_tower_``), with the int8 KV cache:
                prefill logits through the kernels against the plain versions
@@ -75,7 +88,9 @@ import io
 import json
 import statistics
 import subprocess
+import os
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -91,6 +106,8 @@ from visualcla_tpu_torch.processor import ImageProcessor
 from visualcla_tpu_torch.text.prompt import encoding_text, img_marker_positions
 from visualcla_tpu_torch import api
 from visualcla_tpu_torch.apps import serve as serve_app
+from visualcla_tpu_torch.apps.evaluate import evaluate
+from visualcla_tpu_torch.assets import golden_path
 from visualcla_tpu_torch.engine import paged as paged_mod
 from visualcla_tpu_torch.engine import server as server_mod
 from visualcla_tpu_torch.engine.generate import PROMPT_BUCKETS, pick_bucket
@@ -98,15 +115,22 @@ from visualcla_tpu_torch.engine.sampling import SamplingConfig
 from visualcla_tpu_torch.fixtures import (PROMPT, SEED, make_tokenizer, paged_case,
                                           paged_decode_args, paged_verify_case, plain_kernels,
                                           random_image)
-from visualcla_tpu_torch.models.visualcla import (VisualCLAModel, init_random_,
-                                                  quantize_text_tower_)
+from visualcla_tpu_torch.models.visualcla import (VisionTowers, VisualCLAModel, encode_image,
+                                                  init_random_, quantize_text_tower_)
 from visualcla_tpu_torch.ops.cuda import build
 from visualcla_tpu_torch.ops.cuda import flash_attention as fa
 from visualcla_tpu_torch.ops.cuda import int4_matmul as i4
 from visualcla_tpu_torch.ops.cuda import paged_attention as pa
+from visualcla_tpu_torch.ops.attention import cached_attention
 from visualcla_tpu_torch.ops.quantization import dequantize_grouped, quantize_grouped, quantize_kv
+from visualcla_tpu_torch.pipeline import VisionPipeline
+from visualcla_tpu_torch.processor.image import device_preprocess
 
 ATOL = RTOL = 2e-2  # bf16 output rounding plus another summation order
+F32_TOL = 1e-4  # f32 inputs: another summation order only
+# bf16 image embeddings through B2u against the plain versions, relative to
+# their largest value: 30 layers of bf16 rounding in another order
+EMBED_REL_TOL = 5e-2
 # B3 against its plain version in fp32 on the same bf16 x and carrier:
 # |err| <= B3_TOL * max|ref| + B3_TOL * |ref| (the prefill form rounds the
 # dequantized weight to bf16, as the TPU's scratch form does)
@@ -119,6 +143,8 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "flash_prefill": (FLASH_SOURCE, "visualcla_tpu/ops/pallas/flash_attention.py:29"),
     "flash_decode_kv8": (FLASH_SOURCE, "visualcla_tpu/ops/pallas/flash_attention.py:120"),
     "flash_prefill_kv8": (FLASH_SOURCE, "visualcla_tpu/ops/pallas/flash_attention.py:29"),
+    "flash_full": (FLASH_SOURCE, "visualcla_tpu/ops/pallas/flash_attention.py:308"),
+    "flash_full_kv8": (FLASH_SOURCE, "visualcla_tpu/ops/pallas/flash_attention.py:308"),
     "int4_matmul_decode": (INT4_SOURCE, "visualcla_tpu/ops/pallas/int4_matmul.py:85"),
     "int4_matmul_prefill": (INT4_SOURCE, "visualcla_tpu/ops/pallas/int4_matmul.py:172"),
     "paged_append": (PAGED_SOURCE, "visualcla_tpu/ops/pallas/paged_attention.py:261"),
@@ -132,12 +158,17 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
 # the 32 layers in phase 3, and its summary row says so
 B6_NOTE = ("launches: one op-level pass over the 32 layers at the B=4 shape (no path of "
            "the package calls B6)")
+# B2u's int8 form is reached only by the mesh form of cached attention
+B2U_KV8_NOTE = ("launches: one op-level pass of cached_attention(layer_index=None) over the 32 "
+                "layers of an int8 cache at the mesh form's shape (no single-device path of "
+                "either package calls B2u's int8 form)")
 SPEC_K = 4  # the serve phases' speculative pools: B5 at Sq = SPEC_K + 1
 # the card's published peaks (H100 SXM data sheet): the least time a call can
 # take is the larger of its bytes over the memory rate and its operations
 # over the bf16 tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 BF16_OPS_PER_S = 989e12
+F32_OPS_PER_S = 67e12  # outside the tensor cores
 # the 7B text tower's int4 matmuls, (in, out): one decoder layer, and the head
 LAYER_SHAPES = {"q_proj": (4096, 4096), "k_proj": (4096, 4096), "v_proj": (4096, 4096),
                 "o_proj": (4096, 4096), "gate_proj": (4096, 11008),
@@ -171,10 +202,24 @@ def device_ms(fn, calls: int = 10, replays: int = 5) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, ops: float):
+def event_ms(fn, n: int = 5) -> float:
+    """Time of one ``fn()`` from CUDA events around ``n`` calls, launches
+    included: for work a CUDA graph cannot capture (host-to-device copies)."""
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def bound(nbytes: float, ops: float, ops_per_s: float = BF16_OPS_PER_S):
     """(least ms, what bounds it) for a call moving ``nbytes`` and doing
-    ``ops`` operations."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
+    ``ops`` operations at ``ops_per_s`` (bf16 tensor cores by default)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -340,9 +385,11 @@ def phase_kernels(prompt_bucket: int) -> dict:
     b6_main, b6_launches = _b6_cases(worst, failures)
     main.update(b6_main)
     _b2_verify_case(gen, worst, failures)
+    b2u_main, b2u_launches = _b2u_cases(gen, worst, failures)
+    main.update(b2u_main)
     if failures:
         raise RuntimeError(f"kernels disagree with their plain versions: {failures}")
-    return {"worst": worst, "main": main, "b6_launches": b6_launches}
+    return {"worst": worst, "main": main, "op_launches": {**b6_launches, **b2u_launches}}
 
 
 def _flash_bound_and_library(kind, q, kc, vc, valid, slot, sc):
@@ -595,6 +642,148 @@ def _b2_verify_case(gen, worst, failures) -> None:
           f"N32, S 2048), tol atol=rtol={ATOL}: " + "; ".join(cases), flush=True)
 
 
+def _b2u_check(q, k, v, valid, slot, causal, layout, sc):
+    """B2u against its plain version in fp32 on the same bf16 (or int8) inputs:
+    (max abs error, within tolerance and finite, the fully masked rows zero)."""
+    kw = dict(causal=causal, kv_layout=layout, **sc)
+    out = fa.flash_attention(q, k, v, valid, slot, **kw)
+    torch.cuda.synchronize()
+    if sc:
+        ref = fa.flash_attention_ref(q.float(), k, v, valid, slot, **kw)
+    else:
+        ref = fa.flash_attention_ref(q.float(), k.float(), v.float(), valid, slot, **kw)
+    tol = ATOL if q.dtype == torch.bfloat16 else F32_TOL
+    err = (out.float() - ref).abs()
+    masked = ~valid.any(dim=1)
+    ok = (bool((err <= tol + tol * ref.abs()).all()) and bool(torch.isfinite(out).all())
+          and bool((out[masked] == 0).all()))
+    return err.max().item(), ok
+
+
+def _b2u_bound(q, k, valid, slot, causal, layout, sc):
+    """B2u's least time: q, the K/V slots (and int8 scales) the queries can
+    see, kv_valid and the output moved once; 4 hd operations a visible
+    (query, slot) pair and head, counted on this run's mask."""
+    B, Sq, N, hd = q.shape
+    S = k.shape[1] if layout == "bsnh" else k.shape[2]
+    Nkv = k.shape[2] if layout == "bsnh" else k.shape[1]
+    j = torch.arange(S, device=q.device)
+    if causal:
+        q_slot = slot.long()[:, None] + torch.arange(Sq, device=q.device)[None, :]
+        seen = valid[:, None, :] & (j[None, None, :] <= q_slot[:, :, None])
+        n_kv = int(torch.clamp(slot.long() + Sq, max=S).sum())
+    else:
+        seen = valid[:, None, :].expand(B, Sq, S)
+        n_kv = B * S
+    per_slot = 2 * Nkv * hd * k.element_size() + (2 * Nkv * 4 if sc else 0)
+    moved = 2 * nbytes(q) + n_kv * per_slot + nbytes(valid)
+    rate = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else F32_OPS_PER_S
+    return bound(moved, 4 * hd * N * int(seen.sum()), rate)
+
+
+def _b2u_cases(gen, worst, failures):
+    """B2u against its plain version, with its bound, the plain version's
+    time and ``scaled_dot_product_attention``'s at the same shape: the ViT
+    (257 tokens, 16 heads x 64, causal off; B = 1 and 8, bf16 and f32), the
+    ViT at 448 px (1025 tokens), the resampler (64 queries over 321 slots)
+    and the mesh form of cached attention (bnsh, causal, hd 128, B = 2, Sq
+    512 on per-row slots 100 / 1000 with invalid leading slots, S 2048, bf16
+    and int8 K/V), plus a fully masked row.  Then one op-level pass of
+    ``cached_attention(layer_index=None)`` over 32 layers of the int8 mesh
+    form with the launch counter from zero.  -> (main-path entries: the ViT
+    at B = 1 bf16 and the int8 mesh form, the pass's launches)."""
+    dev = "cuda"
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    main, cases, launches = {}, [], {}
+    shapes = [("ViT", 1, 257, 257, torch.bfloat16), ("ViT", 8, 257, 257, torch.bfloat16),
+              ("ViT", 1, 257, 257, torch.float32), ("ViT", 8, 257, 257, torch.float32),
+              ("ViT 448px", 1, 1025, 1025, torch.bfloat16),
+              ("resampler", 1, 64, 321, torch.bfloat16), ("resampler", 8, 64, 321,
+                                                          torch.bfloat16)]
+    for label, B, Sq, S, dtype in shapes:
+        q, k, v = rnd(B, Sq, 16, 64, dtype=dtype), rnd(B, S, 16, 64, dtype=dtype), \
+            rnd(B, S, 16, 64, dtype=dtype)
+        valid = torch.ones(B, S, dtype=torch.bool, device=dev)
+        err, ok = _b2u_check(q, k, v, valid, 0, False, "bsnh", {})
+        worst["flash_full"] = max(worst["flash_full"], err)
+        ms = device_ms(lambda i: fa.flash_attention(q, k, v, valid, 0, causal=False))
+        plain_ms = device_ms(lambda i: fa.flash_attention_ref(q, k, v, valid, 0, causal=False),
+                             calls=2)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        lib_ms = device_ms(lambda i: F.scaled_dot_product_attention(qt, kt, vt))
+        b_ms, b_by = _b2u_bound(q, k, valid, None, False, "bsnh", {})
+        cases.append(f"{label} B{B} {str(dtype)[6:]} err={err:.2e} {ms * 1e3:.1f}us/plain "
+                     f"{plain_ms * 1e3:.1f}us/sdpa {lib_ms * 1e3:.1f}us, bound "
+                     f"{b_ms * 1e3:.2f}us ({b_by})")
+        if not ok:
+            failures.append("flash_full " + cases[-1])
+        if label == "ViT" and B == 1 and dtype == torch.bfloat16:
+            main["flash_full"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                                  "bound_by": b_by, "library_ms": lib_ms}
+        del q, k, v
+    # the mesh form: bnsh K/V of one layer, causal from per-row slots
+    L, B, Sq, S, N = 32, 2, 512, 2048, 32
+    slot = torch.tensor([100, 1000], dtype=torch.int32, device=dev)
+    valid = torch.arange(S, device=dev)[None, :] < slot[:, None].long() + Sq
+    valid[0, :7], valid[1, :300] = False, False
+    q, kc, vc = rnd(B, Sq, N, 128), rnd(L, B, N, S, 128), rnd(L, B, N, S, 128)
+    for kv8 in (False, True):
+        name = "flash_full_kv8" if kv8 else "flash_full"
+        k, v, sc = kc[7], vc[7], {}
+        if kv8:
+            kq, vq, scales = _quantized_cache(kc, vc)
+            k, v = kq[7], vq[7]
+            sc = {"k_scale": scales["k_scale"][7], "v_scale": scales["v_scale"][7]}
+        err, ok = _b2u_check(q, k, v, valid, slot, True, "bnsh", sc)
+        dead = valid.clone()
+        dead[1] = False  # a fully masked row
+        err2, ok2 = _b2u_check(q, k, v, dead, slot, True, "bnsh", sc)
+        worst[name] = max(worst[name], err, err2)
+        ms = device_ms(lambda i: fa.flash_attention(q, k, v, valid, slot, kv_layout="bnsh", **sc))
+        plain_ms = device_ms(
+            lambda i: fa.flash_attention_ref(q, k, v, valid, slot, kv_layout="bnsh", **sc),
+            calls=2)
+        b_ms, b_by = _b2u_bound(q, k, valid, slot, True, "bnsh", sc)
+        lib_ms = None
+        if not kv8:  # the same function through a boolean mask (SDPA takes no int8 K/V)
+            q_slot = slot.long()[:, None] + torch.arange(Sq, device=dev)[None, :]
+            mask = (valid[:, None, :] & (torch.arange(S, device=dev)[None, None, :]
+                                         <= q_slot[:, :, None]))[:, None]
+            qt = q.transpose(1, 2)
+            lib_ms = device_ms(lambda i: F.scaled_dot_product_attention(qt, k, v,
+                                                                        attn_mask=mask))
+        lib = "none" if lib_ms is None else f"{lib_ms * 1e3:.1f}us"
+        cases.append(f"mesh form {'int8' if kv8 else 'bf16'} (bnsh causal hd128 B2 Sq512 slots "
+                     f"100/1000 S2048) err={err:.2e}, fully masked row err={err2:.2e} "
+                     f"{ms * 1e3:.1f}us/plain {plain_ms * 1e3:.1f}us/sdpa {lib}, bound "
+                     f"{b_ms * 1e3:.2f}us ({b_by})")
+        if not (ok and ok2):
+            failures.append(name + " " + cases[-1])
+        if kv8:
+            main[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                          "library_ms": None}
+            torch.cuda.synchronize()
+            fa.reset_launch_counts()
+            for layer in range(L):
+                cached_attention(q, kq[layer], vq[layer], valid, slot,
+                                 k_scale=scales["k_scale"][layer],
+                                 v_scale=scales["v_scale"][layer])
+            torch.cuda.synchronize()
+            launches[name] = fa.LAUNCHES[name]
+            del kq, vq, scales
+    del q, kc, vc
+    torch.cuda.empty_cache()
+    print(f"[3 kernels] B2u flash attention over unstacked K/V (causal off unless stated, "
+          f"all slots valid for the vision shapes), tol atol=rtol={ATOL} (bf16), {F32_TOL} "
+          f"(f32); bound at {BF16_OPS_PER_S / 1e12:.0f} TFLOP/s for bf16 and "
+          f"{F32_OPS_PER_S / 1e12:.0f} for f32 inputs: " + "; ".join(cases)
+          + f"; op-level pass launches {launches}", flush=True)
+    return main, launches
+
+
 def _b3_weight(gen, in_dim, out):
     """A random bf16 (in, out) weight quantized on the card: (carrier, scale)."""
     w = (torch.randn(in_dim, out, generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
@@ -800,7 +989,224 @@ def phase_slice(smi: str, cfg, tokenizer) -> dict:
           f"preprocess + encode + prefill + first token), B=1 decode {rate:.1f} tok/s; "
           f"{_spec_line(spec)}; card {smi}", flush=True)
     return {"launches": chat_counts, "ttft_ms": ttft * 1e3, "decode_tok_s": rate,
-            "spec": spec}
+            "spec": spec, "bundle": bundle}
+
+
+@contextlib.contextmanager
+def _vision_attention(impl: str):
+    """Within the block the ViT and the resampler attend with ``impl``
+    ("flash": kernel B2u; "xla": the dense path), as ``VISUALCLA_VIT_ATTN``
+    selects it."""
+    keep = os.environ.get("VISUALCLA_VIT_ATTN")
+    os.environ["VISUALCLA_VIT_ATTN"] = impl
+    try:
+        yield
+    finally:
+        if keep is None:
+            del os.environ["VISUALCLA_VIT_ATTN"]
+        else:
+            os.environ["VISUALCLA_VIT_ATTN"] = keep
+
+
+def _counted(fn):
+    """``fn()`` with every launch counter set to 0 just before it: (its
+    result, the counters read just after)."""
+    _reset_counters()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, _counters()
+
+
+def _encode_ms(model, cfg, px, impl: str, n: int = 5) -> float:
+    """Median host ms of one synchronized ``encode_image`` call."""
+    times = []
+    with _vision_attention(impl), torch.no_grad():
+        for _ in range(n + 1):  # the first call is a warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            encode_image(model, cfg, px)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    return statistics.median(times[1:]) * 1e3
+
+
+def _ttft_ms(bundle, image, impl: str, n: int = 3) -> float:
+    """Median TTFT (ms) of a greedy ``chat_in_stream``: from the call to its
+    first token (host preprocess, encode, prefill, first sample)."""
+    times = []
+    with _vision_attention(impl):
+        for _ in range(n + 1):  # the first run is a warm-up
+            t0 = time.perf_counter()
+            for _ in api.chat_in_stream(bundle, image, PROMPT, [], SamplingConfig.greedy(2),
+                                        verbose=False):
+                break
+            times.append(time.perf_counter() - t0)
+    return statistics.median(times[1:]) * 1e3
+
+
+def _vision_times(bundle, image, px, impl: str) -> dict:
+    """Encode ms on the host clock and on the device (one ``encode_image``
+    captured in a CUDA graph and replayed: launch gaps excluded), and TTFT,
+    with vision attention ``impl``."""
+    with _vision_attention(impl), torch.no_grad():
+        dev = device_ms(lambda i: encode_image(bundle.model, bundle.config, px), calls=1)
+    return {"encode_ms": _encode_ms(bundle.model, bundle.config, px, impl),
+            "encode_device_ms": dev, "ttft_ms": _ttft_ms(bundle, image, impl)}
+
+
+def _rel(a, b) -> float:
+    return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+
+def phase_vision(smi: str, cfg, tokenizer, bundle) -> dict:
+    """The vision path with flash vision attention (B2u) on phase 4's bf16
+    model: ``encode_image`` on 1 and 8 images (30 B2u launches a call: 24 ViT
+    + 6 resampler layers); a greedy chat with exact B2u / B2 / B1 counts;
+    ``VisionPipeline.embed_images`` on 8 images; ``evaluate`` on the first 8
+    vendored llava questions (generated images under their file names, one
+    batch of 8); ``device_preprocess`` against the host processor; the fp32
+    vision towers' embeddings flash vs dense; then ``extend_to_resolution
+    (448)`` and the same encode and chat (B2u at 1025 tokens).  Encode ms and
+    TTFT flash vs dense at 224 and 448 px."""
+    L = cfg.text_config.num_hidden_layers
+    n_vis = cfg.vision_config.num_hidden_layers + cfg.visual_resampler_config.num_hidden_layers
+    model = bundle.model
+    image = random_image(SEED)
+    images = [random_image(SEED + 40 + i) for i in range(8)]
+    greedy = SamplingConfig.greedy(max_new_tokens=VISION_NEW_TOKENS)
+    H = cfg.text_config.hidden_size
+
+    def encode(px):
+        with torch.no_grad():
+            return encode_image(model, bundle.config, px)
+
+    def chat_counts():
+        """The greedy chat with its exact launches; -> (tokens, launches)."""
+        api.chat(bundle, image, PROMPT, [], SamplingConfig.greedy(max_new_tokens=4),
+                 verbose=False)  # warm-up
+        _, counts = _counted_chat(bundle, image, greedy)
+        enc = encoding_text([], PROMPT, bundle.num_patch, tokenizer)
+        pv = bundle.image_processor(image)["pixel_values"]
+        ids = bundle.generate(enc["input_ids"], pixel_values=pv, generation_config=greedy)[0]
+        _check_counts(counts, {"flash_full": n_vis, "flash_prefill": L,
+                               "flash_decode": L * (len(ids) - 1)})
+        return len(ids), counts
+
+    px8 = torch.as_tensor(bundle.image_processor(images)["pixel_values"]).to("cuda",
+                                                                             torch.bfloat16)
+    numbers = {}
+    with _vision_attention("flash"):
+        encode(px8[:1])  # warm-up
+        embeds = {}
+        for B in (1, 8):
+            embeds[B], counts = _counted(lambda: encode(px8[:B]))
+            _check_counts(counts, {"flash_full": n_vis})
+            if embeds[B].shape != (B, cfg.num_image_tokens, H) or not bool(
+                    torch.isfinite(embeds[B]).all()):
+                raise RuntimeError(f"encode_image B={B}: {tuple(embeds[B].shape)}, finite "
+                                   f"{bool(torch.isfinite(embeds[B]).all())}")
+        with plain_kernels():
+            plain8 = encode(px8)
+        kernel_vs_plain = _rel(embeds[8], plain8)
+        n_gen, counts224 = chat_counts()
+
+        pipe = VisionPipeline(model, bundle.config, bundle.image_processor)
+        piped, pipe_counts = _counted(lambda: pipe.embed_images(images))
+        _check_counts(pipe_counts, {"flash_full": n_vis})
+        pipe_diff = float(np.abs(piped - embeds[8].float().cpu().numpy()).max())
+        if piped.shape != (8, pipe.num_image_embeds, H) or pipe_diff > 1e-3 * float(
+                np.abs(piped).max()):
+            raise RuntimeError(f"VisionPipeline {piped.shape}, max diff to encode_image "
+                               f"{pipe_diff}")
+
+        with open(golden_path("llava")) as f:
+            questions = json.load(f)[:EVAL_QUESTIONS]
+        with tempfile.TemporaryDirectory() as tmp:
+            for i, name in enumerate(sorted({q["image"] for q in questions})):
+                with open(os.path.join(tmp, name), "wb") as f:  # .npy bytes, the file's name
+                    np.save(f, random_image(SEED + 50 + i))
+            t0 = time.perf_counter()
+            results, eval_counts = _counted(lambda: evaluate(
+                bundle, questions, tmp, sampling=SamplingConfig.greedy(EVAL_NEW_TOKENS),
+                batch_size=EVAL_QUESTIONS))
+            eval_s = time.perf_counter() - t0
+        if ([r["question_id"] for r in results] != [q["question_id"] for q in questions]
+                or not all(isinstance(r["output"], str) for r in results)):
+            raise RuntimeError(f"evaluate returned {results}")
+        # one batch: one encode of 8 images and one prefill; its decode steps
+        # end at EOS or the cap
+        _check_named(eval_counts, {"flash_full": n_vis, "flash_prefill": L})
+
+    # on-card preprocessing against the host-exact processor
+    img_t = torch.as_tensor(image[None], device="cuda")
+    dev_px = device_preprocess(img_t)
+    pre_ms = event_ms(lambda: device_preprocess(img_t))
+    host_px = ImageProcessor(image_size=224)([image])["pixel_values"]
+    d = np.abs(dev_px.cpu().numpy() - host_px)
+    if dev_px.shape != host_px.shape or np.percentile(d, 99.9) >= 0.05 or d.max() >= 0.3:
+        raise RuntimeError(f"device_preprocess vs host: shape {tuple(dev_px.shape)}, p99.9 "
+                           f"{np.percentile(d, 99.9)}, max {d.max()}")
+
+    # fp32 vision towers, flash vs dense: the kernel's arithmetic end to end
+    towers = VisionTowers(cfg, device="cuda", dtype=torch.float32)
+    towers.load_state_dict({k: v for k, v in model.state_dict().items()
+                            if k.split(".")[0] in ("vision", "resampler", "projection")})
+    px32 = px8[:2].float()
+    with torch.no_grad():
+        with _vision_attention("flash"):
+            flash32 = encode_image(towers, cfg, px32)
+        with _vision_attention("xla"):
+            dense32 = encode_image(towers, cfg, px32)
+    rel32 = _rel(flash32, dense32)
+    del towers, flash32, dense32
+    if rel32 > 1e-4:
+        raise RuntimeError(f"fp32 image embeddings flash vs dense: relative error {rel32}")
+    with _vision_attention("xla"):
+        dense_bf16 = encode(px8[:1])
+    flash_vs_dense = _rel(embeds[1], dense_bf16)
+    numbers[224] = {impl: _vision_times(bundle, image, px8[:1], impl) for impl in ("flash", "xla")}
+
+    # 448 px: B2u at 1025 tokens
+    bundle.extend_to_resolution(448)
+    px448 = torch.as_tensor(bundle.image_processor(image)["pixel_values"]).to("cuda",
+                                                                            torch.bfloat16)
+    with _vision_attention("flash"):
+        e448, counts448 = _counted(lambda: encode(px448))
+        _check_counts(counts448, {"flash_full": n_vis})
+        with plain_kernels():
+            plain448 = encode(px448)
+        kernel_vs_plain448 = _rel(e448, plain448)
+        n_gen448, chat448 = chat_counts()
+    if (tuple(px448.shape) != (1, 3, 448, 448) or model.vision.position_embedding.shape[0] != 1025
+            or not bool(torch.isfinite(e448).all())):
+        raise RuntimeError(f"448 px: pixels {tuple(px448.shape)}, position table "
+                           f"{tuple(model.vision.position_embedding.shape)}")
+    if max(kernel_vs_plain, kernel_vs_plain448) > EMBED_REL_TOL:
+        raise RuntimeError(f"image embeddings kernels vs plain: relative {kernel_vs_plain} at "
+                           f"224 px, {kernel_vs_plain448} at 448 px (limit {EMBED_REL_TOL})")
+    numbers[448] = {impl: _vision_times(bundle, image, px448, impl) for impl in ("flash", "xla")}
+    times = "; ".join(
+        f"{res} px: encode (B=1) flash {n['flash']['encode_ms']:.2f} ms / dense "
+        f"{n['xla']['encode_ms']:.2f} ms host clock, {n['flash']['encode_device_ms']:.2f} / "
+        f"{n['xla']['encode_device_ms']:.2f} ms device (graph replay), TTFT flash "
+        f"{n['flash']['ttft_ms']:.1f} ms / dense {n['xla']['ttft_ms']:.1f} ms"
+        for res, n in numbers.items())
+    print(f"[4v vision] phase 4's model with VISUALCLA_VIT_ATTN=flash: encode_image B=1 and 8 "
+          f"launch B2u {n_vis} times a call ({cfg.vision_config.num_hidden_layers} ViT + "
+          f"{cfg.visual_resampler_config.num_hidden_layers} resampler layers), nothing else; "
+          f"B=8 embeddings kernels vs plain relative {kernel_vs_plain:.3e} (limit "
+          f"{EMBED_REL_TOL} here and at 448 px); bf16 B=1 flash vs "
+          f"dense relative {flash_vs_dense:.3e}; greedy chat {n_gen} tokens launches "
+          f"{counts224}; VisionPipeline.embed_images 8 images -> {piped.shape}, max diff to "
+          f"encode_image {pipe_diff:.3e}; evaluate on the first {EVAL_QUESTIONS} llava "
+          f"questions (one batch, {EVAL_NEW_TOKENS} new tokens) in {eval_s:.2f} s, launches "
+          f"B2u {eval_counts['flash_full']}, B2 {eval_counts['flash_prefill']}; "
+          f"device_preprocess (480x640 -> 224) {pre_ms:.3f} ms a call on the card (events), vs host "
+          f"p99.9 {np.percentile(d, 99.9):.4f} max {d.max():.4f}; fp32 vision towers flash vs "
+          f"dense image embeddings relative {rel32:.3e} (limit 1e-4); extend_to_resolution(448): "
+          f"1025 ViT tokens, kernels vs plain relative {kernel_vs_plain448:.3e}, greedy chat "
+          f"{n_gen448} tokens launches {chat448}; {times}; card {smi}", flush=True)
+    return {"launches": counts224, "numbers": numbers, "rel32": rel32}
 
 
 def _random_model(cfg, bits=None):
@@ -835,7 +1241,14 @@ def _check_counts(counts, expect):
         if n == 0 or counts.get(name, 0) == 0:
             raise RuntimeError(f"kernel {name} was never launched by the main path")
     if counts != want:
-        raise RuntimeError(f"greedy chat launched {counts}, expected {want}")
+        raise RuntimeError(f"the run launched {counts}, expected {want}")
+
+
+def _check_named(counts, expect):
+    """The named kernels launched exactly as expected (others unchecked)."""
+    bad = {name: (counts[name], n) for name, n in expect.items() if counts[name] != n}
+    if bad:
+        raise RuntimeError(f"launches (got, expected): {bad}")
 
 
 def _streams(bundle, image, greedy, response, input_ids, pv, ids, text=PROMPT,
@@ -863,6 +1276,9 @@ def _streams(bundle, image, greedy, response, input_ids, pv, ids, text=PROMPT,
 
 
 SPEC_NEW_TOKENS = 64
+VISION_NEW_TOKENS = 32  # the vision phase's greedy chats
+EVAL_QUESTIONS = 8  # the vision phase's evaluate: one batch of the first llava questions
+EVAL_NEW_TOKENS = 16
 COPY_PROMPT = "请重复三遍：图片里有一只猫和一只狗。图片里有一只猫和一只狗。图片里有一只猫和一只狗。"
 
 
@@ -1510,7 +1926,9 @@ def main() -> int:
     tokenizer = make_tokenizer(cfg.text_config.vocab_size)
     prompt_len = len(encoding_text([], PROMPT, cfg.num_image_tokens, tokenizer)["input_ids"][0])
     kern = phase_kernels(pick_bucket(PROMPT_BUCKETS, prompt_len))
-    launches = phase_slice(info["smi"], cfg, tokenizer)["launches"]
+    sl = phase_slice(info["smi"], cfg, tokenizer)
+    launches = sl["launches"]
+    vision = phase_vision(info["smi"], cfg, tokenizer, sl.pop("bundle"))
     launches4 = phase_int4(info["smi"], cfg, tokenizer)["launches"]
     phase_int8(info["smi"], cfg, tokenizer)
     serve = phase_serve(info["smi"], cfg, tokenizer)
@@ -1518,12 +1936,14 @@ def main() -> int:
     # each kernel's launches from the run of the path that drives it
     runs = {"paged_append": serve["launches"], "paged_append_kv8": serve4["launches"],
             "paged_verify": serve["spec"]["launches"],
-            "paged_verify_kv8": serve4["spec_launches"], **kern["b6_launches"]}
+            "paged_verify_kv8": serve4["spec_launches"], "flash_full": vision["launches"]}
+    notes = {"paged_decode": B6_NOTE, "paged_decode_kv8": B6_NOTE,
+             "flash_full_kv8": B2U_KV8_NOTE}
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        if name.startswith("paged_decode"):
-            n = runs[name]
-        elif name.startswith("paged"):
+        if name in kern["op_launches"]:
+            n = kern["op_launches"][name]
+        elif name in runs:
             n = runs[name][name]
         elif name.endswith("_kv8") or name.startswith("int4"):
             n = launches4[name]
@@ -1531,8 +1951,8 @@ def main() -> int:
             n = launches[name]
         row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                "launches": n, "max_abs_err": kern["worst"][name], **kern["main"][name]}
-        if name.startswith("paged_decode"):
-            row["note"] = B6_NOTE
+        if name in notes:
+            row["note"] = notes[name]
         kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,4 +1,5 @@
-"""The CUDA kernels B1 (decode) and B2 (prefill), with bf16/f32 and int8 K/V,
+"""The CUDA kernels B1 (decode), B2 (prefill) and B2u (attention over
+unstacked bsnh / bnsh K/V, causal or not, hd 64 and 128), with bf16/f32 and int8 K/V,
 B3 (int4 matmul, decode and prefill forms), B4 (paged append attention), B5
 (paged verify attention) and B6 (paged decode attention), with float and int8
 pools, against their plain PyTorch versions on the card.  Needs an NVIDIA GPU
@@ -84,6 +85,72 @@ def test_decode_kernel_matches_plain(dev, dtype, N, Nkv, hd):
     assert fa.LAUNCHES["flash_decode"] == before + 1
     check(out, q, kc, vc, valid, slot, fa.flash_decode_stacked_ref, dtype)
     assert bool((out[-1] == 0).all())
+
+
+def full_case(dev, dtype, layout, hd, kv8, B=3, Sq=37, S=45, N=8, Nkv=2, seed=0):
+    """B2u inputs: K/V in ``layout``, per-row slots, holes in kv_valid and a
+    fully masked last row; int8 K/V with scales in the layout's order."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, Sq, N, hd, generator=g, device=dev).to(dtype)
+    shape = (B, S, Nkv, hd) if layout == "bsnh" else (B, Nkv, S, hd)
+    k = torch.randn(*shape, generator=g, device=dev).to(dtype)
+    v = torch.randn(*shape, generator=g, device=dev).to(dtype)
+    slot = torch.tensor([3 * b for b in range(B)], dtype=torch.int32, device=dev)
+    valid = torch.rand(B, S, generator=g, device=dev) > 0.2
+    valid[-1] = False
+    sc = {}
+    if kv8:  # per (row, slot, head) scales, in the layout's own order
+        (k, ks), (v, vs) = quantize_kv(k.float()), quantize_kv(v.float())
+        sc = {"k_scale": ks, "v_scale": vs}
+    return q, k, v, valid, slot, sc
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["bsnh", "bnsh"])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("kv8", [False, True], ids=["float_kv", "int8_kv"])
+def test_full_kernel_matches_plain(dev, dtype, layout, causal, hd, kv8):
+    q, k, v, valid, slot, sc = full_case(dev, dtype, layout, hd, kv8, seed=hd + causal)
+    name = "flash_full_kv8" if kv8 else "flash_full"
+    before = fa.LAUNCHES[name]
+    out = fa.flash_attention(q, k, v, valid, slot, causal=causal, kv_layout=layout, **sc)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES[name] == before + 1
+    ref = fa.flash_attention_ref(q.float(), k if kv8 else k.float(), v if kv8 else v.float(),
+                                 valid, slot, causal=causal, kv_layout=layout, **sc)
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), ref, atol=TOL[dtype], rtol=TOL[dtype])
+    assert bool((out[-1] == 0).all())  # the fully masked row
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_full_kernel_reads_strided_vit_kv(dev, dtype):
+    """The ViT's shape (257 tokens, 16 heads x 64), K/V read in place as
+    non-contiguous views of one fused (B, S, 3, N, hd) projection."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    qkv = torch.randn(2, 257, 3, 16, 64, generator=g, device=dev).to(dtype)
+    q, k, v = qkv[:, :, 0].contiguous(), qkv[:, :, 1], qkv[:, :, 2]
+    assert not k.is_contiguous()
+    valid = torch.ones(2, 257, dtype=torch.bool, device=dev)
+    out = fa.flash_attention(q, k, v, valid, 0, causal=False)
+    torch.cuda.synchronize()
+    ref = fa.flash_attention_ref(q.float(), k.float(), v.float(), valid, 0, causal=False)
+    torch.testing.assert_close(out.float(), ref, atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def test_full_decode_form_goes_to_b1(dev):
+    """Sq == 1 with causal bnsh K/V launches B1 (hd 64 and 128), as in the JAX dispatch."""
+    for hd in (64, 128):
+        q, k, v, valid, slot, _ = full_case(dev, torch.bfloat16, "bnsh", hd, False, Sq=1)
+        before = dict(fa.LAUNCHES)
+        out = fa.flash_attention(q, k, v, valid, slot, causal=True, kv_layout="bnsh")
+        torch.cuda.synchronize()
+        assert fa.LAUNCHES["flash_decode"] == before["flash_decode"] + 1
+        assert fa.LAUNCHES["flash_full"] == before["flash_full"]
+        ref = fa.flash_attention_ref(q.float(), k.float(), v.float(), valid, slot,
+                                     kv_layout="bnsh")
+        torch.testing.assert_close(out.float(), ref, atol=2e-2, rtol=2e-2)
 
 
 def test_kernel_rejects_unsupported_head_dim(dev):

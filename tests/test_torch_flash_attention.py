@@ -1,12 +1,14 @@
-"""The plain versions of the CUDA kernels B1 (decode) and B2 (prefill) against
-the JAX package's Pallas kernels, run in interpret mode on the CPU as
-tests/test_pallas.py runs them.  fp32, atol 1e-5.  The wrappers given CPU
-tensors take the plain version, so they are checked here too."""
+"""The plain versions of the CUDA kernels B1 (decode), B2 (prefill) and B2u
+(unstacked K/V, causal or not) against the JAX package's Pallas kernels, run
+in interpret mode on the CPU as tests/test_pallas.py runs them.  fp32, atol
+1e-5.  The wrappers given CPU tensors take the plain version, so they are
+checked here too."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from visualcla_tpu.ops import attention as j_attn
 from visualcla_tpu.ops.pallas.flash_attention import flash_attention
 from visualcla_tpu_torch.ops import attention as t_attn
 from visualcla_tpu_torch.ops.cuda import flash_attention as fa
@@ -95,3 +97,83 @@ def test_wrapper_rejects_bad_arguments():
         fa.flash_prefill_stacked(args[0].double(), *args[1:], 0)
     with pytest.raises(ValueError, match="multiple"):
         fa.flash_prefill_stacked(torch.zeros(B, 2, 3, H), *args[1:], 0)
+
+
+def full_case(seed, layout, Sq, Skv, N, Nkv, hd, kv8):
+    """Unstacked K/V in ``layout`` with holes in kv_valid and a fully masked
+    last row; int8 K/V with per-(row, slot, head) scales in the layout's order."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, Sq, N, hd)).astype(np.float32)
+    shape = (B, Skv, Nkv, hd) if layout == "bsnh" else (B, Nkv, Skv, hd)
+    kv_valid = rng.random((B, Skv)) > 0.25
+    kv_valid[-1] = False
+    if not kv8:
+        k, v = (rng.standard_normal(shape).astype(np.float32) for _ in range(2))
+        return q, k, v, kv_valid, {}
+    k, v = (rng.integers(-127, 128, shape).astype(np.int8) for _ in range(2))
+    ks, vs = (rng.uniform(0.005, 0.03, shape[:3]).astype(np.float32) for _ in range(2))
+    return q, k, v, kv_valid, {"k_scale": ks, "v_scale": vs}
+
+
+@pytest.mark.parametrize("kv8", [False, True], ids=["float_kv", "int8_kv"])
+@pytest.mark.parametrize("N,Nkv", [(4, 4), (4, 2)], ids=["mha", "gqa"])
+@pytest.mark.parametrize("layout,causal", [("bsnh", False), ("bnsh", True), ("bsnh", True),
+                                           ("bnsh", False)])
+def test_full_plain_matches_pallas(layout, causal, N, Nkv, kv8):
+    """B2u: odd lengths (Sq 37, Skv 45), hd 64, per-row slots, GQA, int8
+    scales; the fully masked row gives zeros."""
+    Sq, Skv = 37, 45
+    q, k, v, kv_valid, sc = full_case(20, layout, Sq, Skv, N, Nkv, 64, kv8)
+    write_slot = np.array([0, 4, 8], np.int32)
+    want = np.asarray(flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(kv_valid),
+        jnp.asarray(write_slot), causal=causal, kv_layout=layout, interpret=True,
+        **{n: jnp.asarray(a) for n, a in sc.items()}), np.float32)
+    targs = (torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+             torch.from_numpy(kv_valid), torch.from_numpy(write_slot))
+    tsc = {n: torch.from_numpy(a) for n, a in sc.items()}
+    got = fa.flash_attention_ref(*targs, causal=causal, kv_layout=layout, **tsc).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=ATOL)
+    np.testing.assert_array_equal(got[-1], 0.0)
+    np.testing.assert_array_equal(
+        fa.flash_attention(*targs, causal=causal, kv_layout=layout, **tsc).numpy(), got)
+
+
+@pytest.mark.parametrize("Sq", [1, 6], ids=["decode", "prefill"])
+@pytest.mark.parametrize("kv8", [False, True], ids=["float_kv", "int8_kv"])
+def test_unstacked_cached_attention_matches_jax(Sq, kv8):
+    """``cached_attention(layer_index=None)`` over one layer's bnsh K/V (B1
+    for Sq == 1, B2u causal above) against the JAX package's flash form."""
+    q, k, v, kv_valid, sc = full_case(21, "bnsh", Sq, 40, 4, 2, 16, kv8)
+    kv_valid[:, 30:] = False  # the unwritten tail
+    kv_valid[-1, :2] = True
+    write_slot = np.array([25, 29, 20], np.int32) if Sq > 1 else np.array([29, 20, 3], np.int32)
+    want = np.asarray(j_attn.cached_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(kv_valid),
+        jnp.asarray(write_slot), impl="flash", **{n: jnp.asarray(a) for n, a in sc.items()}),
+        np.float32)
+    fa.reset_launch_counts()
+    got = t_attn.cached_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(kv_valid), torch.from_numpy(write_slot),
+        **{n: torch.from_numpy(a) for n, a in sc.items()}).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=ATOL)
+    assert not any(fa.LAUNCHES.values())
+    ref = t_attn.cached_attention_ref(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(kv_valid), torch.from_numpy(write_slot),
+        **{n: torch.from_numpy(a) for n, a in sc.items()}).numpy()
+    np.testing.assert_array_equal(ref, got)
+
+
+def test_full_wrapper_rejects_bad_arguments():
+    q, k, v, kv_valid, _ = full_case(22, "bsnh", 5, 9, 4, 2, 8, False)
+    args = [torch.from_numpy(a) for a in (q, k, v, kv_valid)]
+    with pytest.raises(ValueError, match="kv_layout"):
+        fa.flash_attention(*args, 0, kv_layout="sbnh")
+    with pytest.raises(ValueError, match="kv_valid"):
+        fa.flash_attention(*args[:3], args[3][:, :4], 0)
+    with pytest.raises(ValueError, match="multiple"):
+        fa.flash_attention(torch.zeros(B, 5, 3, 8), *args[1:], 0)
+    with pytest.raises(TypeError, match="int8"):
+        fa.flash_attention(*args, 0, k_scale=torch.ones(B, 9, 2), v_scale=torch.ones(B, 9, 2))

@@ -35,8 +35,8 @@ def test_port_never_imports_jax():
             "from visualcla_tpu_torch.models import visualcla, llama\n"
             "from visualcla_tpu_torch.engine import (generate, sampling, paged, server,\n"
             "                                     speculative, paged_spec)\n"
-            "from visualcla_tpu_torch.apps import serve\n"
-            "from visualcla_tpu_torch import fixtures, text, processor, host_build\n"
+            "from visualcla_tpu_torch.apps import serve, evaluate, inference\n"
+            "from visualcla_tpu_torch import fixtures, text, processor, host_build, pipeline, assets\n"
             "from visualcla_tpu_torch.core import config\n"
             "from visualcla_tpu_torch.text import native_tok, sp_bpe\n"
             "from visualcla_tpu_torch.processor import native_img, pil_resample\n"
@@ -79,6 +79,37 @@ def test_entry_points_raise_without_a_gpu(tmp_path):
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr + proc.stdout
     assert "raised" in proc.stdout
+
+
+def test_vision_pipeline_and_repl_raise_without_a_gpu(tmp_path):
+    """Without a GPU, ``VisionPipeline`` and the REPL raise unless asked for
+    the CPU (``device="cpu"``, ``--only_cpu``), and then run."""
+    from tests.test_api import make_native_ckpt
+
+    path, _ = make_native_ckpt(str(tmp_path))
+    code = ("import sys, io, numpy as np, torch\n"
+            "from visualcla_tpu_torch.pipeline import VisionPipeline\n"
+            "from visualcla_tpu_torch.apps import inference\n"
+            "assert not torch.cuda.is_available()\n"
+            "ckpt = sys.argv[1]\n"
+            "for run in (lambda: VisionPipeline.from_pretrained(ckpt),\n"
+            "            lambda: inference.main(['--visualcla_model', ckpt])):\n"
+            "    try:\n"
+            "        run()\n"
+            "        raise SystemExit('ran without a GPU')\n"
+            "    except RuntimeError as e:\n"
+            "        assert 'device=\"cpu\"' in str(e), e\n"
+            "pipe = VisionPipeline.from_pretrained(ckpt, device='cpu')\n"
+            "img = np.zeros((30, 40, 3), np.uint8)\n"
+            "assert pipe.embed_images([img]).shape[:2] == (1, pipe.num_image_embeds)\n"
+            "sys.stdin = io.StringIO('exit\\n')\n"
+            "inference.main(['--visualcla_model', ckpt, '--only_cpu'])\n"
+            "print('raised')\n")
+    proc = subprocess.run([sys.executable, "-c", code, path], cwd=ROOT,
+                          env=_env(CUDA_VISIBLE_DEVICES=""), capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr + proc.stdout
+    assert "raised" in proc.stdout and "Usage" in proc.stdout
 
 
 def test_chip_smoke_fails_without_a_gpu():
@@ -186,3 +217,18 @@ def test_plain_attention_switch(Sq):
     # on CPU tensors the dispatch runs the same plain versions
     got = t_attn.cached_attention(q, kc, vc, valid, slot, layer_index=1)
     torch.testing.assert_close(got, ref, atol=0, rtol=0)
+
+
+def test_plain_kernels_switch_covers_vision_attention():
+    """Inside ``plain_kernels()`` the vision towers' flash attention runs
+    B2u's plain version; outside it the wrapper is back."""
+    from visualcla_tpu_torch import fixtures
+    from visualcla_tpu_torch.ops import attention as t_attn
+    from visualcla_tpu_torch.ops.cuda import flash_attention as fa
+
+    q, k, v = torch.randn(3, 2, 9, 2, 8, generator=torch.Generator().manual_seed(1)).unbind(0)
+    with fixtures.plain_kernels():
+        assert t_attn.flash_attention is fa.flash_attention_ref
+        ref = t_attn.full_attention(q, k, v, impl="flash")
+    assert t_attn.flash_attention is fa.flash_attention
+    torch.testing.assert_close(t_attn.full_attention(q, k, v, impl="flash"), ref, atol=0, rtol=0)

@@ -37,7 +37,7 @@ from visualcla_tpu_torch.models import visualcla as vmod  # noqa: E402
 
 def kernel_kind(name: str) -> str:
     """The kind of a device kernel, by its name."""
-    if "flash_decode" in name or "flash_prefill" in name:
+    if "flash_decode_kernel" in name or "flash_attention_kernel" in name:
         return "flash_attention"
     if "int4_" in name:
         return "int4_matmul"

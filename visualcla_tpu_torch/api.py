@@ -6,10 +6,10 @@ tower), ``load_in_4bit`` (grouped int4 text tower, kernel B3; it wins when
 both are set), and ``kv_quant="int8"`` (int8 KV cache) with either.
 ``speculative=True`` decodes with prompt-lookup speculative decoding
 (``engine/speculative.py``; greedy: token-identical in exact arithmetic;
-mirostat-2 configs take the plain engine).  Not ported yet, and raising
-``NotImplementedError`` with the ROADMAP item that brings them: beam search
-(7), multi-device meshes (11), and loading from reference-layout or
-unmerged/LoRA directories (9).
+mirostat-2 configs take the plain engine).  ``VisualCLA.extend_to_resolution``
+and ``prune_resampler_heads`` change the vision side in place.  Beam search
+(ROADMAP item 7), multi-device meshes (11) and loading reference-layout or
+unmerged/LoRA directories (9) raise ``NotImplementedError`` naming their item.
 """
 from __future__ import annotations
 
@@ -109,6 +109,37 @@ class VisualCLA:
                 [img_pos, np.full((img_pos.shape[0], K - img_pos.shape[1]), -1,
                                   np.int32)], axis=1)
         return img_pos[:, :K]
+
+    def prune_resampler_heads(self, heads_to_prune: dict) -> None:
+        """Prune resampler attention heads, ``{layer: [head, ...]}``, in place
+        (``models.resampler.prune_heads``)."""
+        from .models.resampler import prune_heads
+
+        prune_heads(self.model.resampler, heads_to_prune)
+
+    def extend_to_resolution(self, after: int) -> None:
+        """Bicubic-resize the ViT position table for ``after``-pixel inputs and
+        update the configs, the image processor's size and crop, and
+        ``num_patch`` (which grows only when the resampler is off)."""
+        from .models.clip_vit import extend_position_embedding
+
+        extend_position_embedding(self.model.vision, after)
+        vcfg = self.config.vision_config
+        self.config = dataclasses.replace(
+            self.config, vision_config=dataclasses.replace(vcfg, image_size=after))
+        self.model.cfg = self.engine.cfg = self.config
+        self.image_processor.image_size = after
+        self.image_processor.crop_size = after
+        self.num_patch = self.config.num_image_tokens
+
+    @classmethod
+    def from_merged_pretrained(cls, visualcla_model: str, **kwargs) -> "VisualCLA":
+        """Load from a native merged checkpoint directory (the factory's
+        options as keywords); reference-layout directories raise, naming
+        ROADMAP item 9."""
+        model, _, _ = get_model_and_tokenizer_and_processor(
+            visualcla_model=visualcla_model, **kwargs)
+        return model
 
     def speculative_decoder(self, spec_k: int = 8, max_ngram: int = 3):
         """The cached prompt-lookup speculative decoder over this model's

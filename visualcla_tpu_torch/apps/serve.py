@@ -29,9 +29,9 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
-logger = logging.getLogger(__name__)
+from ..processor.image import NPY_MAGIC
 
-NPY_MAGIC = b"\x93NUMPY"
+logger = logging.getLogger(__name__)
 
 
 def decode_image(b64: str):

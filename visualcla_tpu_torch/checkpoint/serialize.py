@@ -34,14 +34,15 @@ _DTYPES = {
 _TAGS = {t: tag for tag, (_, t) in _DTYPES.items()}
 
 
-def iter_safetensors(path: str) -> Iterator[Tuple[str, torch.Tensor]]:
-    """Yield (key, CPU tensor) one leaf at a time from a mapped file."""
+def iter_safetensors(path: str, prefixes=None) -> Iterator[Tuple[str, torch.Tensor]]:
+    """Yield (key, CPU tensor) one leaf at a time from a mapped file; with
+    ``prefixes``, only the leaves whose key starts with one of them are read."""
     with open(path, "rb") as f:
         n = int.from_bytes(f.read(8), "little")
         header = json.loads(f.read(n))
     data = np.memmap(path, dtype=np.uint8, mode="r", offset=8 + n)
     for key, meta in header.items():
-        if key == "__metadata__":
+        if key == "__metadata__" or (prefixes and not key.startswith(tuple(prefixes))):
             continue
         np_dtype, torch_dtype = _DTYPES[meta["dtype"]]
         start, end = meta["data_offsets"]

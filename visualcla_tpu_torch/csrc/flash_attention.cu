@@ -1,24 +1,31 @@
-// Flash attention over one layer of the stacked KV cache, for Hopper (sm_90a).
+// Flash attention for Hopper (sm_90a): decode over one layer of the stacked KV
+// cache, and the online-softmax attention of many queries over K/V in any
+// (row, slot, head) layout.
 //
-// Replaces the two Pallas kernels on the LLM's cached-attention path
-// (visualcla_tpu/ops/pallas/flash_attention.py):
-//   flash_decode_kernel   <- _flash_decode_stacked -> _decode_kernel   (B1, Sq == 1)
-//   flash_prefill_kernel  <- _flash_stacked -> _flash_kernel(stacked)  (B2, Sq > 1)
+// Replaces the Pallas kernels of visualcla_tpu/ops/pallas/flash_attention.py:
+//   flash_decode_kernel <- _flash_decode_stacked -> _decode_kernel        (B1, Sq == 1)
+//   flash_attention_kernel<causal> <- _flash_stacked -> _flash_kernel(stacked=True)
+//                                                     (B2: one layer of the stacked cache)
+//   flash_attention_kernel<causal or not> <- _flash_attention_jit -> _flash_kernel(stacked=False)
+//                                                     (B2u: unstacked bsnh or bnsh K/V)
+// B2 and B2u are one template: B2 passes one layer of the cache as bnsh K/V.
 //
-// Contract (both kernels, same as the TPU kernels):
-//   q (B, Sq, N, HD); one layer of the cache k, v (B, Nkv, S, HD), passed as a
-//   pointer into the stacked (L, B, Nkv, S, HD) buffer (no slice is copied),
-//   in q's type or in int8 with per-slot f32 scales ks, vs (B, Nkv, S) (one
-//   layer of the (L, B, Nkv, S) scale buffers).  The int8 scales fold in after
-//   the dots, as the TPU kernels do (flash_attention.py:77-108, 165-200): the
-//   score is (q . k_int8) * ks[j], and p is multiplied by vs[j] before p @ V
-//   (the softmax denominator sums the unscaled p);
-//   kv_valid (B, S) uint8; slots (B,) int32 = cache slot of each row's first
-//   query.  Query i of row b sits at slot slots[b] + i and sees kv slot j iff
-//   kv_valid[b, j] and j <= slots[b] + i.  Query head n reads kv head
-//   n / (N / Nkv) (GQA).  q is scaled in fp32 after the upcast, scores and the
-//   online softmax are fp32, masked scores are -1e30, p is masked so that a
-//   fully masked query row has l == 0 and emits zeros.  Output is q's dtype.
+// Contract (every kernel, the TPU kernels' own):
+//   q (B, Sq, N, HD); k, v (B, S, Nkv, HD) "bsnh" or (B, Nkv, S, HD) "bnsh",
+//   read in place through their (row, slot, head) strides (the head-dim axis
+//   is contiguous), in q's type or in int8 with f32 scales ks, vs indexed by
+//   (row, slot, kv head) through their own strides.  The int8 scales fold in
+//   after the dots (flash_attention.py:77-108, 165-200): the score is
+//   (q . k_int8) * ks[j], and p is multiplied by vs[j] before p @ V (the
+//   softmax denominator sums the unscaled p);
+//   kv_valid (B, S) uint8; slots (B,) int32 = slot of each row's first query.
+//   Query i of row b sees kv slot j iff kv_valid[b, j] and, when causal,
+//   j <= slots[b] + i.  Query head n reads kv head n / (N / Nkv) (GQA).  q is
+//   scaled in fp32 after the upcast, K and V are upcast to fp32, scores, p
+//   and the online softmax stay fp32 (p is not rounded to q's type before
+//   p @ V), masked scores are -1e30, p is masked so that a fully masked
+//   query row has l == 0 and emits zeros.  Output is (B, Sq, N, HD) in q's
+//   type.  HD is 64 (the ViT and the resampler) or 128 (LLaMA).
 //
 // What bounds them on the card, and what the design does about it:
 //   decode reads the cache: bytes (int8 K/V halve them).  One block per (row, kv head) streams that
@@ -29,11 +36,17 @@
 //   B = 1 and 32 kv heads this is only 32 blocks, so a block's latency, not
 //   the card's bandwidth, sets the time; splitting the kv axis across blocks
 //   (flash-decoding) is later work.
-//   prefill does Sq x S x HD multiply-adds: flops.  One block per (row, head,
-//   64-query tile) stages 64-slot K/V tiles in shared memory in fp32 and
-//   register-tiles the two products with plain FMAs (no tensor cores yet).
-//   Kv tiles wholly past the tile's last query slot are skipped, so a short
-//   prompt in a long cache reads only the slots it can see.
+//   flash_attention_kernel does Sq x S x HD multiply-adds twice: operations
+//   in principle, but with plain fp32 FMAs (no tensor cores yet) it runs far
+//   below the bf16 tensor-core rate the bound is taken at.  One block per
+//   (row, head, 64-query tile) stages 64-slot K/V tiles in shared memory in
+//   fp32 and register-tiles the two products.  With causal on, kv tiles
+//   wholly past the tile's last query slot are skipped, so a short prompt in
+//   a long cache reads only the slots it can see; with causal off every tile
+//   is visited.  At the ViT's shape (257 tokens, 16 heads) the grid is only
+//   5 x 16 x B blocks, under one wave of the 132 SMs at B = 1, so each
+//   block's serial walk over the 5 kv tiles sets the time there; wgmma/TMA
+//   tiles and a split of the kv axis across blocks are later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -224,7 +237,7 @@ flash_decode_kernel(const T* __restrict__ q, const KV* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// B2: prefill, Sq > 1
+// B2 / B2u: Sq queries a row, causal or not
 // ---------------------------------------------------------------------------
 
 constexpr int kPrefillThreads = 256;  // 16 x 16
@@ -232,6 +245,15 @@ constexpr int kBQ = 64;               // queries per block
 constexpr int kBK = 64;               // kv slots per tile
 constexpr int kRows = kBQ / 16;       // query rows per thread
 constexpr int kSCols = kBK / 16;      // score columns per thread
+
+// element strides of an operand along (row, slot, head); its last axis is
+// contiguous.  The slot stride is 32-bit (at most Nkv * HD): with a 64-bit one
+// B2's int8 form ran 27 % slower on the card (315 against 248 us a call).
+struct Strides {
+  long long b;
+  int s;
+  long long h;
+};
 
 template <int HD>
 constexpr size_t prefill_smem_bytes() {
@@ -242,13 +264,16 @@ constexpr size_t prefill_smem_bytes() {
                           + 3 * kBK);               // slot validity, k and v scales
 }
 
-template <typename T, typename KV, int HD>
-__global__ void __launch_bounds__(kPrefillThreads)
-flash_prefill_kernel(const T* __restrict__ q, const KV* __restrict__ k,
-                     const KV* __restrict__ v, const float* __restrict__ ks,
-                     const float* __restrict__ vs, const uint8_t* __restrict__ kv_valid,
-                     const int* __restrict__ slots, T* __restrict__ out, int Sq,
-                     int N, int Nkv, int S, float scale) {
+// at least 2 blocks an SM: the register budget (128) at which every instance
+// measured fastest on the card (HD 64 fits 3 blocks of shared memory, HD 128 1)
+template <typename T, typename KV, int HD, bool kCausal>
+__global__ void __launch_bounds__(kPrefillThreads, 2)
+flash_attention_kernel(const T* __restrict__ q, const KV* __restrict__ k,
+                       const KV* __restrict__ v, const float* __restrict__ ks,
+                       const float* __restrict__ vs, const uint8_t* __restrict__ kv_valid,
+                       const int* __restrict__ slots, T* __restrict__ out, int Sq, int N,
+                       int Nkv, int S, Strides qs, Strides kst, Strides vst, Strides sc,
+                       float scale) {
   constexpr int kOCols = HD / 16;  // output columns per thread
   const int q0 = blockIdx.x * kBQ;
   const int n = blockIdx.y;
@@ -268,11 +293,11 @@ flash_prefill_kernel(const T* __restrict__ q, const KV* __restrict__ k,
   float* ks_sh = ok_sh + kBK;
   float* vs_sh = ks_sh + kBK;
 
+  const T* q_head = q + b * qs.b + n * qs.h;
   for (int idx = threadIdx.x; idx < kBQ * HD; idx += kPrefillThreads) {
     const int r = idx / HD, d = idx % HD;
     const int qi = q0 + r;
-    q_sh[r * (HD + 1) + d] =
-        qi < Sq ? to_f32(q[(((size_t)b * Sq + qi) * N + n) * HD + d]) * scale : 0.f;
+    q_sh[r * (HD + 1) + d] = qi < Sq ? to_f32(q_head[qi * qs.s + d]) * scale : 0.f;
   }
 
   float m[kRows], l[kRows], acc[kRows][kOCols];
@@ -285,12 +310,14 @@ flash_prefill_kernel(const T* __restrict__ q, const KV* __restrict__ k,
   }
 
   const int slot0 = slots[b];
-  const int q_last = slot0 + min(q0 + kBQ, Sq) - 1;  // slot of the tile's last query
-  const int n_tiles = q_last < 0 ? 0 : min((S + kBK - 1) / kBK, q_last / kBK + 1);
-  const size_t head_off = ((size_t)b * Nkv + kvh) * (size_t)S * HD;
-  const KV* k_head = k + head_off;
-  const KV* v_head = v + head_off;
-  const size_t scale_off = ((size_t)b * Nkv + kvh) * (size_t)S;
+  int n_tiles = (S + kBK - 1) / kBK;
+  if (kCausal) {
+    const int q_last = slot0 + min(q0 + kBQ, Sq) - 1;  // slot of the tile's last query
+    n_tiles = q_last < 0 ? 0 : min(n_tiles, q_last / kBK + 1);
+  }
+  const KV* k_head = k + b * kst.b + kvh * kst.h;
+  const KV* v_head = v + b * vst.b + kvh * vst.h;
+  const long long scale_off = b * sc.b + kvh * sc.h;
   const uint8_t* ok_row = kv_valid + (size_t)b * S;
 
   for (int t = 0; t < n_tiles; ++t) {
@@ -299,14 +326,14 @@ flash_prefill_kernel(const T* __restrict__ q, const KV* __restrict__ k,
     for (int idx = threadIdx.x; idx < kBK * HD; idx += kPrefillThreads) {
       const int j = idx / HD, d = idx % HD;
       const bool in = j0 + j < S;
-      kt_sh[d * (kBK + 1) + j] = in ? to_f32(k_head[(size_t)(j0 + j) * HD + d]) : 0.f;
-      v_sh[j * HD + d] = in ? to_f32(v_head[(size_t)(j0 + j) * HD + d]) : 0.f;
+      kt_sh[d * (kBK + 1) + j] = in ? to_f32(k_head[(j0 + j) * kst.s + d]) : 0.f;
+      v_sh[j * HD + d] = in ? to_f32(v_head[(j0 + j) * vst.s + d]) : 0.f;
     }
     for (int j = threadIdx.x; j < kBK; j += kPrefillThreads) {
       const bool in = j0 + j < S;
       ok_sh[j] = (in && ok_row[j0 + j] != 0) ? 1.f : 0.f;
-      ks_sh[j] = (kQuantKV<KV> && in) ? ks[scale_off + j0 + j] : 1.f;
-      vs_sh[j] = (kQuantKV<KV> && in) ? vs[scale_off + j0 + j] : 1.f;
+      ks_sh[j] = (kQuantKV<KV> && in) ? ks[scale_off + (j0 + j) * sc.s] : 1.f;
+      vs_sh[j] = (kQuantKV<KV> && in) ? vs[scale_off + (j0 + j) * sc.s] : 1.f;
     }
     __syncthreads();
 
@@ -336,7 +363,7 @@ flash_prefill_kernel(const T* __restrict__ q, const KV* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < kSCols; ++c) {
         const int jj = tx + 16 * c;
-        ok[c] = ok_sh[jj] != 0.f && j0 + jj <= q_slot;
+        ok[c] = ok_sh[jj] != 0.f && (!kCausal || j0 + jj <= q_slot);
         s[i][c] = ok[c] ? s[i][c] * ks_sh[jj] : kNegInf;
         mx = fmaxf(mx, s[i][c]);
       }
@@ -404,26 +431,55 @@ cudaError_t launch_decode(const void* q, const void* k, const void* v, const voi
   return cudaGetLastError();
 }
 
-template <typename T, typename KV, int HD>
-cudaError_t launch_prefill(const void* q, const void* k, const void* v, const void* ks,
-                           const void* vs, const void* kv_valid, const void* slots, void* out,
-                           int B, int Sq, int N, int Nkv, int S, float scale,
-                           cudaStream_t stream) {
+template <typename T, typename KV, int HD, bool kCausal>
+cudaError_t launch_attention(const void* q, const void* k, const void* v, const void* ks,
+                             const void* vs, const void* kv_valid, const void* slots, void* out,
+                             int B, int Sq, int N, int Nkv, int S, Strides qs, Strides kst,
+                             Strides vst, Strides sc, float scale, cudaStream_t stream) {
   constexpr size_t smem = prefill_smem_bytes<HD>();
-  static bool configured = false;  // once per process: keeps the call out of graph capture
+  static bool configured = false;  // once per instance: keeps the call out of graph capture
   if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_prefill_kernel<T, KV, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t err =
+        cudaFuncSetAttribute(flash_attention_kernel<T, KV, HD, kCausal>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     configured = true;
   }
   const dim3 grid((Sq + kBQ - 1) / kBQ, N, B);
-  flash_prefill_kernel<T, KV, HD><<<grid, kPrefillThreads, smem, stream>>>(
+  flash_attention_kernel<T, KV, HD, kCausal><<<grid, kPrefillThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const KV*>(k), static_cast<const KV*>(v),
       static_cast<const float*>(ks), static_cast<const float*>(vs),
       static_cast<const uint8_t*>(kv_valid), static_cast<const int*>(slots),
-      static_cast<T*>(out), Sq, N, Nkv, S, scale);
+      static_cast<T*>(out), Sq, N, Nkv, S, qs, kst, vst, sc, scale);
   return cudaGetLastError();
+}
+
+// the instance for a head dim, a causal flag, q's type and the K/V type
+template <typename T, typename KV>
+cudaError_t attention_for(int head_dim, bool causal, const void* q, const void* k, const void* v,
+                          const void* ks, const void* vs, const void* kv_valid,
+                          const void* slots, void* out, int B, int Sq, int N, int Nkv, int S,
+                          Strides qs, Strides kst, Strides vst, Strides sc, float scale,
+                          cudaStream_t st) {
+#define VCLA_ATTENTION(HD, C)                                                                  \
+  launch_attention<T, KV, HD, C>(q, k, v, ks, vs, kv_valid, slots, out, B, Sq, N, Nkv, S, qs, \
+                                 kst, vst, sc, scale, st)
+  if (head_dim == 64) return causal ? VCLA_ATTENTION(64, true) : VCLA_ATTENTION(64, false);
+  if (head_dim == 128) return causal ? VCLA_ATTENTION(128, true) : VCLA_ATTENTION(128, false);
+#undef VCLA_ATTENTION
+  return cudaErrorInvalidValue;
+}
+
+template <typename T, typename KV>
+cudaError_t decode_for(int head_dim, const void* q, const void* k, const void* v, const void* ks,
+                       const void* vs, const void* kv_valid, const void* slots, void* out,
+                       int B, int N, int Nkv, int S, float scale, cudaStream_t st) {
+  if (head_dim == 64)
+    return launch_decode<T, KV, 64>(q, k, v, ks, vs, kv_valid, slots, out, B, N, Nkv, S, scale, st);
+  if (head_dim == 128)
+    return launch_decode<T, KV, 128>(q, k, v, ks, vs, kv_valid, slots, out, B, N, Nkv, S, scale,
+                                     st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -432,51 +488,48 @@ cudaError_t launch_prefill(const void* q, const void* k, const void* v, const vo
 // ``stream`` is a cudaStream_t.  Returns a cudaError_t (0 = launched).
 extern "C" {
 
-int vcla_flash_decode(const void* q, const void* k, const void* v, const void* kv_valid,
-                      const void* slots, void* out, int B, int N, int Nkv, int S,
-                      int head_dim, int is_bf16, float scale, void* stream) {
+// B1 over one layer (B, Nkv, S, HD) of the cache, q's type (ks, vs unused)
+// or int8 K/V with per-slot scales (B, Nkv, S)
+int vcla_flash_decode(const void* q, const void* k, const void* v, const void* ks,
+                      const void* vs, const void* kv_valid, const void* slots, void* out, int B,
+                      int N, int Nkv, int S, int head_dim, int is_bf16, int kv_int8, float scale,
+                      void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (head_dim != 128) return static_cast<int>(cudaErrorInvalidValue);
-  return is_bf16 ? launch_decode<__nv_bfloat16, __nv_bfloat16, 128>(
-                       q, k, v, nullptr, nullptr, kv_valid, slots, out, B, N, Nkv, S, scale, st)
-                 : launch_decode<float, float, 128>(
-                       q, k, v, nullptr, nullptr, kv_valid, slots, out, B, N, Nkv, S, scale, st);
+  if (is_bf16)
+    return kv_int8 ? decode_for<__nv_bfloat16, int8_t>(head_dim, q, k, v, ks, vs, kv_valid, slots,
+                                                        out, B, N, Nkv, S, scale, st)
+                   : decode_for<__nv_bfloat16, __nv_bfloat16>(head_dim, q, k, v, ks, vs, kv_valid,
+                                                              slots, out, B, N, Nkv, S, scale, st);
+  return kv_int8 ? decode_for<float, int8_t>(head_dim, q, k, v, ks, vs, kv_valid, slots, out, B,
+                                             N, Nkv, S, scale, st)
+                 : decode_for<float, float>(head_dim, q, k, v, ks, vs, kv_valid, slots, out, B, N,
+                                            Nkv, S, scale, st);
 }
 
-int vcla_flash_prefill(const void* q, const void* k, const void* v, const void* kv_valid,
-                       const void* slots, void* out, int B, int Sq, int N, int Nkv, int S,
-                       int head_dim, int is_bf16, float scale, void* stream) {
+// B2u: q (B, Sq, N, HD) and k, v, ks, vs through their (row, slot, head)
+// strides; B2 is this call on one layer of the cache (bnsh strides, causal)
+int vcla_flash_attention(const void* q, const void* k, const void* v, const void* ks,
+                         const void* vs, const void* kv_valid, const void* slots, void* out,
+                         int B, int Sq, int N, int Nkv, int S, int head_dim, int is_bf16,
+                         int kv_int8, int causal, long long q_sb, long long q_ss, long long q_sh,
+                         long long k_sb, long long k_ss, long long k_sh, long long v_sb,
+                         long long v_ss, long long v_sh, long long sc_sb, long long sc_ss,
+                         long long sc_sh, float scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (head_dim != 128) return static_cast<int>(cudaErrorInvalidValue);
-  return is_bf16 ? launch_prefill<__nv_bfloat16, __nv_bfloat16, 128>(
-                       q, k, v, nullptr, nullptr, kv_valid, slots, out, B, Sq, N, Nkv, S, scale, st)
-                 : launch_prefill<float, float, 128>(
-                       q, k, v, nullptr, nullptr, kv_valid, slots, out, B, Sq, N, Nkv, S, scale, st);
-}
-
-// int8 K/V: k, v int8 (B, Nkv, S, HD) and ks, vs f32 (B, Nkv, S) of one layer
-int vcla_flash_decode_kv8(const void* q, const void* k, const void* v, const void* ks,
-                          const void* vs, const void* kv_valid, const void* slots, void* out,
-                          int B, int N, int Nkv, int S, int head_dim, int is_bf16, float scale,
-                          void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (head_dim != 128) return static_cast<int>(cudaErrorInvalidValue);
-  return is_bf16 ? launch_decode<__nv_bfloat16, int8_t, 128>(
-                       q, k, v, ks, vs, kv_valid, slots, out, B, N, Nkv, S, scale, st)
-                 : launch_decode<float, int8_t, 128>(
-                       q, k, v, ks, vs, kv_valid, slots, out, B, N, Nkv, S, scale, st);
-}
-
-int vcla_flash_prefill_kv8(const void* q, const void* k, const void* v, const void* ks,
-                           const void* vs, const void* kv_valid, const void* slots, void* out,
-                           int B, int Sq, int N, int Nkv, int S, int head_dim, int is_bf16,
-                           float scale, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (head_dim != 128) return static_cast<int>(cudaErrorInvalidValue);
-  return is_bf16 ? launch_prefill<__nv_bfloat16, int8_t, 128>(
-                       q, k, v, ks, vs, kv_valid, slots, out, B, Sq, N, Nkv, S, scale, st)
-                 : launch_prefill<float, int8_t, 128>(
-                       q, k, v, ks, vs, kv_valid, slots, out, B, Sq, N, Nkv, S, scale, st);
+  const Strides qs{q_sb, (int)q_ss, q_sh}, kst{k_sb, (int)k_ss, k_sh},
+      vst{v_sb, (int)v_ss, v_sh}, sc{sc_sb, (int)sc_ss, sc_sh};
+  const bool c = causal != 0;
+  if (is_bf16)
+    return kv_int8 ? attention_for<__nv_bfloat16, int8_t>(head_dim, c, q, k, v, ks, vs, kv_valid,
+                                                           slots, out, B, Sq, N, Nkv, S, qs, kst,
+                                                           vst, sc, scale, st)
+                   : attention_for<__nv_bfloat16, __nv_bfloat16>(
+                         head_dim, c, q, k, v, ks, vs, kv_valid, slots, out, B, Sq, N, Nkv, S, qs,
+                         kst, vst, sc, scale, st);
+  return kv_int8 ? attention_for<float, int8_t>(head_dim, c, q, k, v, ks, vs, kv_valid, slots,
+                                                out, B, Sq, N, Nkv, S, qs, kst, vst, sc, scale, st)
+                 : attention_for<float, float>(head_dim, c, q, k, v, ks, vs, kv_valid, slots, out,
+                                               B, Sq, N, Nkv, S, qs, kst, vst, sc, scale, st);
 }
 
 const char* vcla_error_string(int code) {

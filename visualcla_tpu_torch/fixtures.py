@@ -1,8 +1,9 @@
 """Inputs for driving the port at full width without files: an in-process
 tokenizer of the model's exact vocabulary size, a seeded image, the chat
 prompt, seeded inputs of the paged kernels B4, B5 and B6, and a switch that
-routes the LLaMA layers' kernels (cached attention, the int4 matmul, the
-paged append and verify attention) through their plain PyTorch versions.
+routes the kernels of the model (cached attention, the int4 matmul, the
+paged append and verify attention, the vision towers' flash attention)
+through their plain PyTorch versions.
 ``chip_smoke.py`` and ``tools/profile_torch_slice.py`` share them, so both
 measure the same prompt (same length, same bucket) against the same plain
 attention."""
@@ -19,8 +20,10 @@ from .text import DEFAULT_SPECIALS, VisualCLATokenizer, build_test_model
 from .engine import paged as paged_mod
 from .engine import paged_spec as paged_spec_mod
 from .models import llama as llama_mod
+from .ops import attention as attention_mod
 from .ops import linear as linear_mod
 from .ops.attention import cached_attention_ref
+from .ops.cuda.flash_attention import flash_attention_ref
 from .ops.cuda.int4_matmul import int4_matmul_ref
 from .ops.cuda.paged_attention import paged_append_attention_ref, paged_verify_attention_ref
 from .ops.quantization import quantize_kv
@@ -53,21 +56,25 @@ def random_image(seed: int) -> np.ndarray:
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Within the block, the LLaMA layers run the kernels' plain PyTorch
-    versions instead of the kernels: cached attention (B1/B2, int8 K/V
-    included), the int4 matmul (B3), the paged append attention (B4) and the
-    paged verify attention (B5)."""
+    """Within the block, the model runs the kernels' plain PyTorch versions
+    instead of the kernels: cached attention (B1/B2, int8 K/V included), the
+    int4 matmul (B3), the paged append attention (B4), the paged verify
+    attention (B5) and the vision towers' flash attention (B2u, under
+    ``VISUALCLA_VIT_ATTN=flash``)."""
     orig = (llama_mod.cached_attention, linear_mod.int4_matmul,
-            paged_mod.paged_append_attention, paged_spec_mod.paged_verify_attention)
+            paged_mod.paged_append_attention, paged_spec_mod.paged_verify_attention,
+            attention_mod.flash_attention)
     llama_mod.cached_attention = cached_attention_ref
     linear_mod.int4_matmul = int4_matmul_ref
     paged_mod.paged_append_attention = paged_append_attention_ref
     paged_spec_mod.paged_verify_attention = paged_verify_attention_ref
+    attention_mod.flash_attention = flash_attention_ref
     try:
         yield
     finally:
         (llama_mod.cached_attention, linear_mod.int4_matmul,
-         paged_mod.paged_append_attention, paged_spec_mod.paged_verify_attention) = orig
+         paged_mod.paged_append_attention, paged_spec_mod.paged_verify_attention,
+         attention_mod.flash_attention) = orig
 
 
 def _paged_inputs(ctx_lens, Sq: int, N: int, Nkv: int, hd: int, BS: int, L: int,

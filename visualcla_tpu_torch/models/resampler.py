@@ -2,9 +2,9 @@
 of visualcla_tpu/models/resampler.py).
 
 Each layer's K/V run over ``[queries ; image tokens]``, the softmax runs in
-the input dtype ("native"), pruned heads are zeroed by ``head_mask``, and the
-blocks are post-LN with an exact-gelu FFN.  ``prune_heads`` is not ported
-yet; a checkpoint's ``head_mask`` leaf is honoured.
+the input dtype ("native"), pruned heads are zeroed by ``head_mask`` (set by
+``prune_heads`` or a checkpoint's ``head_mask`` leaf), and the blocks are
+post-LN with an exact-gelu FFN.  ``pool`` is the pooler, unused by the chat.
 """
 from __future__ import annotations
 
@@ -71,3 +71,27 @@ class Resampler(nn.Module):
         for layer, mask in zip(self.layers, self.head_mask):
             h = layer(h, image_embeds, mask)
         return h
+
+
+@torch.no_grad()
+def prune_heads(resampler: Resampler, heads_to_prune: dict) -> Resampler:
+    """The reference's ``prune_heads`` surface, ``{layer: [head, ...]}``, in
+    place: a pruned head's row of ``head_mask`` is zeroed, which zeroes its
+    context exactly as slicing the head out of q/k/v and the output
+    projection would."""
+    L, N = resampler.head_mask.shape
+    for l, heads in heads_to_prune.items():  # every index checked before any is pruned
+        if not 0 <= l < L:
+            raise ValueError(f"layer {l} out of range (0..{L - 1})")
+        for h in heads:
+            if not 0 <= h < N:
+                raise ValueError(f"head {h} out of range (0..{N - 1})")
+    for l, heads in heads_to_prune.items():
+        resampler.head_mask[l, list(heads)] = 0.0
+    return resampler
+
+
+def pool(resampler: Resampler, hidden: torch.Tensor) -> torch.Tensor:
+    """Pooler: tanh(dense(first token)).  Part of the model surface, unused
+    by the chat pipeline."""
+    return torch.tanh(resampler.pooler(hidden[:, 0]))

@@ -22,13 +22,11 @@ from .llama import Llama
 from .resampler import Resampler
 
 
-class VisualCLAModel(nn.Module):
-    """All weights of the model, built directly on ``device`` in ``dtype``.
-    Matrices start uninitialised: load a checkpoint or call ``init_random_``.
-    ``quant`` ("none", "int8", "int4") is the text tower's weight tier; the
-    ViT, resampler and projection stay dense, as in the JAX package."""
+class VisionTowers(nn.Module):
+    """The vision side alone (ViT, resampler, projection), dense, built
+    directly on ``device`` in ``dtype``: what ``encode_image`` reads."""
 
-    def __init__(self, cfg: VisualCLAConfig, *, device=None, dtype=None, quant: str = "none"):
+    def __init__(self, cfg: VisualCLAConfig, *, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.cfg = cfg
@@ -37,7 +35,17 @@ class VisualCLAModel(nn.Module):
                           if cfg.use_visual_resampler else None)
         self.projection = Linear(cfg.vision_config.hidden_size,
                                  cfg.text_config.hidden_size, True, **kw)
-        self.text = Llama(cfg.text_config, quant=quant, **kw)
+
+
+class VisualCLAModel(VisionTowers):
+    """All weights of the model, built directly on ``device`` in ``dtype``.
+    Matrices start uninitialised: load a checkpoint or call ``init_random_``.
+    ``quant`` ("none", "int8", "int4") is the text tower's weight tier; the
+    ViT, resampler and projection stay dense, as in the JAX package."""
+
+    def __init__(self, cfg: VisualCLAConfig, *, device=None, dtype=None, quant: str = "none"):
+        super().__init__(cfg, device=device, dtype=dtype)
+        self.text = Llama(cfg.text_config, quant=quant, device=device, dtype=dtype)
 
 
 @torch.no_grad()
@@ -76,7 +84,7 @@ def init_random_(model: nn.Module, generator: torch.Generator,
     return model
 
 
-def encode_image(model: VisualCLAModel, cfg: VisualCLAConfig,
+def encode_image(model: VisionTowers, cfg: VisualCLAConfig,
                  pixel_values: torch.Tensor) -> torch.Tensor:
     """(B, 3, H, W) pixels -> (B, num_image_tokens, text_hidden): ViT (full
     sequence post-LN) -> resampler -> projection."""

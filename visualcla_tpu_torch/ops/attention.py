@@ -1,19 +1,24 @@
 """Attention ops (port of visualcla_tpu/ops/attention.py).
 
 ``dot_product_attention`` is the numerics-defining dense path (fp32 softmax,
-HF eager attention); ``full_attention`` is the bidirectional dense attention
-of the ViT and the resampler; ``cached_attention`` is the LLM's attention over
+HF eager attention); ``full_attention`` is the bidirectional attention of the
+ViT and the resampler, dense by default and the flash kernel B2u with
+``VISUALCLA_VIT_ATTN=flash``; ``cached_attention`` is the LLM's attention over
 the stacked KV cache, which goes to the flash kernels B1 (decode) and B2
-(prefill).  Every function keeps the JAX package's (B, S, N, hd) layout.
+(prefill), or over one layer's bnsh K/V (B1 or B2u).  Every function keeps
+the JAX package's (B, S, N, hd) layout.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import os
+
 import torch
 
-from .cuda.flash_attention import (flash_decode_stacked, flash_decode_stacked_ref,
-                                   flash_prefill_stacked, flash_prefill_stacked_ref)
+from .cuda.flash_attention import (flash_attention, flash_attention_ref, flash_decode_stacked,
+                                   flash_decode_stacked_ref, flash_prefill_stacked,
+                                   flash_prefill_stacked_ref)
 
 NEG_INF = torch.finfo(torch.float32).min
 
@@ -50,9 +55,18 @@ def dot_product_attention(
 
 
 def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                   softmax_dtype: str = "fp32") -> torch.Tensor:
-    """Bidirectional unmasked attention (ViT / resampler): dense, as the JAX
-    package runs it by default."""
+                   softmax_dtype: str = "fp32", impl: Optional[str] = None) -> torch.Tensor:
+    """Bidirectional unmasked attention (ViT / resampler).  ``impl=None``
+    reads ``VISUALCLA_VIT_ATTN`` at call time with the JAX package's default,
+    ``"xla"``: the dense path.  ``"flash"`` runs kernel B2u with causal off,
+    every slot valid, over the bsnh K/V in place; it keeps p in fp32 and so
+    ignores ``softmax_dtype``, as the JAX package's flash path does."""
+    if impl is None:
+        impl = os.environ.get("VISUALCLA_VIT_ATTN", "xla")
+    if impl == "flash":
+        B, Skv = k.shape[0], k.shape[1]
+        kv_valid = torch.ones(B, Skv, dtype=torch.bool, device=q.device)
+        return flash_attention(q, k, v, kv_valid, 0, causal=False)
     return dot_product_attention(q, k, v, softmax_dtype=softmax_dtype)
 
 
@@ -70,29 +84,37 @@ def causal_bias(
 
 def cached_attention(
     q: torch.Tensor,  # (B, Sq, N, hd)
-    k_cache: torch.Tensor,  # (L, B, Nkv, S, hd) — the FULL stacked cache (int8 or q's dtype)
-    v_cache: torch.Tensor,
+    k_cache: torch.Tensor,  # (L, B, Nkv, S, hd) — the FULL stacked cache (int8 or q's dtype),
+    v_cache: torch.Tensor,  # or one layer (B, Nkv, S, hd) with layer_index=None
     kv_valid: torch.Tensor,  # (B, S) bool
     write_slot,  # int, () or (B,) — cache slot of the first query
     *,
-    k_scale: Optional[torch.Tensor] = None,  # (L, B, Nkv, S) f32 when k/v are int8
+    k_scale: Optional[torch.Tensor] = None,  # (L, B, Nkv, S) | (B, Nkv, S) f32 for int8 k/v
     v_scale: Optional[torch.Tensor] = None,
-    layer_index: int,
+    layer_index: Optional[int] = None,
 ) -> torch.Tensor:
     """Causal attention of q over layer ``layer_index`` of the stacked cache.
     Query i sits at slot ``write_slot + i`` and sees the valid kv slots up to
     its own.  Sq == 1 goes to the decode kernel (B1), Sq > 1 to the prefill
     kernel (B2), both reading an int8 cache with its scales in place; on CPU
-    tensors both run their plain PyTorch versions."""
+    tensors both run their plain PyTorch versions.  ``layer_index=None``
+    takes one layer's bnsh K/V, the JAX package's single-device contract
+    without a mesh: Sq == 1 goes to B1, Sq > 1 to B2u (causal)."""
+    if layer_index is None:
+        return flash_attention(q, k_cache, v_cache, kv_valid, write_slot, causal=True,
+                               k_scale=k_scale, v_scale=v_scale, kv_layout="bnsh")
     fn = flash_decode_stacked if q.shape[1] == 1 else flash_prefill_stacked
     return fn(q, k_cache, v_cache, kv_valid, write_slot, layer_index,
               k_scale=k_scale, v_scale=v_scale)
 
 
 def cached_attention_ref(q, k_cache, v_cache, kv_valid, write_slot, *, k_scale=None,
-                         v_scale=None, layer_index):
+                         v_scale=None, layer_index=None):
     """``cached_attention`` through the kernels' plain PyTorch versions, on any
     device: what the kernels are held against end to end."""
+    if layer_index is None:
+        return flash_attention_ref(q, k_cache, v_cache, kv_valid, write_slot, causal=True,
+                                   k_scale=k_scale, v_scale=v_scale, kv_layout="bnsh")
     fn = flash_decode_stacked_ref if q.shape[1] == 1 else flash_prefill_stacked_ref
     return fn(q, k_cache, v_cache, kv_valid, write_slot, layer_index,
               k_scale=k_scale, v_scale=v_scale)

@@ -1,0 +1,126 @@
+"""Standalone vision pipeline, the webui multimodal-plugin equivalent (port
+of visualcla_tpu/pipeline.py).
+
+The reference's text-generation-webui plugin loads CLIP + resampler +
+projector WITHOUT the LLM and embeds images into 64 LLM-space vectors of
+width 4096 for injection by an external host.  ``VisionPipeline`` does that
+on PyTorch from a native checkpoint directory (only the vision-side leaves
+are read) or from modules already on the card, and runs on ``cuda`` unless
+``device="cpu"`` is passed.  Loading the reference merged layout or the webui
+split format raises ``NotImplementedError`` (ROADMAP item 9).
+"""
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+from torch import nn
+
+from .core.config import VisualCLAConfig
+from .processor import ImageProcessor
+
+from .api import _default_device, _flatten, _not_ported
+from .checkpoint.from_jax import params_from_jax
+from .checkpoint.serialize import iter_safetensors
+from .models.visualcla import VisionTowers, encode_image
+
+VISION_TREES = ("vision/", "resampler/", "projection/")
+
+
+class VisionPipeline:
+    """images -> (N, num_image_tokens, llm_hidden) embeddings.
+
+    ``params`` is a module holding ``vision``, ``resampler`` and
+    ``projection`` (a ``VisualCLAModel`` or ``VisionTowers``, used as it is:
+    ``dtype`` and ``device`` are then its own), or the JAX package's
+    vision-side parameter tree, nested or flat, converted and placed on
+    ``device`` (``cuda`` by default; raises without a GPU) in ``dtype``."""
+
+    def __init__(self, params, cfg: VisualCLAConfig, image_processor=None,
+                 dtype=torch.bfloat16, device=None):
+        if isinstance(params, nn.Module):
+            towers = params
+        else:
+            flat = {k: v for k, v in _flatten(params).items() if k.startswith(VISION_TREES)}
+            towers = VisionTowers(cfg, device=device or _default_device(), dtype=dtype)
+            towers.load_state_dict(params_from_jax(flat, cfg))
+        self.towers = towers
+        self.cfg = cfg
+        self.image_processor = image_processor or ImageProcessor(
+            image_size=cfg.vision_config.image_size, patch_size=cfg.vision_config.patch_size)
+        w = towers.projection.weight
+        self.device, self.dtype = w.device, w.dtype
+
+    @property
+    def num_image_embeds(self) -> int:
+        """64 for the shipped model (the webui plugin's count)."""
+        return self.cfg.num_image_tokens
+
+    @torch.no_grad()
+    def embed_images(self, images) -> np.ndarray:
+        """One image or a list (paths, PIL images, uint8 (H, W, 3) arrays) ->
+        float32 numpy (N, num_image_embeds, llm_hidden), one encode for all."""
+        pixel_values = self.image_processor(images)["pixel_values"]
+        px = torch.as_tensor(pixel_values).to(self.device, self.dtype)
+        return encode_image(self.towers, self.cfg, px).float().cpu().numpy()
+
+    # -- loaders ---------------------------------------------------------------
+
+    @classmethod
+    def from_pretrained(cls, path: str, dtype=torch.bfloat16, device=None) -> "VisionPipeline":
+        """Load from a native checkpoint dir, reading the vision-side leaves only."""
+        cfg = VisualCLAConfig.from_pretrained(path)
+        flat = dict(iter_safetensors(os.path.join(path, "params.safetensors"), VISION_TREES))
+        ip = (ImageProcessor.from_pretrained(path)
+              if os.path.exists(os.path.join(path, "preprocessor_config.json")) else None)
+        return cls(flat, cfg, ip, dtype=dtype, device=device)
+
+    @classmethod
+    def from_reference_merged(cls, path: str, dtype=None, device=None) -> "VisionPipeline":
+        raise _not_ported("loading the vision side of a reference merged directory",
+                          "9: checkpoint conversion")
+
+    @classmethod
+    def from_webui_split(cls, vision_dir: str, clip_model: str, vision_lora=None, dtype=None,
+                         device=None) -> "VisionPipeline":
+        raise _not_ported("loading the webui split format", "9: checkpoint conversion")
+
+    @classmethod
+    def from_any(cls, path: str, dtype=torch.bfloat16, device=None,
+                 **kwargs) -> "VisionPipeline":
+        """Sniff the checkpoint layout and dispatch: native (params.safetensors),
+        reference merged (vision_encoder/), or webui split
+        (visual_resampler_model.bin, with ``clip_model=``)."""
+        if os.path.exists(os.path.join(path, "params.safetensors")):
+            return cls.from_pretrained(path, dtype=dtype, device=device)
+        if os.path.isdir(os.path.join(path, "vision_encoder")):
+            return cls.from_reference_merged(path, dtype=dtype, device=device)
+        if os.path.exists(os.path.join(path, "visual_resampler_model.bin")):
+            clip_model = kwargs.pop("clip_model", None)
+            if clip_model is None:
+                raise ValueError(f"{path} is a webui-split vision dir; pass clip_model="
+                                 "<CLIP checkpoint dir> to load it")
+            return cls.from_webui_split(path, clip_model, dtype=dtype, device=device, **kwargs)
+        raise FileNotFoundError(
+            f"{path}: no params.safetensors, vision_encoder/, or "
+            "visual_resampler_model.bin — not a recognizable checkpoint layout")
+
+
+# -- pipeline registry (the reference webui plugin's) --------------------------
+
+PIPELINES = {"visualcla-7b": VisionPipeline}
+
+
+def get_pipeline(name: str, *args, **kwargs):
+    if name in PIPELINES:
+        return PIPELINES[name], name
+    return None, None
+
+
+def get_pipeline_from_model_name(model_name: str, *args, **kwargs):
+    """Name-sniffing lookup like the reference ('visualcla' + '7b' in name)."""
+    lowered = model_name.lower()
+    if "visualcla" in lowered and "7b" in lowered:
+        return PIPELINES["visualcla-7b"], "visualcla-7b"
+    return None, None

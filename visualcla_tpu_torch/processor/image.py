@@ -1,6 +1,6 @@
-"""CLIP image preprocessing, the host-exact path (the port's own copy of
-visualcla_tpu/processor/image.py; the JAX package's fused on-device path,
-``device_preprocess``, is not ported yet: ROADMAP, open item 8).
+"""CLIP image preprocessing (the port's own copy of
+visualcla_tpu/processor/image.py): the host-exact path and the fused
+on-device path ``device_preprocess``.
 
 Replaces HF ``CLIPImageProcessor`` as used by the reference
 (models/visualcla/modeling_utils.py:130-131, 149-154): shortest-edge bicubic
@@ -8,6 +8,8 @@ resize (PIL-exact, see ``pil_resample``), center crop, 1/255 rescale, CLIP
 mean/std normalize, HWC->CHW.
 
 ``__call__``: host numpy (or the native core), bit-exact vs the HF/PIL stack.
+``device_preprocess``: plain torch on the caller's device (resize as two
+float matmuls, no uint8 rounding between the passes), close to the host path.
 """
 from __future__ import annotations
 
@@ -16,11 +18,13 @@ import os
 from typing import List, Optional, Sequence, Union
 
 import numpy as np
+import torch
 
-from .pil_resample import center_crop, resize_uint8, shortest_edge_size
+from .pil_resample import PRECISION_BITS, _coeffs, center_crop, resize_uint8, shortest_edge_size
 
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
+NPY_MAGIC = b"\x93NUMPY"
 
 
 class ImageProcessor:
@@ -64,11 +68,18 @@ class ImageProcessor:
     # -- host path ------------------------------------------------------------
 
     def _to_rgb_array(self, image) -> np.ndarray:
-        """Accept PIL.Image / path / (H, W, 3) uint8 array."""
+        """Accept PIL.Image / path / (H, W, 3) uint8 array.  A path may also
+        hold a ``.npy`` uint8 array (read with numpy alone, whatever its
+        name), for machines without Pillow."""
         if isinstance(image, str):
-            from PIL import Image
+            with open(image, "rb") as f:
+                is_npy = f.read(len(NPY_MAGIC)) == NPY_MAGIC
+            if is_npy:
+                image = np.load(image, allow_pickle=False)
+            else:
+                from PIL import Image
 
-            image = Image.open(image)
+                image = Image.open(image)
         if hasattr(image, "convert"):  # PIL image
             image = np.asarray(image.convert("RGB"))
         image = np.asarray(image)
@@ -165,3 +176,42 @@ class ImageProcessor:
                 f,
                 indent=2,
             )
+
+
+# ---------------------------------------------------------------------------
+# fused on-device path
+# ---------------------------------------------------------------------------
+
+def _device_bicubic_matrix(in_size: int, out_size: int) -> np.ndarray:
+    """Float resample matrix (out, in): Pillow's kernel and normalization
+    without its 8-bit fixed-point quantization."""
+    xmin, kk, ksize = _coeffs(in_size, out_size, "bicubic")
+    M = np.zeros((out_size, in_size), np.float32)
+    rows = np.repeat(np.arange(out_size), ksize)
+    cols = (xmin[:, None] + np.arange(ksize)[None, :]).reshape(-1)
+    vals = (kk.astype(np.float64) / (1 << PRECISION_BITS)).astype(np.float32).reshape(-1)
+    ok = cols < in_size
+    np.add.at(M, (rows[ok], cols[ok]), vals[ok])
+    return M
+
+
+def device_preprocess(images_u8, *, out_size: int = 224, mean=CLIP_MEAN, std=CLIP_STD,
+                      dtype=None) -> torch.Tensor:
+    """(B, H, W, 3) uint8 images (one size) -> (B, 3, out_size, out_size)
+    pixels on the images' device: shortest-edge bicubic resize as two fp32
+    matmuls (horizontal, then vertical, as the host path), clip to [0, 255],
+    center crop, 1/255, CLIP normalize; float32 or ``dtype``."""
+    x = torch.as_tensor(images_u8)
+    B, H, W, C = x.shape
+    nh, nw = shortest_edge_size(H, W, out_size)
+    Mh = torch.from_numpy(_device_bicubic_matrix(H, nh)).to(x.device)  # (nh, H)
+    Mw = torch.from_numpy(_device_bicubic_matrix(W, nw)).to(x.device)  # (nw, W)
+    x = x.float()
+    x = torch.einsum("ow,bhwc->bhoc", Mw, x)
+    x = torch.einsum("oh,bhwc->bowc", Mh, x)
+    x = x.clamp(0.0, 255.0)
+    top, left = (nh - out_size) // 2, (nw - out_size) // 2
+    x = x[:, top:top + out_size, left:left + out_size, :] * (1.0 / 255.0)
+    x = (x - torch.tensor(mean, device=x.device)) / torch.tensor(std, device=x.device)
+    x = x.permute(0, 3, 1, 2)
+    return x.to(dtype) if dtype is not None else x.contiguous()
