@@ -4,7 +4,10 @@
 
 Phases, one line of findings each:
   1. device  — the card's name and power limit (nvidia-smi), torch and CUDA
-               versions; no CUDA device is an error, never a CPU run;
+               versions; no CUDA device is an error, never a CPU run; the
+               in-process tokenizer is saved as a ``tokenizer.model`` and read
+               back through ``VisualCLATokenizer.from_pretrained``: the run
+               uses the one read from the file;
   2. build   — build the CUDA kernels from ``visualcla_tpu_torch/csrc``, one
                ``nvcc`` per source, all at once;
   3. kernels — each kernel against its plain PyTorch version on the card, with
@@ -20,11 +23,15 @@ Phases, one line of findings each:
                same rows (an append across a block edge), GQA and B=8 x 2048,
                running rows' outputs and pools (outside the dummy block 0)
                checked; B6 (paged decode attention, f32) at B4's shapes; B2 at
-               Sq 9 with per-row write slots; B2u (flash attention over
+               Sq 5 and 9 with per-row write slots; B1's split-KV cases (B = 1
+               near the end of the cache, a negative slot and a row with
+               nothing valid, hd 64, f32, each call twice for bitwise equal
+               outputs); B2u (flash attention over
                unstacked K/V) at the ViT's shape (257 tokens, 16 x 64, B=1 and
                8, bf16 and f32), at 448 px (1025 tokens), at the resampler's
                (64 queries over 321 slots) and in the mesh form (bnsh, causal,
-               hd 128, per-row slots, bf16 and int8 K/V, a fully masked row);
+               hd 128, per-row slots, bf16 and int8 K/V, a fully masked row)
+               and with int8 K/V at the ViT's token counts (hd 64);
                each with its bound and, where one PyTorch call computes the
                same function, that call's time;
   4. slice   — VisualCLA-7B at full width on seeded random bf16 weights made
@@ -35,6 +42,7 @@ Phases, one line of findings each:
                of uneven prompts whose rows equal their single-row runs (in
                fp32: bf16 GEMMs round by batch shape); the launch counters
                of the greedy chat alone; TTFT and B=1 decode tokens/s; a
+               ``chat_in_stream(chunk_size=4)`` with the same text as ``chat``; a
                greedy speculative chat of 64 tokens on a prompt that invites
                copying (B2 once a layer a verify chunk, B1 never), its
                stream's ids equal to its ``generate``'s, tokens a chunk,
@@ -75,7 +83,8 @@ Phases, one line of findings each:
   8. serve int4 — the int4 tier with the int8 KV pool: 3 requests, exact
                launch counts of B4's int8 form, finite decode logits; then 2
                greedy requests on a speculative int8 pool (B5's int8 form);
-  9. the kernel summary as one JSON line, then the result line.
+  9. the seconds each phase took, the kernel summary as one JSON line, then
+     the result line.
 Exits non-zero if any phase fails.  Needs no network and no JAX.
 """
 from __future__ import annotations
@@ -103,6 +112,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from visualcla_tpu_torch.core.config import visualcla_config_for_size
 from visualcla_tpu_torch.processor import ImageProcessor
+from visualcla_tpu_torch.text import VisualCLATokenizer
 from visualcla_tpu_torch.text.prompt import encoding_text, img_marker_positions
 from visualcla_tpu_torch import api
 from visualcla_tpu_torch.apps import serve as serve_app
@@ -385,6 +395,7 @@ def phase_kernels(prompt_bucket: int) -> dict:
     b6_main, b6_launches = _b6_cases(worst, failures)
     main.update(b6_main)
     _b2_verify_case(gen, worst, failures)
+    _b1_split_cases(gen, worst, failures)
     b2u_main, b2u_launches = _b2u_cases(gen, worst, failures)
     main.update(b2u_main)
     if failures:
@@ -619,27 +630,94 @@ def _b6_cases(worst, failures):
 
 
 def _b2_verify_case(gen, worst, failures) -> None:
-    """B2 at the speculative chat's shape: Sq 9 queries a row at per-row
-    write slots 600 and 700 (B=2, ragged left padding), bf16 and int8 K/V,
-    against its plain version."""
+    """B2 at the speculative chunks' shapes: Sq 5 and 9 queries a row at
+    per-row write slots 600 and 700 (B=2, ragged left padding), bf16 and int8
+    K/V, against its plain version."""
     cases = []
+    for Sq in (SPEC_K + 1, 9):
+        for kv8 in (False, True):
+            q, kc, vc, _, _ = _kernel_case("prefill", 2, Sq, 32, 32, gen)
+            slot = torch.tensor([600, 700], dtype=torch.int32, device="cuda")
+            valid = torch.arange(kc.shape[3], device="cuda")[None, :] < slot[:, None].long() + Sq
+            valid[0, :3], valid[1, :40] = False, False
+            sc = {}
+            if kv8:
+                kc, vc, sc = _quantized_cache(kc, vc)
+            err, ok = _against_plain("prefill", q, kc, vc, valid, slot, 1, sc)
+            name = "flash_prefill_kv8" if kv8 else "flash_prefill"
+            worst[name] = max(worst[name], err)
+            ms = device_ms(lambda i: fa.flash_prefill_stacked(q, kc, vc, valid, slot, 1, **sc))
+            cases.append(f"Sq{Sq} {'int8 K/V' if kv8 else 'bf16'} err={err:.2e} "
+                         f"{ms * 1e3:.1f}us")
+            if not ok:
+                failures.append(name + " per-row slots " + cases[-1])
+    print(f"[3 kernels] B2 at the speculative chunks' shapes (B=2, write slots 600/700, "
+          f"N32, S 2048; a 64-row query tile is mostly padding there), tol atol=rtol={ATOL}: "
+          + "; ".join(cases), flush=True)
+
+
+def _b1_split_cases(gen, worst, failures) -> None:
+    """B1's split-KV cases against the plain version: B = 1 at slot 2040 of
+    the 2048-slot, 32-layer cache (16 active splits; timed over the layers,
+    with its bound and ``scaled_dot_product_attention``), B = 8 at ragged
+    slots with a negative slot (row 3) and a row with nothing valid (row 5:
+    both zeros), hd 64 (B = 2, 16 heads), and the f32 instance; each called
+    twice on the same inputs for bitwise equal outputs."""
+    cases = []
+
+    def one(label, q, kc, vc, valid, slot, layer, sc, zero_rows=(), timed=False):
+        name = "flash_decode_kv8" if sc else "flash_decode"
+        out = fa.flash_decode_stacked(q, kc, vc, valid, slot, layer, **sc)
+        again = fa.flash_decode_stacked(q, kc, vc, valid, slot, layer, **sc)
+        torch.cuda.synchronize()
+        ref = fa.flash_decode_stacked_ref(q.float(), kc if sc else kc.float(),
+                                          vc if sc else vc.float(), valid, slot, layer, **sc)
+        tol = ATOL if q.dtype == torch.bfloat16 else F32_TOL
+        err = (out.float() - ref).abs()
+        ok = (bool((err <= tol + tol * ref.abs()).all()) and bool(torch.isfinite(out).all())
+              and torch.equal(out, again) and all(bool((out[b] == 0).all()) for b in zero_rows))
+        if q.dtype == torch.bfloat16:
+            worst[name] = max(worst[name], err.max().item())
+        text = f"{label} err={err.max().item():.2e} twice bitwise {torch.equal(out, again)}"
+        if timed:
+            L = kc.shape[0]
+            ms = device_ms(lambda i: fa.flash_decode_stacked(q, kc, vc, valid, slot, i % L, **sc),
+                           calls=L)
+            extra = _flash_bound_and_library("decode", q, kc, vc, valid, slot, sc)
+            lib = ("none" if extra["library_ms"] is None
+                   else f"{extra['library_ms'] * 1e3:.1f}us")
+            text += (f" {ms * 1e3:.1f}us over the 32 layers, bound "
+                     f"{extra['bound_ms'] * 1e3:.2f}us ({extra['bound_by']}), sdpa {lib}")
+        cases.append(text)
+        if not ok:
+            failures.append(name + " " + text)
+
     for kv8 in (False, True):
-        q, kc, vc, _, _ = _kernel_case("prefill", 2, 9, 32, 32, gen)
-        slot = torch.tensor([600, 700], dtype=torch.int32, device="cuda")
-        valid = torch.arange(kc.shape[3], device="cuda")[None, :] < slot[:, None].long() + 9
-        valid[0, :3], valid[1, :40] = False, False
+        tag = "int8" if kv8 else "bf16"
+        q, kc, vc, valid, slot = _kernel_case("decode", 1, 1, 32, 32, gen, L=32, slot0=2040)
         sc = {}
         if kv8:
             kc, vc, sc = _quantized_cache(kc, vc)
-        err, ok = _against_plain("prefill", q, kc, vc, valid, slot, 1, sc)
-        name = "flash_prefill_kv8" if kv8 else "flash_prefill"
-        worst[name] = max(worst[name], err)
-        ms = device_ms(lambda i: fa.flash_prefill_stacked(q, kc, vc, valid, slot, 1, **sc))
-        cases.append(f"{'int8 K/V' if kv8 else 'bf16'} err={err:.2e} {ms * 1e3:.1f}us")
-        if not ok:
-            failures.append(name + " Sq9 per-row slots " + cases[-1])
-    print(f"[3 kernels] B2 at the speculative chunk's shape (B=2, Sq 9, write slots 600/700, "
-          f"N32, S 2048), tol atol=rtol={ATOL}: " + "; ".join(cases), flush=True)
+        one(f"{tag} B1 slot 2040 L32", q, kc, vc, valid, slot, 7, sc, timed=True)
+        del q, kc, vc, sc
+        q, kc, vc, valid, slot = _kernel_case("decode", 8, 1, 32, 32, gen)
+        slot[3] = -1  # a parked row: nothing is visible
+        sc = {}
+        if kv8:
+            kc, vc, sc = _quantized_cache(kc, vc)
+        one(f"{tag} B8 ragged, slot -1 and a dead row", q, kc, vc, valid, slot, 1, sc,
+            zero_rows=(3, 5))
+        del q, kc, vc, sc
+        q, kc, vc, valid, slot = _kernel_case("decode", 2, 1, 16, 16, gen, S=1024, hd=64)
+        sc = {}
+        if kv8:
+            kc, vc, sc = _quantized_cache(kc, vc)
+        one(f"{tag} hd64 B2 N16", q, kc, vc, valid, slot, 1, sc)
+        del q, kc, vc, sc
+    q, kc, vc, valid, slot = _kernel_case("decode", 2, 1, 32, 8, gen)
+    one("f32 GQA B2", q.float(), kc.float(), vc.float(), valid, slot, 1, {})
+    print(f"[3 kernels] B1 split-KV cases, tol atol=rtol={ATOL} (bf16), {F32_TOL} (f32): "
+          + "; ".join(cases), flush=True)
 
 
 def _b2u_check(q, k, v, valid, slot, causal, layout, sc):
@@ -724,6 +802,21 @@ def _b2u_cases(gen, worst, failures):
             main["flash_full"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                                   "bound_by": b_by, "library_ms": lib_ms}
         del q, k, v
+    # int8 K/V at the ViT's token counts (hd 64, bsnh, causal off): no path of
+    # the model runs it; the template's int8 conversion at hd 64
+    for tokens in (257, 1025):
+        q, k, v = rnd(2, tokens, 16, 64), rnd(2, tokens, 16, 64), rnd(2, tokens, 16, 64)
+        (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+        valid = torch.ones(2, tokens, dtype=torch.bool, device=dev)
+        valid[1, 5:40] = False
+        sc = {"k_scale": ks, "v_scale": vs}
+        err, ok = _b2u_check(q, kq, vq, valid, 0, False, "bsnh", sc)
+        worst["flash_full_kv8"] = max(worst["flash_full_kv8"], err)
+        ms = device_ms(lambda i: fa.flash_attention(q, kq, vq, valid, 0, causal=False, **sc))
+        cases.append(f"int8 K/V hd64 bsnh B2 {tokens} tokens err={err:.2e} {ms * 1e3:.1f}us")
+        if not ok:
+            failures.append("flash_full_kv8 " + cases[-1])
+        del q, k, v, kq, vq
     # the mesh form: bnsh K/V of one layer, causal from per-row slots
     L, B, Sq, S, N = 32, 2, 512, 2048, 32
     slot = torch.tensor([100, 1000], dtype=torch.int32, device=dev)
@@ -907,6 +1000,13 @@ def phase_slice(smi: str, cfg, tokenizer) -> dict:
     _check_counts(chat_counts, {"flash_prefill": L, "flash_decode": L * (n_gen - 1)})
 
     ttft, rate = _streams(bundle, image, greedy, response, enc["input_ids"], pv, ids)
+    # four decode steps between host reads: the same text at the end
+    chunked = ""
+    for chunked, _ in api.chat_in_stream(bundle, image, PROMPT, [], greedy, verbose=False,
+                                         chunk_size=4):
+        pass
+    if chunked.lstrip(" ") != response.lstrip(" "):
+        raise RuntimeError(f"chat_in_stream(chunk_size=4) {chunked!r} != chat {response!r}")
     # speculative: one prefill, then one verify chunk of K+1 tokens at a time
     spec = _spec_chat(bundle, image, lambda chunks: {"flash_prefill": L * (1 + chunks)})
 
@@ -981,7 +1081,7 @@ def phase_slice(smi: str, cfg, tokenizer) -> dict:
           f"built in {setup_s:.1f} s; prompt {len(enc['input_ids'][0])} tokens (bucket "
           f"{eng.bucket_len(len(enc['input_ids'][0]))}); prefill logits kernels vs plain max diff "
           f"bf16 {logit_diff:.3e}, fp32 {logit_diff32:.3e} (scale {logit_scale:.2f}); greedy chat {n_gen} tokens, "
-          f"stream ids equal; B=2 vs single-row prefill logits max diff bf16 {b2_diff:.3e}, "
+          f"stream ids equal, chat_in_stream(chunk_size=4) the same text; B=2 vs single-row prefill logits max diff bf16 {b2_diff:.3e}, "
           f"fp32 {b2_diff32:.3e}; fp32 B=2 rows equal their single-row runs over "
           f"{greedy.max_new_tokens} tokens; "
           f"sampled chat "
@@ -1919,20 +2019,55 @@ def _last_hidden(engine, input_ids, pixel_values, img_pos):
     return hidden[:, -1:]
 
 
+def _tokenizer_from_file(built):
+    """Save the in-process tokenizer's model as ``tokenizer.model`` and read
+    it back through ``VisualCLATokenizer.from_pretrained``, as the factory
+    reads a checkpoint's: the same vocabulary and the same prompt ids, or the
+    run fails.  -> the tokenizer read from the file."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tokenizer.model")
+        built.sp.save(path)
+        size = os.path.getsize(path)
+        loaded = VisualCLATokenizer.from_pretrained(tmp)
+    texts = (PROMPT, COPY_PROMPT, "abc 123, hello!\n图片里有什么？") + REPEAT_TEXTS
+    if (loaded.sp != built.sp or len(loaded) != len(built)
+            or any(loaded.encode(t) != built.encode(t) for t in texts)
+            or loaded.eos_token_id != built.eos_token_id
+            or loaded.img_start_token_id != built.img_start_token_id):
+        raise RuntimeError("the tokenizer read back from tokenizer.model differs from the "
+                           "one that was saved")
+    print(f"[1 device] tokenizer.model written ({size} bytes, {len(built.sp.pieces)} pieces) "
+          f"and read back through VisualCLATokenizer.from_pretrained in "
+          f"{time.perf_counter() - t0:.2f} s: equal model, equal prompt ids", flush=True)
+    return loaded
+
+
 def main() -> int:
+    t_start = time.perf_counter()
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        return out
+
     info = phase_device()
-    phase_build()
+    timed("2 build", phase_build)
     cfg = visualcla_config_for_size("7B")
-    tokenizer = make_tokenizer(cfg.text_config.vocab_size)
+    tokenizer = _tokenizer_from_file(make_tokenizer(cfg.text_config.vocab_size))
     prompt_len = len(encoding_text([], PROMPT, cfg.num_image_tokens, tokenizer)["input_ids"][0])
-    kern = phase_kernels(pick_bucket(PROMPT_BUCKETS, prompt_len))
-    sl = phase_slice(info["smi"], cfg, tokenizer)
+    kern = timed("3 kernels", phase_kernels, pick_bucket(PROMPT_BUCKETS, prompt_len))
+    sl = timed("4 slice", phase_slice, info["smi"], cfg, tokenizer)
     launches = sl["launches"]
-    vision = phase_vision(info["smi"], cfg, tokenizer, sl.pop("bundle"))
-    launches4 = phase_int4(info["smi"], cfg, tokenizer)["launches"]
-    phase_int8(info["smi"], cfg, tokenizer)
-    serve = phase_serve(info["smi"], cfg, tokenizer)
-    serve4 = phase_serve_int4(info["smi"], cfg, tokenizer)
+    vision = timed("4v vision", phase_vision, info["smi"], cfg, tokenizer, sl.pop("bundle"))
+    launches4 = timed("5 int4", phase_int4, info["smi"], cfg, tokenizer)["launches"]
+    timed("6 int8", phase_int8, info["smi"], cfg, tokenizer)
+    serve = timed("7 serve", phase_serve, info["smi"], cfg, tokenizer)
+    serve4 = timed("8 serve int4", phase_serve_int4, info["smi"], cfg, tokenizer)
+    print(f"[9 time] seconds a phase {seconds}; the whole run "
+          f"{time.perf_counter() - t_start:.1f} s after the imports", flush=True)
     # each kernel's launches from the run of the path that drives it
     runs = {"paged_append": serve["launches"], "paged_append_kv8": serve4["launches"],
             "paged_verify": serve["spec"]["launches"],

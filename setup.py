@@ -14,7 +14,7 @@ setup(
     packages=find_packages(include=["visualcla_tpu", "visualcla_tpu.*",
                                     "visualcla_tpu_torch", "visualcla_tpu_torch.*"]),
     package_data={"visualcla_tpu": ["configs/*.json"],
-                  "visualcla_tpu_torch": ["csrc/*.cu", "csrc/host/*.cpp"]},
+                  "visualcla_tpu_torch": ["csrc/*.cu", "csrc/host/*.cpp", "configs/*.json"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",

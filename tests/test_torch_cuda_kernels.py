@@ -301,3 +301,152 @@ def test_paged_decode_kernel_matches_plain(dev, dtype, kv_int8, N, Nkv):
     assert out.dtype == dtype and out.shape == args["q"].shape
     torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype], rtol=TOL[dtype])
     assert bool((out[0] == 0).all())  # lens 0: zeros
+
+
+# ---------------------------------------------------------------------------
+# the redesigned flash kernels: split-KV B1, tensor-core B2 / B2u
+# ---------------------------------------------------------------------------
+
+def stacked_case(dev, dtype, Sq, N, Nkv, hd, S, slots, kv8, dead_row=None, seed=0):
+    """A 2-layer cache of ``S`` slots, row b's queries at slots[b] .. + Sq,
+    ragged left padding, optionally a row that sees nothing and int8 K/V."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B = len(slots)
+    q = torch.randn(B, Sq, N, hd, generator=g, device=dev).to(dtype)
+    kc = torch.randn(2, B, Nkv, S, hd, generator=g, device=dev).to(dtype)
+    vc = torch.randn(2, B, Nkv, S, hd, generator=g, device=dev).to(dtype)
+    slot = torch.tensor(slots, dtype=torch.int32, device=dev)
+    valid = torch.arange(S, device=dev)[None] < (slot[:, None].long() + Sq)
+    for b in range(B):
+        valid[b, :b + 2] = False
+    if dead_row is not None:
+        valid[dead_row] = False
+    sc = {}
+    if kv8:
+        (kc, ks), (vc, vs) = quantize_kv(kc.float()), quantize_kv(vc.float())
+        sc = {"k_scale": ks, "v_scale": vs}
+    return q, kc, vc, valid, slot, sc
+
+
+def check_stacked(wrapper, plain, q, kc, vc, valid, slot, sc, dtype):
+    out = wrapper(q, kc, vc, valid, slot, 1, **sc)
+    torch.cuda.synchronize()
+    ref = plain(q.float(), kc if sc else kc.float(), vc if sc else vc.float(), valid, slot, 1,
+                **sc)
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), ref, atol=TOL[dtype], rtol=TOL[dtype])
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv8", [False, True], ids=["float_kv", "int8_kv"])
+@pytest.mark.parametrize("N,Nkv,hd", [(8, 8, 128), (8, 2, 128), (4, 4, 64)],
+                         ids=["mha", "gqa4", "hd64"])
+def test_decode_kernel_split_cases(dev, dtype, kv8, N, Nkv, hd):
+    """B1 with slots in the first run, in later runs, at the end of the cache,
+    a negative slot and a row with nothing valid (both zeros)."""
+    slots = [40, 300, 1023, -1, 700, 128, 127]
+    q, kc, vc, valid, slot, sc = stacked_case(dev, dtype, 1, N, Nkv, hd, 1024, slots, kv8,
+                                              dead_row=4, seed=N + hd)
+    out = check_stacked(fa.flash_decode_stacked, fa.flash_decode_stacked_ref, q, kc, vc, valid,
+                        slot, sc, dtype)
+    assert bool((out[3] == 0).all()) and bool((out[4] == 0).all())
+    # the same call again gives the same bits: no atomics, a fixed combine order
+    again = fa.flash_decode_stacked(q, kc, vc, valid, slot, 1, **sc)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("kv8", [False, True], ids=["float_kv", "int8_kv"])
+def test_decode_kernel_row_does_not_depend_on_its_batch(dev, kv8):
+    """f32: a row served in a batch of 5 equals, bit for bit, the same row
+    served alone (what keeps batched generation equal to single rows)."""
+    slots = [40, 300, 1023, 700, 511]
+    q, kc, vc, valid, slot, sc = stacked_case(dev, torch.float32, 1, 8, 8, 128, 1024, slots, kv8)
+    out = fa.flash_decode_stacked(q, kc, vc, valid, slot, 1, **sc)
+    for b in range(len(slots)):
+        one_sc = {n: a[:, b:b + 1].contiguous() for n, a in sc.items()}
+        one = fa.flash_decode_stacked(q[b:b + 1], kc[:, b:b + 1].contiguous(),
+                                      vc[:, b:b + 1].contiguous(), valid[b:b + 1],
+                                      slot[b:b + 1], 1, **one_sc)
+        assert torch.equal(out[b:b + 1], one), b
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv8", [False, True], ids=["float_kv", "int8_kv"])
+@pytest.mark.parametrize("N,Nkv,hd", [(8, 8, 128), (8, 2, 128), (4, 4, 64)],
+                         ids=["mha", "gqa4", "hd64"])
+@pytest.mark.parametrize("Sq", [5, 9, 130])
+def test_prefill_kernel_verify_shapes(dev, dtype, kv8, N, Nkv, hd, Sq):
+    """B2 at Sq 5 and 9 (the speculative verify) and 130 (two query tiles and
+    a ragged third) at per-row slots; one row starts at slot 0, one sees
+    nothing."""
+    slots = [600, 0, 37, 64]
+    q, kc, vc, valid, slot, sc = stacked_case(dev, dtype, Sq, N, Nkv, hd, 1024, slots, kv8,
+                                              dead_row=2, seed=Sq + N)
+    for tiling in (1, 2, 3, None):  # every block tiling of the bf16 kernel, then the picked one
+        fa.TILING = tiling
+        try:
+            out = check_stacked(fa.flash_prefill_stacked, fa.flash_prefill_stacked_ref, q, kc,
+                                vc, valid, slot, sc, dtype)
+        finally:
+            fa.TILING = None
+        assert bool((out[2] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv8", [False, True], ids=["float_kv", "int8_kv"])
+@pytest.mark.parametrize("tokens", [257, 1025])
+def test_full_kernel_vit_token_counts(dev, dtype, kv8, tokens):
+    """B2u at the ViT's token counts (224 and 448 px): no multiple of the
+    tile, causal off, hd 64, bsnh, a fully masked row."""
+    q, k, v, valid, slot, sc = full_case(dev, dtype, "bsnh", 64, kv8, B=2, Sq=tokens, S=tokens,
+                                         N=16, Nkv=16, seed=tokens)
+    for tiling in (1, 2, 3, None):
+        fa.TILING = tiling
+        try:
+            out = fa.flash_attention(q, k, v, valid, 0, causal=False, **sc)
+        finally:
+            fa.TILING = None
+        torch.cuda.synchronize()
+        ref = fa.flash_attention_ref(q.float(), k if kv8 else k.float(), v if kv8 else v.float(),
+                                     valid, 0, causal=False, **sc)
+        torch.testing.assert_close(out.float(), ref, atol=TOL[dtype], rtol=TOL[dtype])
+        assert bool((out[-1] == 0).all())
+
+
+def test_bf16_kernel_rejects_misaligned_rows(dev):
+    """The tensor-core kernel copies rows 16 bytes at a time: a K/V view that
+    starts 2 bytes into a row raises instead of reading misaligned."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    q = torch.randn(1, 8, 4, 64, generator=g, device=dev).to(torch.bfloat16)
+    wide = torch.randn(1, 16, 4, 65, generator=g, device=dev).to(torch.bfloat16)
+    valid = torch.ones(1, 16, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention(q, wide[..., 1:], wide[..., 1:], valid, 0, causal=False)
+
+
+@pytest.mark.parametrize("kind", ["decode", "prefill"])
+def test_flash_kernels_replay_in_a_cuda_graph(dev, kind):
+    """One B1 call and one B2 call captured in a CUDA graph and replayed give
+    the eager result (no host read, no allocation outside the graph's pool)."""
+    Sq = 1 if kind == "decode" else 70
+    wrapper = fa.flash_decode_stacked if kind == "decode" else fa.flash_prefill_stacked
+    q, kc, vc, valid, slot, _ = stacked_case(dev, torch.bfloat16, Sq, 8, 8, 128, 1024,
+                                             [300, 700], False, seed=9)
+    eager = wrapper(q, kc, vc, valid, slot, 1)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        wrapper(q, kc, vc, valid, slot, 1)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = wrapper(q, kc, vc, valid, slot, 1)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
+    slot.add_(17)  # the slots live on the device: a replay follows them
+    valid[:] = torch.arange(1024, device=dev)[None] < (slot[:, None].long() + Sq)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, wrapper(q, kc, vc, valid, slot, 1))

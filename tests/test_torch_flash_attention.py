@@ -177,3 +177,94 @@ def test_full_wrapper_rejects_bad_arguments():
         fa.flash_attention(torch.zeros(B, 5, 3, 8), *args[1:], 0)
     with pytest.raises(TypeError, match="int8"):
         fa.flash_attention(*args, 0, k_scale=torch.ones(B, 9, 2), v_scale=torch.ones(B, 9, 2))
+
+
+# ---------------------------------------------------------------------------
+# the shapes the card's kernels are held against their plain versions at:
+# here the plain versions are held against the Pallas kernels at those shapes
+# ---------------------------------------------------------------------------
+
+def stacked_case(seed, Bc, Sq, N, Nkv, hd, Sc, slots, kv8, dead_row=None):
+    """A stacked cache of ``Sc`` slots, queries of row b at slots[b] .. + Sq,
+    ragged left padding, optionally a row that sees nothing, optionally int8
+    K/V with (L, B, Nkv, S) scales."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((Bc, Sq, N, hd)).astype(np.float32)
+    kv_valid = np.arange(Sc)[None, :] < (np.asarray(slots)[:, None] + Sq)
+    for b in range(Bc):
+        kv_valid[b, :b + 2] = False
+    if dead_row is not None:
+        kv_valid[dead_row] = False
+    shape = (L, Bc, Nkv, Sc, hd)
+    if not kv8:
+        kc, vc = (rng.standard_normal(shape).astype(np.float32) for _ in range(2))
+        return q, kc, vc, kv_valid, {}
+    kc, vc = (rng.integers(-127, 128, shape).astype(np.int8) for _ in range(2))
+    ks, vs = (rng.uniform(0.005, 0.03, shape[:4]).astype(np.float32) for _ in range(2))
+    return q, kc, vc, kv_valid, {"k_scale": ks, "v_scale": vs}
+
+
+def jax_stacked(q, kc, vc, kv_valid, slots, l, sc):
+    return np.asarray(flash_attention(
+        jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), jnp.asarray(kv_valid),
+        jnp.asarray(slots, jnp.int32), causal=True, layer_index=jnp.int32(l), interpret=True,
+        block_kv=128, **{n: jnp.asarray(a) for n, a in sc.items()}), np.float32)
+
+
+@pytest.mark.parametrize("kv8", [False, True], ids=["float_kv", "int8_kv"])
+@pytest.mark.parametrize("N,Nkv,hd", [(4, 4, 128), (8, 2, 128), (4, 4, 64)],
+                         ids=["mha", "gqa4", "hd64"])
+@pytest.mark.parametrize("Sq", [5, 9])
+def test_verify_shapes_plain_matches_pallas(Sq, N, Nkv, hd, kv8):
+    """B2 at the speculative verify's shapes: Sq 5 and 9 at per-row slots
+    (one row starts at slot 0, one sees nothing), MHA, N / Nkv = 4, hd 64,
+    float and int8 K/V.  fp32, atol = rtol = 1e-5 (another summation order)."""
+    slots = [100, 0, 37]
+    q, kc, vc, kv_valid, sc = stacked_case(30 + Sq, 3, Sq, N, Nkv, hd, 128, slots, kv8,
+                                           dead_row=2)
+    want = jax_stacked(q, kc, vc, kv_valid, slots, 1, sc)
+    tsc = {n: torch.from_numpy(a) for n, a in sc.items()}
+    got = fa.flash_prefill_stacked_ref(*torch_args(q, kc, vc, kv_valid, slots), 1, **tsc).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=ATOL)
+    np.testing.assert_array_equal(got[2], 0.0)  # the row that sees nothing
+    np.testing.assert_array_equal(
+        fa.flash_prefill_stacked(*torch_args(q, kc, vc, kv_valid, slots), 1, **tsc).numpy(), got)
+
+
+@pytest.mark.parametrize("kv8", [False, True], ids=["float_kv", "int8_kv"])
+@pytest.mark.parametrize("N,Nkv,hd", [(4, 4, 128), (8, 2, 128), (4, 4, 64)],
+                         ids=["mha", "gqa4", "hd64"])
+def test_decode_shapes_plain_matches_pallas(N, Nkv, hd, kv8):
+    """B1 at the split-KV kernel's cases: rows whose slot lies in the first
+    run of 128 slots, in a later one, at the end of the cache, a row with a
+    negative slot and a row with nothing valid (both zeros), MHA, N / Nkv = 4
+    and hd 64, float and int8 K/V.  fp32, atol = rtol = 1e-5."""
+    slots = [40, 300, 383, -1, 200]
+    q, kc, vc, kv_valid, sc = stacked_case(40, 5, 1, N, Nkv, hd, 384, slots, kv8, dead_row=4)
+    want = jax_stacked(q, kc, vc, kv_valid, slots, 0, sc)
+    tsc = {n: torch.from_numpy(a) for n, a in sc.items()}
+    got = fa.flash_decode_stacked_ref(*torch_args(q, kc, vc, kv_valid, slots), 0, **tsc).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=ATOL)
+    np.testing.assert_array_equal(got[3:], 0.0)
+    np.testing.assert_array_equal(
+        fa.flash_decode_stacked(*torch_args(q, kc, vc, kv_valid, slots), 0, **tsc).numpy(), got)
+
+
+@pytest.mark.parametrize("kv8", [False, True], ids=["float_kv", "int8_kv"])
+@pytest.mark.parametrize("layout", ["bsnh", "bnsh"])
+def test_vit_shape_plain_matches_pallas(layout, kv8):
+    """B2u at the ViT's token count: 257 queries over 257 slots (no multiple
+    of any tile), causal off, hd 64, a fully masked last row.  fp32, atol =
+    rtol = 1e-5."""
+    q, k, v, kv_valid, sc = full_case(50, layout, 257, 257, 4, 4, 64, kv8)
+    zero = np.zeros(B, np.int32)
+    want = np.asarray(flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(kv_valid),
+        jnp.asarray(zero), causal=False, kv_layout=layout, interpret=True,
+        **{n: jnp.asarray(a) for n, a in sc.items()}), np.float32)
+    tsc = {n: torch.from_numpy(a) for n, a in sc.items()}
+    got = fa.flash_attention_ref(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                                 torch.from_numpy(kv_valid), 0, causal=False, kv_layout=layout,
+                                 **tsc).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=ATOL)
+    np.testing.assert_array_equal(got[-1], 0.0)

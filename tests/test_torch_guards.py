@@ -31,7 +31,7 @@ def test_port_never_imports_jax():
             "from visualcla_tpu_torch.checkpoint import serialize, from_jax\n"
             "from visualcla_tpu_torch.ops import quantization, linear\n"
             "from visualcla_tpu_torch.ops.cuda import (int4_matmul, flash_attention, build,\n"
-            "                                          paged_attention)\n"
+            "                                          paged_attention, bench_flash)\n"
             "from visualcla_tpu_torch.models import visualcla, llama\n"
             "from visualcla_tpu_torch.engine import (generate, sampling, paged, server,\n"
             "                                     speculative, paged_spec)\n"
@@ -232,3 +232,78 @@ def test_plain_kernels_switch_covers_vision_attention():
         ref = t_attn.full_attention(q, k, v, impl="flash")
     assert t_attn.flash_attention is fa.flash_attention
     torch.testing.assert_close(t_attn.full_attention(q, k, v, impl="flash"), ref, atol=0, rtol=0)
+
+
+def test_tokenizer_model_reader_needs_no_protobuf(tmp_path):
+    """Importing the port's ``sp_model``, saving a model, loading it, and
+    loading a tokenizer from the directory pulls in neither transformers nor
+    protobuf (the card's machine has neither)."""
+    code = ("import sys\n"
+            "from visualcla_tpu_torch.text import VisualCLATokenizer\n"
+            "from visualcla_tpu_torch.text.sp_model import SPModel, build_test_model\n"
+            f"path = {str(tmp_path / 'tokenizer.model')!r}\n"
+            "m = build_test_model(['▁a', 'b', '你好'], [-1.0, -2.0, -3.0])\n"
+            "m.save(path)\n"
+            "assert SPModel.load(path) == m\n"
+            f"tok = VisualCLATokenizer.from_pretrained({str(tmp_path)!r})\n"
+            "assert tok.decode(tok.encode('a b 你好')) == 'a b 你好'\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('transformers',\n"
+            "             'sentencepiece') or m.startswith('google.protobuf'))\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def _jax_public_names():
+    """Every name the JAX package's ``__init__`` exports: its imports and the
+    names its lazy ``__getattr__`` resolves."""
+    import re
+
+    with open(os.path.join(ROOT, "visualcla_tpu", "__init__.py")) as f:
+        src = f.read()
+    imported = re.search(r"from \.core\.config import \((.*?)\)", src, re.S).group(1)
+    names = re.findall(r"\b([A-Za-z_]+)\b", imported.replace("noqa", "").replace("F401", ""))
+    lazy = src[src.index("def __getattr__"):]
+    return sorted(set(names) | set(re.findall(r'"([A-Za-z_]+)"', lazy)))
+
+
+@pytest.mark.parametrize("name", _jax_public_names())
+def test_port_exports_every_public_name_of_the_jax_package(name):
+    import visualcla_tpu as vj
+
+    assert getattr(vj, name) is not None  # the list is right
+    assert getattr(vt, name) is not None
+
+
+def _preset_names():
+    import json
+
+    with open(os.path.join(ROOT, "visualcla_tpu", "configs", "generation_presets.json")) as f:
+        return sorted(k for k in json.load(f) if not k.startswith("_"))
+
+
+@pytest.mark.parametrize("name", _preset_names())
+def test_generation_presets_equal_the_jax_package_s(name):
+    import dataclasses
+
+    import visualcla_tpu as vj
+
+    assert dataclasses.asdict(vt.load_generation_preset(name)) == dataclasses.asdict(
+        vj.load_generation_preset(name))
+
+
+def test_unknown_preset_and_hijack_samplers():
+    with pytest.raises(KeyError, match="unknown preset"):
+        vt.load_generation_preset("_comment")
+    with pytest.raises(KeyError, match="available"):
+        vt.load_generation_preset("no-such-preset")
+    assert vt.hijack_samplers() is None  # a no-op: the samplers are built in
+
+
+def test_from_vision_text_pretrained_names_item_9():
+    with pytest.raises(NotImplementedError, match="item 9"):
+        vt.VisualCLA.from_vision_text_pretrained("vision_dir", "text_dir", device="cpu")
+    with pytest.raises(NotImplementedError, match="item 9"):
+        vt.VisualCLA.from_vision_text_pretrained("vision_dir", "text_dir", "lora_dir",
+                                                 device="cpu")

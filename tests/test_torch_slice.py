@@ -134,3 +134,67 @@ def test_slice_counts_no_kernel_launch_on_cpu(both):
     tm.generate(np.array([[1, 5, 6]]), generation_config=t_samp.SamplingConfig.greedy(3))
     assert set(fa.LAUNCHES) >= {"flash_decode", "flash_prefill"}
     assert not any(fa.LAUNCHES.values()), fa.LAUNCHES
+
+
+def _stream_engines(both, eos):
+    """Both packages' engines over the fixture's weights, with ``eos`` as the
+    end-of-sequence id."""
+    from visualcla_tpu.engine.generate import Engine as JEngine
+    from visualcla_tpu_torch.engine.generate import Engine as TEngine
+
+    jm, tm, _, _ = both
+    kw = dict(eos_token_id=eos, pad_token_id=tm.tokenizer.pad_token_id, max_seq_len=256)
+    return JEngine(jm.params, jm.config, dtype=jnp.float32, **kw), TEngine(tm.model, tm.config,
+                                                                          **kw)
+
+
+@pytest.mark.parametrize("rows", [1, 2])
+@pytest.mark.parametrize("eos_at", [None, 6, 9], ids=["no_eos", "eos_mid_chunk", "eos_chunk_end"])
+@pytest.mark.parametrize("chunk_size", [1, 4])
+def test_stream_chunk_size_matches_jax(both, chunk_size, eos_at, rows):
+    """``Engine.stream(chunk_size=)`` yields the same tokens at the same
+    boundaries (as many yields, each with the same ids) as the JAX engine's,
+    fp32: without EOS (the cap ends it), with the greedy token 6 as EOS (the
+    middle of the second chunk of 4: yields 0 | 1-4 | 5-8) and with token 9
+    (a chunk's first token).  With two rows the first to finish emits pads
+    until the other ends."""
+    _, tm, cfg, _ = both
+    V = cfg.text_config.vocab_size - 4
+    ids = np.random.default_rng(7).integers(3, V, (rows, 9))
+    gc = dict(max_new_tokens=14)
+    je, te = _stream_engines(both, tm.tokenizer.eos_token_id)
+    free = te.generate(ids, sampling=t_samp.SamplingConfig.greedy(**gc))
+    eos = tm.tokenizer.eos_token_id if eos_at is None else int(free[0, eos_at])
+    je, te = _stream_engines(both, eos)
+    want = [np.asarray(t).tolist() for t in je.stream(
+        ids, sampling=j_samp.SamplingConfig.greedy(**gc), chunk_size=chunk_size)]
+    got = [t.tolist() for t in te.stream(ids, sampling=t_samp.SamplingConfig.greedy(**gc),
+                                         chunk_size=chunk_size)]
+    assert got == want
+    one = [t.tolist() for t in te.stream(ids, sampling=t_samp.SamplingConfig.greedy(**gc))]
+    assert got == one  # and the same stream as one step a host read
+    if eos_at is not None and rows == 1:
+        assert got[-1] == [eos] and len(got) == list(free[0]).index(eos) + 1
+
+
+@pytest.mark.parametrize("chunk_size", [1, 4])
+def test_chat_in_stream_chunk_size_matches_jax(both, chunk_size):
+    """Every partial response of ``chat_in_stream(chunk_size=)`` equals the
+    JAX package's, and the last one is ``chat``'s text."""
+    from visualcla_tpu.api import chat_in_stream as j_chat_in_stream
+
+    jm, tm, cfg, _ = both
+    pix = pixels(cfg, 3)
+    want = [r for r, _ in j_chat_in_stream(jm, pix, "ab你好", [],
+                                           j_samp.SamplingConfig.greedy(max_new_tokens=10),
+                                           verbose=False, chunk_size=chunk_size)]
+    t_gc = t_samp.SamplingConfig.greedy(max_new_tokens=10)
+    got = [r for r, _ in t_chat_in_stream(tm, pix, "ab你好", [], t_gc, verbose=False,
+                                          chunk_size=chunk_size)]
+    assert got == want
+    blocking, _ = t_chat(tm, pix, "ab你好", [], t_gc, verbose=False)
+    assert got[-1].lstrip(" ") == blocking.lstrip(" ")
+    ids = np.array([[1, 5, 6, 7]])
+    assert [int(t[0]) for t in tm.stream_generate(ids, None, t_gc, chunk_size=chunk_size)] == [
+        int(t[0]) for t in jm.stream_generate(
+            ids, None, j_samp.SamplingConfig.greedy(max_new_tokens=10), chunk_size=chunk_size)]

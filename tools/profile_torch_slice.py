@@ -37,7 +37,8 @@ from visualcla_tpu_torch.models import visualcla as vmod  # noqa: E402
 
 def kernel_kind(name: str) -> str:
     """The kind of a device kernel, by its name."""
-    if "flash_decode_kernel" in name or "flash_attention_kernel" in name:
+    # B1's two launches (splits, then the combine) and both B2 / B2u kernels
+    if "flash_decode_" in name or "flash_attention_" in name:
         return "flash_attention"
     if "int4_" in name:
         return "int4_matmul"

@@ -23,8 +23,13 @@ from .core.config import (  # noqa: F401
 def __getattr__(name):
     # the API (and torch's model code) loads on first use
     if name in ("chat", "chat_in_stream", "get_model_and_tokenizer_and_processor",
-                "VisualCLA", "DEFAULT_GENERATION_CONFIG", "as_sampling_config"):
+                "hijack_samplers", "VisualCLA", "DEFAULT_GENERATION_CONFIG",
+                "load_generation_preset", "as_sampling_config"):
         from . import api
 
         return getattr(api, name)
+    if name == "VisionPipeline":
+        from .pipeline import VisionPipeline
+
+        return VisionPipeline
     raise AttributeError(f"module 'visualcla_tpu_torch' has no attribute {name!r}")

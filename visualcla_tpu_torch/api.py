@@ -1,5 +1,6 @@
 """Public API (port of visualcla_tpu/api.py): ``VisualCLA``, ``chat``,
-``chat_in_stream`` and ``get_model_and_tokenizer_and_processor`` on PyTorch.
+``chat_in_stream``, ``get_model_and_tokenizer_and_processor``,
+``load_generation_preset`` and ``hijack_samplers`` on PyTorch.
 
 The weight tiers load as in the JAX package: ``load_in_8bit`` (int8 text
 tower), ``load_in_4bit`` (grouped int4 text tower, kernel B3; it wins when
@@ -15,6 +16,8 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import json
+import logging
 import os
 from typing import Iterator, Optional, Tuple, Union
 
@@ -31,6 +34,8 @@ from .engine.generate import Engine
 from .engine.sampling import SamplingConfig
 from .engine.speculative import SpeculativeDecoder
 from .models.visualcla import VisualCLAModel
+
+logger = logging.getLogger(__name__)
 
 DEFAULT_GENERATION_CONFIG = SamplingConfig()  # the reference's default sampled config
 
@@ -141,6 +146,15 @@ class VisualCLA:
             visualcla_model=visualcla_model, **kwargs)
         return model
 
+    @classmethod
+    def from_vision_text_pretrained(cls, vision_model: str, text_model: str,
+                                    lora_model: Optional[str] = None, **kwargs) -> "VisualCLA":
+        """Compose from separate vision / text checkpoints (+ optional LoRA):
+        raises, naming ROADMAP item 9, until checkpoint conversion is ported."""
+        model, _, _ = get_model_and_tokenizer_and_processor(
+            text_model=text_model, vision_model=vision_model, lora_model=lora_model, **kwargs)
+        return model
+
     def speculative_decoder(self, spec_k: int = 8, max_ngram: int = 3):
         """The cached prompt-lookup speculative decoder over this model's
         engine (see ``engine/speculative.py``)."""
@@ -179,11 +193,31 @@ class VisualCLA:
         return decoder.generate(input_ids, pixel_values, img_pos, sampling, seed=seed)
 
     def stream_generate(self, input_ids, pixel_values=None, generation_config=None,
-                        seed: int = 0, speculative: bool = False, spec_k: int = 8):
+                        seed: int = 0, chunk_size: int = 1, speculative: bool = False,
+                        spec_k: int = 8):
+        """Yield each step's (B,) tokens; ``chunk_size`` decode steps run
+        between host reads (the speculative decoder reads once a verify chunk
+        whatever ``chunk_size`` is)."""
         sampling = as_sampling_config(generation_config)
         decoder = self._decoder(sampling, speculative, spec_k)
         img_pos = self._img_positions(input_ids, pixel_values)
+        if decoder is self.engine:
+            return decoder.stream(input_ids, pixel_values, img_pos, sampling, seed=seed,
+                                  chunk_size=chunk_size)
         return decoder.stream(input_ids, pixel_values, img_pos, sampling, seed=seed)
+
+
+def load_generation_preset(name: str) -> SamplingConfig:
+    """Named preset from configs/generation_presets.json (mirrors the
+    reference's webui preset YAMLs, settings/VisualCLA-Inference.yaml)."""
+    path = os.path.join(os.path.dirname(__file__), "configs", "generation_presets.json")
+    with open(path) as f:
+        presets = json.load(f)
+    if name not in presets or name.startswith("_"):
+        raise KeyError(f"unknown preset {name!r}; available: "
+                       f"{[k for k in presets if not k.startswith('_')]}")
+    return as_sampling_config({k: v for k, v in presets[name].items()
+                               if not k.startswith("_")})
 
 
 def as_sampling_config(gc) -> SamplingConfig:
@@ -310,10 +344,11 @@ def chat(model: VisualCLA, image: Union[str, object, None], text: str,
 
 def chat_in_stream(model: VisualCLA, image: Union[str, object, None], text: str,
                    history: Optional[list] = None, generation_config=None, *,
-                   verbose: bool = True, seed: int = 0,
+                   verbose: bool = True, seed: int = 0, chunk_size: int = 1,
                    speculative: bool = False) -> Iterator[Tuple[str, list]]:
     """Streaming chat turn: yields (partial response, history) per token,
-    with the reference's '▁'-prefix space fixup."""
+    with the reference's '▁'-prefix space fixup.  ``chunk_size > 1`` decodes
+    several tokens between host reads and still yields token by token."""
     if history is None:
         history = []
     sampling = as_sampling_config(generation_config)
@@ -323,7 +358,7 @@ def chat_in_stream(model: VisualCLA, image: Union[str, object, None], text: str,
     gen_ids: list = []
     response = ""
     for step_tokens in model.stream_generate(test_input["input_ids"], pixel_values,
-                                             sampling, seed=seed,
+                                             sampling, seed=seed, chunk_size=chunk_size,
                                              speculative=speculative):
         tok = int(step_tokens[0])
         if tok == eos:
@@ -338,3 +373,11 @@ def chat_in_stream(model: VisualCLA, image: Union[str, object, None], text: str,
     if verbose:
         print("Response:", response)
         print("History:", history)
+
+
+def hijack_samplers() -> None:
+    """Reference compat (modeling_utils.py:395-400): there the extra samplers
+    (TFS / top-a / mirostat) must be monkey-patched into HF's generate; here
+    they are first-class fields of SamplingConfig, always available.  No-op."""
+    logger.info("hijack_samplers(): TFS/top-a/mirostat are built into SamplingConfig "
+                "(tfs=, top_a=, mirostat_mode=) — nothing to patch.")

@@ -6,8 +6,9 @@ Same flags and REPL protocol: commands ``exit``, ``clear``,
 next message).  ``--stream`` streams the answer, ``--speculative`` decodes
 with prompt-lookup speculative decoding, ``--load_in_8bit`` /
 ``--load_in_4bit`` pick the text tower's weight tier.  It runs on the GPU;
-``--only_cpu`` runs on the CPU instead.  ``--gpus`` and ``--stream_chunk`` are
-accepted for the JAX package's flags and change nothing.  Unmerged
+``--only_cpu`` runs on the CPU instead.  ``--stream_chunk`` is the number of
+tokens decoded between host reads while streaming; ``--gpus`` is accepted for
+the JAX package's flags and changes nothing.  Unmerged
 checkpoints (``--text_model`` + ``--vision_model`` + ``--lora_model``) raise
 ``NotImplementedError`` naming ROADMAP item 9.
 
@@ -47,8 +48,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="prompt-lookup speculative decoding (token-identical for greedy, "
                         "identical distribution for sampled configs)")
     p.add_argument("--stream_chunk", type=int, default=8,
-                   help="accepted for the JAX package's flags: the port streams one "
-                        "token a decode step")
+                   help="tokens decoded between host reads while streaming (display "
+                        "stays per-token)")
     return p
 
 
@@ -132,7 +133,8 @@ def main(argv=None):
                 printed = 0
                 for response, history in chat_in_stream(
                         model, image=turn_image, text=text, history=history, verbose=False,
-                        seed=seed, speculative=args.speculative):
+                        seed=seed, chunk_size=args.stream_chunk,
+                        speculative=args.speculative):
                     print(response[printed:], end="", flush=True)
                     printed = len(response)
                 print()

@@ -7,7 +7,8 @@ Caller-provided leading pads are honoured, so uneven batched prompts decode
 like their single-row runs.  Generation stops on EOS (every row), at
 ``max_new_tokens`` or at the end of the cache; rows that finish early emit
 pad.  ``generate`` returns the generated ids only (the HF ``inputs_embeds``
-contract); ``stream`` yields each step's tokens.  Decode is a Python loop of
+contract); ``stream`` yields each step's tokens (``chunk_size`` steps between
+host reads).  Decode is a Python loop of
 eager steps (no CUDA graph yet).
 """
 from __future__ import annotations
@@ -191,11 +192,32 @@ class Engine:
 
     def stream(self, input_ids, pixel_values=None, img_start_pos=None,
                sampling: Optional[SamplingConfig] = None,
-               seed: int = 0) -> Iterator[np.ndarray]:
-        """Yield the (B,) token ids of each step as they are produced."""
+               seed: int = 0, chunk_size: int = 1) -> Iterator[np.ndarray]:
+        """Yield the (B,) token ids of each step as they are produced.
+
+        ``chunk_size > 1`` decodes that many steps between host reads (one
+        copy of the chunk's tokens instead of one a step) and still yields
+        token by token; the stream ends after the step at which every row has
+        finished, as with ``chunk_size=1``."""
         sampling = sampling or SamplingConfig.greedy()
         state = self.start(input_ids, pixel_values, img_start_pos, sampling, seed)
         yield state.last_token.cpu().numpy()
-        while not state.done(sampling.max_new_tokens):
-            state = self.step(state, sampling)
-            yield state.last_token.cpu().numpy()
+        if chunk_size <= 1:
+            while not state.done(sampling.max_new_tokens):
+                state = self.step(state, sampling)
+                yield state.last_token.cpu().numpy()
+            return
+        finished = state.finished.cpu().numpy()
+        slots = state.kv_valid.shape[1]
+        while (state.gen_len < sampling.max_new_tokens and state.cur_slot < slots
+               and not finished.all()):
+            start_len = state.gen_len
+            target = min(start_len + chunk_size, sampling.max_new_tokens)
+            while state.gen_len < target and state.cur_slot < slots:
+                state = self.step(state, sampling)
+            chunk = state.gen_ids[:, start_len:state.gen_len].cpu().numpy()
+            for j in range(chunk.shape[1]):
+                yield chunk[:, j]
+                finished = finished | (chunk[:, j] == self.eos_token_id)
+                if finished.all():  # steps past it only wrote pads
+                    return

@@ -26,9 +26,12 @@ is seen); the kernel reads K/V through their strides, so the ViT's bsnh
 K/V straight out of a ``reshape`` are not copied.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
-launches the kernel or raises.  ``LAUNCHES`` counts kernel launches, the int8
-K/V launches under their own names (``flash_decode_kv8``,
-``flash_prefill_kv8``, ``flash_full_kv8``).
+launches the kernel or raises.  ``LAUNCHES`` counts one per wrapper call that
+reached its kernel (B1 is two device launches, the kv splits and their
+combine, and counts one), the int8 K/V calls under their own names
+(``flash_decode_kv8``, ``flash_prefill_kv8``, ``flash_full_kv8``).  With q in
+bf16 B2 / B2u run on the tensor cores and need 16-byte aligned q, K and V rows;
+with q in f32 they run the fp32 kernel.
 """
 from __future__ import annotations
 
@@ -41,6 +44,11 @@ from . import build
 
 NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (64, 128)  # the ViT and resampler heads, and LLaMA's
+# The block of the bf16 B2 / B2u kernel: 1 = one warpgroup (64 query rows),
+# 2 = two warpgroups (128 query rows), 3 = two warpgroups that share 64 query
+# rows and split the kv axis.  None picks what measured faster on the H100
+# (``_tiling``); a number forces it (``bench_flash.py`` times all three).
+TILING = None
 LAUNCHES = {"flash_decode": 0, "flash_prefill": 0, "flash_decode_kv8": 0,
             "flash_prefill_kv8": 0, "flash_full": 0, "flash_full_kv8": 0}
 
@@ -60,14 +68,17 @@ def build_kernels() -> ctypes.CDLL:
         ptr = ctypes.c_void_p
         i32 = ctypes.c_int
         i64 = ctypes.c_longlong
+        lib.vcla_flash_decode_splits.argtypes = [i32]  # S
+        lib.vcla_flash_decode_splits.restype = i32
         lib.vcla_flash_decode.argtypes = [
-            ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # q k v ks vs kv_valid slots out
+            ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # q k v ks vs kv_valid slots out scratch
             i32, i32, i32, i32, i32, i32, i32,  # B N Nkv S hd is_bf16 kv_int8
             ctypes.c_float, ptr]  # scale stream
         lib.vcla_flash_decode.restype = i32
         lib.vcla_flash_attention.argtypes = [
             ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-            i32, i32, i32, i32, i32, i32, i32, i32, i32,  # B Sq N Nkv S hd is_bf16 kv_int8 causal
+            # B Sq N Nkv S hd is_bf16 kv_int8 causal tiling
+            i32, i32, i32, i32, i32, i32, i32, i32, i32, i32,
             *[i64] * 12,  # (row, slot, head) strides of q, k, v and the scales
             ctypes.c_float, ptr]
         lib.vcla_flash_attention.restype = i32
@@ -254,6 +265,21 @@ def _raise_on(err, fn_name):
                            f"{build_kernels().vcla_error_string(err).decode()}")
 
 
+def _tiling(q, kv8: bool) -> int:
+    """The bf16 kernel's block for this call: the kv split when 64-row blocks
+    would be fewer than the card's SMs (the ViT and the resampler at B = 1, the
+    speculative verify: one block's chain of kv tiles sets the time there),
+    128-row blocks with int8 K/V (both warpgroups share a tile's int8 -> bf16
+    pass), else 64-row blocks."""
+    if TILING is not None:
+        return TILING
+    B, Sq, N, _ = q.shape
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    if -(-Sq // 64) * N * B < sms:
+        return 3
+    return 2 if kv8 else 1
+
+
 def _launch_attention(name, q, k, v, kv_valid, write_slot, scale, causal, k_scale, v_scale):
     """B2 / B2u on bnsh views k, v (B, Nkv, S, hd), scales (B, Nkv, S), any
     strides with a contiguous last axis; counted under ``name`` (+ ``_kv8``)."""
@@ -275,6 +301,11 @@ def _launch_attention(name, q, k, v, kv_valid, write_slot, scale, causal, k_scal
     sc_st = (k_scale.stride(0), k_scale.stride(2), k_scale.stride(1)) if kv8 else (0, 0, 0)
     if max(q_st[1], k_st[1], v_st[1], sc_st[1]) >= 2 ** 31:
         raise ValueError("the kernel takes 32-bit slot strides")
+    if q.dtype == torch.bfloat16:  # the tensor-core kernel copies rows 16 bytes at a time
+        for t_name, t, st in (("q", q, q_st), ("k", k, k_st), ("v", v, v_st)):
+            if t.data_ptr() % 16 or any(n * t.element_size() % 16 for n in st):
+                raise ValueError(f"{t_name}: the bf16 kernel needs 16-byte aligned rows "
+                                 f"(data_ptr and (row, slot, head) strides {st})")
     if scale is None:
         scale = 1.0 / math.sqrt(hd)
     lib = build_kernels()
@@ -283,7 +314,7 @@ def _launch_attention(name, q, k, v, kv_valid, write_slot, scale, causal, k_scal
         k_scale.data_ptr() if kv8 else None, v_scale.data_ptr() if kv8 else None,
         valid.data_ptr(), slots.data_ptr(), out.data_ptr(),
         B, Sq, N, Nkv, S, hd, int(q.dtype == torch.bfloat16), int(kv8), int(causal),
-        *q_st, *k_st, *v_st, *sc_st, float(scale),
+        _tiling(q, kv8), *q_st, *k_st, *v_st, *sc_st, float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     name += "_kv8" if kv8 else ""
     _raise_on(err, name)
@@ -305,10 +336,14 @@ def _launch_decode(q, k, v, kv_valid, write_slot, scale, k_scale, v_scale):
     out = torch.empty_like(q)
     valid, slots = _valid_u8(kv_valid), slot_vector(write_slot, B, q.device)
     lib = build_kernels()
+    # each kv split's partial (acc, m, l); the split count depends on S alone
+    # (no host read of the slots: the call stays capturable in a CUDA graph)
+    scratch = torch.empty((B, N, lib.vcla_flash_decode_splits(S), hd + 2),
+                          dtype=torch.float32, device=q.device)
     err = lib.vcla_flash_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         k_scale.data_ptr() if kv8 else None, v_scale.data_ptr() if kv8 else None,
-        valid.data_ptr(), slots.data_ptr(), out.data_ptr(),
+        valid.data_ptr(), slots.data_ptr(), out.data_ptr(), scratch.data_ptr(),
         B, N, Nkv, S, hd, int(q.dtype == torch.bfloat16), int(kv8), float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     name = "flash_decode_kv8" if kv8 else "flash_decode"
