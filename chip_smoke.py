@@ -15,8 +15,9 @@ Phases, one line of findings each:
                7B head shapes (MHA and GQA) and at the main path's own shapes
                (32 layers, the chat prompt's bucket); B3 (int4 matmul) at the
                7B text tower's shapes for 1, 8 and 512 tokens, per decoder
-               layer at the main path's token counts, and at the decode /
-               prefill crossover; B4 (paged append attention) with bf16 and
+               layer at the main path's token counts, and both forms on
+               each shape at 4-32 tokens beside the one the wrapper picks;
+               B4 (paged append attention) with bf16 and
                int8 pools at the 7B heads, B=4 ragged (a parked row, block
                edges), GQA and B=8 x 2048, pools bitwise equal; B5 (paged
                verify attention, the speculative step) at Sq 5 and 9 on the
@@ -61,7 +62,9 @@ Phases, one line of findings each:
                of B3 and the int8-K/V attention; greedy ``chat`` with exact
                launch counts, ``chat_in_stream`` (same ids as ``generate``),
                TTFT and B=1 decode tokens/s; a greedy speculative chat (B3 and
-               the int8-K/V B2 at K+1 tokens), exact launch counts;
+               the int8-K/V B2 at K+1 tokens), exact launch counts, and the
+               device time of one chunk with B3's forms as the wrapper picks
+               them and as the parent commit picked them;
   6. int8    — the same at the int8 weight tier (bf16 cache): one short
                greedy chat, finite prefill logits, its times;
   7. serve   — paged serving at full width: ``PagedServingEngine`` (4 rows,
@@ -83,6 +86,8 @@ Phases, one line of findings each:
   8. serve int4 — the int4 tier with the int8 KV pool: 3 requests, exact
                launch counts of B4's int8 form, finite decode logits; then 2
                greedy requests on a speculative int8 pool (B5's int8 form);
+               the device time of one decode step of the default 8-row pool,
+               B3's forms as the wrapper and as the parent commit pick them;
   9. the seconds each phase took, the kernel summary as one JSON line, then
      the result line.
 Exits non-zero if any phase fails.  Needs no network and no JAX.
@@ -131,6 +136,7 @@ from visualcla_tpu_torch.ops.cuda import build
 from visualcla_tpu_torch.ops.cuda import flash_attention as fa
 from visualcla_tpu_torch.ops.cuda import int4_matmul as i4
 from visualcla_tpu_torch.ops.cuda import paged_attention as pa
+from visualcla_tpu_torch.ops.cuda.bench_int4 import CROSSOVER_TOKENS
 from visualcla_tpu_torch.ops.attention import cached_attention
 from visualcla_tpu_torch.ops.quantization import dequantize_grouped, quantize_grouped, quantize_kv
 from visualcla_tpu_torch.pipeline import VisionPipeline
@@ -184,6 +190,9 @@ LAYER_SHAPES = {"q_proj": (4096, 4096), "k_proj": (4096, 4096), "v_proj": (4096,
                 "o_proj": (4096, 4096), "gate_proj": (4096, 11008),
                 "up_proj": (4096, 11008), "down_proj": (11008, 4096)}
 HEAD_SHAPE = (4096, 49958)
+# the parent commit's choice of B3's form, timed beside ``i4.decode_form``'s
+# on the int4 decode and speculative steps: the decode form up to 24 tokens
+PARENT_DECODE_MAX_TOKENS = 24
 
 
 def device_ms(fn, calls: int = 10, replays: int = 5) -> float:
@@ -557,7 +566,8 @@ def _b5_cases(worst, failures) -> dict:
             b_ms, b_by = bound(*_b5_case_bytes(case))
             cases.append(f"{'int8' if kv8 else 'bf16'} {label} Sq{Sq} (N32/{Nkv}) err={err:.2e} "
                          f"pools bitwise {'equal' if ok else 'DIFFER'} {ms * 1e3:.1f}us/plain "
-                         f"{plain_ms * 1e3:.1f}us, bound {b_ms * 1e3:.2f}us ({b_by})")
+                         f"{plain_ms * 1e3:.1f}us, bound {b_ms * 1e3:.2f}us ({b_by}, "
+                         f"{100 * b_ms / ms:.1f} % of it)")
             if not ok:
                 failures.append(name + " " + cases[-1])
             if label == "B4 ragged" and Sq == SPEC_K + 1:
@@ -608,7 +618,7 @@ def _b6_cases(worst, failures):
                                + nbytes(args["tables"], args["lens"]), 4 * hd * N * n_ctx)
             cases.append(f"{'int8' if kv8 else 'bf16'} {label} (N32/{Nkv}) err={err:.2e} "
                          f"{ms * 1e3:.1f}us/plain {plain_ms * 1e3:.1f}us, bound "
-                         f"{b_ms * 1e3:.2f}us ({b_by})")
+                         f"{b_ms * 1e3:.2f}us ({b_by}, {100 * b_ms / ms:.1f} % of it)")
             if not ok:
                 failures.append(name + " " + cases[-1])
             if label == "B4 ragged":
@@ -877,6 +887,51 @@ def _b2u_cases(gen, worst, failures):
     return main, launches
 
 
+def _sm_count() -> int:
+    return i4._sm_count(torch.device("cuda"))
+
+
+def _b3_form(T: int, out: int) -> str:
+    """The launch counter of the form B3's wrapper picks for T tokens and
+    ``out`` columns (gs 128)."""
+    return "int4_matmul_" + ("decode" if i4.decode_form(T, out, _sm_count()) else "prefill")
+
+
+def _b3_pass_counts(T: int, layers: int, head_tokens: int = None) -> dict:
+    """B3's launches, by form, of one pass of the 7B text tower over T tokens:
+    7 matmuls a layer, then the head on ``head_tokens`` (default T)."""
+    counts = {"int4_matmul_decode": 0, "int4_matmul_prefill": 0}
+    for _, out in LAYER_SHAPES.values():
+        counts[_b3_form(T, out)] += layers
+    counts[_b3_form(T if head_tokens is None else head_tokens, HEAD_SHAPE[1])] += 1
+    return counts
+
+
+@contextlib.contextmanager
+def _parent_b3_forms():
+    """B3's form chosen as the parent commit chose it (the decode form up to
+    ``PARENT_DECODE_MAX_TOKENS`` tokens, whatever the shape; the decode
+    kernel itself is the parent's), for a timing beside the wrapper's."""
+    keep = i4.decode_form
+    i4.decode_form = lambda T, out, sms: T <= PARENT_DECODE_MAX_TOKENS
+    try:
+        yield
+    finally:
+        i4.decode_form = keep
+
+
+def _profiled_device_ms(fn, n: int = 4) -> float:
+    """Device time of one ``fn()`` under torch.profiler, over ``n`` calls."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / n / 1e3
+
+
 def _b3_weight(gen, in_dim, out):
     """A random bf16 (in, out) weight quantized on the card: (carrier, scale)."""
     w = (torch.randn(in_dim, out, generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
@@ -884,10 +939,11 @@ def _b3_weight(gen, in_dim, out):
     return wq["q"], wq["scale"]
 
 
-def _b3_check(x, q, s, out_dtype):
-    """B3 against its plain version in fp32 on the same bf16 x and carrier:
-    (max abs error, within tolerance and finite)."""
-    y = i4.int4_matmul(x, q, s, out_dtype=out_dtype)
+def _b3_check(x, q, s, out_dtype, form=None):
+    """B3 (the wrapper's form, or ``form``) against its plain version in fp32
+    on the same bf16 x and carrier: (max abs error, within tolerance and
+    finite)."""
+    y = i4._launch(x, q, s, out_dtype, form=form)
     torch.cuda.synchronize()
     ref = i4.int4_matmul_ref(x.float(), q, s)
     err = (y.float() - ref).abs()
@@ -901,27 +957,26 @@ def _b3_cases(gen, prompt_bucket, worst, failures):
     (layers write bf16, the head f32, as on the main path); one decoder
     layer's seven matmuls in turn (99.5 MB of carrier, more than the L2) at
     the main path's token counts, 1 and the prompt's bucket; and the decode
-    and prefill forms side by side around ``DECODE_MAX_TOKENS``."""
+    and prefill forms side by side on every shape at ``CROSSOVER_TOKENS``,
+    with the form ``i4.decode_form`` picks."""
     cases, main = [], {}
     weights = {name: _b3_weight(gen, *shape) for name, shape in LAYER_SHAPES.items()}
     weights["lm_head"] = _b3_weight(gen, *HEAD_SHAPE)
-    seen = set()
+    shapes = {}  # (in, out) -> (carrier, scale, out dtype), each shape once
     for name, (q, s) in weights.items():
-        in_dim, out = 2 * q.shape[0] * q.shape[1], q.shape[2]
-        if (in_dim, out) in seen:
-            continue
-        seen.add((in_dim, out))
         out_dtype = torch.float32 if name == "lm_head" else torch.bfloat16
+        shapes.setdefault((2 * q.shape[0] * q.shape[1], q.shape[2]), (q, s, out_dtype))
+    for (in_dim, out), (q, s, out_dtype) in shapes.items():
         for T in (1, 8, 512):
             x = torch.randn(T, in_dim, generator=gen, device="cuda").to(torch.bfloat16)
-            form = "int4_matmul_decode" if T <= i4.DECODE_MAX_TOKENS else "int4_matmul_prefill"
+            form = _b3_form(T, out)
             err, ok = _b3_check(x, q, s, out_dtype)
             worst[form] = max(worst[form], err)
             ms = device_ms(lambda i: i4.int4_matmul(x, q, s, out_dtype=out_dtype))
             plain_ms = device_ms(lambda i: i4.int4_matmul_ref(x, q, s, out_dtype=out_dtype),
                                  calls=2)
-            cases.append(f"({in_dim},{out})xT{T} err={err:.2e} {ms * 1e3:.1f}us/plain "
-                         f"{plain_ms * 1e3:.1f}us")
+            cases.append(f"({in_dim},{out})xT{T} {form[12:]} err={err:.2e} {ms * 1e3:.1f}us/"
+                         f"plain {plain_ms * 1e3:.1f}us")
             if not ok:
                 failures.append(form + " " + cases[-1])
     layer = [weights[n] for n in LAYER_SHAPES]
@@ -945,29 +1000,37 @@ def _b3_cases(gen, prompt_bucket, worst, failures):
                     for q, s in layer) / len(layer)
         ops = sum(2 * T * 2 * q.shape[0] * q.shape[1] * q.shape[2] for q, _ in layer) / len(layer)
         b_ms, b_by = bound(moved, ops)
+        if any(_b3_form(T, out) != form for _, out in LAYER_SHAPES.values()):
+            failures.append(f"the wrapper does not pick {form} for every layer shape at T{T}")
         main[form] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                       "library_ms": lib_ms}
+        tiling = (f", prefill tiling {i4.prefill_tiling(T, 4096, _sm_count())} / "
+                  f"{i4.prefill_tiling(T, 11008, _sm_count())} (out 4096 / 11008)"
+                  if form == "int4_matmul_prefill" else "")
         per_layer.append(f"T{T}: {ms * 1e3:.1f}us/plain {plain_ms * 1e3:.1f}us/bf16 matmul "
-                         f"{lib_ms * 1e3:.1f}us per call, bound {b_ms * 1e3:.2f}us ({b_by})")
-    cross = []
-    q, s = weights["gate_proj"]
-    for T in (4, 8, 12, 16, 32):
-        x = torch.randn(T, 4096, generator=gen, device="cuda").to(torch.bfloat16)
-        t = {}
-        for form, limit in (("decode", 1 << 30), ("prefill", 0)):
-            keep, i4.DECODE_MAX_TOKENS = i4.DECODE_MAX_TOKENS, limit
-            try:
-                err, ok = _b3_check(x, q, s, torch.bfloat16)
-                t[form] = device_ms(lambda i: i4.int4_matmul(x, q, s))
-            finally:
-                i4.DECODE_MAX_TOKENS = keep
-            if not ok:
-                failures.append(f"int4_matmul_{form} crossover T{T} err={err:.2e}")
-        cross.append(f"T{T} decode {t['decode'] * 1e3:.1f}us prefill {t['prefill'] * 1e3:.1f}us")
-    line = (f"[3 kernels] B3 int4 (gs 128), tol {B3_TOL}*max|ref| + {B3_TOL}*|ref|, decode "
-            f"form up to T={i4.DECODE_MAX_TOKENS}: " + "; ".join(cases)
+                         f"{lib_ms * 1e3:.1f}us per call, bound {b_ms * 1e3:.2f}us ({b_by}, "
+                         f"{100 * b_ms / ms:.1f} % of it){tiling}")
+    cross, slower = [], []
+    for (in_dim, out), (q, s, out_dtype) in shapes.items():
+        cells = []
+        for T in CROSSOVER_TOKENS:
+            x = torch.randn(T, in_dim, generator=gen, device="cuda").to(torch.bfloat16)
+            t = {}
+            for form in i4.FORMS:
+                err, ok = _b3_check(x, q, s, out_dtype, form=form)
+                t[form] = device_ms(lambda i: i4._launch(x, q, s, out_dtype, form=form))
+                if not ok:
+                    failures.append(f"int4_matmul_{form} ({in_dim},{out}) T{T} err={err:.2e}")
+            pick = _b3_form(T, out)[12:]
+            cells.append(f"T{T} {t['decode'] * 1e3:.1f}/{t['prefill'] * 1e3:.1f} {pick[0]}")
+            if t[pick] > 1.1 * min(t.values()):
+                slower.append(f"({in_dim},{out}) T{T} {pick}")
+        cross.append(f"({in_dim},{out}) " + ", ".join(cells))
+    line = (f"[3 kernels] B3 int4 (gs 128), tol {B3_TOL}*max|ref| + {B3_TOL}*|ref|, the form "
+            f"from i4.decode_form: " + "; ".join(cases)
             + "; one decoder layer's 7 matmuls in turn: " + "; ".join(per_layer)
-            + "; crossover on (4096,11008): " + "; ".join(cross))
+            + "; decode/prefill us and the form picked: " + "; ".join(cross)
+            + f"; picked the form over 10 % slower at {slower or 'no point'}")
     return main, line
 
 
@@ -1426,6 +1489,22 @@ def _loose_logits_check(engine, input_ids, pv, pos, label):
     return logit_diff, logit_scale
 
 
+def _start_device_ms(bundle, input_ids, pv, pos, sampling):
+    """Device time of one ``Engine.start`` (image encode, splice, prefill,
+    first token) under torch.profiler: (all of it in ms, B3's prefill form's
+    share in ms, its launches)."""
+    eng = bundle.engine
+    int(eng.start(input_ids, pv, pos, sampling).last_token[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        int(eng.start(input_ids, pv, pos, sampling).last_token[0])
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    b3 = [e for e in rows if "int4_prefill" in e.key]
+    return (sum(e.self_device_time_total for e in rows) / 1e3,
+            sum(e.self_device_time_total for e in b3) / 1e3, sum(e.count for e in b3))
+
+
 def phase_int4(smi: str, cfg, tokenizer) -> dict:
     """The int4 tier with the int8 KV cache: B3 and the int8-K/V kernels."""
     L = cfg.text_config.num_hidden_layers
@@ -1444,25 +1523,63 @@ def phase_int4(smi: str, cfg, tokenizer) -> dict:
     response, counts = _counted_chat(bundle, image, greedy)
     ids = bundle.generate(enc["input_ids"], pixel_values=pv, generation_config=greedy)[0]
     n_gen = len(ids)
-    # the prompt: 7 matmuls a layer in the prefill form, the head on the last
-    # token in the decode form; each later token: 7 a layer plus the head
-    _check_counts(counts, {
-        "int4_matmul_prefill": 7 * L, "int4_matmul_decode": 1 + (7 * L + 1) * (n_gen - 1),
-        "flash_prefill_kv8": L, "flash_decode_kv8": L * (n_gen - 1)})
+    # the prompt at its bucket (the head on its last token), then one token a
+    # pass, each call in the form the wrapper picks for its shape
+    bucket = bundle.engine.bucket_len(enc["input_ids"].shape[1])
+    expect = {"flash_prefill_kv8": L, "flash_decode_kv8": L * (n_gen - 1)}
+    for name, n in _b3_pass_counts(bucket, L, head_tokens=1).items():
+        expect[name] = n + (n_gen - 1) * _b3_pass_counts(1, L)[name]
+    _check_counts(counts, expect)
     ttft, rate = _streams(bundle, image, greedy, response, enc["input_ids"], pv, ids)
-    # a verify chunk runs the 7 matmuls a layer and the head on K+1 tokens:
-    # the decode form
-    spec = _spec_chat(bundle, image, lambda chunks: {
-        "int4_matmul_prefill": 7 * L, "int4_matmul_decode": 1 + (7 * L + 1) * chunks,
-        "flash_prefill_kv8": L * (1 + chunks)})
+    start_ms, b3_ms, b3_calls = _start_device_ms(bundle, enc["input_ids"], pv, pos, greedy)
+    # a verify chunk runs the 7 matmuls a layer and the head on K+1 = 9 tokens
+    sd = bundle.speculative_decoder()
+    copy_ids = encoding_text([], COPY_PROMPT, bundle.num_patch, tokenizer)["input_ids"]
+    copy_bucket = bundle.engine.bucket_len(copy_ids.shape[1])
+
+    def spec_counts(chunks):
+        counts = {"flash_prefill_kv8": L * (1 + chunks)}
+        for name, n in _b3_pass_counts(copy_bucket, L, head_tokens=1).items():
+            counts[name] = n + chunks * _b3_pass_counts(sd.spec_k + 1, L)[name]
+        return counts
+
+    spec = _spec_chat(bundle, image, spec_counts)
+    chunk_ms = _spec_chunk_device_ms(
+        sd, copy_ids, pv, img_marker_positions(copy_ids, tokenizer.img_start_token_id))
     weight_gb = sum(t.numel() * t.element_size() for t in model.text.parameters()) / 1e9
     print(f"[5 int4] VisualCLA-7B int4 text tower (gs 128, quantized on the card) + int8 KV "
           f"cache, random weights seed {SEED}, built and quantized in {setup_s:.1f} s, text "
           f"tower {weight_gb:.2f} GB; prefill logits kernels vs plain max diff "
           f"{logit_diff:.3e} (scale {logit_scale:.2f}); greedy chat {n_gen} tokens, stream ids "
           f"equal; greedy chat launches {counts}; TTFT {ttft * 1e3:.1f} ms (median of 3), "
-          f"B=1 decode {rate:.1f} tok/s; {_spec_line(spec)}; card {smi}", flush=True)
-    return {"launches": counts, "ttft_ms": ttft * 1e3, "decode_tok_s": rate, "spec": spec}
+          f"Engine.start (encode, prefill at bucket {bundle.engine.bucket_len(enc['input_ids'].shape[1])}"
+          f", first token) {start_ms:.2f} ms of device time, of which B3's prefill form "
+          f"{b3_ms:.2f} ms in {b3_calls} launches (torch.profiler); "
+          f"B=1 decode {rate:.1f} tok/s; {_spec_line(spec)}; device {chunk_ms[0]:.2f} ms a "
+          f"speculative chunk of {sd.spec_k + 1} tokens ({chunk_ms[1]:.2f} with the parent's "
+          f"form choice, the decode form up to {PARENT_DECODE_MAX_TOKENS} tokens; "
+          f"torch.profiler, 4 chunks each); card {smi}", flush=True)
+    return {"launches": counts, "ttft_ms": ttft * 1e3, "decode_tok_s": rate, "spec": spec,
+            "start_device_ms": start_ms, "b3_prefill_device_ms": b3_ms,
+            "spec_chunk_device_ms": chunk_ms}
+
+
+def _spec_chunk_device_ms(sd, input_ids, pv, pos) -> tuple:
+    """Device time of one greedy speculative chunk (draft, verify of K+1
+    tokens, accept) of the single-stream decoder, after a prefill: (the
+    wrapper's B3 forms, the parent's), 4 chunks each under torch.profiler
+    (room for 10 chunks of K+1 tokens)."""
+    greedy = SamplingConfig.greedy(max_new_tokens=16 * (sd.spec_k + 1))
+    spec, prompt_ids, prompt_start = sd._start(input_ids, pv, pos, greedy, 0)
+
+    def chunk():
+        nonlocal spec
+        spec = sd._chunk(spec, prompt_ids, prompt_start, greedy)
+
+    ours = _profiled_device_ms(chunk)
+    with _parent_b3_forms():
+        parent = _profiled_device_ms(chunk)
+    return ours, parent
 
 
 def phase_int8(smi: str, cfg, tokenizer) -> dict:
@@ -1497,6 +1614,7 @@ GREEDY_OVERRIDES = {"do_sample": False, "repetition_penalty": 1.0, "no_repeat_ng
 # engine-wide default keeps top-k 40, which makes a row ineligible)
 SPEC_GREEDY = {**GREEDY_OVERRIDES, "top_k": 0}
 SERVE_NEW_TOKENS = 32
+POOL_ROWS = 8  # PagedServingEngine's default pool_size
 SERVE_KW = dict(pool_size=4, block_size=64, num_blocks=64, max_new_tokens_cap=64,
                 max_seq_len=2048)
 
@@ -1989,6 +2107,7 @@ def phase_serve_int4(smi: str, cfg, tokenizer) -> dict:
                                                      for o in spec_outs):
         raise RuntimeError(f"int4 speculative serve: outputs {spec_outs}, launches "
                            f"{spec_counts}")
+    step_ms = _int4_pool_step_device_ms(model, cfg, tokenizer, reqs)
     print(f"[8 serve int4] VisualCLA-7B int4 text tower (quantized on the card) with the int8 "
           f"KV pool, built in {setup_s:.1f} s; 3 concurrent greedy requests x "
           f"{SERVE_NEW_TOKENS} new complete ({[len(o) for o in outs]} tokens); "
@@ -1998,8 +2117,29 @@ def phase_serve_int4(smi: str, cfg, tokenizer) -> dict:
           f"speculative up to {spec.spec_max_active} rows at this tier): 2 greedy requests "
           f"({[len(o) for o in spec_outs]} tokens), {spec.spec_steps} speculative iterations, "
           f"{spec.decode_steps} plain steps, {spec_prefills} prefills and chunks, launches "
-          f"{spec_counts}; card {smi}", flush=True)
-    return {"launches": counts, "pool_bytes": pool_int8, "spec_launches": spec_counts}
+          f"{spec_counts}; a pool of the default {POOL_ROWS} rows, every row decoding: device "
+          f"{step_ms[0]:.2f} ms a decode step ({step_ms[1]:.2f} with the parent's form choice, "
+          f"the decode form up to {PARENT_DECODE_MAX_TOKENS} tokens; torch.profiler, 4 steps "
+          f"each); card {smi}", flush=True)
+    return {"launches": counts, "pool_bytes": pool_int8, "spec_launches": spec_counts,
+            "pool_step_device_ms": step_ms}
+
+
+def _int4_pool_step_device_ms(model, cfg, tokenizer, reqs) -> tuple:
+    """Device time of one decode step of an int4 + int8-pool
+    ``PagedServingEngine`` of the default ``POOL_ROWS`` rows, every row
+    decoding (B3 at T = POOL_ROWS): (the wrapper's B3 forms, the parent's)."""
+    engine = paged_mod.PagedServingEngine(
+        model, cfg, eos_token_id=tokenizer.eos_token_id, pad_token_id=tokenizer.pad_token_id,
+        sampling=SamplingConfig.greedy(SERVE_NEW_TOKENS), kv_quant="int8",
+        **{**SERVE_KW, "pool_size": POOL_ROWS, "num_blocks": 96})  # 8 blocks a prompt
+    for row in range(POOL_ROWS):
+        engine.prefill_row(row, *reqs[row % len(reqs)], 64)
+    ours = _profiled_device_ms(engine.step)
+    with _parent_b3_forms():
+        parent = _profiled_device_ms(engine.step)
+    engine.release_rows(range(POOL_ROWS))
+    return ours, parent
 
 
 def _kernels_vs_plain_logits(engine, input_ids, pixel_values, img_pos):

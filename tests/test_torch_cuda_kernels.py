@@ -189,8 +189,8 @@ def test_int4_kernel_matches_plain(dev, T, in_dim, out, gs):
     wq = quantize_grouped(w, group=gs)
     x = torch.randn(T, in_dim, generator=g, device=dev).to(torch.bfloat16)
     ref = i4.int4_matmul_ref(x.float(), wq["q"], wq["scale"])
-    form = ("int4_matmul_decode" if T <= i4.DECODE_MAX_TOKENS or (gs // 2) % 32
-            else "int4_matmul_prefill")
+    decode = (gs // 2) % 32 or i4.decode_form(T, out, i4._sm_count(x.device))
+    form = "int4_matmul_decode" if decode else "int4_matmul_prefill"
     for out_dtype in (torch.float32, torch.bfloat16):
         before = i4.LAUNCHES[form]
         y = i4.int4_matmul(x, wq["q"], wq["scale"], out_dtype=out_dtype)
@@ -208,18 +208,53 @@ def test_int4_kernel_forms_agree_and_stacked_layer(dev):
     q = torch.stack([d["q"] for d in wq])
     s = torch.stack([d["scale"] for d in wq])
     x = torch.randn(32, 256, generator=g, device=dev)  # f32 x: rounded to bf16
-    keep = i4.DECODE_MAX_TOKENS
-    try:  # layer 2 of a stacked carrier: a view at an offset
-        i4.DECODE_MAX_TOKENS = 1 << 30
-        dec = i4.int4_matmul(x, q[2], s[2])
-        i4.DECODE_MAX_TOKENS = 0
-        pre = i4.int4_matmul(x, q[2], s[2])
-    finally:
-        i4.DECODE_MAX_TOKENS = keep
+    # layer 2 of a stacked carrier: a view at an offset
+    dec = i4._launch(x, q[2], s[2], form="decode")
+    pre = i4._launch(x, q[2], s[2], form="prefill")
     ref = i4.int4_matmul_ref(x.to(torch.bfloat16).float(), q[2], s[2])
     assert dec.dtype == torch.float32
     for y in (dec, pre):
         assert bool(((y - ref).abs() <= 1e-2 * ref.abs().max() + 1e-2 * ref.abs()).all())
+
+
+def _int4_case(dev, in_dim, out, gs, T, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w = (torch.randn(in_dim, out, generator=g, device=dev) * 0.02).to(torch.bfloat16)
+    wq = quantize_grouped(w, group=gs)
+    x = torch.randn(T, in_dim, generator=g, device=dev).to(torch.bfloat16)
+    return x, wq["q"], wq["scale"]
+
+
+def _prefill_every_tiling(x, q, s, out_dtype):
+    """The prefill form at each block tiling, then the one the wrapper picks,
+    each against the plain version in fp32."""
+    ref = i4.int4_matmul_ref(x.float(), q, s)
+    tol = 1e-2 * ref.abs().max() + 1e-2 * ref.abs()
+    for tiling in (*i4.PREFILL_TILES, None):
+        before = i4.LAUNCHES["int4_matmul_prefill"]
+        y = i4._launch(x, q, s, out_dtype, form="prefill", tile=tiling)
+        torch.cuda.synchronize()
+        assert i4.LAUNCHES["int4_matmul_prefill"] == before + 1
+        assert y.dtype == out_dtype and y.shape == ref.shape
+        assert bool(((y.float() - ref).abs() <= tol).all()), tiling
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("T", [25, 130, 512])
+@pytest.mark.parametrize("in_dim,out", [(4096, 4096), (4096, 11008), (11008, 4096)])
+def test_int4_prefill_7b_widths(dev, in_dim, out, T, out_dtype):
+    """B3's wgmma prefill form at the 7B text tower's widths (gs 128)."""
+    _prefill_every_tiling(*_int4_case(dev, in_dim, out, 128, T, seed=T + out), out_dtype)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("in_dim,out,gs", [(384, 250, 128), (256, 200, 64), (256, 49, 128),
+                                           (384, 250, 192)],
+                         ids=["ragged", "gs64", "odd_out", "gs192"])
+def test_int4_prefill_ragged_and_group_sizes(dev, in_dim, out, gs, out_dtype):
+    """Ragged and odd widths, gs 64 (32 carrier rows a step) and gs 192 (two
+    runs of 32 x columns a step), 70 tokens (a ragged 64-row tile)."""
+    _prefill_every_tiling(*_int4_case(dev, in_dim, out, gs, 70, seed=out + gs), out_dtype)
 
 
 POOL_KEYS = ("k_pool", "v_pool", "k_scales", "v_scales")
@@ -450,3 +485,101 @@ def test_flash_kernels_replay_in_a_cuda_graph(dev, kind):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(captured, wrapper(q, kc, vc, valid, slot, 1))
+
+
+# ---------------------------------------------------------------------------
+# split-KV B5 / B6
+# ---------------------------------------------------------------------------
+
+def _verify_and_ref(case, rows):
+    """B5 on ``case`` and its plain version on a copy: (out, ref); the pools
+    after the call bitwise equal outside the dummy block 0."""
+    ref_case = {k: (v.clone() if k in POOL_KEYS and v is not None else v)
+                for k, v in case.items()}
+    out = pa.paged_verify_attention(**case)
+    torch.cuda.synchronize()
+    ref = pa.paged_verify_attention_ref(**ref_case)
+    for key in POOL_KEYS:
+        if case.get(key) is not None:
+            assert torch.equal(case[key][:, 1:], ref_case[key][:, 1:]), key
+    return out[rows], ref[rows]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv_int8", [False, True], ids=["float_pool", "int8_pool"])
+@pytest.mark.parametrize("N,Nkv,Sq", [(8, 8, 5), (8, 2, 9)], ids=["mha", "gqa"])
+def test_paged_verify_kernel_long_rows_and_edges(dev, dtype, kv_int8, N, Nkv, Sq):
+    """Several splits a row (rows of ~2048 slots), an append crossing a block
+    edge, one running past the table (its tail goes to dummy block 0 and is
+    not attended), a parked row; a call repeated gives the same bits."""
+    BS = 64
+    ctx = [2039, 1500, 2 * BS - 3, -1, 700]
+    case = paged_verify_case(ctx, Sq, N, Nkv, block_size=BS, dtype=dtype, kv_int8=kv_int8,
+                             device=dev, seed=Sq + Nkv)
+    rows = [0, 1, 2, 4]
+    out, ref = _verify_and_ref(case, rows)
+    tol = TOL[torch.bfloat16 if kv_int8 else dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    again = pa.paged_verify_attention(**case)  # the pools already hold the append
+    assert torch.equal(again[rows], out)
+    # a table two blocks wide: row 0's append runs past it from slot 128
+    edge = paged_verify_case([2 * BS - 3, 40], Sq, N, Nkv, block_size=BS, dtype=dtype,
+                             kv_int8=kv_int8, device=dev, seed=Sq + N)
+    edge["tables"] = edge["tables"][:, :2].contiguous()
+    out2, ref2 = _verify_and_ref(edge, [0, 1])
+    torch.testing.assert_close(out2.float(), ref2.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_verify_kernel_row_does_not_depend_on_its_batch(dev, dtype):
+    """A row served in a batch of 4 equals, bit for bit, the same row served
+    alone (float pools: f32 on the FMA kernel, bf16 on the tensor cores)."""
+    ctx = [300, 1100, 64, 777]
+    Sq = 5
+    case = paged_verify_case(ctx, Sq, 8, 8, block_size=64, dtype=dtype, device=dev, seed=11)
+    pools = {k: case[k].clone() for k in POOL_KEYS if case.get(k) is not None}
+    out = pa.paged_verify_attention(**case)
+    for b in range(len(ctx)):
+        one = dict(case, **{k: v.clone() for k, v in pools.items()})
+        for key in ("q", "k_new", "v_new", "tables", "lens"):
+            one[key] = case[key][b:b + 1].contiguous()
+        assert torch.equal(pa.paged_verify_attention(**one), out[b:b + 1]), b
+
+
+@pytest.mark.parametrize("kv_int8", [False, True], ids=["float_pool", "int8_pool"])
+def test_paged_verify_kernel_replays_in_a_cuda_graph(dev, kv_int8):
+    """One B5 call captured in a CUDA graph follows lens changed on the device
+    between replays (the split count depends on the table width alone)."""
+    Sq = 5
+    case = paged_verify_case([200, 900, -1], Sq, 8, 8, block_size=64, dtype=torch.bfloat16,
+                             kv_int8=kv_int8, device=dev, seed=5)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        pa.paged_verify_attention(**case)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = pa.paged_verify_attention(**case)
+    for step in range(3):
+        if step:
+            case["lens"][:2].add_(Sq)  # the rows grew on the device
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, pa.paged_verify_attention(**case)), step
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv_int8", [False, True], ids=["float_pool", "int8_pool"])
+def test_paged_decode_kernel_long_rows(dev, dtype, kv_int8):
+    """B6 over several splits a row (2047 and 1500 tokens), a row of lens 0
+    (zeros); a call repeated gives the same bits."""
+    case = paged_case([2047, 0, 1500, 64], 8, 2, block_size=64, dtype=dtype, kv_int8=kv_int8,
+                      device=dev, seed=4)
+    args = paged_decode_args(case)
+    out = pa.paged_decode_attention(**args)
+    torch.cuda.synchronize()
+    ref = pa.paged_decode_attention_ref(**args)
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype], rtol=TOL[dtype])
+    assert bool((out[1] == 0).all())
+    assert torch.equal(pa.paged_decode_attention(**args), out)

@@ -60,9 +60,9 @@ def device_ms(fn, calls: int = 10, replays: int = 5) -> float:
     return statistics.median(times)
 
 
-def ptxas_report() -> None:
-    """Registers, spills and shared memory of every instance in the source."""
-    src = f"{build.CSRC}/flash_attention.cu"
+def ptxas_report(name: str = "flash_attention") -> None:
+    """Registers and spills of every kernel instance in ``csrc/<name>.cu``."""
+    src = f"{build.CSRC}/{name}.cu"
     flags = [f for f in build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
     with tempfile.NamedTemporaryFile(suffix=".cubin") as tmp:
         err = subprocess.run([build._nvcc_path(), *flags, "-Xptxas", "-v", "-cubin", "-o",
@@ -82,7 +82,7 @@ def ptxas_report() -> None:
                 print(f"[ptxas] {name}: {regs.group(1)} registers")
             if spill and spill.group(1) != "0":
                 print(f"[ptxas] {name}: spills {spill.group(1)} B stored, {spill.group(2)} B loaded")
-        elif "warning" in line or "error" in line:
+        elif "warning" in line or "error" in line or "Performance" in line:
             print(f"[ptxas] {line.strip()}")
 
 

@@ -12,9 +12,10 @@ Contract: x (..., in); the v2 carrier q (G, gs/2, out) uint8 and scale
 (..., out) in ``out_dtype`` (default x's dtype).
 
 The kernel takes x in bf16 (an f32 x is rounded to bf16 first, as the TPU
-kernel does) and accumulates in fp32.  Up to ``DECODE_MAX_TOKENS`` tokens go
-to the decode form, more to the prefill form (tensor cores, which needs
-gs % 64 == 0; other group sizes stay on the decode form).
+kernel does) and accumulates in fp32.  ``decode_form`` picks the form from
+the token count and the weight's shape: the decode form for few tokens, the
+prefill form (tensor cores, which needs gs % 64 == 0; other group sizes stay
+on the decode form) for more.
 
 The plain version follows the JAX package's XLA path
 (``ops/quantization.py:_q_matmul_grouped``) in x's dtype with fp32
@@ -34,11 +35,27 @@ import torch
 from ..quantization import dequantize_grouped, unpack_s4_halves
 from . import build
 
-# Token count up to which the decode form serves a call; above it the
-# prefill form.  Chosen on an H100 (PERF.md, B3 crossover).
-DECODE_MAX_TOKENS = 24
 _DECODE_GROUPS_PER_BLOCK = 4  # the decode form's group split: kDecWarps in the source
+# The prefill form's block tilings, tokens a block: 1 -> 64, 2 -> 128 (both
+# 128 columns wide); ``prefill_tiling`` picks one from the grid.
+PREFILL_TILES = {1: 64, 2: 128}
+# The cost model behind ``decode_form``, set on an H100 (80GB HBM3, 700 W)
+# from both forms' times on (4096, 11008) and the 7B head, and held against
+# bench_int4.py's sweep of the 7B and 13B shapes at 1-64 tokens (PERF.md, B3
+# crossover): at no swept point is its pick more than 2 % slower than the
+# other form.  The decode form reads the whole weight once for each slice
+# of ``decode_tokens_per_block(T)`` tokens, its work spread over every SM: a
+# slice of tt tokens costs _DECODE_SLICE_COST[tt] of an 8-token one.  Each
+# prefill block walks all of in_dim, so at few tokens the prefill form takes
+# its waves of blocks (one block an SM), _UNALIGNED_PREFILL_COST times
+# longer where ``out`` is not a multiple of 16 (its carrier rows then go
+# without TMA).  in_dim cancels: the decode form serves a call while
+#     slices * out < _DECODE_COLUMNS_PER_SM * sms * waves.
+_DECODE_COLUMNS_PER_SM = 83
+_DECODE_SLICE_COST = {1: 0.32, 2: 0.45, 4: 0.64, 8: 1.0}
+_UNALIGNED_PREFILL_COST = 2.3
 LAUNCHES = {"int4_matmul_decode": 0, "int4_matmul_prefill": 0}
+FORMS = ("decode", "prefill")
 
 _lib = None
 
@@ -60,7 +77,7 @@ def build_kernels() -> ctypes.CDLL:
             ptr]  # stream
         lib.vcla_int4_matmul_decode.restype = i32
         lib.vcla_int4_matmul_prefill.argtypes = [
-            ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr]
+            ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr]  # ... out_bf16 tile
         lib.vcla_int4_matmul_prefill.restype = i32
         lib.vcla_int4_error_string.argtypes = [i32]
         lib.vcla_int4_error_string.restype = ctypes.c_char_p
@@ -106,6 +123,13 @@ def int4_matmul(x, q, scale, *, out_dtype=None):
     tensors."""
     if x.device.type == "cpu":
         return int4_matmul_ref(x, q, scale, out_dtype=out_dtype)
+    return _launch(x, q, scale, out_dtype)
+
+
+def _launch(x, q, scale, out_dtype=None, form=None, tile=None):
+    """The kernel on CUDA tensors.  ``form`` ("decode" / "prefill") and the
+    prefill ``tile`` default to what ``decode_form`` and ``prefill_tiling``
+    pick; bench_int4.py and the card tests pass them to time and check each."""
     _check(x, q, scale)
     if x.device.type != "cuda":
         raise ValueError(f"the kernel runs on CUDA tensors, got {x.device}")
@@ -126,26 +150,61 @@ def int4_matmul(x, q, scale, *, out_dtype=None):
     if not q.is_contiguous() or not scale.is_contiguous() or q.data_ptr() % 16:
         raise ValueError("carrier and scale must be contiguous (and the carrier 16-byte aligned)")
     T = xb.shape[0]
+    if form is None:
+        form = "decode" if gsh % 32 or decode_form(T, out, _sm_count(x.device)) else "prefill"
+    if form not in FORMS or (form == "prefill" and gsh % 32):
+        raise ValueError(f"no {form!r} form for group size {2 * gsh}")
     y = torch.empty(T, out, dtype=out_dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     lib = build_kernels()
     ptrs = (xb.data_ptr(), q.data_ptr(), scale.data_ptr())
     shape = (T, in_dim, G, gsh, out, int(out_dtype == torch.bfloat16))
-    if T <= DECODE_MAX_TOKENS or gsh % 32:
-        name = "int4_matmul_decode"
+    if form == "decode":
         # one fp32 partial per split of the groups, summed by a second launch
         splits = -(-G // _DECODE_GROUPS_PER_BLOCK)
         partial = torch.empty(splits, T, out, dtype=torch.float32, device=x.device)
         err = lib.vcla_int4_matmul_decode(*ptrs, partial.data_ptr(), y.data_ptr(), *shape,
                                           decode_tokens_per_block(T), stream)
     else:
-        name = "int4_matmul_prefill"
-        err = lib.vcla_int4_matmul_prefill(*ptrs, y.data_ptr(), *shape, stream)
+        tile = tile or prefill_tiling(T, out, _sm_count(x.device))
+        err = lib.vcla_int4_matmul_prefill(*ptrs, y.data_ptr(), *shape, tile, stream)
+    name = f"int4_matmul_{form}"
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: "
                            f"{lib.vcla_int4_error_string(err).decode()}")
     LAUNCHES[name] += 1
     return y.reshape(*lead, out)
+
+
+def decode_form(T: int, out: int, sms: int) -> bool:
+    """Whether the decode form serves T tokens of a weight with ``out``
+    columns on a card of ``sms`` SMs: the cost model above, the prefill
+    form's waves taken at the tiling ``prefill_tiling`` picks."""
+    tt = decode_tokens_per_block(T)
+    slices = -(-T // tt) * _DECODE_SLICE_COST[tt]
+    rows = PREFILL_TILES[prefill_tiling(T, out, sms)]
+    waves = -(-(-(-out // 128) * -(-T // rows)) // sms)
+    if out % 16:
+        waves *= _UNALIGNED_PREFILL_COST
+    return slices * out < _DECODE_COLUMNS_PER_SM * sms * waves
+
+
+def prefill_tiling(T: int, out: int, sms: int) -> int:
+    """The prefill form's block tiling for T tokens and ``out`` columns on a
+    card of ``sms`` SMs: the one whose waves of blocks (one block an SM) take
+    the fewest token rows in all, the taller block on a tie (less dequantizing
+    a product).  A block's time grows with its token rows."""
+    col_blocks = -(-out // 128)
+
+    def cost(tile):
+        rows = PREFILL_TILES[tile]
+        return -(-col_blocks * -(-T // rows) // sms) * rows, -rows
+
+    return min(PREFILL_TILES, key=cost)
+
+
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def decode_tokens_per_block(T: int) -> int:

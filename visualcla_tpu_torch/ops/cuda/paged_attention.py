@@ -78,18 +78,20 @@ def build_kernels() -> ctypes.CDLL:
             ptr, ptr, ptr, ptr, ptr,  # q k_new v_new k_pool v_pool
             ptr, ptr,  # tables lens
             ptr, ptr, ptr, ptr,  # k_new_scales v_new_scales k_scales v_scales
-            ptr,  # out
+            ptr, ptr,  # out scratch
             i32, i32, i32, i32, i32, i32, i32, i32,  # B Sq N Nkv NB BS max_blocks layer
             i32, i32, i32,  # head_dim is_bf16 kv_int8
             ctypes.c_float, ptr]  # scale stream
         lib.vcla_paged_verify.restype = i32
         lib.vcla_paged_decode.argtypes = [
             ptr, ptr, ptr, ptr, ptr,  # q k_pool v_pool tables lens
-            ptr, ptr, ptr,  # k_scales v_scales out
+            ptr, ptr, ptr, ptr,  # k_scales v_scales out scratch
             i32, i32, i32, i32, i32, i32,  # B N Nkv NB BS max_blocks
             i32, i32, i32,  # head_dim is_bf16 kv_int8
             ctypes.c_float, ptr]  # scale stream
         lib.vcla_paged_decode.restype = i32
+        lib.vcla_paged_run.argtypes = []
+        lib.vcla_paged_run.restype = i32
         lib.vcla_paged_error_string.argtypes = [i32]
         lib.vcla_paged_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -259,6 +261,14 @@ def _check_launch(hd: int, **named) -> float:
         raise ValueError(f"tensors on {q.device}, current device is "
                          f"cuda:{torch.cuda.current_device()}")
     return 1.0 / math.sqrt(hd)
+
+
+def _check_aligned(**named) -> None:
+    """B5 copies K/V rows 16 bytes at a time: each tensor must start 16-byte
+    aligned (its rows then are: hd 128 in any type is a multiple of 16 bytes)."""
+    for name, t in named.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start 16-byte aligned")
 
 
 def _ptr(t) -> int:
@@ -458,6 +468,21 @@ def paged_decode_attention_ref(q, k_pool, v_pool, tables, lens, k_scales=None,
     return o.reshape(B, N, hd).to(q.dtype)
 
 
+def split_count(width: int, run: int) -> int:
+    """The kv splits B5 and B6 make of a block table ``width`` = max_blocks *
+    BS slots wide, ``run`` slots each: a function of the width alone, never of
+    lens (which live on the device), so a captured call stays valid as rows
+    grow; a split whose run starts past its row's context does nothing."""
+    return -(-width // run)
+
+
+def _split_scratch(lib, B: int, Nkv: int, rows: int, width: int, hd: int, device):
+    """The fp32 partials (acc, m, l) of every (row, kv head, query row of the
+    group, split), merged by the combine launch."""
+    splits = split_count(width, lib.vcla_paged_run())
+    return torch.empty(B, Nkv, rows, splits, hd + 2, dtype=torch.float32, device=device)
+
+
 def paged_verify_attention(q, k_new, v_new, k_pool, v_pool, tables, lens, layer,
                            k_new_scales=None, v_new_scales=None, k_scales=None,
                            v_scales=None, *, scale=None):
@@ -483,14 +508,16 @@ def paged_verify_attention(q, k_new, v_new, k_pool, v_pool, tables, lens, layer,
                             v_pool=v_pool, k_new_scales=k_new_scales,
                             v_new_scales=v_new_scales, k_scales=k_scales, v_scales=v_scales)
     kv8 = k_pool.dtype == torch.int8
+    _check_aligned(k_new=k_new, v_new=v_new, k_pool=k_pool, v_pool=v_pool)
     tables, lens = _i32(tables), _i32(lens)
     out = torch.empty_like(q)
     lib = build_kernels()
+    scratch = _split_scratch(lib, B, Nkv, N // Nkv * Sq, tables.shape[1] * BS, hd, q.device)
     err = lib.vcla_paged_verify(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_pool.data_ptr(),
         v_pool.data_ptr(), tables.data_ptr(), lens.data_ptr(),
         *map(_ptr, (k_new_scales, v_new_scales, k_scales, v_scales)), out.data_ptr(),
-        B, Sq, N, Nkv, NB, BS, tables.shape[1], int(layer), hd,
+        scratch.data_ptr(), B, Sq, N, Nkv, NB, BS, tables.shape[1], int(layer), hd,
         int(q.dtype == torch.bfloat16), int(kv8), float(default if scale is None else scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, lib, "paged_verify")
@@ -518,9 +545,11 @@ def paged_decode_attention(q, k_pool, v_pool, tables, lens, k_scales=None, v_sca
     tables, lens = _i32(tables), _i32(lens)
     out = torch.empty_like(q)
     lib = build_kernels()
+    scratch = _split_scratch(lib, B, Nkv, N // Nkv, tables.shape[1] * BS, hd, q.device)
     err = lib.vcla_paged_decode(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),
-        lens.data_ptr(), _ptr(k_scales), _ptr(v_scales), out.data_ptr(), B, N, Nkv, NB, BS,
+        lens.data_ptr(), _ptr(k_scales), _ptr(v_scales), out.data_ptr(), scratch.data_ptr(),
+        B, N, Nkv, NB, BS,
         tables.shape[1], hd, int(q.dtype == torch.bfloat16), int(kv8),
         float(default if scale is None else scale),
         torch.cuda.current_stream(q.device).cuda_stream)
