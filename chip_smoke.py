@@ -19,7 +19,8 @@ Phases, one line of findings each:
                each shape at 4-32 tokens beside the one the wrapper picks;
                B4 (paged append attention) with bf16 and
                int8 pools at the 7B heads, B=4 ragged (a parked row, block
-               edges), GQA and B=8 x 2048, pools bitwise equal; B5 (paged
+               edges; also in a 2048-slot table), GQA and B=8 x 2048, pools
+               bitwise equal, each call repeated bit for bit; B5 (paged
                verify attention, the speculative step) at Sq 5 and 9 on the
                same rows (an append across a block edge), GQA and B=8 x 2048,
                running rows' outputs and pools (outside the dummy block 0)
@@ -191,8 +192,10 @@ LAYER_SHAPES = {"q_proj": (4096, 4096), "k_proj": (4096, 4096), "v_proj": (4096,
                 "up_proj": (4096, 11008), "down_proj": (11008, 4096)}
 HEAD_SHAPE = (4096, 49958)
 # the parent commit's choice of B3's form, timed beside ``i4.decode_form``'s
-# on the int4 decode and speculative steps: the decode form up to 24 tokens
-PARENT_DECODE_MAX_TOKENS = 24
+# on the int4 decode and speculative steps (both on this tree's kernels): its
+# cost model, fitted to its two-launch decode form of 1-8-token slices
+PARENT_DECODE_COLUMNS_PER_SM = 83
+PARENT_DECODE_SLICE_COST = {1: 0.32, 2: 0.45, 4: 0.64, 8: 1.0}
 
 
 def device_ms(fn, calls: int = 10, replays: int = 5) -> float:
@@ -481,19 +484,25 @@ def _b4_cases(worst, failures) -> dict:
     """B4 against its plain version on the card, float (bf16) and int8
     pools, 7B heads (hd 128, BS 64, L 32, layer 7): B=4 rows of ragged
     lengths around 330 (offsets 0 and BS-1, and a parked row: lens 1, dummy
-    block 0), MHA and GQA (8 kv heads), and B=8 x 2048; outputs within the
-    tolerance, pools and scales after the call bitwise equal.  Times over the
-    32 layers in turn.  -> the main-path entries (B=4 ragged, MHA)."""
+    block 0), the same rows in a table 2048 slots wide (the serve phase's:
+    most runs empty), MHA and GQA (8 kv heads), and B=8 x 2048; outputs
+    within the tolerance, pools and scales after the call bitwise equal, a
+    call repeated on the same pools bitwise equal.  Times over the 32 layers
+    in turn.  -> the main-path entries (B=4 ragged, MHA)."""
     main, cases = {}, []
     ragged = [320, 383, 330, -1]
     for kv8 in (False, True):
         name = "paged_append_kv8" if kv8 else "paged_append"
-        for label, ctx, Nkv in (("B4 ragged", ragged, 32), ("B4 ragged GQA", ragged, 8),
-                                ("B8x2048", [2047] * 8, 32)):
+        for label, ctx, Nkv in (("B4 ragged", ragged, 32), ("B4 ragged, 2048-slot table", ragged, 32),
+                                ("B4 ragged GQA", ragged, 8), ("B8x2048", [2047] * 8, 32)):
             case = paged_case(ctx, 32, Nkv, L=32, layer=7, dtype=torch.bfloat16, kv_int8=kv8,
                               device="cuda", seed=SEED + len(cases))
+            if "2048-slot" in label:
+                case["tables"] = F.pad(case["tables"], (0, 32 - case["tables"].shape[1]))
             err, ok = _paged_check(pa.paged_append_attention, pa.paged_append_attention_ref,
                                    case, slice(None))
+            repeat = torch.equal(pa.paged_append_attention(**case),
+                                 pa.paged_append_attention(**case))
             worst[name] = max(worst[name], err)
             L = case["k_pool"].shape[0]
             ms = device_ms(lambda i: pa.paged_append_attention(**{**case, "layer": i % L}),
@@ -502,18 +511,21 @@ def _b4_cases(worst, failures) -> dict:
                 lambda i: pa.paged_append_attention_ref(**{**case, "layer": i % L}), calls=2)
             b_ms, b_by = bound(*_b4_case_bytes(case))
             cases.append(f"{'int8' if kv8 else 'bf16'} {label} (N32/{Nkv}) err={err:.2e} "
-                         f"pools bitwise {'equal' if ok else 'DIFFER'} {ms * 1e3:.1f}us/plain "
-                         f"{plain_ms * 1e3:.1f}us, bound {b_ms * 1e3:.2f}us ({b_by})")
-            if not ok:
+                         f"pools bitwise {'equal' if ok else 'DIFFER'}, repeat "
+                         f"{'bitwise' if repeat else 'DIFFERS'} {ms * 1e3:.1f}us/plain "
+                         f"{plain_ms * 1e3:.1f}us, bound {b_ms * 1e3:.2f}us ({b_by}, "
+                         f"{100 * b_ms / ms:.1f} % of it)")
+            if not (ok and repeat):
                 failures.append(name + " " + cases[-1])
             if label == "B4 ragged":
                 main[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                               "bound_by": b_by, "library_ms": None}
             del case
             torch.cuda.empty_cache()
-    print(f"[3 kernels] B4 paged append attention, hd 128 BS 64 L 32 layer 7, tol "
-          f"atol=rtol={ATOL}, times over the 32 layers in turn: " + "; ".join(cases),
-          flush=True)
+    print(f"[3 kernels] B4 paged append attention (split-KV over the old context, the new "
+          f"token folded in by the combine), hd 128 BS 64 L 32 layer 7, tol atol=rtol={ATOL}, "
+          f"times over the 32 layers in turn; no single PyTorch call appends into a block pool "
+          f"and attends, so no library time: " + "; ".join(cases), flush=True)
     return main
 
 
@@ -891,29 +903,44 @@ def _sm_count() -> int:
     return i4._sm_count(torch.device("cuda"))
 
 
-def _b3_form(T: int, out: int) -> str:
-    """The launch counter of the form B3's wrapper picks for T tokens and
-    ``out`` columns (gs 128)."""
-    return "int4_matmul_" + ("decode" if i4.decode_form(T, out, _sm_count()) else "prefill")
+def _b3_form(T: int, in_dim: int, out: int) -> str:
+    """The launch counter of the form B3's wrapper picks for T tokens of an
+    (in_dim, out) weight (gs 128)."""
+    return "int4_matmul_" + ("decode" if i4.decode_form(T, in_dim, out, _sm_count())
+                             else "prefill")
 
 
 def _b3_pass_counts(T: int, layers: int, head_tokens: int = None) -> dict:
     """B3's launches, by form, of one pass of the 7B text tower over T tokens:
     7 matmuls a layer, then the head on ``head_tokens`` (default T)."""
     counts = {"int4_matmul_decode": 0, "int4_matmul_prefill": 0}
-    for _, out in LAYER_SHAPES.values():
-        counts[_b3_form(T, out)] += layers
-    counts[_b3_form(T if head_tokens is None else head_tokens, HEAD_SHAPE[1])] += 1
+    for in_dim, out in LAYER_SHAPES.values():
+        counts[_b3_form(T, in_dim, out)] += layers
+    counts[_b3_form(T if head_tokens is None else head_tokens, *HEAD_SHAPE)] += 1
     return counts
+
+
+def _parent_decode_form(T: int, in_dim: int, out: int, sms: int) -> bool:
+    """The parent commit's ``decode_form`` (in_dim cancelled out of it): the
+    decode form while its 8-token slices cost less than the prefill form's
+    waves at T."""
+    tt = 1
+    while tt < min(T, 8):
+        tt *= 2
+    slices = -(-T // tt) * PARENT_DECODE_SLICE_COST[tt]
+    rows = i4.PREFILL_TILES[i4.prefill_tiling(T, out, sms)]
+    waves = -(-(-(-out // 128) * -(-T // rows)) // sms)
+    if out % 16:
+        waves *= i4._UNALIGNED_PREFILL_COST
+    return slices * out < PARENT_DECODE_COLUMNS_PER_SM * sms * waves
 
 
 @contextlib.contextmanager
 def _parent_b3_forms():
-    """B3's form chosen as the parent commit chose it (the decode form up to
-    ``PARENT_DECODE_MAX_TOKENS`` tokens, whatever the shape; the decode
-    kernel itself is the parent's), for a timing beside the wrapper's."""
+    """B3's form chosen as the parent commit chose it (``_parent_decode_form``;
+    the kernels are this tree's), for a timing beside the wrapper's."""
     keep = i4.decode_form
-    i4.decode_form = lambda T, out, sms: T <= PARENT_DECODE_MAX_TOKENS
+    i4.decode_form = _parent_decode_form
     try:
         yield
     finally:
@@ -969,7 +996,7 @@ def _b3_cases(gen, prompt_bucket, worst, failures):
     for (in_dim, out), (q, s, out_dtype) in shapes.items():
         for T in (1, 8, 512):
             x = torch.randn(T, in_dim, generator=gen, device="cuda").to(torch.bfloat16)
-            form = _b3_form(T, out)
+            form = _b3_form(T, in_dim, out)
             err, ok = _b3_check(x, q, s, out_dtype)
             worst[form] = max(worst[form], err)
             ms = device_ms(lambda i: i4.int4_matmul(x, q, s, out_dtype=out_dtype))
@@ -1000,7 +1027,7 @@ def _b3_cases(gen, prompt_bucket, worst, failures):
                     for q, s in layer) / len(layer)
         ops = sum(2 * T * 2 * q.shape[0] * q.shape[1] * q.shape[2] for q, _ in layer) / len(layer)
         b_ms, b_by = bound(moved, ops)
-        if any(_b3_form(T, out) != form for _, out in LAYER_SHAPES.values()):
+        if any(_b3_form(T, *shape) != form for shape in LAYER_SHAPES.values()):
             failures.append(f"the wrapper does not pick {form} for every layer shape at T{T}")
         main[form] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                       "library_ms": lib_ms}
@@ -1021,7 +1048,7 @@ def _b3_cases(gen, prompt_bucket, worst, failures):
                 t[form] = device_ms(lambda i: i4._launch(x, q, s, out_dtype, form=form))
                 if not ok:
                     failures.append(f"int4_matmul_{form} ({in_dim},{out}) T{T} err={err:.2e}")
-            pick = _b3_form(T, out)[12:]
+            pick = _b3_form(T, in_dim, out)[12:]
             cells.append(f"T{T} {t['decode'] * 1e3:.1f}/{t['prefill'] * 1e3:.1f} {pick[0]}")
             if t[pick] > 1.1 * min(t.values()):
                 slower.append(f"({in_dim},{out}) T{T} {pick}")
@@ -1557,7 +1584,7 @@ def phase_int4(smi: str, cfg, tokenizer) -> dict:
           f"{b3_ms:.2f} ms in {b3_calls} launches (torch.profiler); "
           f"B=1 decode {rate:.1f} tok/s; {_spec_line(spec)}; device {chunk_ms[0]:.2f} ms a "
           f"speculative chunk of {sd.spec_k + 1} tokens ({chunk_ms[1]:.2f} with the parent's "
-          f"form choice, the decode form up to {PARENT_DECODE_MAX_TOKENS} tokens; "
+          f"form choice, its cost model on this tree's kernels; "
           f"torch.profiler, 4 chunks each); card {smi}", flush=True)
     return {"launches": counts, "ttft_ms": ttft * 1e3, "decode_tok_s": rate, "spec": spec,
             "start_device_ms": start_ms, "b3_prefill_device_ms": b3_ms,
@@ -2119,7 +2146,7 @@ def phase_serve_int4(smi: str, cfg, tokenizer) -> dict:
           f"{spec.decode_steps} plain steps, {spec_prefills} prefills and chunks, launches "
           f"{spec_counts}; a pool of the default {POOL_ROWS} rows, every row decoding: device "
           f"{step_ms[0]:.2f} ms a decode step ({step_ms[1]:.2f} with the parent's form choice, "
-          f"the decode form up to {PARENT_DECODE_MAX_TOKENS} tokens; torch.profiler, 4 steps "
+          f"its cost model on this tree's kernels; torch.profiler, 4 steps "
           f"each); card {smi}", flush=True)
     return {"launches": counts, "pool_bytes": pool_int8, "spec_launches": spec_counts,
             "pool_step_device_ms": step_ms}

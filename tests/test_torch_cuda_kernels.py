@@ -189,7 +189,7 @@ def test_int4_kernel_matches_plain(dev, T, in_dim, out, gs):
     wq = quantize_grouped(w, group=gs)
     x = torch.randn(T, in_dim, generator=g, device=dev).to(torch.bfloat16)
     ref = i4.int4_matmul_ref(x.float(), wq["q"], wq["scale"])
-    decode = (gs // 2) % 32 or i4.decode_form(T, out, i4._sm_count(x.device))
+    decode = (gs // 2) % 32 or i4.decode_form(T, in_dim, out, i4._sm_count(x.device))
     form = "int4_matmul_decode" if decode else "int4_matmul_prefill"
     for out_dtype in (torch.float32, torch.bfloat16):
         before = i4.LAUNCHES[form]
@@ -583,3 +583,143 @@ def test_paged_decode_kernel_long_rows(dev, dtype, kv_int8):
     torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype], rtol=TOL[dtype])
     assert bool((out[1] == 0).all())
     assert torch.equal(pa.paged_decode_attention(**args), out)
+
+
+# ---------------------------------------------------------------------------
+# split-KV B4 (the old context over runs, the new token folded in by the combine)
+# ---------------------------------------------------------------------------
+
+def _append_and_ref(case):
+    """B4 on ``case`` and its plain version on a copy: (out, ref); the pools
+    after the call bitwise equal outside the dummy block 0 (parked rows all
+    write it, in no set order)."""
+    ref_case = {k: (v.clone() if k in POOL_KEYS and v is not None else v)
+                for k, v in case.items()}
+    out = pa.paged_append_attention(**case)
+    torch.cuda.synchronize()
+    ref = pa.paged_append_attention_ref(**ref_case)
+    for key in POOL_KEYS:
+        if case.get(key) is not None:
+            assert torch.equal(case[key][:, 1:], ref_case[key][:, 1:]), key
+    return out, ref
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv_int8", [False, True], ids=["float_pool", "int8_pool"])
+@pytest.mark.parametrize("N,Nkv", [(32, 32), (32, 8)], ids=["mha", "gqa"])
+def test_paged_append_kernel_long_rows_and_parked(dev, dtype, kv_int8, N, Nkv):
+    """B=8 rows of 2047 old tokens (16 runs a row), then rows of every kind
+    with two parked rows (lens 1, dummy block 0): within the tolerance, the
+    pools bitwise outside block 0, a parked row's output its v_new (times
+    vsn), and a call repeated on the same pools gives the same bits."""
+    tol = TOL[torch.bfloat16 if kv_int8 else dtype]
+    for ctx in ([2047] * 8, [-1, 2047, 64, 0, 63, 1500, -1]):
+        case = paged_case(ctx, N, Nkv, block_size=64, L=2, dtype=dtype, kv_int8=kv_int8,
+                          device=dev, seed=len(ctx) + N + Nkv)
+        out, ref = _append_and_ref(case)
+        torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+        again = pa.paged_append_attention(**case)  # the slot it reads stays below the append
+        assert torch.equal(again, out)
+        for b in (b for b, c in enumerate(ctx) if c < 0):
+            vn = case["v_new"][b].float()
+            if kv_int8:
+                vn = vn * case["v_new_scales"][b][:, None]
+            want = vn.repeat_interleave(N // Nkv, 0).to(dtype)
+            assert torch.equal(out[b], want), b
+
+
+@pytest.mark.parametrize("kv_int8", [False, True], ids=["float_pool", "int8_pool"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_append_kernel_row_does_not_depend_on_its_batch(dev, dtype, kv_int8):
+    """A row served in a batch of 5 equals, bit for bit, the same row served
+    alone (the grid's split axis changes with the batch, the sums do not)."""
+    ctx = [300, 1100, 64, 777, 2000]
+    case = paged_case(ctx, 8, 8, block_size=64, dtype=dtype, kv_int8=kv_int8, device=dev,
+                      seed=12)
+    pools = {k: case[k].clone() for k in POOL_KEYS if case.get(k) is not None}
+    out = pa.paged_append_attention(**case)
+    for b in range(len(ctx)):
+        one = dict(case, **{k: v.clone() for k, v in pools.items()})
+        for key in ("q", "k_new", "v_new", "tables", "lens", "blk", "off", "k_new_scales",
+                    "v_new_scales"):
+            if case.get(key) is not None:
+                one[key] = case[key][b:b + 1].contiguous()
+        assert torch.equal(pa.paged_append_attention(**one), out[b:b + 1]), b
+
+
+@pytest.mark.parametrize("kv_int8", [False, True], ids=["float_pool", "int8_pool"])
+def test_paged_append_kernel_replays_in_a_cuda_graph(dev, kv_int8):
+    """One B4 call captured in a CUDA graph follows lens, blk and off changed
+    on the device between replays (each replay appends the next slot), and
+    equals the same call made eagerly after it."""
+    BS = 64
+    case = paged_case([200, 900, -1], 8, 8, block_size=BS, dtype=torch.bfloat16,
+                      kv_int8=kv_int8, device=dev, seed=6)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        pa.paged_append_attention(**case)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = pa.paged_append_attention(**case)
+    running = torch.tensor([True, True, False], device=dev)
+    for step in range(4):
+        if step:  # the running rows grew by one token, on the device
+            lens = case["lens"] + running.int()
+            slot = (lens - 1).long()
+            blk = torch.gather(case["tables"].long(), 1, (slot // BS)[:, None])[:, 0]
+            case["lens"].copy_(lens)
+            case["blk"].copy_(torch.where(running, blk, case["blk"].long()).int())
+            case["off"].copy_(torch.where(running, slot % BS, case["off"].long()).int())
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, pa.paged_append_attention(**case)), step
+
+
+# ---------------------------------------------------------------------------
+# B3's decode form (mma.sync on the exact nibbles, one launch)
+# ---------------------------------------------------------------------------
+
+B3_SHAPES = {"7b_qkvo": (4096, 4096), "7b_gate_up": (4096, 11008), "7b_down": (11008, 4096),
+             "7b_head": (4096, 49958), "13b_qkvo": (5120, 5120), "13b_gate_up": (5120, 13824),
+             "13b_down": (13824, 5120)}
+
+
+def _b3_decode_check(x, q, s, out_dtype):
+    """The decode form against the plain version in fp32: one launch, within
+    the tolerance; a repeated call gives the same bits."""
+    ref = i4.int4_matmul_ref(x.float(), q, s)
+    before = i4.LAUNCHES["int4_matmul_decode"]
+    y = i4._launch(x, q, s, out_dtype, form="decode")
+    torch.cuda.synchronize()
+    assert i4.LAUNCHES["int4_matmul_decode"] == before + 1
+    assert y.dtype == out_dtype and y.shape == ref.shape
+    assert bool(((y.float() - ref).abs() <= 1e-2 * ref.abs().max() + 1e-2 * ref.abs()).all())
+    assert torch.equal(i4._launch(x, q, s, out_dtype, form="decode"), y)
+    return y
+
+
+@pytest.mark.parametrize("T", [1, 2, 8, 9, 16])
+@pytest.mark.parametrize("shape", list(B3_SHAPES))
+def test_int4_decode_7b_13b_shapes(dev, shape, T):
+    """The 7B and 13B text towers' shapes (gs 128), the head written in f32;
+    each token's row equals, bit for bit, the same token served alone."""
+    in_dim, out = B3_SHAPES[shape]
+    out_dtype = torch.float32 if shape.endswith("head") else torch.bfloat16
+    x, q, s = _int4_case(dev, in_dim, out, 128, T, seed=T + out)
+    y = _b3_decode_check(x, q, s, out_dtype)
+    for t in {0, T - 1}:
+        assert torch.equal(i4._launch(x[t:t + 1].clone(), q, s, out_dtype, form="decode"),
+                           y[t:t + 1]), t
+
+
+@pytest.mark.parametrize("T", [1, 9, 16, 40])
+@pytest.mark.parametrize("in_dim,out,gs", [(384, 250, 128), (512, 66, 64), (256, 49, 128),
+                                           (768, 200, 192), (1536, 384, 64), (96, 40, 16)],
+                         ids=["ragged", "gs64_ragged", "odd_out", "gs192", "gs64", "gs16"])
+def test_int4_decode_ragged_and_group_sizes(dev, in_dim, out, gs, T):
+    """Widths not a multiple of 16 (rows copied from the 16-byte boundary
+    below them), odd widths, gs 16/64/128/192, several 16-token tiles."""
+    for out_dtype in (torch.bfloat16, torch.float32):
+        _b3_decode_check(*_int4_case(dev, in_dim, out, gs, T, seed=T + out + gs), out_dtype)

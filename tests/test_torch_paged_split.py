@@ -17,17 +17,32 @@ versions' arithmetic is held here in plain PyTorch:
 - B3's prefill form dequantizes each nibble as (0x4B0000nn as a float) -
   (2^23 + 8), times its scale in fp32, rounded once to bf16: bitwise the
   plain version's dequantized weight.
+- B4 split + ordered combine + analytic new-token term + append at blk /
+  off: an fp32 emulation over the lens - 1 old slots, held against
+  ``paged_append_attention_ref`` (outputs, and the pools bitwise) and the
+  Pallas B4 in interpret mode; f32 pools 1e-5, bf16 and int8 pools one bf16
+  step (2e-2).
+- B3's decode form: each group's dot over the exact nibbles in fp32, times
+  its scale, the groups summed in the kernel's fixed order (a warp's groups
+  in turn, the warps in order, the splits in order), held against
+  ``int4_matmul_ref`` and the JAX ``int4_matmul`` (interpret mode) within
+  chip_smoke.py's B3 tolerance; the nibble-to-bf16 trick the kernel uses is
+  exact; the splits depend on the weight's shape alone.
 """
 import math
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from visualcla_tpu_torch.fixtures import paged_verify_case
+from visualcla_tpu.ops.pallas.int4_matmul import int4_matmul as j_int4_matmul
+from visualcla_tpu.ops.pallas.paged_attention import paged_append_attention as j_b4
+from visualcla_tpu_torch.fixtures import paged_case, paged_verify_case
 from visualcla_tpu_torch.ops.cuda import int4_matmul as i4
 from visualcla_tpu_torch.ops.cuda import paged_attention as pa
-from visualcla_tpu_torch.ops.quantization import dequantize_grouped, quantize_grouped
+from visualcla_tpu_torch.ops.quantization import (dequantize_grouped, quantize_grouped,
+                                                  unpack_s4_halves)
 
 NEG_INF = -1e30
 
@@ -173,20 +188,243 @@ def test_int4_prefill_tiling_is_one_the_kernel_has(T, out):
         -(-T // r) * -(-out // 128) > 132 for r in i4.PREFILL_TILES.values() if r < rows)
 
 
-@pytest.mark.parametrize("out", [4096, 11008, 49958, 5120, 13824, 32000])
+@pytest.mark.parametrize("in_dim,out", [(4096, 4096), (4096, 11008), (11008, 4096),
+                                        (4096, 49958), (5120, 13824), (4096, 32000)])
 @pytest.mark.parametrize("sms", [132, 114])
-def test_int4_form_changes_once_from_decode_to_prefill(out, sms):
-    picks = [i4.decode_form(T, out, sms) for T in range(1, 1025)]
+def test_int4_form_changes_once_from_decode_to_prefill(in_dim, out, sms):
+    picks = [i4.decode_form(T, in_dim, out, sms) for T in range(1, 1025)]
     assert picks[0] and not picks[-1]
     assert sum(a != b for a, b in zip(picks, picks[1:])) == 1
 
 
-@pytest.mark.parametrize("T,out,decode", [
-    (8, 4096, True), (16, 4096, True), (25, 4096, False),  # q/k/v/o, down
-    (4, 11008, True), (8, 11008, False), (9, 11008, False),  # gate/up
-    (8, 49958, True), (9, 49958, False)])  # the head
-def test_int4_form_at_the_pool_steps_of_the_7b_shapes(T, out, decode):
-    """The form an H100 runs faster (bench_int4.py's sweep) at a default
-    pool's decode step (8 rows), a speculative chunk (9) and speculative pool
-    steps (up to 20)."""
-    assert i4.decode_form(T, out, 132) == decode
+@pytest.mark.parametrize("T,in_dim,out,decode", [
+    (8, 4096, 4096, True), (16, 4096, 4096, True), (25, 4096, 4096, True),  # q/k/v/o
+    (4, 4096, 11008, True), (8, 4096, 11008, True), (9, 4096, 11008, True),  # gate/up
+    (8, 4096, 49958, True), (9, 4096, 49958, True)])  # the head
+def test_int4_form_at_the_pool_steps_of_the_7b_shapes(T, in_dim, out, decode):
+    """The form an H100 runs faster (bench_int4.py's sweep, PERF.md §6) at a
+    default pool's decode step (8 rows), a speculative chunk (9) and
+    speculative pool steps (up to 25)."""
+    assert i4.decode_form(T, in_dim, out, 132) == decode
+
+
+# ---------------------------------------------------------------------------
+# B4: split + ordered combine + the new token's analytic term + the append
+# ---------------------------------------------------------------------------
+
+def split_append_emulation(q, k_new, v_new, k_pool, v_pool, tables, lens, blk, off, layer,
+                           k_new_scales=None, v_new_scales=None, k_scales=None,
+                           v_scales=None, *, run):
+    """B4's split kernel over the old context (lens - 1 slots, none taken
+    from k_new), the combine in split order, then the new token as one fp32
+    term, in fp32: (B, N, hd) in q's dtype.  Then the append at
+    pool[layer, blk, off], in place."""
+    B, N, hd = q.shape
+    Nkv = k_new.shape[1]
+    rep = N // Nkv
+    BS = k_pool.shape[2]
+    width = tables.shape[1] * BS
+    int8 = k_pool.dtype == torch.int8
+    cdt = torch.bfloat16 if int8 else k_pool.dtype
+
+    def rnd(x):
+        return x.to(cdt).float()
+
+    out = torch.zeros(B, N, hd)
+    for b in range(B):
+        ctx = min(int(lens[b]) - 1, width)
+        j = torch.arange(max(ctx, 0))
+        bix, oix = tables[b, j // BS].long(), j % BS
+        k = k_pool[layer, bix, oix].reshape(-1, Nkv, hd).float()
+        v = v_pool[layer, bix, oix].reshape(-1, Nkv, hd).float()
+        ks = k_scales[layer, bix, oix] if int8 else torch.ones(len(j), Nkv)
+        vs = v_scales[layer, bix, oix] if int8 else torch.ones(len(j), Nkv)
+        qs = rnd(q[b].float() * (1.0 / math.sqrt(hd)))  # (N, hd)
+        for g in range(Nkv):
+            Q = qs[g * rep:(g + 1) * rep]
+            m_all, l_all, acc = torch.full((rep,), NEG_INF), torch.zeros(rep), torch.zeros(rep, hd)
+            parts = []
+            for split in range(pa.split_count(width, run)):
+                j0 = split * run
+                if j0 >= ctx:
+                    break
+                sl = slice(j0, min(ctx, j0 + run))
+                s = (Q @ k[sl, g].T) * ks[sl, g][None]
+                m = s.amax(-1)
+                p = torch.exp(s - m[:, None])
+                parts.append((m, p.sum(-1), rnd(p * vs[sl, g][None]) @ v[sl, g]))
+            if parts:
+                m_all = torch.stack([m for m, _, _ in parts]).amax(0)
+            for m, l, a in parts:  # in split order
+                c = torch.exp(m - m_all)
+                l_all = l_all + l * c
+                acc = acc + a * c[:, None]
+            sn = (Q * k_new[b, g].float()).sum(-1)
+            v_sc = 1.0
+            if int8:
+                sn = sn * k_new_scales[b, g]
+                v_sc = v_new_scales[b, g]
+            m_new = torch.maximum(m_all, sn)
+            pn = torch.exp(sn - m_new)
+            alpha = torch.exp(m_all - m_new)
+            den = l_all * alpha + pn
+            num = acc * alpha[:, None] + (pn * v_sc)[:, None] * v_new[b, g].float()[None]
+            out[b, g * rep:(g + 1) * rep] = num / torch.where(den == 0, torch.ones_like(den),
+                                                              den)[:, None]
+    l, bi, oi = int(layer), blk.long(), off.long()
+    k_pool[l, bi, oi] = k_new.reshape(B, -1)
+    v_pool[l, bi, oi] = v_new.reshape(B, -1)
+    if int8:
+        k_scales[l, bi, oi] = k_new_scales
+        v_scales[l, bi, oi] = v_new_scales
+    return out.to(q.dtype)
+
+
+B4_POOLS = {"f32": (torch.float32, False, 1e-5), "bf16": (torch.bfloat16, False, 2e-2),
+            "int8": (torch.float32, True, 2e-2)}
+B4_HEADS = {"mha": (4, 4), "gqa": (8, 2)}
+B4_POOL_KEYS = ("k_pool", "v_pool", "k_scales", "v_scales")
+
+
+def _b4_case(pool, heads):
+    """Two parked rows (lens 1, dummy block 0 at offset BS - 1), appends at
+    offsets 0 and BS - 1, a row with no old context, long rows over several
+    runs; 16-slot blocks."""
+    dtype, kv_int8, _ = B4_POOLS[pool]
+    N, Nkv = B4_HEADS[heads]
+    BS = 16
+    ctx = [-1, 2 * BS, 3 * BS - 1, 0, 5 * BS + 7, 300, -1]
+    return paged_case(ctx, N, Nkv, hd=32, block_size=BS, L=3, layer=2, dtype=dtype,
+                      kv_int8=kv_int8, seed=len(pool) * 10 + N + Nkv)
+
+
+def _copy(case):
+    return {k: (v.clone() if isinstance(v, torch.Tensor) else v) for k, v in case.items()}
+
+
+@pytest.mark.parametrize("run", [64, 128])
+@pytest.mark.parametrize("heads", list(B4_HEADS))
+@pytest.mark.parametrize("pool", list(B4_POOLS))
+def test_split_append_emulation_matches_plain(pool, heads, run):
+    case = _b4_case(pool, heads)
+    tol = B4_POOLS[pool][2]
+    ref_case = _copy(case)
+    got = split_append_emulation(**case, run=run)
+    want = pa.paged_append_attention_ref(**ref_case)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    for key in B4_POOL_KEYS:
+        if case.get(key) is not None:
+            assert torch.equal(case[key], ref_case[key]), key
+    # the parked rows and the row with no old context give v_new (times vsn)
+    for b in (0, 3, 6):
+        vn = case["v_new"][b].float()
+        if case.get("v_new_scales") is not None:
+            vn = vn * case["v_new_scales"][b][:, None]
+        rep = case["q"].shape[1] // vn.shape[0]
+        torch.testing.assert_close(got[b].float(), vn.repeat_interleave(rep, 0).to(
+            got.dtype).float(), atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("heads", list(B4_HEADS))
+@pytest.mark.parametrize("pool", list(B4_POOLS))
+def test_split_append_emulation_matches_pallas_interpret(pool, heads):
+    case = _b4_case(pool, heads)
+    tol = B4_POOLS[pool][2]
+    def to_jax(v):
+        if not isinstance(v, torch.Tensor):
+            return v
+        if v.dtype == torch.bfloat16:
+            return jnp.asarray(v.float().numpy()).astype(jnp.bfloat16)
+        return jnp.asarray(v.numpy())
+
+    j = {k: to_jax(v) for k, v in case.items()}
+    jo, jkp, jvp, jks, jvs = j_b4(
+        j["q"], j["k_new"], j["v_new"], j["k_pool"], j["v_pool"], j["tables"], j["lens"],
+        j["blk"], j["off"], jnp.int32(case["layer"]), j.get("k_new_scales"),
+        j.get("v_new_scales"), j.get("k_scales"), j.get("v_scales"), interpret=True)
+    got = split_append_emulation(**case, run=64)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(jo, np.float32), atol=tol,
+                               rtol=tol)
+    for name, want in (("k_pool", jkp), ("v_pool", jvp), ("k_scales", jks), ("v_scales", jvs)):
+        if want is not None:
+            np.testing.assert_array_equal(case[name].float().numpy(),
+                                          np.asarray(want, np.float32), err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# B3's decode form: exact nibbles on the tensor cores, a fixed group order
+# ---------------------------------------------------------------------------
+
+B3_TOL = 1e-2  # chip_smoke.py's: |err| <= B3_TOL * max|ref| + B3_TOL * |ref|
+
+
+def int4_decode_emulation(x, q, scale, *, sms=132):
+    """B3's decode form in fp32 on bf16 x: each group's dot over its exact
+    nibbles, times the group's scale; warp w of a column slice of split s
+    adds its groups s * gps + w, + 4, ... in turn, the block adds the slice's
+    4 warps in order, the splits are added in order (``i4.decode_splits``)."""
+    G, gsh, out = q.shape
+    T = x.shape[0]
+    lo, hi = unpack_s4_halves(q)
+    xg = x.float().reshape(T, G, 2 * gsh).transpose(0, 1)  # (G, T, gs)
+    dots = (xg[..., :gsh] @ lo.float() + xg[..., gsh:] @ hi.float()) * scale[:, None, :]
+    splits, gps = i4.decode_splits(G, gsh, out, sms)
+    y = torch.zeros(T, out)
+    for s in range(splits):
+        block = torch.zeros(T, out)
+        for w in range(i4._DECODE_SLICE_WARPS):
+            total = torch.zeros(T, out)
+            for g in range(s * gps + w, min(G, (s + 1) * gps), i4._DECODE_SLICE_WARPS):
+                total = total + dots[g]
+            block = block + total
+        y = y + block
+    return y
+
+
+def _b3_tol(ref):
+    return B3_TOL * ref.abs().max() + B3_TOL * ref.abs()
+
+
+@pytest.mark.parametrize("T", [1, 8, 16])
+@pytest.mark.parametrize("in_dim,out,gs", [(1024, 384, 128), (384, 250, 128), (1536, 200, 64),
+                                           (768, 96, 192)])
+def test_int4_decode_emulation_matches_plain_and_pallas(in_dim, out, gs, T):
+    g = torch.Generator().manual_seed(in_dim + out + T)
+    w = (torch.randn(in_dim, out, generator=g) * 0.02).to(torch.bfloat16)
+    wq = quantize_grouped(w, group=gs)
+    x = torch.randn(T, in_dim, generator=g).to(torch.bfloat16)
+    got = int4_decode_emulation(x, wq["q"], wq["scale"])
+    ref = i4.int4_matmul_ref(x.float(), wq["q"], wq["scale"])
+    assert bool(((got - ref).abs() <= _b3_tol(ref)).all())
+    want = torch.from_numpy(np.array(j_int4_matmul(
+        jnp.asarray(x.float().numpy(), jnp.bfloat16), jnp.asarray(wq["q"].numpy()),
+        jnp.asarray(wq["scale"].numpy()), None, interpret=True), np.float32))
+    assert bool(((got - want).abs() <= _b3_tol(want)).all())
+
+
+def test_int4_decode_nibble_pairs_are_exact():
+    """Every byte's two nibbles through the kernel's bf16 trick: (t & mask) ^
+    0x43084308 is the bf16 pair (136 + n); minus 136 it is n exactly."""
+    b = np.arange(256, dtype=np.uint32)
+    for shift in (0, 4):  # low nibbles, then the high ones (the byte shifted)
+        t = ((b >> shift) & 0xF) | (((b >> shift) & 0xF) << 16)
+        biased = ((t & 0x000F000F) ^ 0x43084308).astype(np.uint32)
+        halves = np.stack([biased & 0xFFFF, biased >> 16], -1).astype(np.uint32) << 16
+        vals = halves.view(np.float32) - np.float32(136.0)
+        nib = ((b >> shift) & 0xF).astype(np.int64)
+        want = np.where(nib >= 8, nib - 16, nib).astype(np.float32)
+        np.testing.assert_array_equal(vals, np.stack([want, want], -1))
+
+
+@pytest.mark.parametrize("in_dim,out", [(4096, 4096), (4096, 11008), (11008, 4096),
+                                        (4096, 49958), (5120, 13824), (13824, 5120)])
+@pytest.mark.parametrize("sms", [132, 114])
+def test_int4_decode_splits_cover_the_groups(in_dim, out, sms):
+    """Every group in exactly one split, no split empty, at most one cluster
+    of splits a column tile, and a split only where each warp keeps a
+    group."""
+    G, gsh = in_dim // 128, 64
+    splits, gps = i4.decode_splits(G, gsh, out, sms)
+    assert (splits - 1) * gps < G <= splits * gps
+    assert 1 <= splits <= i4._DECODE_MAX_SPLITS
+    assert splits == 1 or gps >= i4._DECODE_SLICE_WARPS

@@ -10,19 +10,31 @@
 // scale[g], written as f32 or bf16 (round to nearest even).
 //
 // Two forms, chosen by the wrapper from T and the width of the weight:
-//   int4_decode_kernel (few tokens) is bound by the carrier's bytes: at T = 1
-//   it does 4 multiply-adds per byte read.  A block owns 32 * VEC output
-//   columns (VEC = 4, 2 or 1 neighbouring bytes per lane, as out allows) and
-//   four groups, one per warp, so a warp reads 128 neighbouring bytes of a
-//   carrier row at once and the groups are split over the blocks as well as
-//   the columns: a 4096 x 4096 weight runs as 256 blocks.  Each warp issues
-//   the loads of 16 carrier rows before it uses them, accumulates its group
-//   in fp32 from the exact nibble values and multiplies by the group's scale
-//   once, as the TPU's per-group form does.  The block sums its warps in
-//   shared memory and writes one partial per group split; int4_reduce_kernel
-//   sums the splits in a fixed order (no atomics: the result does not depend
-//   on scheduling).  The x columns of the block's groups (up to 8 tokens)
-//   are staged in shared memory.
+//   int4_decode_kernel (up to 16 tokens a block, one launch) should be bound
+//   by the carrier's bytes.  The TPU kernel's per-group product, dot(x_group,
+//   nibbles as bf16, fp32 accumulation) * scale[g], is a tensor-core product
+//   on exact values (-8..7 are exact in bf16), so the products run as
+//   mma.sync.m16n8k16 with the tokens as the 16 rows (padded) and the
+//   nibbles as the B operand: a call at 16 tokens costs little more than one
+//   at 1 token.  A pair of nibbles becomes an exact bf16x2 in three
+//   instructions (a byte_perm puts the nibbles of two rows of one column in
+//   place, one lop3 masks them and sets the exponent: 0x43nn is 128 + nn for
+//   the nibble's bits ^ 8, and a bf16x2 fma subtracts 136), and the mma's k
+//   order is chosen so that a byte feeds two k of one column and x is read as
+//   it lies.  A block is 8 warps over 128 columns (two 64-column slices, so it
+//   reads 128 contiguous bytes of a carrier row) and one run of groups (a
+//   split); each warp keeps 4 steps of 16 carrier rows in flight by 16-byte
+//   cp.async in a ring of its own, runs each group's dot in fp32, multiplies
+//   it by the group's scale once and adds it to its total, in group order;
+//   the block sums a slice's warps in order; where the groups are split over
+//   blocks (to fill the card) a column tile's splits run as one cluster and
+//   sum each other's sums in split order from shared memory.  The sum order
+//   depends on the shapes and the card, never on scheduling or on the token
+//   count: a call repeats bit for bit, and a token's row does not depend on
+//   the other tokens.  What holds it from its bound at one token is not the
+//   products or the conversion (switching either off moves little): it is
+//   each block's fixed path of copies in flight, the ring, the sums and the
+//   cluster's barriers (PERF.md §6).
 //   int4_prefill_kernel (the prompt) is bound by the tensor cores: it does
 //   T multiply-adds per weight element, and dequantizing an element costs
 //   about four instructions (byte_perm and a subtraction make the nibble a
@@ -59,168 +71,12 @@
 
 namespace {
 
-__device__ __forceinline__ int lo_nibble(uint32_t b) { return (int)(b << 28) >> 28; }
-__device__ __forceinline__ int hi_nibble(uint32_t b) { return (int)(b << 24) >> 28; }
-
 __device__ __forceinline__ void store_out(void* out, size_t i, float v, int out_bf16) {
   if (out_bf16)
     static_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16(v);
   else
     static_cast<float*>(out)[i] = v;
 }
-
-// ---------------------------------------------------------------------------
-// decode form
-// ---------------------------------------------------------------------------
-
-constexpr int kDecWarps = 4;  // groups per block: one per warp
-constexpr int kDecThreads = 32 * kDecWarps;
-constexpr int kDecRows = 16;  // carrier rows loaded ahead per warp
-
-// VEC neighbouring carrier bytes (columns) of one row, as one load
-template <int VEC>
-__device__ __forceinline__ uint32_t load_cols(const uint8_t* p) {
-  if constexpr (VEC == 4) return __ldg(reinterpret_cast<const unsigned int*>(p));
-  else if constexpr (VEC == 2) return __ldg(reinterpret_cast<const unsigned short*>(p));
-  else return __ldg(p);
-}
-
-// partial[split, t, col] = sum over the block's groups g of
-// (x[t, group g] @ W4[group g, col]) * scale[g, col]; split = blockIdx.y
-template <int TT, int VEC>
-__global__ void __launch_bounds__(kDecThreads)
-int4_decode_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ qw,
-                   const float* __restrict__ scale, float* __restrict__ partial, int T,
-                   int in_dim, int G, int gsh, int out_dim) {
-  constexpr int kCols = 32 * VEC;  // columns per block
-  __shared__ float red[kDecWarps * TT * kCols];
-  extern __shared__ __align__(16) unsigned char dyn_smem[];
-  // TT x (kDecWarps * gs): the columns of x this block's groups read
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(dyn_smem);
-
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
-  const int col = blockIdx.x * kCols + lane * VEC;
-  const int g0 = blockIdx.y * kDecWarps;
-  const int t0 = blockIdx.z * TT;
-  const int gs = 2 * gsh;
-  const int span = kDecWarps * gs;
-  const int n_x = min(kDecWarps, G - g0) * gs;
-
-  for (int i = threadIdx.x; i < TT * span; i += kDecThreads) {
-    const int t = i / span, k = i % span;
-    xs[i] = (t0 + t < T && k < n_x) ? x[(size_t)(t0 + t) * in_dim + (size_t)g0 * gs + k]
-                                    : __float2bfloat16(0.f);
-  }
-  __syncthreads();
-
-  float acc[TT][VEC];
-#pragma unroll
-  for (int t = 0; t < TT; ++t)
-#pragma unroll
-    for (int c = 0; c < VEC; ++c) acc[t][c] = 0.f;
-
-  const int g = g0 + warp;
-  if (g < G && col < out_dim) {  // VEC divides out_dim: a lane's columns are all in or out
-    const uint8_t* base = qw + (size_t)g * gsh * out_dim + col;
-    const __nv_bfloat16* xg = xs + warp * gs;
-    int r = 0;
-    for (; r + kDecRows <= gsh; r += kDecRows) {
-      uint32_t b[kDecRows];
-#pragma unroll
-      for (int k = 0; k < kDecRows; ++k) b[k] = load_cols<VEC>(base + (size_t)(r + k) * out_dim);
-#pragma unroll
-      for (int k = 0; k < kDecRows; ++k) {
-        float xl[TT], xh[TT];
-#pragma unroll
-        for (int t = 0; t < TT; ++t) {
-          xl[t] = __bfloat162float(xg[t * span + r + k]);
-          xh[t] = __bfloat162float(xg[t * span + gsh + r + k]);
-        }
-#pragma unroll
-        for (int c = 0; c < VEC; ++c) {
-          const uint32_t byte = b[k] >> (8 * c);
-          const float lo = (float)lo_nibble(byte), hi = (float)hi_nibble(byte);
-#pragma unroll
-          for (int t = 0; t < TT; ++t) acc[t][c] = fmaf(xh[t], hi, fmaf(xl[t], lo, acc[t][c]));
-        }
-      }
-    }
-    for (; r < gsh; ++r) {  // groups of fewer than kDecRows rows per half
-      const uint32_t b = load_cols<VEC>(base + (size_t)r * out_dim);
-#pragma unroll
-      for (int c = 0; c < VEC; ++c) {
-        const uint32_t byte = b >> (8 * c);
-        const float lo = (float)lo_nibble(byte), hi = (float)hi_nibble(byte);
-#pragma unroll
-        for (int t = 0; t < TT; ++t)
-          acc[t][c] = fmaf(__bfloat162float(xg[t * span + gsh + r]), hi,
-                           fmaf(__bfloat162float(xg[t * span + r]), lo, acc[t][c]));
-      }
-    }
-    // the group's partial times its scale, as the TPU's per-group form
-#pragma unroll
-    for (int c = 0; c < VEC; ++c) {
-      const float s = __ldg(scale + (size_t)g * out_dim + col + c);
-#pragma unroll
-      for (int t = 0; t < TT; ++t) acc[t][c] *= s;
-    }
-  }
-#pragma unroll
-  for (int t = 0; t < TT; ++t)
-#pragma unroll
-    for (int c = 0; c < VEC; ++c) red[(warp * TT + t) * kCols + lane * VEC + c] = acc[t][c];
-  __syncthreads();
-  // the warps' partials summed in warp order: the same bits on every run
-  for (int i = threadIdx.x; i < TT * kCols; i += kDecThreads) {
-    const int t = i / kCols, c = blockIdx.x * kCols + i % kCols;
-    float sum = 0.f;
-#pragma unroll
-    for (int w = 0; w < kDecWarps; ++w) sum += red[(w * TT + t) * kCols + i % kCols];
-    if (c < out_dim && t0 + t < T)
-      partial[((size_t)blockIdx.y * T + t0 + t) * out_dim + c] = sum;
-  }
-}
-
-// out[i] = sum over the splits of partial[split, i], in split order
-__global__ void int4_reduce_kernel(const float* __restrict__ partial, void* __restrict__ out,
-                                   int splits, size_t n, int out_bf16) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float sum = 0.f;
-  for (int k = 0; k < splits; ++k) sum += partial[(size_t)k * n + i];
-  store_out(out, i, sum, out_bf16);
-}
-
-template <int TT, int VEC>
-cudaError_t launch_decode(const void* x, const void* qw, const void* scale, float* partial,
-                          void* out, int T, int in_dim, int G, int gsh, int out_dim,
-                          int out_bf16, cudaStream_t stream) {
-  const int splits = (G + kDecWarps - 1) / kDecWarps;
-  const size_t smem = sizeof(__nv_bfloat16) * (size_t)TT * kDecWarps * 2 * gsh;
-  const dim3 grid((out_dim + 32 * VEC - 1) / (32 * VEC), splits, (T + TT - 1) / TT);
-  int4_decode_kernel<TT, VEC><<<grid, kDecThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(qw),
-      static_cast<const float*>(scale), partial, T, in_dim, G, gsh, out_dim);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const size_t n = (size_t)T * out_dim;
-  int4_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(partial, out, splits, n,
-                                                                      out_bf16);
-  return cudaGetLastError();
-}
-
-template <int TT>
-cudaError_t launch_decode_vec(const void* x, const void* qw, const void* scale, float* partial,
-                              void* out, int T, int in_dim, int G, int gsh, int out_dim,
-                              int out_bf16, cudaStream_t stream) {
-  if (out_dim % 4 == 0)
-    return launch_decode<TT, 4>(x, qw, scale, partial, out, T, in_dim, G, gsh, out_dim, out_bf16, stream);
-  if (out_dim % 2 == 0)
-    return launch_decode<TT, 2>(x, qw, scale, partial, out, T, in_dim, G, gsh, out_dim, out_bf16, stream);
-  return launch_decode<TT, 1>(x, qw, scale, partial, out, T, in_dim, G, gsh, out_dim, out_bf16, stream);
-}
-
 
 // ---------------------------------------------------------------------------
 // prefill form (tensor cores: wgmma; dequantizing warpgroups beside them)
@@ -594,6 +450,405 @@ int4_prefill_kernel(const __grid_constant__ CUtensorMap x_map,
   }
 }
 
+// ---------------------------------------------------------------------------
+// decode form (tensor cores: mma.sync on the exact nibbles)
+// ---------------------------------------------------------------------------
+
+constexpr int kDecWarps = 8;     // a block's warps: each takes whole groups of the split
+constexpr int kDecCols = 64;     // columns of a warp
+// 64-column slices of a block, side by side, each served by kDecWarps /
+// kDecSlices warps: a block reads 128 contiguous bytes of each carrier row
+constexpr int kDecSlices = 2;
+constexpr int kDecSliceWarps = kDecWarps / kDecSlices;
+constexpr int kDecBlockCols = kDecSlices * kDecCols;
+constexpr int kDecTokens = 16;   // tokens of a block: the mma's 16 rows
+constexpr int kDecStepRows = 16;  // carrier rows of a step: two k16 chunks of the mma
+constexpr int kDecStages = 4;  // steps in flight a warp
+constexpr int kDecMaxSplits = 8;  // a cluster's blocks (the portable cluster size)
+constexpr int kDecThreads = 32 * kDecWarps;
+// A stage of a warp's ring: 16 carrier rows of 80 bytes (the 64 the block
+// reads, from the 16-byte boundary at or below their start), then the step's
+// x (16 tokens x 64 bytes: the 16 low rows' bf16, then the 16 high rows'),
+// then the group's 64 scales (filled by the group's last step).
+constexpr int kDecRowBytes = kDecCols + 16;
+constexpr int kDecXOff = kDecStepRows * kDecRowBytes;
+constexpr int kDecXToken = 4 * kDecStepRows;  // bytes of a token's x in a stage
+constexpr int kDecScaleOff = kDecXOff + kDecTokens * kDecXToken;
+constexpr int kDecStageBytes = kDecScaleOff + kDecCols * 4;
+constexpr int kDecRingBytes = kDecWarps * kDecStages * kDecStageBytes;
+constexpr int kDecSmemBytes = kDecRingBytes + kDecTokens * kDecBlockCols * 4;  // + the block's sums
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+// d (16 x 8, fp32) += a (16 x 16, bf16) * b (16 x 8, bf16)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+// every thread of every block of the cluster gets here (release / acquire)
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" :::
+                   "memory");
+}
+// a float at shared address ``addr`` of the cluster's block ``rank``
+__device__ __forceinline__ float ld_cluster(uint32_t addr, uint32_t rank) {
+  uint32_t remote;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(addr), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(remote) : "memory");
+  return v;
+}
+
+// Low nibbles of byte j of u (in the low half) and of v (in the high half),
+// at bits 0-3 of each half of ``t``, as an exact bf16 pair: 0x43nn is 128 +
+// nn, and the nibble n (two's complement) + 8 is its bits ^ 8, so the pair
+// minus 136 is n exactly.
+__device__ __forceinline__ uint32_t nibble_pair(uint32_t t) {
+  uint32_t biased;  // (t & mask) ^ exponent, in one lop3
+  asm("lop3.b32 %0, %1, %2, %3, 0x6a;\n" : "=r"(biased) : "r"(t), "r"(0x000F000Fu), "r"(0x43084308u));
+  uint32_t r;  // biased * 1 - 136, each half (exact)
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(r) : "r"(biased), "r"(0x3F803F80u), "r"(0xC308C308u));
+  return r;
+}
+
+// One step of a warp: 8 carrier rows of one group times the x columns they
+// multiply, into 8 n8 tiles.  The k order of the mma's 16 is chosen so that
+// one byte serves two k of a column and x is read as it lies: k = 2q, 2q + 1
+// are the low nibbles of rows 2q and 2q + 1, k = 2q + 8, 2q + 9 their high
+// nibbles (q = lane % 4).  Lane (g, q) holds the bytes of columns 8g .. 8g +
+// 7 of rows 2q (u) and 2q + 1 (v): byte j is column g of n8 tile j.
+__device__ __forceinline__ void decode_step(float (&acc)[8][4], const uint32_t (&u)[2],
+                                            const uint32_t (&v)[2], uint32_t a0, uint32_t a1,
+                                            uint32_t a2, uint32_t a3) {
+#pragma unroll
+  for (int w = 0; w < 2; ++w) {
+    const uint32_t uh = u[w] >> 4, vh = v[w] >> 4;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t sel = j | (j << 4) | ((4 + j) << 8) | ((4 + j) << 12);
+      const uint32_t b0 = nibble_pair(__byte_perm(u[w], v[w], sel));
+      const uint32_t b1 = nibble_pair(__byte_perm(uh, vh, sel));
+      mma_bf16(acc[4 * w + j], a0, a1, a2, a3, b0, b1);
+    }
+  }
+}
+
+// The block's sums of its warps' totals (a slice's warps in order), then,
+// with several splits, the sum of the cluster's blocks' sums (split order);
+// cb is the block's first column.
+__device__ __forceinline__ void decode_epilogue(const float (&total)[8][4], uint8_t* smem,
+                                                float* block_sum, void* out, int t0, int tt,
+                                                int cb, int out_dim, int out_bf16, int split,
+                                                int splits) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g8 = lane / 4, q = lane % 4;
+  // total[j][e] of lane (g8, q): token g8 (e < 2) or g8 + 8, column 16q + j
+  // (e even) or 16q + 8 + j of the warp's slice
+  float* red = reinterpret_cast<float*>(smem);  // (warp, token, column)
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int t = g8 + 8 * (e / 2), c = 16 * q + 8 * (e % 2) + j;
+      if (t < tt) red[(warp * kDecTokens + t) * kDecCols + c] = total[j][e];
+    }
+  __syncthreads();
+  for (int i = threadIdx.x; i < tt * kDecBlockCols; i += kDecThreads) {
+    const int t = i / kDecBlockCols, sl = (i % kDecBlockCols) / kDecCols, c = i % kDecCols;
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kDecSliceWarps; ++w)
+      sum += red[((sl * kDecSliceWarps + w) * kDecTokens + t) * kDecCols + c];
+    const int col = cb + i % kDecBlockCols;
+    if (splits == 1) {
+      if (col < out_dim) store_out(out, (size_t)(t0 + t) * out_dim + col, sum, out_bf16);
+    } else {
+      block_sum[i] = sum;
+    }
+  }
+  if (splits == 1) return;
+  // the cluster's blocks are the splits of this tile, rank = split: each
+  // sums its share of the tile's outputs over the blocks' sums, in split
+  // order, then every block may leave.  A thread puts all its remote loads
+  // in flight before it adds (it issues in order: a sum load by load would
+  // wait out each one).
+  cluster_sync();
+  const int n = tt * kDecBlockCols, share = (n + splits - 1) / splits;
+  for (int i = split * share + threadIdx.x; i < min(n, (split + 1) * share); i += kDecThreads) {
+    const uint32_t addr = smem_u32(block_sum + i);
+    float part[kDecMaxSplits];
+#pragma unroll
+    for (int s = 0; s < kDecMaxSplits; ++s) part[s] = s < splits ? ld_cluster(addr, s) : 0.f;
+    float sum = part[0];
+#pragma unroll
+    for (int s = 1; s < kDecMaxSplits; ++s)
+      if (s < splits) sum += part[s];
+    const int col = cb + i % kDecBlockCols;
+    if (col < out_dim) store_out(out, (size_t)(t0 + i / kDecBlockCols) * out_dim + col, sum, out_bf16);
+  }
+  cluster_sync();  // every block is done reading the others' shared memory
+}
+
+// y[t, col] = sum over groups g of (x[t, group g] @ W4[group g, col]) *
+// scale[g, col] for the block's up to 16 tokens (blockIdx.z) and 128 columns
+// (blockIdx.x: two 64-column slices side by side, so the block reads 128
+// contiguous bytes of a carrier row); the groups are cut into ``splits`` runs
+// of ``gps`` (blockIdx.y: the blocks of one cluster), and warp w of a slice
+// takes its groups w, w + 4, ... in turn.  Each warp keeps kDecStages steps
+// in flight by cp.async in a ring of its own (the carrier rows, the step's x,
+// at a group's last step its scales), runs each group's dot on the tensor
+// cores in fp32, multiplies it by the group's scale and adds it to its total
+// in group order.  The block sums a slice's warps in order; the cluster's
+// blocks sum the blocks' sums in split order from their shared memory:
+// nothing is atomic and nothing goes through device memory but the output.
+// kAligned: out % 16 == 0, so every row of the block's columns starts 16-byte
+// aligned and is copied as 4 pieces; else each row is copied from the
+// 16-byte boundary at or below its start (5 pieces) and read at its offset.
+// The loop keeps running pointers and counters and does its address
+// arithmetic once a group.
+template <bool kAligned>
+__global__ void __launch_bounds__(kDecThreads)
+int4_decode_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ qw,
+                   const float* __restrict__ scale, void* __restrict__ out, int T, int in_dim,
+                   int G, int gsh, int out_dim, int out_bf16, int gps) {
+  extern __shared__ __align__(16) uint8_t dec_smem[];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g8 = lane / 4, q = lane % 4;
+  // this warp's slice of the block's columns, and its place among the slice's warps
+  const int gw = warp % kDecSliceWarps;
+  const int c0 = blockIdx.x * kDecBlockCols + (warp / kDecSliceWarps) * kDecCols;
+  const int split = blockIdx.y, splits = gridDim.y;
+  const int t0 = blockIdx.z * kDecTokens;
+  const int tt = min(kDecTokens, T - t0);
+  const int gs = 2 * gsh;
+  const bool whole = gsh % kDecStepRows == 0;  // every step whole rows (x rows 16-byte aligned)
+  const int spg = (gsh + kDecStepRows - 1) / kDecStepRows;  // steps a group
+  const int g_begin = split * gps;
+  const int n_groups = max(0, min(gps, G - g_begin));
+  const int my_groups =
+      n_groups > gw ? (n_groups - gw + kDecSliceWarps - 1) / kDecSliceWarps : 0;
+  const int my_steps = my_groups * spg;
+  const size_t q_bytes = (size_t)G * gsh * out_dim;
+  const size_t step_bytes = (size_t)kDecStepRows * out_dim;
+  uint8_t* ring = dec_smem + warp * kDecStages * kDecStageBytes;
+  float* block_sum = reinterpret_cast<float*>(dec_smem + kDecRingBytes);  // (token, column)
+
+  // this lane's carrier pieces of a step: kAligned, pieces lane and lane + 32
+  // of 4 a row; else pieces lane, lane + 32 and lane + 64 (< 80) of 5 a row
+  constexpr int kPieces = kAligned ? 4 : 5;
+  auto piece_dst = [](int p) { return (uint32_t)((p / kPieces) * kDecRowBytes + 16 * (p % kPieces)); };
+  const bool col_ok = c0 + 16 * (lane % 4) < out_dim;  // kAligned: whole pieces in or out
+  // this lane's x pieces of a step (16 bytes: 8 rows of one token, low or
+  // high): piece k is token k / 4, half (k / 2) % 2, rows 8 (k % 2) ..
+  auto x_dst = [](int k) { return (uint32_t)(kDecXOff + (k / 4) * kDecXToken + 16 * (k % 4)); };
+  auto x_src = [&](int k, int grp) {
+    return x + (size_t)(t0 + k / 4) * in_dim + (size_t)grp * gs + ((k / 2) % 2) * gsh + 8 * (k % 2);
+  };
+
+  // the issue side: the next step's group (warp-local), its step, the offset
+  // of its first row (of the block's columns) from the carrier, x's addresses
+  int igi = 0, ist = 0;
+  size_t irow = 0;
+  const __nv_bfloat16 *ix_a = x, *ix_b = x;
+  auto start_group = [&](int gi) {
+    const int grp = g_begin + gw + kDecSliceWarps * gi;
+    irow = (size_t)grp * gsh * out_dim + c0;
+    ix_a = x_src(lane, grp);
+    ix_b = x_src(lane + 32, grp);
+  };
+  start_group(0);
+  auto issue = [&](int i) {
+    if (i < my_steps) {
+      uint8_t* stage_p = ring + (i % kDecStages) * kDecStageBytes;
+      const uint32_t stage = smem_u32(stage_p);
+      const int r0 = ist * kDecStepRows;
+      if constexpr (kAligned) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = lane / 4 + 8 * h;
+          const bool ok = col_ok && (whole || r0 + row < gsh);
+          cp_async16(stage + piece_dst(lane + 32 * h),
+                     qw + irow + (size_t)row * out_dim + 16 * (lane % 4), ok ? 16 : 0);
+        }
+      } else {
+#pragma unroll
+        for (int h = 0; h < 3; ++h) {
+          const int p = lane + 32 * h, row = p / 5, ch = p % 5;
+          if (p < kDecStepRows * 5) {
+            const size_t at = irow + (size_t)row * out_dim;
+            const size_t from = (at & ~(size_t)15) + 16 * ch;
+            const int bytes = (whole || r0 + row < gsh) && from < q_bytes && (ch < 4 || (at & 15))
+                                  ? (int)min((size_t)16, q_bytes - from)
+                                  : 0;
+            cp_async16(stage + piece_dst(p), bytes ? qw + from : qw, bytes);
+          }
+        }
+      }
+      if (whole) {
+        if (lane < 4 * tt) cp_async16(stage + x_dst(lane), ix_a + r0, 16);
+        if (lane + 32 < 4 * tt) cp_async16(stage + x_dst(lane + 32), ix_b + r0, 16);
+      } else {  // the x of a part step, by hand
+        const int grp = g_begin + gw + kDecSliceWarps * igi;
+        const __nv_bfloat16* xg = x + (size_t)t0 * in_dim + (size_t)grp * gs + r0;
+        __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(stage_p + kDecXOff);
+        for (int e = lane; e < tt * 2 * kDecStepRows; e += 32) {  // token e / 32, half, row
+          const int t = e / 32, h = (e / 16) % 2, row = e % 16;
+          xs[e] = r0 + row < gsh ? xg[(size_t)t * in_dim + h * gsh + row] : __float2bfloat16(0.f);
+        }
+      }
+      if (ist == spg - 1) {  // the group's scales, with its last step
+        const float* sp = scale + (size_t)(g_begin + gw + kDecSliceWarps * igi) * out_dim + c0;
+        for (int c = lane; c < kDecCols; c += 32) {
+          const bool ok = c0 + c < out_dim;
+          cp_async4(stage + kDecScaleOff + 4 * c, ok ? sp + c : scale, ok ? 4 : 0);
+        }
+      }
+      irow += step_bytes;
+      if (++ist == spg) {
+        ist = 0;
+        start_group(++igi);
+      }
+    }
+    cp_async_commit();  // an empty group past the last step keeps the count of groups
+  };
+#pragma unroll
+  for (int i = 0; i < kDecStages; ++i) issue(i);
+
+  float total[8][4], acc[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) total[j][e] = acc[j][e] = 0.f;
+  // lane (g8, q) reads columns 8 g8 .. 8 g8 + 7 of rows 8c + 2q (u) and 8c +
+  // 2q + 1 (v) for chunk c; unaligned rows start (row offset & 15) bytes into
+  // their copy, an offset that moves by step_bytes & 15 a step
+  const uint32_t u_off = 2 * q * kDecRowBytes + 8 * g8;
+  const int step_mis = (int)(step_bytes & 15);
+  int st = 0, mis[4] = {0, 0, 0, 0};  // rows 2q, 2q + 1, 8 + 2q, 9 + 2q
+  auto group_mis = [&](int gi) {
+    const size_t row0 = (size_t)(g_begin + gw + kDecSliceWarps * gi) * gsh * out_dim + c0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      mis[k] = (int)((row0 + (size_t)(8 * (k / 2) + 2 * q + k % 2) * out_dim) & 15);
+  };
+  if (!kAligned) group_mis(0);
+  int gi_now = 0;
+  const bool two_tiles = tt > 8;  // tokens 8-15 present
+  for (int i = 0; i < my_steps; ++i) {
+    cp_async_wait<kDecStages - 1>();
+    __syncwarp();
+    const uint8_t* stage = ring + (i % kDecStages) * kDecStageBytes;
+    const uint32_t* xw = reinterpret_cast<const uint32_t*>(stage + kDecXOff);
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {  // the step's two k16 chunks
+      uint32_t u[2], v[2];
+      if constexpr (kAligned) {
+        const uint2 uu = *reinterpret_cast<const uint2*>(stage + u_off + 8 * c * kDecRowBytes);
+        const uint2 vv =
+            *reinterpret_cast<const uint2*>(stage + u_off + (8 * c + 1) * kDecRowBytes);
+        u[0] = uu.x, u[1] = uu.y, v[0] = vv.x, v[1] = vv.y;
+      } else {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {  // each row from its copy's start
+          const int o = mis[2 * c + h] + 8 * g8;
+          const uint32_t* w = reinterpret_cast<const uint32_t*>(
+              stage + (8 * c + 2 * q + h) * kDecRowBytes + (o & ~3));
+          const uint32_t w0 = w[0], w1 = w[1], w2 = w[2];
+          const uint32_t lo = __funnelshift_r(w0, w1, 8 * (o & 3));
+          const uint32_t hi = __funnelshift_r(w1, w2, 8 * (o & 3));
+          if (h) v[0] = lo, v[1] = hi;
+          else u[0] = lo, u[1] = hi;
+        }
+      }
+      // A: token g8 (and g8 + 8), x rows 8c + 2q, + 1: low, then high
+      uint32_t a0 = 0u, a1 = 0u, a2 = 0u, a3 = 0u;
+      if (g8 < tt) a0 = xw[g8 * 16 + 4 * c + q], a2 = xw[g8 * 16 + 8 + 4 * c + q];
+      if (two_tiles && g8 + 8 < tt)
+        a1 = xw[(g8 + 8) * 16 + 4 * c + q], a3 = xw[(g8 + 8) * 16 + 8 + 4 * c + q];
+      decode_step(acc, u, v, a0, a1, a2, a3);
+    }
+    if (++st == spg) {  // the group's dot times its scale, into the total
+      st = 0;
+      const float4* sp = reinterpret_cast<const float4*>(stage + kDecScaleOff) + 4 * q;
+      float sc[16];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float4 f = sp[k];
+        sc[4 * k] = f.x, sc[4 * k + 1] = f.y, sc[4 * k + 2] = f.z, sc[4 * k + 3] = f.w;
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        total[j][0] += acc[j][0] * sc[j];
+        total[j][1] += acc[j][1] * sc[8 + j];
+        total[j][2] += acc[j][2] * sc[j];
+        total[j][3] += acc[j][3] * sc[8 + j];
+        acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+      }
+      if (!kAligned) group_mis(++gi_now);
+    } else if (!kAligned) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) mis[k] = (mis[k] + step_mis) & 15;
+    }
+    __syncwarp();  // every lane is done with the stage: it takes step i + kDecStages
+    issue(i + kDecStages);
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with its ring: it holds the warps' totals now
+  decode_epilogue(total, dec_smem, block_sum, out, t0, tt, blockIdx.x * kDecBlockCols, out_dim,
+                  out_bf16, split, splits);
+}
+
+// The decode form's launch: a column tile's splits as one cluster.
+template <bool kAligned>
+cudaError_t launch_decode(const void* x, const void* qw, const void* scale, void* out, int T,
+                          int in_dim, int G, int gsh, int out_dim, int out_bf16, int splits,
+                          int gps, cudaStream_t stream) {
+  static bool configured = false;  // once per instance: keeps the call out of graph capture
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        int4_decode_kernel<kAligned>, cudaFuncAttributeMaxDynamicSharedMemorySize, kDecSmemBytes);
+    if (err == cudaSuccess)  // all of an SM's shared memory: two blocks side by side
+      err = cudaFuncSetAttribute(int4_decode_kernel<kAligned>,
+                                 cudaFuncAttributePreferredSharedMemoryCarveout, 100);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim =
+      dim3((out_dim + kDecBlockCols - 1) / kDecBlockCols, splits, (T + kDecTokens - 1) / kDecTokens);
+  cfg.blockDim = dim3(kDecThreads);
+  cfg.dynamicSmemBytes = kDecSmemBytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 1;
+  attr.val.clusterDim.y = splits;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, int4_decode_kernel<kAligned>,
+                            static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(qw),
+                            static_cast<const float*>(scale), out, T, in_dim, G, gsh, out_dim,
+                            out_bf16, gps);
+}
+
 // cuTensorMapEncodeTiled, from the driver through the runtime (no link to libcuda)
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -680,19 +935,22 @@ cudaError_t prefill_for_tile(int tile, const void* x, const void* qw, const void
 // ``stream`` is a cudaStream_t.  Returns a cudaError_t (0 = launched).
 extern "C" {
 
-int vcla_int4_matmul_decode(const void* x, const void* qw, const void* scale, void* partial,
-                            void* out, int T, int in_dim, int G, int gsh, int out_dim,
-                            int out_bf16, int tokens_per_block, void* stream) {
+// The decode form: one launch.  The caller picks ``splits`` (<= 8) runs of
+// ``gps`` groups; each column tile's splits run as one cluster.
+int vcla_int4_matmul_decode(const void* x, const void* qw, const void* scale, void* out, int T,
+                            int in_dim, int G, int gsh, int out_dim, int out_bf16, int splits,
+                            int gps, void* stream) {
+  if (gsh <= 0 || G * 2 * gsh != in_dim || splits < 1 || splits > kDecMaxSplits || gps < 1 ||
+      (splits - 1) * gps >= G || splits * gps < G || (reinterpret_cast<uintptr_t>(qw) & 15) ||
+      (gsh % 16 == 0 && (reinterpret_cast<uintptr_t>(x) & 15)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (T == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* ws = static_cast<float*>(partial);
-  if (gsh <= 0 || G * 2 * gsh != in_dim) return static_cast<int>(cudaErrorInvalidValue);
-  switch (tokens_per_block) {
-    case 1: return launch_decode_vec<1>(x, qw, scale, ws, out, T, in_dim, G, gsh, out_dim, out_bf16, st);
-    case 2: return launch_decode_vec<2>(x, qw, scale, ws, out, T, in_dim, G, gsh, out_dim, out_bf16, st);
-    case 4: return launch_decode_vec<4>(x, qw, scale, ws, out, T, in_dim, G, gsh, out_dim, out_bf16, st);
-    case 8: return launch_decode_vec<8>(x, qw, scale, ws, out, T, in_dim, G, gsh, out_dim, out_bf16, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (out_dim % 16 == 0)
+    return launch_decode<true>(x, qw, scale, out, T, in_dim, G, gsh, out_dim, out_bf16, splits,
+                               gps, st);
+  return launch_decode<false>(x, qw, scale, out, T, in_dim, G, gsh, out_dim, out_bf16, splits,
+                              gps, st);
 }
 
 int vcla_int4_matmul_prefill(const void* x, const void* qw, const void* scale, void* out, int T,

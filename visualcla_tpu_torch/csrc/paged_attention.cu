@@ -2,17 +2,19 @@
 //
 // Replaces the Pallas kernels of the paged serving engine
 // (visualcla_tpu/ops/pallas/paged_attention.py):
-//   paged_append_kernel  <- paged_append_attention -> _append_kernel   (B4)
-//   paged_verify_mma_kernel (bf16 and int8 pools) or paged_verify_fma_kernel
-//   <kAppend=true> (f32 pools), then paged_combine_kernel
+//   paged_verify_mma_kernel<kAppendDecode> (bf16 and int8 pools) or
+//   paged_verify_fma_kernel<kAppendDecode> (f32 pools), then
+//   paged_append_combine_kernel
+//                        <- paged_append_attention -> _append_kernel   (B4)
+//   paged_verify_mma_kernel<kVerify> (bf16 and int8 pools) or
+//   paged_verify_fma_kernel<kVerify> (f32 pools), then paged_combine_kernel
 //                        <- paged_verify_attention -> _verify_kernel   (B5)
-//   paged_verify_fma_kernel<kAppend=false, kExact=true>, then
+//   paged_verify_fma_kernel<kDecode>, then
 //   paged_combine_kernel <- paged_decode_attention -> _paged_kernel    (B6)
 //
-// B4 is described first; B5 and B6 share one split-KV structure, described
-// above its kernels.
+// The three share one split-KV structure, described above the kernels.
 //
-// Contract (the TPU kernel's):
+// B4's contract (the TPU kernel's):
 //   q (B, N, HD); k_new, v_new (B, Nkv, HD) in the pool's type; the pools
 //   k_pool, v_pool (L, NB, BS, Nkv * HD), in q's type or int8 with f32 scales
 //   ks_pool, vs_pool (L, NB, BS, Nkv) and the new token's scales ksn, vsn
@@ -25,22 +27,23 @@
 //   bf16 for an int8 pool, and q * scale and p (times the V scale) are rounded
 //   to it before their products; int8 scales fold in after the dots (score *
 //   ks[j], p * vs[j] before p @ V, the denominator sums the unscaled p); the
-//   new token is one analytic online-softmax term; the softmax is fp32.
+//   new token is one analytic online-softmax term in fp32 (its p * v not
+//   rounded); the softmax is fp32.
 //
-// What bounds it on the card, and what the design does about it:
-//   decode attention reads every old K/V byte of the rows once and does two
-//   multiply-adds per byte pair: it is bound by bytes.  One block per
-//   (kv head, row) walks the row's block table and streams that head's K and
-//   V slices (HD contiguous elements of each token's pool row) once, serving
-//   all N / Nkv query heads of the group from them (GQA reads each tile
-//   once).  Tokens go 32 to a tile; each lane looks up one token's pool row
-//   and the warps share it by shuffle; K rows load as 4-element vectors per
-//   lane, and each thread loads its share of the next tile while the current
-//   one is computed.  The TPU kernel's block-diagonal query matrix, its
-//   sequential grid carrying m/l/acc, and scalar prefetch are answers to the
-//   TPU and are not carried over.  At B rows and Nkv kv heads the grid has
-//   B * Nkv blocks; splitting the context across blocks (B5 and B6 below
-//   have it), cp.async/TMA and CUDA graphs are later work for B4.
+// What bounds it on the card, and what the design does about it: decode
+// attention reads every old K/V byte of the rows once and does two
+// multiply-adds per byte pair: it is bound by bytes.  B4 is B5's split
+// kernel at one query a row over the old context (lens - 1 slots, none
+// taken from k_new): the context is cut into runs over many blocks, each
+// warp gathers 32-slot chunks by 16-byte cp.async, the products run on the
+// tensor cores (bf16 and int8 pools), and the combine launch merges the runs
+// in split order and then folds in the new token's analytic term, so a row
+// with no old context (a parked row, lens 1) gives v_new.  The append goes
+// where blk / off say (never through the table); one block of the row and
+// kv head writes it, and no block reads that slot (every read is below
+// lens - 1), so the append races with no read.  The TPU kernel's
+// block-diagonal query matrix, its sequential grid carrying m/l/acc, and
+// scalar prefetch are answers to the TPU and are not carried over.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -104,231 +107,6 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// The pool row (token index within layer 0's row space) of old-context token
-// j0 + lane of row ``table``, or -1 past the context.
-__device__ __forceinline__ long long token_row(const int* table, int j0, int ctx, int BS,
-                                               long long layer_rows) {
-  const int j = j0 + threadIdx.x % 32;
-  if (j >= ctx) return -1;
-  return layer_rows + (long long)table[j / BS] * BS + j % BS;
-}
-
-// This thread's share of one tile, in registers: the four elements of each K
-// row its warp scores, and V column ``threadIdx.x`` of every token.
-template <typename KV, int HD>
-__device__ __forceinline__ void load_tile(const KV* k_pool, const KV* v_pool, long long my_row,
-                                          int KVL, int kvh,
-                                          float (&kr)[kTokensPerWarp][HD / 32],
-                                          float (&vr)[kTile]) {
-  static_assert(HD / 32 == 4, "four elements of a K row per lane");
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-#pragma unroll
-  for (int i = 0; i < kTokensPerWarp; ++i) {
-    const long long row = __shfl_sync(0xffffffffu, my_row, warp + kWarps * i);
-    if (row >= 0) {
-      load4(k_pool + row * KVL + (long long)kvh * HD + lane * 4, kr[i]);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) kr[i][e] = 0.f;
-    }
-  }
-  const int d = threadIdx.x;
-#pragma unroll
-  for (int jj = 0; jj < kTile; ++jj) {
-    const long long row = __shfl_sync(0xffffffffu, my_row, jj);
-    vr[jj] = (d < HD && row >= 0) ? to_f32(v_pool[row * KVL + (long long)kvh * HD + d]) : 0.f;
-  }
-}
-
-template <typename T, typename KV, int HD>
-__global__ void __launch_bounds__(kThreads)
-paged_append_kernel(const T* __restrict__ q, const KV* __restrict__ k_new,
-                    const KV* __restrict__ v_new, KV* __restrict__ k_pool,
-                    KV* __restrict__ v_pool, const int* __restrict__ tables,
-                    const int* __restrict__ lens, const int* __restrict__ blk,
-                    const int* __restrict__ off, const float* __restrict__ ksn,
-                    const float* __restrict__ vsn, float* __restrict__ ks_pool,
-                    float* __restrict__ vs_pool, T* __restrict__ out, int N, int Nkv,
-                    int NB, int BS, int max_blocks, int layer, float scale) {
-  static_assert(HD % 32 == 0 && HD <= kThreads, "one V column per thread");
-  constexpr int kPerLane = HD / 32;
-  const int kvh = blockIdx.x;
-  const int b = blockIdx.y;
-  const int rep = N / Nkv;
-  const int KVL = Nkv * HD;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-
-  extern __shared__ float smem[];
-  float* q_sh = smem;                  // rep x HD: q * scale in the compute type
-  float* acc_sh = q_sh + rep * HD;     // rep x HD
-  float* p_sh = acc_sh + rep * HD;     // rep x kTile: scores, then p * vs
-  float* m_sh = p_sh + rep * kTile;    // rep
-  float* l_sh = m_sh + rep;            // rep
-  float* alpha_sh = l_sh + rep;        // rep
-  float* pn_sh = alpha_sh + rep;       // rep: the new token's p * vs
-
-  const T* q_grp = q + ((size_t)b * N + (size_t)kvh * rep) * HD;
-  for (int i = threadIdx.x; i < rep * HD; i += kThreads) {
-    q_sh[i] = round_compute<KV>(to_f32(q_grp[i]) * scale);
-    acc_sh[i] = 0.f;
-  }
-  for (int r = threadIdx.x; r < rep; r += kThreads) {
-    m_sh[r] = kNegInf;
-    l_sh[r] = 0.f;
-  }
-  __syncthreads();
-
-  const int ctx = lens[b] - 1;  // the pool holds the old context only
-  const int* table = tables + (size_t)b * max_blocks;
-  const long long layer_rows = (long long)layer * NB * BS;
-  const int n_tiles = ctx > 0 ? (ctx + kTile - 1) / kTile : 0;
-
-  float k_cur[kTokensPerWarp][kPerLane], v_cur[kTile];
-  long long row_cur = -1;
-  if (n_tiles > 0) {
-    row_cur = token_row(table, 0, ctx, BS, layer_rows);
-    load_tile<KV, HD>(k_pool, v_pool, row_cur, KVL, kvh, k_cur, v_cur);
-  }
-  for (int t = 0; t < n_tiles; ++t) {
-    const int j0 = t * kTile;
-    const bool more = t + 1 < n_tiles;
-    float k_nxt[kTokensPerWarp][kPerLane], v_nxt[kTile];
-    long long row_nxt = -1;
-    if (more) {
-      row_nxt = token_row(table, j0 + kTile, ctx, BS, layer_rows);
-      load_tile<KV, HD>(k_pool, v_pool, row_nxt, KVL, kvh, k_nxt, v_nxt);
-    }
-    // scores: warp w takes tokens j0 + w, j0 + w + kWarps, ...
-#pragma unroll
-    for (int i = 0; i < kTokensPerWarp; ++i) {
-      const int jj = warp + kWarps * i;
-      for (int r = 0; r < rep; ++r) {
-        const float* qr = q_sh + r * HD + lane * kPerLane;
-        float dot = 0.f;
-#pragma unroll
-        for (int e = 0; e < kPerLane; ++e) dot = fmaf(qr[e], k_cur[i][e], dot);
-        dot = warp_sum(dot);
-        if (lane == 0) p_sh[r * kTile + jj] = dot;
-      }
-    }
-    __syncthreads();
-    // online softmax: warp w takes query heads w, w + kWarps, ...; lane = token
-    {
-      const bool ok = row_cur >= 0;
-      float k_sc = 1.f, v_sc = 1.f;
-      if (kQuantKV<KV> && ok) {
-        k_sc = ks_pool[row_cur * Nkv + kvh];
-        v_sc = vs_pool[row_cur * Nkv + kvh];
-      }
-      for (int r = warp; r < rep; r += kWarps) {
-        const float s = ok ? p_sh[r * kTile + lane] * k_sc : kNegInf;
-        const float m_old = m_sh[r];
-        const float m_new = fmaxf(m_old, warp_max(s));
-        const float p = ok ? expf(s - m_new) : 0.f;
-        const float sum = warp_sum(p);
-        p_sh[r * kTile + lane] = round_compute<KV>(p * v_sc);
-        if (lane == 0) {
-          const float alpha = expf(m_old - m_new);
-          m_sh[r] = m_new;
-          l_sh[r] = l_sh[r] * alpha + sum;
-          alpha_sh[r] = alpha;
-        }
-      }
-    }
-    __syncthreads();
-    // p @ v: thread d owns head-dim column d
-    const int d = threadIdx.x;
-    if (d < HD) {
-      for (int r = 0; r < rep; ++r) {
-        float a = acc_sh[r * HD + d] * alpha_sh[r];
-#pragma unroll
-        for (int jj = 0; jj < kTile; ++jj) a = fmaf(p_sh[r * kTile + jj], v_cur[jj], a);
-        acc_sh[r * HD + d] = a;
-      }
-    }
-    __syncthreads();
-    if (more) {
-#pragma unroll
-      for (int i = 0; i < kTokensPerWarp; ++i)
-#pragma unroll
-        for (int e = 0; e < kPerLane; ++e) k_cur[i][e] = k_nxt[i][e];
-#pragma unroll
-      for (int jj = 0; jj < kTile; ++jj) v_cur[jj] = v_nxt[jj];
-      row_cur = row_nxt;
-    }
-  }
-
-  // the new token: one analytic online-softmax term per query head
-  const size_t new_off = ((size_t)b * Nkv + kvh) * HD;
-  const float k_sc_new = kQuantKV<KV> ? ksn[(size_t)b * Nkv + kvh] : 1.f;
-  const float v_sc_new = kQuantKV<KV> ? vsn[(size_t)b * Nkv + kvh] : 1.f;
-  for (int r = warp; r < rep; r += kWarps) {
-    float dot = 0.f;
-#pragma unroll
-    for (int e = 0; e < kPerLane; ++e) {
-      const int dd = lane * kPerLane + e;
-      dot = fmaf(q_sh[r * HD + dd], to_f32(k_new[new_off + dd]), dot);
-    }
-    const float sn = warp_sum(dot) * k_sc_new;
-    if (lane == 0) {
-      const float m_old = m_sh[r];
-      const float m_new = fmaxf(m_old, sn);
-      const float pn = expf(sn - m_new);
-      const float alpha = expf(m_old - m_new);
-      l_sh[r] = l_sh[r] * alpha + pn;
-      alpha_sh[r] = alpha;
-      pn_sh[r] = pn * v_sc_new;
-    }
-  }
-  __syncthreads();
-  const int d = threadIdx.x;
-  if (d < HD) {
-    const float vn = to_f32(v_new[new_off + d]);
-    T* o_grp = out + ((size_t)b * N + (size_t)kvh * rep) * HD;
-    for (int r = 0; r < rep; ++r) {
-      const float a = acc_sh[r * HD + d] * alpha_sh[r] + pn_sh[r] * vn;
-      const float l = l_sh[r];
-      o_grp[r * HD + d] = from_f32<T>(a / (l == 0.f ? 1.f : l));
-    }
-    // the append: this block's kv-head slice of the new token's pool row
-    const long long row = layer_rows + (long long)blk[b] * BS + off[b];
-    k_pool[row * KVL + (long long)kvh * HD + d] = k_new[new_off + d];
-    v_pool[row * KVL + (long long)kvh * HD + d] = v_new[new_off + d];
-    if (kQuantKV<KV> && d == 0) {
-      ks_pool[row * Nkv + kvh] = k_sc_new;
-      vs_pool[row * Nkv + kvh] = v_sc_new;
-    }
-  }
-}
-
-template <typename T, typename KV, int HD>
-cudaError_t launch(const void* q, const void* k_new, const void* v_new, void* k_pool,
-                   void* v_pool, const void* tables, const void* lens, const void* blk,
-                   const void* off, const void* ksn, const void* vsn, void* ks_pool,
-                   void* vs_pool, void* out, int B, int N, int Nkv, int NB, int BS,
-                   int max_blocks, int layer, float scale, cudaStream_t stream) {
-  const int rep = N / Nkv;
-  const size_t smem = sizeof(float) * (2 * (size_t)rep * HD + (size_t)rep * kTile + 4 * rep);
-  static size_t allowed = 48 * 1024;  // raised once per size: stays out of graph capture
-  if (smem > allowed) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        paged_append_kernel<T, KV, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    allowed = smem;
-  }
-  paged_append_kernel<T, KV, HD><<<dim3(Nkv, B), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const KV*>(k_new), static_cast<const KV*>(v_new),
-      static_cast<KV*>(k_pool), static_cast<KV*>(v_pool), static_cast<const int*>(tables),
-      static_cast<const int*>(lens), static_cast<const int*>(blk),
-      static_cast<const int*>(off), static_cast<const float*>(ksn),
-      static_cast<const float*>(vsn), static_cast<float*>(ks_pool),
-      static_cast<float*>(vs_pool), static_cast<T*>(out), N, Nkv, NB, BS, max_blocks, layer,
-      scale);
-  return cudaGetLastError();
-}
-
 // B5, the speculative verify step: Sq new tokens a row.  Contract (the TPU
 // kernel's): q (B, Sq, N, HD); k_new, v_new (B, Sq, Nkv, HD) in the pool's
 // type (int8 with f32 scales ksn, vsn (B, Sq, Nkv)); pools and tables as B4;
@@ -345,40 +123,52 @@ cudaError_t launch(const void* q, const void* k_new, const void* v_new, void* k_
 // token (query 0 attends over the slots <= lens - 1), and kExact: all
 // arithmetic in f32, q * scale and p not rounded.
 //
-// Split-KV, B1's pattern: the grid is (kv head x query tile, row, split); a
-// split takes a fixed run of kVerifyRun slots of its row's table and serves
-// the query rows of its tile (row r of the group is query r / rep of head r %
-// rep, rep = N / Nkv) from one read of them.  The split count is a function
-// of the table width (max_blocks * BS) alone, never of lens, which live on
-// the device: a captured call stays valid as rows grow, and a split whose run
-// starts past the row's context leaves at once.  Each split writes its
-// partial (acc, m, l) per query row to fp32 scratch, and paged_combine_kernel
-// (a programmatic dependent launch) merges the row's active splits in split
-// order: nothing is atomic, so a call repeats bit for bit and a row does not
-// depend on the batch it sits in.
-// The append without a race: every split takes the slots >= base from k_new
-// / v_new (and ksn / vsn), never from the pool (the TPU kernel's
-// ``substituted``); split 0 of query tile 0 alone writes the row's kv-head
-// slice of the new tokens into the pool; so no block reads a pool slot that
-// any block writes.  Parked rows (lens Sq, a zeroed table) write dummy block
-// 0, and their outputs are dropped.
+// B4 (kAppendDecode), decode with the append: Sq = 1 over the lens - 1 old
+// slots, none taken from k_new; the new token is appended at blk / off and
+// folded in by paged_append_combine_kernel as one analytic fp32 term.
 //
-// Two split kernels.  paged_verify_mma_kernel (B5 on bf16 and int8 pools):
-// the compute type is bf16, so both products run on the tensor cores as
-// mma.sync.m16n8k16 (bf16 in, fp32 accumulate) with no change of numerics:
+// Split-KV, B1's pattern: the grid is (kv head x query tile, row, split
+// block); a split takes a fixed run of kVerifyRun slots of its row's table
+// and serves the query rows of its tile (row r of the group is query r / rep
+// of head r % rep, rep = N / Nkv) from one read of them.  The split count is
+// a function of the table width (max_blocks * BS) alone, never of lens,
+// which live on the device: a captured call stays valid as rows grow.  The
+// grid's third axis holds at most enough blocks to fill the card a few
+// times over (from the table width, the rows and the SMs, never lens): block
+// z takes splits z, z + gridDim.z, ... in turn and leaves at the first whose
+// run starts past its row's context, so a wide table with short rows (the
+// serving pool: 2048 slots, rows of a few hundred) does not launch a block
+// for every empty run.  Each split writes its partial (acc, m, l) per query
+// row to fp32 scratch, and the combine (a programmatic dependent launch)
+// merges the row's active splits in split order: nothing is atomic, so a
+// call repeats bit for bit and a row does not depend on the batch it sits in.
+// The append without a race: B5's splits take the slots >= base from k_new /
+// v_new (and ksn / vsn), never from the pool (the TPU kernel's
+// ``substituted``), B4's read only slots below lens - 1; split 0 of query
+// tile 0 alone writes the row's kv-head slice of the new tokens into the
+// pool; so no block reads a pool slot that any block writes.  Parked rows
+// (B5: lens Sq, a zeroed table; B4: lens 1, blk 0) write dummy block 0, and
+// their outputs are dropped.
+//
+// Two split kernels.  paged_verify_mma_kernel (B4 and B5 on bf16 and int8
+// pools): the compute type is bf16, so both products run on the tensor cores
+// as mma.sync.m16n8k16 (bf16 in, fp32 accumulate) with no change of numerics:
 // q * scale rounded to bf16 is the A operand of Q K^T, p * vs rounded to bf16
 // the A operand of P V; the rep * Sq query rows of a group fill m16 tiles
-// (one tile a block; MHA at Sq 5 uses 5 of its 16 rows: wgmma's m64 would
-// waste more).  Each warp gathers its own 32-slot chunks of the run through
-// the table by 16-byte cp.async into shared memory (all chunks of the run in
-// flight at once; a token's head slice is 256 contiguous bytes), int8 chunks
-// are converted exactly to bf16 there, K feeds ldmatrix, V ldmatrix.trans;
-// the warps run their own online softmax and merge in warp order.  int8: ks
-// scales the fp32 score after the dot, vs the p before its rounding, the
-// denominator sums the unscaled p.  paged_verify_fma_kernel (B5 on f32 pools,
-// and B6): fp32 FMAs (TF32 would break the 1e-4 checks), 32-token tiles of
-// the run, one token per lane in the softmax.  What bounds them on the card:
-// the bytes of the rows' context, as B4.
+// (one tile a block; MHA at Sq 5 uses 5 of its 16 rows, B4 at MHA 1: the
+// kernel is bound by bytes, and wgmma's m64 would waste more).  Each warp
+// gathers its own 32-slot chunks of the run through the table by 16-byte
+// cp.async into shared memory (all chunks of the run in flight at once; a
+// token's head slice is 256 contiguous bytes), int8 chunks are converted
+// exactly to bf16 there, K feeds ldmatrix, V ldmatrix.trans; the warps run
+// their own online softmax and merge in warp order.  int8: ks scales the
+// fp32 score after the dot, vs the p before its rounding, the denominator
+// sums the unscaled p.  paged_verify_fma_kernel (B4 and B5 on f32 pools, and
+// B6): fp32 FMAs (TF32 would break the 1e-4 checks), 32-token tiles of the
+// run, one token per lane in the softmax; on an f32 pool B4's arithmetic is
+// B6's over lens - 1 slots (rounding to f32 changes nothing), so the f32
+// parity path shares this kernel instead of keeping one of its own.  What
+// bounds them on the card: the bytes of the rows' context.
 #ifndef VCLA_VERIFY_RUN
 #define VCLA_VERIFY_RUN 128
 #endif
@@ -433,11 +223,19 @@ __device__ __forceinline__ uint32_t bf16x2(float a, float b) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// What a split kernel computes: B5 (Sq new tokens among the slots, appended
+// through the table), B6 (no append, all f32) or B4 (the lens - 1 old slots;
+// the new token appended at blk / off and folded in by the combine).
+enum Mode { kVerify, kDecode, kAppendDecode };
+
 // The append: the row's kv-head slice of its Sq new tokens (and their
-// scales) into the pool, 16 bytes a thread at a time.
-template <typename KV, int HD>
+// scales) into the pool, 16 bytes a thread at a time: B5's at slots base + j
+// of the table (a slot past it at dummy block 0, offset 0), B4's (Sq 1) at
+// blk[b], off[b].
+template <typename KV, int HD, Mode M>
 __device__ __forceinline__ void append_new_tokens(const KV* k_new, const KV* v_new, KV* k_pool,
-                                                  KV* v_pool, const int* table, const float* ksn,
+                                                  KV* v_pool, const int* table, const int* blk,
+                                                  const int* off, const float* ksn,
                                                   const float* vsn, float* ks_pool,
                                                   float* vs_pool, int b, int kvh, int base,
                                                   int Sq, int Nkv, int BS, int max_blocks,
@@ -446,10 +244,14 @@ __device__ __forceinline__ void append_new_tokens(const KV* k_new, const KV* v_n
   constexpr int kPieces = HD / kVec;
   for (int i = threadIdx.x; i < Sq * kPieces; i += kThreads) {
     const int j = i / kPieces, e = (i % kPieces) * kVec;
-    const int slot = base + j;
-    const bool in_table = slot >= 0 && slot / BS < max_blocks;
-    const long long row =
-        layer_rows + (in_table ? (long long)table[slot / BS] * BS + slot % BS : 0);
+    long long row;
+    if constexpr (M == kAppendDecode) {
+      row = layer_rows + (long long)blk[b] * BS + off[b];
+    } else {
+      const int slot = base + j;
+      const bool in_table = slot >= 0 && slot / BS < max_blocks;
+      row = layer_rows + (in_table ? (long long)table[slot / BS] * BS + slot % BS : 0);
+    }
     const size_t src = ((size_t)(b * Sq + j) * Nkv + kvh);
     const long long dst = row * Nkv * HD + (long long)kvh * HD + e;
     *reinterpret_cast<uint4*>(k_pool + dst) = *reinterpret_cast<const uint4*>(k_new + src * HD + e);
@@ -489,15 +291,17 @@ struct VerifySmem {
   static constexpr int kAlloc = kBytes > kMergeBytes ? kBytes : kMergeBytes;
 };
 
-template <typename T, typename KV, int HD>
+template <typename T, typename KV, int HD, Mode M>
 __global__ void __launch_bounds__(kThreads)
 paged_verify_mma_kernel(const T* __restrict__ q, const KV* __restrict__ k_new,
                         const KV* __restrict__ v_new, KV* k_pool, KV* v_pool,
                         const int* __restrict__ tables, const int* __restrict__ lens,
+                        const int* __restrict__ blk, const int* __restrict__ off,
                         const float* __restrict__ ksn, const float* __restrict__ vsn,
                         float* ks_pool, float* vs_pool, float* __restrict__ part, int N,
                         int Nkv, int Sq, int NB, int BS, int max_blocks, int layer, int splits,
                         float scale) {
+  static_assert(M != kDecode, "B6 runs on the FMA kernel");
   using L = VerifySmem<KV, HD>;
   constexpr int kKSteps = HD / 16;
   launch_dependents();
@@ -505,17 +309,16 @@ paged_verify_mma_kernel(const T* __restrict__ q, const KV* __restrict__ k_new,
   const int R = rep * Sq;
   const int tiles = (R + 15) / 16;
   const int kvh = blockIdx.x / tiles, mt = blockIdx.x % tiles;
-  const int b = blockIdx.y, split = blockIdx.z;
-  const int length = lens[b];
-  const int base = length - Sq;
+  const int b = blockIdx.y;
+  // B4 attends over the old context only; B5's last Sq slots are its new tokens
+  const int length = lens[b] - (M == kAppendDecode ? 1 : 0);
+  const int base = M == kAppendDecode ? length : length - Sq;
   const int ctx = min(length, max_blocks * BS);  // the slots the table covers
   const int* table = tables + (size_t)b * max_blocks;
   const long long layer_rows = (long long)layer * NB * BS;
-  const int j_begin = split * kVerifyRun;
-  if (split == 0 && mt == 0)
-    append_new_tokens<KV, HD>(k_new, v_new, k_pool, v_pool, table, ksn, vsn, ks_pool, vs_pool, b,
-                              kvh, base, Sq, Nkv, BS, max_blocks, layer_rows);
-  if (j_begin >= ctx) return;
+  if (blockIdx.z == 0 && mt == 0)
+    append_new_tokens<KV, HD, M>(k_new, v_new, k_pool, v_pool, table, blk, off, ksn, vsn, ks_pool,
+                                 vs_pool, b, kvh, base, Sq, Nkv, BS, max_blocks, layer_rows);
 
   extern __shared__ __align__(16) uint8_t vsmem[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -523,6 +326,15 @@ paged_verify_mma_kernel(const T* __restrict__ q, const KV* __restrict__ k_new,
   const int KVL = Nkv * HD;
   uint8_t* wsm = vsmem + L::kQBytes + warp * L::kWarpBytes;
   uint8_t* raw = wsm + (L::kQuant ? 1 : kChunksPerWarp) * L::kChunkBytes;  // int8 chunks, scales
+  // this thread's rows g and g + 8 of the tile: the last slot each may see
+  const int r_lo = mt * 16 + g, r_hi = r_lo + 8;
+  const int see_lo = r_lo < R ? min(base + r_lo / rep, ctx - 1) : -1;
+  const int see_hi = r_hi < R ? min(base + r_hi / rep, ctx - 1) : -1;
+  uint32_t qa[kKSteps][4];  // A fragments of Q, all of hd
+
+  for (int split = blockIdx.z; split < splits; split += gridDim.z) {
+  const int j_begin = split * kVerifyRun;
+  if (j_begin >= ctx) break;  // uniform over the block; later splits start further on
 
   // this warp's chunks: its c-th covers slots j_begin + (warp + kWarps c) * 32 ...
   for (int c = 0; c < kChunksPerWarp; ++c) {
@@ -530,7 +342,7 @@ paged_verify_mma_kernel(const T* __restrict__ q, const KV* __restrict__ k_new,
     const int j0 = j_begin + ci * kChunk;
     const int j = j0 + lane;
     const bool in = ci < kRunChunks && j < ctx;
-    const long long src = in ? slot_source(table, j, base, BS, layer_rows, true) : 0;
+    const long long src = in ? slot_source(table, j, base, BS, layer_rows, M == kVerify) : 0;
     const KV* k_src = src >= 0 ? k_pool + src * KVL + (long long)kvh * HD
                                : k_new + ((size_t)(b * Sq) + (-2 - src)) * KVL + (size_t)kvh * HD;
     const KV* v_src = src >= 0 ? v_pool + src * KVL + (long long)kvh * HD
@@ -569,7 +381,9 @@ paged_verify_mma_kernel(const T* __restrict__ q, const KV* __restrict__ k_new,
     cp_async_commit();
   }
 
-  // the query tile: q * scale rounded to bf16; rows past R are zeros
+  // the query tile (the block's first split): q * scale rounded to bf16; rows
+  // past R are zeros
+  if (split == (int)blockIdx.z) {
   for (int i = threadIdx.x; i < 16 * (HD / 2); i += kThreads) {
     const int r = i / (HD / 2), e = (i % (HD / 2)) * 2;
     const int rr = mt * 16 + r;
@@ -581,16 +395,12 @@ paged_verify_mma_kernel(const T* __restrict__ q, const KV* __restrict__ k_new,
     *reinterpret_cast<uint32_t*>(vsmem + r * L::kRowBytes + e * 2) = v;
   }
   __syncthreads();
-  uint32_t qa[kKSteps][4];  // A fragments of Q, all of hd
 #pragma unroll
   for (int kk = 0; kk < kKSteps; ++kk)
     ldmatrix_x4(qa[kk], smem_u32(vsmem + ((lane / 8) % 2 * 8 + lane % 8) * L::kRowBytes +
                                  (kk * 16 + (lane / 16) * 8) * 2));
+  }
 
-  // this thread's rows g and g + 8 of the tile: the last slot each may see
-  const int r_lo = mt * 16 + g, r_hi = r_lo + 8;
-  const int see_lo = r_lo < R ? min(base + r_lo / rep, ctx - 1) : -1;
-  const int see_hi = r_hi < R ? min(base + r_hi / rep, ctx - 1) : -1;
   float m_lo = kNegInf, m_hi = kNegInf, l_lo = 0.f, l_hi = 0.f;
   float o[HD / 8][4];
 #pragma unroll
@@ -754,24 +564,29 @@ paged_verify_mma_kernel(const T* __restrict__ q, const KV* __restrict__ k_new,
       dst[HD + 1] = l_all;
     }
   }
+  __syncthreads();  // the merge area holds the next split's chunks
+  }
 }
 
-// The FMA split kernel (B5 on f32 pools; B6 on every pool): B4's tile walk
-// over the split's run, all R query rows of the group in one block.
-template <typename T, typename KV, int HD, bool kAppend, bool kExact>
+// The FMA split kernel (B4 and B5 on f32 pools; B6 on every pool): a walk
+// over the split's run in 32-token tiles, all R query rows of the group in
+// one block.
+template <typename T, typename KV, int HD, Mode M>
 __global__ void __launch_bounds__(kThreads)
 paged_verify_fma_kernel(const T* __restrict__ q, const KV* __restrict__ k_new,
                         const KV* __restrict__ v_new, KV* k_pool, KV* v_pool,
                         const int* __restrict__ tables, const int* __restrict__ lens,
+                        const int* __restrict__ blk, const int* __restrict__ off,
                         const float* __restrict__ ksn, const float* __restrict__ vsn,
                         float* ks_pool, float* vs_pool, float* __restrict__ part, int N,
                         int Nkv, int Sq, int NB, int BS, int max_blocks, int layer, int splits,
                         float scale) {
   static_assert(HD == 128, "four elements of a K row a lane, one V column a thread");
   constexpr int kPerLane = HD / 32;
+  constexpr bool kExact = M == kDecode;
   launch_dependents();
   const int kvh = blockIdx.x;
-  const int b = blockIdx.y, split = blockIdx.z;
+  const int b = blockIdx.y;
   const int rep = N / Nkv;
   const int R = rep * Sq;  // query rows of the group
   const int KVL = Nkv * HD;
@@ -779,17 +594,15 @@ paged_verify_fma_kernel(const T* __restrict__ q, const KV* __restrict__ k_new,
   const int lane = threadIdx.x % 32;
   const int d = threadIdx.x;
 
-  const int length = lens[b];
-  const int base = length - Sq;  // slot of new token 0
+  const int length = lens[b] - (M == kAppendDecode ? 1 : 0);
+  const int base = M == kAppendDecode ? length : length - Sq;  // slot of new token 0
   const int ctx = min(length, max_blocks * BS);
   const int* table = tables + (size_t)b * max_blocks;
   const long long layer_rows = (long long)layer * NB * BS;
-  const int j_begin = split * kVerifyRun;
-  if (kAppend && split == 0)
-    append_new_tokens<KV, HD>(k_new, v_new, k_pool, v_pool, table, ksn, vsn, ks_pool, vs_pool, b,
-                              kvh, base, Sq, Nkv, BS, max_blocks, layer_rows);
-  if (j_begin >= ctx) return;
-  const int j_end = min(ctx, j_begin + kVerifyRun);
+  if (M != kDecode && blockIdx.z == 0)
+    append_new_tokens<KV, HD, M>(k_new, v_new, k_pool, v_pool, table, blk, off, ksn, vsn, ks_pool,
+                                 vs_pool, b, kvh, base, Sq, Nkv, BS, max_blocks, layer_rows);
+  if ((int)blockIdx.z * kVerifyRun >= ctx) return;
 
   extern __shared__ float smem[];
   float* q_sh = smem;                // R x HD: q * scale (rounded unless kExact)
@@ -804,8 +617,13 @@ paged_verify_fma_kernel(const T* __restrict__ q, const KV* __restrict__ k_new,
     const int j = r / rep, h = r % rep;
     const float x = to_f32(q[((size_t)(b * Sq + j) * N + kvh * rep + h) * HD + e]) * scale;
     q_sh[i] = kExact ? x : round_compute<KV>(x);
-    acc_sh[i] = 0.f;
   }
+
+  for (int split = blockIdx.z; split < splits; split += gridDim.z) {
+  const int j_begin = split * kVerifyRun;
+  if (j_begin >= ctx) break;  // uniform over the block
+  const int j_end = min(ctx, j_begin + kVerifyRun);
+  for (int i = threadIdx.x; i < R * HD; i += kThreads) acc_sh[i] = 0.f;
   for (int r = threadIdx.x; r < R; r += kThreads) {
     m_sh[r] = kNegInf;
     l_sh[r] = 0.f;
@@ -815,7 +633,7 @@ paged_verify_fma_kernel(const T* __restrict__ q, const KV* __restrict__ k_new,
   // token j0 + lane's source: a pool row, a new token (-2 - n), or -1 past the run
   auto source = [&](int j0) -> long long {
     const int j = j0 + lane;
-    return j < j_end ? slot_source(table, j, base, BS, layer_rows, kAppend) : -1;
+    return j < j_end ? slot_source(table, j, base, BS, layer_rows, M == kVerify) : -1;
   };
   auto k_row = [&](long long src) -> const KV* {
     return src >= 0 ? k_pool + src * KVL + (long long)kvh * HD
@@ -927,10 +745,34 @@ paged_verify_fma_kernel(const T* __restrict__ q, const KV* __restrict__ k_new,
       dst[HD + 1] = l_sh[r];
     }
   }
+  __syncthreads();  // the next split starts from fresh acc / m / l
+  }
 }
 
-// One (query j, head n) of row b: the row's active splits combined in split
-// order (a row with nothing to attend over gives zeros).
+// The active splits' partials of one query row (p0: its first split's
+// entry) merged in split order, for head-dim column d: (m, l, acc[d]).
+template <int HD>
+__device__ __forceinline__ void merge_splits(const float* p0, int active, int d, float& m_all,
+                                             float& l_all, float& a_all) {
+  m_all = kNegInf;
+  for (int s = 0; s < active; ++s) m_all = fmaxf(m_all, p0[s * (HD + 2) + HD]);
+  l_all = 0.f;
+  a_all = 0.f;
+  for (int s = 0; s < active; ++s) {
+    const float* p = p0 + s * (HD + 2);
+    const float c = expf(p[HD] - m_all);
+    l_all += p[HD + 1] * c;
+    a_all += p[d] * c;
+  }
+}
+
+// the splits of a context of ctx slots that hold any of it
+__device__ __forceinline__ int active_splits(int ctx) {
+  return ctx <= 0 ? 0 : (ctx - 1) / kVerifyRun + 1;
+}
+
+// B5 / B6: one (query j, head n) of row b, the row's active splits combined
+// in split order (a row with nothing to attend over gives zeros).
 template <typename T, int HD>
 __global__ void __launch_bounds__(HD)
 paged_combine_kernel(const float* __restrict__ part, const int* __restrict__ lens,
@@ -942,36 +784,93 @@ paged_combine_kernel(const float* __restrict__ part, const int* __restrict__ len
   const int d = threadIdx.x;
   const int rep = N / Nkv;
   const int kvh = n / rep, r = j * rep + n % rep;
-  const int ctx = min(lens[b], max_blocks * BS);
-  const int active = ctx <= 0 ? 0 : (ctx - 1) / kVerifyRun + 1;
+  const int active = active_splits(min(lens[b], max_blocks * BS));
   const float* p0 = part + ((((size_t)b * Nkv + kvh) * (rep * Sq) + r) * splits) * (HD + 2);
   wait_for_primary();
-  float m_all = kNegInf;
-  for (int s = 0; s < active; ++s) m_all = fmaxf(m_all, p0[s * (HD + 2) + HD]);
-  float l_all = 0.f, a_all = 0.f;
-  for (int s = 0; s < active; ++s) {
-    const float* p = p0 + s * (HD + 2);
-    const float c = expf(p[HD] - m_all);
-    l_all += p[HD + 1] * c;
-    a_all += p[d] * c;
-  }
+  float m_all, l_all, a_all;
+  merge_splits<HD>(p0, active, d, m_all, l_all, a_all);
   out[((size_t)b * Sq * N + jn) * HD + d] = from_f32<T>(a_all / (l_all == 0.f ? 1.f : l_all));
 }
 
-// the split kernel for (T, KV, kAppend, kExact): tensor cores for B5 on a
-// bf16 or int8 pool, fp32 FMAs otherwise
-template <typename T, typename KV, int HD, bool kAppend, bool kExact>
+// B4: head n of row b, the row's active splits of its old context combined
+// in split order, then the new token as one analytic online-softmax term in
+// fp32 (the plain version's order): sn = sum_d qs[d] kn[d] (times ksn), pn =
+// exp(sn - m), the denominator takes the unscaled pn, the output pn * vsn *
+// vn unrounded.  A row with no old context (lens 1: parked rows) gives
+// v_new (times vsn).  q, k_new and v_new are read before the wait: the split
+// kernel does not write them.
+template <typename T, typename KV, int HD>
+__global__ void __launch_bounds__(HD)
+paged_append_combine_kernel(const float* __restrict__ part, const T* __restrict__ q,
+                            const KV* __restrict__ k_new, const KV* __restrict__ v_new,
+                            const float* __restrict__ ksn, const float* __restrict__ vsn,
+                            const int* __restrict__ lens, T* __restrict__ out, int N, int Nkv,
+                            int BS, int max_blocks, int splits, float scale) {
+  static_assert(HD % 32 == 0 && HD / 32 <= 32, "a block of whole warps");
+  __shared__ float dot_sh[HD / 32];
+  const int n = blockIdx.x, b = blockIdx.y;
+  const int d = threadIdx.x;
+  const int rep = N / Nkv;
+  const int kvh = n / rep;
+  const size_t kv = (size_t)b * Nkv + kvh;
+  const float qs = round_compute<KV>(to_f32(q[((size_t)b * N + n) * HD + d]) * scale);
+  const float vn = to_f32(v_new[kv * HD + d]);
+  // the score's dot: a warp's lanes in butterfly order, then the warps in order
+  const float dot = warp_sum(qs * to_f32(k_new[kv * HD + d]));
+  if (d % 32 == 0) dot_sh[d / 32] = dot;
+  __syncthreads();
+  float sn = 0.f;
+#pragma unroll
+  for (int w = 0; w < HD / 32; ++w) sn += dot_sh[w];
+  float v_sc = 1.f;
+  if (kQuantKV<KV>) {
+    sn *= ksn[kv];
+    v_sc = vsn[kv];
+  }
+  const int active = active_splits(min(lens[b] - 1, max_blocks * BS));
+  const float* p0 = part + ((kv * rep + n % rep) * splits) * (HD + 2);
+  wait_for_primary();
+  float m_all, l_all, a_all;
+  merge_splits<HD>(p0, active, d, m_all, l_all, a_all);
+  const float m_new = fmaxf(m_all, sn);
+  const float pn = expf(sn - m_new);
+  const float alpha = expf(m_all - m_new);
+  const float l = l_all * alpha + pn;
+  const float a = a_all * alpha + (pn * v_sc) * vn;
+  out[((size_t)b * N + n) * HD + d] = from_f32<T>(a / (l == 0.f ? 1.f : l));
+}
+
+int sm_count() {
+  static int sms = 0;  // read once: stays out of graph capture
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      sms = 132;
+  }
+  return sms;
+}
+
+// The split kernel for (T, KV, M): tensor cores for B4 and B5 on a bf16 or
+// int8 pool, fp32 FMAs otherwise; then the combine as a programmatic
+// dependent launch (B4's adds the new token).  The grid's third axis:
+// splits, cut to about kSplitBlocksPerSm blocks an SM in all (each block
+// then walks every gridDim.z-th split).
+constexpr int kSplitBlocksPerSm = 4;
+
+template <typename T, typename KV, int HD, Mode M>
 cudaError_t launch_split(const void* q, const void* k_new, const void* v_new, void* k_pool,
-                         void* v_pool, const void* tables, const void* lens, const void* ksn,
-                         const void* vsn, void* ks_pool, void* vs_pool, void* out, float* part,
-                         int B, int Sq, int N, int Nkv, int NB, int BS, int max_blocks,
-                         int layer, int splits, float scale, cudaStream_t stream) {
-  constexpr bool kTensor = kAppend && !kExact && sizeof(KV) <= 2;
+                         void* v_pool, const void* tables, const void* lens, const void* blk,
+                         const void* off, const void* ksn, const void* vsn, void* ks_pool,
+                         void* vs_pool, void* out, float* part, int B, int Sq, int N, int Nkv,
+                         int NB, int BS, int max_blocks, int layer, int splits, float scale,
+                         cudaStream_t stream) {
+  constexpr bool kTensor = M != kDecode && sizeof(KV) <= 2;
   const int rep = N / Nkv;
   const int R = rep * Sq;
   auto kernel = [] {
-    if constexpr (kTensor) return paged_verify_mma_kernel<T, KV, HD>;
-    else return paged_verify_fma_kernel<T, KV, HD, kAppend, kExact>;
+    if constexpr (kTensor) return paged_verify_mma_kernel<T, KV, HD, M>;
+    else return paged_verify_fma_kernel<T, KV, HD, M>;
   }();
   size_t smem;
   if constexpr (kTensor) smem = VerifySmem<KV, HD>::kAlloc;
@@ -983,13 +882,16 @@ cudaError_t launch_split(const void* q, const void* k_new, const void* v_new, vo
     if (err != cudaSuccess) return err;
     allowed = smem;
   }
-  const dim3 grid(kTensor ? Nkv * ((R + 15) / 16) : Nkv, B, splits);
-  kernel<<<grid, kThreads, smem, stream>>>(
+  const int gx = kTensor ? Nkv * ((R + 15) / 16) : Nkv;
+  const int per_z = gx * B;
+  const int gz = min(splits, max(1, (kSplitBlocksPerSm * sm_count() + per_z - 1) / per_z));
+  kernel<<<dim3(gx, B, gz), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const KV*>(k_new), static_cast<const KV*>(v_new),
       static_cast<KV*>(k_pool), static_cast<KV*>(v_pool), static_cast<const int*>(tables),
-      static_cast<const int*>(lens), static_cast<const float*>(ksn),
-      static_cast<const float*>(vsn), static_cast<float*>(ks_pool),
-      static_cast<float*>(vs_pool), part, N, Nkv, Sq, NB, BS, max_blocks, layer, splits, scale);
+      static_cast<const int*>(lens), static_cast<const int*>(blk), static_cast<const int*>(off),
+      static_cast<const float*>(ksn), static_cast<const float*>(vsn),
+      static_cast<float*>(ks_pool), static_cast<float*>(vs_pool), part, N, Nkv, Sq, NB, BS,
+      max_blocks, layer, splits, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   // the combine's launch overlaps the split kernel (it waits inside for its partials)
@@ -1002,89 +904,93 @@ cudaError_t launch_split(const void* q, const void* k_new, const void* v_new, vo
   attr.val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, paged_combine_kernel<T, HD>, static_cast<const float*>(part),
-                            static_cast<const int*>(lens), static_cast<T*>(out), N, Nkv, Sq, BS,
-                            max_blocks, splits);
+  if constexpr (M == kAppendDecode)
+    return cudaLaunchKernelEx(&cfg, paged_append_combine_kernel<T, KV, HD>,
+                              static_cast<const float*>(part), static_cast<const T*>(q),
+                              static_cast<const KV*>(k_new), static_cast<const KV*>(v_new),
+                              static_cast<const float*>(ksn), static_cast<const float*>(vsn),
+                              static_cast<const int*>(lens), static_cast<T*>(out), N, Nkv, BS,
+                              max_blocks, splits, scale);
+  else
+    return cudaLaunchKernelEx(&cfg, paged_combine_kernel<T, HD>, static_cast<const float*>(part),
+                              static_cast<const int*>(lens), static_cast<T*>(out), N, Nkv, Sq,
+                              BS, max_blocks, splits);
+}
+
+template <Mode M>
+int launch_for_types(int is_bf16, int kv_int8, const void* q, const void* k_new,
+                     const void* v_new, void* k_pool, void* v_pool, const void* tables,
+                     const void* lens, const void* blk, const void* off, const void* ksn,
+                     const void* vsn, void* ks_pool, void* vs_pool, void* out, void* scratch,
+                     int B, int Sq, int N, int Nkv, int NB, int BS, int max_blocks, int layer,
+                     float scale, cudaStream_t st) {
+  if (B == 0) return 0;
+  const int splits = (max_blocks * BS + kVerifyRun - 1) / kVerifyRun;
+  float* part = static_cast<float*>(scratch);
+#define VCLA_SPLIT_ARGS                                                                      \
+  q, k_new, v_new, k_pool, v_pool, tables, lens, blk, off, ksn, vsn, ks_pool, vs_pool, out, \
+      part, B, Sq, N, Nkv, NB, BS, max_blocks, layer, splits, scale, st
+  if (kv_int8)
+    return is_bf16 ? launch_split<__nv_bfloat16, int8_t, 128, M>(VCLA_SPLIT_ARGS)
+                   : launch_split<float, int8_t, 128, M>(VCLA_SPLIT_ARGS);
+  return is_bf16 ? launch_split<__nv_bfloat16, __nv_bfloat16, 128, M>(VCLA_SPLIT_ARGS)
+                 : launch_split<float, float, 128, M>(VCLA_SPLIT_ARGS);
+#undef VCLA_SPLIT_ARGS
 }
 
 }  // namespace
 
 // Plain C interface, loaded with ctypes.  Every pointer is a device pointer
 // (the four scale pointers are null for a float pool); ``stream`` is a
-// cudaStream_t.  Returns a cudaError_t (0 = launched).
+// cudaStream_t.  Returns a cudaError_t (0 = launched).  Each call is two
+// launches (splits, combine); the caller allocates the splits' scratch
+// (B, Nkv, N / Nkv * Sq, splits, head_dim + 2) f32, Sq = 1 for B4 and B6.
 extern "C" {
 
+// kv slots a split: a table max_blocks * BS slots wide makes ceil(width /
+// run) splits
+int vcla_paged_run() { return kVerifyRun; }
+
+// B4: the pools are (L, NB, BS, Nkv * head_dim) and updated in place
 int vcla_paged_append(const void* q, const void* k_new, const void* v_new, void* k_pool,
                       void* v_pool, const void* tables, const void* lens, const void* blk,
                       const void* off, const void* ksn, const void* vsn, void* ks_pool,
-                      void* vs_pool, void* out, int B, int N, int Nkv, int NB, int BS,
-                      int max_blocks, int layer, int head_dim, int is_bf16, int kv_int8,
+                      void* vs_pool, void* out, void* scratch, int B, int N, int Nkv, int NB,
+                      int BS, int max_blocks, int layer, int head_dim, int is_bf16, int kv_int8,
                       float scale, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (head_dim != 128) return static_cast<int>(cudaErrorInvalidValue);
-  if (B == 0) return 0;
-#define VCLA_PAGED_ARGS                                                                  \
-  q, k_new, v_new, k_pool, v_pool, tables, lens, blk, off, ksn, vsn, ks_pool, vs_pool, out, \
-      B, N, Nkv, NB, BS, max_blocks, layer, scale, st
-  if (kv_int8)
-    return is_bf16 ? launch<__nv_bfloat16, int8_t, 128>(VCLA_PAGED_ARGS)
-                   : launch<float, int8_t, 128>(VCLA_PAGED_ARGS);
-  return is_bf16 ? launch<__nv_bfloat16, __nv_bfloat16, 128>(VCLA_PAGED_ARGS)
-                 : launch<float, float, 128>(VCLA_PAGED_ARGS);
-#undef VCLA_PAGED_ARGS
+  return launch_for_types<kAppendDecode>(is_bf16, kv_int8, q, k_new, v_new, k_pool, v_pool,
+                                         tables, lens, blk, off, ksn, vsn, ks_pool, vs_pool, out,
+                                         scratch, B, 1, N, Nkv, NB, BS, max_blocks, layer, scale,
+                                         static_cast<cudaStream_t>(stream));
 }
 
-// kv slots a B5 / B6 split: a table max_blocks * BS slots wide makes
-// ceil(width / run) splits, and the caller allocates scratch (B, Nkv,
-// N / Nkv * Sq, splits, head_dim + 2) f32
-int vcla_paged_run() { return kVerifyRun; }
-
-// B5: the pools are (L, NB, BS, Nkv * head_dim) and updated in place; two
-// launches (splits, combine)
+// B5: the pools are (L, NB, BS, Nkv * head_dim) and updated in place
 int vcla_paged_verify(const void* q, const void* k_new, const void* v_new, void* k_pool,
                       void* v_pool, const void* tables, const void* lens, const void* ksn,
                       const void* vsn, void* ks_pool, void* vs_pool, void* out, void* scratch,
                       int B, int Sq, int N, int Nkv, int NB, int BS, int max_blocks, int layer,
                       int head_dim, int is_bf16, int kv_int8, float scale, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (head_dim != 128) return static_cast<int>(cudaErrorInvalidValue);
-  if (B == 0) return 0;
-  const int splits = (max_blocks * BS + kVerifyRun - 1) / kVerifyRun;
-  float* part = static_cast<float*>(scratch);
-#define VCLA_VERIFY_ARGS                                                                        \
-  q, k_new, v_new, k_pool, v_pool, tables, lens, ksn, vsn, ks_pool, vs_pool, out, part, B, Sq, \
-      N, Nkv, NB, BS, max_blocks, layer, splits, scale, st
-  if (kv_int8)
-    return is_bf16 ? launch_split<__nv_bfloat16, int8_t, 128, true, false>(VCLA_VERIFY_ARGS)
-                   : launch_split<float, int8_t, 128, true, false>(VCLA_VERIFY_ARGS);
-  return is_bf16 ? launch_split<__nv_bfloat16, __nv_bfloat16, 128, true, false>(VCLA_VERIFY_ARGS)
-                 : launch_split<float, float, 128, true, false>(VCLA_VERIFY_ARGS);
-#undef VCLA_VERIFY_ARGS
+  return launch_for_types<kVerify>(is_bf16, kv_int8, q, k_new, v_new, k_pool, v_pool, tables,
+                                   lens, nullptr, nullptr, ksn, vsn, ks_pool, vs_pool, out,
+                                   scratch, B, Sq, N, Nkv, NB, BS, max_blocks, layer, scale,
+                                   static_cast<cudaStream_t>(stream));
 }
 
-// B6: one layer's pools (NB, BS, Nkv, head_dim), read only; two launches
+// B6: one layer's pools (NB, BS, Nkv, head_dim), read only
 int vcla_paged_decode(const void* q, const void* k_pool, const void* v_pool, const void* tables,
                       const void* lens, const void* ks_pool, const void* vs_pool, void* out,
                       void* scratch, int B, int N, int Nkv, int NB, int BS, int max_blocks,
                       int head_dim, int is_bf16, int kv_int8, float scale, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (head_dim != 128) return static_cast<int>(cudaErrorInvalidValue);
-  if (B == 0) return 0;
-  const int splits = (max_blocks * BS + kVerifyRun - 1) / kVerifyRun;
-  float* part = static_cast<float*>(scratch);
-  void* kp = const_cast<void*>(k_pool);  // never written without the append
-  void* vp = const_cast<void*>(v_pool);
-  void* ks = const_cast<void*>(ks_pool);
-  void* vs = const_cast<void*>(vs_pool);
-#define VCLA_DECODE_ARGS                                                                      \
-  q, nullptr, nullptr, kp, vp, tables, lens, nullptr, nullptr, ks, vs, out, part, B, 1, N, Nkv, \
-      NB, BS, max_blocks, 0, splits, scale, st
-  if (kv_int8)
-    return is_bf16 ? launch_split<__nv_bfloat16, int8_t, 128, false, true>(VCLA_DECODE_ARGS)
-                   : launch_split<float, int8_t, 128, false, true>(VCLA_DECODE_ARGS);
-  return is_bf16 ? launch_split<__nv_bfloat16, __nv_bfloat16, 128, false, true>(VCLA_DECODE_ARGS)
-                 : launch_split<float, float, 128, false, true>(VCLA_DECODE_ARGS);
-#undef VCLA_DECODE_ARGS
+  // never written without the append
+  return launch_for_types<kDecode>(is_bf16, kv_int8, q, nullptr, nullptr,
+                                   const_cast<void*>(k_pool), const_cast<void*>(v_pool), tables,
+                                   lens, nullptr, nullptr, nullptr, nullptr,
+                                   const_cast<void*>(ks_pool), const_cast<void*>(vs_pool), out,
+                                   scratch, B, 1, N, Nkv, NB, BS, max_blocks, 0, scale,
+                                   static_cast<cudaStream_t>(stream));
 }
 
 const char* vcla_paged_error_string(int code) {

@@ -2,7 +2,7 @@
 by side in one process:
 
     python -m visualcla_tpu_torch.ops.cuda.bench_int4 [--ptxas] [--tokens 32,128,512]
-        [--sweep 1,2,4,5,8,9,12,16,17,20,24,25,32,48,64]
+        [--sweep 1,2,4,5,8,9,12,16,17,20,24,25,32,48,64,80,96,128,160,192,256]
 
 - the prefill form (wgmma) at each block tiling (``PREFILL_TILES`` 1: 64
   tokens a block, 2: 128; both 128 columns wide) and at the one
@@ -44,7 +44,7 @@ SWEEP_SHAPES = {**{f"7B {k}": v for k, v in LAYER.items()}, "7B head": HEAD,
 # token counts at which both forms are timed on the 7B shapes by chip_smoke.py:
 # a plain decode step of an 8-row pool (8), a speculative chunk of spec_k 8
 # (9), speculative pool steps of 1-4 rows at spec_k 4 (5-20), and either
-# side of the decode form's 8-token slices
+# side of the decode form's 16-token tiles
 CROSSOVER_TOKENS = (4, 5, 8, 9, 12, 16, 17, 20, 24, 32)
 
 
@@ -118,7 +118,7 @@ def sweep_forms(gen, tokens) -> dict:
                 worst = max(worst, rel_err(run(0), ref))
                 t.append(device_ms(run))
             times[name][T] = tuple(t)
-            pick = "decode" if i4.decode_form(T, out, sms) else "prefill"
+            pick = "decode" if i4.decode_form(T, in_dim, out, sms) else "prefill"
             slower = t[i4.FORMS.index(pick)] > min(t)
             cells.append(f"T{T} {t[0] * 1e3:.1f}/{t[1] * 1e3:.1f}{' ' + pick[0] if slower else ''}")
         print(f"[sweep] {name} ({in_dim},{out}) decode/prefill us ('d'/'p': decode_form picks "
@@ -143,7 +143,9 @@ def step_b3_ms(times, T, rule) -> float:
 
 def report_steps(times, tokens) -> None:
     sms = i4._sm_count(torch.device("cuda"))
-    rules = {"decode_form": lambda name, T, out: i4.decode_form(T, out, sms),
+    rules = {"decode_form": lambda name, T, out: i4.decode_form(
+                 T, {**{f"7B {k}": v for k, v in LAYER.items()}, "7B head": HEAD}[name][0], out,
+                 sms),
              "decode up to T=24": lambda name, T, out: T <= 24,
              "decode up to T=4": lambda name, T, out: T <= 4,
              "the faster form of each shape": lambda name, T, out: (times[name][T][0]
@@ -160,7 +162,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--ptxas", action="store_true")
     ap.add_argument("--tokens", default="32,128,512")
-    ap.add_argument("--sweep", default="1,2,4,5,8,9,12,16,17,20,24,25,32,48,64")
+    ap.add_argument("--sweep", default="1,2,4,5,8,9,12,16,17,20,24,25,32,48,64,80,96,128,160,192,"
+                                       "256")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("bench_int4: no CUDA device")

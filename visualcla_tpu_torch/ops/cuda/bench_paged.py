@@ -1,5 +1,5 @@
-"""Time the split-KV paged kernels' run length on the card, side by side in
-one process:
+"""Time the split-KV paged kernels' (B4, B5, B6) run length on the card, side
+by side in one process:
 
     python -m visualcla_tpu_torch.ops.cuda.bench_paged [--ptxas] [--runs 64,128,256]
 
@@ -11,6 +11,9 @@ compile-time constant of ``csrc/paged_attention.cu``: one build per value):
   B = 8 rows of 2039 old tokens at Sq 9; bf16 and int8 pools;
 - B6 (decode without an append) at B = 4 rows of 320 / 383 / 330 tokens and a
   parked row, bf16 and int8 pools;
+- B4 (decode with the append) at the same rows, MHA and GQA, in the table the
+  rows need and in one 2048 slots wide (the serve phase's), and at B = 8 rows
+  of 2047 tokens, bf16 and int8 pools;
 
 each with its max abs error against the plain version on the running rows
 and whether a second call gives the same bits.  The 7B heads (hd 128), BS
@@ -86,6 +89,32 @@ def bench_decode(run: int) -> None:
         torch.cuda.empty_cache()
 
 
+def bench_append(run: int) -> None:
+    ragged = [320, 383, 330, -1]
+    for label, ctx, Nkv, wide in (("B4 ragged", ragged, 32, False),
+                                  ("B4 ragged, 2048-slot table", ragged, 32, True),
+                                  ("B4 ragged GQA", ragged, 8, False),
+                                  ("B8x2048", [2047] * 8, 32, False)):
+        for kv8 in (False, True):
+            case = paged_case(ctx, 32, Nkv, L=32, layer=7, dtype=torch.bfloat16, kv_int8=kv8,
+                              device="cuda", seed=Nkv + len(ctx))
+            if wide:
+                case["tables"] = torch.nn.functional.pad(
+                    case["tables"], (0, 32 - case["tables"].shape[1]))
+            ref_case = {k: (v.clone() if torch.is_tensor(v) else v) for k, v in case.items()}
+            out = pa.paged_append_attention(**case)
+            again = pa.paged_append_attention(**case)
+            ref = pa.paged_append_attention_ref(**ref_case)
+            L = case["k_pool"].shape[0]
+            ms = device_ms(lambda i: pa.paged_append_attention(**{**case, "layer": i % L}),
+                           calls=L)
+            print(f"[append run={run}] {label} N32/{Nkv} {'int8' if kv8 else 'bf16'}: "
+                  f"{ms * 1e3:.1f}us, err {_err(out, ref, slice(None)):.2e}, bitwise repeat "
+                  f"{torch.equal(out, again)}", flush=True)
+            del case, ref_case
+            torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--ptxas", action="store_true")
@@ -102,6 +131,7 @@ def main() -> int:
         rebuild(run)
         print(f"paged_attention.cu built in {build.build_seconds.get('paged_attention', 0):.1f} s "
               f"(VCLA_VERIFY_RUN={run})", flush=True)
+        bench_append(run)
         bench_verify(run)
         bench_decode(run)
     return 0

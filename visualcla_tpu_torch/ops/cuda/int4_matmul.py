@@ -35,24 +35,32 @@ import torch
 from ..quantization import dequantize_grouped, unpack_s4_halves
 from . import build
 
-_DECODE_GROUPS_PER_BLOCK = 4  # the decode form's group split: kDecWarps in the source
+# The decode form's blocks (``csrc/int4_matmul.cu``): 8 warps over two
+# 64-column slices (128 columns) and up to 16 tokens, each of a slice's 4
+# warps taking whole groups of the block's split; a column tile's splits run
+# as one cluster (at most 8 blocks).
+_DECODE_SLICE_WARPS = 4
+_DECODE_COLS = 128
+_DECODE_TOKENS = 16
+_DECODE_MAX_SPLITS = 8
 # The prefill form's block tilings, tokens a block: 1 -> 64, 2 -> 128 (both
 # 128 columns wide); ``prefill_tiling`` picks one from the grid.
 PREFILL_TILES = {1: 64, 2: 128}
-# The cost model behind ``decode_form``, set on an H100 (80GB HBM3, 700 W)
-# from both forms' times on (4096, 11008) and the 7B head, and held against
-# bench_int4.py's sweep of the 7B and 13B shapes at 1-64 tokens (PERF.md, B3
-# crossover): at no swept point is its pick more than 2 % slower than the
-# other form.  The decode form reads the whole weight once for each slice
-# of ``decode_tokens_per_block(T)`` tokens, its work spread over every SM: a
-# slice of tt tokens costs _DECODE_SLICE_COST[tt] of an 8-token one.  Each
-# prefill block walks all of in_dim, so at few tokens the prefill form takes
-# its waves of blocks (one block an SM), _UNALIGNED_PREFILL_COST times
-# longer where ``out`` is not a multiple of 16 (its carrier rows then go
-# without TMA).  in_dim cancels: the decode form serves a call while
-#     slices * out < _DECODE_COLUMNS_PER_SM * sms * waves.
-_DECODE_COLUMNS_PER_SM = 83
-_DECODE_SLICE_COST = {1: 0.32, 2: 0.45, 4: 0.64, 8: 1.0}
+# The cost model behind ``decode_form``, fitted on an H100 (80GB HBM3, 700 W)
+# to bench_int4.py's sweep of both forms on the 7B and 13B shapes and heads
+# at 1-256 tokens (PERF.md §6).  The decode form takes, for each slice of
+# ``decode_tokens_per_block(T)`` (16) tokens, a fixed _DECODE_FIXED_US plus
+# the carrier's bytes at _DECODE_BYTES_PER_US; each prefill block walks all
+# of in_dim, so at few tokens the prefill form takes its waves of blocks (one
+# block an SM; counted at 64 tokens, where its time is still flat in T) times
+# in_dim at _PREFILL_US_PER_IN.  Where ``out`` is not a multiple of 16 both
+# read the carrier without 16-byte rows (the decode form _UNALIGNED_DECODE_COST,
+# the prefill form _UNALIGNED_PREFILL_COST times longer).  The decode form's
+# cost grows with T and the prefill form's does not, so the form changes once.
+_DECODE_FIXED_US = 16.0
+_DECODE_BYTES_PER_US = 1.8e6
+_PREFILL_US_PER_IN = 0.0105
+_UNALIGNED_DECODE_COST = 1.2
 _UNALIGNED_PREFILL_COST = 2.3
 LAUNCHES = {"int4_matmul_decode": 0, "int4_matmul_prefill": 0}
 FORMS = ("decode", "prefill")
@@ -72,8 +80,8 @@ def build_kernels() -> ctypes.CDLL:
         lib = build.load("int4_matmul")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.vcla_int4_matmul_decode.argtypes = [
-            ptr, ptr, ptr, ptr, ptr,  # x q scale partial out
-            i32, i32, i32, i32, i32, i32, i32,  # T in G gsh out out_bf16 tokens_per_block
+            ptr, ptr, ptr, ptr,  # x q scale out
+            i32, i32, i32, i32, i32, i32, i32, i32,  # T in G gsh out out_bf16 splits gps
             ptr]  # stream
         lib.vcla_int4_matmul_decode.restype = i32
         lib.vcla_int4_matmul_prefill.argtypes = [
@@ -151,7 +159,8 @@ def _launch(x, q, scale, out_dtype=None, form=None, tile=None):
         raise ValueError("carrier and scale must be contiguous (and the carrier 16-byte aligned)")
     T = xb.shape[0]
     if form is None:
-        form = "decode" if gsh % 32 or decode_form(T, out, _sm_count(x.device)) else "prefill"
+        form = ("decode" if gsh % 32 or decode_form(T, in_dim, out, _sm_count(x.device))
+                else "prefill")
     if form not in FORMS or (form == "prefill" and gsh % 32):
         raise ValueError(f"no {form!r} form for group size {2 * gsh}")
     y = torch.empty(T, out, dtype=out_dtype, device=x.device)
@@ -159,12 +168,9 @@ def _launch(x, q, scale, out_dtype=None, form=None, tile=None):
     lib = build_kernels()
     ptrs = (xb.data_ptr(), q.data_ptr(), scale.data_ptr())
     shape = (T, in_dim, G, gsh, out, int(out_dtype == torch.bfloat16))
-    if form == "decode":
-        # one fp32 partial per split of the groups, summed by a second launch
-        splits = -(-G // _DECODE_GROUPS_PER_BLOCK)
-        partial = torch.empty(splits, T, out, dtype=torch.float32, device=x.device)
-        err = lib.vcla_int4_matmul_decode(*ptrs, partial.data_ptr(), y.data_ptr(), *shape,
-                                          decode_tokens_per_block(T), stream)
+    if form == "decode":  # one launch
+        splits, gps = decode_splits(G, gsh, out, _sm_count(x.device))
+        err = lib.vcla_int4_matmul_decode(*ptrs, y.data_ptr(), *shape, splits, gps, stream)
     else:
         tile = tile or prefill_tiling(T, out, _sm_count(x.device))
         err = lib.vcla_int4_matmul_prefill(*ptrs, y.data_ptr(), *shape, tile, stream)
@@ -176,17 +182,31 @@ def _launch(x, q, scale, out_dtype=None, form=None, tile=None):
     return y.reshape(*lead, out)
 
 
-def decode_form(T: int, out: int, sms: int) -> bool:
-    """Whether the decode form serves T tokens of a weight with ``out``
-    columns on a card of ``sms`` SMs: the cost model above, the prefill
-    form's waves taken at the tiling ``prefill_tiling`` picks."""
-    tt = decode_tokens_per_block(T)
-    slices = -(-T // tt) * _DECODE_SLICE_COST[tt]
-    rows = PREFILL_TILES[prefill_tiling(T, out, sms)]
-    waves = -(-(-(-out // 128) * -(-T // rows)) // sms)
+def decode_form(T: int, in_dim: int, out: int, sms: int) -> bool:
+    """Whether the decode form serves T tokens of an (in_dim, out) weight on
+    a card of ``sms`` SMs: the cost model above, the prefill form's waves
+    taken at 64 tokens and the tiling ``prefill_tiling`` picks there."""
+    slices = -(-T // decode_tokens_per_block(T))
+    decode = slices * (_DECODE_FIXED_US + in_dim * out / 2 / _DECODE_BYTES_PER_US)
+    rows = PREFILL_TILES[prefill_tiling(64, out, sms)]
+    prefill = -(-(-(-out // 128) * -(-64 // rows)) // sms) * in_dim * _PREFILL_US_PER_IN
     if out % 16:
-        waves *= _UNALIGNED_PREFILL_COST
-    return slices * out < _DECODE_COLUMNS_PER_SM * sms * waves
+        decode *= _UNALIGNED_DECODE_COST
+        prefill *= _UNALIGNED_PREFILL_COST
+    return decode < prefill
+
+
+def decode_splits(G: int, gsh: int, out: int, sms: int) -> tuple:
+    """(splits, groups a split) of the decode form for a carrier of G groups
+    of ``gsh`` rows and ``out`` columns on ``sms`` SMs: enough splits that
+    the blocks (128 columns each) fill the card twice, as long as every warp
+    keeps a group and a tile's splits fit one cluster.  A function of the
+    weight's shape and the card alone, never of the token count, so a
+    token's row is summed in the same order whatever the batch."""
+    tiles = -(-out // _DECODE_COLS)
+    splits = max(1, min(-(-2 * sms // tiles), G // _DECODE_SLICE_WARPS, _DECODE_MAX_SPLITS))
+    gps = -(-G // splits)
+    return -(-G // gps), gps
 
 
 def prefill_tiling(T: int, out: int, sms: int) -> int:
@@ -208,9 +228,6 @@ def _sm_count(device) -> int:
 
 
 def decode_tokens_per_block(T: int) -> int:
-    """Tokens one decode-form block serves: 1, 2, 4 or 8, the least power of
-    two that covers T up to 8 (more tokens run as several blocks)."""
-    tt = 1
-    while tt < min(T, 8):
-        tt *= 2
-    return tt
+    """Tokens one decode-form block serves: T up to 16 (the mma's rows),
+    then 16 a block over several blocks."""
+    return min(T, _DECODE_TOKENS)

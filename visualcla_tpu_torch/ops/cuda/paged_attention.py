@@ -9,7 +9,10 @@ speculative verify step; B6 ``paged_decode_attention`` (-> ``_paged_kernel``)
 is decode attention over one layer's pool without an append, in f32 (see
 their docstrings).  The kernels live in ``csrc/paged_attention.cu``; its
 comments say what bounds them on the card (the bytes of the rows' K/V
-context) and what the design does about it.
+context) and what the design does about it.  All three share one split-KV
+structure: a kernel over runs of each row's table writes fp32 partials (see
+``_split_scratch``) and a second launch merges them in split order (B4's
+then folds in the new token as one analytic fp32 term).
 
 B4's contract, the JAX function's (``paged_attention.py:442-470``):
   q (B, N, hd), rope applied; k_new, v_new (B, Nkv, hd) in the pool's type
@@ -69,7 +72,7 @@ def build_kernels() -> ctypes.CDLL:
             ptr, ptr, ptr, ptr, ptr,  # q k_new v_new k_pool v_pool
             ptr, ptr, ptr, ptr,  # tables lens blk off
             ptr, ptr, ptr, ptr,  # k_new_scales v_new_scales k_scales v_scales
-            ptr,  # out
+            ptr, ptr,  # out scratch
             i32, i32, i32, i32, i32, i32, i32,  # B N Nkv NB BS max_blocks layer
             i32, i32, i32,  # head_dim is_bf16 kv_int8
             ctypes.c_float, ptr]  # scale stream
@@ -264,7 +267,7 @@ def _check_launch(hd: int, **named) -> float:
 
 
 def _check_aligned(**named) -> None:
-    """B5 copies K/V rows 16 bytes at a time: each tensor must start 16-byte
+    """B4 and B5 copy K/V rows 16 bytes at a time: each tensor must start 16-byte
     aligned (its rows then are: hd 128 in any type is a multiple of 16 bytes)."""
     for name, t in named.items():
         if t.data_ptr() % 16:
@@ -292,14 +295,16 @@ def _launch(q, k_new, v_new, k_pool, v_pool, tables, lens, blk, off, layer,
     kv8 = k_pool.dtype == torch.int8
     if scale is None:
         scale = default
+    _check_aligned(k_new=k_new, v_new=v_new, k_pool=k_pool, v_pool=v_pool)
     tables, lens, blk, off = _i32(tables), _i32(lens), _i32(blk), _i32(off)
     out = torch.empty_like(q)
     lib = build_kernels()
+    scratch = _split_scratch(lib, B, Nkv, N // Nkv, tables.shape[1] * BS, hd, q.device)
     err = lib.vcla_paged_append(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_pool.data_ptr(),
         v_pool.data_ptr(), tables.data_ptr(), lens.data_ptr(), blk.data_ptr(),
         off.data_ptr(), *map(_ptr, (k_new_scales, v_new_scales, k_scales, v_scales)),
-        out.data_ptr(), B, N, Nkv, NB, BS, tables.shape[1], int(layer), hd,
+        out.data_ptr(), scratch.data_ptr(), B, N, Nkv, NB, BS, tables.shape[1], int(layer), hd,
         int(q.dtype == torch.bfloat16), int(kv8), float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, lib, "paged_append")
@@ -469,7 +474,7 @@ def paged_decode_attention_ref(q, k_pool, v_pool, tables, lens, k_scales=None,
 
 
 def split_count(width: int, run: int) -> int:
-    """The kv splits B5 and B6 make of a block table ``width`` = max_blocks *
+    """The kv splits B4, B5 and B6 make of a block table ``width`` = max_blocks *
     BS slots wide, ``run`` slots each: a function of the width alone, never of
     lens (which live on the device), so a captured call stays valid as rows
     grow; a split whose run starts past its row's context does nothing."""
