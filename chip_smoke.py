@@ -33,7 +33,9 @@ Phases, one line of findings each:
                8, bf16 and f32), at 448 px (1025 tokens), at the resampler's
                (64 queries over 321 slots) and in the mesh form (bnsh, causal,
                hd 128, per-row slots, bf16 and int8 K/V, a fully masked row)
-               and with int8 K/V at the ViT's token counts (hd 64);
+               and with int8 K/V at the ViT's token counts (hd 64); B1 at
+               the beam search's shape (4 rows sharing the chat's prompt,
+               slot prompt + 16, 2048 slots, bf16 and f32);
                each with its bound and, where one PyTorch call computes the
                same function, that call's time;
   4. slice   — VisualCLA-7B at full width on seeded random bf16 weights made
@@ -49,6 +51,16 @@ Phases, one line of findings each:
                copying (B2 once a layer a verify chunk, B1 never), its
                stream's ids equal to its ``generate``'s, tokens a chunk,
                acceptance, TTFT and decode rate;
+  4b beams  — phase 4's model: a 4-beam greedy ``chat`` of 32 tokens with
+               exact launch counts (B2 once a layer for the shared prefill, B1
+               once a layer a step at B = 4), the device ms of a beam step
+               (torch.profiler) and the chat's tokens/s; ``num_return_sequences
+               =2`` (two hypotheses, best first); a sampled 4-beam chat on a
+               seeded generator; then on an fp32 copy: beam ids through the
+               kernels equal to those under ``plain_kernels()``, the best
+               hypothesis's score equal to a teacher-forced rescoring (one
+               prefill through B2) within 1e-3, and a batched B=2 beam
+               ``generate`` equal to its two single-row runs;
   4v vision  — phase 4's model with VISUALCLA_VIT_ATTN=flash: encode_image
                on 1 and 8 images with exactly 30 B2u launches a call, a greedy
                chat with exact B2u / B2 / B1 counts, VisionPipeline on 8
@@ -89,7 +101,23 @@ Phases, one line of findings each:
                greedy requests on a speculative int8 pool (B5's int8 form);
                the device time of one decode step of the default 8-row pool,
                B3's forms as the wrapper and as the parent commit pick them;
-  9. the seconds each phase took, the kernel summary as one JSON line, then
+  9. reference layout — phase 4's model made anew (the same seed: the same
+               bits), exported with ``export_reference_merged`` in bfloat16
+               into a temporary directory with the tokenizer; loaded back
+               through ``get_model_and_tokenizer_and_processor`` (state bit
+               for bit phase 4's, the greedy chat's ids phase 4's) and
+               ``VisionPipeline.from_reference_merged`` (embeddings equal to
+               ``encode_image``'s); then the unmerged path on the export's
+               ``text_encoder/`` (its embedding and LM head cut by 4 rows, as
+               the base LLaMA lacks VisualCLA's added tokens, so the load
+               resizes them on the card) and ``vision_encoder/`` with a
+               fabricated rank-8 PEFT adapter over every text and vision
+               projection (full resampler, projector, and the embedding and
+               LM head as ``modules_to_save``): folded weights against an
+               independent fp32 fold (at most 1 bf16 ulp), the tables equal
+               to the adapter's, a greedy chat with finite logits; seconds,
+               GB/s, peak RSS and its private part for each step;
+ 10. the seconds each phase took, the kernel summary as one JSON line, then
      the result line.
 Exits non-zero if any phase fails.  Needs no network and no JAX.
 """
@@ -97,10 +125,12 @@ from __future__ import annotations
 
 import base64
 import contextlib
+import shutil
 import dataclasses
 import gc
 import io
 import json
+import resource
 import statistics
 import subprocess
 import os
@@ -124,6 +154,10 @@ from visualcla_tpu_torch import api
 from visualcla_tpu_torch.apps import serve as serve_app
 from visualcla_tpu_torch.apps.evaluate import evaluate
 from visualcla_tpu_torch.assets import golden_path
+from visualcla_tpu_torch.checkpoint.export import export_reference_merged
+from visualcla_tpu_torch.checkpoint.from_jax import params_to_jax
+from visualcla_tpu_torch.checkpoint.mapping import sd_from_tower_leaves
+from visualcla_tpu_torch.engine import beam as beam_mod
 from visualcla_tpu_torch.engine import paged as paged_mod
 from visualcla_tpu_torch.engine import server as server_mod
 from visualcla_tpu_torch.engine.generate import PROMPT_BUCKETS, pick_bucket
@@ -131,8 +165,11 @@ from visualcla_tpu_torch.engine.sampling import SamplingConfig
 from visualcla_tpu_torch.fixtures import (PROMPT, SEED, make_tokenizer, paged_case,
                                           paged_decode_args, paged_verify_case, plain_kernels,
                                           random_image)
+from visualcla_tpu_torch.models import llama as llama_mod
+from visualcla_tpu_torch.models.resampler import Resampler
 from visualcla_tpu_torch.models.visualcla import (VisionTowers, VisualCLAModel, encode_image,
-                                                  init_random_, quantize_text_tower_)
+                                                  init_random_, multimodal_embeds,
+                                                  quantize_text_tower_)
 from visualcla_tpu_torch.ops.cuda import build
 from visualcla_tpu_torch.ops.cuda import flash_attention as fa
 from visualcla_tpu_torch.ops.cuda import int4_matmul as i4
@@ -158,6 +195,8 @@ PAGED_SOURCE = "visualcla_tpu_torch/csrc/paged_attention.cu"
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "flash_decode": (FLASH_SOURCE, "visualcla_tpu/ops/pallas/flash_attention.py:120"),
     "flash_prefill": (FLASH_SOURCE, "visualcla_tpu/ops/pallas/flash_attention.py:29"),
+    # B1 at the beam search's shape (its launches: phase 4b's beam chat)
+    "flash_decode_beam4": (FLASH_SOURCE, "visualcla_tpu/ops/pallas/flash_attention.py:120"),
     "flash_decode_kv8": (FLASH_SOURCE, "visualcla_tpu/ops/pallas/flash_attention.py:120"),
     "flash_prefill_kv8": (FLASH_SOURCE, "visualcla_tpu/ops/pallas/flash_attention.py:29"),
     "flash_full": (FLASH_SOURCE, "visualcla_tpu/ops/pallas/flash_attention.py:308"),
@@ -180,6 +219,7 @@ B2U_KV8_NOTE = ("launches: one op-level pass of cached_attention(layer_index=Non
                 "layers of an int8 cache at the mesh form's shape (no single-device path of "
                 "either package calls B2u's int8 form)")
 SPEC_K = 4  # the serve phases' speculative pools: B5 at Sq = SPEC_K + 1
+BEAMS = 4  # phase 4b's beam search, and B1's beam-shape case in phase 3
 # the card's published peaks (H100 SXM data sheet): the least time a call can
 # take is the larger of its bytes over the memory rate and its operations
 # over the bf16 tensor-core rate
@@ -334,7 +374,7 @@ def _against_plain(kind, q, kc, vc, valid, slot, layer, scales=None):
     return err.max().item(), ok
 
 
-def phase_kernels(prompt_bucket: int) -> dict:
+def phase_kernels(prompt_bucket: int, prompt_len: int) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     worst = {name: 0.0 for name in KERNELS}
     main, lines, failures = {}, [], []
@@ -408,6 +448,7 @@ def phase_kernels(prompt_bucket: int) -> dict:
     main.update(b6_main)
     _b2_verify_case(gen, worst, failures)
     _b1_split_cases(gen, worst, failures)
+    main.update(_b1_beam_cases(gen, prompt_len, worst, failures))
     b2u_main, b2u_launches = _b2u_cases(gen, worst, failures)
     main.update(b2u_main)
     if failures:
@@ -415,7 +456,7 @@ def phase_kernels(prompt_bucket: int) -> dict:
     return {"worst": worst, "main": main, "op_launches": {**b6_launches, **b2u_launches}}
 
 
-def _flash_bound_and_library(kind, q, kc, vc, valid, slot, sc):
+def _flash_bound_and_library(kind, q, kc, vc, valid, slot, sc, ops_per_s=BF16_OPS_PER_S):
     """B1/B2 at the main path's shapes (one layer a call): the bound from
     the K/V slots the call must read (a decode reads the slots up to its
     query's, a prefill the prompt's) and the time of the one PyTorch call
@@ -428,7 +469,7 @@ def _flash_bound_and_library(kind, q, kc, vc, valid, slot, sc):
     if sc:
         kv_bytes += 2 * B * Nkv * n_kv * 4
     pairs = B * N * (n_kv if kind == "decode" else Sq * (Sq + 1) // 2)
-    b_ms, b_by = bound(2 * nbytes(q) + kv_bytes + nbytes(valid), 4 * hd * pairs)
+    b_ms, b_by = bound(2 * nbytes(q) + kv_bytes + nbytes(valid), 4 * hd * pairs, ops_per_s)
     if sc:
         return {"bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
     L = kc.shape[0]
@@ -740,6 +781,51 @@ def _b1_split_cases(gen, worst, failures) -> None:
     one("f32 GQA B2", q.float(), kc.float(), vc.float(), valid, slot, 1, {})
     print(f"[3 kernels] B1 split-KV cases, tol atol=rtol={ATOL} (bf16), {F32_TOL} (f32): "
           + "; ".join(cases), flush=True)
+
+
+def _b1_beam_cases(gen, prompt_len, worst, failures) -> dict:
+    """B1 at the beam search's shape: B = BEAMS rows that share the chat's
+    prompt (row 0's first ``prompt_len`` slots copied into every row, as the
+    beams' fanned-out prefill leaves them; the 16 generated slots after it
+    differ by row), all writing slot prompt + 16 of the 2048-slot, 32-layer cache,
+    in bf16 (the summary row) and f32, each against its plain version, timed
+    over the 32 layers in turn with its bound and
+    ``scaled_dot_product_attention``."""
+    L, S, slot_v = 32, 2048, prompt_len + 16
+    row, cases = {}, []
+    for dt in (torch.bfloat16, torch.float32):
+        q = torch.randn(BEAMS, 1, 32, 128, generator=gen, device="cuda").to(dt)
+        kc, vc = (torch.randn(L, BEAMS, 32, S, 128, generator=gen, device="cuda",
+                              dtype=torch.bfloat16).to(dt) for _ in range(2))
+        for c in (kc, vc):
+            c[:, 1:, :, :prompt_len] = c[:, :1, :, :prompt_len]
+        slot = torch.full((BEAMS,), slot_v, dtype=torch.int32, device="cuda")
+        valid = (torch.arange(S, device="cuda") <= slot_v)[None].expand(BEAMS, -1).contiguous()
+        out = fa.flash_decode_stacked(q, kc, vc, valid, slot, 7)
+        torch.cuda.synchronize()
+        ref = fa.flash_decode_stacked_ref(q.float(), kc.float(), vc.float(), valid, slot, 7)
+        tol = ATOL if dt == torch.bfloat16 else F32_TOL
+        err = (out.float() - ref).abs()
+        ok = bool((err <= tol + tol * ref.abs()).all()) and bool(torch.isfinite(out).all())
+        ms = device_ms(lambda i: fa.flash_decode_stacked(q, kc, vc, valid, slot, i % L), calls=L)
+        plain_ms = device_ms(lambda i: fa.flash_decode_stacked_ref(q, kc, vc, valid, slot, i % L),
+                             calls=L)
+        extra = _flash_bound_and_library("decode", q, kc, vc, valid, slot, {},
+                                         BF16_OPS_PER_S if dt == torch.bfloat16 else F32_OPS_PER_S)
+        tag = "bf16" if dt == torch.bfloat16 else "f32"
+        cases.append(f"{tag} B{BEAMS} slot {slot_v} L32 err={err.max().item():.2e} "
+                     f"{ms * 1e3:.1f}us/plain {plain_ms * 1e3:.1f}us over the 32 layers, bound "
+                     f"{extra['bound_ms'] * 1e3:.2f}us ({extra['bound_by']}), sdpa "
+                     f"{extra['library_ms'] * 1e3:.1f}us")
+        if dt == torch.bfloat16:
+            worst["flash_decode_beam4"] = err.max().item()
+            row = {"flash_decode_beam4": {"ms": ms, "plain_ms": plain_ms, **extra}}
+        if not ok:
+            failures.append("flash_decode_beam4 " + cases[-1])
+        del q, kc, vc
+    print(f"[3 kernels] B1 at the beam shape ({BEAMS} rows sharing a {prompt_len}-token prompt), "
+          f"tol atol=rtol={ATOL} (bf16), {F32_TOL} (f32): " + "; ".join(cases), flush=True)
+    return row
 
 
 def _b2u_check(q, k, v, valid, slot, causal, layout, sc):
@@ -1179,7 +1265,166 @@ def phase_slice(smi: str, cfg, tokenizer) -> dict:
           f"preprocess + encode + prefill + first token), B=1 decode {rate:.1f} tok/s; "
           f"{_spec_line(spec)}; card {smi}", flush=True)
     return {"launches": chat_counts, "ttft_ms": ttft * 1e3, "decode_tok_s": rate,
-            "spec": spec, "bundle": bundle}
+            "spec": spec, "bundle": bundle, "ids": ids}
+
+
+def _beam_config(**kw) -> SamplingConfig:
+    return SamplingConfig(**{"num_beams": BEAMS, "do_sample": False,
+                             "max_new_tokens": BEAM_NEW_TOKENS, **kw})
+
+
+def _beam_step_device_ms(bundle, input_ids, pv, pos) -> float:
+    """Device ms of one beam step as ``beam_generate`` runs it: the B = BEAMS
+    forward (B1 a layer), log-softmax, top-2nb over (nb x V) and the live
+    window's reorder, 16 slots into the answer (torch.profiler)."""
+    state = beam_mod._BeamState(bundle.model, bundle.config, input_ids, pv, pos, BEAMS,
+                                BEAM_NEW_TOKENS, None, bundle.engine.max_seq_len, "none")
+    tokens = np.arange(5, 5 + BEAMS, dtype=np.int64)
+    scores = torch.zeros(BEAMS, device="cuda")
+    idx = torch.arange(BEAMS, device="cuda").flip(0)
+
+    def step():
+        if state.slot >= state.S + 16:
+            state.slot = state.S + 16  # the same slot each call
+        logits = state.forward(tokens)
+        flat = (scores[:, None] + F.log_softmax(logits.float(), -1)).reshape(-1)
+        torch.topk(flat, 2 * BEAMS)
+        beam_mod._reorder_tail(state.cache, idx, state.S, state.slot)
+
+    with torch.no_grad():
+        for _ in range(16):
+            step()
+        return _profiled_device_ms(step)
+
+
+def _rescored(model, cfg, input_ids, pv, pos, hyp, length_penalty: float) -> float:
+    """Teacher-forced score of hypothesis ``hyp`` after the prompt: one
+    prefill of prompt + hypothesis (B2), the sum of the hypothesis tokens'
+    log-probs over ``len ** length_penalty``."""
+    full = np.concatenate([input_ids[0], hyp])[None]
+    S, n = input_ids.shape[1], len(hyp)
+    with torch.no_grad():
+        dt = model.text.final_norm.weight.dtype
+        embeds = multimodal_embeds(model, cfg, torch.as_tensor(full, device="cuda"), pos,
+                                   torch.as_tensor(pv).to("cuda", dt))
+        cache = llama_mod.init_kv_cache(cfg.text_config, 1, 2048, dt, device="cuda")
+        valid = torch.zeros(1, 2048, dtype=torch.bool, device="cuda")
+        valid[:, :S + n] = True
+        hidden, _ = model.text(embeds, torch.arange(S + n, device="cuda")[None], cache, valid, 0)
+        lp = F.log_softmax(model.text.logits(hidden[:, S - 1:S + n - 1]).float(), -1)[0]
+        total = lp[torch.arange(n, device="cuda"), torch.as_tensor(hyp, device="cuda")].sum()
+    return total.item() / n ** length_penalty
+
+
+def _beam_search(bundle, ids, pv, pos, sampling):
+    """``bundle``'s greedy beam search on one prompt row, called as
+    ``generate`` calls it but at the engine's level, for the stats it can
+    return: (ids, or the top-n list with ``num_return_sequences`` n > 1,
+    {"steps", "scores"})."""
+    stats = {}
+    out = beam_mod.beam_generate(
+        bundle.model, bundle.config, ids, pv, pos, num_beams=sampling.num_beams,
+        max_new_tokens=sampling.max_new_tokens, eos_token_id=bundle.tokenizer.eos_token_id,
+        pad_token_id=bundle.tokenizer.pad_token_id, length_penalty=sampling.length_penalty,
+        early_stopping=sampling.early_stopping,
+        num_return_sequences=sampling.num_return_sequences,
+        cache_slots=bundle.engine.max_seq_len, kv_quant=bundle.engine.kv_quant, stats=stats)
+    return out, stats
+
+
+def phase_beams(smi: str, cfg, tokenizer, bundle) -> dict:
+    """Beam search on phase 4's bf16 model, then on an fp32 copy of it."""
+    L = cfg.text_config.num_hidden_layers
+    model = bundle.model
+    image = random_image(SEED)
+    beams = _beam_config()
+    enc = encoding_text([], PROMPT, bundle.num_patch, tokenizer)
+    ids, pv = enc["input_ids"], bundle.image_processor(image)["pixel_values"]
+    pos = img_marker_positions(ids, tokenizer.img_start_token_id)
+    api.chat(bundle, image, PROMPT, [], _beam_config(max_new_tokens=4), verbose=False)  # warm-up
+    torch.cuda.synchronize()
+
+    # the main path's run: one 4-beam chat, its launches counted from zero
+    t0 = time.perf_counter()
+    response, counts = _counted_chat(bundle, image, beams)
+    chat_s = time.perf_counter() - t0
+    best = bundle.generate(ids, pixel_values=pv, generation_config=beams)[0]
+    searched, stats = _beam_search(bundle, ids, pv, pos, beams)
+    if searched.tolist() != best.tolist():
+        raise RuntimeError(f"beam_generate {searched.tolist()} != generate's {best.tolist()}")
+    steps = stats["steps"]
+    _check_counts(counts, {"flash_prefill": L, "flash_decode": L * steps})
+    n_tok = int(np.sum(best != tokenizer.pad_token_id))
+    step_ms = _beam_step_device_ms(bundle, ids, pv, pos)
+
+    # two hypotheses, best first: the first is the one-hypothesis search's
+    two_cfg = _beam_config(num_return_sequences=2)
+    two = bundle.generate(ids, pixel_values=pv, generation_config=two_cfg)
+    two_direct, stats2 = _beam_search(bundle, ids, pv, pos, two_cfg)
+    scores2 = stats2["scores"]
+    if (two.shape[0] != 2 or scores2[0] < scores2[1]
+            or two[0, :len(best)].tolist() != best.tolist()
+            or any(two[i, :len(h)].tolist() != h.tolist() for i, h in enumerate(two_direct))):
+        raise RuntimeError(f"num_return_sequences=2: {two.shape}, scores {scores2[:2]}, first "
+                           f"row {two[0].tolist()} vs the best {best.tolist()}")
+
+    # sampled beams on a seeded generator
+    sampled_cfg = _beam_config(do_sample=True)
+    sampled_ids = bundle.generate(ids, pixel_values=pv, generation_config=sampled_cfg,
+                                  seed=SEED)
+    sampled, _ = api.chat(bundle, image, PROMPT, [], sampled_cfg, verbose=False, seed=SEED)
+    V = cfg.text_config.vocab_size
+    if (sampled_ids.ndim != 2 or not len(sampled_ids[0]) or sampled_ids.min() < 0
+            or sampled_ids.max() >= V or not isinstance(sampled, str)):
+        raise RuntimeError(f"sampled beam chat: ids {sampled_ids.tolist()}")
+
+    # fp32: kernels against plain, the score against a rescoring, batching
+    model32 = VisualCLAModel(cfg, device="cuda", dtype=torch.float32)
+    model32.load_state_dict(model.state_dict())
+    bundle32 = api.VisualCLA(model32, cfg, tokenizer, bundle.image_processor, max_seq_len=2048)
+    ids32 = bundle32.generate(ids, pixel_values=pv, generation_config=beams)[0]
+    searched32, stats32 = _beam_search(bundle32, ids, pv, pos, beams)
+    if searched32.tolist() != ids32.tolist():
+        raise RuntimeError(f"fp32 beam_generate {searched32.tolist()} != generate's "
+                           f"{ids32.tolist()}")
+    score32 = stats32["scores"][0]
+    with plain_kernels():
+        plain32 = bundle32.generate(ids, pixel_values=pv, generation_config=beams)[0]
+    if ids32.tolist() != plain32.tolist():
+        raise RuntimeError(f"fp32 beam ids through the kernels {ids32.tolist()} != plain "
+                           f"{plain32.tolist()}")
+    rescored = _rescored(model32, cfg, ids, pv, pos, ids32, beams.length_penalty)
+    if abs(rescored - score32) > 1e-3:
+        raise RuntimeError(f"fp32 best hypothesis score {score32} != teacher-forced "
+                           f"rescoring {rescored}")
+    row1 = ids[0].copy()
+    row1[-20:-10] = row1[-20:-10][::-1]  # another instruction, the same length
+    batch = np.stack([ids[0], row1])
+    small = _beam_config(max_new_tokens=16)
+    out2 = bundle32.generate(batch, pixel_values=np.concatenate([pv, pv]),
+                             generation_config=small)
+    for i in range(2):
+        single = bundle32.generate(batch[i:i + 1], pixel_values=pv, generation_config=small)[0]
+        got = out2[i]
+        want = np.concatenate([single, np.full(len(got) - len(single),
+                                               tokenizer.pad_token_id)])
+        if got.tolist() != want.tolist():
+            raise RuntimeError(f"fp32 batched beam row {i} {got.tolist()} != its single-row "
+                               f"run {single.tolist()}")
+    del bundle32, model32
+    torch.cuda.empty_cache()
+    print(f"[4b beams] phase 4's bf16 model, {BEAMS} beams greedy, {BEAM_NEW_TOKENS} new tokens: "
+          f"best hypothesis {n_tok} tokens, {steps} beam steps, chat {chat_s:.2f} s "
+          f"({n_tok / chat_s:.1f} tok/s, {steps / chat_s:.1f} steps/s on the host clock), launches "
+          f"{counts} (B2 once a layer, B1 once a layer a step at B={BEAMS}); device "
+          f"{step_ms:.3f} ms a beam step (torch.profiler: forward, log-softmax, top-{2 * BEAMS}, "
+          f"reorder); num_return_sequences=2 best first (scores {scores2[0]:.4f} >= "
+          f"{scores2[1]:.4f}); sampled beam chat {len(sampled_ids[0])} valid ids; fp32 copy: "
+          f"beam ids kernels == plain ({len(ids32)} tokens), best score {score32:.5f} vs "
+          f"teacher-forced rescoring {rescored:.5f} (|diff| {abs(rescored - score32):.2e}, "
+          f"limit 1e-3), batched B=2 beam generate equal to its single-row runs; card {smi}",
+          flush=True)
+    return {"launches": counts, "step_ms": step_ms, "tok_s": n_tok / chat_s}
 
 
 @contextlib.contextmanager
@@ -1466,6 +1711,7 @@ def _streams(bundle, image, greedy, response, input_ids, pv, ids, text=PROMPT,
 
 
 SPEC_NEW_TOKENS = 64
+BEAM_NEW_TOKENS = 32  # phase 4b's beam chats
 VISION_NEW_TOKENS = 32  # the vision phase's greedy chats
 EVAL_QUESTIONS = 8  # the vision phase's evaluate: one batch of the first llava questions
 EVAL_NEW_TOKENS = 16
@@ -2169,6 +2415,273 @@ def _int4_pool_step_device_ms(model, cfg, tokenizer, reqs) -> tuple:
     return ours, parent
 
 
+def _private_kb() -> int:
+    """This process's anonymous resident memory in kB: ``RssAnon`` of
+    ``/proc/self/status``, or where that line is missing (the card's
+    sandbox) the sum of the ``Anonymous:`` lines of ``/proc/self/smaps``."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("RssAnon:"):
+                return int(line.split()[1])
+    with open("/proc/self/smaps") as f:
+        return sum(int(line.split()[1]) for line in f if line.startswith("Anonymous:"))
+
+
+def _rss_gb() -> tuple:
+    """This process's resident set now and its private part, in GB: the
+    total (``/proc/self/statm``) counts the file pages of mmapped pickles,
+    the private part (``_private_kb``) only the memory the process made
+    itself.  Where those files cannot be read, the peak so far
+    (``getrusage``) twice."""
+    try:
+        with open("/proc/self/statm") as f:
+            total = int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 1e9
+        return total, _private_kb() * 1024 / 1e9
+    except (OSError, ValueError, IndexError):
+        peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+        return peak, peak
+
+
+class _PeakRss:
+    """The largest resident set and the largest private part seen while the
+    block runs, sampled every 50 ms from a thread: the kernel's own peak
+    counts the whole process's life and cannot be restarted in every
+    sandbox (a read of ``smaps`` takes ~8 ms on the card's machine)."""
+
+    def _sample(self):
+        total, anon = _rss_gb()
+        self.peak, self.private = max(self.peak, total), max(self.private, anon)
+
+    def __enter__(self):
+        self.peak, self.private = _rss_gb()
+        self._stop = threading.Event()
+
+        def sample():
+            while not self._stop.wait(0.05):
+                self._sample()
+
+        self._thread = threading.Thread(target=sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self._sample()
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def _io_step(label: str, fn, nbytes_fn):
+    """Run ``fn`` with the peak RSS restarted: (result, its line)."""
+    gc.collect()
+    before, before_private = _rss_gb()
+    with _PeakRss() as rss:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+    n = nbytes_fn()
+    return out, (f"{label} {sec:.2f} s, {n / 1e9:.2f} GB at {n / 1e9 / sec:.2f} GB/s, peak RSS "
+                 f"{rss.peak:.2f} GB (from {before:.2f}), of it private (anonymous pages) "
+                 f"{rss.private:.2f} GB (from {before_private:.2f})")
+
+
+def _ulps(got: torch.Tensor, want: torch.Tensor) -> int:
+    """The largest distance in bf16 units in the last place between two
+    bf16 tensors (values of opposite sign count only if not both tiny)."""
+    a, b = got.view(torch.int16).int(), want.view(torch.int16).int()
+    same = (a < 0) == (b < 0)
+    tiny = (got.float().abs() < 1e-30) & (want.float().abs() < 1e-30)
+    d = torch.where(same, (a - b).abs(), torch.where(tiny, 0, 1 << 16))
+    return int(d.max())
+
+
+BASE_VOCAB_CUT = 4  # Chinese-Alpaca-Plus-7B's 49954 rows under VisualCLA's 49958 tokens
+
+
+def _cut_text_base(model, merged: str, out_dir: str) -> int:
+    """A text base dir over the export's ``text_encoder/`` whose embedding
+    and LM head lack the last ``BASE_VOCAB_CUT`` rows, as the reference's
+    base LLaMA lacks VisualCLA's added tokens: the export's pickle linked as
+    shard 1, the cut tables written as shard 2 (later shards win), an HF
+    index over both.  -> the base's rows."""
+    os.makedirs(out_dir)
+    src = os.path.join(merged, "text_encoder")
+    shards = ("pytorch_model-00001-of-00002.bin", "pytorch_model-00002-of-00002.bin")
+    os.symlink(os.path.join(src, "pytorch_model.bin"), os.path.join(out_dir, shards[0]))
+    os.symlink(os.path.join(src, "config.json"), os.path.join(out_dir, "config.json"))
+    rows = model.text.embed_tokens.shape[0] - BASE_VOCAB_CUT
+    cut = {"model.embed_tokens.weight": model.text.embed_tokens.detach()[:rows],
+           "lm_head.weight": model.text.lm_head.weight.detach()[:rows]}
+    torch.save({k: v.cpu().contiguous() for k, v in cut.items()},
+               os.path.join(out_dir, shards[1]))
+    keys = torch.load(os.path.join(out_dir, shards[0]), map_location="cpu", mmap=True,
+                      weights_only=True).keys()
+    weight_map = {k: shards[1] if k in cut else shards[0] for k in keys}
+    with open(os.path.join(out_dir, "pytorch_model.bin.index.json"), "w") as f:
+        json.dump({"metadata": {}, "weight_map": weight_map}, f)
+    return rows
+
+
+def _fabricated_adapter(model, cfg, tokenizer, out_dir: str, rank: int = 8) -> dict:
+    """A rank-``rank`` composite VisualCLA adapter in PEFT layout over every
+    text and vision projection, with full resampler and projector weights
+    (drawn on the card, written as fp32 ``adapter_model.bin``), the full
+    embedding and LM head as ``modules_to_save`` (``model``'s own bf16
+    tables, at the tokenizer's vocabulary), its configs and the tokenizer.
+    -> {base state key: (A, B)} on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    sd, pairs = {}, {}
+    names = {"text": (("q_proj", "self_attn.q_proj"), ("k_proj", "self_attn.k_proj"),
+                      ("v_proj", "self_attn.v_proj"), ("o_proj", "self_attn.o_proj"),
+                      ("gate_proj", "mlp.gate_proj"), ("up_proj", "mlp.up_proj"),
+                      ("down_proj", "mlp.down_proj")),
+             "vision": (("q_proj", "self_attn.q_proj"), ("k_proj", "self_attn.k_proj"),
+                        ("v_proj", "self_attn.v_proj"), ("o_proj", "self_attn.out_proj"),
+                        ("fc1", "mlp.fc1"), ("fc2", "mlp.fc2"))}
+    prefix = {"text": "base_model.model.text_model.model.layers.{}.",
+              "vision": "base_model.model.vision_model.vision_model.encoder.layers.{}."}
+    for tower, pairs_of in names.items():
+        for l, layer in enumerate(getattr(model, tower).layers):
+            for mod, ref in pairs_of:
+                out_f, in_f = getattr(layer, mod).weight.shape
+                a = torch.randn(rank, in_f, generator=gen, device="cuda") / in_f ** 0.5
+                b = torch.randn(out_f, rank, generator=gen, device="cuda") * 0.02
+                key = prefix[tower].format(l) + ref
+                sd[key + ".lora_A.weight"], sd[key + ".lora_B.weight"] = a, b
+                pairs[f"{tower}.layers.{l}.{mod}.weight"] = (a, b)
+    res = init_random_(Resampler(cfg.visual_resampler_config, device="cuda",
+                                 dtype=torch.float32), gen)
+    leaves = {k.split("/", 1)[1]: v for k, v in
+              params_to_jax(torch.nn.ModuleDict({"resampler": res})).items()}
+    sd.update({"base_model.model." + k: v
+               for k, v in sd_from_tower_leaves(leaves, "resampler").items()})
+    th, vh = cfg.text_config.hidden_size, cfg.vision_config.hidden_size
+    sd["base_model.model.image_projection_layer.weight"] = torch.randn(
+        th, vh, generator=gen, device="cuda") * 0.02
+    sd["base_model.model.image_projection_layer.bias"] = torch.randn(
+        th, generator=gen, device="cuda") * 0.02
+    saved = {k: v.float().cpu().contiguous() for k, v in sd.items()}
+    text = "base_model.model.text_model."
+    saved[text + "model.embed_tokens.modules_to_save.default.weight"] = (
+        model.text.embed_tokens.detach().cpu().contiguous())
+    saved[text + "lm_head.modules_to_save.default.weight"] = (
+        model.text.lm_head.weight.detach().cpu().contiguous())
+    os.makedirs(out_dir, exist_ok=True)
+    torch.save(saved, os.path.join(out_dir, "adapter_model.bin"))
+    del saved
+    with open(os.path.join(out_dir, "adapter_config.json"), "w") as f:
+        json.dump({"peft_type": "LORA", "r": rank, "lora_alpha": 2 * rank,
+                   "fan_in_fan_out": False, "bias": "none"}, f)
+    cfg.save_pretrained(out_dir)
+    tokenizer.sp.save(os.path.join(out_dir, "tokenizer.model"))
+    with open(os.path.join(out_dir, "added_tokens.json"), "w") as f:
+        json.dump(tokenizer.added_tokens, f)
+    return pairs
+
+
+def phase_reference(smi: str, cfg, tokenizer, phase4_ids) -> dict:
+    """The reference's checkpoint layouts at full width and depth: export,
+    the merged load, the vision pipeline and the unmerged load."""
+    model, _ = _random_model(cfg)  # phase 4's model: the same seed, the same bits
+    image = random_image(SEED)
+    greedy = SamplingConfig.greedy(max_new_tokens=32)
+    enc = encoding_text([], PROMPT, cfg.num_image_tokens, tokenizer)
+    lines = []
+    with tempfile.TemporaryDirectory() as tmp:
+        merged = os.path.join(tmp, "merged")
+        free_gb = shutil.disk_usage(tmp).free / 1e9
+        _, line = _io_step("export_reference_merged (bfloat16)", lambda: export_reference_merged(
+            model, cfg, merged, dtype="bfloat16", tokenizer=tokenizer), lambda: _dir_bytes(merged))
+        lines.append(line)
+
+        (bundle, tok2, _), line = _io_step(
+            "merged load", lambda: api.get_model_and_tokenizer_and_processor(
+                visualcla_model=merged, device="cuda", max_seq_len=2048),
+            lambda: _dir_bytes(merged))
+        lines.append(line)
+        want = model.state_dict()
+        got = bundle.model.state_dict()
+        diff = [k for k in want if not torch.equal(want[k], got[k])]
+        if set(want) != set(got) or diff:
+            raise RuntimeError(f"merged load: state differs from phase 4's at {diff[:5]}; keys "
+                               f"{sorted(set(want) ^ set(got))[:5]}")
+        pv = bundle.image_processor(image)["pixel_values"]
+        ids = bundle.generate(enc["input_ids"], pixel_values=pv, generation_config=greedy)[0]
+        if ids.tolist() != phase4_ids.tolist():
+            raise RuntimeError(f"merged load: greedy ids {ids.tolist()} != phase 4's "
+                               f"{phase4_ids.tolist()}")
+        del bundle
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        pipe, line = _io_step("VisionPipeline.from_reference_merged", lambda: VisionPipeline.
+                              from_reference_merged(merged, device="cuda"),
+                              lambda: _dir_bytes(merged) - _dir_bytes(
+                                  os.path.join(merged, "text_encoder")))
+        lines.append(line)
+        with torch.no_grad():
+            want_e = encode_image(model, cfg, torch.as_tensor(pv).to("cuda", torch.bfloat16))
+        got_e = pipe.embed_images([image])
+        if got_e.shape != tuple(want_e.shape) or not np.array_equal(
+                got_e, want_e.float().cpu().numpy()):
+            raise RuntimeError(f"VisionPipeline.from_reference_merged embeddings differ from "
+                               f"encode_image: max {np.abs(got_e - want_e.float().cpu().numpy()).max()}")
+        del pipe
+
+        # the unmerged path: the export's towers as the bases (the text base's
+        # tables cut to the base LLaMA's vocabulary), a fabricated adapter
+        lora = os.path.join(tmp, "lora")
+        text_base = os.path.join(tmp, "text_base")
+        base_rows = _cut_text_base(model, merged, text_base)
+        pairs = _fabricated_adapter(model, cfg, tokenizer, lora)
+        (ub, _, _), line = _io_step(
+            f"unmerged load (text base with {base_rows}-row tables + vision_encoder/ + rank-8 "
+            f"LoRA, resized to {len(tokenizer)} rows and folded on the card)",
+            lambda: api.get_model_and_tokenizer_and_processor(
+                text_model=text_base, vision_model=os.path.join(merged, "vision_encoder"),
+                lora_model=lora, device="cuda", max_seq_len=2048),
+            lambda: _dir_bytes(os.path.join(merged, "text_encoder"))
+            + _dir_bytes(os.path.join(merged, "vision_encoder")) + _dir_bytes(lora))
+        lines.append(line)
+        state = ub.model.state_dict()
+        tables = ("text.embed_tokens", "text.lm_head.weight")
+        if any(not torch.equal(state[k], want[k]) for k in tables):
+            raise RuntimeError(f"unmerged load: {tables} differ from the adapter's "
+                               f"modules_to_save rows (shapes {[state[k].shape for k in tables]})")
+        worst = 0
+        with torch.no_grad():
+            for key, (a, b) in pairs.items():
+                w = want[key]
+                folded = (w.float() + 2.0 * (b.float() @ a.float())).to(w.dtype)
+                worst = max(worst, _ulps(state[key], folded))
+        if worst > 1:
+            raise RuntimeError(f"unmerged fold: {worst} bf16 ulps from an independent fp32 fold")
+        logits = ub.model.text.logits(_last_hidden(ub.engine, enc["input_ids"], pv,
+                                                   img_marker_positions(
+                                                       enc["input_ids"],
+                                                       tokenizer.img_start_token_id)))
+        un_resp, _ = api.chat(ub, image, PROMPT, [], greedy, verbose=False)
+        if not bool(torch.isfinite(logits).all()) or not isinstance(un_resp, str):
+            raise RuntimeError("unmerged load: non-finite prefill logits")
+        del ub
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[9 reference] VisualCLA-7B full width and depth ({free_gb:.0f} GB free in the temporary "
+          f"directory): " + "; ".join(lines) + f"; merged load state bit for bit phase 4's, "
+          f"greedy ids equal ({len(ids)} tokens); VisionPipeline.from_reference_merged embeddings "
+          f"equal encode_image's; unmerged fold of {len(pairs)} projections within {worst} bf16 "
+          f"ulp of an independent fp32 fold, {base_rows}-row base tables resized to {len(tokenizer)} rows "
+          f"then replaced by the adapter's modules_to_save rows bit for bit, greedy chat with finite "
+          f"logits; card {smi}",
+          flush=True)
+    return {"lines": lines}
+
+
 def _kernels_vs_plain_logits(engine, input_ids, pixel_values, img_pos):
     """Last-token prefill logits through the kernels and, on the same model,
     with the kernels' plain versions swapped in."""
@@ -2225,20 +2738,23 @@ def main() -> int:
     cfg = visualcla_config_for_size("7B")
     tokenizer = _tokenizer_from_file(make_tokenizer(cfg.text_config.vocab_size))
     prompt_len = len(encoding_text([], PROMPT, cfg.num_image_tokens, tokenizer)["input_ids"][0])
-    kern = timed("3 kernels", phase_kernels, pick_bucket(PROMPT_BUCKETS, prompt_len))
+    kern = timed("3 kernels", phase_kernels, pick_bucket(PROMPT_BUCKETS, prompt_len), prompt_len)
     sl = timed("4 slice", phase_slice, info["smi"], cfg, tokenizer)
     launches = sl["launches"]
+    beams = timed("4b beams", phase_beams, info["smi"], cfg, tokenizer, sl["bundle"])
     vision = timed("4v vision", phase_vision, info["smi"], cfg, tokenizer, sl.pop("bundle"))
     launches4 = timed("5 int4", phase_int4, info["smi"], cfg, tokenizer)["launches"]
     timed("6 int8", phase_int8, info["smi"], cfg, tokenizer)
     serve = timed("7 serve", phase_serve, info["smi"], cfg, tokenizer)
     serve4 = timed("8 serve int4", phase_serve_int4, info["smi"], cfg, tokenizer)
-    print(f"[9 time] seconds a phase {seconds}; the whole run "
+    timed("9 reference", phase_reference, info["smi"], cfg, tokenizer, sl["ids"])
+    print(f"[10 time] seconds a phase {seconds}; the whole run "
           f"{time.perf_counter() - t_start:.1f} s after the imports", flush=True)
     # each kernel's launches from the run of the path that drives it
     runs = {"paged_append": serve["launches"], "paged_append_kv8": serve4["launches"],
             "paged_verify": serve["spec"]["launches"],
-            "paged_verify_kv8": serve4["spec_launches"], "flash_full": vision["launches"]}
+            "paged_verify_kv8": serve4["spec_launches"], "flash_full": vision["launches"],
+            "flash_decode_beam4": {"flash_decode_beam4": beams["launches"]["flash_decode"]}}
     notes = {"paged_decode": B6_NOTE, "paged_decode_kv8": B6_NOTE,
              "flash_full_kv8": B2U_KV8_NOTE}
     kernels = []

@@ -87,6 +87,42 @@ def test_decode_kernel_matches_plain(dev, dtype, N, Nkv, hd):
     assert bool((out[-1] == 0).all())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv8", [False, True], ids=["float_kv", "int8_kv"])
+def test_decode_kernel_at_the_beam_shape(dev, dtype, kv8):
+    """B1 as a beam search step runs it: 4 rows that share a 260-token
+    prompt, all at slot 276 of a 2048-slot cache (the 7B heads); every row
+    against its plain version, and a row's output the same alone as beside
+    the others (the beams' rows are independent)."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    B, S, slot_v = 4, 2048, 276
+    q = torch.randn(B, 1, 32, 128, generator=g, device=dev).to(dtype)
+    kc, vc = (torch.randn(2, B, 32, S, 128, generator=g, device=dev).to(dtype)
+              for _ in range(2))
+    kc[:, :, :, :260] = kc[:, :1, :, :260].clone()  # the shared prompt
+    vc[:, :, :, :260] = vc[:, :1, :, :260].clone()
+    slot = torch.full((B,), slot_v, dtype=torch.int32, device=dev)
+    valid = (torch.arange(S, device=dev) <= slot_v)[None].expand(B, -1).contiguous()
+    sc = {}
+    if kv8:
+        (kc, ks), (vc, vs) = quantize_kv(kc.float()), quantize_kv(vc.float())
+        sc = {"k_scale": ks, "v_scale": vs}
+    before = fa.LAUNCHES["flash_decode_kv8" if kv8 else "flash_decode"]
+    out = fa.flash_decode_stacked(q, kc, vc, valid, slot, 1, **sc)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_decode_kv8" if kv8 else "flash_decode"] == before + 1
+    if kv8:
+        ref = fa.flash_decode_stacked_ref(q.float(), kc, vc, valid, slot, 1, **sc)
+    else:
+        ref = fa.flash_decode_stacked_ref(q.float(), kc.float(), vc.float(), valid, slot, 1)
+    tol = TOL[torch.bfloat16] if kv8 else TOL[dtype]
+    torch.testing.assert_close(out.float(), ref, atol=tol, rtol=tol)
+    one = fa.flash_decode_stacked(q[2:3], kc[:, 2:3].contiguous(), vc[:, 2:3].contiguous(),
+                                  valid[2:3], slot[2:3], 1,
+                                  **{k: v[:, 2:3].contiguous() for k, v in sc.items()})
+    assert torch.equal(one, out[2:3])
+
+
 def full_case(dev, dtype, layout, hd, kv8, B=3, Sq=37, S=45, N=8, Nkv=2, seed=0):
     """B2u inputs: K/V in ``layout``, per-row slots, holes in kv_valid and a
     fully masked last row; int8 K/V with scales in the layout's order."""

@@ -1,7 +1,8 @@
 """Guards of the PyTorch port: it never imports jax nor the JAX package, its
 entry points and chip_smoke.py refuse to run without a GPU unless asked for
-the CPU, the quantized load options load, and what is not ported
-yet raises NotImplementedError."""
+the CPU, the quantized load options load, beams and the reference layouts
+run, and what is not ported yet (a multi-device mesh) raises
+NotImplementedError."""
 import os
 import subprocess
 import sys
@@ -28,13 +29,14 @@ def test_port_never_imports_jax():
     profiler."""
     code = ("import sys, visualcla_tpu_torch, visualcla_tpu_torch.api, chip_smoke\n"
             "sys.path.insert(0, 'tools'); import profile_torch_slice\n"
-            "from visualcla_tpu_torch.checkpoint import serialize, from_jax\n"
+            "from visualcla_tpu_torch.checkpoint import (serialize, from_jax, convert, export,\n"
+            "                                            lora, mapping, split_adapter, torch_io)\n"
             "from visualcla_tpu_torch.ops import quantization, linear\n"
             "from visualcla_tpu_torch.ops.cuda import (int4_matmul, flash_attention, build,\n"
             "                                          paged_attention, bench_flash)\n"
             "from visualcla_tpu_torch.models import visualcla, llama\n"
             "from visualcla_tpu_torch.engine import (generate, sampling, paged, server,\n"
-            "                                     speculative, paged_spec)\n"
+            "                                     speculative, paged_spec, beam)\n"
             "from visualcla_tpu_torch.apps import serve, evaluate, inference\n"
             "from visualcla_tpu_torch import fixtures, text, processor, host_build, pipeline, assets\n"
             "from visualcla_tpu_torch.core import config\n"
@@ -167,15 +169,36 @@ def test_unknown_kv_quant_raises(ckpt):
                                                  kv_quant="int4")
 
 
-def test_unported_generation_options_raise(ckpt):
+def _reference_dirs(ckpt, out):
+    """The checkpoint exported to the reference merged layout (its
+    ``text_encoder/`` and ``vision_encoder/`` are base dirs too), with the
+    tokenizer beside the text tower."""
+    import shutil
+
+    from visualcla_tpu_torch.checkpoint.export import export_reference_merged
+    from visualcla_tpu_torch.checkpoint.serialize import load_checkpoint
+
+    model, cfg = load_checkpoint(ckpt, device="cpu", dtype=torch.float32)
+    export_reference_merged(model, cfg, out, dtype="float32", side_files_from=ckpt)
+    for name in ("tokenizer.model", "added_tokens.json"):
+        shutil.copy(os.path.join(ckpt, name), os.path.join(out, "text_encoder", name))
+    return os.path.join(out, "text_encoder"), os.path.join(out, "vision_encoder")
+
+
+def test_unported_generation_options_raise(ckpt, tmp_path):
+    """Beams and base text / vision loading, once unported, now run."""
     model, _, _ = vt.get_model_and_tokenizer_and_processor(
         visualcla_model=ckpt, dtype=torch.float32, device="cpu", max_seq_len=256)
     ids = np.array([[1, 5, 6]])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.generate(ids, generation_config=t_samp.SamplingConfig(num_beams=2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        vt.get_model_and_tokenizer_and_processor(text_model=ckpt, vision_model=ckpt,
-                                                 device="cpu")
+    out = model.generate(ids, generation_config=t_samp.SamplingConfig(num_beams=2,
+                                                                      max_new_tokens=4))
+    assert out.shape[0] == 1 and 1 <= out.shape[1] <= 4
+    text, vision = _reference_dirs(ckpt, str(tmp_path / "ref"))
+    base, _, _ = vt.get_model_and_tokenizer_and_processor(
+        text_model=text, vision_model=vision, dtype=torch.float32, device="cpu",
+        max_seq_len=256)
+    want = model.model.text.lm_head.weight
+    assert torch.equal(base.model.text.lm_head.weight, want)
 
 
 def test_full_width_tokenizer_has_the_model_vocab():
@@ -301,9 +324,17 @@ def test_unknown_preset_and_hijack_samplers():
     assert vt.hijack_samplers() is None  # a no-op: the samplers are built in
 
 
-def test_from_vision_text_pretrained_names_item_9():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        vt.VisualCLA.from_vision_text_pretrained("vision_dir", "text_dir", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        vt.VisualCLA.from_vision_text_pretrained("vision_dir", "text_dir", "lora_dir",
-                                                 device="cpu")
+def test_from_vision_text_pretrained_names_item_9(ckpt, tmp_path):
+    """Item 9 (checkpoint conversion) is ported: the constructor composes a
+    model from base dirs, and no message of the port names the item."""
+    import re
+
+    text, vision = _reference_dirs(ckpt, str(tmp_path / "ref"))
+    m = vt.VisualCLA.from_vision_text_pretrained(vision, text, dtype=torch.float32,
+                                                 device="cpu", max_seq_len=256)
+    assert m.model.text.embed_tokens.shape[0] == len(m.tokenizer)
+    for d, _, files in os.walk(os.path.join(ROOT, "visualcla_tpu_torch")):
+        for name in files:
+            if name.endswith(".py"):
+                with open(os.path.join(d, name)) as f:
+                    assert not re.search(r"item 9|item 7\b|7: beams", f.read()), name

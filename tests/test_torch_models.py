@@ -167,8 +167,9 @@ def test_checkpoint_writer_roundtrip(tmp_path):
 
 def test_quantized_checkpoint_not_ported(tmp_path):
     """Quantized leaves are ported now (per layer, int8 transposed to
-    (out, in), the int4 carrier and the scales as they are); LoRA leaves and
-    unknown tiers still raise."""
+    (out, in), the int4 carrier and the scales as they are), and so are LoRA
+    leaves of layer linears (A and B transposed to torch's orientation);
+    LoRA leaves elsewhere and unknown tiers raise."""
     q8 = np.arange(12, dtype=np.int8).reshape(2, 3, 2)  # (L, in, out)
     q4 = np.arange(8, dtype=np.uint8).reshape(1, 2, 2, 2)  # (L, G, gs/2, out)
     state = params_from_jax({"text/layers/q_proj/q": q8,
@@ -178,8 +179,14 @@ def test_quantized_checkpoint_not_ported(tmp_path):
     np.testing.assert_array_equal(state["text.layers.1.q_proj.q"].numpy(), q8[1].T)
     np.testing.assert_array_equal(state["text.layers.0.k_proj.q"].numpy(), q4[0])
     assert state["text.layers.0.k_proj.scale"].shape == (2, 2)
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        params_from_jax({"text/layers/q_proj/lora_A": np.zeros((1, 2, 2), np.float32)},
+    a = np.arange(6, dtype=np.float32).reshape(1, 3, 2)  # (L, in, r)
+    lora = params_from_jax({"text/layers/q_proj/lora_A": a,
+                            "text/layers/q_proj/w": np.ones((1, 3, 4), np.float32)},
+                           port_config(tiny_visualcla_config()))
+    np.testing.assert_array_equal(lora["text.layers.0.q_proj.lora_A"].numpy(), a[0].T)
+    assert lora["text.layers.0.q_proj.base.weight"].shape == (4, 3)
+    with pytest.raises(ValueError, match="LoRA"):
+        params_from_jax({"text/lm_head/lora_A": np.zeros((2, 2), np.float32)},
                         port_config(tiny_visualcla_config()))
     with pytest.raises(ValueError, match="quantize"):
         t_ser.load_checkpoint(str(tmp_path), quantize="int2")

@@ -247,12 +247,15 @@ def test_vision_pipeline_loaders_and_registry(both, tmp_path):
     (tmp_path / "ref" / "vision_encoder").mkdir(parents=True)
     (tmp_path / "split").mkdir()
     (tmp_path / "split" / "visual_resampler_model.bin").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_pipe.VisionPipeline.from_any(str(tmp_path / "ref"))
+    # the reference layouts dispatch to their loaders (ported), which find
+    # these directories empty
+    with pytest.raises(FileNotFoundError, match="config.json"):
+        t_pipe.VisionPipeline.from_any(str(tmp_path / "ref"), device="cpu")
     with pytest.raises(ValueError, match="clip_model"):
         t_pipe.VisionPipeline.from_any(str(tmp_path / "split"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_pipe.VisionPipeline.from_any(str(tmp_path / "split"), clip_model=str(tmp_path))
+    with pytest.raises(FileNotFoundError, match="no checkpoint container"):
+        t_pipe.VisionPipeline.from_any(str(tmp_path / "split"), clip_model=str(tmp_path),
+                                       device="cpu")
     with pytest.raises(FileNotFoundError):
         t_pipe.VisionPipeline.from_any(str(tmp_path))
     assert t_pipe.get_pipeline("visualcla-7b") == (t_pipe.VisionPipeline, "visualcla-7b")

@@ -7,10 +7,15 @@ tower), ``load_in_4bit`` (grouped int4 text tower, kernel B3; it wins when
 both are set), and ``kv_quant="int8"`` (int8 KV cache) with either.
 ``speculative=True`` decodes with prompt-lookup speculative decoding
 (``engine/speculative.py``; greedy: token-identical in exact arithmetic;
-mirostat-2 configs take the plain engine).  ``VisualCLA.extend_to_resolution``
-and ``prune_resampler_heads`` change the vision side in place.  Beam search
-(ROADMAP item 7), multi-device meshes (11) and loading reference-layout or
-unmerged/LoRA directories (9) raise ``NotImplementedError`` naming their item.
+mirostat-2 configs take the plain engine).  ``num_beams > 1`` runs beam
+search (``engine/beam.py``; sampled with ``do_sample``), each batch row its
+own search, with ``num_return_sequences`` hypotheses a row.
+``VisualCLA.extend_to_resolution`` and ``prune_resampler_heads`` change the
+vision side in place.  The factory loads a native checkpoint, a reference
+merged directory, or base ``text_model`` + ``vision_model`` directories with
+``lora_model`` adapters folded in (``checkpoint/convert.py``), straight onto
+the device.  Multi-device meshes raise ``NotImplementedError`` naming ROADMAP
+item 11.
 """
 from __future__ import annotations
 
@@ -29,7 +34,9 @@ from .processor import ImageProcessor, VisualCLAProcessor
 from .text import VisualCLATokenizer, encoding_text
 from .text.prompt import all_img_marker_positions, img_marker_positions
 
-from .checkpoint.from_jax import params_from_jax, weight_tier
+from .checkpoint.from_jax import build_model
+from .checkpoint.serialize import flatten_tree
+from .engine.beam import beam_generate, beam_sample_generate
 from .engine.generate import Engine
 from .engine.sampling import SamplingConfig
 from .engine.speculative import SpeculativeDecoder
@@ -42,17 +49,6 @@ DEFAULT_GENERATION_CONFIG = SamplingConfig()  # the reference's default sampled 
 
 def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP, open item {item})")
-
-
-def _flatten(tree, prefix=""):
-    out = {}
-    for k, v in tree.items():
-        path = f"{prefix}/{k}" if prefix else str(k)
-        if isinstance(v, dict):
-            out.update(_flatten(v, path))
-        else:
-            out[path] = v
-    return out
 
 
 def _default_device() -> torch.device:
@@ -82,11 +78,9 @@ class VisualCLA:
             raise _not_ported("a multi-device mesh", "11: multi-device")
         if isinstance(params_or_modules, VisualCLAModel):
             model = params_or_modules
-        else:
-            flat = _flatten(params_or_modules)
-            model = VisualCLAModel(config, device=device or _default_device(), dtype=dtype,
-                                   quant=weight_tier(flat))
-            model.load_state_dict(params_from_jax(flat, config))
+        else:  # quantized and LoRA leaves keep their form
+            model = build_model(flatten_tree(params_or_modules), config,
+                                device=device or _default_device(), dtype=dtype)
         self.model = model
         self.config = config
         self.tokenizer = tokenizer
@@ -139,9 +133,8 @@ class VisualCLA:
 
     @classmethod
     def from_merged_pretrained(cls, visualcla_model: str, **kwargs) -> "VisualCLA":
-        """Load from a native merged checkpoint directory (the factory's
-        options as keywords); reference-layout directories raise, naming
-        ROADMAP item 9."""
+        """Load from a merged checkpoint directory, native or reference
+        layout (the factory's options as keywords)."""
         model, _, _ = get_model_and_tokenizer_and_processor(
             visualcla_model=visualcla_model, **kwargs)
         return model
@@ -149,8 +142,8 @@ class VisualCLA:
     @classmethod
     def from_vision_text_pretrained(cls, vision_model: str, text_model: str,
                                     lora_model: Optional[str] = None, **kwargs) -> "VisualCLA":
-        """Compose from separate vision / text checkpoints (+ optional LoRA):
-        raises, naming ROADMAP item 9, until checkpoint conversion is ported."""
+        """Compose from separate vision / text checkpoints (+ optional LoRA,
+        folded at load)."""
         model, _, _ = get_model_and_tokenizer_and_processor(
             text_model=text_model, vision_model=vision_model, lora_model=lora_model, **kwargs)
         return model
@@ -165,9 +158,7 @@ class VisualCLA:
 
     def _decoder(self, sampling: SamplingConfig, speculative: bool, spec_k: int):
         """The engine or the speculative decoder (mirostat-2 configs take
-        the plain engine); beams raise."""
-        if sampling.num_beams > 1:
-            raise _not_ported("beam search", "7: beams")
+        the plain engine)."""
         if speculative and sampling.mirostat_mode != 2:
             return self.speculative_decoder(spec_k)
         return self.engine
@@ -178,19 +169,67 @@ class VisualCLA:
         """Generated-only ids (B, <= max_new_tokens), the reference's
         VisualCLAModel.generate contract."""
         sampling = as_sampling_config(generation_config)
-        decoder = self._decoder(sampling, speculative, spec_k)
+        # HF num_return_sequences: sampled -> each row repeated n times
+        # (independent draws); beams -> the top n hypotheses a row; greedy
+        # -> HF raises, and so does this
         nrs = sampling.num_return_sequences
+        beams = sampling.num_beams > 1
         if nrs > 1:
-            if not sampling.do_sample:
+            if beams:
+                if nrs > sampling.num_beams:
+                    raise ValueError("num_return_sequences has to be smaller or equal to "
+                                     f"num_beams ({nrs} > {sampling.num_beams})")
+            elif not sampling.do_sample:
                 raise ValueError(
                     "Greedy methods without beam search do not support "
                     f"num_return_sequences different than 1 (got {nrs}); set "
                     "do_sample=True or num_beams>1")
-            input_ids = np.repeat(np.asarray(input_ids), nrs, axis=0)
-            if pixel_values is not None:
-                pixel_values = np.repeat(np.asarray(pixel_values), nrs, axis=0)
+            else:
+                input_ids = np.repeat(np.asarray(input_ids), nrs, axis=0)
+                if pixel_values is not None:
+                    pixel_values = np.repeat(np.asarray(pixel_values), nrs, axis=0)
         img_pos = self._img_positions(input_ids, pixel_values)
+        if beams:
+            if pixel_values is not None and np.asarray(pixel_values).ndim == 5:
+                raise NotImplementedError("beam search over multi-image prompts is not "
+                                          "supported; use greedy/sampling")
+            return self._batched_beam(sampling, input_ids, pixel_values, img_pos, seed)
+        decoder = self._decoder(sampling, speculative, spec_k)
         return decoder.generate(input_ids, pixel_values, img_pos, sampling, seed=seed)
+
+    def _beam_row(self, sampling: SamplingConfig, ids, pix, pos, seed: int):
+        """One prompt row's beam search (sampled with ``do_sample``) on the
+        engine's cache width and KV format."""
+        kw = dict(eos_token_id=self.tokenizer.eos_token_id,
+                  pad_token_id=self.tokenizer.pad_token_id,
+                  cache_slots=self.engine.max_seq_len, kv_quant=self.engine.kv_quant)
+        if sampling.do_sample:
+            gen = torch.Generator(device=self.engine.device).manual_seed(seed)
+            return beam_sample_generate(self.model, self.config, ids, pix, pos, sampling,
+                                        generator=gen, **kw)
+        return beam_generate(self.model, self.config, ids, pix, pos,
+                             num_beams=sampling.num_beams,
+                             max_new_tokens=sampling.max_new_tokens,
+                             length_penalty=sampling.length_penalty,
+                             early_stopping=sampling.early_stopping,
+                             num_return_sequences=sampling.num_return_sequences, **kw)
+
+    def _batched_beam(self, sampling: SamplingConfig, input_ids, pixel_values, img_pos,
+                      seed: int) -> np.ndarray:
+        """HF semantics for batched beam search: every batch row runs its own
+        search (row b sampled with seed ``seed + b``), one after another,
+        right-padded to the longest hypothesis.  With num_return_sequences
+        n > 1 each row gives n consecutive output rows, best first."""
+        input_ids = np.asarray(input_ids)
+        outs = []
+        for b in range(input_ids.shape[0]):
+            pix = None if pixel_values is None else np.asarray(pixel_values)[b:b + 1]
+            out = self._beam_row(sampling, input_ids[b:b + 1], pix, img_pos[b:b + 1], seed + b)
+            outs.extend(out if isinstance(out, list) else [out])
+        T = max(len(o) for o in outs)
+        pad = self.tokenizer.pad_token_id
+        return np.stack([np.concatenate([o, np.full((T - len(o),), pad, np.int64)])
+                         for o in outs])
 
     def stream_generate(self, input_ids, pixel_values=None, generation_config=None,
                         seed: int = 0, chunk_size: int = 1, speculative: bool = False,
@@ -199,6 +238,9 @@ class VisualCLA:
         between host reads (the speculative decoder reads once a verify chunk
         whatever ``chunk_size`` is)."""
         sampling = as_sampling_config(generation_config)
+        if sampling.num_beams > 1:
+            raise ValueError("streaming does not run beam search (num_beams > 1): call "
+                             "generate / chat, as HF's streamers refuse beams")
         decoder = self._decoder(sampling, speculative, spec_k)
         img_pos = self._img_positions(input_ids, pixel_values)
         if decoder is self.engine:
@@ -250,26 +292,39 @@ def get_model_and_tokenizer_and_processor(
     mesh=None,
     kv_quant: str = "none",
 ):
-    """Load (model, tokenizer, processor) from a native checkpoint directory
-    (``params.safetensors`` + ``config.json`` + tokenizer files), with the
-    text tower at the int4 tier if ``load_in_4bit``, else int8 if
-    ``load_in_8bit``, quantized on the host while it streams."""
+    """Load (model, tokenizer, processor): ``visualcla_model`` may be a native
+    checkpoint dir (``params.safetensors``) or a reference merged dir
+    (``text_encoder/`` + ``vision_encoder/`` + ``pytorch_model*.bin``, mapped
+    straight onto the modules); or base ``text_model`` + ``vision_model``
+    HF dirs with ``lora_model`` (one dir or a comma-separated list) folded in
+    at load.  The text tower loads at the int4 tier if ``load_in_4bit``, else
+    int8 if ``load_in_8bit``, quantized on the host while it streams."""
+    from .checkpoint.convert import load_merged, load_unmerged
     from .checkpoint.serialize import load_checkpoint
 
     quantize = "int4" if load_in_4bit else ("int8" if load_in_8bit else "none")
     if mesh is not None:
         raise _not_ported("a multi-device mesh", "11: multi-device")
-    if visualcla_model is None or lora_model is not None:
-        raise _not_ported("loading base text/vision models with LoRA adapters",
-                          "9: checkpoint conversion")
-    if not os.path.exists(os.path.join(visualcla_model, "params.safetensors")):
-        raise _not_ported("loading a reference-layout merged directory",
-                          "9: checkpoint conversion")
-    tokenizer = VisualCLATokenizer.from_pretrained(visualcla_model)
-    model, cfg = load_checkpoint(visualcla_model, device=device or _default_device(),
-                                 dtype=dtype, quantize=quantize)
-    if os.path.exists(os.path.join(visualcla_model, "preprocessor_config.json")):
-        image_processor = ImageProcessor.from_pretrained(visualcla_model)
+    loras = (lora_model.split(",") if isinstance(lora_model, str)
+             else list(lora_model or []))
+    if visualcla_model is None and (text_model is None or vision_model is None):
+        raise ValueError("pass visualcla_model, or text_model and vision_model "
+                         "(with lora_model)")
+    tokenizer = VisualCLATokenizer.from_pretrained(
+        visualcla_model or (loras[0] if loras else None) or text_model)
+    dev = device or _default_device()
+    kw = dict(device=dev, dtype=dtype, quantize=quantize)
+    if visualcla_model is None:
+        model, cfg = load_unmerged(text_model, vision_model, loras, vocab_size=len(tokenizer),
+                                   **kw)
+    elif os.path.exists(os.path.join(visualcla_model, "params.safetensors")):
+        model, cfg = load_checkpoint(visualcla_model, **kw)
+    else:
+        logger.info("loading reference merged checkpoint %s", visualcla_model)
+        model, cfg = load_merged(visualcla_model, **kw)
+    proc_src = visualcla_model or vision_model or (loras[0] if loras else None)
+    if proc_src and os.path.exists(os.path.join(proc_src, "preprocessor_config.json")):
+        image_processor = ImageProcessor.from_pretrained(proc_src)
     else:  # size to the vision tower so the patch count matches its table
         image_processor = ImageProcessor(image_size=cfg.vision_config.image_size)
     image_processor.patch_size = cfg.vision_config.patch_size

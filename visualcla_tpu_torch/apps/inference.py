@@ -8,11 +8,14 @@ with prompt-lookup speculative decoding, ``--load_in_8bit`` /
 ``--load_in_4bit`` pick the text tower's weight tier.  It runs on the GPU;
 ``--only_cpu`` runs on the CPU instead.  ``--stream_chunk`` is the number of
 tokens decoded between host reads while streaming; ``--gpus`` is accepted for
-the JAX package's flags and changes nothing.  Unmerged
-checkpoints (``--text_model`` + ``--vision_model`` + ``--lora_model``) raise
-``NotImplementedError`` naming ROADMAP item 9.
+the JAX package's flags and changes nothing.  ``--visualcla_model`` is a
+native checkpoint or a reference merged dir; unmerged checkpoints
+(``--text_model`` + ``--vision_model`` + ``--lora_model``, comma-separated
+LoRAs applied in order) are folded at load.
 
     python -m visualcla_tpu_torch.apps.inference --visualcla_model CKPT [--only_cpu]
+    python -m visualcla_tpu_torch.apps.inference --text_model LLAMA --vision_model CLIP \
+        --lora_model LORA [--only_cpu]
 """
 from __future__ import annotations
 

@@ -11,11 +11,16 @@ the JAX numerics (``ops/quantization.py:q_matmul``):
   f32 in the JAX orientation; ``x @ W4`` through kernel B3
   (``ops.cuda.int4_matmul``), returned in x's dtype;
 - ``Int8Table``: the per-row int8 embedding table, q (V, H), scale (V, 1).
+- ``LoraLinear``: a LoRA adapter over a frozen dense, int8 or int4 base,
+  ``base(x) + (x A) B * scale (+ bias)``, the low-rank path kept apart as
+  the JAX package's ``{"w", "lora_A", "lora_B", "lora_scale"}`` leaf keeps it.
 ``forward_f32`` is the LM head's product: fp32 accumulation and fp32 out.
 The layer kind is the module's type, as the JAX package tells a quantized
-leaf by its structure.  LoRA leaves are not ported yet (ROADMAP item 9).
+leaf by its structure.
 """
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -132,6 +137,40 @@ class Int8Table(nn.Module):
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         return q_take({"q": self.q, "scale": self.scale}, ids)
+
+
+class LoraLinear(nn.Module):
+    """``base(x) + ((x @ A) @ B) * scale`` then ``+ bias``, in x's dtype, as
+    the JAX package's ``linear`` computes a LoRA leaf (and adds the layer's
+    bias after it).  ``base`` is a bias-free ``Linear``, ``Int8Linear`` or
+    ``Int4Linear``; ``lora_A`` is (r, in) and ``lora_B`` (out, r), torch's
+    orientation; ``lora_scale`` a f32 scalar."""
+
+    def __init__(self, base: nn.Module, rank: int, *, bias: Optional[torch.Tensor] = None,
+                 device=None, dtype=None):
+        super().__init__()
+        in_f, out_f = base_features(base)
+        kw = dict(device=device, dtype=dtype)
+        self.base = base
+        self.lora_A = _frozen(torch.zeros(rank, in_f, **kw))
+        self.lora_B = _frozen(torch.zeros(out_f, rank, **kw))
+        self.lora_scale = _frozen(torch.ones((), dtype=torch.float32, device=device))
+        self.bias = None if bias is None else _frozen(bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        down = F.linear(x, self.lora_A.to(x.dtype))
+        up = F.linear(down, self.lora_B.to(x.dtype))
+        y = self.base(x) + up * self.lora_scale.to(x.dtype)
+        return y if self.bias is None else y + self.bias
+
+
+def base_features(mod: nn.Module) -> Tuple[int, int]:
+    """(in, out) of a dense, int8 or int4 linear."""
+    if isinstance(mod, Int4Linear):
+        G, half, out_f = mod.q.shape
+        return G * half * 2, out_f
+    w = mod.q if isinstance(mod, Int8Linear) else mod.weight
+    return w.shape[1], w.shape[0]
 
 
 def make_linear(in_features: int, out_features: int, quant: str = "none", *, device=None,

@@ -5,25 +5,30 @@ The reference's text-generation-webui plugin loads CLIP + resampler +
 projector WITHOUT the LLM and embeds images into 64 LLM-space vectors of
 width 4096 for injection by an external host.  ``VisionPipeline`` does that
 on PyTorch from a native checkpoint directory (only the vision-side leaves
-are read) or from modules already on the card, and runs on ``cuda`` unless
-``device="cpu"`` is passed.  Loading the reference merged layout or the webui
-split format raises ``NotImplementedError`` (ROADMAP item 9).
+are read), a reference merged directory (only ``vision_encoder/`` and the
+root ``pytorch_model*.bin``), the webui split format (a CLIP base, its vision
+LoRA folded in, the resampler and projector files) or modules already on the
+card, and runs on ``cuda`` unless ``device="cpu"`` is passed.
 """
 from __future__ import annotations
 
+import json
 import os
 
 import numpy as np
 import torch
 from torch import nn
 
-from .core.config import VisualCLAConfig
+from .core.config import ResamplerConfig, ViTConfig, VisualCLAConfig
 from .processor import ImageProcessor
 
-from .api import _default_device, _flatten, _not_ported
-from .checkpoint.from_jax import params_from_jax
-from .checkpoint.serialize import iter_safetensors
-from .models.visualcla import VisionTowers, encode_image
+from .api import _default_device
+from .checkpoint import lora as lora_lib
+from .checkpoint.convert import load_state_dicts
+from .checkpoint.from_jax import build_model
+from .checkpoint.serialize import flatten_tree, iter_safetensors
+from .checkpoint.torch_io import load_file, load_state_dict
+from .models.visualcla import encode_image
 
 VISION_TREES = ("vision/", "resampler/", "projection/")
 
@@ -42,9 +47,9 @@ class VisionPipeline:
         if isinstance(params, nn.Module):
             towers = params
         else:
-            flat = {k: v for k, v in _flatten(params).items() if k.startswith(VISION_TREES)}
-            towers = VisionTowers(cfg, device=device or _default_device(), dtype=dtype)
-            towers.load_state_dict(params_from_jax(flat, cfg))
+            flat = {k: v for k, v in flatten_tree(params).items() if k.startswith(VISION_TREES)}
+            towers = build_model(flat, cfg, device=device or _default_device(), dtype=dtype,
+                                 towers=True)
         self.towers = towers
         self.cfg = cfg
         self.image_processor = image_processor or ImageProcessor(
@@ -72,19 +77,50 @@ class VisionPipeline:
         """Load from a native checkpoint dir, reading the vision-side leaves only."""
         cfg = VisualCLAConfig.from_pretrained(path)
         flat = dict(iter_safetensors(os.path.join(path, "params.safetensors"), VISION_TREES))
-        ip = (ImageProcessor.from_pretrained(path)
-              if os.path.exists(os.path.join(path, "preprocessor_config.json")) else None)
-        return cls(flat, cfg, ip, dtype=dtype, device=device)
+        return cls(flat, cfg, _image_processor(path), dtype=dtype, device=device)
 
     @classmethod
-    def from_reference_merged(cls, path: str, dtype=None, device=None) -> "VisionPipeline":
-        raise _not_ported("loading the vision side of a reference merged directory",
-                          "9: checkpoint conversion")
+    def from_reference_merged(cls, path: str, dtype=torch.bfloat16,
+                              device=None) -> "VisionPipeline":
+        """Load the vision side of a reference merged dir (``vision_encoder/``
+        + the root ``pytorch_model*.bin`` with ``visual_resampler.*`` and
+        ``image_projection_layer.*``), never reading the text tower."""
+        cfg = VisualCLAConfig.from_pretrained(path)
+        root = load_state_dict(path)
+        sds = {"vision": (load_state_dict(os.path.join(path, "vision_encoder")), None),
+               "projection": (root, None)}
+        if cfg.use_visual_resampler:  # no visual_resampler.* keys without it
+            sds["resampler"] = (root, None)
+        towers, cfg = load_state_dicts(sds, cfg, device=device or _default_device(),
+                                       dtype=dtype, towers_only=True)
+        return cls(towers, cfg, _image_processor(path))
 
     @classmethod
-    def from_webui_split(cls, vision_dir: str, clip_model: str, vision_lora=None, dtype=None,
-                         device=None) -> "VisionPipeline":
-        raise _not_ported("loading the webui split format", "9: checkpoint conversion")
+    def from_webui_split(cls, vision_dir: str, clip_model: str, vision_lora=None,
+                         dtype=torch.bfloat16, device=None) -> "VisionPipeline":
+        """Load the split format of ``checkpoint.split_adapter``: the CLIP base
+        (its vision LoRA folded in, from ``vision_lora`` or ``vision_dir``'s
+        own ``adapter_model.bin``), the full resampler and projector files,
+        the resampler config beside them and the ViT config from the CLIP
+        dir (flat or nested under ``vision_config``)."""
+        clip_sd = load_state_dict(clip_model)
+        if vision_lora or os.path.exists(os.path.join(vision_dir, "adapter_model.bin")):
+            asd, acfg = lora_lib.load_adapter(vision_lora or vision_dir)
+            clip_sd = lora_lib.fold_lora(clip_sd, asd, acfg)
+        with open(os.path.join(vision_dir, "visual_resampler_config.json")) as f:
+            res_cfg = ResamplerConfig.from_hf_dict(json.load(f))
+        with open(os.path.join(clip_model, "config.json")) as f:
+            clip_cfg = json.load(f)
+        cfg = VisualCLAConfig(vision_config=ViTConfig.from_hf_dict(
+            clip_cfg.get("vision_config", clip_cfg)), visual_resampler_config=res_cfg)
+        sds = {"vision": (clip_sd, None),
+               "resampler": (load_file(os.path.join(vision_dir, "visual_resampler_model.bin")),
+                             ""),
+               "projection": (load_file(os.path.join(vision_dir,
+                                                     "image_projection_layer_model.bin")), "")}
+        towers, cfg = load_state_dicts(sds, cfg, device=device or _default_device(),
+                                       dtype=dtype, towers_only=True)
+        return cls(towers, cfg)
 
     @classmethod
     def from_any(cls, path: str, dtype=torch.bfloat16, device=None,
@@ -105,6 +141,13 @@ class VisionPipeline:
         raise FileNotFoundError(
             f"{path}: no params.safetensors, vision_encoder/, or "
             "visual_resampler_model.bin — not a recognizable checkpoint layout")
+
+
+def _image_processor(path: str):
+    """The dir's preprocessor config, if it ships one."""
+    if os.path.exists(os.path.join(path, "preprocessor_config.json")):
+        return ImageProcessor.from_pretrained(path)
+    return None
 
 
 # -- pipeline registry (the reference webui plugin's) --------------------------
