@@ -100,13 +100,11 @@ def main(argv=None) -> int:
 
     pv = bundle.image_processor(image)["pixel_values"]
 
-    def decode_rate():
+    def decode_rate():  # the decode loop (captured; eager under plain_kernels)
         st = eng.start(ids, pv, pos, greedy)
         sync()
-        t0, steps = time.perf_counter(), 0
-        while not st.done(greedy.max_new_tokens):
-            st = eng.step(st, greedy)
-            steps += 1
+        t0 = time.perf_counter()
+        steps = eng.decode(st, greedy) - 1
         sync()
         return steps / (time.perf_counter() - t0)
 

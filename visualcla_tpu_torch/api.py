@@ -9,7 +9,9 @@ both are set), and ``kv_quant="int8"`` (int8 KV cache) with either.
 (``engine/speculative.py``; greedy: token-identical in exact arithmetic;
 mirostat-2 configs take the plain engine).  ``num_beams > 1`` runs beam
 search (``engine/beam.py``; sampled with ``do_sample``), each batch row its
-own search, with ``num_return_sequences`` hypotheses a row.
+own search, with ``num_return_sequences`` hypotheses a row: greedy beams with
+one hypothesis take the device-resident ``beam_generate_fused`` unless
+``VISUALCLA_BEAM=host`` (the JAX package's switch) asks for the host scorer.
 ``VisualCLA.extend_to_resolution`` and ``prune_resampler_heads`` change the
 vision side in place.  The factory loads a native checkpoint, a reference
 merged directory, or base ``text_model`` + ``vision_model`` directories with
@@ -36,7 +38,7 @@ from .text.prompt import all_img_marker_positions, img_marker_positions
 
 from .checkpoint.from_jax import build_model
 from .checkpoint.serialize import flatten_tree
-from .engine.beam import beam_generate, beam_sample_generate
+from .engine.beam import beam_generate, beam_generate_fused, beam_sample_generate
 from .engine.generate import Engine
 from .engine.sampling import SamplingConfig
 from .engine.speculative import SpeculativeDecoder
@@ -207,12 +209,17 @@ class VisualCLA:
             gen = torch.Generator(device=self.engine.device).manual_seed(seed)
             return beam_sample_generate(self.model, self.config, ids, pix, pos, sampling,
                                         generator=gen, **kw)
-        return beam_generate(self.model, self.config, ids, pix, pos,
-                             num_beams=sampling.num_beams,
-                             max_new_tokens=sampling.max_new_tokens,
-                             length_penalty=sampling.length_penalty,
-                             early_stopping=sampling.early_stopping,
-                             num_return_sequences=sampling.num_return_sequences, **kw)
+        kw.update(num_beams=sampling.num_beams, max_new_tokens=sampling.max_new_tokens,
+                  length_penalty=sampling.length_penalty,
+                  early_stopping=sampling.early_stopping)
+        # the device-resident scorer by default, as in the JAX package;
+        # VISUALCLA_BEAM=host keeps the host scorer, and the top-n
+        # hypotheses need its BeamHypotheses (the fused loop keeps the best)
+        nrs = sampling.num_return_sequences
+        if os.environ.get("VISUALCLA_BEAM") == "host" or nrs > 1:
+            return beam_generate(self.model, self.config, ids, pix, pos,
+                                 num_return_sequences=nrs, **kw)
+        return beam_generate_fused(self.model, self.config, ids, pix, pos, **kw)
 
     def _batched_beam(self, sampling: SamplingConfig, input_ids, pixel_values, img_pos,
                       seed: int) -> np.ndarray:

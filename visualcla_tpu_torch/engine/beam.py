@@ -1,27 +1,33 @@
-"""Beam search, ``num_beams > 1`` (port of visualcla_tpu/engine/beam.py, the
-host-driven forms).
+"""Beam search, ``num_beams > 1`` (port of visualcla_tpu/engine/beam.py).
 
 HF beam search over the composite model, generated-only ids returned:
 
 - device: the prompt's prefill runs once, one row through kernel B2, and its
   cache fans out to the ``nb`` beams; each step is one forward of the nb
   beams' last tokens at B = nb (kernel B1 a layer), a log-softmax and a
-  top-2nb over the (nb x V) scores, so only the 2nb candidates go to the
-  host; ``_reorder_tail`` then gathers the live window of the cache in place;
-- host: HF's ``BeamSearchScorer`` bookkeeping (candidate order, EOS
-  hypotheses scored ``sum_logprob / len**length_penalty`` when added,
-  worst-hypothesis eviction, the ``is_done`` early-stopping rule).
+  top-2nb over the (nb x V) scores; ``_reorder_tail`` gathers the live
+  window of the cache in place;
+- ``beam_generate_fused`` (the JAX package's default greedy path): the
+  scorer's state lives in fixed-shape device tensors (hypothesis ids,
+  lengths and scores, worst-score eviction, the ``is_done`` rule), and one
+  gated step (reorder, forward, top-2nb, candidate routing) is captured in a
+  CUDA graph and replayed ``BEAM_CHUNK`` times between host reads of the
+  device's stop flag (``engine/graphs.py``); the final pass over the live
+  beams runs once after the loop;
+- ``beam_generate`` (``VISUALCLA_BEAM=host``, and ``num_return_sequences >
+  1``): only the 2nb candidates go to the host, where HF's
+  ``BeamSearchScorer`` bookkeeping runs (candidate order, EOS hypotheses
+  scored ``sum_logprob / len**length_penalty`` when added, worst-hypothesis
+  eviction, the ``is_done`` early-stopping rule).
 
-``beam_sample_generate`` is HF's ``beam_sample`` (``do_sample=True``): the
-2nb candidates are drawn without replacement by Gumbel-top-k from an
-explicit ``torch.Generator``.  The JAX package's device-resident
-``beam_generate_fused`` has no counterpart yet (ROADMAP item 3: the loop
-captured in a CUDA graph); ``beam_generate`` is held token-identical to it
-there.
+``beam_sample_generate`` is HF's ``beam_sample`` (``do_sample=True``), host
+driven as in the JAX package: the 2nb candidates are drawn without
+replacement by Gumbel-top-k from an explicit ``torch.Generator``.
 """
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Callable, List, Optional, Tuple
 
 import numpy as np
@@ -29,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models import llama, visualcla
+from .graphs import Graphs
 from .sampling import apply_no_repeat_ngram, apply_repetition_penalty, warp_top_k, warp_top_p
 
 Cand = List[Tuple[float, int, int]]  # (score, beam, token), best first
@@ -95,44 +102,68 @@ class BeamHypotheses:
         return [h.ids for h in self.ranked()[:n]]
 
 
+def _check_one_row(input_ids) -> None:
+    if np.asarray(input_ids).shape[0] != 1:
+        raise ValueError(
+            f"beam search supports batch size 1, got {np.asarray(input_ids).shape[0]} "
+            "(prefill builds a single-row cache that fans out to num_beams)")
+
+
+def _cache_slots(S: int, max_new_tokens: int, max_seq_len: Optional[int],
+                 cache_slots: Optional[int]) -> Tuple[int, int]:
+    """(the decode cap, the cache's slots: a multiple of 256 at least
+    ``cache_slots``)."""
+    cap = max_seq_len or (S + max_new_tokens)
+    return cap, -(-max(cap, cache_slots or 0) // 256) * 256
+
+
+@torch.no_grad()
+def _prefill_row(model, cfg, input_ids, pixel_values, img_start_pos, alloc: int,
+                 kv_quant: str):
+    """The shared prompt's prefill, one row into a fresh ``alloc``-slot
+    cache: (first logits (1, V) fp32, cache)."""
+    text = model.text
+    p = text.final_norm.weight
+    dev, dtype = p.device, p.dtype
+    S = np.asarray(input_ids).shape[1]
+    if img_start_pos is None:
+        img_pos = np.full((1,), -1, np.int64)
+    else:
+        img_pos = np.asarray(img_start_pos)
+        visualcla.check_img_start_pos(img_pos, cfg.num_image_tokens, S)
+    if pixel_values is not None:
+        pixel_values = torch.as_tensor(np.asarray(pixel_values)).to(dev, dtype)
+    ids = torch.as_tensor(np.asarray(input_ids, np.int64), device=dev)
+    embeds = visualcla.multimodal_embeds(model, cfg, ids, img_pos, pixel_values)
+    cache = llama.init_kv_cache(cfg.text_config, 1, alloc, dtype, device=dev,
+                                kv_quant=kv_quant)
+    kv_valid = torch.zeros(1, alloc, dtype=torch.bool, device=dev)
+    kv_valid[:, :S] = True
+    positions = torch.arange(S, device=dev)[None]
+    hidden, cache = text(embeds, positions, cache, kv_valid, 0)
+    return text.logits(hidden[:, -1:])[:, 0], cache
+
+
 class _BeamState:
     """The beams' cache, validity and write slot after the shared prefill."""
 
     def __init__(self, model, cfg, input_ids, pixel_values, img_start_pos, nb: int,
                  max_new_tokens: int, max_seq_len: Optional[int], cache_slots: Optional[int],
                  kv_quant: str):
-        if np.asarray(input_ids).shape[0] != 1:
-            raise ValueError(
-                f"beam search supports batch size 1, got {np.asarray(input_ids).shape[0]} "
-                "(prefill builds a single-row cache that fans out to num_beams)")
+        _check_one_row(input_ids)
         text = model.text
-        p = text.final_norm.weight
-        dev, dtype = p.device, p.dtype
         S = np.asarray(input_ids).shape[1]
         self.S = S
-        self.Smax = max_seq_len or (S + max_new_tokens)  # the decode cap
-        alloc = -(-max(self.Smax, cache_slots or 0) // 256) * 256
-        if img_start_pos is None:
-            img_pos = np.full((1,), -1, np.int64)
-        else:
-            img_pos = np.asarray(img_start_pos)
-            visualcla.check_img_start_pos(img_pos, cfg.num_image_tokens, S)
-        if pixel_values is not None:
-            pixel_values = torch.as_tensor(np.asarray(pixel_values)).to(dev, dtype)
-        ids = torch.as_tensor(np.asarray(input_ids, np.int64), device=dev)
-        embeds = visualcla.multimodal_embeds(model, cfg, ids, img_pos, pixel_values)
-        cache = llama.init_kv_cache(cfg.text_config, 1, alloc, dtype, device=dev,
-                                    kv_quant=kv_quant)
-        kv_valid = torch.zeros(1, alloc, dtype=torch.bool, device=dev)
-        kv_valid[:, :S] = True
-        positions = torch.arange(S, device=dev)[None]
-        hidden, cache = text(embeds, positions, cache, kv_valid, 0)
-        self.first_logits = text.logits(hidden[:, -1:])[:, 0]  # (1, V) fp32
+        self.Smax, alloc = _cache_slots(S, max_new_tokens, max_seq_len, cache_slots)
+        self.first_logits, cache = _prefill_row(model, cfg, input_ids, pixel_values,
+                                                img_start_pos, alloc, kv_quant)
         # the one prefilled row fans out to the nb beams
         self.cache = {k: v.repeat(1, nb, *([1] * (v.dim() - 2))) for k, v in cache.items()}
         del cache
-        self.kv_valid = kv_valid.repeat(nb, 1)
-        self.text, self.nb, self.dev = text, nb, dev
+        self.dev = text.final_norm.weight.device
+        self.kv_valid = torch.zeros(nb, alloc, dtype=torch.bool, device=self.dev)
+        self.kv_valid[:, :S] = True
+        self.text, self.nb = text, nb
         self.slot = S
 
     def forward(self, tokens: np.ndarray) -> torch.Tensor:
@@ -352,3 +383,234 @@ def beam_sample_generate(
                    early_stopping=sampling.early_stopping,
                    num_return_sequences=getattr(sampling, "num_return_sequences", 1),
                    stats=stats)
+
+
+# ---------------------------------------------------------------------------
+# the device-resident beam search (captured CUDA graphs)
+# ---------------------------------------------------------------------------
+
+BEAM_CHUNK = 8  # beam steps (replays of the captured one) between host reads
+NEG = -1e9
+# model -> {(nb, cache slots, T, kv_quant): _FusedBeam}: one workspace a model
+# (its cache is nb x the single-stream one: 4.3 GB at 7B, 4 beams, 2048 slots)
+_FUSED: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+class _FusedBeam:
+    """The fused beam search's persistent device state for one (nb, cache
+    slots, T) and its graphs: the nb-row cache and validity, the beams'
+    tokens, scores, reorder indices and generated ids, the write slot,
+    position and step, the stop flag, the hypothesis buffers (ids, lengths,
+    scores, count) and the last step's continuations (for the final pass)."""
+
+    def __init__(self, model, cfg, nb: int, alloc: int, T: int, kv_quant: str):
+        p = model.text.final_norm.weight
+        dev = self.dev = p.device
+        # the text tower, not the model: the store's key must stay collectable
+        self.text, self.nb, self.T = model.text, nb, T
+        self.kv_quant = kv_quant
+        self.cache = llama.init_kv_cache(cfg.text_config, nb, alloc, p.dtype, device=dev,
+                                         kv_quant=kv_quant)
+        self.kv_valid = torch.zeros(nb, alloc, dtype=torch.bool, device=dev)
+        i64 = dict(dtype=torch.int64, device=dev)
+        f32 = dict(dtype=torch.float32, device=dev)
+        self.gen, self.hyp_ids, self.last_gen = (torch.zeros(nb, T, **i64) for _ in range(3))
+        self.beams, self.tokens, self.hyp_len = (torch.zeros(nb, **i64) for _ in range(3))
+        self.scores, self.hyp_score, self.last_s = (torch.zeros(nb, **f32) for _ in range(3))
+        (self.slot, self.pos, self.i, self.count, self.last_len, self.S,
+         self.cap) = (torch.zeros((), **i64) for _ in range(7))
+        self.stop = torch.zeros((), dtype=torch.bool, device=dev)
+        self.live = torch.zeros((), **i64)  # steps run ungated
+        self.ar = torch.arange(nb, device=dev)
+        self.window = torch.arange(T, device=dev)
+        self.graphs = Graphs()
+        self.counts = {"beam_passes": 0}  # forwards run, gated ones included
+
+    # -- the scorer on the device (the JAX fused loop's helpers) -------------
+
+    def hyp_add(self, hyp, ids_row, length, sum_logprob, enabled):
+        """HF BeamHypotheses.add over fixed buffers: insert while count < nb,
+        else evict the worst when the new score beats it."""
+        hyp_ids, hyp_len, hyp_score, count = hyp
+        nb = self.nb
+        score = sum_logprob / length.float() ** self.lp
+        filled = torch.where(self.ar < count, hyp_score, torch.full_like(hyp_score, float("inf")))
+        can = enabled & ((count < nb) | (score > filled.min()))
+        write = torch.where(count < nb, count, filled.argmin())
+        sel = (self.ar == write) & can
+        return (torch.where(sel[:, None], ids_row[None, :], hyp_ids),
+                torch.where(sel, length, hyp_len), torch.where(sel, score, hyp_score),
+                count + (can & (count < nb)).long())
+
+    def hyp_worst(self, hyp):
+        _, _, hyp_score, count = hyp
+        return torch.where(self.ar < count, hyp_score,
+                           torch.full_like(hyp_score, float("inf"))).min()
+
+    def is_done(self, hyp, best_cand, cur_len):
+        full = hyp[3] >= self.nb
+        if self.early_stopping:
+            return full
+        return full & (self.hyp_worst(hyp) >= best_cand / cur_len.float() ** self.lp)
+
+    def process_candidates(self, cand_s, cand_b, cand_t, gen, i, hyp):
+        """Route the 2nb candidates in order: EOS ones into the hypotheses
+        (sequentially: eviction depends on order), the first nb others to
+        the next beams.  The JAX loop's slow path, which equals its fast
+        one when no candidate is EOS, runs on every step."""
+        nb, T = self.nb, self.T
+        is_eos = cand_t == self.eos
+        non = (~is_eos).long()
+        before = non.cumsum(0) - non  # non-EOS candidates ahead of each
+        active = before < nb  # the host loop breaks once nb are taken
+        slot = torch.where(active & ~is_eos, before, torch.full_like(before, nb))
+        next_s = torch.full((nb + 1,), NEG, device=self.dev).scatter(0, slot, cand_s)[:nb]
+        next_b = torch.zeros(nb + 1, dtype=torch.int64, device=self.dev).scatter(
+            0, slot, cand_b)[:nb]
+        next_t = torch.full((nb + 1,), self.pad, dtype=torch.int64, device=self.dev).scatter(
+            0, slot, cand_t)[:nb]
+        at_i = self.window == i
+        eos_rows = torch.where(at_i[None, :], self.eos, gen.index_select(0, cand_b))
+        for c in range(2 * nb):
+            hyp = self.hyp_add(hyp, eos_rows[c], i + 1, cand_s[c], active[c] & is_eos[c])
+        return next_s, next_b, next_t, hyp
+
+    def advance(self, cand_s, cand_b, cand_t, go, written: int = 1):
+        """Candidate processing at step ``i`` and the state update, where
+        ``go``; ``written`` cache slots past ``slot`` count against the cap
+        (0 for the prefill's candidates, whose step writes none)."""
+        hyp = (self.hyp_ids, self.hyp_len, self.hyp_score, self.count)
+        next_s, next_b, next_t, hyp = self.process_candidates(
+            cand_s, cand_b, cand_t, self.gen, self.i, hyp)
+        next_gen = torch.where((self.window == self.i)[None, :], next_t[:, None],
+                               self.gen.index_select(0, next_b))
+        stop = (self.is_done(hyp, cand_s.max(), self.i + 1)
+                | (self.slot + written >= self.cap) | (self.i + 1 >= self.T))
+        for buf, new in ((self.gen, next_gen), (self.scores, next_s), (self.beams, next_b),
+                         (self.tokens, next_t), (self.hyp_ids, hyp[0]),
+                         (self.hyp_len, hyp[1]), (self.hyp_score, hyp[2]),
+                         (self.count, hyp[3]), (self.last_s, next_s),
+                         (self.last_gen, next_gen), (self.last_len, self.i + 1)):
+            buf.copy_(torch.where(go, new, buf))
+        self.stop |= go & stop
+        self.i += go.long()
+
+    def step(self) -> None:
+        """One gated beam step over device tensors only: reorder the live
+        window by the last step's beams (the identity when gated), forward
+        the nb beams' tokens (B1 a layer), log-softmax, top-2nb, process."""
+        go = ~self.stop & self.graphs.enable(self.dev)
+        nb = self.nb
+        beams = torch.where(go, self.beams, self.ar)
+        Smax = self.kv_valid.shape[1]
+        win = (self.S + self.window).clamp(max=Smax - 1)
+        for v in self.cache.values():
+            v.index_copy_(3, win, v.index_select(3, win).index_select(1, beams))
+        slot = self.slot.clamp(max=Smax - 1).expand(nb)
+        # (a 0-d index would be read back to the host: index by (nb,) rows)
+        self.kv_valid.index_put_((self.ar, slot),
+                                 self.kv_valid.gather(1, slot[:, None])[:, 0] | go)
+        text = self.text
+        hidden, _ = text(text.embed(self.tokens[:, None]), self.pos.expand(nb)[:, None],
+                         self.cache, self.kv_valid, slot)
+        logprobs = F.log_softmax(text.logits(hidden)[:, 0].float(), -1)
+        V = logprobs.shape[-1]
+        cand_s, top_i = torch.topk((self.scores[:, None] + logprobs).reshape(-1), 2 * nb)
+        self.advance(cand_s, top_i // V, top_i % V, go)
+        adv = go.long()
+        self.slot += adv
+        self.pos += adv
+        self.live += adv
+        self.counts["beam_passes"] += 1
+
+    @torch.no_grad()
+    def search(self, model, cfg, input_ids, pixel_values, img_start_pos, *, alloc: int, cap: int,
+               eos: int, pad: int, length_penalty: float, early_stopping: bool,
+               stats: Optional[dict]) -> np.ndarray:
+        self.eos, self.pad = eos, pad
+        self.lp, self.early_stopping = float(length_penalty), bool(early_stopping)
+        nb, dev = self.nb, self.dev
+        S = np.asarray(input_ids).shape[1]
+        first_logits, row = _prefill_row(model, cfg, input_ids, pixel_values,
+                                         img_start_pos, alloc, self.kv_quant)
+        for name, v in row.items():  # the one prefilled row fans out to the nb beams
+            self.cache[name].copy_(v.expand_as(self.cache[name]))
+        del row
+        self.kv_valid.zero_()
+        self.kv_valid[:, :S] = True
+        for buf in (self.gen, self.hyp_ids, self.hyp_len, self.count, self.live):
+            buf.zero_()
+        self.hyp_score.fill_(NEG)
+        self.S.fill_(S)
+        self.cap.fill_(cap)
+        self.slot.fill_(S)
+        self.pos.fill_(S)
+        self.i.zero_()
+        self.stop.zero_()
+        # step 0: the prefill's candidates, all from beam 0
+        beam_scores = torch.full((nb,), NEG, device=dev)
+        beam_scores[0] = 0.0
+        logprobs0 = F.log_softmax(first_logits.float(), -1)
+        V = logprobs0.shape[-1]
+        cand_s, top_i = torch.topk((beam_scores[:, None] + logprobs0).reshape(-1), 2 * nb)
+        self.advance(cand_s, top_i // V, top_i % V, torch.ones((), dtype=torch.bool, device=dev),
+                     written=0)
+        key = (self.lp, self.early_stopping, eos, pad)
+        while not bool(self.stop):
+            self.graphs.run(key, self.step, dev, counters=[self.counts], replays=BEAM_CHUNK)
+        # the final pass: open beams become hypotheses in score order while room
+        hyp = (self.hyp_ids, self.hyp_len, self.hyp_score, self.count)
+        order = torch.argsort(-self.last_s, stable=True)
+        for j in range(nb):
+            k = order[j]
+            hyp = self.hyp_add(hyp, self.last_gen[k], self.last_len, self.last_s[k],
+                               hyp[3] < nb)
+        hyp_ids, hyp_len, hyp_score, count = hyp
+        best = torch.where(self.ar < count, hyp_score,
+                           torch.full_like(hyp_score, -float("inf"))).argmax()
+        out = torch.cat([hyp_len[best][None], self.live[None], hyp_ids[best]]).cpu().numpy()
+        if stats is not None:
+            stats.update(steps=int(out[1]), passes=self.counts["beam_passes"],
+                         **self.graphs.stats())
+        return out[2:2 + int(out[0])]
+
+
+def beam_generate_fused(
+    model,
+    cfg,
+    input_ids: np.ndarray,  # (1, S)
+    pixel_values: Optional[np.ndarray],
+    img_start_pos: Optional[np.ndarray],
+    *,
+    num_beams: int,
+    max_new_tokens: int,
+    eos_token_id: int,
+    pad_token_id: int = 0,
+    length_penalty: float = 1.0,
+    early_stopping: bool = False,
+    max_seq_len: Optional[int] = None,
+    cache_slots: Optional[int] = None,
+    kv_quant: str = "none",
+    stats: Optional[dict] = None,
+) -> np.ndarray:
+    """Device-resident beam search (the JAX package's ``beam_generate_fused``):
+    ``beam_generate``'s best hypothesis with the scorer on the device and
+    the step replayed from a captured graph (eagerly on CPU tensors or in
+    ``graphs.eager()``), one host read every ``BEAM_CHUNK`` steps.
+    The workspace (its nb-row cache, its graphs) is kept for the next call
+    of the same (nb, cache slots, max_new_tokens) on ``model``, one a model.
+    ``stats``, if given, receives the steps run, the forwards run (gated
+    ones included) and the graphs' capture counts."""
+    _check_one_row(input_ids)
+    nb, T = num_beams, max_new_tokens
+    S = np.asarray(input_ids).shape[1]
+    cap, alloc = _cache_slots(S, T, max_seq_len, cache_slots)
+    store = _FUSED.setdefault(model, {})
+    key = (nb, alloc, T, kv_quant)
+    if key not in store:
+        store.clear()  # one workspace a model
+        store[key] = _FusedBeam(model, cfg, nb, alloc, T, kv_quant)
+    return store[key].search(model, cfg, input_ids, pixel_values, img_start_pos, alloc=alloc,
+                             cap=cap, eos=eos_token_id, pad=pad_token_id,
+                             length_penalty=length_penalty, early_stopping=early_stopping,
+                             stats=stats)

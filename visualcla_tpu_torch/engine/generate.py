@@ -8,12 +8,26 @@ like their single-row runs.  Generation stops on EOS (every row), at
 ``max_new_tokens`` or at the end of the cache; rows that finish early emit
 pad.  ``generate`` returns the generated ids only (the HF ``inputs_embeds``
 contract); ``stream`` yields each step's tokens (``chunk_size`` steps between
-host reads).  Decode is a Python loop of
-eager steps (no CUDA graph yet).
+host reads).
+
+Decode is the JAX package's ``_decode_loop`` as captured CUDA graphs
+(``engine/graphs.py``): ``step`` is one decode step over device tensors only,
+gated by the JAX loop's ``cond`` (``gen_len < max_steps``, not every row
+finished, ``cur_slot < Smax``); it is captured once per key and replayed
+``DECODE_CHUNK`` times (fewer at the end) between host reads of one control
+tensor, until the host sees the ``cond`` false.  The prefill stays eager.
+The state lives in a workspace per (B, cache length): the KV cache,
+``kv_valid``, the token buffers, the sampler state and the generator, which
+each prefill resets and refills in place, so a graph's addresses stay valid
+from request to request.  The engine keeps at most ``MAX_WORKSPACES``
+workspaces (each holds a whole KV cache, 1.07 GB for B=1 at 2048 bf16 slots
+at 7B) and ``graphs.MAX_GRAPHS`` graphs.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
+import itertools
 from typing import Iterator, Optional, Tuple
 
 import numpy as np
@@ -22,9 +36,13 @@ import torch
 from ..core.config import VisualCLAConfig
 
 from ..models import llama, visualcla
+from .graphs import Graphs
 from .sampling import SamplingConfig, sample_step
 
 PROMPT_BUCKETS = (128, 256, 512, 1024, 2048)
+DECODE_CHUNK = 8  # decode steps (replays of the captured step) between host reads
+MAX_WORKSPACES = 2  # (B, cache length) shapes an Engine keeps buffers for
+_TOKENS = itertools.count()
 
 
 def pick_bucket(buckets: Tuple[int, ...], n: int) -> int:
@@ -37,23 +55,63 @@ def pick_bucket(buckets: Tuple[int, ...], n: int) -> int:
     raise ValueError(f"prompt length {n} exceeds max bucket {buckets[-1]}")
 
 
+def static_key(sampling: SamplingConfig) -> SamplingConfig:
+    """What a decode step bakes in of ``sampling``: all of it but
+    ``max_new_tokens``, which the step reads from a device buffer."""
+    return dataclasses.replace(sampling, max_new_tokens=0)
+
+
+class Workspace:
+    """The persistent device buffers of one (B, cache length): the KV cache,
+    ``kv_valid``, the decode state (``gen_ids`` as wide as the cache, which
+    bounds every generation), the speculative decoder's counters and prompt
+    buffers, and the generator.  ``token`` names it in graph keys."""
+
+    def __init__(self, eng: "Engine", B: int, cache_len: int):
+        dev = eng.device
+        self.token = next(_TOKENS)
+        self.key = (B, cache_len)
+        self.busy = False  # a generate / stream is running on it
+        self.cache = llama.init_kv_cache(eng.cfg.text_config, B, cache_len, eng.dtype,
+                                         device=dev, kv_quant=eng.kv_quant)
+        self.kv_valid = torch.zeros(B, cache_len, dtype=torch.bool, device=dev)
+        self.gen_ids = torch.zeros(B, cache_len, dtype=torch.int64, device=dev)
+        z = dict(dtype=torch.int64, device=dev)
+        self.cur_slot, self.positions = torch.zeros(B, **z), torch.zeros(B, **z)
+        self.gen_len, self.last_token = torch.zeros(B, **z), torch.zeros(B, **z)
+        self.finished = torch.zeros(B, dtype=torch.bool, device=dev)
+        self.mu = torch.zeros(B, dtype=torch.float32, device=dev)
+        self.max_steps = torch.zeros((), **z)
+        self.spec_counts = torch.zeros(3, **z)  # chunks, emitted, row-chunks
+        self.prompts: dict = {}  # prompt bucket -> (ids (B, Lb), first real index (B,))
+        self.generator = torch.Generator(device=dev)
+        self.rows = torch.arange(B, device=dev)
+
+
 @dataclasses.dataclass
 class DecodeState:
+    """Views of a workspace's buffers (every field but ``ws`` a device
+    tensor; ``cur_slot`` and ``gen_len`` hold one value for every row)."""
+
     cache: dict
     kv_valid: torch.Tensor  # (B, Smax) bool
-    cur_slot: int  # next cache slot to write
+    cur_slot: torch.Tensor  # (B,) next cache slot to write
     positions: torch.Tensor  # (B,) next rope position per row
-    gen_ids: torch.Tensor  # (B, max_new_tokens) generated tokens
-    gen_len: int  # tokens generated so far
+    gen_ids: torch.Tensor  # (B, Smax) generated tokens
+    gen_len: torch.Tensor  # (B,) tokens generated so far
     last_token: torch.Tensor  # (B,)
     finished: torch.Tensor  # (B,) bool
     generator: torch.Generator
     mu: torch.Tensor  # (B,) fp32 mirostat state
+    max_steps: torch.Tensor  # () the loop's bound on gen_len
+    ws: Workspace
 
-    def done(self, max_new_tokens: int) -> bool:
-        return (self.gen_len >= max_new_tokens
-                or self.cur_slot >= self.kv_valid.shape[1]
-                or bool(self.finished.all()))
+    @classmethod
+    def of(cls, ws: Workspace) -> "DecodeState":
+        return cls(cache=ws.cache, kv_valid=ws.kv_valid, cur_slot=ws.cur_slot,
+                   positions=ws.positions, gen_ids=ws.gen_ids, gen_len=ws.gen_len,
+                   last_token=ws.last_token, finished=ws.finished, generator=ws.generator,
+                   mu=ws.mu, max_steps=ws.max_steps, ws=ws)
 
 
 class Engine:
@@ -83,6 +141,12 @@ class Engine:
                              f"(buckets={PROMPT_BUCKETS})")
         p = model.text.final_norm.weight  # a float leaf at every weight tier
         self.device, self.dtype = p.device, p.dtype
+        self._workspaces: collections.OrderedDict = collections.OrderedDict()
+        self.graphs = Graphs()
+        # forward passes run on the device by the decode steps (gated ones
+        # included): each launches B1 once a layer; "spec_passes" the same
+        # for the speculative decoder's verify chunks (B2 once a layer)
+        self.counts = {"decode_passes": 0, "spec_passes": 0}
 
     def bucket_len(self, prompt_len: int) -> int:
         return pick_bucket(self.prompt_buckets, prompt_len)
@@ -101,11 +165,42 @@ class Engine:
         mask[np.arange(L)[None, :] < (L - S + lead)[:, None]] = 0
         return ids, mask
 
+    # -- workspaces -----------------------------------------------------------
+
+    def workspace(self, B: int, cache_len: int) -> Workspace:
+        """The cached workspace of this shape; a private one while the cached
+        one is busy (a stream still open), dropped with its graphs after."""
+        key = (B, cache_len)
+        ws = self._workspaces.get(key)
+        if ws is not None and not ws.busy:
+            self._workspaces.move_to_end(key)
+            return ws
+        if ws is not None:
+            return Workspace(self, B, cache_len)
+        ws = self._workspaces[key] = Workspace(self, B, cache_len)
+        for old in [w for w in self._workspaces.values() if not w.busy]:
+            if len(self._workspaces) <= MAX_WORKSPACES:
+                break
+            del self._workspaces[old.key]
+            self.graphs.drop(lambda k, t=old.token: k[0] == t)
+        return ws
+
+    def release(self, ws: Workspace) -> None:
+        """A generate / stream on ``ws`` ended."""
+        ws.busy = False
+        if self._workspaces.get(ws.key) is not ws:
+            self.graphs.drop(lambda k: k[0] == ws.token)
+
+    # -- prefill --------------------------------------------------------------
+
     @torch.no_grad()
-    def prefill(self, input_ids, pixel_values, img_start_pos, cache_len: int):
+    def prefill(self, input_ids, pixel_values, img_start_pos, cache_len: int,
+                ws: Optional[Workspace] = None):
         """Left-pad, embed (with the image splice) and run the text tower over
-        a fresh ``cache_len``-slot cache.  Returns (final-normed hidden
-        (B, S, H), cache, kv_valid (B, cache_len), rope positions (B, S))."""
+        the ``cache_len``-slot cache of ``ws`` (by default the engine's
+        workspace of that shape), reset first: zeros (int8 scales one) and
+        no valid slot.  Returns (final-normed hidden (B, S, H), cache,
+        kv_valid (B, cache_len), rope positions (B, S))."""
         input_ids = np.asarray(input_ids, np.int64)
         B, S = input_ids.shape
         padded, mask = self.pad_prompt(input_ids)
@@ -119,105 +214,160 @@ class Engine:
         dev = self.device
         if pixel_values is not None:
             pixel_values = torch.as_tensor(np.asarray(pixel_values)).to(dev, self.dtype)
-        cache = llama.init_kv_cache(self.cfg.text_config, B, cache_len, self.dtype,
-                                    device=dev, kv_quant=self.kv_quant)
+        ws = ws or self.workspace(B, cache_len)
+        cache, kv_valid = ws.cache, ws.kv_valid
+        for name, buf in cache.items():
+            buf.fill_(1 if name.endswith("_scale") else 0)
         mask_t = torch.as_tensor(mask, device=dev)
         embeds = visualcla.multimodal_embeds(
             self.model, self.cfg, torch.as_tensor(padded, device=dev), img_pos,
             pixel_values)
         positions = (mask_t.cumsum(-1) - 1).clamp(min=0)
-        kv_valid = torch.zeros(B, cache_len, dtype=torch.bool, device=dev)
+        kv_valid.zero_()
         kv_valid[:, :Sb] = mask_t.bool()
         hidden, cache = self.model.text(embeds, positions, cache, kv_valid, 0)
         return hidden, cache, kv_valid, positions
 
+    def cache_len(self, Sb: int, max_new_tokens: int, extra_slots: int = 0) -> int:
+        """The cache holds the bucket plus every new token, in 256-slot steps."""
+        n = max(self.max_seq_len, Sb + max_new_tokens + extra_slots)
+        return -(-n // 256) * 256
+
     @torch.no_grad()
     def start(self, input_ids, pixel_values, img_start_pos, sampling: SamplingConfig,
               seed: int = 0, extra_slots: int = 0) -> DecodeState:
-        """Prefill and sample the first token.  ``extra_slots`` adds cache
-        headroom (a speculative verify chunk writes K+1 slots at once)."""
+        """Prefill and sample the first token into a workspace.
+        ``extra_slots`` adds cache headroom (a speculative verify chunk writes
+        K+1 slots at once)."""
         B, S = np.asarray(input_ids).shape
         Sb = self.bucket_len(S)
-        # the cache holds the bucket plus every new token, in 256-slot steps
-        cache_len = max(self.max_seq_len, Sb + sampling.max_new_tokens + extra_slots)
-        cache_len = -(-cache_len // 256) * 256
-        hidden, cache, kv_valid, positions = self.prefill(
-            input_ids, pixel_values, img_start_pos, cache_len)
+        ws = self.workspace(B, self.cache_len(Sb, sampling.max_new_tokens, extra_slots))
+        hidden, _, _, positions = self.prefill(input_ids, pixel_values, img_start_pos,
+                                               ws.key[1], ws=ws)
         last_logits = self.model.text.logits(hidden[:, -1:])[:, 0]
-        dev = self.device
-        generator = torch.Generator(device=dev).manual_seed(seed)
-        gen_ids = torch.zeros(B, sampling.max_new_tokens, dtype=torch.int64, device=dev)
-        zeros = torch.zeros(B, dtype=torch.int64, device=dev)
-        mu = torch.full((B,), 2.0 * sampling.mirostat_tau, device=dev)
-        token, mu = sample_step(last_logits, gen_ids, zeros, generator, mu, sampling)
-        gen_ids[:, 0] = token
-        return DecodeState(
-            cache=cache, kv_valid=kv_valid, cur_slot=Sb,
-            positions=positions[:, -1] + 1, gen_ids=gen_ids, gen_len=1,
-            last_token=token, finished=token == self.eos_token_id,
-            generator=generator, mu=mu)
+        ws.generator.manual_seed(seed)
+        ws.gen_ids.zero_()
+        ws.mu.fill_(2.0 * sampling.mirostat_tau)
+        zeros = torch.zeros(B, dtype=torch.int64, device=self.device)
+        token, mu = sample_step(last_logits, ws.gen_ids, zeros, ws.generator, ws.mu, sampling)
+        ws.gen_ids[:, 0] = token
+        ws.mu.copy_(mu)
+        ws.last_token.copy_(token)
+        ws.finished.copy_(token == self.eos_token_id)
+        ws.cur_slot.fill_(Sb)
+        ws.positions.copy_(positions[:, -1] + 1)
+        ws.gen_len.fill_(1)
+        ws.max_steps.fill_(sampling.max_new_tokens)
+        ws.spec_counts.zero_()
+        return DecodeState.of(ws)
+
+    # -- decode ---------------------------------------------------------------
 
     @torch.no_grad()
     def step(self, state: DecodeState, sampling: SamplingConfig) -> DecodeState:
-        """One decode step, updating ``state`` in place."""
-        B = state.last_token.shape[0]
+        """One decode step over device tensors only, in place, gated by the
+        JAX loop's ``cond``: with ``go`` false it writes K/V into the next
+        slot (not valid, or the last one once the cache is full: the loop
+        has stopped for good then) and changes nothing else."""
+        B, Smax = state.kv_valid.shape
+        T = state.gen_ids.shape[1]
+        go = (((state.gen_len < state.max_steps) & (state.cur_slot < Smax)).all()
+              & ~state.finished.all() & self.graphs.enable(self.device))
+        rows = state.ws.rows
+        slot = state.cur_slot.clamp(max=Smax - 1)
+        state.kv_valid[rows, slot] = state.kv_valid[rows, slot] | go
         text = self.model.text
-        state.kv_valid[:, state.cur_slot] = True
-        embeds = text.embed(state.last_token[:, None])
-        hidden, _ = text(embeds, state.positions[:, None], state.cache,
-                         state.kv_valid, state.cur_slot)
+        hidden, _ = text(text.embed(state.last_token[:, None]), state.positions[:, None],
+                         state.cache, state.kv_valid, slot)
         step_logits = text.logits(hidden)[:, 0]
-        gen_len_b = torch.full((B,), state.gen_len, dtype=torch.int64,
-                               device=self.device)
-        token, state.mu = sample_step(step_logits, state.gen_ids, gen_len_b,
-                                      state.generator, state.mu, sampling)
-        token = torch.where(state.finished, torch.full_like(token, self.pad_token_id),
-                            token)
-        state.gen_ids[:, state.gen_len] = token
-        state.finished |= token == self.eos_token_id
-        state.last_token = token
-        state.cur_slot += 1
-        state.positions = state.positions + 1
-        state.gen_len += 1
+        token, mu = sample_step(step_logits, state.gen_ids, state.gen_len, state.generator,
+                                state.mu, sampling)
+        token = torch.where(state.finished, torch.full_like(token, self.pad_token_id), token)
+        at = state.gen_len.clamp(max=T - 1)
+        state.gen_ids[rows, at] = torch.where(go, token, state.gen_ids[rows, at])
+        state.finished |= go & (token == self.eos_token_id)
+        state.last_token.copy_(torch.where(go, token, state.last_token))
+        state.mu.copy_(torch.where(go, mu, state.mu))
+        adv = go.long()
+        state.cur_slot += adv
+        state.positions += adv
+        state.gen_len += adv
+        self.counts["decode_passes"] += 1
         return state
+
+    def _decode(self, state: DecodeState, sampling: SamplingConfig, n: int) -> None:
+        """``n`` gated steps: replays of the step captured on the card."""
+        self.graphs.run((state.ws.token, "decode", static_key(sampling)),
+                        lambda: self.step(state, sampling), self.device,
+                        generators=[state.generator], counters=[self.counts], replays=n)
+
+    @staticmethod
+    def control(state: DecodeState) -> Tuple[int, int, bool]:
+        """(gen_len, cur_slot, every row finished): one device-to-host copy."""
+        c = torch.stack((state.gen_len[0], state.cur_slot[0],
+                         state.finished.all().long())).cpu().numpy()
+        return int(c[0]), int(c[1]), bool(c[2])
+
+    @torch.no_grad()
+    def decode(self, state: DecodeState, sampling: SamplingConfig,
+               max_steps: Optional[int] = None) -> int:
+        """Decode until the JAX loop's stop rule: ``gen_len`` reaches
+        ``max_steps`` (default ``max_new_tokens``), every row finished, or
+        the cache is full: ``DECODE_CHUNK`` steps (fewer where fewer remain)
+        between host reads.  -> gen_len."""
+        target = sampling.max_new_tokens if max_steps is None else max_steps
+        Smax = state.kv_valid.shape[1]
+        state.max_steps.fill_(target)
+        gen_len, cur_slot, done = self.control(state)
+        while gen_len < target and not done and cur_slot < Smax:
+            self._decode(state, sampling, min(target - gen_len, Smax - cur_slot, DECODE_CHUNK))
+            gen_len, cur_slot, done = self.control(state)
+        return gen_len
 
     def generate(self, input_ids, pixel_values=None, img_start_pos=None,
                  sampling: Optional[SamplingConfig] = None, seed: int = 0) -> np.ndarray:
         """(B, <= max_new_tokens) generated ids."""
         sampling = sampling or SamplingConfig.greedy()
         state = self.start(input_ids, pixel_values, img_start_pos, sampling, seed)
-        while not state.done(sampling.max_new_tokens):
-            state = self.step(state, sampling)
-        return state.gen_ids[:, :state.gen_len].cpu().numpy()
+        state.ws.busy = True
+        try:
+            gen_len = self.decode(state, sampling)
+            # a copy: on the CPU .numpy() would alias the workspace's buffer
+            return state.gen_ids[:, :gen_len].cpu().numpy().copy()
+        finally:
+            self.release(state.ws)
 
     def stream(self, input_ids, pixel_values=None, img_start_pos=None,
                sampling: Optional[SamplingConfig] = None,
                seed: int = 0, chunk_size: int = 1) -> Iterator[np.ndarray]:
         """Yield the (B,) token ids of each step as they are produced.
 
-        ``chunk_size > 1`` decodes that many steps between host reads (one
-        copy of the chunk's tokens instead of one a step) and still yields
-        token by token; the stream ends after the step at which every row has
-        finished, as with ``chunk_size=1``."""
+        ``chunk_size > 1`` replays the captured step that many times between
+        host reads (one copy of the chunk's tokens instead of one a step)
+        and still yields token by token; the stream ends after the step at
+        which every row has finished, as with ``chunk_size=1``."""
         sampling = sampling or SamplingConfig.greedy()
         state = self.start(input_ids, pixel_values, img_start_pos, sampling, seed)
-        yield state.last_token.cpu().numpy()
-        if chunk_size <= 1:
-            while not state.done(sampling.max_new_tokens):
-                state = self.step(state, sampling)
-                yield state.last_token.cpu().numpy()
-            return
-        finished = state.finished.cpu().numpy()
-        slots = state.kv_valid.shape[1]
-        while (state.gen_len < sampling.max_new_tokens and state.cur_slot < slots
-               and not finished.all()):
-            start_len = state.gen_len
-            target = min(start_len + chunk_size, sampling.max_new_tokens)
-            while state.gen_len < target and state.cur_slot < slots:
-                state = self.step(state, sampling)
-            chunk = state.gen_ids[:, start_len:state.gen_len].cpu().numpy()
-            for j in range(chunk.shape[1]):
-                yield chunk[:, j]
-                finished = finished | (chunk[:, j] == self.eos_token_id)
-                if finished.all():  # steps past it only wrote pads
-                    return
+        state.ws.busy = True
+        try:
+            yield state.last_token.cpu().numpy()
+            T = sampling.max_new_tokens
+            Smax = state.kv_valid.shape[1]
+            B = state.last_token.shape[0]
+            k = max(chunk_size, 1)
+            gen_len, cur_slot, done = self.control(state)
+            while gen_len < T and not done and cur_slot < Smax:
+                state.max_steps.fill_(min(gen_len + k, T))
+                with torch.no_grad():
+                    self._decode(state, sampling, min(k, T - gen_len))
+                row = torch.cat([state.gen_len[:1], state.cur_slot[:1],
+                                 state.finished.all().long()[None],
+                                 state.gen_ids[:, gen_len:gen_len + k].reshape(-1)])
+                row = row.cpu().numpy()
+                new_len, cur_slot, done = int(row[0]), int(row[1]), bool(row[2])
+                toks = row[3:].reshape(B, -1)
+                for j in range(new_len - gen_len):
+                    yield toks[:, j]
+                gen_len = new_len
+        finally:
+            self.release(state.ws)

@@ -8,8 +8,10 @@ The same scheduling surface as the JAX package's (``server.Scheduler`` drives
   at ``kv_quant="int8"``) and a host free-list allocator whose block 0 is the
   dummy target of unused table entries and parked rows: it is never handed
   out;
-- per-row block tables and context lengths on the host, copied into fresh
-  device tensors at every step (the host mutates its arrays between steps);
+- per-row block tables and context lengths on the host, which the host
+  mutates between chunks (admission, release); before a chunk they go into
+  static device buffers, the chunk advances the lengths on the device, and
+  the host's copy of the lengths is read back once after it;
 - every decode step runs kernel B4 (``ops.cuda.paged_attention``) once per
   layer: the new token's K/V are appended to the pool and attended over in
   one launch;
@@ -18,12 +20,17 @@ The same scheduling surface as the JAX package's (``server.Scheduler`` drives
   a bucket, so the real tokens sit in slots 0..S-1.
 
 A row costs ceil(len / BS) blocks, so the pool admits requests by tokens,
-not by rows x max_seq_len.  ``step_n`` is a Python loop of steps that stops
-when a row finishes (the JAX package's fused device loops and their flat /
-nested choice are TPU workarounds, not ported).  With ``spec_k > 0``,
-``spec_step_n`` runs speculative iterations instead (``engine/paged_spec.py``,
-kernel B5): each commits 1..spec_k+1 tokens a greedy row.  Meshes are not
-ported yet.
+not by rows x max_seq_len.  ``step_n`` is the JAX package's ``_step_n_impl``
+on a captured CUDA graph (``engine/graphs.py``): ``n`` replays of one
+captured decode step, each gated on the device by the JAX loop's ``cond`` (a
+row runs and none has finished since the chunk began), so the chunk stops
+where the JAX loop stops and its later steps change nothing (their parked
+rows append into block 0); ``step`` is a chunk of one.  The sampler's
+branch flags come from the host's copy of the knobs and are part of the
+graph's key.  With ``spec_k > 0``, ``spec_step_n`` runs speculative
+iterations the same way (``engine/paged_spec.py``, kernel B5): each commits
+1..spec_k+1 tokens a greedy row.  The JAX flat / nested loop choice is a TPU
+workaround, not ported.  Meshes are not ported yet.
 """
 from __future__ import annotations
 
@@ -40,6 +47,7 @@ from ..ops.linear import Int4Linear
 from ..ops.quantization import quantize_kv
 from ..ops.rope import apply_rope, rope_table
 from .generate import pick_bucket
+from .graphs import Graphs
 from .sampling import SamplingConfig, rowwise_flags, sample_step_rowwise
 from .server import _check_serving_sampling, knob_kwargs, sampling_knobs
 
@@ -178,8 +186,8 @@ class PagedServingEngine:
         self.sampling = _check_serving_sampling(sampling or SamplingConfig())
         p = model.text.final_norm.weight  # a float leaf at every weight tier
         self.device, self.dtype = p.device, p.dtype
-        self.decode_steps = 0  # decode steps run (each launches B4 once per layer)
-        self.spec_steps = 0  # speculative iterations run (each launches B5 once per layer)
+        self.decode_steps = 0  # live decode steps run (counts["decode_passes"]: all)
+        self.spec_steps = 0  # live speculative iterations run
         self.spec_k = int(spec_k)
         if spec_max_active is None:
             int4 = any(isinstance(m, Int4Linear) for m in model.text.modules())
@@ -192,10 +200,13 @@ class PagedServingEngine:
         self.tables = np.zeros((self.B, self.max_blocks), np.int32)
         self.row_blocks: List[List[int]] = [[] for _ in range(self.B)]
         self.ctx_len = np.zeros((self.B,), np.int32)
-        # host mirrors: active is host-driven; finished lags one snapshot,
-        # which only delays parking a finished row by one harmless step
+        # host mirrors: active is host-driven; finished and the rows'
+        # generated lengths as of the last chunk or snapshot (a row that
+        # ends at its admission shows only at the next one)
         self._host_active = np.zeros((self.B,), bool)
         self._host_finished = np.zeros((self.B,), bool)
+        self._host_gen_len = np.zeros((self.B,), np.int64)
+        self._host_max_len = np.zeros((self.B,), np.int64)
         default_knobs = sampling_knobs(self.sampling, None)
         self._host_knobs = np.tile(default_knobs, (self.B, 1))
 
@@ -216,6 +227,21 @@ class PagedServingEngine:
             knobs=torch.as_tensor(self._host_knobs, device=dev),
             generator=torch.Generator(device=dev).manual_seed(seed),
         )
+        # the captured chunks' static inputs: the block tables and context
+        # lengths (uploaded from the host's before a chunk, the lengths
+        # advanced on the device and read back after it), the finished
+        # flags at the chunk's start, and the live (ungated) steps and
+        # speculative iterations run so far
+        self._tables_dev = torch.zeros(self.B, self.max_blocks, dtype=torch.int32, device=dev)
+        self._lens_dev = torch.zeros(self.B, dtype=torch.int64, device=dev)
+        self._finished0 = torch.zeros(self.B, dtype=torch.bool, device=dev)
+        self._live = torch.zeros(2, dtype=torch.int64, device=dev)
+        self._live_host = np.zeros(2, np.int64)
+        self._rows = torch.arange(self.B, device=dev)
+        self.graphs = Graphs()
+        # forward passes run on the device, gated ones included: each
+        # launches B4 (decode) or B5 (speculative) once a layer
+        self.counts = {"decode_passes": 0, "spec_passes": 0}
 
     def pool_bytes(self) -> int:
         """Device bytes of the K/V pools and their scales."""
@@ -354,6 +380,8 @@ class PagedServingEngine:
         self.ctx_len[row] = last_idx + 1
         self._host_active[row] = True
         self._host_finished[row] = False
+        self._host_gen_len[row] = 1
+        self._host_max_len[row] = max_new_tokens
 
     @torch.no_grad()
     def prefill_row(self, row: int, input_ids: np.ndarray, pixel_values, img_start_pos,
@@ -395,77 +423,107 @@ class PagedServingEngine:
 
     # -- decode ----------------------------------------------------------------
 
-    def decode_inputs(self, lens_host: np.ndarray):
-        """The device inputs of a decode step appending at ``lens_host`` - 1:
-        (tables, lens, run, blk, off, lens_attn).  Rows that do not run
+    def decode_inputs(self, lens: torch.Tensor, run: torch.Tensor, tables: torch.Tensor):
+        """The device inputs of a decode step appending at ``lens`` - 1 for
+        the rows in ``run``: (blk, off, lens_attn).  Rows that do not run
         append into dummy block 0 and attend over length 1."""
-        s = self._state
-        dev = self.device
-        # fresh device copies: the host mutates tables / ctx_len later
-        tables = torch.tensor(self.tables, device=dev)
-        lens = torch.tensor(lens_host, dtype=torch.int64, device=dev)
-        run = s.active & ~s.finished
         new_slot = lens - 1
         blk = torch.gather(tables, 1, (new_slot // self.BS).clamp(min=0)[:, None])[:, 0]
         blk = torch.where(run, blk, torch.zeros_like(blk))
         off = new_slot % self.BS
-        return tables, lens, run, blk, off, torch.where(run, lens, torch.ones_like(lens))
+        return blk, off, torch.where(run, lens, torch.ones_like(lens))
 
-    def _decode(self, lens_host: np.ndarray) -> None:
-        """One decode step for every row; ``lens_host`` includes the new
-        token; the outputs of rows that do not run are dropped."""
+    def _gate(self):
+        """(run, go): the running rows and the JAX ``_step_n_impl`` cond (a
+        row runs, none finished since the chunk began), ANDed into run."""
         s = self._state
-        tables, lens, run, blk, off, lens_attn = self.decode_inputs(lens_host)
+        run = s.active & ~s.finished
+        go = (run.any() & ~(s.finished & ~self._finished0).any()
+              & self.graphs.enable(self.device))
+        return run & go, go
+
+    def _decode_step(self, flags: dict) -> None:
+        """One gated decode step over the static buffers, in place: every
+        running row appends its token at ``lens`` (B4 in every layer) and
+        commits the next."""
+        s = self._state
+        run, go = self._gate()
+        lens = self._lens_dev
+        lens += run.long()  # the token being appended this step
+        blk, off, lens_attn = self.decode_inputs(lens, run, self._tables_dev)
         text = self.model.text
         hidden = paged_decode_forward(text, text.embed(s.last_token[:, None]), s.positions,
-                                      s, tables, blk, off, lens_attn)
-        self._finish_step(run, lens, text.logits(hidden)[:, 0])
-        self.decode_steps += 1
+                                      s, self._tables_dev, blk, off, lens_attn)
+        self._finish_step(run, lens, text.logits(hidden)[:, 0], flags)
+        self._live[0] += go.long()
+        self.counts["decode_passes"] += 1
 
-    def _finish_step(self, run, lens, step_logits) -> None:
+    def _finish_step(self, run, lens, step_logits, flags: dict) -> None:
         s = self._state
-        B = self.B
-        rows = torch.arange(B, device=self.device)
+        rows = self._rows
         token, new_mu = sample_step_rowwise(
             step_logits, s.gen_ids, s.gen_len, s.generator, self.sampling,
-            **knob_kwargs(s.knobs, s.mu), flags=_flags(self._host_knobs[self._host_active]))
-        s.mu = torch.where(run, new_mu, s.mu)
+            **knob_kwargs(s.knobs, s.mu), flags=flags)
+        s.mu.copy_(torch.where(run, new_mu, s.mu))
         token = torch.where(run, token, torch.full_like(token, self.pad))
         idx = s.gen_len.clamp(max=self.T - 1)
         s.gen_ids[rows, idx] = torch.where(run, token, s.gen_ids[rows, idx])
-        s.gen_len = s.gen_len + run.long()
+        s.gen_len += run.long()
         # the token history's next index is positions + 1
         aidx = (s.positions + 1).clamp(max=self.Smax - 1)
         s.all_ids[rows, aidx] = torch.where(run & (s.positions + 1 < self.Smax), token,
                                             s.all_ids[rows, aidx])
         hit_eos = run & (token == self.eos)
         hit_cap = run & ((s.gen_len >= s.max_len) | (lens + 1 >= self.Smax))
-        s.last_token = torch.where(run, token, s.last_token)
-        s.positions = s.positions + run.long()
-        s.finished = s.finished | hit_eos | hit_cap
+        s.last_token.copy_(torch.where(run, token, s.last_token))
+        s.positions += run.long()
+        s.finished |= hit_eos | hit_cap
+
+    def _run_chunk(self, kind: str, n: int, step) -> None:
+        """A chunk of ``n`` gated steps ``step(flags)``: replays of the step
+        captured on the card under its kind and the sampler's branch flags.
+        The host tables and lengths go up before it; the lengths, the live
+        steps, the rows' generated lengths and finished flags come back
+        after it in one device-to-host copy.  A decode chunk replays no step
+        past the first row's cap (its max_new_tokens or Smax, known on the
+        host): the loop stops there, and later replays would only be gated."""
+        run = self._host_active & ~self._host_finished
+        if kind == "decode" and run.any():
+            to_cap = np.minimum(self._host_max_len - self._host_gen_len,
+                                self.Smax - 1 - self.ctx_len.astype(np.int64))
+            n = min(n, max(1, int(to_cap[run].min())))
+        flags = _flags(self._host_knobs[self._host_active])
+        self._tables_dev.copy_(torch.from_numpy(self.tables))
+        self._lens_dev.copy_(torch.from_numpy(self.ctx_len.astype(np.int64)))
+        self._finished0.copy_(self._state.finished)
+        self.graphs.run((kind, tuple(sorted(flags.items()))), lambda: step(flags), self.device,
+                        generators=[self._state.generator], counters=[self.counts],
+                        replays=n)
+        s = self._state
+        ctl = torch.cat([self._lens_dev, s.gen_len, s.finished.long(),
+                         self._live]).cpu().numpy()
+        B = self.B
+        self.ctx_len = ctl[:B].astype(np.int32)
+        self._host_gen_len = ctl[B:2 * B].copy()
+        self._host_finished = ctl[2 * B:3 * B].astype(bool)
+        live = ctl[3 * B:] - self._live_host
+        self._live_host = ctl[3 * B:]
+        self.decode_steps += int(live[0])
+        self.spec_steps += int(live[1])
 
     @torch.no_grad()
     def step(self) -> None:
-        run = self._host_active & ~self._host_finished
-        self.ctx_len[run] += 1  # the token being appended this step
-        self._decode(self.ctx_len)
+        """One decode step for every running row."""
+        self._run_chunk("decode", 1, self._decode_step)
 
     @torch.no_grad()
     def step_n(self, n: int) -> None:
         """Up to ``n`` decode steps; stops early when a row finishes (so its
-        retirement and the next admission are not delayed) or none runs.
-        Prefill reserved every block a request can touch, so the steps need
-        no allocator call.  One device-to-host copy of the run flags a step
-        keeps the host context lengths exact."""
-        s = self._state
-        finished0 = s.finished.clone()
-        for _ in range(n):
-            flags = torch.stack((s.active & ~s.finished, s.finished & ~finished0)).cpu().numpy()
-            run, newly_done = flags[0], flags[1]
-            if not run.any() or newly_done.any():
-                break
-            self.ctx_len[run] += 1
-            self._decode(self.ctx_len)
+        retirement and the next admission are not delayed) or none runs:
+        ``n`` replays of the captured gated step, those after the stop
+        changing nothing.  Prefill reserved every block a request can touch,
+        so the steps need no allocator call."""
+        self._run_chunk("decode", n, self._decode_step)
 
     # -- speculative decoding inside the pool (engine/paged_spec.py) -----------
 
@@ -478,23 +536,26 @@ class PagedServingEngine:
         run = self._host_active & ~self._host_finished
         return self.spec_k > 0 and bool((run & spec_eligible(self._host_knobs)).any())
 
-    def _spec_finish(self, run, lens, logits, drafts, k: int):
+    def _spec_finish(self, run, lens, logits, drafts, k: int, flags: Optional[dict] = None):
         """Acceptance and bookkeeping of one verify step, in place: logits
         (B, k+1, V), drafts (B, k), lens (B,) the committed context.  Eligible
         rows commit the longest draft prefix matching their argmax chain plus
         one token; every other running row commits ONE token, sampled from
         the j = 0 logits by the plain step's row-wise sampler.  Commits never
-        pass max_new_tokens or Smax, and stop after an EOS.  -> new lens."""
+        pass max_new_tokens or Smax, and stop after an EOS.  -> lens, advanced
+        in place."""
         from .paged_spec import spec_eligible
 
         s = self._state
         B, Sq, dev = self.B, k + 1, self.device
+        if flags is None:
+            flags = _flags(self._host_knobs[self._host_active])
         jj = torch.arange(Sq, device=dev)[None, :]
         lf = logits.float()
         chain = lf.argmax(dim=-1)  # (B, Sq)
         tok0, new_mu = sample_step_rowwise(
             lf[:, 0], s.gen_ids, s.gen_len, s.generator, self.sampling,
-            **knob_kwargs(s.knobs, s.mu), flags=_flags(self._host_knobs[self._host_active]))
+            **knob_kwargs(s.knobs, s.mu), flags=flags)
         clean = spec_eligible(s.knobs)
         # draft j is accepted iff it equals the prediction at position j
         accepted = (drafts == chain[:, :k]).long().cumprod(dim=1).sum(dim=1)
@@ -508,52 +569,49 @@ class PagedServingEngine:
         def commit_into(buf, first):  # toks[:, :n_commit] at columns first + j
             rel = torch.arange(buf.shape[1], device=dev)[None, :] - first[:, None]
             put = (rel >= 0) & (rel < n_commit[:, None])
-            return torch.where(put, torch.gather(toks, 1, rel.clamp(0, Sq - 1)), buf)
+            buf.copy_(torch.where(put, torch.gather(toks, 1, rel.clamp(0, Sq - 1)), buf))
 
-        s.gen_ids = commit_into(s.gen_ids, s.gen_len)
-        s.all_ids = commit_into(s.all_ids, s.positions + 1)
+        commit_into(s.gen_ids, s.gen_len)
+        commit_into(s.all_ids, s.positions + 1)
         last = torch.gather(toks, 1, (n_commit - 1).clamp(min=0)[:, None])[:, 0]
-        lens = lens + n_commit
-        s.gen_len = s.gen_len + n_commit
+        lens += n_commit
+        s.gen_len += n_commit
         hit_eos = run & (eos_pos < n_commit)
         hit_cap = run & ((s.gen_len >= s.max_len) | (lens + 1 >= self.Smax))
-        s.last_token = torch.where(run, last, s.last_token)
-        s.positions = s.positions + n_commit
-        s.finished = s.finished | hit_eos | hit_cap
-        s.mu = torch.where(run, new_mu, s.mu)
+        s.last_token.copy_(torch.where(run, last, s.last_token))
+        s.positions += n_commit
+        s.finished |= hit_eos | hit_cap
+        s.mu.copy_(torch.where(run, new_mu, s.mu))
         return lens
+
+    def _spec_step(self, flags: dict) -> None:
+        """One gated speculative iteration over the static buffers, in place:
+        draft spec_k tokens a row from its token history, verify every row's
+        k+1 tokens in one forward (B5 in every layer), commit."""
+        from .paged_spec import draft_all_rows, paged_verify_forward
+
+        s = self._state
+        k, text = self.spec_k, self.model.text
+        run, go = self._gate()
+        drafts = draft_all_rows(s.all_ids, s.positions + 1, k, self.spec_max_ngram)
+        embeds = text.embed(torch.cat([s.last_token[:, None], drafts], dim=1))
+        jj = torch.arange(k + 1, device=self.device)[None, :]
+        hidden = paged_verify_forward(text, embeds, s.positions[:, None] + jj, s,
+                                      self._tables_dev, self._lens_dev, run)
+        self._spec_finish(run, self._lens_dev, text.logits(hidden), drafts, k, flags)
+        self._live[1] += go.long()
+        self.counts["spec_passes"] += 1
 
     @torch.no_grad()
     def spec_step_n(self, n: int) -> None:
         """Up to ``n`` speculative iterations (``spec_k > 0``), stopping as
         ``step_n`` does; each drafts spec_k tokens a row from its token
         history, verifies every row's k+1 tokens in one forward (B5 in every
-        layer) and commits 1..spec_k+1 tokens a running row.  One
-        device-to-host copy of the run flags and context lengths an
-        iteration."""
-        from .paged_spec import draft_all_rows, paged_verify_forward
-
+        layer) and commits 1..spec_k+1 tokens a running row: ``n`` replays
+        of the captured gated iteration, one host read after them."""
         if self.spec_k <= 0:
             raise ValueError("spec_step_n needs an engine built with spec_k > 0")
-        s = self._state
-        k, dev, text = self.spec_k, self.device, self.model.text
-        finished0 = s.finished.clone()
-        tables = torch.tensor(self.tables, device=dev)  # the host does not touch them here
-        lens = torch.tensor(self.ctx_len, dtype=torch.int64, device=dev)
-        jj = torch.arange(k + 1, device=dev)[None, :]
-        for i in range(n + 1):
-            ctl = torch.stack(((s.active & ~s.finished).long(),
-                               (s.finished & ~finished0).long(), lens)).cpu().numpy()
-            self.ctx_len = ctl[2].astype(np.int32)
-            if i == n or not ctl[0].any() or ctl[1].any():
-                break
-            run = s.active & ~s.finished
-            drafts = draft_all_rows(s.all_ids, s.positions + 1, k, self.spec_max_ngram)
-            embeds = text.embed(torch.cat([s.last_token[:, None], drafts], dim=1))
-            hidden = paged_verify_forward(text, embeds, s.positions[:, None] + jj, s, tables,
-                                          lens, run)
-            lens = self._spec_finish(run, lens, text.logits(hidden), drafts, k)
-            self.spec_steps += 1
+        self._run_chunk("spec", n, self._spec_step)
 
     def snapshot(self) -> dict:
         """The rows' control fields in one device-to-host copy."""
@@ -564,6 +622,7 @@ class PagedServingEngine:
                 "active": packed[:, 2].astype(bool), "finished": packed[:, 3].astype(bool),
                 "gen_ids": packed[:, 4:]}
         self._host_finished = snap["finished"].copy()
+        self._host_gen_len = snap["gen_len"].astype(np.int64)
         return snap
 
     def release_row(self, row: int) -> None:
@@ -583,7 +642,7 @@ class PagedServingEngine:
 
     def collect_row(self, row: int) -> np.ndarray:
         gen_len = int(self._state.gen_len[row])
-        ids = self._state.gen_ids[row, :gen_len].cpu().numpy()
+        ids = self._state.gen_ids[row, :gen_len].cpu().numpy().copy()
         self.release_row(row)
         return ids
 

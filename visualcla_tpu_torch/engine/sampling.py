@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 NEG_INF = torch.finfo(torch.float32).min
+TOP_K_CAP = 256  # warp_top_k_rowwise's partial top-k
 
 
 @dataclasses.dataclass(frozen=True)
@@ -230,14 +231,19 @@ def warp_tfs_rowwise(logits, tfs: torch.Tensor, min_tokens_to_keep: int = 1):
     return torch.where(remove, torch.full_like(logits, NEG_INF), logits)
 
 
-def warp_top_k_rowwise(logits, k: torch.Tensor, k_cap: int = 256):
+def warp_top_k_rowwise(logits, k: torch.Tensor, k_cap: int = TOP_K_CAP,
+                       full: Optional[bool] = None):
     """Per-row top-k, ``k`` (B,) int; rows with k <= 0 pass through.  One
     partial top-``k_cap`` serves every row with k <= k_cap; a larger k takes
-    a full descending sort."""
+    a full descending sort.  ``full`` says from host knobs whether some row
+    that matters needs the sort (both paths give a row with k <= k_cap the
+    same threshold); ``None`` reads it from ``k`` on the device."""
     V = logits.shape[-1]
     cap = min(k_cap, V)
     k = k.long()
-    if bool((k <= cap).all()):
+    if full is None:
+        full = not bool((k <= cap).all())
+    if not full:
         top = torch.topk(logits, cap, dim=-1).values
         kth = torch.gather(top, 1, (k.clamp(1, cap) - 1)[:, None])
     else:
@@ -339,7 +345,8 @@ def sample_step(logits, gen_ids, gen_len, generator: torch.Generator, mu,
 def rowwise_flags(*, temperature=None, top_p, repetition_penalty, do_sample, tfs=None,
                   top_a=None, mirostat=None, top_k=None, ngram=None, **_) -> dict:
     """Which branches any row needs, from host (numpy) or device knobs of the
-    rows that matter (a device tensor costs one wait on the device)."""
+    rows that matter (a device tensor costs one wait on the device, so a
+    captured step is given host knobs only)."""
     a = {k: (v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v))
          for k, v in dict(top_p=top_p, rep=repetition_penalty, sample=do_sample, tfs=tfs,
                           top_a=top_a, miro=mirostat, top_k=top_k, ngram=ngram).items()
@@ -350,6 +357,7 @@ def rowwise_flags(*, temperature=None, top_p, repetition_penalty, do_sample, tfs
             "ngram": "ngram" in a and bool((a["ngram"] > 0).any()),
             "sample": sample,
             "top_k": "top_k" in a and bool((a["top_k"] > 0).any()),
+            "top_k_full": "top_k" in a and bool((a["top_k"] > TOP_K_CAP).any()),
             "top_p": bool((a["top_p"] < 1.0).any()),
             "tfs": "tfs" in a and bool((a["tfs"] < 1.0).any()),
             "top_a": "top_a" in a and bool((a["top_a"] > 0.0).any()),
@@ -390,7 +398,7 @@ def sample_step_rowwise(
         warped = warp_temperature_rowwise(logits, temperature)
         if top_k is not None:
             if flags["top_k"]:
-                warped = warp_top_k_rowwise(warped, top_k)
+                warped = warp_top_k_rowwise(warped, top_k, full=flags.get("top_k_full"))
         else:
             warped = warp_top_k(warped, cfg.top_k)
         if flags["top_p"]:

@@ -12,9 +12,12 @@ identity is held in fp32).  Sampled configs use speculative sampling, exact
 in distribution.  Rejected drafts' cache slots are re-marked invalid: the
 next chunk overwrites them.
 
-The JAX package runs the chunks inside one ``lax.while_loop``; here the loop
-is Python, with one device-to-host copy of the rows' control fields a chunk.
-Mirostat (stateful truncation) is refused; streaming takes one row.
+The JAX package runs the chunks inside one ``lax.while_loop``; here
+``spec_chunk`` is one gated verify chunk over device tensors only (the
+JAX loop's ``cond`` as its ``go`` flag), captured once in a CUDA graph and
+replayed, ``SPEC_CHUNK`` times between host reads of one control tensor in
+``generate`` (``engine/graphs.py``).  Mirostat (stateful truncation) is
+refused; streaming takes one row.
 """
 from __future__ import annotations
 
@@ -24,24 +27,29 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
-from .generate import DecodeState, Engine
+from .generate import DecodeState, Engine, Workspace
 from .sampling import SamplingConfig, draw, sample_step, warped_logits
+
+SPEC_CHUNK = 4  # verify chunks (replays of the captured one) between host reads
 
 
 @dataclasses.dataclass
 class SpecState:
-    """Per-row decode state (rows advance unevenly under speculation)."""
+    """Per-row decode state (rows advance unevenly under speculation): views
+    of the engine workspace's buffers."""
 
     cache: dict
     kv_valid: torch.Tensor  # (B, Smax) bool
     cur_slot: torch.Tensor  # (B,) next cache slot per row
     positions: torch.Tensor  # (B,) next rope position per row
-    gen_ids: torch.Tensor  # (B, T + K + 1)
+    gen_ids: torch.Tensor  # (B, Smax) (the JAX package's is T + K + 1 wide)
     gen_len: torch.Tensor  # (B,)
     last_token: torch.Tensor  # (B,)
     finished: torch.Tensor  # (B,) bool
     mu: torch.Tensor  # (B,) mirostat state, passed through
     generator: torch.Generator  # speculative sampling's draws
+    counts: torch.Tensor  # (3,) chunks run, tokens emitted by them, live row-chunks
+    ws: Workspace
 
 
 # ---------------------------------------------------------------------------
@@ -59,8 +67,10 @@ def ngram_draft(ctx: torch.Tensor, start, end, k: int, max_ngram: int) -> torch.
     JAX function's results bit for bit, its clamped slices included."""
     B, C = ctx.shape
     dev = ctx.device
-    start = torch.as_tensor(start, device=dev).long().expand(B)
-    end = torch.as_tensor(end, device=dev).long().expand(B)
+    # a Python int becomes a fill on the device: no host-to-device copy
+    start, end = (x.to(dev).long().expand(B) if isinstance(x, torch.Tensor)
+                  else torch.full((B,), int(x), dtype=torch.long, device=dev)
+                  for x in (start, end))
     rows = torch.arange(B, device=dev)[:, None]
     pos = torch.arange(C, device=dev)[None, :]
     ctx_pad = torch.cat([ctx, torch.zeros(B, k, dtype=ctx.dtype, device=dev)], dim=1)
@@ -146,25 +156,31 @@ def _verify_sampled(logits, gen_ids, gen_len, drafts, generator: torch.Generator
 def spec_chunk(engine: Engine, state: SpecState, prompt_ids: torch.Tensor,
                prompt_start: torch.Tensor, sampling: SamplingConfig, *, spec_k: int,
                max_ngram: int) -> SpecState:
-    """One draft -> verify -> accept step, in place: 1..K+1 tokens a live row."""
+    """One draft -> verify -> accept step over device tensors only, in place:
+    1..K+1 tokens a live row.  Gated by the JAX loop's ``cond`` (not every
+    row finished, room for K+1 slots): with ``go`` false it writes K/V into
+    slots that are not valid and changes nothing else."""
     K = spec_k
     text = engine.model.text
     L = prompt_ids.shape[1]
     Smax = state.kv_valid.shape[1]
     dev = engine.device
+    room = torch.where(state.finished, Smax, Smax - (state.cur_slot + K + 1)).amin()
+    go = ~state.finished.all() & (room >= 0) & engine.graphs.enable(dev)
 
     # draft
     ctx = torch.cat([prompt_ids, state.gen_ids], dim=1)
     drafts = ngram_draft(ctx, prompt_start, L + state.gen_len, K, max_ngram)
     chunk = torch.cat([state.last_token[:, None], drafts], dim=1)  # (B, K+1)
 
-    # the chunk through the text tower at per-row slots
+    # the chunk through the text tower at per-row slots (clamped into the
+    # cache as the JAX package's dynamic_update_slice clamps them)
     ar = torch.arange(Smax, device=dev)[None, :]
     cur = state.cur_slot[:, None]
     written = (ar >= cur) & (ar < cur + K + 1)
     jj = torch.arange(K + 1, device=dev)[None, :]
     hidden, _ = text(text.embed(chunk), state.positions[:, None] + jj, state.cache,
-                     state.kv_valid | written, state.cur_slot)
+                     state.kv_valid | written, state.cur_slot.clamp(0, Smax - K - 1))
     logits = text.logits(hidden)  # (B, K+1, V) fp32
 
     # verify
@@ -185,20 +201,24 @@ def spec_chunk(engine: Engine, state: SpecState, prompt_ids: torch.Tensor,
     first_eos = is_eos.long().argmax(dim=1)
     n_emit = torch.where(any_eos, torch.minimum(acc + 1, first_eos + 1), acc + 1)
     n_emit = torch.minimum(n_emit, (sampling.max_new_tokens - state.gen_len).clamp(min=0))
-    n_emit = torch.where(state.finished, torch.zeros_like(n_emit), n_emit)
+    n_emit = torch.where(state.finished | ~go, torch.zeros_like(n_emit), n_emit)
 
     out = torch.where(jj < n_emit[:, None], preds, torch.full_like(preds, engine.pad_token_id))
     idx = state.gen_len[:, None] + jj
-    state.gen_ids.scatter_(1, idx, out.to(state.gen_ids.dtype))
+    out = torch.where(go, out.to(state.gen_ids.dtype), state.gen_ids.gather(1, idx))
+    state.gen_ids.scatter_(1, idx, out)
     last = torch.gather(preds, 1, (n_emit - 1).clamp(min=0)[:, None])[:, 0]
-    state.last_token = torch.where(n_emit > 0, last, state.last_token)
+    state.last_token.copy_(torch.where(n_emit > 0, last, state.last_token))
     # rollback: of the written slots keep [cur_slot, cur_slot + n_emit)
-    state.kv_valid = torch.where(written, ar < cur + n_emit[:, None], state.kv_valid)
-    state.gen_len = state.gen_len + n_emit
-    state.finished = (state.finished | (any_eos & (first_eos < n_emit))
-                      | (state.gen_len >= sampling.max_new_tokens))
-    state.cur_slot = state.cur_slot + n_emit
-    state.positions = state.positions + n_emit
+    state.kv_valid.copy_(torch.where(written & go, ar < cur + n_emit[:, None],
+                                     state.kv_valid))
+    state.gen_len += n_emit
+    state.finished |= go & ((any_eos & (first_eos < n_emit))
+                            | (state.gen_len >= sampling.max_new_tokens))
+    state.cur_slot += n_emit
+    state.positions += n_emit
+    state.counts += torch.stack((go.long(), n_emit.sum(), (n_emit > 0).sum()))
+    engine.counts["spec_passes"] += 1
     return state
 
 
@@ -210,7 +230,9 @@ class SpeculativeDecoder:
     """Prompt-lookup speculative generation over an :class:`Engine`.
     ``generate`` is token-identical to ``Engine.generate`` for deterministic
     configs (in exact arithmetic); ``last_stats`` holds the last call's
-    chunks, tokens emitted, tokens per chunk and draft acceptance."""
+    chunks, tokens emitted, tokens per chunk and draft acceptance.  The
+    chunks replay the one captured in the engine's graphs, ``SPEC_CHUNK``
+    between host reads for ``generate``, one for ``stream``."""
 
     def __init__(self, engine: Engine, spec_k: int = 8, max_ngram: int = 3):
         if spec_k < 1:
@@ -223,32 +245,54 @@ class SpeculativeDecoder:
     def _start(self, input_ids, pixel_values, img_start_pos, sampling: SamplingConfig,
                seed: int):
         """Prefill (with K+1 slots of headroom: the last chunk may write them)
-        -> (SpecState, left-padded prompt (B, Lb), first real index (B,))."""
+        -> (SpecState, left-padded prompt (B, Lb), first real index (B,)),
+        the prompt in the workspace's buffers of its bucket."""
         if sampling.do_sample and sampling.mirostat_mode == 2:
             raise ValueError("speculative decoding does not support mirostat (stateful "
                              "truncation); use Engine.generate")
         eng = self.engine
         input_ids = np.asarray(input_ids, np.int64)
-        B = input_ids.shape[0]
         K = self.spec_k
         st: DecodeState = eng.start(input_ids, pixel_values, img_start_pos, sampling, seed,
                                     extra_slots=K + 1)
+        ws = st.ws
         padded, mask = eng.pad_prompt(input_ids)
-        dev = eng.device
-        gen_ids = torch.zeros(B, sampling.max_new_tokens + K + 1, dtype=torch.int64, device=dev)
-        gen_ids[:, 0] = st.gen_ids[:, 0]  # the prefill emitted one token a row
+        if padded.shape[1] not in ws.prompts:
+            ws.prompts[padded.shape[1]] = (torch.zeros(padded.shape, dtype=torch.int64,
+                                                       device=eng.device),
+                                           torch.zeros(padded.shape[0], dtype=torch.int64,
+                                                       device=eng.device))
+        prompt_ids, prompt_start = ws.prompts[padded.shape[1]]
+        prompt_ids.copy_(torch.as_tensor(padded))
+        prompt_start.copy_(torch.as_tensor(padded.shape[1] - mask.sum(axis=1)))
         spec = SpecState(
-            cache=st.cache, kv_valid=st.kv_valid,
-            cur_slot=torch.full((B,), st.cur_slot, dtype=torch.int64, device=dev),
-            positions=st.positions, gen_ids=gen_ids,
-            gen_len=torch.ones(B, dtype=torch.int64, device=dev), last_token=st.last_token,
-            finished=st.finished, mu=st.mu, generator=st.generator)
-        prompt_start = torch.as_tensor(padded.shape[1] - mask.sum(axis=1), device=dev)
-        return spec, torch.as_tensor(padded, device=dev), prompt_start
+            cache=st.cache, kv_valid=st.kv_valid, cur_slot=st.cur_slot, positions=st.positions,
+            gen_ids=st.gen_ids, gen_len=st.gen_len, last_token=st.last_token,
+            finished=st.finished, mu=st.mu, generator=st.generator, counts=ws.spec_counts,
+            ws=ws)
+        return spec, prompt_ids, prompt_start
 
     def _chunk(self, spec, prompt_ids, prompt_start, sampling) -> SpecState:
+        """One verify chunk, eagerly."""
         return spec_chunk(self.engine, spec, prompt_ids, prompt_start, sampling,
                           spec_k=self.spec_k, max_ngram=self.max_ngram)
+
+    def _run(self, spec, prompt_ids, prompt_start, sampling, n: int) -> None:
+        """``n`` gated verify chunks: replays of the one captured on the card."""
+        eng = self.engine
+        key = (spec.ws.token, "spec", prompt_ids.shape[1], sampling, self.spec_k,
+               self.max_ngram)
+        eng.graphs.run(key, lambda: self._chunk(spec, prompt_ids, prompt_start, sampling),
+                       eng.device, generators=[spec.generator], counters=[eng.counts],
+                       replays=n)
+
+    def _control(self, spec) -> np.ndarray:
+        """[loop's cond, chunks, emitted by chunks, row-chunks, gen_len (B,)]:
+        one device-to-host copy."""
+        Smax = spec.kv_valid.shape[1]
+        room = torch.where(spec.finished, Smax, Smax - (spec.cur_slot + self.spec_k + 1))
+        cond = ~spec.finished.all() & (room.amin() >= 0)
+        return torch.cat([cond.long()[None], spec.counts, spec.gen_len]).cpu().numpy()
 
     @torch.no_grad()
     def generate(self, input_ids, pixel_values=None, img_start_pos=None,
@@ -258,52 +302,54 @@ class SpeculativeDecoder:
         sampling = sampling or SamplingConfig.greedy()
         spec, prompt_ids, prompt_start = self._start(input_ids, pixel_values, img_start_pos,
                                                      sampling, seed)
-        B = spec.gen_len.shape[0]
-        Smax = spec.kv_valid.shape[1]
-        chunks = row_chunks = 0
-        gen_len = np.ones(B, np.int64)
-        while True:
-            ctl = torch.stack([spec.finished.long(), spec.cur_slot, spec.gen_len]).cpu().numpy()
-            finished, cur_slot, new_len = ctl[0].astype(bool), ctl[1], ctl[2]
-            row_chunks += int((new_len > gen_len).sum())  # rows that emitted last chunk
-            gen_len = new_len
-            room = np.where(finished, Smax, Smax - (cur_slot + self.spec_k + 1)).min()
-            if finished.all() or room < 0:
-                break
-            spec = self._chunk(spec, prompt_ids, prompt_start, sampling)
-            chunks += 1
-        emitted = int(gen_len.sum())
-        # the prefill emitted B tokens outside any chunk; each live row-chunk
-        # emits one token of its own and 0..K accepted drafts
-        self.last_stats = {
-            "chunks": chunks, "emitted": emitted,
-            "tokens_per_chunk": (emitted - B) / max(chunks, 1),
-            "acceptance": (emitted - B - row_chunks) / max(row_chunks * self.spec_k, 1)}
-        out = spec.gen_ids[:, :int(gen_len.max())].cpu().numpy()
+        spec.ws.busy = True
+        try:
+            B = spec.gen_len.shape[0]
+            ctl = self._control(spec)
+            while ctl[0]:
+                self._run(spec, prompt_ids, prompt_start, sampling, SPEC_CHUNK)
+                ctl = self._control(spec)
+            chunks, emitted, row_chunks = int(ctl[1]), B + int(ctl[2]), int(ctl[3])
+            gen_len = ctl[4:]
+            # the prefill emitted B tokens outside any chunk; each live
+            # row-chunk emits one token of its own and 0..K accepted drafts
+            self.last_stats = {
+                "chunks": chunks, "emitted": emitted,
+                "tokens_per_chunk": (emitted - B) / max(chunks, 1),
+                "acceptance": (emitted - B - row_chunks) / max(row_chunks * self.spec_k, 1)}
+            out = spec.gen_ids[:, :int(gen_len.max())].cpu().numpy().copy()
+        finally:
+            self.engine.release(spec.ws)
         for b in range(B):  # chunk writes past a row's end may hold pad or drafts
             out[b, gen_len[b]:] = self.engine.pad_token_id
         return out
 
-    @torch.no_grad()
     def stream(self, input_ids, pixel_values=None, img_start_pos=None,
                sampling: Optional[SamplingConfig] = None,
                seed: int = 0) -> Iterator[np.ndarray]:
-        """Yield (1,) token arrays like ``Engine.stream``, one verify chunk a
-        device-to-host copy: each chunk can emit up to K+1 tokens."""
+        """Yield (1,) token arrays like ``Engine.stream``, one captured verify
+        chunk a device-to-host copy: each chunk can emit up to K+1 tokens."""
         sampling = sampling or SamplingConfig.greedy()
         if np.asarray(input_ids).shape[0] != 1:
             raise ValueError("speculative streaming supports batch size 1")
-        spec, prompt_ids, prompt_start = self._start(input_ids, pixel_values, img_start_pos,
-                                                     sampling, seed)
-        yield spec.last_token.cpu().numpy()
-        emitted = 1
-        finished = bool(spec.finished[0])
-        while not finished and emitted < sampling.max_new_tokens:
-            spec = self._chunk(spec, prompt_ids, prompt_start, sampling)
-            row = torch.cat([spec.gen_len, spec.finished.long(), spec.gen_ids[0]]).cpu().numpy()
-            new_len, finished = int(row[0]), bool(row[1])
-            if new_len == emitted:  # a finished row emitted nothing
-                break
-            for t in row[2 + emitted:2 + new_len]:
-                yield np.asarray([t])
-            emitted = new_len
+        with torch.no_grad():
+            spec, prompt_ids, prompt_start = self._start(input_ids, pixel_values,
+                                                         img_start_pos, sampling, seed)
+        spec.ws.busy = True
+        try:
+            yield spec.last_token.cpu().numpy()
+            emitted = 1
+            finished = bool(spec.finished[0])
+            while not finished and emitted < sampling.max_new_tokens:
+                with torch.no_grad():
+                    self._run(spec, prompt_ids, prompt_start, sampling, 1)
+                row = torch.cat([spec.gen_len, spec.finished.long(),
+                                 spec.gen_ids[0]]).cpu().numpy()
+                new_len, finished = int(row[0]), bool(row[1])
+                if new_len == emitted:  # a finished row emitted nothing
+                    break
+                for t in row[2 + emitted:2 + new_len]:
+                    yield np.asarray([t])
+                emitted = new_len
+        finally:
+            self.engine.release(spec.ws)

@@ -17,6 +17,7 @@ import torch
 
 from .text import DEFAULT_SPECIALS, VisualCLATokenizer, build_test_model
 
+from .engine import graphs as graphs_mod
 from .engine import paged as paged_mod
 from .engine import paged_spec as paged_spec_mod
 from .models import llama as llama_mod
@@ -60,7 +61,8 @@ def plain_kernels():
     instead of the kernels: cached attention (B1/B2, int8 K/V included), the
     int4 matmul (B3), the paged append attention (B4), the paged verify
     attention (B5) and the vision towers' flash attention (B2u, under
-    ``VISUALCLA_VIT_ATTN=flash``)."""
+    ``VISUALCLA_VIT_ATTN=flash``).  The decode loops run eagerly within it:
+    a captured graph would replay the kernels it was captured with."""
     orig = (llama_mod.cached_attention, linear_mod.int4_matmul,
             paged_mod.paged_append_attention, paged_spec_mod.paged_verify_attention,
             attention_mod.flash_attention)
@@ -70,7 +72,8 @@ def plain_kernels():
     paged_spec_mod.paged_verify_attention = paged_verify_attention_ref
     attention_mod.flash_attention = flash_attention_ref
     try:
-        yield
+        with graphs_mod.eager():
+            yield
     finally:
         (llama_mod.cached_attention, linear_mod.int4_matmul,
          paged_mod.paged_append_attention, paged_spec_mod.paged_verify_attention,
