@@ -35,7 +35,9 @@ Phases, one line of findings each:
                hd 128, per-row slots, bf16 and int8 K/V, a fully masked row)
                and with int8 K/V at the ViT's token counts (hd 64); B1 at
                the beam search's shape (4 rows sharing the chat's prompt,
-               slot prompt + 16, 2048 slots, bf16 and f32);
+               slot prompt + 16, 2048 slots, bf16 and f32); B1 at the
+               contiguous pool's shape (4 rows at different slots and a
+               parked row, 2048 slots, bf16);
                each with its bound and, where one PyTorch call computes the
                same function, that call's time;
   4. slice   — VisualCLA-7B at full width on seeded random bf16 weights made
@@ -50,7 +52,10 @@ Phases, one line of findings each:
                greedy speculative chat of 64 tokens on a prompt that invites
                copying (B2 once a layer a verify chunk, B1 never), its
                stream's ids equal to its ``generate``'s, tokens a chunk,
-               acceptance, TTFT and decode rate;
+               acceptance, TTFT and decode rate; the first chat's TTFT (its
+               captures) beside the warm one; ``Engine.start`` captured
+               (first call, warm) and eager, host and device ms, with equal
+               launches and first token;
   4b beams  — phase 4's model: a 4-beam greedy ``chat`` of 32 tokens with
                exact launch counts (B2 once a layer for the shared prefill, B1
                once a layer a step at B = 4), the device ms of a beam step
@@ -61,6 +66,10 @@ Phases, one line of findings each:
                hypothesis's score equal to a teacher-forced rescoring (one
                prefill through B2) within 1e-3, and a batched B=2 beam
                ``generate`` equal to its two single-row runs;
+  4f concurrency — phase 4's engine: two greedy streams of one shape that
+               meet at the prefill, then a stream beside a B=2 generate that
+               captures new graphs: every call's ids equal its sequential
+               run's;
   4v vision  — phase 4's model with VISUALCLA_VIT_ATTN=flash: encode_image
                on 1 and 8 images with exactly 30 B2u launches a call, a greedy
                chat with exact B2u / B2 / B1 counts, VisionPipeline on 8
@@ -68,7 +77,10 @@ Phases, one line of findings each:
                device_preprocess against the host processor, the fp32 vision
                towers' embeddings flash vs dense within 1e-4 relative, then
                extend_to_resolution(448) and the same chat (B2u at 1025
-               tokens); encode ms and TTFT flash vs dense at 224 and 448 px;
+               tokens); encode ms and TTFT flash vs dense at 224 and 448 px,
+               and ``VisionPipeline``'s captured encode against the eager
+               one (first call, warm; host and device ms; equal launches);
+               the flash ``Engine.start`` captured and eager;
   5. int4    — the same model made anew, its text tower quantized on the card
                to int4 (``quantize_text_tower_``), with the int8 KV cache:
                prefill logits through the kernels against the plain versions
@@ -77,7 +89,8 @@ Phases, one line of findings each:
                TTFT and B=1 decode tokens/s; a greedy speculative chat (B3 and
                the int8-K/V B2 at K+1 tokens), exact launch counts, and the
                device time of one chunk with B3's forms as the wrapper picks
-               them and as the parent commit picked them;
+               them and as the parent commit picked them; ``Engine.start``
+               captured and eager;
   6. int8    — the same at the int8 weight tier (bf16 cache): one short
                greedy chat, finite prefill logits, its times;
   7. serve   — paged serving at full width: ``PagedServingEngine`` (4 rows,
@@ -96,11 +109,22 @@ Phases, one line of findings each:
                rows busy; an fp32 pool of 3 equal to single-stream generation
                token for token, and so are fp32 speculative ``generate`` and
                an fp32 speculative pool of 3;
+  7c serve contiguous — ``PoolWorker(paged=False)``, the default
+               (``ServingEngine``: 4 rows x 2048 slots, bf16), phase 7's 8
+               concurrent requests under the Scheduler and over HTTP, twice
+               (the first round captures a graph pair for each sampler's
+               flags; the second replays them), exact launches of the
+               second (B2 once a layer an admission, B1 once a layer a
+               decode pass), the first request's TTFT and both rounds' p50, 4
+               busy rows captured and eager (tok/s, device ms a pass, idle
+               share), an fp32 pool of 3 equal to single-stream generation;
   8. serve int4 — the int4 tier with the int8 KV pool: 3 requests, exact
                launch counts of B4's int8 form, finite decode logits; then 2
                greedy requests on a speculative int8 pool (B5's int8 form);
                the device time of one decode step of the default 8-row pool,
                B3's forms as the wrapper and as the parent commit pick them;
+               3 requests on a contiguous pool at this tier, B3's launches
+               by form exactly;
   9. reference layout — phase 4's model made anew (the same seed: the same
                bits), exported with ``export_reference_merged`` in bfloat16
                into a temporary directory with the tokenizer; loaded back
@@ -161,7 +185,7 @@ from visualcla_tpu_torch.engine import beam as beam_mod
 from visualcla_tpu_torch.engine import graphs as graphs_mod
 from visualcla_tpu_torch.engine import paged as paged_mod
 from visualcla_tpu_torch.engine import server as server_mod
-from visualcla_tpu_torch.engine.generate import PROMPT_BUCKETS, pick_bucket
+from visualcla_tpu_torch.engine.generate import PROMPT_BUCKETS, Engine, pick_bucket
 from visualcla_tpu_torch.engine.sampling import SamplingConfig
 from visualcla_tpu_torch.fixtures import (PROMPT, SEED, make_tokenizer, paged_case,
                                           paged_decode_args, paged_verify_case, plain_kernels,
@@ -178,7 +202,7 @@ from visualcla_tpu_torch.ops.cuda import paged_attention as pa
 from visualcla_tpu_torch.ops.cuda.bench_int4 import CROSSOVER_TOKENS
 from visualcla_tpu_torch.ops.attention import cached_attention
 from visualcla_tpu_torch.ops.quantization import dequantize_grouped, quantize_grouped, quantize_kv
-from visualcla_tpu_torch.pipeline import VisionPipeline
+from visualcla_tpu_torch.pipeline import CapturedEncode, VisionPipeline
 from visualcla_tpu_torch.processor.image import device_preprocess
 
 ATOL = RTOL = 2e-2  # bf16 output rounding plus another summation order
@@ -198,6 +222,8 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "flash_prefill": (FLASH_SOURCE, "visualcla_tpu/ops/pallas/flash_attention.py:29"),
     # B1 at the beam search's shape (its launches: phase 4b's beam chat)
     "flash_decode_beam4": (FLASH_SOURCE, "visualcla_tpu/ops/pallas/flash_attention.py:120"),
+    # B1 at the contiguous pool's shape (its launches: phase 7c's serve)
+    "flash_decode_pool": (FLASH_SOURCE, "visualcla_tpu/ops/pallas/flash_attention.py:120"),
     "flash_decode_kv8": (FLASH_SOURCE, "visualcla_tpu/ops/pallas/flash_attention.py:120"),
     "flash_prefill_kv8": (FLASH_SOURCE, "visualcla_tpu/ops/pallas/flash_attention.py:29"),
     "flash_full": (FLASH_SOURCE, "visualcla_tpu/ops/pallas/flash_attention.py:308"),
@@ -450,6 +476,7 @@ def phase_kernels(prompt_bucket: int, prompt_len: int) -> dict:
     _b2_verify_case(gen, worst, failures)
     _b1_split_cases(gen, worst, failures)
     main.update(_b1_beam_cases(gen, prompt_len, worst, failures))
+    main.update(_b1_pool_cases(gen, worst, failures))
     b2u_main, b2u_launches = _b2u_cases(gen, worst, failures)
     main.update(b2u_main)
     if failures:
@@ -829,6 +856,58 @@ def _b1_beam_cases(gen, prompt_len, worst, failures) -> dict:
     return row
 
 
+POOL_SLOTS = (300, 517, 1100, 2000)  # the running rows' write slots; a parked row after them
+
+
+def _b1_pool_cases(gen, worst, failures) -> dict:
+    """B1 at the contiguous pool's decode shape: 4 running rows writing
+    slots ``POOL_SLOTS`` of the 2048-slot, 32-layer cache (left-padded
+    prompts: each row's first 40 slots invalid) and one parked row (nothing
+    valid: zeros out), bf16, against its plain version, timed over the 32
+    layers in turn; its bound counts the valid slots each row reads, and
+    ``scaled_dot_product_attention`` runs with the same mask over the
+    longest row's window."""
+    L, S, N, hd = 32, 2048, 32, 128
+    B = len(POOL_SLOTS) + 1
+    q = torch.randn(B, 1, N, hd, generator=gen, device="cuda").to(torch.bfloat16)
+    kc, vc = (torch.randn(L, B, N, S, hd, generator=gen, device="cuda",
+                          dtype=torch.bfloat16) for _ in range(2))
+    slot = torch.tensor([*POOL_SLOTS, 700], dtype=torch.int32, device="cuda")
+    ar = torch.arange(S, device="cuda")[None]
+    valid = (ar >= 40) & (ar <= slot[:, None].long())
+    valid[-1] = False  # the parked row: released, nothing valid
+    valid = valid.contiguous()
+    out = fa.flash_decode_stacked(q, kc, vc, valid, slot, 7)
+    torch.cuda.synchronize()
+    ref = fa.flash_decode_stacked_ref(q.float(), kc.float(), vc.float(), valid, slot, 7)
+    err = (out.float() - ref).abs()
+    ok = (bool((err <= ATOL + ATOL * ref.abs()).all()) and bool(torch.isfinite(out).all())
+          and not bool(out[-1].any()))
+    ms = device_ms(lambda i: fa.flash_decode_stacked(q, kc, vc, valid, slot, i % L), calls=L)
+    plain_ms = device_ms(lambda i: fa.flash_decode_stacked_ref(q, kc, vc, valid, slot, i % L),
+                         calls=L)
+    n_kv = int(valid.sum())  # the valid slots the rows read, each <= its write slot
+    b_ms, b_by = bound(2 * nbytes(q) + 2 * n_kv * N * hd * kc.element_size() + nbytes(valid),
+                       4 * hd * N * n_kv)
+    W = int(slot.max()) + 1
+    mask = valid[:, None, None, :W]
+    qt = q.transpose(1, 2)
+    lib = device_ms(lambda i: F.scaled_dot_product_attention(
+        qt, kc[i % L][:, :, :W], vc[i % L][:, :, :W], attn_mask=mask), calls=L)
+    worst["flash_decode_pool"] = err.max().item()
+    line = (f"bf16 B{B} (slots {list(POOL_SLOTS)} + a parked row) L32 S{S} "
+            f"err={err.max().item():.2e} {ms * 1e3:.1f}us/plain {plain_ms * 1e3:.1f}us over "
+            f"the 32 layers, bound {b_ms * 1e3:.2f}us ({b_by}, {n_kv} valid slots), sdpa "
+            f"{lib * 1e3:.1f}us; the parked row's output zeros")
+    if not ok:
+        failures.append("flash_decode_pool " + line)
+    print(f"[3 kernels] B1 at the contiguous pool's shape, tol atol=rtol={ATOL}: {line}",
+          flush=True)
+    del q, kc, vc
+    return {"flash_decode_pool": {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                                  "bound_by": b_by, "library_ms": lib}}
+
+
 def _b2u_check(q, k, v, valid, slot, causal, layout, sc):
     """B2u against its plain version in fp32 on the same bf16 (or int8) inputs:
     (max abs error, within tolerance and finite, the fully masked rows zero)."""
@@ -1164,7 +1243,12 @@ def phase_slice(smi: str, cfg, tokenizer) -> dict:
     eng = bundle.engine
     pos = img_marker_positions(enc["input_ids"], tokenizer.img_start_token_id)
     logit_diff, logit_scale = _loose_logits_check(eng, enc["input_ids"], pv, pos, "bf16")
-    api.chat(bundle, image, PROMPT, [], greedy, verbose=False)  # warm-up: captures
+    # the first chat captures the start and the decode step: its TTFT holds
+    # the start's capture
+    t_first = time.perf_counter()
+    for _ in api.chat_in_stream(bundle, image, PROMPT, [], greedy, verbose=False):
+        ttft_first = time.perf_counter() - t_first
+        break
     torch.cuda.synchronize()
 
     # the main path's run: one greedy chat, its launches counted from zero
@@ -1191,6 +1275,7 @@ def phase_slice(smi: str, cfg, tokenizer) -> dict:
                            f"{s_eag.tolist()}")
 
     ttft, rate = _streams(bundle, image, greedy, response, enc["input_ids"], pv, ids)
+    start = _start_times(bundle, enc["input_ids"], pv, pos, greedy)
     # four decode steps between host reads: the same text at the end
     chunked = ""
     for chunked, _ in api.chat_in_stream(bundle, image, PROMPT, [], greedy, verbose=False,
@@ -1278,12 +1363,72 @@ def phase_slice(smi: str, cfg, tokenizer) -> dict:
           f"sampled chat "
           f"{sampled_s:.2f} s; sampled generate (48 tokens, seed {SEED}) captured == eager; "
           f"greedy chat launches {chat_counts} ({passes['decode_passes']} decode passes); "
-          f"TTFT {ttft * 1e3:.1f} ms (median of 3, "
-          f"preprocess + encode + prefill + first token), B=1 decode {rate:.1f} tok/s "
-          f"(chat_in_stream, one captured step a token); {_loop_line(loop)}; "
+          f"TTFT {ttft * 1e3:.1f} ms warm (median of 3, "
+          f"preprocess + encode + prefill + first token), {ttft_first * 1e3:.1f} ms for the "
+          f"first chat (its captures included); {_start_line(start)}; B=1 decode "
+          f"{rate:.1f} tok/s (chat_in_stream, one captured step a token); {_loop_line(loop)}; "
           f"{_spec_line(spec)}; card {smi}", flush=True)
     return {"launches": chat_counts, "ttft_ms": ttft * 1e3, "decode_tok_s": rate,
+            "ttft_first_ms": ttft_first * 1e3, "start": start,
             "spec": spec, "bundle": bundle, "ids": ids, "loop": loop}
+
+
+def phase_concurrency(smi: str, cfg, tokenizer, bundle) -> dict:
+    """Two requests at once on phase 4's engine: two greedy streams of one
+    shape that meet at the prefill (each claims its own workspace first),
+    then a stream replaying its graphs while a B=3 generate captures new
+    ones; each call's ids equal its sequential run's."""
+    eng = bundle.engine
+    greedy = SamplingConfig.greedy(max_new_tokens=16)
+    prompts = []
+    for k in range(2):
+        ids, pv, img = _chat_request(bundle, tokenizer, random_image(SEED + 60 + k))
+        prompts.append((ids[None], pv, np.array([img])))
+    want = [eng.generate(*p, greedy)[0].tolist() for p in prompts]
+    meet = threading.Barrier(2)
+    orig = Engine.stage_prompt
+
+    def staged(self, *a, **k):
+        try:
+            meet.wait(timeout=30)
+        except threading.BrokenBarrierError:
+            pass
+        return orig(self, *a, **k)
+
+    out = [None] * 2
+    claims0 = len(eng._workspaces)
+    Engine.stage_prompt = staged
+    try:
+        _run_all([lambda k=k: out.__setitem__(k, [int(t[0]) for t in eng.stream(
+            *prompts[k], greedy, chunk_size=4)]) for k in range(2)])
+    finally:
+        Engine.stage_prompt = orig
+    if out != want:
+        raise RuntimeError(f"overlapping streams {out} != their sequential ids {want}")
+    # a stream replaying while another thread captures a B=3 start and
+    # decode step (a shape no earlier phase ran)
+    rows = [0, 1, 0]
+    batch = np.concatenate([prompts[k][0] for k in rows])
+    pv2 = np.concatenate([prompts[k][1] for k in rows])
+    pos2 = np.concatenate([prompts[k][2] for k in rows])
+    captures0 = eng.graphs.captures
+    both = [None, None]
+    _run_all([lambda: both.__setitem__(0, [int(t[0]) for t in eng.stream(*prompts[0], greedy)]),
+              lambda: both.__setitem__(1, eng.generate(batch, pv2, pos2, greedy).tolist())])
+    want2 = eng.generate(batch, pv2, pos2, greedy).tolist()
+    if both[0] != want[0] or both[1] != want2 or eng.graphs.captures == captures0:
+        raise RuntimeError(f"a stream beside a capture: {both} != {[want[0], want2]}, "
+                           f"{eng.graphs.captures - captures0} captures")
+    busy = [ws.key for ws in eng._workspaces.values() if ws.busy]
+    if busy:
+        raise RuntimeError(f"workspaces left claimed: {busy}")
+    print(f"[4f concurrency] phase 4's engine: two greedy streams of one shape meeting at the "
+          f"prefill ({claims0} cached workspace(s) before; the second call claims a private "
+          f"one) give their sequential ids ({len(want[0])} and {len(want[1])} tokens); a "
+          f"stream replaying beside a B=3 generate that captured "
+          f"{eng.graphs.captures - captures0} new graphs gives its sequential ids, and so does "
+          f"the B=3 call; no workspace left claimed; card {smi}", flush=True)
+    return {"streams": out}
 
 
 def _beam_config(**kw) -> SamplingConfig:
@@ -1535,12 +1680,15 @@ def _ttft_ms(bundle, image, impl: str, n: int = 3) -> float:
 
 def _vision_times(bundle, image, px, impl: str) -> dict:
     """Encode ms on the host clock and on the device (one ``encode_image``
-    captured in a CUDA graph and replayed: launch gaps excluded), and TTFT,
-    with vision attention ``impl``."""
+    captured in a CUDA graph and replayed: launch gaps excluded), TTFT, and
+    the captured encode against the eager one (``_encode_times``), with
+    vision attention ``impl``."""
     with _vision_attention(impl), torch.no_grad():
         dev = device_ms(lambda i: encode_image(bundle.model, bundle.config, px), calls=1)
+        captured = _encode_times(bundle.model, bundle.config, px)
     return {"encode_ms": _encode_ms(bundle.model, bundle.config, px, impl),
-            "encode_device_ms": dev, "ttft_ms": _ttft_ms(bundle, image, impl)}
+            "encode_device_ms": dev, "ttft_ms": _ttft_ms(bundle, image, impl),
+            "captured": captured}
 
 
 def _rel(a, b) -> float:
@@ -1599,8 +1747,14 @@ def phase_vision(smi: str, cfg, tokenizer, bundle) -> dict:
             plain8 = encode(px8)
         kernel_vs_plain = _rel(embeds[8], plain8)
         n_gen, counts224 = chat_counts()
+        enc224 = encoding_text([], PROMPT, bundle.num_patch, tokenizer)
+        start224 = _start_times(bundle, enc224["input_ids"],
+                                bundle.image_processor(image)["pixel_values"],
+                                img_marker_positions(enc224["input_ids"],
+                                                     tokenizer.img_start_token_id), greedy)
 
         pipe = VisionPipeline(model, bundle.config, bundle.image_processor)
+        pipe.embed_images(images)  # warm-up: captures the encode of 8 images
         piped, pipe_counts = _counted(lambda: pipe.embed_images(images))
         _check_counts(pipe_counts, {"flash_full": n_vis})
         pipe_diff = float(np.abs(piped - embeds[8].float().cpu().numpy()).max())
@@ -1616,16 +1770,22 @@ def phase_vision(smi: str, cfg, tokenizer, bundle) -> dict:
                 with open(os.path.join(tmp, name), "wb") as f:  # .npy bytes, the file's name
                     np.save(f, random_image(SEED + 50 + i))
             t0 = time.perf_counter()
+            prefills0 = bundle.engine.counts["prefill_passes"]
             results, eval_counts = _counted(lambda: evaluate(
                 bundle, questions, tmp, sampling=SamplingConfig.greedy(EVAL_NEW_TOKENS),
                 batch_size=EVAL_QUESTIONS))
             eval_s = time.perf_counter() - t0
+            eval_prefills = bundle.engine.counts["prefill_passes"] - prefills0
         if ([r["question_id"] for r in results] != [q["question_id"] for q in questions]
                 or not all(isinstance(r["output"], str) for r in results)):
             raise RuntimeError(f"evaluate returned {results}")
-        # one batch: one encode of 8 images and one prefill; its decode steps
-        # end at EOS or the cap
-        _check_named(eval_counts, {"flash_full": n_vis, "flash_prefill": L})
+        # one batch: one encode of 8 images and one prefill a prefill pass (the
+        # first B=8 start is captured: its warm-up is a pass too); its decode
+        # steps end at EOS or the cap
+        if eval_prefills not in (1, 2):
+            raise RuntimeError(f"evaluate ran {eval_prefills} prefill passes for one batch")
+        _check_named(eval_counts, {"flash_full": n_vis * eval_prefills,
+                                   "flash_prefill": L * eval_prefills})
 
     # on-card preprocessing against the host-exact processor
     img_t = torch.as_tensor(image[None], device="cuda")
@@ -1679,7 +1839,8 @@ def phase_vision(smi: str, cfg, tokenizer, bundle) -> dict:
         f"{res} px: encode (B=1) flash {n['flash']['encode_ms']:.2f} ms / dense "
         f"{n['xla']['encode_ms']:.2f} ms host clock, {n['flash']['encode_device_ms']:.2f} / "
         f"{n['xla']['encode_device_ms']:.2f} ms device (graph replay), TTFT flash "
-        f"{n['flash']['ttft_ms']:.1f} ms / dense {n['xla']['ttft_ms']:.1f} ms"
+        f"{n['flash']['ttft_ms']:.1f} ms / dense {n['xla']['ttft_ms']:.1f} ms; flash "
+        f"{_encode_line(n['flash']['captured'])}; dense {_encode_line(n['xla']['captured'])}"
         for res, n in numbers.items())
     print(f"[4v vision] phase 4's model with VISUALCLA_VIT_ATTN=flash: encode_image B=1 and 8 "
           f"launch B2u {n_vis} times a call ({cfg.vision_config.num_hidden_layers} ViT + "
@@ -1690,13 +1851,15 @@ def phase_vision(smi: str, cfg, tokenizer, bundle) -> dict:
           f"{counts224}; VisionPipeline.embed_images 8 images -> {piped.shape}, max diff to "
           f"encode_image {pipe_diff:.3e}; evaluate on the first {EVAL_QUESTIONS} llava "
           f"questions (one batch, {EVAL_NEW_TOKENS} new tokens) in {eval_s:.2f} s, launches "
-          f"B2u {eval_counts['flash_full']}, B2 {eval_counts['flash_prefill']}; "
+          f"B2u {eval_counts['flash_full']}, B2 {eval_counts['flash_prefill']} "
+          f"({eval_prefills} prefill passes); "
           f"device_preprocess (480x640 -> 224) {pre_ms:.3f} ms a call on the card (events), vs host "
           f"p99.9 {np.percentile(d, 99.9):.4f} max {d.max():.4f}; fp32 vision towers flash vs "
           f"dense image embeddings relative {rel32:.3e} (limit 1e-4); extend_to_resolution(448): "
           f"1025 ViT tokens, kernels vs plain relative {kernel_vs_plain448:.3e}, greedy chat "
-          f"{n_gen448} tokens launches {chat448}; {times}; card {smi}", flush=True)
-    return {"launches": counts224, "numbers": numbers, "rel32": rel32}
+          f"{n_gen448} tokens launches {chat448}; {times}; flash 224 px {_start_line(start224)}; "
+          f"card {smi}", flush=True)
+    return {"launches": counts224, "numbers": numbers, "rel32": rel32, "start": start224}
 
 
 def _random_model(cfg, bits=None):
@@ -1746,11 +1909,15 @@ def _decode_loop(engine, ids, pv, pos, sampling, eager=False) -> dict:
     captured run the device ms of its replays (CUDA events), the device ms a
     step (forward pass) and the device's idle share of the loop."""
     state = engine.start(ids, pv, pos, sampling)
-    passes0 = engine.counts["decode_passes"]
-    with graphs_mod.eager() if eager else contextlib.nullcontext():
-        n, wall, dev = _timed(engine.graphs, lambda: engine.decode(state, sampling))
-    passes = engine.counts["decode_passes"] - passes0
-    return {"ids": state.gen_ids[:, :n].cpu().numpy(), "tok_s": (n - 1) / wall,
+    try:
+        passes0 = engine.counts["decode_passes"]
+        with graphs_mod.eager() if eager else contextlib.nullcontext():
+            n, wall, dev = _timed(engine.graphs, lambda: engine.decode(state, sampling))
+        passes = engine.counts["decode_passes"] - passes0
+        out = state.gen_ids[:, :n].cpu().numpy()
+    finally:
+        engine.release(state.ws)
+    return {"ids": out, "tok_s": (n - 1) / wall,
             "wall_s": wall, "passes": passes, "device_ms": dev,
             "step_ms": dev / max(passes, 1), "idle": 1 - dev / (wall * 1e3)}
 
@@ -1892,20 +2059,119 @@ def _loose_logits_check(engine, input_ids, pv, pos, label):
     return logit_diff, logit_scale
 
 
-def _start_device_ms(bundle, input_ids, pv, pos, sampling):
-    """Device time of one ``Engine.start`` (image encode, splice, prefill,
-    first token) under torch.profiler: (all of it in ms, B3's prefill form's
-    share in ms, its launches)."""
-    eng = bundle.engine
-    int(eng.start(input_ids, pv, pos, sampling).last_token[0])
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        int(eng.start(input_ids, pv, pos, sampling).last_token[0])
+def _start_device_ms(eng, input_ids, pv, pos, sampling):
+    """Device time of one eager ``Engine.start`` (image encode, splice,
+    prefill, first token) under torch.profiler: (all of it in ms, B3's
+    prefill form's share in ms, its launches)."""
+    def start():
+        st = eng.start(input_ids, pv, pos, sampling)
+        int(st.last_token[0])
+        eng.release(st.ws)
+
+    with graphs_mod.eager():
+        start()
         torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            start()
+            torch.cuda.synchronize()
     rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     b3 = [e for e in rows if "int4_prefill" in e.key]
     return (sum(e.self_device_time_total for e in rows) / 1e3,
             sum(e.self_device_time_total for e in b3) / 1e3, sum(e.count for e in b3))
+
+
+def _start_times(bundle, input_ids, pv, pos, sampling) -> dict:
+    """``Engine.start`` on a fresh engine of the bundle's model: its first
+    call (the capture included), warm captured calls and eager calls, each
+    on the host clock (synchronized), the captured replay's device ms (CUDA
+    events) and the eager start's (torch.profiler's kernel sum); a warm
+    captured start launches what an eager one does and samples the same
+    first token, or the phase fails.  Medians of 3."""
+    eng = Engine(bundle.model, bundle.config, eos_token_id=bundle.tokenizer.eos_token_id,
+                 pad_token_id=bundle.tokenizer.pad_token_id, max_seq_len=2048,
+                 kv_quant=bundle.engine.kv_quant)
+
+    def once(eager=False):
+        eng.graphs.start_timing()
+        _reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with graphs_mod.eager() if eager else contextlib.nullcontext():
+            st = eng.start(input_ids, pv, pos, sampling)
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) * 1e3
+        dev = eng.graphs.stop_timing("prefill")
+        token = st.last_token.cpu().tolist()
+        eng.release(st.ws)
+        return host, dev, _counters(), token
+
+    first = once()
+    warm = [once() for _ in range(3)]
+    eager = [once(eager=True) for _ in range(3)]
+    if warm[0][2] != eager[0][2] or warm[0][3] != eager[0][3]:
+        raise RuntimeError(f"captured start: launches {warm[0][2]}, first token {warm[0][3]} "
+                           f"!= eager {eager[0][2]}, {eager[0][3]}")
+    eager_dev, b3_ms, b3_calls = _start_device_ms(eng, input_ids, pv, pos, sampling)
+    out = {"first_host_ms": first[0], "first_device_ms": first[1],
+           "warm_host_ms": statistics.median(w[0] for w in warm),
+           "warm_device_ms": statistics.median(w[1] for w in warm),
+           "eager_host_ms": statistics.median(e[0] for e in eager),
+           "eager_device_ms": eager_dev, "b3_prefill_ms": b3_ms, "b3_prefill_calls": b3_calls,
+           "capture_s": eng.graphs.capture_s, "launches": {k: v for k, v in warm[0][2].items()
+                                                           if v}}
+    del eng
+    return out
+
+
+def _start_line(n: dict) -> str:
+    return (f"Engine.start captured: first call {n['first_host_ms']:.1f} ms host (capture "
+            f"{n['capture_s'] * 1e3:.0f} ms of it), warm {n['warm_host_ms']:.2f} ms host / "
+            f"{n['warm_device_ms']:.2f} ms device (CUDA events on the replay); eager "
+            f"{n['eager_host_ms']:.2f} ms host / {n['eager_device_ms']:.2f} ms device "
+            f"(torch.profiler); launches {n['launches']} both ways, first token equal")
+
+
+def _encode_times(towers, cfg, px) -> dict:
+    """``VisionPipeline``'s captured encode (``CapturedEncode``, fresh) of
+    ``px`` against ``encode_image`` run eagerly: the first call (capture
+    included), warm calls and eager calls on the host clock (synchronized),
+    the replay's device ms (CUDA events) and the eager encode's (the same
+    calls captured by ``device_ms``); the launches of a warm captured
+    encode equal an eager one's and the embeddings agree (bf16 rounding of
+    another cuBLAS algorithm at most), or the phase fails.  Medians of 5."""
+    enc = CapturedEncode(towers, cfg)
+
+    def once(fn):
+        _reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, _counters(), out
+
+    first = once(lambda: enc(px))
+    enc.graphs.start_timing()
+    warm = [once(lambda: enc(px)) for _ in range(5)]
+    warm_dev = enc.graphs.stop_timing("prefill") / 5
+    with torch.no_grad():
+        eager = [once(lambda: encode_image(towers, cfg, px)) for _ in range(5)]
+        eager_dev = device_ms(lambda i: encode_image(towers, cfg, px), calls=1)
+    rel = _rel(warm[0][2], eager[0][2])
+    if warm[0][1] != eager[0][1] or rel > 1e-2:
+        raise RuntimeError(f"captured encode: launches {warm[0][1]} vs eager {eager[0][1]}, "
+                           f"relative difference {rel}")
+    return {"first_host_ms": first[0], "warm_host_ms": statistics.median(w[0] for w in warm),
+            "warm_device_ms": warm_dev, "eager_host_ms": statistics.median(e[0] for e in eager),
+            "eager_device_ms": eager_dev, "capture_s": enc.graphs.capture_s, "rel": rel,
+            "launches": {k: v for k, v in warm[0][1].items() if v}}
+
+
+def _encode_line(n: dict) -> str:
+    return (f"encode captured: first call {n['first_host_ms']:.1f} ms host, warm "
+            f"{n['warm_host_ms']:.2f} ms host / {n['warm_device_ms']:.2f} ms device; eager "
+            f"{n['eager_host_ms']:.2f} ms host / {n['eager_device_ms']:.2f} ms device; "
+            f"launches {n['launches'] or 'none counted'} both ways, embeddings relative "
+            f"{n['rel']:.1e}")
 
 
 def phase_int4(smi: str, cfg, tokenizer) -> dict:
@@ -1938,7 +2204,9 @@ def phase_int4(smi: str, cfg, tokenizer) -> dict:
     loop = _captured_vs_eager(bundle.engine, enc["input_ids"], pv, pos, greedy,
                               "int4 + int8-KV greedy")
     ttft, rate = _streams(bundle, image, greedy, response, enc["input_ids"], pv, ids)
-    start_ms, b3_ms, b3_calls = _start_device_ms(bundle, enc["input_ids"], pv, pos, greedy)
+    start = _start_times(bundle, enc["input_ids"], pv, pos, greedy)
+    start_ms, b3_ms, b3_calls = (start["eager_device_ms"], start["b3_prefill_ms"],
+                                 start["b3_prefill_calls"])
     # a verify chunk runs the 7 matmuls a layer and the head on K+1 = 9 tokens
     sd = bundle.speculative_decoder()
     copy_ids = encoding_text([], COPY_PROMPT, bundle.num_patch, tokenizer)["input_ids"]
@@ -1960,15 +2228,15 @@ def phase_int4(smi: str, cfg, tokenizer) -> dict:
           f"{logit_diff:.3e} (scale {logit_scale:.2f}); greedy chat {n_gen} tokens, stream ids "
           f"equal; greedy chat launches {counts}; TTFT {ttft * 1e3:.1f} ms (median of 3), "
           f"Engine.start (encode, prefill at bucket {bundle.engine.bucket_len(enc['input_ids'].shape[1])}"
-          f", first token) {start_ms:.2f} ms of device time, of which B3's prefill form "
-          f"{b3_ms:.2f} ms in {b3_calls} launches (torch.profiler); "
+          f", first token) eager {start_ms:.2f} ms of device time, of which B3's prefill form "
+          f"{b3_ms:.2f} ms in {b3_calls} launches (torch.profiler); {_start_line(start)}; "
           f"B=1 decode {rate:.1f} tok/s (chat_in_stream, one captured step a token); "
           f"{_loop_line(loop)}; {_spec_line(spec)}; device {chunk_ms[0]:.2f} ms a "
           f"speculative chunk of {sd.spec_k + 1} tokens ({chunk_ms[1]:.2f} with the parent's "
           f"form choice, its cost model on this tree's kernels; "
           f"torch.profiler, 4 chunks each); card {smi}", flush=True)
     return {"launches": counts, "ttft_ms": ttft * 1e3, "decode_tok_s": rate, "spec": spec,
-            "start_device_ms": start_ms, "b3_prefill_device_ms": b3_ms,
+            "start_device_ms": start_ms, "b3_prefill_device_ms": b3_ms, "start": start,
             "spec_chunk_device_ms": chunk_ms, "loop": loop}
 
 
@@ -2156,7 +2424,7 @@ def _pool_run(engine, reqs, overrides, n_new, spec: bool, eager: bool) -> dict:
     for row, req in enumerate(reqs):
         engine.prefill_row(row, *req, n_new, overrides=overrides)
     passes0 = dict(engine.counts)
-    live0 = engine.decode_steps + engine.spec_steps
+    live0 = engine.decode_steps + getattr(engine, "spec_steps", 0)
 
     def loop():
         while not engine.snapshot()["finished"][:n].all():
@@ -2169,7 +2437,7 @@ def _pool_run(engine, reqs, overrides, n_new, spec: bool, eager: bool) -> dict:
     passes = sum(engine.counts[k] - passes0[k] for k in engine.counts)
     ids = [snap["gen_ids"][r][:snap["gen_len"][r]].tolist() for r in range(n)]
     tokens = sum(len(i) for i in ids) - n  # after the admissions' first tokens
-    live = engine.decode_steps + engine.spec_steps - live0
+    live = engine.decode_steps + getattr(engine, "spec_steps", 0) - live0
     return {"ids": ids, "tok_s": tokens / wall, "device_ms": dev,
             "pass_ms": dev / max(passes, 1), "idle": 1 - dev / (wall * 1e3), "passes": passes,
             "tokens_per_live": tokens / max(live, 1)}
@@ -2207,8 +2475,8 @@ def phase_serve(smi: str, cfg, tokenizer) -> dict:
     bundle = api.VisualCLA(model, cfg, tokenizer,
                            ImageProcessor(image_size=cfg.vision_config.image_size),
                            max_seq_len=2048)
-    worker = serve_app.PoolWorker(bundle, **{k: v for k, v in SERVE_KW.items()
-                                             if k != "max_seq_len"})
+    worker = serve_app.PoolWorker(bundle, paged=True, **{k: v for k, v in SERVE_KW.items()
+                                                         if k != "max_seq_len"})
     engine, sched = worker.engine, worker.scheduler
     server = ThreadingHTTPServer(("127.0.0.1", 0), serve_app.make_handler(worker))
     threading.Thread(target=server.serve_forever, daemon=True).start()
@@ -2367,6 +2635,162 @@ def phase_serve(smi: str, cfg, tokenizer) -> dict:
     return {"launches": counts, "ttft_p50_ms": statistics.median(ttfts),
             "decode_tok_s_4_rows": busy_rate, "step_device_ms": step_dev_ms,
             "pool_bytes": pool_bf16, "spec": spec, "busy": busy}
+
+
+def phase_serve_contiguous(smi: str, cfg, tokenizer) -> dict:
+    """The contiguous pool at full width: ``PoolWorker(paged=False)`` (the
+    default: ``ServingEngine``, 4 rows, bf16, 2048 slots) under the
+    ``Scheduler`` and the HTTP handler; phase 7's 8 concurrent requests
+    twice (the first round captures, the second replays), the second with
+    exact launch counts (B2 once a layer an admission, B1 once a layer a
+    decode pass, nothing else); the first request's TTFT (its captures)
+    beside both rounds' p50; 4 busy greedy rows captured and eager; an fp32
+    pool of 3 equal to single-stream generation."""
+    L = cfg.text_config.num_hidden_layers
+    model, setup_s = _random_model(cfg)
+    bundle = api.VisualCLA(model, cfg, tokenizer,
+                           ImageProcessor(image_size=cfg.vision_config.image_size),
+                           max_seq_len=2048)
+    worker = serve_app.PoolWorker(bundle, pool_size=4,
+                                  max_new_tokens_cap=SERVE_KW["max_new_tokens_cap"])
+    engine, sched = worker.engine, worker.scheduler
+    if not isinstance(engine, server_mod.ServingEngine):
+        raise RuntimeError(f"PoolWorker's default pool is {type(engine).__name__}")
+    server = ThreadingHTTPServer(("127.0.0.1", 0), serve_app.make_handler(worker))
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    port = server.server_address[1]
+    reqs = [_chat_request(bundle, tokenizer, random_image(SEED + i)) for i in range(8)]
+    prompt_len = len(reqs[0][0])
+    first = {}  # the first request: it captures the admission and the decode step
+    _direct(sched, reqs[0], GREEDY_OVERRIDES, first)
+    ttft_first = (first["t_first"] - first["t0"]) * 1e3
+
+    gc_greedy = {**GREEDY_OVERRIDES, "max_new_tokens": SERVE_NEW_TOKENS}
+    overrides = [GREEDY_OVERRIDES, GREEDY_OVERRIDES, None, {"tfs": 0.9}, {"top_a": 0.2},
+                 {"mirostat_mode": 2}]
+
+    def mix(records):
+        fns = [lambda: _http(port, "/chat", {"text": PROMPT, "generation_config": gc_greedy,
+                                             "image_b64": _npy_b64(random_image(SEED))},
+                             records[0]),
+               lambda: _http(port, "/chat_stream", {"text": PROMPT,
+                                                    "generation_config": gc_greedy,
+                                                    "image_b64": _npy_b64(random_image(SEED + 1))},
+                             records[1])]
+        for i, ov in enumerate(overrides):
+            fns.append(lambda i=i, ov=ov: _direct(sched, reqs[i + 2], ov, records[i + 2]))
+        _run_all(fns)
+
+    # round 1 captures an admission and a decode graph for each sampler's
+    # flags; round 2, the same mix, replays them: its launches are counted
+    cold = [{} for _ in range(8)]
+    captures0 = engine.graphs.captures
+    mix(cold)
+    cold_captures = engine.graphs.captures - captures0
+    ttfts_cold = sorted((r["t_first"] - r["t0"]) * 1e3 for r in cold if "t_first" in r)
+    records = [{} for _ in range(8)]
+    _reset_counters()
+    _reset_passes(engine)
+    engine.snapshot()
+    engine.decode_steps = 0
+    stats0 = sched.stats()
+    admit_graphs = len(engine.graphs._graphs["prefill"])
+    t0 = time.perf_counter()
+    mix(records)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, stats1 = _counters(), sched.stats()
+    # (a decode graph may still be captured: its flags depend on which rows
+    # share a step; a capture's warm-up is a decode pass, counted)
+    warm_captures = len(engine.graphs._graphs["prefill"]) - admit_graphs
+    server.shutdown()
+    server.server_close()
+    worker.close()
+    for i, r in enumerate(records):
+        res = r.get("result")
+        if res is None:
+            raise RuntimeError(f"contiguous serve request {i} did not complete: {r}")
+        if i < 2:
+            if not isinstance(res.get("response"), str) or "history" not in res:
+                raise RuntimeError(f"HTTP request {i} returned {res}")
+        elif not 1 <= len(res) <= SERVE_NEW_TOKENS or int(res.max()) >= cfg.text_config.vocab_size:
+            raise RuntimeError(f"contiguous serve request {i} returned {res}")
+    if records[1].get("partials", 0) < 1:
+        raise RuntimeError("/chat_stream sent no partial response")
+    if engine.num_active() != 0:
+        raise RuntimeError(f"{engine.num_active()} rows still active")
+    admissions = stats1["prefills"] - stats0["prefills"]
+    passes = dict(engine.counts)
+    # every graph replayed: a prefill pass an admission (a capture's warm-up
+    # would be a pass too)
+    if admissions != 8 or passes["prefill_passes"] != admissions or warm_captures:
+        raise RuntimeError(f"{admissions} admissions, {passes['prefill_passes']} prefill "
+                           f"passes, {warm_captures} admission captures in the warm round")
+    _check_counts(counts, {"flash_prefill": L * passes["prefill_passes"],
+                           "flash_decode": L * passes["decode_passes"]})
+    ttfts = sorted((r["t_first"] - r["t0"]) * 1e3 for r in records if "t_first" in r)
+    n_tokens = sum(len(r["result"]) for r in records[2:])
+    steps = engine.decode_steps
+    busy = _pool_pair(engine, reqs[:4], GREEDY_OVERRIDES, SERVE_NEW_TOKENS, False,
+                      "contiguous pool, 4 busy greedy rows")
+    pool_gb = engine.pool_bytes() / 1e9
+    state = model.state_dict()
+    del worker, engine, sched, bundle, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # fp32: a pool of 3 equal to single-stream generate, token for token
+    model32 = VisualCLAModel(cfg, device="cuda", dtype=torch.float32)
+    model32.load_state_dict(state)
+    del state
+    bundle32 = api.VisualCLA(model32, cfg, tokenizer,
+                             ImageProcessor(image_size=cfg.vision_config.image_size),
+                             max_seq_len=2048)
+    greedy = SamplingConfig.greedy(SERVE_NEW_TOKENS)
+    eng32 = server_mod.ServingEngine(
+        model32, cfg, eos_token_id=tokenizer.eos_token_id, pad_token_id=tokenizer.pad_token_id,
+        pool_size=3, max_seq_len=2048, max_new_tokens_cap=SERVE_KW["max_new_tokens_cap"],
+        sampling=greedy)
+    sched32 = server_mod.Scheduler(eng32)
+    texts = [PROMPT, "图片里有什么？请回答这个问题，并且详细描述图片中的猫和狗在做什么。", PROMPT]
+    reqs32 = [_chat_request(bundle32, tokenizer, random_image(SEED + 10 + i), t)
+              for i, t in enumerate(texts)]
+    outs32 = [None] * 3
+
+    def serve32(i):
+        outs32[i] = server_mod.generate_sync(sched32, *reqs32[i],
+                                             max_new_tokens=SERVE_NEW_TOKENS)
+
+    _run_all([lambda i=i: serve32(i) for i in range(3)])
+    sched32.stop()
+    for i, (ids, pv, img) in enumerate(reqs32):
+        single = bundle32.generate(ids[None], pixel_values=pv, generation_config=greedy)[0]
+        if [int(t) for t in outs32[i]] != [int(t) for t in single]:
+            raise RuntimeError(f"fp32 contiguous pool, request {i}: {list(outs32[i])} != "
+                               f"single-stream {single.tolist()}")
+    del bundle32, model32, eng32, sched32
+    print(f"[7c serve contiguous] VisualCLA-7B bf16 full width, random weights seed {SEED}, "
+          f"built in {setup_s:.1f} s; PoolWorker(paged=False): ServingEngine 4 rows x 2048 "
+          f"slots (cache {pool_gb:.3f} GB), cap {SERVE_KW['max_new_tokens_cap']} new, Scheduler "
+          f"+ HTTP handler on 127.0.0.1; chat prompt {prompt_len} tokens (bucket "
+          f"{pick_bucket((128, 256, 512, 1024), prompt_len)}); first request TTFT "
+          f"{ttft_first:.1f} ms (its admission and decode captures included); 8 concurrent "
+          f"requests x {SERVE_NEW_TOKENS} new (4 greedy: /chat, /chat_stream, 2 direct; default "
+          f"sampled, tfs 0.9, top-a 0.2, mirostat-2), first round ({cold_captures} captures "
+          f"inside it, a pair for each new sampler's flags): TTFT p50 "
+          f"{statistics.median(ttfts_cold):.1f} ms, max {ttfts_cold[-1]:.1f} ms; the same "
+          f"mix again, every graph replayed: all complete in {wall:.2f} s, {n_tokens} "
+          f"tokens on the 6 direct ones; TTFT p50 {statistics.median(ttfts):.1f} ms, max "
+          f"{ttfts[-1]:.1f} ms over the {len(ttfts)} streamed; {admissions} admissions in "
+          f"{passes['prefill_passes']} prefill passes, {steps} live decode steps in "
+          f"{passes['decode_passes']} decode passes; launches {counts} (B2 = 32 x prefill "
+          f"passes, B1 = 32 x decode passes exactly); "
+          f"{_pool_line(busy, f'4 greedy rows x {SERVE_NEW_TOKENS} new through step_n(8)')}; "
+          f"fp32 pool of 3 equal to single-stream generate token for token; card {smi}",
+          flush=True)
+    return {"launches": counts, "ttft_p50_ms": statistics.median(ttfts),
+            "ttft_p50_cold_ms": statistics.median(ttfts_cold), "ttft_first_ms": ttft_first,
+            "busy": busy}
 
 
 def _oracle_drafts(bundle32, cfg, tokenizer, reqs, singles) -> dict:
@@ -2564,6 +2988,7 @@ def phase_serve_int4(smi: str, cfg, tokenizer) -> dict:
         raise RuntimeError(f"int4 speculative serve: outputs {spec_outs}, launches "
                            f"{spec_counts}")
     step_ms = _int4_pool_step_device_ms(model, cfg, tokenizer, reqs)
+    cont = _contiguous_int4(model, cfg, tokenizer, reqs)
     print(f"[8 serve int4] VisualCLA-7B int4 text tower (quantized on the card) with the int8 "
           f"KV pool, built in {setup_s:.1f} s; 3 concurrent greedy requests x "
           f"{SERVE_NEW_TOKENS} new complete ({[len(o) for o in outs]} tokens); "
@@ -2577,9 +3002,47 @@ def phase_serve_int4(smi: str, cfg, tokenizer) -> dict:
           f"a pool of the default {POOL_ROWS} rows, every row decoding (eager): device "
           f"{step_ms[0]:.2f} ms a decode step ({step_ms[1]:.2f} with the parent's form choice, "
           f"its cost model on this tree's kernels; torch.profiler, 4 steps "
-          f"each); card {smi}", flush=True)
+          f"each); the contiguous pool (ServingEngine, 4 rows, bf16 cache) at this tier: 3 "
+          f"greedy requests ({cont['tokens']} tokens) in {cont['prefill_passes']} prefill and "
+          f"{cont['decode_passes']} decode passes, launches {cont['launches']} exactly (B3's "
+          f"decode form at T = 4 rows, its prefill form at the bucket); card {smi}", flush=True)
     return {"launches": counts, "pool_bytes": pool_int8, "spec_launches": spec_counts,
-            "pool_step_device_ms": step_ms, "busy": busy}
+            "pool_step_device_ms": step_ms, "busy": busy, "contiguous": cont}
+
+
+def _contiguous_int4(model, cfg, tokenizer, reqs) -> dict:
+    """3 greedy requests on a 4-row contiguous pool over the int4 text tower
+    under the Scheduler: B2 and B1 once a layer a prefill and a decode pass,
+    B3 in the form its wrapper picks at the bucket (prefill, the head on one
+    token) and at T = 4 rows (decode), exactly."""
+    L = cfg.text_config.num_hidden_layers
+    engine = server_mod.ServingEngine(
+        model, cfg, eos_token_id=tokenizer.eos_token_id, pad_token_id=tokenizer.pad_token_id,
+        pool_size=4, max_seq_len=2048, max_new_tokens_cap=SERVE_KW["max_new_tokens_cap"],
+        sampling=SamplingConfig.greedy(SERVE_NEW_TOKENS))
+    sched = server_mod.Scheduler(engine)
+    server_mod.generate_sync(sched, *reqs[0], max_new_tokens=2)  # warm-up: captures
+    _reset_counters()
+    _reset_passes(engine)
+    outs = [None] * 3
+
+    def serve(i):
+        outs[i] = server_mod.generate_sync(sched, *reqs[i], max_new_tokens=SERVE_NEW_TOKENS)
+
+    _run_all([lambda i=i: serve(i) for i in range(3)])
+    torch.cuda.synchronize()
+    counts = _counters()
+    sched.stop()
+    if any(o is None or len(o) == 0 for o in outs):
+        raise RuntimeError(f"contiguous int4 serve: outputs {outs}")
+    p, d = engine.counts["prefill_passes"], engine.counts["decode_passes"]
+    bucket = engine.bucket_len(len(reqs[0][0]))
+    expect = {"flash_prefill": L * p, "flash_decode": L * d}
+    for name, n in _b3_pass_counts(bucket, L, head_tokens=1).items():
+        expect[name] = p * n + d * _b3_pass_counts(engine.B, L)[name]
+    _check_counts(counts, {k: v for k, v in expect.items() if v})
+    return {"launches": counts, "prefill_passes": p, "decode_passes": d,
+            "tokens": [len(o) for o in outs]}
 
 
 def _int4_pool_step_device_ms(model, cfg, tokenizer, reqs) -> tuple:
@@ -2927,10 +3390,13 @@ def main() -> int:
     sl = timed("4 slice", phase_slice, info["smi"], cfg, tokenizer)
     launches = sl["launches"]
     beams = timed("4b beams", phase_beams, info["smi"], cfg, tokenizer, sl["bundle"])
+    timed("4f concurrency", phase_concurrency, info["smi"], cfg, tokenizer, sl["bundle"])
     vision = timed("4v vision", phase_vision, info["smi"], cfg, tokenizer, sl.pop("bundle"))
     launches4 = timed("5 int4", phase_int4, info["smi"], cfg, tokenizer)["launches"]
     timed("6 int8", phase_int8, info["smi"], cfg, tokenizer)
     serve = timed("7 serve", phase_serve, info["smi"], cfg, tokenizer)
+    contiguous = timed("7c serve contiguous", phase_serve_contiguous, info["smi"], cfg,
+                       tokenizer)
     serve4 = timed("8 serve int4", phase_serve_int4, info["smi"], cfg, tokenizer)
     timed("9 reference", phase_reference, info["smi"], cfg, tokenizer, sl["ids"])
     print(f"[10 time] seconds a phase {seconds}; the whole run "
@@ -2939,7 +3405,8 @@ def main() -> int:
     runs = {"paged_append": serve["launches"], "paged_append_kv8": serve4["launches"],
             "paged_verify": serve["spec"]["launches"],
             "paged_verify_kv8": serve4["spec_launches"], "flash_full": vision["launches"],
-            "flash_decode_beam4": {"flash_decode_beam4": beams["launches"]["flash_decode"]}}
+            "flash_decode_beam4": {"flash_decode_beam4": beams["launches"]["flash_decode"]},
+            "flash_decode_pool": {"flash_decode_pool": contiguous["launches"]["flash_decode"]}}
     notes = {"paged_decode": B6_NOTE, "paged_decode_kv8": B6_NOTE,
              "flash_full_kv8": B2U_KV8_NOTE}
     kernels = []

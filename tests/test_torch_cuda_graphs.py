@@ -1,16 +1,19 @@
 """The port's decode loops replayed from captured CUDA graphs against the same
 chunks run eagerly (``graphs.eager()``), on the card: ``Engine.generate``
-and ``stream``, the paged pool's ``step_n`` and ``spec_step_n``,
-``SpeculativeDecoder`` and ``beam_generate_fused``, greedy and sampled (the
-generators registered with the graphs draw what the eager chunks draw); a
-second request of a key replays its graphs without capturing again; a chunk
-that cannot be captured raises.  A tiny model (2 layers, 4 heads of 128) on
+and ``stream``, the paged pool's ``step_n`` and ``spec_step_n``, the
+contiguous pool's ``prefill_row`` and ``step_n``, ``SpeculativeDecoder`` and
+``beam_generate_fused``, greedy and sampled (the generators registered with
+the graphs draw what the eager chunks draw); the captured ``Engine.start``
+with an image and ``VisionPipeline``'s captured encode; a second request of
+a key replays its graphs without capturing again; a capture in one thread
+while another replays; a chunk that cannot be captured raises.  A tiny model (2 layers, 4 heads of 128) on
 seeded random fp32 weights.  Needs an NVIDIA GPU and nvcc; skipped without.
 
 On the machine with the card (which has no JAX, hence no conftest):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_graphs.py
 
-Tolerance: none; token for token (the same kernels in the same order)."""
+Tolerance: none; token for token (the same kernels in the same order); the
+captured encode's fp32 embeddings within 1e-5 of the eager ones."""
 import numpy as np
 import pytest
 import torch
@@ -21,8 +24,10 @@ from visualcla_tpu_torch.engine import graphs as t_graphs
 from visualcla_tpu_torch.engine.generate import Engine
 from visualcla_tpu_torch.engine.paged import PagedServingEngine
 from visualcla_tpu_torch.engine.sampling import SamplingConfig
+from visualcla_tpu_torch.engine.server import ServingEngine
 from visualcla_tpu_torch.engine.speculative import SpeculativeDecoder
-from visualcla_tpu_torch.models.visualcla import VisualCLAModel, init_random_
+from visualcla_tpu_torch.models.visualcla import VisualCLAModel, encode_image, init_random_
+from visualcla_tpu_torch.pipeline import VisionPipeline
 
 pytestmark = pytest.mark.cuda
 
@@ -95,6 +100,104 @@ def test_pool(model, spec_k):
         want = run(pool())
     assert got == want
     assert graphed.graphs.captures >= 1 and graphed.graphs.replays >= 12
+
+
+def test_contiguous_pool(model):
+    """The contiguous pool, captured (admissions and chunks) against eager:
+    equal snapshots after every call; three rows admitted through one
+    admission graph, greedy and sampled rows, a row re-admitted."""
+    m, cfg = model
+
+    def pool():
+        return ServingEngine(m, cfg, eos_token_id=EOS, pad_token_id=0, pool_size=3,
+                             max_seq_len=256, max_new_tokens_cap=24, prompt_buckets=(32, 64),
+                             sampling=GREEDY, seed=5)
+
+    def run(eng):
+        snaps = []
+        eng.prefill_row(0, prompt(0)[0], None, None, 20)
+        eng.prefill_row(1, prompt(1)[0], None, None, 13,
+                        overrides={"do_sample": True, "top_k": 40, "temperature": 0.7})
+        eng.prefill_row(2, prompt(2)[0], None, None, 7)
+        for i in range(12):
+            eng.step_n(4)
+            snap = eng.snapshot()
+            snaps.append({k: v.tolist() for k, v in snap.items()})
+            if i == 3:
+                eng.release_rows([2])
+                eng.prefill_row(2, prompt(3)[0], None, None, 9)
+        return snaps
+
+    graphed = pool()
+    got = run(graphed)
+    with t_graphs.eager():
+        want = run(pool())
+    assert got == want
+    # one graph for the admissions of one bucket and flags, one a decode key
+    assert graphed.graphs.captures <= 4 and graphed.decode_steps > 0
+
+
+def test_start_and_encode_captured(model):
+    """``Engine.start`` with an image (encode, splice, prefill, first sample
+    in one graph) and ``VisionPipeline.embed_images`` replayed equal their
+    eager runs; a second call of a key captures nothing."""
+    m, cfg = model
+    s = cfg.vision_config.image_size
+    pix = np.random.default_rng(4).standard_normal((1, 3, s, s)).astype(np.float32)
+    ids = prompt(11, n=cfg.num_image_tokens + 12)
+    ids[0, 2] = 5  # a marker position: its image tokens follow
+    eng = Engine(m, cfg, eos_token_id=EOS, max_seq_len=256)
+    out = eng.generate(ids, pix, np.array([2]), SAMPLED, seed=1)
+    captures = eng.graphs.captures
+    with t_graphs.eager():
+        assert eng.generate(ids, pix, np.array([2]), SAMPLED, seed=1).tolist() == out.tolist()
+    assert eng.generate(ids, pix, np.array([2]), SAMPLED, seed=1).tolist() == out.tolist()
+    assert eng.graphs.captures == captures
+    pipe = VisionPipeline(m, cfg)
+    px = np.random.default_rng(5).standard_normal((2, 3, s, s)).astype(np.float32)
+    got = pipe.encode(px)
+    want = encode_image(m, cfg, torch.as_tensor(px, device="cuda"))
+    # (cuBLAS may pick another algorithm under capture: fp32 within 1e-5)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(pipe.encode(px), got, atol=0, rtol=0)
+    assert pipe.encode.graphs.captures == 1
+
+
+def test_capture_overlaps_replay(model):
+    """One thread replays an engine's graphs while another captures new keys
+    on a second engine: every call's ids equal its sequential run's."""
+    import threading
+
+    m, cfg = model
+    a, b = (Engine(m, cfg, eos_token_id=EOS, max_seq_len=256) for _ in range(2))
+    ids = [prompt(20 + k, B=k + 1) for k in range(4)]  # each B: new workspaces, captures
+    want_a = a.generate(ids[0], sampling=SAMPLED, seed=4).tolist()
+    want_b = [Engine(m, cfg, eos_token_id=EOS, max_seq_len=256).generate(
+        x, sampling=SAMPLED, seed=4).tolist() for x in ids]
+    got_a, got_b, errors = [], [], []
+
+    def replays():
+        try:
+            for _ in range(8):
+                got_a.append(a.generate(ids[0], sampling=SAMPLED, seed=4).tolist())
+        except Exception as e:  # noqa: BLE001
+            errors.append(e)
+
+    def captures():
+        try:
+            for x in ids:
+                got_b.append(b.generate(x, sampling=SAMPLED, seed=4).tolist())
+        except Exception as e:  # noqa: BLE001
+            errors.append(e)
+
+    threads = [threading.Thread(target=replays), threading.Thread(target=captures)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    assert got_a == [want_a] * 8 and got_b == want_b
+    assert b.graphs.captures >= 8  # a start and a decode graph for each B
 
 
 @pytest.mark.parametrize("sampling", [GREEDY, SAMPLED], ids=["greedy", "sampled"])

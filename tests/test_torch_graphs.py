@@ -1,12 +1,15 @@
 """The PyTorch port's device-resident decode loops against the JAX package's
 fused loops, on the CPU in fp32: ``Engine.generate`` and ``stream``, the
 paged pool's ``step_n`` and ``spec_step_n``, ``SpeculativeDecoder`` and
-``beam_generate_fused``.  On CPU tensors the port runs the same chunks of
+``beam_generate_fused``.  (The contiguous pool's ``step_n`` is held against
+JAX's in ``tests/test_torch_serving_pool.py``.)  On CPU tensors the port runs the same chunks of
 gated step functions that the card replays from captured CUDA graphs, so
 each case holds those chunks (a stop inside a chunk, a length that is not a
 multiple of the chunk, the end of the cache) token for token against the
 JAX ``lax.while_loop``.  A guard makes every read of a tensor back to the
-host raise while a step function runs: the captured steps read nothing.
+host raise while a step function runs: the captured steps read nothing, and
+neither do the captured prefill-shaped programs (``Engine.start``, the
+contiguous pool's admission, ``VisionPipeline``'s encode).
 
 Tolerance: none; token for token (fp32, the same arithmetic)."""
 import contextlib
@@ -29,6 +32,7 @@ from visualcla_tpu_torch.engine import generate as t_gen
 from visualcla_tpu_torch.engine import graphs as t_graphs
 from visualcla_tpu_torch.engine import paged as t_paged
 from visualcla_tpu_torch.engine import sampling as t_samp
+from visualcla_tpu_torch.engine import server as t_server
 from visualcla_tpu_torch.engine import speculative as t_spec
 from visualcla_tpu_torch.text import encoding_text
 
@@ -371,7 +375,8 @@ def guard(monkeypatch):
 
 
 @pytest.mark.parametrize("loop", ["generate", "stream", "step_n", "spec_step_n",
-                                  "speculative", "beam"])
+                                  "speculative", "beam", "start", "pool_step_n",
+                                  "pool_prefill_row", "encode"])
 def test_captured_steps_read_nothing_back(both, guard, loop):
     _, tm, _, ids, pix, img = both
     sampled = t_samp.SamplingConfig(**dict(SAMPLED, max_new_tokens=9, top_k=5))
@@ -394,10 +399,35 @@ def test_captured_steps_read_nothing_back(both, guard, loop):
         guard(t_spec, "spec_chunk")
         _, te = engines(both, case_eos(both, 5))
         t_spec.SpeculativeDecoder(te, 3, 3).generate(LOOPING[None], None, None, sampled)
-    else:
+    elif loop == "beam":
         guard(t_beam._FusedBeam, "step")
         t_beam.beam_generate_fused(tm.model, tm.config, ids, pix, img, num_beams=3,
                                    max_new_tokens=8, eos_token_id=tm.tokenizer.eos_token_id)
+    elif loop == "start":  # the captured prefill and first sample, with an image
+        guard(t_gen.Engine, "_start_step")
+        _, te = engines(both, case_eos(both, 4))
+        te.generate(ids, pix, img, sampled)
+        te.generate(LOOPING[None], None, None, sampled)
+    elif loop in ("pool_step_n", "pool_prefill_row"):  # the contiguous pool
+        guard(t_server.ServingEngine,
+              "_decode_step" if loop == "pool_step_n" else "_prefill_step")
+        te = t_server.ServingEngine(tm.model, tm.config, eos_token_id=case_eos(both, 4),
+                                    pad_token_id=tm.tokenizer.pad_token_id, pool_size=3,
+                                    max_seq_len=MAX_SEQ, max_new_tokens_cap=12,
+                                    sampling=t_samp.SamplingConfig.greedy(12))
+        te.prefill_row(0, LOOPING, None, None, 9)
+        te.prefill_row(1, ids[0], pix, int(img[0]), 9,
+                       overrides={"do_sample": True, "top_k": 300, "repetition_penalty": 1.2})
+        for _ in range(4):
+            te.step_n(3)
+            te.snapshot()
+    else:  # the captured image encode of VisionPipeline
+        from visualcla_tpu_torch.pipeline import CapturedEncode
+
+        guard(CapturedEncode, "_step")
+        s = tm.config.vision_config.image_size
+        img_u8 = np.random.default_rng(2).integers(0, 256, (s, s, 3), dtype=np.uint8)
+        vt.VisionPipeline(tm.model, tm.config).embed_images([img_u8, img_u8])
     assert guard.calls[0] > 0
 
 

@@ -429,14 +429,10 @@ def test_deferral_recycling_and_sampled_rows(models):
 
 
 def test_unported_serving_options_raise(models):
-    from visualcla_tpu_torch.apps.serve import PoolWorker
-
     _, tm = models["fp32"]
     kw = dict(eos_token_id=2, pad_token_id=0)
     with pytest.raises(NotImplementedError, match="ROADMAP.*11"):
         TPaged(tm.model, tm.config, mesh=object(), **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*12"):
-        PoolWorker(tm, paged=False)
     with pytest.raises(ValueError, match="mirostat"):
         t_server.sampling_knobs(t_samp.SamplingConfig(), {"mirostat_mode": 1})
 
@@ -477,7 +473,7 @@ def test_http_pool_matches_jax(models, ckpt):
     npy = base64.b64encode(buf.getvalue()).decode()
     gc = {"do_sample": False, "max_new_tokens": 8}
     jw = j_serve.PoolWorker(jm, pool_size=2, paged=True, block_size=64)
-    tw = t_serve.PoolWorker(tm, pool_size=2, block_size=64)
+    tw = t_serve.PoolWorker(tm, pool_size=2, paged=True, block_size=64)
     js, ts = _serve(jw, j_serve.make_handler), _serve(tw, t_serve.make_handler)
     try:
         for body in ({"text": "ab你好", "image_b64": png, "generation_config": gc},

@@ -94,6 +94,7 @@ def main(argv=None) -> int:
         st = eng.start(ids, pv, pos, greedy)  # encode + splice + prefill + first token
         int(st.last_token[0])
         t3 = time.perf_counter()
+        eng.release(st.ws)
         for k, v in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
             parts[k].append(v * 1e3)
     res.update({k: statistics.median(v) for k, v in parts.items()})
@@ -106,13 +107,17 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         steps = eng.decode(st, greedy) - 1
         sync()
+        eng.release(st.ws)
         return steps / (time.perf_counter() - t0)
 
     def start_ms():
         sync()
         t0 = time.perf_counter()
-        int(eng.start(ids, pv, pos, greedy).last_token[0])
-        return (time.perf_counter() - t0) * 1e3
+        st = eng.start(ids, pv, pos, greedy)
+        int(st.last_token[0])
+        ms = (time.perf_counter() - t0) * 1e3
+        eng.release(st.ws)
+        return ms
 
     # kernels, plain versions, kernels: compared within this one run
     for label, attn in (("kernels", contextlib.nullcontext), ("plain", plain_kernels),

@@ -9,12 +9,15 @@
 
 ``image_b64`` holds an encoded image (PNG, JPEG, ...: needs Pillow) or a
 ``.npy`` file of a uint8 (H, W, 3) array (needs numpy only).  With ``--pool
-N`` requests share a paged pool of N rows (``engine.paged`` under
-``engine.server.Scheduler``): concurrent chats share every decode step and
-stream per token.  Without it one worker thread serves them in turn.
+N`` requests share a pool of N cache rows under ``engine.server.Scheduler``:
+the contiguous ``engine.server.ServingEngine`` (a fixed (L, N, Nkv,
+max_seq_len, hd) cache), or with ``--paged`` the block-paged
+``engine.paged.PagedServingEngine`` (``--kv_int8``: its int8 pool).
+Concurrent chats share every decode step and stream per token.  Without
+``--pool`` one worker thread serves the chats and the streams in turn.
 
     python -m visualcla_tpu_torch.apps.serve --visualcla_model CKPT --pool 4 \\
-        [--device cuda|cpu] [--kv_int8]
+        [--paged [--kv_int8]] [--device cuda|cpu]
 """
 from __future__ import annotations
 
@@ -49,27 +52,31 @@ def decode_image(b64: str):
 
 
 class PoolWorker:
-    """Continuous-batching backend over the paged pool: requests prefill into
-    a fixed pool of rows and decode together, token-interleaved."""
+    """Continuous-batching backend: requests prefill into a fixed pool of
+    rows and decode together, token-interleaved; the contiguous pool
+    (``ServingEngine``) by default, the paged one with ``paged=True``."""
 
-    def __init__(self, model, pool_size: int = 4, paged: bool = True,
+    def __init__(self, model, pool_size: int = 4, paged: bool = False,
                  block_size: int = 64, num_blocks: int = 0, kv_quant: str = "none",
                  **engine_kw):
-        if not paged:
-            raise NotImplementedError(
-                "the contiguous serving pool is not ported yet (ROADMAP, open item 12: "
-                "the contiguous ServingEngine); use paged=True")
-        from ..engine.paged import PagedServingEngine
-        from ..engine.server import Scheduler
+        from ..engine.server import Scheduler, ServingEngine
 
         self.model = model
-        self.engine = PagedServingEngine(
-            model.model, model.config,
-            eos_token_id=model.tokenizer.eos_token_id,
-            pad_token_id=model.tokenizer.pad_token_id,
-            pool_size=pool_size, block_size=block_size,
-            num_blocks=num_blocks or pool_size * 16,
-            max_seq_len=model.engine.max_seq_len, kv_quant=kv_quant, **engine_kw)
+        common = dict(eos_token_id=model.tokenizer.eos_token_id,
+                      pad_token_id=model.tokenizer.pad_token_id, pool_size=pool_size,
+                      max_seq_len=model.engine.max_seq_len, **engine_kw)
+        if paged:
+            from ..engine.paged import PagedServingEngine
+
+            self.engine = PagedServingEngine(
+                model.model, model.config, block_size=block_size,
+                num_blocks=num_blocks or pool_size * 16, kv_quant=kv_quant, **common)
+        else:
+            if kv_quant != "none":
+                # the JAX CLI ignores --kv_int8 without --paged; the port refuses it
+                raise ValueError(f"kv_quant={kv_quant!r} needs the paged pool (--paged): "
+                                 "the contiguous pool keeps its cache in the model's dtype")
+            self.engine = ServingEngine(model.model, model.config, **common)
         self.scheduler = Scheduler(self.engine)
 
     def close(self) -> None:
@@ -158,7 +165,9 @@ class PoolWorker:
 
 
 class ChatWorker:
-    """One consumer thread owning the model; requests queue and block."""
+    """One consumer thread owning the model: chats and streams queue and run
+    on it one at a time (a stream's items reach its caller through a
+    queue)."""
 
     def __init__(self, model):
         self.model = model
@@ -181,7 +190,10 @@ class ChatWorker:
         from ..api import chat
 
         while True:
-            req, done = self.q.get()
+            req, done, stream = self.q.get()
+            if stream:
+                self._stream(req, done)
+                continue
             try:
                 response, history = chat(self.model, **self._chat_args(req))
                 done.put({"response": response, "history": history})
@@ -189,20 +201,39 @@ class ChatWorker:
                 logger.exception("chat request failed")
                 done.put({"error": str(e)})
 
+    def _stream(self, req: dict, out: "queue.Queue") -> None:
+        """Run one stream on the worker thread: ('item', dict) ... then
+        ('end', None), or ('error', message)."""
+        from ..api import chat_in_stream
+
+        try:
+            response, history = "", None
+            for response, history in chat_in_stream(self.model, **self._chat_args(req)):
+                out.put(("item", {"partial": response}))
+            out.put(("item", {"response": response,
+                              "history": history or req.get("history") or []}))
+            out.put(("end", None))
+        except Exception as e:  # noqa: BLE001 — report to the client
+            logger.exception("stream request failed")
+            out.put(("error", str(e)))
+
     def submit(self, req: dict, timeout: float = 600.0) -> dict:
         done: queue.Queue = queue.Queue()
-        self.q.put((req, done))
+        self.q.put((req, done, False))
         return done.get(timeout=timeout)
 
     def submit_stream(self, req: dict, timeout: float = 600.0):
-        """Yield {'partial': str} items, then the final response dict; runs
-        on the caller's thread."""
-        from ..api import chat_in_stream
-
-        response, history = "", None
-        for response, history in chat_in_stream(self.model, **self._chat_args(req)):
-            yield {"partial": response}
-        yield {"response": response, "history": history or req.get("history") or []}
+        """Yield {'partial': str} items, then the final response dict, as the
+        worker thread produces them (one stream or chat at a time)."""
+        out: queue.Queue = queue.Queue()
+        self.q.put((req, out, True))
+        while True:
+            kind, payload = out.get(timeout=timeout)
+            if kind == "end":
+                return
+            if kind == "error":
+                raise RuntimeError(payload)
+            yield payload
 
 
 def make_handler(worker):
@@ -270,13 +301,14 @@ def main(argv=None):
     ap.add_argument("--host", default="0.0.0.0")
     ap.add_argument("--port", type=int, default=8091)
     ap.add_argument("--pool", type=int, default=0,
-                    help="paged pool rows (0 = one worker serving requests in turn)")
+                    help="pool rows (0 = one worker serving requests in turn)")
     ap.add_argument("--paged", action="store_true",
-                    help="accepted for the JAX package's flags: the pool is always paged")
+                    help="block-paged KV pool (memory = tokens, not rows x max_seq_len)")
     ap.add_argument("--block_size", type=int, default=64)
     ap.add_argument("--num_blocks", type=int, default=0,
                     help="KV pool size in blocks (default pool*16)")
-    ap.add_argument("--kv_int8", action="store_true", help="int8 KV pool (half the bytes)")
+    ap.add_argument("--kv_int8", action="store_true",
+                    help="int8 paged KV pool (half the bytes; needs --paged)")
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
 
@@ -285,7 +317,7 @@ def main(argv=None):
     model, _, _ = api.get_model_and_tokenizer_and_processor(
         visualcla_model=args.visualcla_model, load_in_8bit=args.load_in_8bit,
         load_in_4bit=args.load_in_4bit, device=args.device)
-    worker = (PoolWorker(model, args.pool, block_size=args.block_size,
+    worker = (PoolWorker(model, args.pool, paged=args.paged, block_size=args.block_size,
                          num_blocks=args.num_blocks,
                          kv_quant="int8" if args.kv_int8 else "none")
               if args.pool > 0 else ChatWorker(model))

@@ -27,6 +27,7 @@ replacement by Gumbel-top-k from an explicit ``torch.Generator``.
 from __future__ import annotations
 
 import dataclasses
+import threading
 import weakref
 from typing import Callable, List, Optional, Tuple
 
@@ -35,7 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models import llama, visualcla
-from .graphs import Graphs
+from .graphs import LOCK, Graphs
 from .sampling import apply_no_repeat_ngram, apply_repetition_penalty, warp_top_k, warp_top_p
 
 Cand = List[Tuple[float, int, int]]  # (score, beam, token), best first
@@ -392,8 +393,11 @@ def beam_sample_generate(
 BEAM_CHUNK = 8  # beam steps (replays of the captured one) between host reads
 NEG = -1e9
 # model -> {(nb, cache slots, T, kv_quant): _FusedBeam}: one workspace a model
-# (its cache is nb x the single-stream one: 4.3 GB at 7B, 4 beams, 2048 slots)
+# (its cache is nb x the single-stream one: 4.3 GB at 7B, 4 beams, 2048 slots),
+# looked up under _FUSED_LOCK; a search holds its workspace's lock throughout,
+# so two searches on one model run one after the other
 _FUSED: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+_FUSED_LOCK = threading.Lock()
 
 
 class _FusedBeam:
@@ -425,6 +429,7 @@ class _FusedBeam:
         self.window = torch.arange(T, device=dev)
         self.graphs = Graphs()
         self.counts = {"beam_passes": 0}  # forwards run, gated ones included
+        self.lock = threading.Lock()  # held by a search
 
     # -- the scorer on the device (the JAX fused loop's helpers) -------------
 
@@ -531,8 +536,9 @@ class _FusedBeam:
         self.lp, self.early_stopping = float(length_penalty), bool(early_stopping)
         nb, dev = self.nb, self.dev
         S = np.asarray(input_ids).shape[1]
-        first_logits, row = _prefill_row(model, cfg, input_ids, pixel_values,
-                                         img_start_pos, alloc, self.kv_quant)
+        with LOCK:
+            first_logits, row = _prefill_row(model, cfg, input_ids, pixel_values,
+                                             img_start_pos, alloc, self.kv_quant)
         for name, v in row.items():  # the one prefilled row fans out to the nb beams
             self.cache[name].copy_(v.expand_as(self.cache[name]))
         del row
@@ -605,12 +611,15 @@ def beam_generate_fused(
     nb, T = num_beams, max_new_tokens
     S = np.asarray(input_ids).shape[1]
     cap, alloc = _cache_slots(S, T, max_seq_len, cache_slots)
-    store = _FUSED.setdefault(model, {})
     key = (nb, alloc, T, kv_quant)
-    if key not in store:
-        store.clear()  # one workspace a model
-        store[key] = _FusedBeam(model, cfg, nb, alloc, T, kv_quant)
-    return store[key].search(model, cfg, input_ids, pixel_values, img_start_pos, alloc=alloc,
-                             cap=cap, eos=eos_token_id, pad=pad_token_id,
-                             length_penalty=length_penalty, early_stopping=early_stopping,
-                             stats=stats)
+    with _FUSED_LOCK:
+        store = _FUSED.setdefault(model, {})
+        if key not in store:
+            store.clear()  # one workspace a model
+            store[key] = _FusedBeam(model, cfg, nb, alloc, T, kv_quant)
+        fused = store[key]
+    with fused.lock:
+        return fused.search(model, cfg, input_ids, pixel_values, img_start_pos, alloc=alloc,
+                            cap=cap, eos=eos_token_id, pad=pad_token_id,
+                            length_penalty=length_penalty, early_stopping=early_stopping,
+                            stats=stats)

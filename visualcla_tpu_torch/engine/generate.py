@@ -15,19 +15,30 @@ Decode is the JAX package's ``_decode_loop`` as captured CUDA graphs
 gated by the JAX loop's ``cond`` (``gen_len < max_steps``, not every row
 finished, ``cur_slot < Smax``); it is captured once per key and replayed
 ``DECODE_CHUNK`` times (fewer at the end) between host reads of one control
-tensor, until the host sees the ``cond`` false.  The prefill stays eager.
+tensor, until the host sees the ``cond`` false.  ``start`` (the JAX
+package's jitted prefill and first sample) is captured too, one graph per
+(B, bucket, cache length, image count and size, vision attention, the
+sampler's static config): the host pads the prompt, checks the markers and
+copies ids, mask, marker positions and pixels into the workspace's static
+buffers of that shape, then replays the cache reset, the image encode and
+splice, the text tower at the bucket (kernel B2), the last position's
+logits and the first sample.
 The state lives in a workspace per (B, cache length): the KV cache,
 ``kv_valid``, the token buffers, the sampler state and the generator, which
 each prefill resets and refills in place, so a graph's addresses stay valid
-from request to request.  The engine keeps at most ``MAX_WORKSPACES``
-workspaces (each holds a whole KV cache, 1.07 GB for B=1 at 2048 bf16 slots
-at 7B) and ``graphs.MAX_GRAPHS`` graphs.
+from request to request.  A request claims its workspace under the engine's
+lock (``workspace``) and gives it back at its end (``release``): two calls
+that overlap get two workspaces, the second a private one dropped after it.
+The engine keeps at most ``MAX_WORKSPACES`` workspaces (each holds a whole
+KV cache, 1.07 GB for B=1 at 2048 bf16 slots at 7B) and
+``graphs.MAX_GRAPHS`` graphs a key space.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
 import itertools
+import threading
 from typing import Iterator, Optional, Tuple
 
 import numpy as np
@@ -36,7 +47,8 @@ import torch
 from ..core.config import VisualCLAConfig
 
 from ..models import llama, visualcla
-from .graphs import Graphs
+from ..ops.attention import vision_attention_impl
+from .graphs import LOCK, Graphs
 from .sampling import SamplingConfig, sample_step
 
 PROMPT_BUCKETS = (128, 256, 512, 1024, 2048)
@@ -71,7 +83,7 @@ class Workspace:
         dev = eng.device
         self.token = next(_TOKENS)
         self.key = (B, cache_len)
-        self.busy = False  # a generate / stream is running on it
+        self.busy = False  # claimed by a request (Engine.workspace .. release)
         self.cache = llama.init_kv_cache(eng.cfg.text_config, B, cache_len, eng.dtype,
                                          device=dev, kv_quant=eng.kv_quant)
         self.kv_valid = torch.zeros(B, cache_len, dtype=torch.bool, device=dev)
@@ -84,8 +96,54 @@ class Workspace:
         self.max_steps = torch.zeros((), **z)
         self.spec_counts = torch.zeros(3, **z)  # chunks, emitted, row-chunks
         self.prompts: dict = {}  # prompt bucket -> (ids (B, Lb), first real index (B,))
+        self.inputs: dict = {}  # PrefillInputs.key -> the prefill's static inputs
         self.generator = torch.Generator(device=dev)
         self.rows = torch.arange(B, device=dev)
+
+
+class PrefillInputs:
+    """A prefill's static device inputs for one shape: the left-padded ids
+    and mask (B, Sb), the marker positions (B,) or (B, K) (-1: no image)
+    and the pixels (B[, K], 3, H, W), or None for a text prompt."""
+
+    def __init__(self, ids: np.ndarray, mask: np.ndarray, img_pos: np.ndarray,
+                 pixels: Optional[torch.Tensor], device, dtype):
+        self.key = self.key_of(ids, img_pos, pixels)
+        z = dict(dtype=torch.int64, device=device)
+        self.ids, self.mask = torch.zeros(ids.shape, **z), torch.zeros(mask.shape, **z)
+        self.img_pos = torch.zeros(img_pos.shape, **z)
+        self.pixels = (None if pixels is None
+                       else torch.zeros(pixels.shape, dtype=dtype, device=device))
+
+    @staticmethod
+    def key_of(ids, img_pos, pixels) -> tuple:
+        return (ids.shape, img_pos.shape, None if pixels is None else tuple(pixels.shape))
+
+    @classmethod
+    def staged(cls, store: dict, ids, mask, img_pos, pixels, device, dtype) -> "PrefillInputs":
+        """The buffers of this shape in ``store`` (made at first use), filled."""
+        key = cls.key_of(ids, img_pos, pixels)
+        if key not in store:
+            store[key] = cls(ids, mask, img_pos, pixels, device, dtype)
+        return store[key].fill(ids, mask, img_pos, pixels)
+
+    def fill(self, ids, mask, img_pos, pixels) -> "PrefillInputs":
+        """Copy one request's host inputs in (outside any capture)."""
+        self.ids.copy_(torch.from_numpy(ids))
+        self.mask.copy_(torch.from_numpy(mask))
+        self.img_pos.copy_(torch.from_numpy(np.ascontiguousarray(img_pos, np.int64)))
+        if pixels is not None:
+            self.pixels.copy_(pixels)
+        return self
+
+
+def host_pixels(pixel_values) -> Optional[torch.Tensor]:
+    """Pixel values (numpy or a tensor) as a tensor, not yet moved."""
+    if pixel_values is None:
+        return None
+    if isinstance(pixel_values, torch.Tensor):
+        return pixel_values
+    return torch.from_numpy(np.ascontiguousarray(pixel_values))
 
 
 @dataclasses.dataclass
@@ -142,11 +200,14 @@ class Engine:
         p = model.text.final_norm.weight  # a float leaf at every weight tier
         self.device, self.dtype = p.device, p.dtype
         self._workspaces: collections.OrderedDict = collections.OrderedDict()
+        self._lock = threading.Lock()  # guards the workspaces' claims
         self.graphs = Graphs()
         # forward passes run on the device by the decode steps (gated ones
         # included): each launches B1 once a layer; "spec_passes" the same
-        # for the speculative decoder's verify chunks (B2 once a layer)
-        self.counts = {"decode_passes": 0, "spec_passes": 0}
+        # for the speculative decoder's verify chunks (B2 once a layer);
+        # "prefill_passes" the prefills (B2 once a layer; a capture's
+        # warm-up is one)
+        self.counts = {"decode_passes": 0, "spec_passes": 0, "prefill_passes": 0}
 
     def bucket_len(self, prompt_len: int) -> int:
         return pick_bucket(self.prompt_buckets, prompt_len)
@@ -168,39 +229,44 @@ class Engine:
     # -- workspaces -----------------------------------------------------------
 
     def workspace(self, B: int, cache_len: int) -> Workspace:
-        """The cached workspace of this shape; a private one while the cached
-        one is busy (a stream still open), dropped with its graphs after."""
+        """Claim a workspace of this shape for one request: the cached one if
+        it is free, else a private one, dropped with its graphs at
+        ``release``.  The claim is atomic: two requests never share one."""
         key = (B, cache_len)
-        ws = self._workspaces.get(key)
-        if ws is not None and not ws.busy:
-            self._workspaces.move_to_end(key)
+        with self._lock:
+            ws = self._workspaces.get(key)
+            if ws is not None and not ws.busy:
+                ws.busy = True
+                self._workspaces.move_to_end(key)
+                return ws
+            private = ws is not None
+            ws = Workspace(self, B, cache_len)
+            ws.busy = True
+            if private:
+                return ws
+            self._workspaces[key] = ws
+            for old in [w for w in self._workspaces.values() if not w.busy]:
+                if len(self._workspaces) <= MAX_WORKSPACES:
+                    break
+                del self._workspaces[old.key]
+                self.graphs.drop(lambda k, t=old.token: k[0] == t)
             return ws
-        if ws is not None:
-            return Workspace(self, B, cache_len)
-        ws = self._workspaces[key] = Workspace(self, B, cache_len)
-        for old in [w for w in self._workspaces.values() if not w.busy]:
-            if len(self._workspaces) <= MAX_WORKSPACES:
-                break
-            del self._workspaces[old.key]
-            self.graphs.drop(lambda k, t=old.token: k[0] == t)
-        return ws
 
     def release(self, ws: Workspace) -> None:
-        """A generate / stream on ``ws`` ended."""
-        ws.busy = False
-        if self._workspaces.get(ws.key) is not ws:
+        """The request that claimed ``ws`` ended."""
+        with self._lock:
+            ws.busy = False
+            cached = self._workspaces.get(ws.key) is ws
+        if not cached:
             self.graphs.drop(lambda k: k[0] == ws.token)
 
     # -- prefill --------------------------------------------------------------
 
-    @torch.no_grad()
-    def prefill(self, input_ids, pixel_values, img_start_pos, cache_len: int,
-                ws: Optional[Workspace] = None):
-        """Left-pad, embed (with the image splice) and run the text tower over
-        the ``cache_len``-slot cache of ``ws`` (by default the engine's
-        workspace of that shape), reset first: zeros (int8 scales one) and
-        no valid slot.  Returns (final-normed hidden (B, S, H), cache,
-        kv_valid (B, cache_len), rope positions (B, S))."""
+    def stage_prompt(self, ws: Workspace, input_ids, pixel_values,
+                     img_start_pos) -> PrefillInputs:
+        """The host side of a prefill: left-pad to the bucket, shift and
+        check the markers, and copy ids, mask, markers and pixels into the
+        workspace's static buffers of that shape."""
         input_ids = np.asarray(input_ids, np.int64)
         B, S = input_ids.shape
         padded, mask = self.pad_prompt(input_ids)
@@ -211,41 +277,56 @@ class Engine:
             ip = np.asarray(img_start_pos)
             img_pos = np.where(ip < 0, -1, ip + (Sb - S))
             visualcla.check_img_start_pos(img_pos, self.cfg.num_image_tokens, Sb)
-        dev = self.device
-        if pixel_values is not None:
-            pixel_values = torch.as_tensor(np.asarray(pixel_values)).to(dev, self.dtype)
-        ws = ws or self.workspace(B, cache_len)
-        cache, kv_valid = ws.cache, ws.kv_valid
-        for name, buf in cache.items():
+        return PrefillInputs.staged(ws.inputs, padded, mask, img_pos, host_pixels(pixel_values),
+                                    self.device, self.dtype)
+
+    def _prefill_device(self, ws: Workspace, inp: PrefillInputs):
+        """The device side of a prefill, over static buffers only: reset the
+        cache (zeros, int8 scales one, no valid slot), embed with the image
+        splice and run the text tower at the bucket.
+        -> (final-normed hidden (B, Sb, H), rope positions (B, Sb))."""
+        for name, buf in ws.cache.items():
             buf.fill_(1 if name.endswith("_scale") else 0)
-        mask_t = torch.as_tensor(mask, device=dev)
-        embeds = visualcla.multimodal_embeds(
-            self.model, self.cfg, torch.as_tensor(padded, device=dev), img_pos,
-            pixel_values)
-        positions = (mask_t.cumsum(-1) - 1).clamp(min=0)
-        kv_valid.zero_()
-        kv_valid[:, :Sb] = mask_t.bool()
-        hidden, cache = self.model.text(embeds, positions, cache, kv_valid, 0)
-        return hidden, cache, kv_valid, positions
+        embeds = visualcla.multimodal_embeds(self.model, self.cfg, inp.ids, inp.img_pos,
+                                             inp.pixels)
+        positions = (inp.mask.cumsum(-1) - 1).clamp(min=0)
+        ws.kv_valid.zero_()
+        ws.kv_valid[:, :inp.ids.shape[1]] = inp.mask.bool()
+        hidden, _ = self.model.text(embeds, positions, ws.cache, ws.kv_valid, 0)
+        self.counts["prefill_passes"] += 1
+        return hidden, positions
+
+    @torch.no_grad()
+    def prefill(self, input_ids, pixel_values, img_start_pos, cache_len: int,
+                ws: Optional[Workspace] = None):
+        """Left-pad, embed (with the image splice) and run the text tower over
+        the ``cache_len``-slot cache of ``ws`` (by default a workspace of that
+        shape, claimed for the call), reset first, eagerly.  Returns
+        (final-normed hidden (B, S, H), cache, kv_valid (B, cache_len), rope
+        positions (B, S))."""
+        own = ws is None
+        if own:
+            ws = self.workspace(np.asarray(input_ids).shape[0], cache_len)
+        try:
+            inp = self.stage_prompt(ws, input_ids, pixel_values, img_start_pos)
+            with LOCK:
+                hidden, positions = self._prefill_device(ws, inp)
+            return hidden, ws.cache, ws.kv_valid, positions
+        finally:
+            if own:
+                self.release(ws)
 
     def cache_len(self, Sb: int, max_new_tokens: int, extra_slots: int = 0) -> int:
         """The cache holds the bucket plus every new token, in 256-slot steps."""
         n = max(self.max_seq_len, Sb + max_new_tokens + extra_slots)
         return -(-n // 256) * 256
 
-    @torch.no_grad()
-    def start(self, input_ids, pixel_values, img_start_pos, sampling: SamplingConfig,
-              seed: int = 0, extra_slots: int = 0) -> DecodeState:
-        """Prefill and sample the first token into a workspace.
-        ``extra_slots`` adds cache headroom (a speculative verify chunk writes
-        K+1 slots at once)."""
-        B, S = np.asarray(input_ids).shape
-        Sb = self.bucket_len(S)
-        ws = self.workspace(B, self.cache_len(Sb, sampling.max_new_tokens, extra_slots))
-        hidden, _, _, positions = self.prefill(input_ids, pixel_values, img_start_pos,
-                                               ws.key[1], ws=ws)
+    def _start_step(self, ws: Workspace, inp: PrefillInputs, sampling: SamplingConfig) -> None:
+        """The captured start: the prefill, the last position's logits, the
+        first sample and the decode state, over static buffers only."""
+        hidden, positions = self._prefill_device(ws, inp)
         last_logits = self.model.text.logits(hidden[:, -1:])[:, 0]
-        ws.generator.manual_seed(seed)
+        B = last_logits.shape[0]
         ws.gen_ids.zero_()
         ws.mu.fill_(2.0 * sampling.mirostat_tau)
         zeros = torch.zeros(B, dtype=torch.int64, device=self.device)
@@ -254,11 +335,33 @@ class Engine:
         ws.mu.copy_(mu)
         ws.last_token.copy_(token)
         ws.finished.copy_(token == self.eos_token_id)
-        ws.cur_slot.fill_(Sb)
+        ws.cur_slot.fill_(inp.ids.shape[1])
         ws.positions.copy_(positions[:, -1] + 1)
         ws.gen_len.fill_(1)
-        ws.max_steps.fill_(sampling.max_new_tokens)
         ws.spec_counts.zero_()
+
+    @torch.no_grad()
+    def start(self, input_ids, pixel_values, img_start_pos, sampling: SamplingConfig,
+              seed: int = 0, extra_slots: int = 0) -> DecodeState:
+        """Claim a workspace, prefill and sample the first token into it: a
+        replay of the start captured for this shape (eagerly on CPU
+        tensors).  ``extra_slots`` adds cache headroom (a speculative verify
+        chunk writes K+1 slots at once).  The caller ends the request with
+        ``release(state.ws)``."""
+        B, S = np.asarray(input_ids).shape
+        Sb = self.bucket_len(S)
+        ws = self.workspace(B, self.cache_len(Sb, sampling.max_new_tokens, extra_slots))
+        try:
+            inp = self.stage_prompt(ws, input_ids, pixel_values, img_start_pos)
+            ws.generator.manual_seed(seed)
+            ws.max_steps.fill_(sampling.max_new_tokens)
+            self.graphs.run((ws.token, "start", inp.key, vision_attention_impl(),
+                             static_key(sampling)),
+                            lambda: self._start_step(ws, inp, sampling), self.device,
+                            generators=[ws.generator], counters=[self.counts], space="prefill")
+        except BaseException:
+            self.release(ws)
+            raise
         return DecodeState.of(ws)
 
     # -- decode ---------------------------------------------------------------
@@ -329,7 +432,6 @@ class Engine:
         """(B, <= max_new_tokens) generated ids."""
         sampling = sampling or SamplingConfig.greedy()
         state = self.start(input_ids, pixel_values, img_start_pos, sampling, seed)
-        state.ws.busy = True
         try:
             gen_len = self.decode(state, sampling)
             # a copy: on the CPU .numpy() would alias the workspace's buffer
@@ -348,7 +450,6 @@ class Engine:
         which every row has finished, as with ``chunk_size=1``."""
         sampling = sampling or SamplingConfig.greedy()
         state = self.start(input_ids, pixel_values, img_start_pos, sampling, seed)
-        state.ws.busy = True
         try:
             yield state.last_token.cpu().numpy()
             T = sampling.max_new_tokens

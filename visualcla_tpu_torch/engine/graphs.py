@@ -24,11 +24,22 @@ fallback on the card.
 Launch counts: while a chunk is captured nothing runs, so the counters it
 bumps (the kernels' ``LAUNCHES`` and the caller's own) are put back, and
 each replay adds what the capture recorded: the counters count what ran.
+
+Threads: every ``run`` (capture and replays) holds the process-wide
+``LOCK``, so a capture never meets another thread's replay, its counter
+updates or its reads of a ``go`` flag; eager device work that bumps the
+kernel counters outside ``run`` takes it too.  A capture is made in
+``thread_local`` mode: another thread's host copies and allocations may go
+on meanwhile, on its own stream.  Graphs are kept per key space, each with
+its own budget: the prefill-shaped programs (``Engine.start``, the
+contiguous pool's admission, the image encode) never evict a decode loop's
+graph.
 """
 from __future__ import annotations
 
 import collections
 import contextlib
+import threading
 import time
 from typing import Callable, Hashable, Iterable
 
@@ -39,8 +50,12 @@ from ..ops.cuda import int4_matmul as _i4
 from ..ops.cuda import paged_attention as _pa
 
 KERNEL_COUNTERS = (_fa.LAUNCHES, _i4.LAUNCHES, _pa.LAUNCHES)
-MAX_GRAPHS = 16  # graphs a Graphs keeps (the least recently replayed goes first)
+# graphs a Graphs keeps a key space (the least recently replayed goes first)
+MAX_GRAPHS = {"decode": 16, "prefill": 12}
 _EAGER = [False]
+# held by every capture and replay, and by eager device work that launches
+# counted kernels, so that no capture in another thread sees its counts
+LOCK = threading.RLock()
 
 
 @contextlib.contextmanager
@@ -78,48 +93,55 @@ class Graphs:
     graphs' private pool) say what the graphs cost."""
 
     def __init__(self):
-        self._graphs: collections.OrderedDict = collections.OrderedDict()
+        self._graphs = {space: collections.OrderedDict() for space in MAX_GRAPHS}
         self._enable: dict = {}
         self._pool = None
         self.captures = 0
         self.capture_s = 0.0
         self.replays = 0
-        self._events = None  # (start, end) CUDA events of each replay while timed
+        self._events = None  # (space, start, end) CUDA events of each replay while timed
 
     def enable(self, device) -> torch.Tensor:
         """The () bool tensor every step ANDs into its ``go`` flag: True but
         while a chunk is warmed up."""
         device = torch.device(device)
-        if device not in self._enable:
-            self._enable[device] = torch.ones((), dtype=torch.bool, device=device)
-        return self._enable[device]
+        with LOCK:
+            if device not in self._enable:
+                self._enable[device] = torch.ones((), dtype=torch.bool, device=device)
+            return self._enable[device]
 
     def drop(self, match: Callable[[Hashable], bool]) -> None:
         """Forget the graphs whose key ``match``es (their buffers are gone)."""
-        for key in [k for k in self._graphs if match(k)]:
-            del self._graphs[key]
+        with LOCK:
+            for graphs in self._graphs.values():
+                for key in [k for k in graphs if match(k)]:
+                    del graphs[key]
 
     def run(self, key: Hashable, fn: Callable[[], None], device, *,
             generators: Iterable[torch.Generator] = (), counters: Iterable[dict] = (),
-            replays: int = 1) -> None:
+            replays: int = 1, space: str = "decode") -> None:
         """Run the step ``fn`` ``replays`` times: from its graph on a CUDA
-        device (captured under ``key`` at first use), eagerly on the CPU or
-        inside ``eager()``.  ``fn`` reads and writes only buffers that live
-        as long as the key; ``counters`` are the caller's Python counters that
-        ``fn`` bumps."""
-        if torch.device(device).type != "cuda" or _EAGER[0]:
-            for _ in range(replays):
-                fn()
-            return
-        graph = self._graphs.get(key)
+        device (captured under ``key`` in key space ``space`` at first use),
+        eagerly on the CPU or inside ``eager()``.  ``fn`` reads and writes
+        only buffers that live as long as the key; ``counters`` are the
+        caller's Python counters that ``fn`` bumps."""
+        with LOCK:
+            if torch.device(device).type != "cuda" or _EAGER[0]:
+                for _ in range(replays):
+                    fn()
+                return
+            self._replay(key, fn, torch.device(device), list(generators),
+                         [*KERNEL_COUNTERS, *counters], replays, space)
+
+    def _replay(self, key, fn, device, generators, counters, replays, space) -> None:
+        graphs = self._graphs[space]
+        graph = graphs.get(key)
         if graph is None:
-            graph = self._capture(fn, torch.device(device), list(generators),
-                                  [*KERNEL_COUNTERS, *counters])
-            self._graphs[key] = graph
-            while len(self._graphs) > MAX_GRAPHS:
-                self._graphs.popitem(last=False)
+            graph = graphs[key] = self._capture(fn, device, generators, counters)
+            while len(graphs) > MAX_GRAPHS[space]:
+                graphs.popitem(last=False)
         else:
-            self._graphs.move_to_end(key)
+            graphs.move_to_end(key)
         for _ in range(replays):
             if self._events is not None:
                 start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -127,18 +149,19 @@ class Graphs:
             graph.replay()
             if self._events is not None:
                 end.record()
-                self._events.append((start, end))
+                self._events.append((space, start, end))
             self.replays += 1
 
     def start_timing(self) -> None:
         """Time every replay from here on with a pair of CUDA events."""
         self._events = []
 
-    def stop_timing(self) -> float:
-        """-> the device ms of the replays since ``start_timing``."""
+    def stop_timing(self, space: str = "decode") -> float:
+        """-> the device ms of the replays of key space ``space`` since
+        ``start_timing``."""
         torch.cuda.synchronize()
         events, self._events = self._events or [], None
-        return sum(a.elapsed_time(b) for a, b in events)
+        return sum(a.elapsed_time(b) for sp, a, b in events if sp == space)
 
     def _capture(self, fn, device, generators, counters) -> _Graph:
         t0 = time.perf_counter()
@@ -161,7 +184,8 @@ class Graphs:
         graph = torch.cuda.CUDAGraph()
         for g in generators:
             graph.register_generator_state(g)
-        with torch.cuda.graph(graph, pool=self._pool, stream=stream):
+        with torch.cuda.graph(graph, pool=self._pool, stream=stream,
+                              capture_error_mode="thread_local"):
             fn()
         deltas = []
         for counter, prev in zip(counters, before):
@@ -185,5 +209,6 @@ class Graphs:
 
     def stats(self) -> dict:
         return {"captures": self.captures, "capture_s": self.capture_s,
-                "replays": self.replays, "graphs": len(self._graphs),
+                "replays": self.replays,
+                "graphs": sum(len(g) for g in self._graphs.values()),
                 "pool_bytes": self.pool_bytes}

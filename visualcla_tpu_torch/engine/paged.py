@@ -47,9 +47,9 @@ from ..ops.linear import Int4Linear
 from ..ops.quantization import quantize_kv
 from ..ops.rope import apply_rope, rope_table
 from .generate import pick_bucket
-from .graphs import Graphs
-from .sampling import SamplingConfig, rowwise_flags, sample_step_rowwise
-from .server import _check_serving_sampling, knob_kwargs, sampling_knobs
+from .graphs import LOCK, Graphs
+from .sampling import SamplingConfig, sample_step_rowwise
+from .server import _check_serving_sampling, knob_flags, knob_kwargs, sampling_knobs
 
 
 def init_pools(cfg, num_blocks: int, block_size: int, dtype=torch.bfloat16,
@@ -362,7 +362,7 @@ class PagedServingEngine:
         token, mu_row = sample_step_rowwise(
             logits, torch.zeros(1, self.T, dtype=torch.int64, device=self.device),
             torch.zeros(1, dtype=torch.int64, device=self.device), s.generator,
-            self.sampling, **knob_kwargs(kn, mu0), flags=_flags(knobs[None]))
+            self.sampling, **knob_kwargs(kn, mu0), flags=knob_flags(knobs[None]))
         s.last_token[row] = token[0]
         s.all_ids[row, :ids.shape[1]] = torch.as_tensor(ids[0], device=self.device)
         s.all_ids[row, min(last_idx + 1, self.Smax - 1)] = token[0]
@@ -394,16 +394,18 @@ class PagedServingEngine:
         try:
             knobs = sampling_knobs(self.sampling, overrides)
             dev = self.device
-            embeds = visualcla.multimodal_embeds(
-                self.model, self.cfg, torch.as_tensor(ids, device=dev), img_pos, pixel_values)
-            mask_t = torch.as_tensor(mask, device=dev)
-            positions = (mask_t.cumsum(-1) - 1).clamp(min=0)
-            scratch = self._scratch(L)
-            hidden, scratch = self.model.text(embeds, positions, scratch, mask_t.bool(), 0)
-            self._scatter_scratch(scratch, blocks[:nb_prompt])
-            # prompts are RIGHT-padded: sample from the last REAL token
-            self._admit_row(row, hidden[:, S - 1:S], S - 1, min(max_new_tokens, self.T),
-                            knobs, ids)
+            with LOCK:
+                embeds = visualcla.multimodal_embeds(
+                    self.model, self.cfg, torch.as_tensor(ids, device=dev), img_pos,
+                    pixel_values)
+                mask_t = torch.as_tensor(mask, device=dev)
+                positions = (mask_t.cumsum(-1) - 1).clamp(min=0)
+                scratch = self._scratch(L)
+                hidden, scratch = self.model.text(embeds, positions, scratch, mask_t.bool(), 0)
+                self._scatter_scratch(scratch, blocks[:nb_prompt])
+                # prompts are RIGHT-padded: sample from the last REAL token
+                self._admit_row(row, hidden[:, S - 1:S], S - 1, min(max_new_tokens, self.T),
+                                knobs, ids)
         except Exception:
             # roll the allocator back: no leaked blocks, no dead active row
             self._free_row(row)
@@ -492,7 +494,7 @@ class PagedServingEngine:
             to_cap = np.minimum(self._host_max_len - self._host_gen_len,
                                 self.Smax - 1 - self.ctx_len.astype(np.int64))
             n = min(n, max(1, int(to_cap[run].min())))
-        flags = _flags(self._host_knobs[self._host_active])
+        flags = knob_flags(self._host_knobs[self._host_active])
         self._tables_dev.copy_(torch.from_numpy(self.tables))
         self._lens_dev.copy_(torch.from_numpy(self.ctx_len.astype(np.int64)))
         self._finished0.copy_(self._state.finished)
@@ -549,7 +551,7 @@ class PagedServingEngine:
         s = self._state
         B, Sq, dev = self.B, k + 1, self.device
         if flags is None:
-            flags = _flags(self._host_knobs[self._host_active])
+            flags = knob_flags(self._host_knobs[self._host_active])
         jj = torch.arange(Sq, device=dev)[None, :]
         lf = logits.float()
         chain = lf.argmax(dim=-1)  # (B, Sq)
@@ -650,13 +652,6 @@ class PagedServingEngine:
         return int(self._state.active.sum())
 
 
-def _flags(knobs: np.ndarray) -> dict:
-    """``rowwise_flags`` from host knob rows (B', 11), see server.sampling_knobs."""
-    return rowwise_flags(top_p=knobs[:, 1], repetition_penalty=knobs[:, 2],
-                         do_sample=knobs[:, 3] > 0.5, tfs=knobs[:, 4], top_a=knobs[:, 5],
-                         mirostat=knobs[:, 6] > 1.5, top_k=knobs[:, 9], ngram=knobs[:, 10])
-
-
 class PendingPrefill:
     """Host state machine for one chunked admission (see ``begin_prefill``).
 
@@ -696,6 +691,10 @@ class PendingPrefill:
     @torch.no_grad()
     def step(self) -> bool:
         """Run the next stage; True once the row is live."""
+        with LOCK:
+            return self._step()
+
+    def _step(self) -> bool:
         eng = self.eng
         if self.done:
             return True

@@ -256,6 +256,14 @@ class SpeculativeDecoder:
         st: DecodeState = eng.start(input_ids, pixel_values, img_start_pos, sampling, seed,
                                     extra_slots=K + 1)
         ws = st.ws
+        try:
+            return self._stage(st, input_ids)
+        except BaseException:
+            eng.release(ws)
+            raise
+
+    def _stage(self, st: DecodeState, input_ids):
+        eng, ws = self.engine, st.ws
         padded, mask = eng.pad_prompt(input_ids)
         if padded.shape[1] not in ws.prompts:
             ws.prompts[padded.shape[1]] = (torch.zeros(padded.shape, dtype=torch.int64,
@@ -302,7 +310,6 @@ class SpeculativeDecoder:
         sampling = sampling or SamplingConfig.greedy()
         spec, prompt_ids, prompt_start = self._start(input_ids, pixel_values, img_start_pos,
                                                      sampling, seed)
-        spec.ws.busy = True
         try:
             B = spec.gen_len.shape[0]
             ctl = self._control(spec)
@@ -335,7 +342,6 @@ class SpeculativeDecoder:
         with torch.no_grad():
             spec, prompt_ids, prompt_start = self._start(input_ids, pixel_values,
                                                          img_start_pos, sampling, seed)
-        spec.ws.busy = True
         try:
             yield spec.last_token.cpu().numpy()
             emitted = 1

@@ -4,7 +4,8 @@ splice (port of visualcla_tpu/models/visualcla.py).
 The prompt reserves ``num_image_tokens`` ``<img_token>`` placeholders after
 each ``<img>`` marker; the splice overwrites their embeddings with the
 projected image embeddings, so the sequence length never changes.  Marker
-positions are host values (numpy), known before the device work starts.
+positions are host values (numpy), known before the device work starts, or
+device tensors (a captured prefill reads them from a static buffer).
 """
 from __future__ import annotations
 
@@ -105,8 +106,13 @@ def check_img_start_pos(img_start_pos, num_image_tokens: int, seq_len: int) -> N
 
 def splice_image_embeds(inputs_embeds: torch.Tensor, image_embeds: torch.Tensor,
                         img_start_pos) -> torch.Tensor:
-    """Overwrite the T embeddings after each row's ``<img>`` (host position,
-    -1 = text-only row) with that row's (T, H) image embeddings."""
+    """Overwrite the T embeddings after each row's ``<img>`` (-1 = text-only
+    row) with that row's (T, H) image embeddings.  The positions are host
+    values, or a (B,) integer tensor on the embeddings' device: then the
+    splice is one gather and one scatter, with no read back to the host (a
+    captured prefill's form)."""
+    if isinstance(img_start_pos, torch.Tensor):
+        return _splice_on_device(inputs_embeds, image_embeds, img_start_pos.reshape(-1))
     out = inputs_embeds.clone()
     T = image_embeds.shape[1]
     for b, pos in enumerate(np.asarray(img_start_pos).reshape(-1).tolist()):
@@ -115,11 +121,24 @@ def splice_image_embeds(inputs_embeds: torch.Tensor, image_embeds: torch.Tensor,
     return out
 
 
+def _splice_on_device(embeds: torch.Tensor, image_embeds: torch.Tensor,
+                      pos: torch.Tensor) -> torch.Tensor:
+    """``splice_image_embeds`` at device positions (B,): a row without an
+    image writes its own embeddings back."""
+    B, S, H = embeds.shape
+    T = image_embeds.shape[1]
+    idx = ((pos.clamp(min=0) + 1)[:, None] + torch.arange(T, device=embeds.device)[None, :])
+    idx = idx.clamp(max=S - 1)[..., None].expand(B, T, H)
+    new = torch.where((pos >= 0)[:, None, None], image_embeds.to(embeds.dtype),
+                      embeds.gather(1, idx))
+    return embeds.scatter(1, idx, new)
+
+
 def multimodal_embeds(
     model: VisualCLAModel,
     cfg: VisualCLAConfig,
     input_ids: torch.Tensor,  # (B, S)
-    img_start_pos,  # host (B,) or (B, K) ints; -1 = no image
+    img_start_pos,  # (B,) or (B, K) ints, host or device; -1 = no image
     pixel_values: Optional[torch.Tensor],  # (B, 3, H, W) | (B, K, 3, H, W) | None
 ) -> torch.Tensor:
     """Token embeddings with the image embeddings spliced in."""
@@ -130,7 +149,8 @@ def multimodal_embeds(
         B, K = pixel_values.shape[:2]
         flat = encode_image(model, cfg, pixel_values.reshape((B * K,) + pixel_values.shape[2:]))
         image_embeds = flat.reshape((B, K) + flat.shape[1:])
-        pos = np.asarray(img_start_pos).reshape(B, K)
+        pos = (img_start_pos.reshape(B, K) if isinstance(img_start_pos, torch.Tensor)
+               else np.asarray(img_start_pos).reshape(B, K))
         for k in range(K):
             embeds = splice_image_embeds(embeds, image_embeds[:, k], pos[:, k])
         return embeds

@@ -54,6 +54,12 @@ def dot_product_attention(
     return torch.einsum("bnqk,bknh->bqnh", probs, v)
 
 
+def vision_attention_impl() -> str:
+    """``VISUALCLA_VIT_ATTN`` as ``full_attention`` reads it (``"xla"``, the
+    dense default, or ``"flash"``): part of a captured encode's key."""
+    return os.environ.get("VISUALCLA_VIT_ATTN", "xla")
+
+
 def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    softmax_dtype: str = "fp32", impl: Optional[str] = None) -> torch.Tensor:
     """Bidirectional unmasked attention (ViT / resampler).  ``impl=None``
@@ -62,7 +68,7 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     every slot valid, over the bsnh K/V in place; it keeps p in fp32 and so
     ignores ``softmax_dtype``, as the JAX package's flash path does."""
     if impl is None:
-        impl = os.environ.get("VISUALCLA_VIT_ATTN", "xla")
+        impl = vision_attention_impl()
     if impl == "flash":
         B, Skv = k.shape[0], k.shape[1]
         kv_valid = torch.ones(B, Skv, dtype=torch.bool, device=q.device)

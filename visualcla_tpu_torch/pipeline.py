@@ -8,12 +8,15 @@ on PyTorch from a native checkpoint directory (only the vision-side leaves
 are read), a reference merged directory (only ``vision_encoder/`` and the
 root ``pytorch_model*.bin``), the webui split format (a CLIP base, its vision
 LoRA folded in, the resampler and projector files) or modules already on the
-card, and runs on ``cuda`` unless ``device="cpu"`` is passed.
+card, and runs on ``cuda`` unless ``device="cpu"`` is passed.  The encode
+replays a CUDA graph captured per (batch, resolution, vision attention)
+(``CapturedEncode``; eagerly on CPU tensors).
 """
 from __future__ import annotations
 
 import json
 import os
+import threading
 
 import numpy as np
 import torch
@@ -28,9 +31,48 @@ from .checkpoint.convert import load_state_dicts
 from .checkpoint.from_jax import build_model
 from .checkpoint.serialize import flatten_tree, iter_safetensors
 from .checkpoint.torch_io import load_file, load_state_dict
+from .engine.generate import host_pixels
+from .engine.graphs import Graphs
 from .models.visualcla import encode_image
+from .ops.attention import vision_attention_impl
 
 VISION_TREES = ("vision/", "resampler/", "projection/")
+
+
+class CapturedEncode:
+    """``encode_image`` of a module holding ``vision``, ``resampler`` and
+    ``projection``, replayed from a graph captured per (batch, resolution,
+    ``VISUALCLA_VIT_ATTN``) on the card, eagerly on CPU tensors: the pixels
+    go into a static buffer of their shape, the graph writes its output
+    tensor, and a copy of it is returned.  Calls run one at a time."""
+
+    def __init__(self, towers: nn.Module, cfg: VisualCLAConfig):
+        self.towers, self.cfg = towers, cfg
+        w = towers.projection.weight
+        self.device, self.dtype = w.device, w.dtype
+        self.graphs = Graphs()
+        self.counts = {"encode_passes": 0}  # encodes run (a capture's warm-up is one)
+        self._pixels: dict = {}  # shape -> static pixel buffer
+        self._out: dict = {}  # shape -> the last encode's output
+        self._lock = threading.Lock()
+
+    def _step(self, key) -> None:
+        self._out[key] = encode_image(self.towers, self.cfg, self._pixels[key])
+        self.counts["encode_passes"] += 1
+
+    @torch.no_grad()
+    def __call__(self, pixel_values) -> torch.Tensor:
+        """(B, 3, H, W) pixels (numpy or a tensor) -> (B, T, text hidden) in
+        the towers' dtype, on their device."""
+        src = host_pixels(pixel_values)
+        key = tuple(src.shape)
+        with self._lock:
+            if key not in self._pixels:
+                self._pixels[key] = torch.zeros(key, dtype=self.dtype, device=self.device)
+            self._pixels[key].copy_(src)
+            self.graphs.run(("encode", key, vision_attention_impl()), lambda: self._step(key),
+                            self.device, counters=[self.counts], space="prefill")
+            return self._out[key].clone()
 
 
 class VisionPipeline:
@@ -56,6 +98,7 @@ class VisionPipeline:
             image_size=cfg.vision_config.image_size, patch_size=cfg.vision_config.patch_size)
         w = towers.projection.weight
         self.device, self.dtype = w.device, w.dtype
+        self.encode = CapturedEncode(towers, cfg)
 
     @property
     def num_image_embeds(self) -> int:
@@ -65,10 +108,10 @@ class VisionPipeline:
     @torch.no_grad()
     def embed_images(self, images) -> np.ndarray:
         """One image or a list (paths, PIL images, uint8 (H, W, 3) arrays) ->
-        float32 numpy (N, num_image_embeds, llm_hidden), one encode for all."""
+        float32 numpy (N, num_image_embeds, llm_hidden), one encode for all
+        (a replay of the encode captured for N images of this size)."""
         pixel_values = self.image_processor(images)["pixel_values"]
-        px = torch.as_tensor(pixel_values).to(self.device, self.dtype)
-        return encode_image(self.towers, self.cfg, px).float().cpu().numpy()
+        return self.encode(pixel_values).float().cpu().numpy()
 
     # -- loaders ---------------------------------------------------------------
 
