@@ -141,6 +141,31 @@ Phases, one line of findings each:
                independent fp32 fold (at most 1 bf16 ulp), the tables equal
                to the adapter's, a greedy chat with finite logits; seconds,
                GB/s, peak RSS and its private part for each step;
+ 11. train   — (after 9, before the summary; no hand kernel is on its path,
+               and its steps must launch none) (a) a full-width VisualCLA-7B
+               stage-2 QLoRA step (``fixtures.train_model``: int8 decoder
+               matmuls, bf16 embed_tokens / lm_head / vision / resampler /
+               projection, bf16 LoRA r=8 on the text and vision targets;
+               ``lora_trainable``, remat, constant lr 1e-4) on B=1, S=512
+               with ``<img>`` at 2 and the first 80 labels ignored: a warm
+               step and 5 timed ones (``make_train_step_subset``): each loss,
+               step ms p50 (CUDA events and the host clock), tokens/s, peak
+               GB, trainable parameters, the model FLOPs a step reckoned
+               from the shapes (``fixtures.train_step_flops``) and their
+               share of 989 TFLOP/s (mfu); fails unless every loss is finite
+               and the last below the first, every frozen leaf (int8
+               carriers and scales included) is bitwise unchanged and every
+               trainable leaf changed (but those whose last Adam step is
+               below half a bf16 ulp of every value); (b) a stage-1 step at
+               full width (bf16 text tower frozen), the same fields and
+               checks; (c) the tiny fp32 model's stage-2 step on the card
+               against the CPU (TF32 off): loss, grad_norm and parameters
+               within rtol 1e-5 / atol 1e-6; (d) ``run_training.main`` on the
+               card over a tiny native checkpoint and 4 records (3 steps,
+               ``--save_every 2 --remat``), a resume from step_2 equal to
+               the run, the output through the factory and a greedy chat, the
+               adapter folded by the unmerged loader against the merged
+               output within bf16 rounding;
  10. the seconds each phase took, the kernel summary as one JSON line, then
      the result line.
 Exits non-zero if any phase fails.  Needs no network and no JAX.
@@ -3330,6 +3355,292 @@ def phase_reference(smi: str, cfg, tokenizer, phase4_ids) -> dict:
     return {"lines": lines}
 
 
+# ---------------------------------------------------------------------------
+# phase 11: training (no hand kernel on its path)
+# ---------------------------------------------------------------------------
+
+TRAIN_LR = 1e-4
+# (c): the tiny model's step on the card against the CPU, fp32 without TF32
+TRAIN_RTOL, TRAIN_ATOL = 1e-5, 1e-6
+# (d): logits of the adapter folded at load (fp32) against the bf16-saved
+# merged checkpoint: bf16 rounding of the merged weights
+FOLD_RTOL, FOLD_ATOL = 2e-2, 5e-2
+
+
+def _step_rounds_away(p: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor, count: int,
+                      lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> bool:
+    """True if Adam's last step (from its moments) is below half an ulp of
+    every value of ``p`` in its dtype, so no value could move: a bf16 norm
+    weight at 1.0 under lr 1e-4, or a leaf whose gradients are far below
+    Adam's eps (random weights' near-uniform attention starves the vision
+    q/k adapters)."""
+    if p.dtype == torch.float32:
+        return False
+    x = p.float()
+    u = lr * (mu.float() / (1 - b1 ** count)) / ((nu.float() / (1 - b2 ** count)).sqrt() + eps)
+    _, e = torch.frexp(x)  # |x| = m 2^e, m in [0.5, 1): one ulp is 2^(e-1) eps
+    half = torch.ldexp(torch.full_like(x, torch.finfo(p.dtype).eps / 2), e - 1)
+    half = torch.where(x == 0, torch.full_like(x, torch.finfo(p.dtype).tiny), half)
+    return bool((u.abs() < half).all())
+
+
+def _train_run(model, cfg, batch, trainable, steps: int, base: int) -> dict:
+    """``steps`` subset steps (constant lr TRAIN_LR, remat) of ``model`` on
+    one batch, the first a warm-up: losses, step ms by CUDA events and the
+    host clock (p50 of the timed steps), the peak memory of the steps, the
+    hand-kernel launches they made (0 expected), and the checks: finite
+    losses, every frozen leaf bitwise unchanged (against a copy on the card,
+    left out of the peak, as is ``base``: what was allocated before the
+    model was made), every trainable leaf changed (but those whose
+    last step is below half an ulp of every value: ``_step_rounds_away``)."""
+    from visualcla_tpu_torch.train.trainer import (init_train_state, make_optimizer,
+                                                   make_train_step_subset, partition_params)
+
+    opt = make_optimizer(learning_rate=TRAIN_LR, schedule="const")
+    train, frozen = partition_params(model, trainable)
+    state = init_train_state(train, opt)
+    step = make_train_step_subset(model, cfg, opt, trainable, remat=True)
+    with torch.no_grad():
+        before_frozen = {n: p.clone() for n, p in frozen.items()}
+        before_train = {n: p.clone() for n, p in train.items()}
+    snapshot = nbytes(*before_frozen.values()) + nbytes(*before_train.values())
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    losses, dev, host = [], [], []
+    for i in range(steps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        state, m = step(state, frozen, batch)
+        b.record()
+        torch.cuda.synchronize()
+        if i:
+            host.append((time.perf_counter() - t0) * 1e3)
+            dev.append(a.elapsed_time(b))
+        losses.append(float(m["loss"]))
+    peak_gb = (torch.cuda.max_memory_allocated() - snapshot - base) / 1e9
+    launches = {k: v for k, v in _counters().items() if v}
+    bad = [n for n, p in frozen.items() if not torch.equal(p, before_frozen[n])]
+    still = [n for n, p in train.items() if torch.equal(p, before_train[n])]
+    mu, nu, count = state.opt_state["mu"], state.opt_state["nu"], state.opt_state["count"]
+    exempt = [n for n in still if _step_rounds_away(train[n], mu[n], nu[n], count, TRAIN_LR)]
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"non-finite training loss: {losses}")
+    if launches:
+        raise RuntimeError(f"the training steps launched hand kernels: {launches}")
+    if bad:
+        raise RuntimeError(f"{len(bad)} frozen leaves changed, e.g. {bad[:4]}")
+    if set(still) - set(exempt):
+        raise RuntimeError(f"trainable leaves unchanged: {sorted(set(still) - set(exempt))[:4]}")
+    del before_frozen, before_train
+    n_train = sum(p.numel() for p in train.values())
+    q = sum(p.numel() for p in frozen.values() if p.dtype == torch.int8)
+    return {"losses": losses, "ms": statistics.median(dev), "host_ms": statistics.median(host),
+            "peak_gb": peak_gb, "trainable_m": n_train / 1e6, "frozen": len(frozen),
+            "int8_elems": q, "exempt": exempt, "snapshot_gb": snapshot / 1e9}
+
+
+def _train_line(r: dict, flops: dict, tokens: int, smi: str) -> str:
+    tflop = flops["total"] / 1e12
+    return (f"losses {[round(x, 4) for x in r['losses']]}; step p50 {r['ms']:.1f} ms device "
+            f"(CUDA events) / {r['host_ms']:.1f} ms host, {tokens / r['ms'] * 1e3:.0f} tokens/s; "
+            f"peak {r['peak_gb']:.2f} GB (max_memory_allocated less what the earlier phases "
+            f"left allocated and the {r['snapshot_gb']:.2f} GB copy kept for the frozen-bits "
+            f"check); {r['trainable_m']:.1f} M trainable "
+            f"parameters; model FLOPs {tflop:.2f} T a step, mfu "
+            f"{tflop / (r['ms'] / 1e3) / (BF16_OPS_PER_S / 1e12):.3f} of 989 TFLOP/s; card {smi}")
+
+
+def _tiny_train_batch(cfg, seed: int = 0) -> dict:
+    rng = np.random.default_rng(seed)
+    B, S = 2, 24
+    ids = rng.integers(5, cfg.text_config.vocab_size, (B, S))
+    labels = ids.copy()
+    labels[:, :cfg.num_image_tokens + 4] = -100
+    mask = np.ones((B, S), np.int64)
+    mask[1, -3:] = 0
+    labels[1, -3:] = -100
+    size = cfg.vision_config.image_size
+    return {"input_ids": ids, "attention_mask": mask, "labels": labels,
+            "img_start_pos": np.asarray([1, 1]),
+            "pixel_values": rng.standard_normal((B, 3, size, size)).astype(np.float32)}
+
+
+def _card_vs_cpu() -> dict:
+    """(c): one stage-2 subset step of the tiny fp32 model (non-zero LoRA B)
+    on the card and on the CPU from the same weights."""
+    import copy
+
+    from visualcla_tpu_torch.core.config import tiny_visualcla_config
+    from visualcla_tpu_torch.train.lora import add_lora, lora_trainable
+    from visualcla_tpu_torch.train.trainer import (init_train_state, make_optimizer,
+                                                   make_train_step_subset, partition_params)
+
+    cfg = tiny_visualcla_config()
+    gen = torch.Generator().manual_seed(SEED)
+    cpu = init_random_(VisualCLAModel(cfg, dtype=torch.float32), gen, std=0.1)
+    add_lora(cpu, r=4, alpha=8.0, generator=gen)
+    with torch.no_grad():
+        for n, p in cpu.named_parameters():
+            if n.endswith("lora_B"):
+                p.normal_(0.0, 0.05, generator=gen)
+    card = copy.deepcopy(cpu).to("cuda")
+    batch = _tiny_train_batch(cfg)
+    out = {}
+    for name, model in (("cpu", cpu), ("cuda", card)):
+        opt = make_optimizer(learning_rate=1e-3, schedule="const")
+        train, frozen = partition_params(model, lora_trainable)
+        step = make_train_step_subset(model, cfg, opt, lora_trainable)
+        _, m = step(init_train_state(train, opt), frozen, batch)
+        out[name] = (float(m["loss"]), float(m["grad_norm"]),
+                     {n: p.detach().cpu() for n, p in train.items()})
+    (l0, g0, p0), (l1, g1, p1) = out["cpu"], out["cuda"]
+    worst = max(float((p1[n] - p0[n]).abs().max()) for n in p0)
+    for what, a, b in (("loss", l1, l0), ("grad_norm", g1, g0)):
+        if abs(a - b) > TRAIN_RTOL * abs(b):
+            raise RuntimeError(f"(c) {what} on the card {a} vs the CPU {b}")
+    for n in p0:
+        if not torch.allclose(p1[n], p0[n], rtol=TRAIN_RTOL, atol=TRAIN_ATOL):
+            raise RuntimeError(f"(c) {n} after the step: max |diff| "
+                               f"{float((p1[n] - p0[n]).abs().max()):.3e}")
+    return {"loss": (l1, l0), "grad_norm": (g1, g0), "worst": worst, "n": len(p0)}
+
+
+def _cli_end_to_end(tokenizer, smi: str) -> dict:
+    """(d): ``run_training.main`` on the card over a tiny native checkpoint
+    (hidden 512: the chat's kernels take 128-wide heads) with the run's
+    tokenizer; a resume from step_2; the output through the factory and a
+    greedy chat; the adapter folded by the unmerged loader against it."""
+    from visualcla_tpu_torch.checkpoint.serialize import load_checkpoint, save_checkpoint
+    from visualcla_tpu_torch.core.config import tiny_visualcla_config
+    from visualcla_tpu_torch.train import run_training
+    from visualcla_tpu_torch.train.trainer import batch_to_device, train_forward_logits
+
+    cfg = tiny_visualcla_config(vocab_size=len(tokenizer), hidden_size=512)
+    model = init_random_(VisualCLAModel(cfg, dtype=torch.float32),
+                         torch.Generator().manual_seed(SEED))
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "ckpt")
+        save_checkpoint(ckpt, params_to_jax(model), cfg, dtype="float32")
+        tokenizer.sp.save(os.path.join(ckpt, "tokenizer.model"))
+        with open(os.path.join(ckpt, "added_tokens.json"), "w") as f:
+            json.dump(tokenizer.added_tokens, f)
+        rng = np.random.default_rng(SEED)
+        for name in ("a.npy", "b.npy"):
+            np.save(os.path.join(tmp, name), rng.integers(0, 256, (60, 80, 3), dtype=np.uint8))
+        data = os.path.join(tmp, "d.jsonl")
+        with open(data, "w") as f:
+            for rec in ({"image": "a.npy", "instruction": "图片里有什么？", "response": "一只猫。"},
+                        {"image": "b.npy", "instruction": "描述这张图片。", "response": "狗在上"},
+                        {"image": "a.npy", "caption": "一只猫和一只狗"},
+                        {"instruction": "你好", "response": "你好！"}):
+                f.write(json.dumps(rec, ensure_ascii=False) + "\n")
+        out, out2 = os.path.join(tmp, "out"), os.path.join(tmp, "out2")
+        args = ["--checkpoint", ckpt, "--data", data, "--image_dir", tmp, "--stage", "2",
+                "--steps", "3", "--epochs", "2", "--batch_size", "2", "--lora_r", "4",
+                "--log_every", "1", "--warmup_steps", "1", "--remat"]
+        t0 = time.perf_counter()
+        state = run_training.main(args + ["--output", out, "--save_every", "2"])
+        t_run = time.perf_counter() - t0
+        resumed = run_training.main(args + ["--output", out2, "--resume",
+                                            os.path.join(out, "train_state", "step_2")])
+        if state.step != 3 or resumed.step != 3:
+            raise RuntimeError(f"(d) steps {state.step} / {resumed.step}, expected 3")
+        a = torch.load(os.path.join(out, "adapter", "adapter_model.bin"), weights_only=True)
+        b = torch.load(os.path.join(out2, "adapter", "adapter_model.bin"), weights_only=True)
+        resume_diff = max(float((a[k] - b[k]).abs().max()) for k in a)
+        if set(a) != set(b) or resume_diff > TRAIN_ATOL:
+            raise RuntimeError(f"(d) the resumed run's adapter differs by {resume_diff:.3e}")
+
+        bundle, tok2, _ = api.get_model_and_tokenizer_and_processor(
+            visualcla_model=out, device="cuda", max_seq_len=512)
+        reply, _ = api.chat(bundle, random_image(SEED), PROMPT, [],
+                            SamplingConfig.greedy(max_new_tokens=8), verbose=False)
+        del bundle
+
+        base, _ = load_checkpoint(ckpt, device="cuda", dtype=torch.float32)
+        ref = os.path.join(tmp, "ref")
+        export_reference_merged(base, cfg, ref, dtype="float32", side_files_from=ckpt)
+        del base
+        adapter = os.path.join(out, "adapter")
+        for name in ("tokenizer.model", "added_tokens.json", "config.json"):
+            shutil.copy(os.path.join(ckpt, name), os.path.join(adapter, name))
+        merged, _ = load_checkpoint(out, device="cuda", dtype=torch.float32)
+        folded, _, _ = api.get_model_and_tokenizer_and_processor(
+            text_model=os.path.join(ref, "text_encoder"),
+            vision_model=os.path.join(ref, "vision_encoder"), lora_model=adapter,
+            dtype=torch.float32, device="cuda")
+        batch = _tiny_train_batch(cfg, seed=1)
+        logits = []
+        for m in (merged, folded.model):
+            bt = batch_to_device(m, batch)
+            with torch.no_grad():
+                logits.append(train_forward_logits(m, cfg, bt["input_ids"],
+                                                   bt["attention_mask"], bt["img_start_pos"],
+                                                   bt["pixel_values"]))
+        fold_diff = float((logits[0] - logits[1]).abs().max())
+        if not torch.allclose(logits[1], logits[0], rtol=FOLD_RTOL, atol=FOLD_ATOL):
+            raise RuntimeError(f"(d) the folded adapter's logits differ by {fold_diff:.3e}")
+        del merged, folded
+    return {"seconds": t_run, "resume_diff": resume_diff, "fold_diff": fold_diff,
+            "reply_chars": len(reply)}
+
+
+def phase_train(smi: str, cfg, tokenizer) -> dict:
+    """(a) a full-width VisualCLA-7B stage-2 QLoRA step, (b) a stage-1 step at
+    full width, (c) the tiny model's step on the card against the CPU, (d)
+    the training CLI end to end."""
+    from visualcla_tpu_torch.fixtures import (TRAIN_SEQ, train_batch, train_model,
+                                              train_step_flops)
+    from visualcla_tpu_torch.train.lora import lora_trainable
+    from visualcla_tpu_torch.train.trainer import stage1_trainable
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    batch = train_batch(cfg, tokenizer)
+    numbers = {}
+    for stage, trainable, steps in ((2, lora_trainable, 6), (1, stage1_trainable, 2)):
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        model = train_model(cfg, stage)
+        torch.cuda.synchronize()
+        made = time.perf_counter() - t0
+        r = _train_run(model, cfg, batch, trainable, steps, base)
+        if stage == 2 and not r["losses"][-1] < r["losses"][0]:
+            raise RuntimeError(f"(a) the loss did not fall: {r['losses']}")
+        flops = train_step_flops(cfg, stage, TRAIN_SEQ)
+        label = ("(a) VisualCLA-7B stage-2 QLoRA (int8 decoder, bf16 embed/head/vision/"
+                 "resampler/projection, bf16 LoRA r=8 on text and vision), remat, B=1 "
+                 f"S={TRAIN_SEQ}, 1 warm + 5 timed steps" if stage == 2 else
+                 "(b) stage 1 at full width (bf16 text tower frozen; vision, resampler, "
+                 "projection trainable), remat, 1 warm + 1 timed step")
+        print(f"[11 train] {label} (model made in {made:.1f} s; {r['frozen']} frozen leaves "
+              f"bitwise unchanged, {r['int8_elems'] / 1e9:.2f} G int8 carrier values among "
+              f"them; every trainable leaf changed but {len(r['exempt'])} whose last Adam step "
+              f"is below half a bf16 ulp of every value, e.g. {r['exempt'][:3]}; 0 hand-kernel "
+              f"launches): " + _train_line(r, flops, TRAIN_SEQ, smi), flush=True)
+        numbers[f"stage{stage}"] = {**r, "tflop": flops["total"] / 1e12}
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    c = _card_vs_cpu()
+    print(f"[11 train] (c) tiny fp32 stage-2 step, card against CPU (TF32 off): loss "
+          f"{c['loss'][0]:.7f} / {c['loss'][1]:.7f}, grad_norm {c['grad_norm'][0]:.7f} / "
+          f"{c['grad_norm'][1]:.7f}, {c['n']} updated parameters within {c['worst']:.2e} "
+          f"(rtol {TRAIN_RTOL}, atol {TRAIN_ATOL})", flush=True)
+    d = _cli_end_to_end(tokenizer, smi)
+    print(f"[11 train] (d) run_training.main on the card (tiny checkpoint, hidden 512, the "
+          f"run's tokenizer, 4 records: 2 .npy images, a caption, a text-only): 3 steps with "
+          f"--save_every 2 --remat in {d['seconds']:.1f} s; resumed from step_2, its adapter "
+          f"within {d['resume_diff']:.2e}; the merged output through the factory, a greedy "
+          f"chat ({d['reply_chars']} chars); the adapter folded by the unmerged loader, "
+          f"logits within {d['fold_diff']:.2e} of the bf16 merged output's; card {smi}",
+          flush=True)
+    return numbers
+
+
 def _kernels_vs_plain_logits(engine, input_ids, pixel_values, img_pos):
     """Last-token prefill logits through the kernels and, on the same model,
     with the kernels' plain versions swapped in."""
@@ -3399,6 +3710,7 @@ def main() -> int:
                        tokenizer)
     serve4 = timed("8 serve int4", phase_serve_int4, info["smi"], cfg, tokenizer)
     timed("9 reference", phase_reference, info["smi"], cfg, tokenizer, sl["ids"])
+    timed("11 train", phase_train, info["smi"], cfg, tokenizer)
     print(f"[10 time] seconds a phase {seconds}; the whole run "
           f"{time.perf_counter() - t_start:.1f} s after the imports", flush=True)
     # each kernel's launches from the run of the path that drives it

@@ -42,6 +42,8 @@ def test_port_never_imports_jax():
             "from visualcla_tpu_torch.core import config\n"
             "from visualcla_tpu_torch.text import native_tok, sp_bpe\n"
             "from visualcla_tpu_torch.processor import native_img, pil_resample\n"
+            "from visualcla_tpu_torch.train import (trainer, lora, data, checkpointing,\n"
+            "                                        run_training)\n"
             "bad = sorted(m for m in sys.modules if m in ('jax', 'visualcla_tpu')\n"
             "             or m.startswith(('jax.', 'visualcla_tpu.')))\n"
             "assert not bad, bad\n")

@@ -1,6 +1,7 @@
 """Where the PyTorch port's chat slice spends its time on one NVIDIA GPU.
 
     python3 tools/profile_torch_slice.py [--out profile.json] [--bits 4|8] [--kv_quant int8]
+    python3 tools/profile_torch_slice.py --train 2|1 [--out train_profile.json]
 
 VisualCLA-7B at full width on seeded random bf16 weights (as chip_smoke.py
 builds it), its text tower quantized on the card with ``--bits``, its KV
@@ -8,8 +9,13 @@ cache int8 with ``--kv_quant int8``.  Measures, for the B=1 chat prompt: the TTF
 preprocess, image encode, Engine.start), the decode rate with the CUDA
 kernels and with their plain PyTorch versions swapped in, and a
 torch.profiler breakdown of 10 decode steps (wall vs device time, device
-time by kind of kernel, the largest kernels).  Prints one JSON object (and
-writes it to ``--out``).
+time by kind of kernel, the largest kernels).  ``--train 2`` profiles
+``chip_smoke.py`` phase 11's full-width training step instead (2: the
+QLoRA step, 1: stage 1; B=1, S=512, remat): the step's forward, backward
+and optimizer by CUDA events, ``Int8Linear``'s weight copies and the fp32
+attention timed alone at the step's shapes, and a torch.profiler breakdown
+of one step (device time by kind of kernel, the idle share, the largest
+kernels).  Prints one JSON object (and writes it to ``--out``).
 """
 from __future__ import annotations
 
@@ -44,7 +50,123 @@ def kernel_kind(name: str) -> str:
         return "int4_matmul"
     if any(k in name for k in ("nvjet", "gemm", "gemv", "splitKreduce", "cutlass")):
         return "gemm"
+    if "copy_kernel" in name:
+        return "copy"
+    if "softmax" in name.lower():
+        return "softmax"
     return "other"
+
+
+def _profile_kernels(fn, n: int = 1) -> dict:
+    """torch.profiler over ``n`` calls of ``fn``: wall and device ms a call,
+    device ms by kind of kernel, the largest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue  # device-side kernel rows only: no double counting
+        kernels.append((e.self_device_time_total / n / 1e3, e.count // n, e.key[:100]))
+    kernels.sort(reverse=True)
+    by_kind = {}
+    for ms, _, name in kernels:
+        by_kind[kernel_kind(name)] = by_kind.get(kernel_kind(name), 0.0) + ms
+    device = sum(k[0] for k in kernels)
+    return {"wall_ms": wall / n * 1e3, "device_ms": device,
+            "kernel_launches": sum(k[1] for k in kernels),
+            "idle_share": 1 - device / (wall / n * 1e3), "device_ms_by_kind": by_kind,
+            "top_kernels_ms": [list(k) for k in kernels[:15]]}
+
+
+def _events_ms(fn, n: int = 3) -> float:
+    """Median device ms of ``fn()`` between two CUDA events."""
+    times = []
+    for _ in range(n):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def profile_train(stage: int) -> dict:
+    """The training step of ``chip_smoke.py`` phase 11 at full width."""
+    from visualcla_tpu_torch.fixtures import (TRAIN_SEQ, train_batch, train_model,
+                                              train_step_flops)
+    from visualcla_tpu_torch.models.llama import chunk_causal_attention
+    from visualcla_tpu_torch.ops.linear import Int8Linear
+    from visualcla_tpu_torch.train.lora import lora_trainable
+    from visualcla_tpu_torch.train.trainer import (init_train_state, loss_fn, make_optimizer,
+                                                   make_train_step_subset, partition_params,
+                                                   stage1_trainable)
+
+    cfg = visualcla_config_for_size("7B")
+    tok = make_tokenizer(cfg.text_config.vocab_size)
+    model = train_model(cfg, stage)
+    batch = train_batch(cfg, tok)
+    trainable = lora_trainable if stage == 2 else stage1_trainable
+    opt = make_optimizer(learning_rate=1e-4, schedule="const")
+    train, frozen = partition_params(model, trainable)
+    state = init_train_state(train, opt)
+    step = make_train_step_subset(model, cfg, opt, trainable, remat=True)
+    for _ in range(2):  # warm-up
+        state, _ = step(state, frozen, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res = {"device": torch.cuda.get_device_name(0), "stage": stage, "seq": TRAIN_SEQ,
+           "step_ms": _events_ms(lambda: step(state, frozen, batch)),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "tflop_a_step": train_step_flops(cfg, stage)["total"] / 1e12}
+    res["mfu"] = res["tflop_a_step"] / res["step_ms"] / 989e-3
+
+    parts = {"forward_ms": [], "backward_ms": [], "optimizer_ms": []}
+    for _ in range(3):  # the step's three parts, as train_step runs them
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        for p in train.values():
+            p.grad = None
+        ev[0].record()
+        loss = loss_fn(model, cfg, batch, remat=True)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        opt.update_(train, {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+                            for n, p in train.items()}, state.opt_state)
+        ev[3].record()
+        torch.cuda.synchronize()
+        for k, i in zip(parts, range(3)):
+            parts[k].append(ev[i].elapsed_time(ev[i + 1]))
+    res.update({k: statistics.median(v) for k, v in parts.items()})
+
+    # Int8Linear's bf16 copies of its weight: the forward's and the remat
+    # recompute's (autograd keeps the latter for the input gradient)
+    int8 = [m for m in model.modules() if isinstance(m, Int8Linear)]
+    res["int8_copy_ms_a_step"] = 2 * _events_ms(
+        lambda: [m.q.to(torch.bfloat16) for m in int8]) if int8 else 0.0
+    # the decoder's fp32 attention: forward twice (remat) and backward, 32 layers
+    t = cfg.text_config
+    q = torch.randn(1, TRAIN_SEQ, t.num_attention_heads, t.head_dim, device="cuda",
+                    dtype=torch.bfloat16, requires_grad=True)
+    k = torch.randn(1, t.num_key_value_heads, TRAIN_SEQ, t.head_dim, device="cuda",
+                    dtype=torch.bfloat16, requires_grad=True)
+    valid = torch.ones(1, TRAIN_SEQ, dtype=torch.bool, device="cuda")
+
+    def attention():
+        chunk_causal_attention(q, k, k, valid).sum().backward()
+        with torch.no_grad():
+            chunk_causal_attention(q, k, k, valid)
+
+    res["attention_ms_a_step"] = t.num_hidden_layers * _events_ms(attention)
+    res["profile"] = _profile_kernels(lambda: step(state, frozen, batch))
+    return res
 
 
 def main(argv=None) -> int:
@@ -54,11 +176,15 @@ def main(argv=None) -> int:
     ap.add_argument("--bits", type=int, choices=(4, 8), default=None,
                     help="quantize the text tower to int4 or int8")
     ap.add_argument("--kv_quant", choices=("none", "int8"), default="none")
+    ap.add_argument("--train", type=int, choices=(1, 2), default=None,
+                    help="profile the full-width training step of this stage instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_slice: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.train:
+        return _emit(profile_train(args.train), args.out)
 
     cfg = visualcla_config_for_size("7B")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -126,35 +252,26 @@ def main(argv=None) -> int:
             res[f"decode_tok_s_{label}"] = statistics.median(decode_rate() for _ in range(3))
             res[f"start_ms_{label}"] = statistics.median(start_ms() for _ in range(3))
 
-    from torch.profiler import ProfilerActivity, profile
-
     st = eng.start(ids, pv, pos, greedy)
     for _ in range(3):
         st = eng.step(st, greedy)
-    sync()
-    n = 10
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            st = eng.step(st, greedy)
-        sync()
-        wall = time.perf_counter() - t0
-    kernels = []
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue  # device-side kernel rows only: no double counting
-        kernels.append((e.self_device_time_total / n / 1e3, e.count // n, e.key[:100]))
-    kernels.sort(reverse=True)
-    res["profiled_step_wall_ms"] = wall / n * 1e3
-    res["profiled_step_device_ms"] = sum(k[0] for k in kernels)
-    by_kind = {}
-    for ms, _, name in kernels:
-        by_kind[kernel_kind(name)] = by_kind.get(kernel_kind(name), 0.0) + ms
-    res["device_ms_per_step_by_kind"] = by_kind
-    res["top_kernels_ms_per_step"] = [list(k) for k in kernels[:15]]
-    if args.out:
-        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
-        with open(args.out, "w") as f:
+    holder = [st]
+
+    def one_step():
+        holder[0] = eng.step(holder[0], greedy)
+
+    prof = _profile_kernels(one_step, n=10)
+    res["profiled_step_wall_ms"] = prof["wall_ms"]
+    res["profiled_step_device_ms"] = prof["device_ms"]
+    res["device_ms_per_step_by_kind"] = prof["device_ms_by_kind"]
+    res["top_kernels_ms_per_step"] = prof["top_kernels_ms"]
+    return _emit(res, args.out)
+
+
+def _emit(res: dict, out) -> int:
+    if out:
+        os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+        with open(out, "w") as f:
             json.dump(res, f, indent=1)
     print(json.dumps(res, indent=1))
     return 0

@@ -17,7 +17,12 @@ the JAX orientation.  A LoRA leaf ``{"w", "lora_A", "lora_B", "lora_scale"}``
 of a layer linear maps onto a ``LoraLinear``: ``w`` (dense or quantized) to
 ``<module>.base``, A (in, r) and B (r, out) transposed to ``lora_A`` (r, in)
 and ``lora_B`` (out, r), the per-layer scale to ``lora_scale``;
-``wrap_lora_`` puts those modules in place before the state loads.
+``wrap_lora_`` puts those modules in place before the state loads.  The
+QLoRA tree (int8 layer matmuls under a float ``embed_tokens`` and
+``lm_head``, which train) builds with ``head_tier``'s float head.
+``params_to_jax(..., grads=True)`` maps a model's ``.grad``s the same way,
+and ``jax_key`` names the JAX leaf a state entry belongs to (the training
+predicates read those paths).
 """
 from __future__ import annotations
 
@@ -29,7 +34,7 @@ from torch import nn
 
 from ..core.config import VisualCLAConfig
 
-from ..ops.linear import Int4Linear, Int8Linear, Linear, LoraLinear
+from ..ops.linear import Int4Linear, Int8Linear, Linear, LoraLinear, base_features
 from ..ops.quantization import effective_group
 
 # matmul weight leaf -> its bias leaf (None: no bias), per tower
@@ -129,6 +134,16 @@ def weight_tier(flat: Dict[str, object]) -> str:
     return "int8" if qs else "none"
 
 
+def head_tier(flat: Dict[str, object]) -> str:
+    """The tier of the text tower's ``embed_tokens`` and ``lm_head``: "none"
+    when both are float (the QLoRA tree), else ``weight_tier``'s."""
+    floats = {k for k in ("text/embed_tokens", "text/lm_head") if k in flat}
+    if len(floats) == 1:
+        raise ValueError(f"{floats.pop()} is float and the other of embed_tokens / lm_head "
+                         "is quantized: the two share one tier")
+    return "none" if floats else weight_tier(flat)
+
+
 def lora_specs(shapes: Dict[str, Tuple[tuple, object]]) -> Dict[str, dict]:
     """The LoRA-wrapped layer linears of a flat JAX tree, given each leaf's
     (shape, dtype): {"<tower>/layers/<name>": {"rank", "base": "dense" |
@@ -148,29 +163,32 @@ def lora_specs(shapes: Dict[str, Tuple[tuple, object]]) -> Dict[str, dict]:
 
 
 @torch.no_grad()
-def wrap_lora_(model: nn.Module, specs: Dict[str, dict]) -> nn.Module:
+def wrap_lora_(model: nn.Module, specs: Dict[str, dict], dtype=None) -> nn.Module:
     """Replace each LoRA-wrapped layer linear of ``model`` (``lora_specs``)
-    by a ``LoraLinear`` over a base of the leaf's tier, in place; the
-    linear's bias moves to the wrapper.  Values come from the state load."""
-    dtype = model.projection.weight.dtype  # the model's float dtype at every tier
+    by a ``LoraLinear`` (A, B in ``dtype``, default the model's float dtype)
+    over a base of the leaf's tier, in place: the linear itself when it is of
+    that tier, else a new one whose values come from the state load; the
+    linear's bias moves to the wrapper."""
+    if dtype is None:
+        dtype = model.projection.weight.dtype  # the model's float dtype at every tier
+    kinds = {"dense": Linear, "int8": Int8Linear, "int4": Int4Linear}
     for mod, spec in specs.items():
         tower, _, name = mod.split("/")
         for layer in getattr(model, tower).layers:
             old = getattr(layer, name)
-            ref = old.q if hasattr(old, "q") else old.weight
-            dev = ref.device
-            if isinstance(old, Int4Linear):
-                in_f, out_f = old.q.shape[0] * old.q.shape[1] * 2, old.q.shape[2]
-            else:
-                out_f, in_f = ref.shape
-            if spec["base"] == "dense":
-                base = Linear(in_f, out_f, False, device=dev, dtype=dtype)
+            dev = (old.q if hasattr(old, "q") else old.weight).device
+            in_f, out_f = base_features(old)
+            bias = getattr(old, "bias", None)
+            if isinstance(old, kinds[spec["base"]]):
+                base = old
+                if bias is not None:
+                    old.bias = None
+            elif spec["base"] == "dense":
+                base = Linear(in_f, out_f, False, device=dev, dtype=model.projection.weight.dtype)
             elif spec["base"] == "int8":
                 base = Int8Linear(in_f, out_f, device=dev)
             else:
-                base = (old if isinstance(old, Int4Linear)
-                        else Int4Linear(in_f, out_f, effective_group(in_f), device=dev))
-            bias = getattr(old, "bias", None)
+                base = Int4Linear(in_f, out_f, effective_group(in_f), device=dev)
             setattr(layer, name, LoraLinear(base, spec["rank"], bias=bias, device=dev,
                                             dtype=dtype))
     return model
@@ -209,7 +227,8 @@ def build_model(flat: Dict[str, object], cfg: VisualCLAConfig, *, device, dtype,
     if towers:
         model = VisionTowers(cfg, device=device, dtype=dtype)
     else:
-        model = VisualCLAModel(cfg, device=device, dtype=dtype, quant=weight_tier(flat))
+        model = VisualCLAModel(cfg, device=device, dtype=dtype, quant=weight_tier(flat),
+                               head_quant=head_tier(flat))
     wrap_lora_(model, lora_specs(_shapes(flat)))
     model.load_state_dict(params_from_jax(flat, cfg))
     return model
@@ -258,15 +277,26 @@ def _state_to_leaf(name: str, t: torch.Tensor):
     return name.replace(".", "/"), None, t
 
 
+def jax_key(name: str) -> Optional[str]:
+    """The JAX leaf key (``/``-joined path) of a module state entry, as
+    ``params_to_jax`` files it (None: an all-ones head mask)."""
+    return _state_to_leaf(name, torch.zeros(()))[0]
+
+
 @torch.no_grad()
-def params_to_jax(model: nn.Module, stack: bool = True) -> Dict[str, object]:
+def params_to_jax(model: nn.Module, stack: bool = True, grads: bool = False
+                  ) -> Dict[str, object]:
     """The inverse of ``params_from_jax``: a model's state as the JAX
     package's flat tree (stacked layers, ``(in, out)`` matmul weights), CPU
     tensors in the model's dtypes, towers in the JAX checkpoint's order.
     ``stack=False``: each layer leaf is the list of its layers' views of the
-    model's own tensors, where they lie (nothing is copied)."""
+    model's own tensors, where they lie (nothing is copied).  ``grads=True``:
+    the parameters' ``.grad``s in the same layout instead (the parameters
+    without one are left out)."""
     leaves: Dict[str, object] = {}
-    for name, t in model.state_dict().items():
+    entries = (((n, p.grad) for n, p in model.named_parameters() if p.grad is not None)
+               if grads else model.state_dict().items())
+    for name, t in entries:
         key, layer, t = _state_to_leaf(name, t)
         if key is None:
             continue

@@ -1,6 +1,8 @@
 """Inputs for driving the port at full width without files: an in-process
 tokenizer of the model's exact vocabulary size, a seeded image, the chat
-prompt, seeded inputs of the paged kernels B4, B5 and B6, and a switch that
+prompt, seeded inputs of the paged kernels B4, B5 and B6, the training
+step's models (QLoRA and stage 1), its batch and its FLOPs reckoned from the
+shapes, and a switch that
 routes the kernels of the model (cached attention, the int4 matmul, the
 paged append and verify attention, the vision towers' flash attention)
 through their plain PyTorch versions.
@@ -15,12 +17,15 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .core.config import VisualCLAConfig
+from .processor import ImageProcessor
 from .text import DEFAULT_SPECIALS, VisualCLATokenizer, build_test_model
 
 from .engine import graphs as graphs_mod
 from .engine import paged as paged_mod
 from .engine import paged_spec as paged_spec_mod
 from .models import llama as llama_mod
+from .models.visualcla import VisualCLAModel, init_random_, quantize_text_tower_
 from .ops import attention as attention_mod
 from .ops import linear as linear_mod
 from .ops.attention import cached_attention_ref
@@ -28,9 +33,14 @@ from .ops.cuda.flash_attention import flash_attention_ref
 from .ops.cuda.int4_matmul import int4_matmul_ref
 from .ops.cuda.paged_attention import paged_append_attention_ref, paged_verify_attention_ref
 from .ops.quantization import quantize_kv
+from .train.lora import add_lora
 
 SEED = 0
 PROMPT = "请详细描述这张图片。"
+# the training step's batch: one row of TRAIN_SEQ tokens, the first
+# TRAIN_MASKED labels ignored (the prompt), ``<img>`` at position 2
+TRAIN_SEQ, TRAIN_MASKED, TRAIN_IMG_POS = 512, 80, 2
+LORA_R, LORA_ALPHA = 8, 16.0
 
 
 def make_tokenizer(vocab_size: int) -> VisualCLATokenizer:
@@ -175,3 +185,79 @@ def paged_decode_args(case: dict, layer: Optional[int] = None) -> dict:
     if case.get("k_scales") is not None:
         out.update(k_scales=case["k_scales"][l], v_scales=case["v_scales"][l])
     return out
+
+
+def train_model(cfg: VisualCLAConfig, stage: int, device="cuda", seed: int = SEED,
+                dtype=torch.bfloat16) -> VisualCLAModel:
+    """The training step's model on seeded random weights made on ``device``:
+    stage 2 is the QLoRA tree (int8 decoder matmuls, float embed_tokens,
+    lm_head, vision, resampler and projection, LoRA r=LORA_R on the text and
+    vision targets in ``dtype``); stage 1 the dense model."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    model = init_random_(VisualCLAModel(cfg, device=device, dtype=dtype), gen)
+    if stage == 2:
+        quantize_text_tower_(model, 8, head=False)
+        add_lora(model, r=LORA_R, alpha=LORA_ALPHA, generator=gen, dtype=dtype)
+    return model
+
+
+def train_batch(cfg: VisualCLAConfig, tokenizer: VisualCLATokenizer, seed: int = SEED,
+                seq: int = TRAIN_SEQ) -> dict:
+    """One seeded training row (numpy): random ids with ``<img>`` at
+    TRAIN_IMG_POS followed by its placeholders and ``</img>``, the first
+    TRAIN_MASKED labels -100, and one image preprocessed to the tower's size."""
+    rng = np.random.default_rng(seed)
+    T = cfg.num_image_tokens
+    ids = rng.integers(5, tokenizer.sp.vocab_size, (1, seq)).astype(np.int64)
+    p = TRAIN_IMG_POS
+    ids[0, p] = tokenizer.img_start_token_id
+    ids[0, p + 1:p + 1 + T] = tokenizer.img_token_id
+    ids[0, p + 1 + T] = tokenizer.img_end_token_id
+    labels = ids.copy()
+    labels[0, :TRAIN_MASKED] = -100
+    size = cfg.vision_config.image_size
+    pixels = ImageProcessor(image_size=size, crop_size=size).preprocess_one(random_image(seed))
+    return {"input_ids": ids, "attention_mask": np.ones_like(ids), "labels": labels,
+            "img_start_pos": np.asarray([p]), "pixel_values": pixels[None]}
+
+
+def train_step_flops(cfg: VisualCLAConfig, stage: int, seq: int = TRAIN_SEQ, batch: int = 1,
+                     remat: bool = True) -> dict:
+    """Model FLOPs of one training step, reckoned from the shapes (2 a
+    multiply-add).  The forward F is 2 x (layer matmul parameters, LoRA's
+    included) x tokens for the decoder, the LM head, attention (4 x S^2 x
+    width a layer, the causal half not taken off), the ViT (its attention
+    likewise), the resampler and the projection.  The input gradient is one
+    more F; the weight gradients count only the trainable leaves' products
+    (stage 2: the LM head, LoRA, resampler and projection; stage 1: the
+    whole vision side); remat recomputes one more F."""
+    t, v, rs = cfg.text_config, cfg.vision_config, cfg.visual_resampler_config
+    H, I, L, V = t.hidden_size, t.intermediate_size, t.num_hidden_layers, t.vocab_size
+    q_out, kv_out = t.num_attention_heads * t.head_dim, t.num_key_value_heads * t.head_dim
+    S = seq * batch
+    layer_params = H * q_out + 2 * H * kv_out + q_out * H + 3 * H * I
+    Hv, Iv, T = v.hidden_size, v.intermediate_size, (v.image_size // v.patch_size) ** 2 + 1
+    Q, Hr, Ir = rs.num_query_tokens, rs.hidden_size, rs.intermediate_size
+    lora_text = sum(LORA_R * (i + o) for i, o in (
+        (H, q_out), (H, kv_out), (H, kv_out), (q_out, H), (H, I), (H, I), (I, H)))
+    lora_vision = LORA_R * (4 * 2 * Hv + 2 * (Hv + Iv))
+    parts = {
+        "text": 2.0 * L * (layer_params + (lora_text if stage == 2 else 0)) * S,
+        "head": 2.0 * H * V * S,
+        "attention": 4.0 * L * seq * seq * q_out * batch,
+        "vit": batch * (2.0 * v.num_hidden_layers * (
+            (4 * Hv * Hv + 2 * Hv * Iv + (lora_vision if stage == 2 else 0)) * T
+            + 2 * T * T * Hv) + 2.0 * (T - 1) * 3 * v.patch_size ** 2 * Hv),
+        "resampler": batch * 2.0 * rs.num_hidden_layers * (
+            2 * Q * Hr * Hr + 2 * (Q + T) * Hr * Hr + 2 * Q * Hr * Ir + 2 * Q * (Q + T) * Hr),
+        "projection": batch * 2.0 * Q * Hr * H,
+    }
+    forward = sum(parts.values())
+    if stage == 2:
+        wgrad = (parts["head"] + 2.0 * L * lora_text * S
+                 + batch * 2.0 * v.num_hidden_layers * lora_vision * T
+                 + parts["resampler"] + parts["projection"])
+    else:
+        wgrad = parts["vit"] + parts["resampler"] + parts["projection"]
+    total = 2 * forward + wgrad + (forward if remat else 0)
+    return {"parts": parts, "forward": forward, "weight_grads": wgrad, "total": total}

@@ -4,21 +4,25 @@ Pre-LN residual blocks, quick-gelu MLP, fp32-softmax attention (dense, or
 kernel B2u with ``VISUALCLA_VIT_ATTN=flash``), and ``post_layernorm``
 applied to the FULL last hidden state (CLS included), as the VisualCLA
 pipeline does.  The 14x14 stride-14 patch convolution is a reshape plus a
-matmul over Conv2d's channel-major patch order.  ``extend_position_embedding``
-resizes the position table for a larger input resolution.
+matmul over Conv2d's channel-major patch order.  ``remat`` recomputes each
+layer in the backward (training), as ``jax.checkpoint`` does there.
+``extend_position_embedding`` resizes the position table for a larger input
+resolution.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from ..core.config import ViTConfig
 
 from ..ops.activations import ACT2FN
-from ..ops.attention import full_attention
+from ..ops.attention import full_attention, vision_attention_impl
 from ..ops.linear import Linear
 from ..ops.norms import LayerNorm
 
@@ -94,14 +98,14 @@ class ViTLayer(nn.Module):
         self.fc1 = Linear(H, I, True, **kw)
         self.fc2 = Linear(I, H, True, **kw)
 
-    def forward(self, h: torch.Tensor) -> torch.Tensor:
+    def forward(self, h: torch.Tensor, impl: Optional[str] = None) -> torch.Tensor:
         B, S, _ = h.shape
         N, hd = self.num_heads, self.head_dim
         y = self.ln1(h)
         q = self.q_proj(y).reshape(B, S, N, hd)
         k = self.k_proj(y).reshape(B, S, N, hd)
         v = self.v_proj(y).reshape(B, S, N, hd)
-        attn = full_attention(q, k, v)  # bidirectional, no mask
+        attn = full_attention(q, k, v, impl=impl)  # bidirectional, no mask
         h = h + self.o_proj(attn.reshape(B, S, N * hd))
         y = self.ln2(h)
         return h + self.fc2(self.act(self.fc1(y)))
@@ -122,8 +126,9 @@ class CLIPVisionTower(nn.Module):
             ViTLayer(cfg, **kw) for _ in range(cfg.num_hidden_layers))
         self.post_layernorm = LayerNorm(H, cfg.layer_norm_eps, **kw)
 
-    def forward(self, pixel_values: torch.Tensor) -> torch.Tensor:
-        """(B, 3, 224, 224) -> (B, 257, H), post-LN over the full sequence."""
+    def forward(self, pixel_values: torch.Tensor, remat: bool = False) -> torch.Tensor:
+        """(B, 3, 224, 224) -> (B, 257, H), post-LN over the full sequence;
+        ``remat`` recomputes each layer in the backward."""
         B = pixel_values.shape[0]
         H = self.cfg.hidden_size
         patches = patchify(pixel_values, self.cfg.patch_size).to(
@@ -131,6 +136,8 @@ class CLIPVisionTower(nn.Module):
         cls = self.class_embedding[None, None, :].expand(B, 1, H)
         x = torch.cat([cls, self.patch_embedding(patches)], dim=1)
         x = self.pre_layernorm(x + self.position_embedding[None])
+        impl = vision_attention_impl()  # read once: a recompute runs outside any scope
         for layer in self.layers:
-            x = layer(x)
+            x = (torch.utils.checkpoint.checkpoint(layer, x, impl, use_reentrant=False)
+                 if remat else layer(x, impl))
         return self.post_layernorm(x)

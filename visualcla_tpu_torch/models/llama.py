@@ -8,10 +8,13 @@ of the whole buffer (``ops.attention.cached_attention``: the CUDA kernels B1
 and B2 on the card).  ``kv_quant="int8"`` stores the cache in int8 with
 per-token-per-head f32 scales (L, B, Nkv, S).  ``quant`` builds the text
 tower at the int8 or int4 weight tier (``ops.linear``): every layer matmul
-and the LM head quantized, the embedding table per-row int8.  Causality
-follows cache slot order, so left-padded
-rows work; ``rope_positions`` carries the HF position ids.  The cache-free
-training forward (``kv_cache=None``) is not ported yet.
+quantized, and with them the LM head and the embedding table (per-row int8)
+unless ``head_quant="none"`` keeps those two in float (the QLoRA tree, where
+they train).  Causality follows cache slot order, so left-padded rows work;
+``rope_positions`` carries the HF position ids.  ``kv_cache=None`` is the
+cache-free training forward: each layer attends over its own chunk's K/V
+(``chunk_causal_attention``), and ``remat=True`` recomputes each layer in
+the backward (``torch.utils.checkpoint``), as ``jax.checkpoint`` does there.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ..core.config import LlamaConfig
@@ -67,6 +71,24 @@ def put_chunk(buf: torch.Tensor, chunk: torch.Tensor, l: int,
     buf[l].transpose(1, 2)[rows, idx] = chunk.transpose(1, 2)
 
 
+def chunk_causal_attention(q, k, v, valid):
+    """Causal attention over a chunk's own K/V (the cache-free training
+    path).  q (B, Sq, N, hd); k, v (B, Nkv, Sq, hd) in cache order; valid
+    (B, Sq) bool.  fp32 scores and softmax, masked entries filled with -1e30:
+    query i sees the valid kv j <= i.  -> (B, Sq, N, hd) in q's dtype."""
+    B, Sq, N, hd = q.shape
+    rep = N // k.shape[1]
+    if rep > 1:
+        k = k.repeat_interleave(rep, dim=1)
+        v = v.repeat_interleave(rep, dim=1)
+    s = torch.einsum("binh,bnjh->bnij", q.float(), k.float()) * (1.0 / float(hd) ** 0.5)
+    i = torch.arange(Sq, device=q.device)
+    mask = (i[None, :] <= i[:, None])[None, None] & valid[:, None, None, :]
+    s = s.masked_fill(~mask, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bnij,bnjh->binh", p, v.float()).to(q.dtype)
+
+
 class DecoderLayer(nn.Module):
     def __init__(self, cfg: LlamaConfig, *, device=None, dtype=None, quant: str = "none"):
         super().__init__()
@@ -86,10 +108,12 @@ class DecoderLayer(nn.Module):
         self.up_proj = make_linear(H, I, **lin)
         self.down_proj = make_linear(I, H, **lin)
 
-    def forward(self, h, cos, sin, cache: dict, kv_valid, write_slot: WriteSlot,
-                slots: torch.Tensor, l: int) -> torch.Tensor:
+    def forward(self, h, cos, sin, cache: Optional[dict], kv_valid, write_slot: WriteSlot,
+                slots: Optional[torch.Tensor], l: int) -> torch.Tensor:
         """qkv -> rope -> cache write at (l, write_slot) -> attention over the
-        cache -> mlp.  ``slots`` is write_slot as a (B,) int32 tensor."""
+        cache -> mlp.  ``slots`` is write_slot as a (B,) int32 tensor.
+        ``cache=None``: attention over the chunk's own K/V, kv_valid's first
+        Sq columns."""
         B, Sq, _ = h.shape
         cfg = self.cfg
         N, Nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
@@ -99,6 +123,9 @@ class DecoderLayer(nn.Module):
         v = self.v_proj(x).reshape(B, Sq, Nkv, hd)
         q, k = apply_rope(q, k, cos, sin)
         k, v = k.transpose(1, 2), v.transpose(1, 2)  # cache order (B, Nkv, Sq, hd)
+        if cache is None:
+            attn = chunk_causal_attention(q, k, v, kv_valid[:, :Sq])
+            return self._out(h, attn)
         if "k_scale" in cache:  # int8 cache: K and V quantized per token and head, together
             (kq, vq), (ks, vs) = (t.unbind(0) for t in quantize_kv(torch.stack((k, v))))
             writes = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
@@ -109,21 +136,33 @@ class DecoderLayer(nn.Module):
         attn = cached_attention(q, cache["k"], cache["v"], kv_valid, slots,
                                 k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
                                 layer_index=l)
-        h = h + self.o_proj(attn.reshape(B, Sq, N * hd))
+        return self._out(h, attn)
+
+    def _out(self, h, attn):
+        """The output projection's residual, then the MLP's."""
+        B, Sq = attn.shape[:2]
+        h = h + self.o_proj(attn.reshape(B, Sq, -1))
         x2 = self.post_norm(h)
         return h + self.down_proj(self.act(self.gate_proj(x2)) * self.up_proj(x2))
 
 
 class Llama(nn.Module):
-    """``quant``: the text tower's weight tier, "none" (dense), "int8" or "int4"."""
+    """``quant``: the layers' weight tier, "none" (dense), "int8" or "int4";
+    ``head_quant``: the tier of ``embed_tokens`` and ``lm_head`` ("none"
+    keeps them in float over a quantized base; default: ``quant``)."""
 
-    def __init__(self, cfg: LlamaConfig, *, device=None, dtype=None, quant: str = "none"):
+    def __init__(self, cfg: LlamaConfig, *, device=None, dtype=None, quant: str = "none",
+                 head_quant: Optional[str] = None):
         super().__init__()
         if cfg.attention_bias:
             raise NotImplementedError("attention_bias=true checkpoints are not supported")
         kw = dict(device=device, dtype=dtype)
         self.cfg = cfg
-        if quant == "none":
+        head_quant = quant if head_quant is None else head_quant
+        if head_quant not in ("none", quant):
+            raise ValueError(f"head_quant {head_quant!r} must be 'none' or the layers' "
+                             f"tier {quant!r}")
+        if head_quant == "none":
             self.embed_tokens = nn.Parameter(
                 torch.empty(cfg.vocab_size, cfg.hidden_size, **kw), requires_grad=False)
         else:
@@ -132,7 +171,7 @@ class Llama(nn.Module):
             DecoderLayer(cfg, quant=quant, **kw)
             for _ in range(cfg.num_hidden_layers))
         self.final_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, **kw)
-        self.lm_head = make_linear(cfg.hidden_size, cfg.vocab_size, quant, **kw)
+        self.lm_head = make_linear(cfg.hidden_size, cfg.vocab_size, head_quant, **kw)
 
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
         """(B, S) ids -> (B, S, H) in the model's dtype."""
@@ -147,19 +186,24 @@ class Llama(nn.Module):
         kv_cache: Optional[dict],  # see init_kv_cache; written in place
         kv_valid: torch.Tensor,  # (B, S) bool — valid AFTER this chunk is written
         write_slot: WriteSlot,  # cache slot of the chunk's first token
-    ) -> Tuple[torch.Tensor, dict]:
-        """Run the decoder stack: (final-normed hidden (B, Sq, H), kv_cache)."""
-        if kv_cache is None:
-            raise NotImplementedError(
-                "the cache-free training forward is not ported yet (ROADMAP, "
-                "open item 10: training)")
+        remat: bool = False,  # recompute each layer in the backward
+    ) -> Tuple[torch.Tensor, Optional[dict]]:
+        """Run the decoder stack: (final-normed hidden (B, Sq, H), kv_cache).
+        ``kv_cache=None``: the cache-free training forward (the chunk from
+        slot 0, kv_valid its (B, Sq) mask); it returns None for the cache."""
         cfg = self.cfg
         B = inputs_embeds.shape[0]
         cos, sin = rope_table(rope_positions, cfg.head_dim, cfg.rope_theta)
-        slots = slot_vector(write_slot, B, inputs_embeds.device)  # once, not per layer
+        slots = (None if kv_cache is None
+                 else slot_vector(write_slot, B, inputs_embeds.device))  # once, not per layer
         h = inputs_embeds
         for l, layer in enumerate(self.layers):
-            h = layer(h, cos, sin, kv_cache, kv_valid, write_slot, slots, l)
+            if remat:
+                h = torch.utils.checkpoint.checkpoint(
+                    layer, h, cos, sin, kv_cache, kv_valid, write_slot, slots, l,
+                    use_reentrant=False)
+            else:
+                h = layer(h, cos, sin, kv_cache, kv_valid, write_slot, slots, l)
         return self.final_norm(h), kv_cache
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:

@@ -4,17 +4,21 @@ of visualcla_tpu/models/resampler.py).
 Each layer's K/V run over ``[queries ; image tokens]``, the softmax runs in
 the input dtype ("native"), pruned heads are zeroed by ``head_mask`` (set by
 ``prune_heads`` or a checkpoint's ``head_mask`` leaf), and the blocks are
-post-LN with an exact-gelu FFN.  ``pool`` is the pooler, unused by the chat.
+post-LN with an exact-gelu FFN; ``remat`` recomputes each layer in the
+backward (training).  ``pool`` is the pooler, unused by the chat.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from ..core.config import ResamplerConfig
 
 from ..ops.activations import ACT2FN
-from ..ops.attention import full_attention
+from ..ops.attention import full_attention, vision_attention_impl
 from ..ops.linear import Linear
 from ..ops.norms import LayerNorm
 
@@ -36,7 +40,7 @@ class ResamplerLayer(nn.Module):
         self.out_ln = LayerNorm(H, cfg.layer_norm_eps, **kw)
 
     def forward(self, h: torch.Tensor, image_embeds: torch.Tensor,
-                head_mask: torch.Tensor) -> torch.Tensor:
+                head_mask: torch.Tensor, impl: Optional[str] = None) -> torch.Tensor:
         B, Nq, H = h.shape
         N, hd = self.num_heads, self.head_dim
         kv_in = torch.cat([h, image_embeds], dim=1)  # (B, Nq + S_img, H)
@@ -44,7 +48,7 @@ class ResamplerLayer(nn.Module):
         q = self.q_proj(h).reshape(B, Nq, N, hd)
         k = self.k_proj(kv_in).reshape(B, Skv, N, hd)
         v = self.v_proj(kv_in).reshape(B, Skv, N, hd)
-        ctx = full_attention(q, k, v, softmax_dtype="native")
+        ctx = full_attention(q, k, v, softmax_dtype="native", impl=impl)
         ctx = (ctx * head_mask[None, None, :, None].to(ctx.dtype)).reshape(B, Nq, H)
         attn_out = self.attn_ln(self.attn_out(ctx) + h)
         ffn = self.out(self.act(self.inter(attn_out)))
@@ -64,12 +68,16 @@ class Resampler(nn.Module):
         # the pooler is part of the checkpoint but unused by the chat path
         self.pooler = Linear(H, H, True, **kw) if cfg.add_pooling_layer else None
 
-    def forward(self, image_embeds: torch.Tensor) -> torch.Tensor:
-        """(B, S_img, H) image tokens -> (B, num_query_tokens, H)."""
+    def forward(self, image_embeds: torch.Tensor, remat: bool = False) -> torch.Tensor:
+        """(B, S_img, H) image tokens -> (B, num_query_tokens, H); ``remat``
+        recomputes each layer in the backward."""
         B = image_embeds.shape[0]
         h = self.query_embedding[None].expand(B, -1, -1).to(image_embeds.dtype)
+        impl = vision_attention_impl()  # read once: a recompute runs outside any scope
         for layer, mask in zip(self.layers, self.head_mask):
-            h = layer(h, image_embeds, mask)
+            h = (torch.utils.checkpoint.checkpoint(layer, h, image_embeds, mask, impl,
+                                                   use_reentrant=False) if remat
+                 else layer(h, image_embeds, mask, impl))
         return h
 
 

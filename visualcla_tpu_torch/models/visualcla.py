@@ -41,31 +41,38 @@ class VisionTowers(nn.Module):
 class VisualCLAModel(VisionTowers):
     """All weights of the model, built directly on ``device`` in ``dtype``.
     Matrices start uninitialised: load a checkpoint or call ``init_random_``.
-    ``quant`` ("none", "int8", "int4") is the text tower's weight tier; the
-    ViT, resampler and projection stay dense, as in the JAX package."""
+    ``quant`` ("none", "int8", "int4") is the text tower's weight tier and
+    ``head_quant`` that of its embedding and LM head (``Llama``); the ViT,
+    resampler and projection stay dense, as in the JAX package."""
 
-    def __init__(self, cfg: VisualCLAConfig, *, device=None, dtype=None, quant: str = "none"):
+    def __init__(self, cfg: VisualCLAConfig, *, device=None, dtype=None, quant: str = "none",
+                 head_quant: Optional[str] = None):
         super().__init__(cfg, device=device, dtype=dtype)
-        self.text = Llama(cfg.text_config, quant=quant, device=device, dtype=dtype)
+        self.text = Llama(cfg.text_config, quant=quant, head_quant=head_quant, device=device,
+                          dtype=dtype)
 
 
 @torch.no_grad()
-def quantize_text_tower_(model: VisualCLAModel, bits: int) -> VisualCLAModel:
+def quantize_text_tower_(model: VisualCLAModel, bits: int, head: bool = True) -> VisualCLAModel:
     """Quantize the text tower of a dense model in place, where its weights
     lie: every layer matmul and the LM head to int8 (``bits=8``) or grouped
     int4 (``bits=4``, group ``effective_group(in)``), the embedding
-    table to per-row int8.  Each dense original is dropped as soon as its
-    quantized form exists, so the peak is one weight above the result."""
+    table to per-row int8.  ``head=False`` keeps the embedding table and the
+    LM head in float (the QLoRA tree: they train).  Each dense original is
+    dropped as soon as its quantized form exists, so the peak is one weight
+    above the result."""
     quant = {8: "int8", 4: "int4"}.get(bits)
     if quant is None:
         raise ValueError(f"bits must be 8 or 4, got {bits}")
     text = model.text
-    if not isinstance(text.lm_head, Linear):
+    if not isinstance(text.layers[0].q_proj, Linear):
         raise ValueError("the text tower is quantized already")
     for layer in text.layers:
         for name in ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj",
                      "down_proj"):
             setattr(layer, name, quantize_linear(getattr(layer, name), quant))
+    if not head:
+        return model
     text.lm_head = quantize_linear(text.lm_head, quant)
     table = text.embed_tokens
     del text.embed_tokens  # the Parameter: the attribute becomes a module
@@ -86,12 +93,13 @@ def init_random_(model: nn.Module, generator: torch.Generator,
 
 
 def encode_image(model: VisionTowers, cfg: VisualCLAConfig,
-                 pixel_values: torch.Tensor) -> torch.Tensor:
+                 pixel_values: torch.Tensor, remat: bool = False) -> torch.Tensor:
     """(B, 3, H, W) pixels -> (B, num_image_tokens, text_hidden): ViT (full
-    sequence post-LN) -> resampler -> projection."""
-    image_embeds = model.vision(pixel_values)
+    sequence post-LN) -> resampler -> projection; ``remat`` recomputes each
+    tower's layers in the backward."""
+    image_embeds = model.vision(pixel_values, remat=remat)
     if cfg.use_visual_resampler:
-        image_embeds = model.resampler(image_embeds)
+        image_embeds = model.resampler(image_embeds, remat=remat)
     return model.projection(image_embeds)
 
 
@@ -110,7 +118,8 @@ def splice_image_embeds(inputs_embeds: torch.Tensor, image_embeds: torch.Tensor,
     row) with that row's (T, H) image embeddings.  The positions are host
     values, or a (B,) integer tensor on the embeddings' device: then the
     splice is one gather and one scatter, with no read back to the host (a
-    captured prefill's form)."""
+    captured prefill's form).  Both forms are differentiable in both
+    embeddings."""
     if isinstance(img_start_pos, torch.Tensor):
         return _splice_on_device(inputs_embeds, image_embeds, img_start_pos.reshape(-1))
     out = inputs_embeds.clone()
@@ -140,6 +149,7 @@ def multimodal_embeds(
     input_ids: torch.Tensor,  # (B, S)
     img_start_pos,  # (B,) or (B, K) ints, host or device; -1 = no image
     pixel_values: Optional[torch.Tensor],  # (B, 3, H, W) | (B, K, 3, H, W) | None
+    remat: bool = False,
 ) -> torch.Tensor:
     """Token embeddings with the image embeddings spliced in."""
     embeds = model.text.embed(input_ids)
@@ -147,15 +157,30 @@ def multimodal_embeds(
         return embeds
     if pixel_values.dim() == 5:  # multi-image: one marker per image
         B, K = pixel_values.shape[:2]
-        flat = encode_image(model, cfg, pixel_values.reshape((B * K,) + pixel_values.shape[2:]))
+        flat = encode_image(model, cfg, pixel_values.reshape((B * K,) + pixel_values.shape[2:]),
+                            remat=remat)
         image_embeds = flat.reshape((B, K) + flat.shape[1:])
         pos = (img_start_pos.reshape(B, K) if isinstance(img_start_pos, torch.Tensor)
                else np.asarray(img_start_pos).reshape(B, K))
         for k in range(K):
             embeds = splice_image_embeds(embeds, image_embeds[:, k], pos[:, k])
         return embeds
-    return splice_image_embeds(embeds, encode_image(model, cfg, pixel_values),
+    return splice_image_embeds(embeds, encode_image(model, cfg, pixel_values, remat=remat),
                                img_start_pos)
+
+
+def prefill_forward(model: VisualCLAModel, cfg: VisualCLAConfig, input_ids: torch.Tensor,
+                    attention_mask: torch.Tensor, img_start_pos, pixel_values: Optional[torch.Tensor],
+                    kv_cache: dict):
+    """Full multimodal prefill from slot 0 into ``kv_cache`` (its slots past
+    S start invalid).  -> (fp32 logits (B, S, V), kv_cache)."""
+    embeds = multimodal_embeds(model, cfg, input_ids, img_start_pos, pixel_values)
+    B, S = input_ids.shape
+    positions = (attention_mask.long().cumsum(-1) - 1).clamp(min=0)
+    kv_valid = torch.zeros(B, kv_cache["k"].shape[3], dtype=torch.bool, device=embeds.device)
+    kv_valid[:, :S] = attention_mask.bool()
+    hidden, kv_cache = model.text(embeds, positions, kv_cache, kv_valid, 0)
+    return model.text.logits(hidden), kv_cache
 
 
 def find_img_start(input_ids, img_start_token_id: int) -> torch.Tensor:

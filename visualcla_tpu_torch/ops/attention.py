@@ -3,16 +3,18 @@
 ``dot_product_attention`` is the numerics-defining dense path (fp32 softmax,
 HF eager attention); ``full_attention`` is the bidirectional attention of the
 ViT and the resampler, dense by default and the flash kernel B2u with
-``VISUALCLA_VIT_ATTN=flash``; ``cached_attention`` is the LLM's attention over
+``VISUALCLA_VIT_ATTN=flash`` unless ``attention_impl_scope`` pins a backend
+on the calling thread; ``cached_attention`` is the LLM's attention over
 the stacked KV cache, which goes to the flash kernels B1 (decode) and B2
 (prefill), or over one layer's bnsh K/V (B1 or B2u).  Every function keeps
 the JAX package's (B, S, N, hd) layout.
 """
 from __future__ import annotations
 
-from typing import Optional
-
+import contextlib
 import os
+import threading
+from typing import Optional
 
 import torch
 
@@ -21,6 +23,7 @@ from .cuda.flash_attention import (flash_attention, flash_attention_ref, flash_d
                                    flash_prefill_stacked_ref)
 
 NEG_INF = torch.finfo(torch.float32).min
+_TLS = threading.local()
 
 
 def dot_product_attention(
@@ -54,17 +57,39 @@ def dot_product_attention(
     return torch.einsum("bnqk,bknh->bqnh", probs, v)
 
 
+@contextlib.contextmanager
+def attention_impl_scope(name: str):
+    """Pin ``full_attention``'s backend on this thread for the block
+    (``"xla"``: dense, ``"flash"``: kernel B2u), over ``VISUALCLA_VIT_ATTN``.
+    Training pins ``"xla"``: the kernels have no backward."""
+    if name not in ("flash", "xla"):
+        raise ValueError(f"attention impl must be 'flash' or 'xla', got {name!r}")
+    stack = getattr(_TLS, "impl_override", None)
+    if stack is None:
+        stack = _TLS.impl_override = []
+    stack.append(name)
+    try:
+        yield
+    finally:
+        stack.pop()
+
+
 def vision_attention_impl() -> str:
-    """``VISUALCLA_VIT_ATTN`` as ``full_attention`` reads it (``"xla"``, the
-    dense default, or ``"flash"``): part of a captured encode's key."""
+    """The backend ``full_attention`` runs: the innermost
+    ``attention_impl_scope`` of this thread, else ``VISUALCLA_VIT_ATTN``
+    (``"xla"``, the dense default, or ``"flash"``): part of a captured
+    encode's key."""
+    stack = getattr(_TLS, "impl_override", None)
+    if stack:
+        return stack[-1]
     return os.environ.get("VISUALCLA_VIT_ATTN", "xla")
 
 
 def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    softmax_dtype: str = "fp32", impl: Optional[str] = None) -> torch.Tensor:
     """Bidirectional unmasked attention (ViT / resampler).  ``impl=None``
-    reads ``VISUALCLA_VIT_ATTN`` at call time with the JAX package's default,
-    ``"xla"``: the dense path.  ``"flash"`` runs kernel B2u with causal off,
+    reads ``vision_attention_impl()`` at call time (the JAX package's
+    default, ``"xla"``, is the dense path).  ``"flash"`` runs kernel B2u with causal off,
     every slot valid, over the bsnh K/V in place; it keeps p in fp32 and so
     ignores ``softmax_dtype``, as the JAX package's flash path does."""
     if impl is None:

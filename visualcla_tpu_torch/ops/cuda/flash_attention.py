@@ -26,7 +26,8 @@ is seen); the kernel reads K/V through their strides, so the ViT's bsnh
 K/V straight out of a ``reshape`` are not copied.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
-launches the kernel or raises.  ``LAUNCHES`` counts one per wrapper call that
+launches the kernel or raises.  Under autograd a wrapper raises if an input
+requires grad: no kernel has a backward.  ``LAUNCHES`` counts one per wrapper call that
 reached its kernel (B1 is two device launches, the kv splits and their
 combine, and counts one), the int8 K/V calls under their own names
 (``flash_decode_kv8``, ``flash_prefill_kv8``, ``flash_full_kv8``).  With q in
@@ -40,7 +41,7 @@ import math
 
 import torch
 
-from . import build
+from . import build, refuse_autograd
 
 NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (64, 128)  # the ViT and resampler heads, and LLaMA's
@@ -355,6 +356,7 @@ def _launch_decode(q, k, v, kv_valid, write_slot, scale, k_scale, v_scale):
 def flash_decode_stacked(q, k_cache, v_cache, kv_valid, write_slot, layer_index,
                          *, scale=None, k_scale=None, v_scale=None):
     """B1: decode attention (Sq == 1) over layer ``layer_index`` of the cache."""
+    refuse_autograd("B1 (flash_decode_stacked)", q, k_cache, v_cache, k_scale, v_scale)
     _check(q, k_cache, v_cache, kv_valid, layer_index, True, k_scale, v_scale)
     k, v, ks, vs = _layer(k_cache, v_cache, k_scale, v_scale, layer_index)
     if q.device.type == "cpu":
@@ -365,6 +367,7 @@ def flash_decode_stacked(q, k_cache, v_cache, kv_valid, write_slot, layer_index,
 def flash_prefill_stacked(q, k_cache, v_cache, kv_valid, write_slot, layer_index,
                           *, scale=None, k_scale=None, v_scale=None):
     """B2: causal attention of Sq queries over layer ``layer_index`` of the cache."""
+    refuse_autograd("B2 (flash_prefill_stacked)", q, k_cache, v_cache, k_scale, v_scale)
     _check(q, k_cache, v_cache, kv_valid, layer_index, False, k_scale, v_scale)
     k, v, ks, vs = _layer(k_cache, v_cache, k_scale, v_scale, layer_index)
     if q.device.type == "cpu":
@@ -379,6 +382,7 @@ def flash_attention(q, k, v, kv_valid, write_slot, *, scale=None, causal=True,
     (B, S, Nkv, hd) or bnsh (B, Nkv, S, hd), causal or not, the JAX entry's
     contract.  As there, Sq == 1 with causal bnsh K/V goes to B1 (on the
     K/V viewed as a one-layer cache)."""
+    refuse_autograd("B2u (flash_attention)", q, k, v, k_scale, v_scale)
     _check_full(q, k, v, kv_valid, k_scale, v_scale, kv_layout)
     if q.shape[1] == 1 and causal and kv_layout == "bnsh":
         return flash_decode_stacked(

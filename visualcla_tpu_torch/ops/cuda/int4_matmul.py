@@ -24,7 +24,8 @@ scaled in fp32 and summed over groups; more tokens one product with the
 weight dequantized (f32, then rounded to x's dtype).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
-launches the kernel or raises.  ``LAUNCHES`` counts kernel launches.
+launches the kernel or raises.  Under autograd a wrapper raises if an input
+requires grad: no kernel has a backward.  ``LAUNCHES`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -33,7 +34,7 @@ import ctypes
 import torch
 
 from ..quantization import dequantize_grouped, unpack_s4_halves
-from . import build
+from . import build, refuse_autograd
 
 # The decode form's blocks (``csrc/int4_matmul.cu``): 8 warps over two
 # 64-column slices (128 columns) and up to 16 tokens, each of a slice's 4
@@ -129,6 +130,7 @@ def int4_matmul_ref(x, q, scale, *, out_dtype=None):
 def int4_matmul(x, q, scale, *, out_dtype=None):
     """B3: x @ W4 through the kernel on CUDA tensors, the plain version on CPU
     tensors."""
+    refuse_autograd("B3 (int4_matmul)", x, q, scale)
     if x.device.type == "cpu":
         return int4_matmul_ref(x, q, scale, out_dtype=out_dtype)
     return _launch(x, q, scale, out_dtype)

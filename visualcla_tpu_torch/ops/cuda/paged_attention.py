@@ -37,6 +37,8 @@ softmax runs block by block in table order.
 The pools (and scale pools) are updated IN PLACE; the call returns only the
 attention output (B, N, hd) in q's type.  A wrapper given CPU tensors runs the
 plain version; given CUDA tensors it launches the kernel or raises.
+Under autograd a wrapper raises if an input requires grad: no kernel has
+a backward.
 ``LAUNCHES`` counts kernel launches, each int8-pool form under its own
 ``_kv8`` name.
 """
@@ -47,7 +49,7 @@ import math
 
 import torch
 
-from . import build
+from . import build, refuse_autograd
 
 NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (128,)  # every LLaMA size in core/config.py
@@ -318,6 +320,8 @@ def paged_append_attention(q, k_new, v_new, k_pool, v_pool, tables, lens, blk, o
     """B4: append each row's new K/V into the pools IN PLACE at
     ``pool[layer, blk, off]`` and return its decode attention (B, N, hd)
     over the row's block table (see the module docstring)."""
+    refuse_autograd("B4 (paged_append_attention)", q, k_new, v_new, k_pool, v_pool,
+                    k_new_scales, v_new_scales, k_scales, v_scales)
     _check(q, k_new, v_new, k_pool, v_pool, tables, lens, blk, off, layer,
            k_new_scales, v_new_scales, k_scales, v_scales)
     args = (q, k_new, v_new, k_pool, v_pool, tables, lens, blk, off, layer,
@@ -503,6 +507,8 @@ def paged_verify_attention(q, k_new, v_new, k_pool, v_pool, tables, lens, layer,
     probabilities are rounded to the compute type too).  -> (B, Sq, N, hd)."""
     args = (q, k_new, v_new, k_pool, v_pool, tables, lens, layer, k_new_scales,
             v_new_scales, k_scales, v_scales)
+    refuse_autograd("B5 (paged_verify_attention)", q, k_new, v_new, k_pool, v_pool,
+                    k_new_scales, v_new_scales, k_scales, v_scales)
     if q.device.type == "cpu":
         return paged_verify_attention_ref(*args, scale=scale)
     _check_verify(*args)
@@ -539,6 +545,7 @@ def paged_decode_attention(q, k_pool, v_pool, tables, lens, k_scales=None, v_sca
     scale and p are not rounded); a row with lens 0 gives zeros.
     -> (B, N, hd) in q's type."""
     args = (q, k_pool, v_pool, tables, lens, k_scales, v_scales)
+    refuse_autograd("B6 (paged_decode_attention)", q, k_pool, v_pool, k_scales, v_scales)
     if q.device.type == "cpu":
         return paged_decode_attention_ref(*args, scale=scale)
     _check_decode(*args)

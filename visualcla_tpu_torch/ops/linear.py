@@ -15,6 +15,8 @@ the JAX numerics (``ops/quantization.py:q_matmul``):
   ``base(x) + (x A) B * scale (+ bias)``, the low-rank path kept apart as
   the JAX package's ``{"w", "lora_A", "lora_B", "lora_scale"}`` leaf keeps it.
 ``forward_f32`` is the LM head's product: fp32 accumulation and fp32 out.
+Every form but ``Int4Linear`` is differentiable (the training path): B3 has
+no backward, so an int4 base raises when its input requires grad.
 The layer kind is the module's type, as the JAX package tells a quantized
 leaf by its structure.
 """
@@ -32,6 +34,35 @@ from .quantization import effective_group, q_take, quantize, quantize_grouped
 
 def _frozen(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
+
+
+class _MmF32(torch.autograd.Function):
+    """x (T, in) @ w (out, in)^T, both in one low-precision dtype on the card,
+    accumulated and returned in fp32 without an fp32 copy of w; the backward
+    runs its two products in that dtype on the rounded fp32 cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w.t(), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        return (g @ w if ctx.needs_input_grad[0] else None,
+                g.t() @ x if ctx.needs_input_grad[1] else None)
+
+
+def _mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """fp32-accumulated ``x @ w^T`` in fp32 for bf16 / fp16 CUDA tensors of
+    any leading shape, differentiable when autograd needs it."""
+    flat = x.reshape(-1, x.shape[-1])
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        y = _MmF32.apply(flat, w)
+    else:
+        y = torch.mm(flat, w.t(), out_dtype=torch.float32)
+    return y.reshape(*x.shape[:-1], w.shape[0])
 
 
 class Linear(nn.Module):
@@ -55,8 +86,7 @@ class Linear(nn.Module):
         if x.dtype == torch.float32:
             return F.linear(x, w.float())
         if x.is_cuda:  # fp32 accumulation and output without an fp32 copy of w
-            flat = torch.mm(x.reshape(-1, x.shape[-1]), w.t(), out_dtype=torch.float32)
-            return flat.reshape(*x.shape[:-1], w.shape[0])
+            return _mm_f32(x, w)
         return F.linear(x.float(), w.float())
 
 
@@ -85,9 +115,7 @@ class Int8Linear(nn.Module):
         if x.dtype == torch.float32:
             y = F.linear(x, self.q.float())
         elif x.is_cuda:
-            flat = torch.mm(x.reshape(-1, x.shape[-1]), self.q.to(x.dtype).t(),
-                            out_dtype=torch.float32)
-            y = flat.reshape(*x.shape[:-1], self.q.shape[0])
+            y = _mm_f32(x, self.q.to(x.dtype))
         else:
             y = F.linear(x.float(), self.q.float())
         return y * self.scale
@@ -114,10 +142,20 @@ class Int4Linear(nn.Module):
         return mod
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        _refuse_int4_grad(x)
         return int4_matmul(x, self.q, self.scale)
 
     def forward_f32(self, x: torch.Tensor) -> torch.Tensor:
+        _refuse_int4_grad(x)
         return int4_matmul(x, self.q, self.scale, out_dtype=torch.float32)
+
+
+def _refuse_int4_grad(x: torch.Tensor) -> None:
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise NotImplementedError(
+            "training over an int4 base is not ported (ROADMAP, open item 15: training "
+            "over an int4 base: B3 has no backward, and the JAX package's Pallas B3 has "
+            "no VJP either); train over a dense or int8 base")
 
 
 class Int8Table(nn.Module):
