@@ -166,6 +166,23 @@ Phases, one line of findings each:
                the run, the output through the factory and a greedy chat, the
                adapter folded by the unmerged loader against the merged
                output within bf16 rounding;
+ 12. apps    — (after 4f, on phase 4's model) (a) the Gradio demo's callback
+               (``apps.gradio_demo.make_predict``) streamed and blocking with
+               the sliders at 32 tokens, top-k 1, top-p .9, temperature .5:
+               both answers equal and equal to ``chat``'s with that config,
+               exact B2 / B1 launches of the streamed run, no launch and the
+               error message without an image, TTFT (first yield) and
+               tokens/s beside phase 4's; (b) the webui plugin's
+               ``embed_images`` on 2 seeded images over ``VisionPipeline``
+               of phase 4's towers: (128, 4096) bf16 on the card, bitwise the
+               host round trip (``VisionPipeline.embed_images`` cast back)
+               and ``encode_image`` of the same pixels, warm host and device
+               ms of both; (c) ``utils.profiling``: the engine's timer over 3
+               greedy generates (prefill and decode x3), ``GLOBAL_COUNTERS``
+               (tokens, requests, a speculative generate's chunks) and a
+               ``trace`` naming B1's and B2's symbols; the parity harness
+               needs transformers and the reference's checkout, and runs in
+               the CPU tests only;
  10. the seconds each phase took, the kernel summary as one JSON line, then
      the result line.
 Exits non-zero if any phase fails.  Needs no network and no JAX.
@@ -200,6 +217,7 @@ from visualcla_tpu_torch.processor import ImageProcessor
 from visualcla_tpu_torch.text import VisualCLATokenizer
 from visualcla_tpu_torch.text.prompt import encoding_text, img_marker_positions
 from visualcla_tpu_torch import api
+from visualcla_tpu_torch.apps import gradio_demo
 from visualcla_tpu_torch.apps import serve as serve_app
 from visualcla_tpu_torch.apps.evaluate import evaluate
 from visualcla_tpu_torch.assets import golden_path
@@ -212,6 +230,8 @@ from visualcla_tpu_torch.engine import paged as paged_mod
 from visualcla_tpu_torch.engine import server as server_mod
 from visualcla_tpu_torch.engine.generate import PROMPT_BUCKETS, Engine, pick_bucket
 from visualcla_tpu_torch.engine.sampling import SamplingConfig
+from visualcla_tpu_torch.integrations.text_generation_webui.visualcla_torch_pipeline import (
+    visualcla as webui_plugin)
 from visualcla_tpu_torch.fixtures import (PROMPT, SEED, make_tokenizer, paged_case,
                                           paged_decode_args, paged_verify_case, plain_kernels,
                                           random_image)
@@ -229,6 +249,7 @@ from visualcla_tpu_torch.ops.attention import cached_attention
 from visualcla_tpu_torch.ops.quantization import dequantize_grouped, quantize_grouped, quantize_kv
 from visualcla_tpu_torch.pipeline import CapturedEncode, VisionPipeline
 from visualcla_tpu_torch.processor.image import device_preprocess
+from visualcla_tpu_torch.utils import profiling
 
 ATOL = RTOL = 2e-2  # bf16 output rounding plus another summation order
 F32_TOL = 1e-4  # f32 inputs: another summation order only
@@ -1454,6 +1475,227 @@ def phase_concurrency(smi: str, cfg, tokenizer, bundle) -> dict:
           f"{eng.graphs.captures - captures0} new graphs gives its sequential ids, and so does "
           f"the B=3 call; no workspace left claimed; card {smi}", flush=True)
     return {"streams": out}
+
+
+def _callback_run(predict, image, sliders):
+    """One submit of the demo's callback: -> (its last (chatbot, history),
+    the seconds from the call to each yield)."""
+    t0 = time.perf_counter()
+    stamps, last = [], None
+    for last in predict(PROMPT, image, None, [], *sliders, [], "Upload"):
+        stamps.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return last, stamps
+
+
+def _apps_callback(bundle, image, L) -> dict:
+    """(a) The Gradio callback on phase 4's model, streamed and blocking,
+    with the sliders at 32 tokens, top-k 1 (a deterministic sampled
+    config), top-p .9, temperature .5: launches counted from zero over the
+    streamed run (B2 once a layer a prefill pass, B1 once a layer a decode
+    pass, nothing else), both runs' answer equal (up to the stream's
+    leading-space fixup, as in ``chat_in_stream``) and equal to ``chat``'s
+    with the same config and seed; without an image the error message and
+    no launch."""
+    sliders = (32, 0.9, 1, 0.5)  # max_new_tokens, top_p, top_k, temperature
+    gc = dataclasses.replace(api.DEFAULT_GENERATION_CONFIG, max_new_tokens=32, top_p=0.9,
+                             top_k=1, temperature=0.5)
+    stream = gradio_demo.make_predict(bundle)
+    blocking = gradio_demo.make_predict(bundle, no_stream=True)
+    eng = bundle.engine
+    _callback_run(stream, image, sliders)  # warm-up: this config's captures
+    passes0 = dict(eng.counts)
+    _reset_counters()
+    (s_bot, s_hist), stamps = _callback_run(stream, image, sliders)
+    counts = _counters()
+    passes = {k: n - passes0[k] for k, n in eng.counts.items()}
+    _check_counts(counts, {"flash_prefill": L * passes["prefill_passes"],
+                           "flash_decode": L * passes["decode_passes"]})
+    (b_bot, b_hist), b_stamps = _callback_run(blocking, image, sliders)
+    if len(b_stamps) != 1:
+        raise RuntimeError(f"the blocking callback yielded {len(b_stamps)} times")
+    s_text, b_text = s_hist[-1]["value"], b_hist[-1]["value"]
+    question = gradio_demo.parse_text(PROMPT)
+    if (s_hist[:-1] != b_hist[:-1] or s_text.lstrip(" ") != b_text.lstrip(" ")
+            or s_bot != [(question, gradio_demo.convert_markdown(s_text))]
+            or b_bot != [(question, gradio_demo.convert_markdown(b_text))]):
+        raise RuntimeError(f"callback: streamed {s_bot} / {s_hist} != blocking {b_bot} / "
+                           f"{b_hist}")
+    want, _ = api.chat(bundle, image, PROMPT, [], gc, verbose=False)
+    if b_text != want:
+        raise RuntimeError(f"callback answer {b_text!r} != chat's {want!r}")
+    _reset_counters()
+    empty = list(blocking(PROMPT, None, None, [("q", "a")], *sliders, [], "Upload"))
+    if empty != [([(PROMPT, gradio_demo.EMPTY_IMAGE)], [])] or any(_counters().values()):
+        raise RuntimeError(f"no-image callback yielded {empty}, launched {_counters()}")
+    n = len(stamps)
+    return {"ttft_ms": stamps[0] * 1e3, "tok_s": (n - 1) / (stamps[-1] - stamps[0]),
+            "tokens": n, "launches": {k: v for k, v in counts.items() if v},
+            "blocking_s": b_stamps[0]}
+
+
+def _apps_plugin(bundle, cfg) -> dict:
+    """(b) The webui plugin over a ``VisionPipeline`` of phase 4's towers,
+    a stand-in webui ``shared`` on the card in bf16, 2 seeded images: the
+    (128, 4096) bf16 output on the card, bitwise the JAX contract's host
+    round trip (``VisionPipeline.embed_images``: f32 numpy, cast back) and
+    the model's own ``encode_image`` of the same pixels; row block 0 against
+    the chat's encode of that image alone (B=1: GEMMs of another shape, so
+    within EMBED_REL_TOL of the largest value, as bf16 rounding through 30
+    layers allows).  Warm host and device ms (CUDA events around the call,
+    host gaps included), medians of 5, for the plugin's call, the round
+    trip and the host preprocessing both start with."""
+    class Shared:  # webui's modules.shared, as much as the plugin reads
+        class model:
+            device = torch.device("cuda")
+            dtype = torch.bfloat16
+
+    from PIL import Image
+
+    images = [Image.fromarray(random_image(SEED + 70 + k)) for k in range(2)]
+    pipe = VisionPipeline(bundle.model, cfg)
+    plugin = webui_plugin.VisualCLA_7B_Torch_Pipeline.__new__(
+        webui_plugin.VisualCLA_7B_Torch_Pipeline)
+    plugin.pipeline = pipe
+    keep = webui_plugin._shared
+    webui_plugin._shared = lambda: Shared
+    try:
+        got = plugin.embed_images(images)
+        H = cfg.text_config.hidden_size
+        T = cfg.num_image_tokens
+        if (tuple(got.shape) != (2 * T, H) or got.dtype != torch.bfloat16
+                or got.device.type != "cuda"):
+            raise RuntimeError(f"plugin output {tuple(got.shape)} {got.dtype} {got.device}")
+
+        def round_trip():
+            return torch.from_numpy(pipe.embed_images(images)).reshape(-1, H).to(
+                "cuda", torch.bfloat16)
+
+        if not torch.equal(got, round_trip()):
+            raise RuntimeError("plugin output differs from the host round trip")
+        px = torch.from_numpy(pipe.image_processor(images)["pixel_values"]).to(
+            "cuda", torch.bfloat16)
+        with torch.no_grad():
+            own = encode_image(bundle.model, cfg, px).reshape(-1, H)
+            alone = encode_image(bundle.model, cfg, px[:1])[0]
+        if not torch.equal(got, own):
+            raise RuntimeError("plugin output differs from encode_image of the same pixels")
+        diff0 = (got[:T].float() - alone.float()).abs().max().item()
+        rel0 = _rel(got[:T], alone)
+        if rel0 > EMBED_REL_TOL:
+            raise RuntimeError(f"row block 0 differs from the B=1 encode by {diff0} "
+                               f"({rel0:.3e} of its largest value)")
+        times = {name: _host_and_event_ms(fn) for name, fn in
+                 (("plugin", lambda: plugin.embed_images(images)), ("round_trip", round_trip),
+                  ("preprocess", lambda: pipe.image_processor(images)))}
+    finally:
+        webui_plugin._shared = keep
+    return {"block0_diff": diff0, "block0_rel": rel0, **times}
+
+
+def _host_and_event_ms(fn, n: int = 5) -> dict:
+    """Warm medians of ``fn()``: host ms (synchronized) and device ms (CUDA
+    events around the call on the current stream)."""
+    fn()
+    host, dev = [], []
+    for _ in range(n):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        dev.append(start.elapsed_time(end))
+    return {"host_ms": statistics.median(host), "device_ms": statistics.median(dev)}
+
+
+def _apps_profiling(bundle, tokenizer, image) -> dict:
+    """(c) ``utils.profiling`` on phase 4's engine: 3 greedy ``generate``s
+    of 32 tokens (the timer's summary ``prefill`` x3 and ``decode`` x3;
+    ``GLOBAL_COUNTERS`` up by 3 x gen_len tokens and 3 requests), a
+    speculative ``generate`` (``spec_chunks`` up by its chunks), and
+    ``trace`` around one greedy ``generate``, whose file must name B1's and
+    B2's CUDA symbols."""
+    eng = bundle.engine
+    enc = encoding_text([], PROMPT, bundle.num_patch, tokenizer)
+    ids = enc["input_ids"]
+    pv = bundle.image_processor(image)["pixel_values"]
+    pos = img_marker_positions(ids, tokenizer.img_start_token_id)
+    greedy = SamplingConfig.greedy(max_new_tokens=32)
+    eng.generate(ids, pv, pos, greedy)  # warm
+    eng.timer.reset()
+    c0 = profiling.GLOBAL_COUNTERS.snapshot()
+    outs = [eng.generate(ids, pv, pos, greedy) for _ in range(3)]
+    summary = eng.timer.summary()
+    c1 = profiling.GLOBAL_COUNTERS.snapshot()
+    delta = {k: c1.get(k, 0) - c0.get(k, 0) for k in ("generated_tokens", "requests")}
+    gen_len = outs[0].shape[1]
+    if ({k: v["count"] for k, v in summary.items()} != {"prefill": 3, "decode": 3}
+            or delta != {"generated_tokens": 3 * gen_len, "requests": 3}):
+        raise RuntimeError(f"timer {summary}, counters moved by {delta} for 3 x {gen_len}")
+    dec = bundle.speculative_decoder()
+    spec_ids = dec.generate(ids, pv, pos, greedy)
+    c2 = profiling.GLOBAL_COUNTERS.snapshot()
+    chunks = dec.last_stats["chunks"]
+    spec_delta = {k: c2.get(k, 0) - c1.get(k, 0)
+                  for k in ("generated_tokens", "requests", "spec_chunks")}
+    want = {"generated_tokens": spec_ids.shape[1], "requests": 1, "spec_chunks": chunks}
+    if spec_delta != want or eng.timer.summary()["decode"]["count"] != 4:
+        raise RuntimeError(f"speculative generate moved the counters by {spec_delta}, "
+                           f"expected {want}")
+    with tempfile.TemporaryDirectory() as d:
+        with profiling.trace(d):
+            eng.generate(ids, pv, pos, greedy)
+        path = os.path.join(d, "trace.json")
+        trace_bytes = os.path.getsize(path)
+        with open(path) as f:
+            text = f.read()
+    symbols = {"B1": "flash_decode_split_kernel", "B2": "flash_attention_wgmma_kernel"}
+    missing = [k for k, s in symbols.items() if s not in text]
+    if missing:
+        raise RuntimeError(f"the trace names no {missing} kernel ({trace_bytes} bytes)")
+    return {"prefill_p50_ms": summary["prefill"]["p50_ms"],
+            "decode_p50_ms": summary["decode"]["p50_ms"], "gen_len": gen_len,
+            "spec_chunks": chunks, "trace_mb": trace_bytes / 2**20,
+            "b1_events": text.count(symbols["B1"]), "b2_events": text.count(symbols["B2"])}
+
+
+def phase_apps(smi: str, cfg, tokenizer, bundle, sl) -> dict:
+    """The reference's front ends on phase 4's bf16 model: (a) the Gradio
+    demo's callback, (b) the webui plugin's ``embed_images``, (c) the
+    profiling utilities (see the helpers).  The parity harness is not run
+    here: it needs transformers and the reference's own checkout and
+    checkpoint, which this machine lacks; the CPU tests hold it."""
+    L = cfg.text_config.num_hidden_layers
+    image = random_image(SEED)
+    cb = _apps_callback(bundle, image, L)
+    plug = _apps_plugin(bundle, cfg)
+    prof = _apps_profiling(bundle, tokenizer, image)
+    loop, start = sl["loop"], sl["start"]
+    print(f"[12 apps] (a) Gradio callback (sliders 32 tokens, top-k 1, top-p .9, temperature "
+          f".5), rendered with convert_markdown: streamed and blocking equal, equal to chat's answer; "
+          f"launches {cb['launches']}; TTFT {cb['ttft_ms']:.1f} ms (first yield), "
+          f"{cb['tok_s']:.1f} tok/s over {cb['tokens']} yields, blocking "
+          f"{cb['blocking_s'] * 1e3:.1f} ms (phase 4: TTFT {sl['ttft_ms']:.1f} ms, "
+          f"{sl['decode_tok_s']:.1f} tok/s); no-image call: the message, no launch; "
+          f"(b) webui plugin on 2 seeded PIL images: (128, 4096) bf16 on the card, bitwise "
+          f"the host round trip and encode_image of the same pixels, row block 0 vs the B=1 "
+          f"encode max diff {plug['block0_diff']:.3e} ({plug['block0_rel']:.3e} of the "
+          f"largest value); plugin {plug['plugin']['host_ms']:.2f} "
+          f"ms host / {plug['plugin']['device_ms']:.2f} ms device vs round trip "
+          f"{plug['round_trip']['host_ms']:.2f} / {plug['round_trip']['device_ms']:.2f} "
+          f"(warm, medians of 5; CUDA events around each call: host gaps included), both "
+          f"starting with {plug['preprocess']['host_ms']:.2f} ms of host preprocessing; (c) profiling: 3 greedy generates of {prof['gen_len']} "
+          f"tokens, timer prefill p50 {prof['prefill_p50_ms']:.2f} ms, decode p50 "
+          f"{prof['decode_p50_ms']:.2f} ms (host, synced; phase 4: captured start "
+          f"{start['warm_device_ms']:.2f} ms device, decode {loop['step_ms']:.3f} ms a step "
+          f"x {prof['gen_len'] - 1} = {loop['step_ms'] * (prof['gen_len'] - 1):.2f} ms, CUDA "
+          f"events), counters exact, speculative generate {prof['spec_chunks']} spec_chunks; "
+          f"trace {prof['trace_mb']:.2f} MB naming B1 {prof['b1_events']}x and B2 "
+          f"{prof['b2_events']}x; card {smi}", flush=True)
+    return {"callback": cb, "plugin": plug, "profiling": prof}
 
 
 def _beam_config(**kw) -> SamplingConfig:
@@ -3702,6 +3944,7 @@ def main() -> int:
     launches = sl["launches"]
     beams = timed("4b beams", phase_beams, info["smi"], cfg, tokenizer, sl["bundle"])
     timed("4f concurrency", phase_concurrency, info["smi"], cfg, tokenizer, sl["bundle"])
+    timed("12 apps", phase_apps, info["smi"], cfg, tokenizer, sl["bundle"], sl)
     vision = timed("4v vision", phase_vision, info["smi"], cfg, tokenizer, sl.pop("bundle"))
     launches4 = timed("5 int4", phase_int4, info["smi"], cfg, tokenizer)["launches"]
     timed("6 int8", phase_int8, info["smi"], cfg, tokenizer)

@@ -44,8 +44,35 @@ def test_port_never_imports_jax():
             "from visualcla_tpu_torch.processor import native_img, pil_resample\n"
             "from visualcla_tpu_torch.train import (trainer, lora, data, checkpointing,\n"
             "                                        run_training)\n"
+            "from visualcla_tpu_torch.apps import gradio_demo, parity_check\n"
+            "from visualcla_tpu_torch.utils import profiling\n"
+            "from visualcla_tpu_torch.integrations.text_generation_webui.visualcla_torch_pipeline \\\n"
+            "    import pipelines, visualcla as webui_visualcla, chat_picture\n"
             "bad = sorted(m for m in sys.modules if m in ('jax', 'visualcla_tpu')\n"
             "             or m.startswith(('jax.', 'visualcla_tpu.')))\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_new_front_ends_import_lazily():
+    """The Gradio demo, the parity harness, the profiling utilities and the
+    webui plugin import without gradio, transformers, markdown or a webui
+    checkout (``extensions`` / ``modules``), and pull none of them in; the
+    plugin's base class is then its own stand-in."""
+    code = ("import sys\n"
+            "for name in ('gradio', 'extensions', 'modules'):\n"
+            "    sys.modules[name] = None  # importing it raises ImportError\n"
+            "from visualcla_tpu_torch.apps import gradio_demo, parity_check\n"
+            "from visualcla_tpu_torch.utils import profiling\n"
+            "from visualcla_tpu_torch.integrations.text_generation_webui.visualcla_torch_pipeline \\\n"
+            "    import pipelines, visualcla, chat_picture\n"
+            "assert pipelines.available_pipelines == ['visualcla-7b-torch']\n"
+            "assert visualcla.AbstractMultimodalPipeline.__module__ == visualcla.__name__\n"
+            "bad = sorted(m for m in sys.modules if sys.modules[m] is not None and\n"
+            "             m.split('.')[0] in ('jax', 'visualcla_tpu', 'transformers',\n"
+            "                                 'markdown', 'gradio'))\n"
             "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
                           capture_output=True, text=True, timeout=120)
@@ -114,6 +141,36 @@ def test_vision_pipeline_and_repl_raise_without_a_gpu(tmp_path):
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr + proc.stdout
     assert "raised" in proc.stdout and "Usage" in proc.stdout
+
+
+def test_plugin_and_parity_harness_raise_without_a_gpu(tmp_path):
+    """Without a GPU the webui plugin (it loads its pipeline on the card)
+    and the parity harness (unless given ``device="cpu"``) raise."""
+    from tests.test_api import make_native_ckpt
+
+    path, _ = make_native_ckpt(str(tmp_path))
+    code = ("import sys, types, torch\n"
+            "assert not torch.cuda.is_available()\n"
+            "ckpt = sys.argv[1]\n"
+            "shared = types.SimpleNamespace(settings={'visualcla_merged_model': ckpt})\n"
+            "sys.modules['modules'] = types.SimpleNamespace(shared=shared)\n"
+            "from visualcla_tpu_torch.apps import parity_check\n"
+            "from visualcla_tpu_torch.integrations.text_generation_webui.visualcla_torch_pipeline \\\n"
+            "    import visualcla\n"
+            "for run in (lambda: visualcla.VisualCLA_7B_Torch_Pipeline({}),\n"
+            "            lambda: parity_check.run_parity(ckpt, None, [], '',\n"
+            "                                            resampler_module=object())):\n"
+            "    try:\n"
+            "        run()\n"
+            "        raise SystemExit('ran without a GPU')\n"
+            "    except RuntimeError as e:\n"
+            "        assert 'device=\"cpu\"' in str(e), e\n"
+            "print('raised')\n")
+    proc = subprocess.run([sys.executable, "-c", code, path], cwd=ROOT,
+                          env=_env(CUDA_VISIBLE_DEVICES=""), capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr + proc.stdout
+    assert "raised" in proc.stdout
 
 
 def test_chip_smoke_fails_without_a_gpu():

@@ -48,6 +48,7 @@ from ..core.config import VisualCLAConfig
 
 from ..models import llama, visualcla
 from ..ops.attention import vision_attention_impl
+from ..utils.profiling import GLOBAL_COUNTERS, PhaseTimer
 from .graphs import LOCK, Graphs
 from .sampling import SamplingConfig, sample_step
 
@@ -202,6 +203,7 @@ class Engine:
         self._workspaces: collections.OrderedDict = collections.OrderedDict()
         self._lock = threading.Lock()  # guards the workspaces' claims
         self.graphs = Graphs()
+        self.timer = PhaseTimer()  # generate's prefill / decode phases
         # forward passes run on the device by the decode steps (gated ones
         # included): each launches B1 once a layer; "spec_passes" the same
         # for the speculative decoder's verify chunks (B2 once a layer);
@@ -429,15 +431,23 @@ class Engine:
 
     def generate(self, input_ids, pixel_values=None, img_start_pos=None,
                  sampling: Optional[SamplingConfig] = None, seed: int = 0) -> np.ndarray:
-        """(B, <= max_new_tokens) generated ids."""
+        """(B, <= max_new_tokens) generated ids.  Times the "prefill" and
+        "decode" phases on ``timer`` and adds ``generated_tokens`` and
+        ``requests`` to ``GLOBAL_COUNTERS``, as the JAX engine does."""
         sampling = sampling or SamplingConfig.greedy()
-        state = self.start(input_ids, pixel_values, img_start_pos, sampling, seed)
+        with self.timer.phase("prefill") as p:
+            state = self.start(input_ids, pixel_values, img_start_pos, sampling, seed)
+            p["sync_on"] = state.last_token
         try:
-            gen_len = self.decode(state, sampling)
+            with self.timer.phase("decode"):
+                gen_len = self.decode(state, sampling)
             # a copy: on the CPU .numpy() would alias the workspace's buffer
-            return state.gen_ids[:, :gen_len].cpu().numpy().copy()
+            out = state.gen_ids[:, :gen_len].cpu().numpy().copy()
         finally:
             self.release(state.ws)
+        GLOBAL_COUNTERS.add("generated_tokens", gen_len * out.shape[0])
+        GLOBAL_COUNTERS.add("requests", out.shape[0])
+        return out
 
     def stream(self, input_ids, pixel_values=None, img_start_pos=None,
                sampling: Optional[SamplingConfig] = None,

@@ -27,6 +27,7 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
+from ..utils.profiling import GLOBAL_COUNTERS
 from .generate import DecodeState, Engine, Workspace
 from .sampling import SamplingConfig, draw, sample_step, warped_logits
 
@@ -306,16 +307,22 @@ class SpeculativeDecoder:
     def generate(self, input_ids, pixel_values=None, img_start_pos=None,
                  sampling: Optional[SamplingConfig] = None, seed: int = 0) -> np.ndarray:
         """Blocking speculative generate: Engine.generate's contract (per-row
-        pads after EOS, cut at the longest row)."""
+        pads after EOS, cut at the longest row), its phases timed on the
+        engine's ``timer``; adds ``generated_tokens``, ``requests`` and
+        ``spec_chunks`` to ``GLOBAL_COUNTERS``, as the JAX decoder does."""
+        eng = self.engine
         sampling = sampling or SamplingConfig.greedy()
-        spec, prompt_ids, prompt_start = self._start(input_ids, pixel_values, img_start_pos,
-                                                     sampling, seed)
+        with eng.timer.phase("prefill") as p:
+            spec, prompt_ids, prompt_start = self._start(input_ids, pixel_values,
+                                                         img_start_pos, sampling, seed)
+            p["sync_on"] = spec.last_token
         try:
             B = spec.gen_len.shape[0]
-            ctl = self._control(spec)
-            while ctl[0]:
-                self._run(spec, prompt_ids, prompt_start, sampling, SPEC_CHUNK)
+            with eng.timer.phase("decode"):
                 ctl = self._control(spec)
+                while ctl[0]:
+                    self._run(spec, prompt_ids, prompt_start, sampling, SPEC_CHUNK)
+                    ctl = self._control(spec)
             chunks, emitted, row_chunks = int(ctl[1]), B + int(ctl[2]), int(ctl[3])
             gen_len = ctl[4:]
             # the prefill emitted B tokens outside any chunk; each live
@@ -326,9 +333,12 @@ class SpeculativeDecoder:
                 "acceptance": (emitted - B - row_chunks) / max(row_chunks * self.spec_k, 1)}
             out = spec.gen_ids[:, :int(gen_len.max())].cpu().numpy().copy()
         finally:
-            self.engine.release(spec.ws)
+            eng.release(spec.ws)
+        GLOBAL_COUNTERS.add("generated_tokens", int(gen_len.sum()))
+        GLOBAL_COUNTERS.add("requests", B)
+        GLOBAL_COUNTERS.add("spec_chunks", chunks)
         for b in range(B):  # chunk writes past a row's end may hold pad or drafts
-            out[b, gen_len[b]:] = self.engine.pad_token_id
+            out[b, gen_len[b]:] = eng.pad_token_id
         return out
 
     def stream(self, input_ids, pixel_values=None, img_start_pos=None,
