@@ -183,6 +183,31 @@ Phases, one line of findings each:
                ``trace`` naming B1's and B2's symbols; the parity harness
                needs transformers and the reference's checkout, and runs in
                the CPU tests only;
+ 13. mesh    — (after 12) serving over a device mesh at world size 1 over
+               NCCL (a file store, no network): (a) ``distributed.
+               initialize``; (b) the factory over a (data 1, model 1) mesh
+               on a copy of phase 4's model: greedy chat, generate,
+               ``chat_in_stream``, speculative and 4-beam ids bitwise the
+               unmeshed bundle's, exact B1 / B2 launches, the collectives a
+               chat (``parallel.tp.CALLS``), TTFT and B=1 tok/s beside phase
+               4's, a profiled generate's collectives and graph launches,
+               and the device work its collectives add to the unmeshed
+               run's (at least one copy a gather); a data rank's sampled
+               row window (``global_rows``) and unsplit calls on one
+               engine, each equal to the unmeshed eager call's;
+               (c) ``PagedServingEngine(mesh=)``, 4
+               rows, bf16 then int8 pools: ids equal the unmeshed pools',
+               exact B4 launches, device ms a pass; (d) each kernel at the
+               shard shapes of one rank of a TP = 2, 4 and 8 7B (B1 / B2 at
+               32/nm heads, B2u's mesh form through ``_flash_sharded`` under
+               the (1, 1) mesh's scope, the ViT at 16/nm heads, B3's two
+               forms at 1 and 512 tokens on the rank's int4 carriers, B4 at
+               32/nm heads) against its plain version, with its bound, plain
+               and library times (summary rows ``*_tp2`` .. ``*_tp8``); (e) a
+               (data 1, seq 1) mesh: the ring prefill of a 2048-token prompt,
+               each layer's ring output against B2's on the same q/k/v, the
+               captured run's ids equal the eager one's, and an fp32
+               2-layer copy's ids equal the unmeshed engine's;
  10. the seconds each phase took, the kernel summary as one JSON line, then
      the result line.
 Exits non-zero if any phase fails.  Needs no network and no JAX.
@@ -229,7 +254,7 @@ from visualcla_tpu_torch.engine import graphs as graphs_mod
 from visualcla_tpu_torch.engine import paged as paged_mod
 from visualcla_tpu_torch.engine import server as server_mod
 from visualcla_tpu_torch.engine.generate import PROMPT_BUCKETS, Engine, pick_bucket
-from visualcla_tpu_torch.engine.sampling import SamplingConfig
+from visualcla_tpu_torch.engine.sampling import SamplingConfig, global_rows
 from visualcla_tpu_torch.integrations.text_generation_webui.visualcla_torch_pipeline import (
     visualcla as webui_plugin)
 from visualcla_tpu_torch.fixtures import (PROMPT, SEED, make_tokenizer, paged_case,
@@ -245,8 +270,11 @@ from visualcla_tpu_torch.ops.cuda import flash_attention as fa
 from visualcla_tpu_torch.ops.cuda import int4_matmul as i4
 from visualcla_tpu_torch.ops.cuda import paged_attention as pa
 from visualcla_tpu_torch.ops.cuda.bench_int4 import CROSSOVER_TOKENS
-from visualcla_tpu_torch.ops.attention import cached_attention
+from visualcla_tpu_torch.ops.attention import attention_mesh_scope, cached_attention
 from visualcla_tpu_torch.ops.quantization import dequantize_grouped, quantize_grouped, quantize_kv
+from visualcla_tpu_torch.parallel import distributed
+from visualcla_tpu_torch.parallel import tp as tp_mod
+from visualcla_tpu_torch.parallel.sharding import make_mesh
 from visualcla_tpu_torch.pipeline import CapturedEncode, VisionPipeline
 from visualcla_tpu_torch.processor.image import device_preprocess
 from visualcla_tpu_torch.utils import profiling
@@ -954,11 +982,12 @@ def _b1_pool_cases(gen, worst, failures) -> dict:
                                   "bound_by": b_by, "library_ms": lib}}
 
 
-def _b2u_check(q, k, v, valid, slot, causal, layout, sc):
-    """B2u against its plain version in fp32 on the same bf16 (or int8) inputs:
-    (max abs error, within tolerance and finite, the fully masked rows zero)."""
+def _b2u_check(q, k, v, valid, slot, causal, layout, sc, fn=None):
+    """B2u (or ``fn``, a form of it) against its plain version in fp32 on the
+    same bf16 (or int8) inputs: (max abs error, within tolerance and finite,
+    the fully masked rows zero)."""
     kw = dict(causal=causal, kv_layout=layout, **sc)
-    out = fa.flash_attention(q, k, v, valid, slot, **kw)
+    out = (fn or fa.flash_attention)(q, k, v, valid, slot, **kw)
     torch.cuda.synchronize()
     if sc:
         ref = fa.flash_attention_ref(q.float(), k, v, valid, slot, **kw)
@@ -3883,6 +3912,521 @@ def phase_train(smi: str, cfg, tokenizer) -> dict:
     return numbers
 
 
+# ---------------------------------------------------------------------------
+# phase 13: serving over a device mesh (torch.distributed, NCCL)
+# ---------------------------------------------------------------------------
+
+MESH_TP = (2, 4, 8)  # the TP degrees whose one-rank shard shapes phase 13 (d) runs
+CP_PROMPT = 2048  # phase 13 (e): the context-parallel prefill's prompt
+MESH_NOTE = ("a one-rank shard shape of a TP = {nm} 7B (this card runs world size 1): "
+             "launches are one op-level pass ({what}); the time predicts a rank's device "
+             "time under TP, not a multi-card run")
+
+
+def _copy_model(model, cfg, dtype=torch.bfloat16, text_layers=None):
+    """A new VisualCLAModel on the card with ``model``'s weights (the first
+    ``text_layers`` text layers of them, in ``dtype``)."""
+    if text_layers is not None:
+        cfg = dataclasses.replace(cfg, text_config=dataclasses.replace(
+            cfg.text_config, num_hidden_layers=text_layers))
+    new = VisualCLAModel(cfg, device="cuda", dtype=dtype)
+    src = model.state_dict()
+    new.load_state_dict({k: src[k] for k in new.state_dict()})
+    return new, cfg
+
+
+def _collectives_line(calls: dict) -> str:
+    return ", ".join(f"{k} {v}" for k, v in calls.items() if v)
+
+
+def _collective_events(prof) -> dict:
+    """The device events of a profile that a one-rank NCCL collective can be:
+    device-to-device copies (``memcpy32_post`` in a replayed graph, ``Memcpy
+    DtoD`` eagerly) and NCCL kernels, by name."""
+    out = {}
+    for e in prof.key_averages():
+        low = e.key.lower()
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.key.startswith("nccl:"):
+            continue  # nccl:* on the device is the host's annotation, not work
+        if ("memcpy" in low and "dtoh" not in low and "htod" not in low) or "nccl" in low:
+            out[e.key] = out.get(e.key, 0) + e.count
+    return out
+
+
+def _nccl_trace(meshed, plain, input_ids, pv) -> dict:
+    """One short greedy generate (its graphs captured already) profiled on
+    the meshed bundle and on the unmeshed one: the collectives issued
+    (``tp.CALLS``: a replayed graph adds what its capture issued), the graph
+    launches, and the device events that the collectives add to the same
+    work (a one-rank gather is a device-to-device copy, a one-rank in-place
+    sum nothing).  A replayed graph runs its copies as kernels or on the
+    copy engine, under other names, so the totals are compared."""
+    gen = SamplingConfig.greedy(max_new_tokens=9)
+    found = {}
+    for name, bundle in (("meshed", meshed), ("plain", plain)):
+        bundle.generate(input_ids, pixel_values=pv, generation_config=gen)  # captured already
+        torch.cuda.synchronize()
+        calls0 = dict(tp_mod.CALLS)
+        passes0 = dict(bundle.engine.counts)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            bundle.generate(input_ids, pixel_values=pv, generation_config=gen)
+            torch.cuda.synchronize()
+        found[name] = {
+            "calls": {k: tp_mod.CALLS[k] - calls0[k] for k in calls0},
+            "passes": {k: bundle.engine.counts[k] - passes0[k] for k in passes0},
+            "events": _collective_events(prof),
+            "graph_launches": sum(e.count for e in prof.key_averages()
+                                  if e.key == "cudaGraphLaunch")}
+    m, p = found["meshed"], found["plain"]
+    added = sum(m["events"].values()) - sum(p["events"].values())
+    return {"calls": m["calls"], "passes": m["passes"], "graph_launches": m["graph_launches"],
+            "plain_calls": p["calls"], "events": m["events"], "plain_events": p["events"],
+            "added": added}
+
+
+def _row_window_check(meshed, plain, input_ids, pv) -> dict:
+    """A data rank's sampled call (``global_rows``: row 1 of a 2-row batch's
+    noise, baked into the captured start and decode) and unsplit calls of
+    the same local B = 1 on the meshed engine, unsplit / split / unsplit,
+    each equal to the unmeshed engine's eager call of the same kind (eager:
+    a graph that ignored the window would make its two calls alike)."""
+    one = SamplingConfig(max_new_tokens=16)  # sampled, the reference's defaults
+
+    def run(bundle, split):
+        with (global_rows(2, 1) if split else contextlib.nullcontext()):
+            return bundle.generate(input_ids, pixel_values=pv, generation_config=one,
+                                   seed=5).tolist()
+
+    with graphs_mod.eager():
+        want = {split: run(plain, split) for split in (False, True)}
+    got = [(split, run(meshed, split)) for split in (False, True, False)]
+    if any(ids != want[split] for split, ids in got):
+        raise RuntimeError(f"row window: meshed {got} vs unmeshed {want}")
+    a, b = want[False][0], want[True][0]
+    return {"tokens": len(b), "differ": sum(x != y for x, y in zip(a, b)) + abs(len(a) - len(b))}
+
+
+def _mesh_pool(model, cfg, tokenizer, reqs, mesh, kv_quant: str) -> dict:
+    """``reqs`` on a 4-row paged pool, a first run capturing the graphs, then
+    the counted run: its ids, B4's launches against one a layer per decode
+    pass, the device ms a pass."""
+    eng = paged_mod.PagedServingEngine(
+        model, cfg, eos_token_id=tokenizer.eos_token_id, pad_token_id=tokenizer.pad_token_id,
+        pool_size=4, block_size=64, num_blocks=160, max_seq_len=2048, max_new_tokens_cap=32,
+        prompt_buckets=(128, 256, 512, 1024), sampling=SamplingConfig.greedy(32),
+        kv_quant=kv_quant, mesh=mesh)
+    _pool_run(eng, reqs, None, 24, spec=False, eager=False)  # captures
+    _reset_counters()
+    _reset_passes(eng)
+    run = _pool_run(eng, reqs, None, 24, spec=False, eager=False)
+    counts = _counters()
+    b4 = "paged_append_kv8" if kv_quant == "int8" else "paged_append"
+    L = cfg.text_config.num_hidden_layers
+    if counts[b4] != L * eng.counts["decode_passes"] or eng.counts["decode_passes"] == 0:
+        raise RuntimeError(f"meshed pool ({kv_quant}): {b4} launched {counts[b4]} times for "
+                           f"{eng.counts['decode_passes']} decode passes of {L} layers")
+    run["b4"] = counts[b4]
+    del eng
+    torch.cuda.empty_cache()
+    return run
+
+
+def _mesh_flash_cases(gen, nm, prompt_bucket, rows, failures, mesh) -> list:
+    """B1 and B2 at 32/nm heads over 32 layers (the main path's shapes), and
+    B2u's mesh form at 32/nm heads (bnsh, causal, B 2, Sq 512, S 2048) as the
+    model reaches it: ``cached_attention`` over one layer's K/V under
+    ``mesh``'s scope (``_flash_sharded``: B2u and its two gathers)."""
+    N, lines = 32 // nm, []
+    for kind, B, Sq in (("prefill", 1, prompt_bucket), ("decode", 1, 1)):
+        name = f"flash_{kind}_tp{nm}"
+        q, kc, vc, valid, slot = _kernel_case(kind, B, Sq, N, N, gen, L=32,
+                                              slot0=prompt_bucket + 16)
+        err, ok = _against_plain(kind, q, kc, vc, valid, slot, 7)
+        wrapper, plain = _wrapper_and_plain(kind)
+        L = kc.shape[0]
+        fa.reset_launch_counts()
+        for layer in range(L):
+            wrapper(q, kc, vc, valid, slot, layer)
+        torch.cuda.synchronize()
+        rows[name] = {
+            "launches": fa.LAUNCHES["flash_" + kind], "max_abs_err": err,
+            "ms": device_ms(lambda i: wrapper(q, kc, vc, valid, slot, i % L), calls=L),
+            "plain_ms": device_ms(lambda i: plain(q, kc, vc, valid, slot, i % L), calls=L),
+            **_flash_bound_and_library(kind, q, kc, vc, valid, slot, {}),
+            "note": MESH_NOTE.format(nm=nm, what="32 layers")}
+        lines.append(f"{kind} N{N} err={err:.2e} {rows[name]['ms'] * 1e3:.1f}us")
+        if not ok:
+            failures.append(f"{name} err={err:.2e}")
+        del q, kc, vc
+    dev = "cuda"
+    L, B, Sq, S = 32, 2, 512, 2048
+    slot = torch.tensor([100, 1000], dtype=torch.int32, device=dev)
+    valid = torch.arange(S, device=dev)[None, :] < slot[:, None].long() + Sq
+    valid[0, :7], valid[1, :300] = False, False
+    q = torch.randn(B, Sq, N, 128, generator=gen, device=dev).to(torch.bfloat16)
+    kc, vc = (torch.randn(L, B, N, S, 128, generator=gen, device=dev).to(torch.bfloat16)
+              for _ in range(2))
+    def mesh_form(q, k, v, valid, slot, **kw):
+        with attention_mesh_scope(mesh):
+            return cached_attention(q, k, v, valid, slot)
+
+    err, ok = _b2u_check(q, kc[7], vc[7], valid, slot, True, "bnsh", {}, fn=mesh_form)
+    fa.reset_launch_counts()
+    gathers = tp_mod.CALLS["all_gather"]
+    for layer in range(L):
+        mesh_form(q, kc[layer], vc[layer], valid, slot)
+    torch.cuda.synchronize()
+    if fa.LAUNCHES["flash_full"] != L or tp_mod.CALLS["all_gather"] - gathers != 2 * L:
+        failures.append(f"mesh form tp{nm}: {fa.LAUNCHES['flash_full']} B2u launches and "
+                        f"{tp_mod.CALLS['all_gather'] - gathers} gathers over {L} layers")
+    b_ms, b_by = _b2u_bound(q, kc[7], valid, slot, True, "bnsh", {})
+    q_slot = slot.long()[:, None] + torch.arange(Sq, device=dev)[None, :]
+    mask = (valid[:, None, :] & (torch.arange(S, device=dev)[None, None, :]
+                                 <= q_slot[:, :, None]))[:, None]
+    qt = q.transpose(1, 2)
+    name = f"flash_full_mesh_tp{nm}"
+    rows[name] = {
+        "launches": fa.LAUNCHES["flash_full"], "max_abs_err": err,
+        "ms": device_ms(lambda i: mesh_form(q, kc[i % L], vc[i % L], valid, slot), calls=L),
+        "plain_ms": device_ms(lambda i: fa.flash_attention_ref(q, kc[i % L], vc[i % L], valid,
+                                                               slot, kv_layout="bnsh"), calls=2),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": device_ms(lambda i: F.scaled_dot_product_attention(
+            qt, kc[i % L], vc[i % L], attn_mask=mask), calls=L),
+        "note": MESH_NOTE.format(nm=nm, what="32 layers") + (
+            "; through _flash_sharded on a (1, 1) mesh: B2u and its two one-rank gathers")}
+    lines.append(f"mesh form N{N} err={err:.2e} {rows[name]['ms'] * 1e3:.1f}us")
+    if not ok:
+        failures.append(f"{name} err={err:.2e}")
+    del q, kc, vc
+    return lines
+
+
+def _mesh_vit_case(gen, nm, rows, failures) -> str:
+    """The ViT's attention at 16/nm heads of hd 64 (257 tokens, causal off,
+    B 1), over its 24 layers."""
+    N, L, S, dev = 16 // nm, 24, 257, "cuda"
+    q, k, v = (torch.randn(L, 1, S, N, 64, generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    valid = torch.ones(1, S, dtype=torch.bool, device=dev)
+    slot = torch.zeros(1, dtype=torch.int32, device=dev)
+    err, ok = _b2u_check(q[7], k[7], v[7], valid, slot, False, "bsnh", {})
+    fa.reset_launch_counts()
+    for layer in range(L):
+        fa.flash_attention(q[layer], k[layer], v[layer], valid, 0, causal=False)
+    torch.cuda.synchronize()
+    b_ms, b_by = _b2u_bound(q[7], k[7], valid, slot, False, "bsnh", {})
+    name = f"flash_full_vit_tp{nm}"
+    qt, kt, vt_ = (t.transpose(2, 3) for t in (q, k, v))
+    rows[name] = {
+        "launches": fa.LAUNCHES["flash_full"], "max_abs_err": err,
+        "ms": device_ms(lambda i: fa.flash_attention(q[i % L], k[i % L], v[i % L], valid, 0,
+                                                     causal=False), calls=L),
+        "plain_ms": device_ms(lambda i: fa.flash_attention_ref(q[i % L], k[i % L], v[i % L],
+                                                               valid, 0, causal=False), calls=2),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": device_ms(lambda i: F.scaled_dot_product_attention(
+            qt[i % L], kt[i % L], vt_[i % L]), calls=L),
+        "note": MESH_NOTE.format(nm=nm, what="the ViT's 24 layers")}
+    if not ok:
+        failures.append(f"{name} err={err:.2e}")
+    return f"ViT N{N} hd64 err={err:.2e} {rows[name]['ms'] * 1e3:.1f}us"
+
+
+def _tp_int4_shapes(nm: int) -> dict:
+    """One rank's int4 carriers, (in, out), under TP = nm at the 7B shapes:
+    column shards (q/k/v/gate/up: out/nm) and row shards (o/down: G/nm whole
+    groups of 128), each leaf whole where ``_valid_spec`` says its axis does
+    not divide (down's 86 groups at nm 4 and 8, the head's 49958 columns at
+    nm 4 and 8)."""
+    out = {}
+    for name, (i, o) in {**LAYER_SHAPES, "lm_head": HEAD_SHAPE}.items():
+        if name in ("o_proj", "down_proj"):
+            G = i // 128
+            out[name] = (i // nm, o) if G % nm == 0 else (i, o)
+        else:
+            out[name] = (i, o // nm) if o % nm == 0 else (i, o)
+    return out
+
+
+def _mesh_b3_cases(gen, nm, rows, failures) -> str:
+    """B3 on one rank's carriers: both forms at 1 and 512 tokens on every
+    local shape against the plain version; the decode form's row timed at
+    T 1 and the prefill form's at T 512, per call over one decoder layer's
+    seven matmuls."""
+    shapes = _tp_int4_shapes(nm)
+    weights = {n: _b3_weight(gen, *s) for n, s in shapes.items()}
+    cells, worst = [], {"decode": 0.0, "prefill": 0.0}
+    for n, (q, s) in weights.items():
+        in_dim, out = shapes[n]
+        out_dtype = torch.float32 if n == "lm_head" else torch.bfloat16
+        for T in (1, 512):
+            x = torch.randn(T, in_dim, generator=gen, device="cuda").to(torch.bfloat16)
+            for form in i4.FORMS:
+                err, ok = _b3_check(x, q, s, out_dtype, form=form)
+                worst[form] = max(worst[form], err)
+                if not ok:
+                    failures.append(f"int4_matmul_{form}_tp{nm} ({in_dim},{out}) T{T} "
+                                    f"err={err:.2e}")
+        cells.append(f"{n} ({in_dim},{out})")
+    layer = [weights[n] for n in LAYER_SHAPES]
+    for form, T in (("decode", 1), ("prefill", 512)):
+        xs = {}
+        for q, _ in layer:
+            k = 2 * q.shape[0] * q.shape[1]
+            xs.setdefault(k, torch.randn(T, k, generator=gen, device="cuda").to(torch.bfloat16))
+
+        def run(i, fn=None):
+            for q, s in layer:
+                x = xs[2 * q.shape[0] * q.shape[1]]
+                fn(x, q, s) if fn else i4._launch(x, q, s, torch.bfloat16, form=form)
+
+        i4.reset_launch_counts()
+        run(0)
+        torch.cuda.synchronize()
+        launches = i4.LAUNCHES["int4_matmul_" + form]
+        ms = device_ms(lambda i: run(i), calls=2) / len(layer)
+        plain_ms = device_ms(lambda i: run(i, i4.int4_matmul_ref), calls=2) / len(layer)
+        dense = [dequantize_grouped(q, s, torch.bfloat16) for q, s in layer]
+        lib_ms = device_ms(lambda i: [xs[w.shape[0]] @ w for w in dense], calls=2) / len(layer)
+        del dense
+        moved = sum(nbytes(q, s) + T * 2 * (2 * q.shape[0] * q.shape[1] + q.shape[2])
+                    for q, s in layer) / len(layer)
+        ops = sum(2 * T * 2 * q.shape[0] * q.shape[1] * q.shape[2] for q, _ in layer) / len(layer)
+        b_ms, b_by = bound(moved, ops)
+        rows[f"int4_matmul_{form}_tp{nm}"] = {
+            "launches": launches, "max_abs_err": worst[form], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "note": MESH_NOTE.format(nm=nm, what=f"one decoder layer's 7 local matmuls at T {T}")}
+    return ("B3 " + ", ".join(cells) + f" err decode {worst['decode']:.2e} prefill "
+            f"{worst['prefill']:.2e}; per call {rows[f'int4_matmul_decode_tp{nm}']['ms'] * 1e3:.1f}"
+            f"us (T1) / {rows[f'int4_matmul_prefill_tp{nm}']['ms'] * 1e3:.1f}us (T512)")
+
+
+def _mesh_b4_case(nm, rows, failures) -> str:
+    """B4 at 32/nm heads: the main path's B=4 ragged rows, bf16 pool, over 32
+    layers."""
+    N = 32 // nm
+    case = paged_case([320, 383, 330, -1], N, N, L=32, layer=7, dtype=torch.bfloat16,
+                      device="cuda", seed=SEED + nm)
+    err, ok = _paged_check(pa.paged_append_attention, pa.paged_append_attention_ref, case,
+                           slice(None))
+    L = case["k_pool"].shape[0]
+    pa.reset_launch_counts()
+    for layer in range(L):
+        pa.paged_append_attention(**{**case, "layer": layer})
+    torch.cuda.synchronize()
+    b_ms, b_by = bound(*_b4_case_bytes(case))
+    name = f"paged_append_tp{nm}"
+    rows[name] = {
+        "launches": pa.LAUNCHES["paged_append"], "max_abs_err": err,
+        "ms": device_ms(lambda i: pa.paged_append_attention(**{**case, "layer": i % L}),
+                        calls=L),
+        "plain_ms": device_ms(lambda i: pa.paged_append_attention_ref(
+            **{**case, "layer": i % L}), calls=2),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "note": MESH_NOTE.format(nm=nm, what="32 layers")}
+    if not ok:
+        failures.append(f"{name} err={err:.2e}")
+    del case
+    torch.cuda.empty_cache()
+    return f"B4 N{N} err={err:.2e} {rows[name]['ms'] * 1e3:.1f}us"
+
+
+def _mesh_kernels(prompt_bucket: int, mesh) -> dict:
+    """Phase 13 (d): every kernel of the meshed path at the shard shapes of
+    one rank of a TP = 2, 4 and 8 7B, against its plain version (B2u's mesh
+    form under ``mesh``'s scope)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    rows, failures, lines = {}, [], []
+    for nm in MESH_TP:
+        parts = _mesh_flash_cases(gen, nm, prompt_bucket, rows, failures, mesh)
+        parts.append(_mesh_vit_case(gen, nm, rows, failures))
+        parts.append(_mesh_b3_cases(gen, nm, rows, failures))
+        parts.append(_mesh_b4_case(nm, rows, failures))
+        lines.append(f"TP{nm}: " + "; ".join(parts))
+        torch.cuda.empty_cache()
+    if failures:
+        raise RuntimeError(f"shard-shape kernels disagree with their plain versions: {failures}")
+    print(f"[13 mesh] (d) one rank's shard shapes, tol atol=rtol={ATOL} (B3 {B3_TOL}): "
+          + " | ".join(lines), flush=True)
+    return rows
+
+
+def _ring_check(cfg, model, tokenizer, cp, want_tol=ATOL) -> dict:
+    """Phase 13 (e): a ('data', 'seq') = (1, 1) mesh, the context-parallel
+    prefill of a 2048-token prompt: run eagerly (``graphs.eager()``) with each
+    layer's ring output held against B2's on the same q, k, v, then captured
+    (the ids equal the eager run's)."""
+    eng = Engine(model, cfg, eos_token_id=tokenizer.eos_token_id,
+                 pad_token_id=tokenizer.pad_token_id, max_seq_len=2048, mesh=cp)
+    ids = np.random.default_rng(SEED + 13).integers(
+        10, cfg.text_config.vocab_size - 10, (1, CP_PROMPT))
+    errs, ring_fn = [], llama_mod.ring_attention
+    sampling = SamplingConfig.greedy(max_new_tokens=8)
+
+    def checked(q, k, v, q_pos, kv_pos, valid, ring, **kw):
+        out = ring_fn(q, k, v, q_pos, kv_pos, valid, ring, **kw)
+        kc, vc = (t.transpose(1, 2).contiguous()[None] for t in (k, v))
+        ref = fa.flash_prefill_stacked(q, kc, vc, valid, 0, 0)
+        err = (out.float() - ref.float()).abs()
+        if not bool((err <= want_tol + want_tol * ref.float().abs()).all()):
+            raise RuntimeError(f"ring layer {len(errs)}: ring vs B2 max err {err.max().item()}")
+        errs.append(err.max().item())
+        return out
+
+    llama_mod.ring_attention = checked
+    try:
+        with graphs_mod.eager():
+            eager = eng.generate(ids, sampling=sampling)
+    finally:
+        llama_mod.ring_attention = ring_fn
+    calls0 = dict(tp_mod.CALLS)
+    eng.generate(ids, sampling=sampling)  # captures
+    t0 = time.perf_counter()
+    out = eng.generate(ids, sampling=sampling)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    calls = {k: tp_mod.CALLS[k] - calls0[k] for k in calls0}
+    if (len(errs) != cfg.text_config.num_hidden_layers or out.tolist() != eager.tolist()
+            or not np.isfinite(out).all()):
+        raise RuntimeError(f"ring prefill: {len(errs)} ring layers, captured ids "
+                           f"{out.tolist()} vs eager {eager.tolist()}")
+    return {"max_err": max(errs), "layers": len(errs), "ids": out, "s": secs, "prompt": ids,
+            "calls": calls}
+
+
+def phase_mesh(smi: str, cfg, tokenizer, sl: dict, prompt_bucket: int) -> dict:
+    """Phase 13: the meshed path at world size 1 over NCCL at full width."""
+    L = cfg.text_config.num_hidden_layers
+    bundle = sl["bundle"]  # phase 4's, unmeshed
+    store = tempfile.mkdtemp()
+    distributed.initialize("cuda", init_method=f"file://{store}/store", world_size=1, rank=0)
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    mesh = make_mesh(1, 1)
+    if dist.get_backend() != "nccl":
+        raise RuntimeError(f"the mesh runs on {dist.get_backend()}, not NCCL")
+    t0 = time.perf_counter()
+    model13, _ = _copy_model(bundle.model, cfg)
+    b13 = api.VisualCLA(model13, cfg, tokenizer, bundle.image_processor, max_seq_len=2048,
+                        mesh=mesh)
+    shard_s = time.perf_counter() - t0
+    image = random_image(SEED)
+    greedy = SamplingConfig.greedy(max_new_tokens=32)
+    enc = encoding_text([], PROMPT, b13.num_patch, tokenizer)
+    pv = b13.image_processor(image)["pixel_values"]
+    t_first = time.perf_counter()
+    for _ in api.chat_in_stream(b13, image, PROMPT, [], greedy, verbose=False):
+        ttft_first = time.perf_counter() - t_first
+        break
+    torch.cuda.synchronize()
+    calls0 = dict(tp_mod.CALLS)
+    response, counts, passes = _counted_chat(b13, image, greedy)
+    chat_calls = {k: tp_mod.CALLS[k] - calls0[k] for k in calls0}
+    _check_counts(counts, {"flash_prefill": L, "flash_decode": L * passes["decode_passes"]})
+    want, _ = api.chat(bundle, image, PROMPT, [], greedy, verbose=False)
+    if response != want:
+        raise RuntimeError(f"meshed chat {response!r} != phase 4's {want!r}")
+    ids = b13.generate(enc["input_ids"], pixel_values=pv, generation_config=greedy)[0]
+    if ids.tolist() != sl["ids"].tolist():
+        raise RuntimeError(f"meshed greedy ids {ids.tolist()} != phase 4's {sl['ids'].tolist()}")
+    ttft, rate = _streams(b13, image, greedy, response, enc["input_ids"], pv, ids)
+    spec = b13.generate(enc["input_ids"], pixel_values=pv, generation_config=greedy,
+                        speculative=True)[0]
+    spec4 = bundle.generate(enc["input_ids"], pixel_values=pv, generation_config=greedy,
+                            speculative=True)[0]
+    if spec.tolist() != spec4.tolist():
+        raise RuntimeError(f"meshed speculative ids {spec.tolist()} != phase 4's "
+                           f"{spec4.tolist()}")
+    bc = _beam_config()
+    beam = b13.generate(enc["input_ids"], pixel_values=pv, generation_config=bc)
+    beam4 = bundle.generate(enc["input_ids"], pixel_values=pv, generation_config=bc)
+    if beam.tolist() != beam4.tolist():
+        raise RuntimeError(f"meshed {BEAMS}-beam ids {beam.tolist()} != phase 4b's "
+                           f"{beam4.tolist()}")
+    trace = _nccl_trace(b13, bundle, enc["input_ids"], pv)
+    if (trace["calls"]["all_reduce"] == 0 or trace["graph_launches"] == 0
+            or trace["calls"]["all_gather"] == 0
+            or trace["added"] < trace["calls"]["all_gather"]):
+        raise RuntimeError(f"the replayed graphs lack the NCCL collectives' device work: "
+                           f"{trace}")
+    window = _row_window_check(b13, bundle, enc["input_ids"], pv)
+    # device ms a decode step, the meshed and the unmeshed engine alternated
+    pos = img_marker_positions(enc["input_ids"], tokenizer.img_start_token_id)
+    steps = {"meshed": [], "plain": []}
+    for _ in range(2):
+        for name, eng in (("meshed", b13.engine), ("plain", bundle.engine)):
+            steps[name].append(_decode_loop(eng, enc["input_ids"], pv, pos, greedy)["step_ms"])
+    print(f"[13 mesh] (a, b) torch.distributed NCCL, world size 1 (a file store), mesh "
+          f"(data 1, model 1); phase 4's bf16 7B copied and sharded in {shard_s:.1f} s; greedy "
+          f"chat, generate ids ({len(ids)}), chat_in_stream, speculative ({len(spec)} ids) and "
+          f"{BEAMS}-beam ids bitwise phase 4's; chat launches {counts} ({passes['decode_passes']} "
+          f"decode passes), collectives a chat {_collectives_line(chat_calls)}; TTFT "
+          f"{ttft * 1e3:.1f} ms warm (phase 4: {sl['ttft_ms']:.1f}), first chat "
+          f"{ttft_first * 1e3:.1f} ms (its captures); B=1 decode {rate:.1f} tok/s (phase 4: "
+          f"{sl['decode_tok_s']:.1f}); device ms a decode step (CUDA events on the replays, "
+          f"alternated) {', '.join(f'{x:.3f}' for x in steps['meshed'])} meshed vs "
+          f"{', '.join(f'{x:.3f}' for x in steps['plain'])} unmeshed; a profiled 9-token "
+          f"generate: collectives "
+          f"{_collectives_line(trace['calls'])} over {trace['passes']} passes, "
+          f"{trace['graph_launches']} graph launches; device copies and NCCL kernels "
+          f"{trace['events']} against the unmeshed run's {trace['plain_events']}: the "
+          f"collectives add {trace['added']} events, at least one for each of the "
+          f"{trace['calls']['all_gather']} gathers (NCCL runs a one-rank gather as a "
+          f"device-to-device copy and a one-rank in-place sum as nothing); a data rank's "
+          f"sampled row window (row 1 of 2: {window['tokens']} tokens, {window['differ']} of "
+          f"them unlike the unsplit call's) keys its own graphs: unsplit, split and unsplit "
+          f"calls on one engine each equal the unmeshed engine's; card {smi}", flush=True)
+    pools = {}
+    reqs = [_chat_request(bundle, tokenizer, image)]  # the chat turn and three text prompts
+    reqs += [(np.asarray(tokenizer.encode(t), np.int64), None, None)
+             for t in ("你好，请介绍一下你自己。", "图片里有什么？", "abc 123, hello!")]
+    for kv_quant in ("none", "int8"):
+        meshed = _mesh_pool(model13, cfg, tokenizer, reqs, mesh, kv_quant)
+        plain = _mesh_pool(bundle.model, cfg, tokenizer, reqs, None, kv_quant)
+        if meshed["ids"] != plain["ids"]:
+            raise RuntimeError(f"meshed {kv_quant} pool ids {meshed['ids']} != unmeshed "
+                               f"{plain['ids']}")
+        pools[kv_quant] = (meshed, plain)
+    print("[13 mesh] (c) PagedServingEngine(mesh=), 4 rows, ids equal the unmeshed pool's: "
+          + "; ".join(f"{'int8' if k == 'int8' else 'bf16'} pool B4 {m['b4']} launches "
+                      f"(one a layer a decode pass), device {m['pass_ms']:.3f} ms a pass "
+                      f"meshed vs {p['pass_ms']:.3f} unmeshed"
+                      for k, (m, p) in pools.items()) + f"; card {smi}", flush=True)
+    del b13, model13
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = _mesh_kernels(prompt_bucket, mesh)
+    cp = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "seq"))
+    model_cp, _ = _copy_model(bundle.model, cfg)
+    ring = _ring_check(cfg, model_cp, tokenizer, cp)
+    del model_cp
+    torch.cuda.empty_cache()
+    # fp32, 2 text layers: the ring path's ids equal the unmeshed engine's
+    plain32, cfg2 = _copy_model(bundle.model, cfg, torch.float32, text_layers=2)
+    want32 = Engine(plain32, cfg2, eos_token_id=tokenizer.eos_token_id,
+                    pad_token_id=tokenizer.pad_token_id, max_seq_len=2048).generate(
+        ring["prompt"], sampling=SamplingConfig.greedy(max_new_tokens=8))
+    del plain32
+    cp32, _ = _copy_model(bundle.model, cfg, torch.float32, text_layers=2)
+    got32 = _ring_check(cfg2, cp32, tokenizer, cp, want_tol=F32_TOL)
+    del cp32
+    torch.cuda.empty_cache()
+    if got32["ids"].tolist() != want32.tolist():
+        raise RuntimeError(f"fp32 CP ids {got32['ids'].tolist()} != unmeshed {want32.tolist()}")
+    print(f"[13 mesh] (e) ('data', 'seq') = (1, 1) mesh, a {CP_PROMPT}-token prompt: the "
+          f"ring prefill on all {ring['layers']} layers within atol=rtol={ATOL} of B2 on the "
+          f"same q/k/v (max err {ring['max_err']:.2e}), captured ids equal the eager run's, "
+          f"generate (8 tokens) {ring['s']:.3f} s warm, collectives of two captured runs "
+          f"{_collectives_line(ring['calls'])}; fp32 "
+          f"2-layer copy: ring within {F32_TOL} of B2 (max err {got32['max_err']:.2e}) and ids "
+          f"equal the unmeshed engine's; card {smi}", flush=True)
+    dist.destroy_process_group()
+    return {"rows": rows, "ttft_ms": ttft * 1e3, "decode_tok_s": rate, "counts": counts}
+
+
 def _kernels_vs_plain_logits(engine, input_ids, pixel_values, img_pos):
     """Last-token prefill logits through the kernels and, on the same model,
     with the kernels' plain versions swapped in."""
@@ -3945,6 +4489,8 @@ def main() -> int:
     beams = timed("4b beams", phase_beams, info["smi"], cfg, tokenizer, sl["bundle"])
     timed("4f concurrency", phase_concurrency, info["smi"], cfg, tokenizer, sl["bundle"])
     timed("12 apps", phase_apps, info["smi"], cfg, tokenizer, sl["bundle"], sl)
+    mesh = timed("13 mesh", phase_mesh, info["smi"], cfg, tokenizer, sl,
+                 pick_bucket(PROMPT_BUCKETS, prompt_len))
     vision = timed("4v vision", phase_vision, info["smi"], cfg, tokenizer, sl.pop("bundle"))
     launches4 = timed("5 int4", phase_int4, info["smi"], cfg, tokenizer)["launches"]
     timed("6 int8", phase_int8, info["smi"], cfg, tokenizer)
@@ -3979,6 +4525,11 @@ def main() -> int:
         if name in notes:
             row["note"] = notes[name]
         kernels.append(row)
+    for name, r in mesh["rows"].items():  # phase 13 (d): one rank's shard shapes
+        base = name.rsplit("_tp", 1)[0].replace("_mesh", "").replace("_vit", "")
+        source, replaces = KERNELS[base]
+        kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                        **r})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,8 @@
 """Guards of the PyTorch port: it never imports jax nor the JAX package, its
 entry points and chip_smoke.py refuse to run without a GPU unless asked for
 the CPU, the quantized load options load, beams and the reference layouts
-run, and what is not ported yet (a multi-device mesh) raises
-NotImplementedError."""
+run, a mesh that is not a torch DeviceMesh is refused, and the port's mesh
+package imports neither jax nor the JAX package."""
 import os
 import subprocess
 import sys
@@ -48,6 +48,19 @@ def test_port_never_imports_jax():
             "from visualcla_tpu_torch.utils import profiling\n"
             "from visualcla_tpu_torch.integrations.text_generation_webui.visualcla_torch_pipeline \\\n"
             "    import pipelines, visualcla as webui_visualcla, chat_picture\n"
+            "bad = sorted(m for m in sys.modules if m in ('jax', 'visualcla_tpu')\n"
+            "             or m.startswith(('jax.', 'visualcla_tpu.')))\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_parallel_imports_neither_jax_nor_the_jax_package():
+    """``visualcla_tpu_torch.parallel`` (sharding, distributed, tp, ring)
+    loads neither jax nor any module of ``visualcla_tpu``."""
+    code = ("import sys\n"
+            "from visualcla_tpu_torch.parallel import sharding, distributed, tp, ring\n"
             "bad = sorted(m for m in sys.modules if m in ('jax', 'visualcla_tpu')\n"
             "             or m.startswith(('jax.', 'visualcla_tpu.')))\n"
             "assert not bad, bad\n")
@@ -192,7 +205,9 @@ def ckpt(tmp_path_factory):
 
 @pytest.mark.parametrize("kw", [{"mesh": object()}], ids=["mesh"])
 def test_unported_load_options_raise(ckpt, kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """A mesh is served now (tests/test_torch_mesh*.py); one that is not a
+    torch ``DeviceMesh`` is refused before anything loads."""
+    with pytest.raises(TypeError, match="DeviceMesh"):
         vt.get_model_and_tokenizer_and_processor(visualcla_model=ckpt, device="cpu", **kw)
 
 

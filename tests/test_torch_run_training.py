@@ -3,7 +3,7 @@ CPU: a saved and restored state continues bit for bit, the CLI end to end at
 both stages (the merged checkpoint, the adapter, train states), ``--resume``
 equal to an uninterrupted run, the trained output chatting through the
 factory and its adapter folding to the merged model through the unmerged
-loader, and the mesh flags raising ROADMAP item 11.
+loader, and the mesh flags raising ROADMAP item 17.
 
 Tolerances: resumed runs bit for bit; the folded adapter's logits against
 the bf16 merged checkpoint's within 0.05 + 2 % (bf16 rounding of both)."""
@@ -199,7 +199,7 @@ def test_cli_stage1(run_dir):
 @pytest.mark.parametrize("flag", [["--pipeline", "2"], ["--n_data", "2"], ["--fsdp"],
                                   ["--n_micro", "2"]])
 def test_cli_mesh_flags_raise_item_11(run_dir, flag):
-    with pytest.raises(NotImplementedError, match="11: multi-device"):
+    with pytest.raises(NotImplementedError, match="17: training over a mesh"):
         main(_args(run_dir, os.path.join(run_dir["tmp"], "mesh"), "--steps", "1", *flag))
 
 

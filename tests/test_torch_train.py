@@ -446,7 +446,7 @@ def test_pipeline_mesh_raises_item_11(cfg):
     model = port_model(base_params(cfg), cfg)
     opt = t_trainer.make_optimizer()
     for fn in (t_trainer.make_train_step, t_trainer.make_train_step_subset):
-        with pytest.raises(NotImplementedError, match="11: multi-device"):
+        with pytest.raises(NotImplementedError, match="17: training over a mesh"):
             fn(model, t_cfg(cfg), opt, j_lora.lora_trainable, pipeline_mesh=object())
 
 

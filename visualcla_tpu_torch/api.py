@@ -16,8 +16,9 @@ one hypothesis take the device-resident ``beam_generate_fused`` unless
 vision side in place.  The factory loads a native checkpoint, a reference
 merged directory, or base ``text_model`` + ``vision_model`` directories with
 ``lora_model`` adapters folded in (``checkpoint/convert.py``), straight onto
-the device.  Multi-device meshes raise ``NotImplementedError`` naming ROADMAP
-item 11.
+the device.  ``mesh=`` serves over a ``torch.distributed`` device mesh
+(``parallel/``): tensor, data and context parallelism, one process per
+device, every rank making the same calls.
 """
 from __future__ import annotations
 
@@ -43,6 +44,8 @@ from .engine.generate import Engine
 from .engine.sampling import SamplingConfig
 from .engine.speculative import SpeculativeDecoder
 from .models.visualcla import VisualCLAModel
+from .ops.attention import attention_mesh_scope
+from .parallel.sharding import check_mesh
 
 logger = logging.getLogger(__name__)
 
@@ -67,6 +70,12 @@ class VisualCLA:
     """The loaded model bundle: modules on the device, the engine, and the
     host tooling (tokenizer, image processor).
 
+    ``mesh`` (a ``DeviceMesh``, ``parallel.sharding.make_mesh``): the model
+    is sharded over it (``shard_params``, unless the load sharded it
+    already) and every call runs over it.  One process per device: every
+    rank calls every method with the same arguments and gets the same
+    result.
+
     ``params_or_modules`` is a ``VisualCLAModel`` (used as it is) or the JAX
     package's parameter tree, nested or flat, as numpy arrays (converted and
     placed on ``device`` in ``dtype``; quantized leaves keep their tier).
@@ -76,13 +85,13 @@ class VisualCLA:
                  tokenizer: VisualCLATokenizer, image_processor: ImageProcessor, *,
                  dtype=torch.bfloat16, device=None, max_seq_len: int = 2048,
                  kv_quant: str = "none", mesh=None):
-        if mesh is not None:
-            raise _not_ported("a multi-device mesh", "11: multi-device")
+        check_mesh(mesh)
         if isinstance(params_or_modules, VisualCLAModel):
             model = params_or_modules
         else:  # quantized and LoRA leaves keep their form
             model = build_model(flatten_tree(params_or_modules), config,
-                                device=device or _default_device(), dtype=dtype)
+                                device=device or _default_device(), dtype=dtype, mesh=mesh)
+        self.mesh = mesh
         self.model = model
         self.config = config
         self.tokenizer = tokenizer
@@ -91,7 +100,7 @@ class VisualCLA:
         self.num_patch = config.num_image_tokens
         self.engine = Engine(model, config, eos_token_id=tokenizer.eos_token_id,
                              pad_token_id=tokenizer.pad_token_id,
-                             max_seq_len=max_seq_len, kv_quant=kv_quant)
+                             max_seq_len=max_seq_len, kv_quant=kv_quant, mesh=mesh)
         self._spec_decoders: dict = {}  # (spec_k, max_ngram) -> SpeculativeDecoder
 
     def _img_positions(self, input_ids, pixel_values) -> np.ndarray:
@@ -201,7 +210,12 @@ class VisualCLA:
 
     def _beam_row(self, sampling: SamplingConfig, ids, pix, pos, seed: int):
         """One prompt row's beam search (sampled with ``do_sample``) on the
-        engine's cache width and KV format."""
+        engine's cache width and KV format, under the engine's mesh scope
+        (over a mesh every row runs on every data rank)."""
+        with attention_mesh_scope(self.mesh):
+            return self._beam_row_scoped(sampling, ids, pix, pos, seed)
+
+    def _beam_row_scoped(self, sampling: SamplingConfig, ids, pix, pos, seed: int):
         kw = dict(eos_token_id=self.tokenizer.eos_token_id,
                   pad_token_id=self.tokenizer.pad_token_id,
                   cache_slots=self.engine.max_seq_len, kv_quant=self.engine.kv_quant)
@@ -305,13 +319,15 @@ def get_model_and_tokenizer_and_processor(
     straight onto the modules); or base ``text_model`` + ``vision_model``
     HF dirs with ``lora_model`` (one dir or a comma-separated list) folded in
     at load.  The text tower loads at the int4 tier if ``load_in_4bit``, else
-    int8 if ``load_in_8bit``, quantized on the host while it streams."""
+    int8 if ``load_in_8bit``, quantized on the host while it streams.
+    ``mesh``: the model is sharded over it; a native checkpoint is read a
+    rank's slices at a time (``load_checkpoint(mesh=)``), the other layouts
+    load whole and are sliced.  Every rank calls the factory alike."""
     from .checkpoint.convert import load_merged, load_unmerged
     from .checkpoint.serialize import load_checkpoint
 
     quantize = "int4" if load_in_4bit else ("int8" if load_in_8bit else "none")
-    if mesh is not None:
-        raise _not_ported("a multi-device mesh", "11: multi-device")
+    check_mesh(mesh)
     loras = (lora_model.split(",") if isinstance(lora_model, str)
              else list(lora_model or []))
     if visualcla_model is None and (text_model is None or vision_model is None):
@@ -325,7 +341,7 @@ def get_model_and_tokenizer_and_processor(
         model, cfg = load_unmerged(text_model, vision_model, loras, vocab_size=len(tokenizer),
                                    **kw)
     elif os.path.exists(os.path.join(visualcla_model, "params.safetensors")):
-        model, cfg = load_checkpoint(visualcla_model, **kw)
+        model, cfg = load_checkpoint(visualcla_model, mesh=mesh, **kw)
     else:
         logger.info("loading reference merged checkpoint %s", visualcla_model)
         model, cfg = load_merged(visualcla_model, **kw)
@@ -336,7 +352,7 @@ def get_model_and_tokenizer_and_processor(
         image_processor = ImageProcessor(image_size=cfg.vision_config.image_size)
     image_processor.patch_size = cfg.vision_config.patch_size
     bundle = VisualCLA(model, cfg, tokenizer, image_processor,
-                       max_seq_len=max_seq_len, kv_quant=kv_quant)
+                       max_seq_len=max_seq_len, kv_quant=kv_quant, mesh=mesh)
     return bundle, tokenizer, VisualCLAProcessor(image_processor, tokenizer)
 
 

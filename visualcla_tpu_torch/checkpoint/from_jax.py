@@ -202,15 +202,24 @@ def _shapes(flat: Dict[str, object]) -> Dict[str, Tuple[tuple, object]]:
     return out
 
 
-def params_from_jax(flat: Dict[str, object], cfg: VisualCLAConfig) -> Dict[str, torch.Tensor]:
+def params_from_jax(flat: Dict[str, object], cfg: VisualCLAConfig,
+                    specs: Optional[Dict[str, tuple]] = None, mesh=None
+                    ) -> Dict[str, torch.Tensor]:
     """Flat JAX params (numpy arrays or CPU tensors) -> the state dict of a
     ``VisualCLAModel(cfg)`` (with ``wrap_lora_(model, lora_specs(...))``
-    applied when the tree holds LoRA leaves)."""
+    applied when the tree holds LoRA leaves).  With ``mesh`` and the model's
+    ``specs`` (``parallel.sharding.state_specs``): each tensor is this
+    rank's slice, cut from the numpy leaf before anything is copied."""
+    from ..parallel.sharding import local_slice
+
     state: Dict[str, torch.Tensor] = {}
     for key, value in flat.items():
         if not cfg.use_visual_resampler and key.startswith("resampler/"):
             continue
-        state.update(leaf_to_state(key, value))
+        for name, t in leaf_to_state(key, value):
+            if mesh is not None and any(specs.get(name, ())):
+                t = t[local_slice(specs[name], tuple(t.shape), mesh)]
+            state[name] = t
     if cfg.use_visual_resampler and "resampler.head_mask" not in state:
         rcfg = cfg.visual_resampler_config  # no pruned heads: all ones
         state["resampler.head_mask"] = torch.ones(rcfg.num_hidden_layers,
@@ -219,18 +228,29 @@ def params_from_jax(flat: Dict[str, object], cfg: VisualCLAConfig) -> Dict[str, 
 
 
 def build_model(flat: Dict[str, object], cfg: VisualCLAConfig, *, device, dtype,
-                towers: bool = False) -> nn.Module:
+                towers: bool = False, mesh=None) -> nn.Module:
     """A ``VisualCLAModel`` (or ``VisionTowers`` with ``towers``) at the tree's
-    weight tier with its LoRA wrappers, loaded from the flat JAX tree."""
+    weight tier with its LoRA wrappers, loaded from the flat JAX tree.  With
+    ``mesh`` the model holds this rank's shards only (built at their shapes,
+    each cut from the JAX leaf on the host) and is set up to run over the
+    mesh."""
     from ..models.visualcla import VisionTowers, VisualCLAModel
 
+    at = "meta" if mesh is not None else device
     if towers:
-        model = VisionTowers(cfg, device=device, dtype=dtype)
+        model = VisionTowers(cfg, device=at, dtype=dtype)
     else:
-        model = VisualCLAModel(cfg, device=device, dtype=dtype, quant=weight_tier(flat),
+        model = VisualCLAModel(cfg, device=at, dtype=dtype, quant=weight_tier(flat),
                                head_quant=head_tier(flat))
     wrap_lora_(model, lora_specs(_shapes(flat)))
-    model.load_state_dict(params_from_jax(flat, cfg))
+    if mesh is None:
+        model.load_state_dict(params_from_jax(flat, cfg))
+        return model
+    from ..parallel import sharding, tp
+
+    specs = sharding.materialize_local(model, mesh, device)
+    model.load_state_dict(params_from_jax(flat, cfg, specs, mesh))
+    tp.attach(model, mesh, specs)
     return model
 
 

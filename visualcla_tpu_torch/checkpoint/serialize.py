@@ -58,6 +58,25 @@ def iter_safetensors(path: str, prefixes=None) -> Iterator[Tuple[str, torch.Tens
         yield key, (t.view(torch_dtype) if torch_dtype == torch.bfloat16 else t)
 
 
+READ_BYTES = [0]  # bytes copied out of mapped files by read_slice
+
+
+def read_slice(path: str, key: str, index: tuple, header=None) -> torch.Tensor:
+    """The slice ``index`` of leaf ``key`` of a mapped safetensors file: only
+    those bytes are copied out of the map (counted in ``READ_BYTES``)."""
+    if header is None:
+        header = read_header(path)
+    meta, offset = header[0][key], header[1]
+    np_dtype, torch_dtype = _DTYPES[meta["dtype"]]
+    start, end = meta["data_offsets"]
+    view = np.memmap(path, dtype=np.uint8, mode="r", offset=offset + start,
+                     shape=(end - start,)).view(np_dtype).reshape(meta["shape"])
+    arr = np.array(view[index])
+    READ_BYTES[0] += arr.nbytes
+    t = torch.from_numpy(arr)
+    return t.view(torch_dtype) if torch_dtype == torch.bfloat16 else t
+
+
 def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
     return dict(iter_safetensors(path))
 
@@ -148,7 +167,7 @@ def save_checkpoint(out_dir: str, params: dict, cfg: VisualCLAConfig,
 
 
 def load_checkpoint(ckpt_dir: str, *, device=None, dtype=torch.bfloat16,
-                    quantize: str = "none"):
+                    quantize: str = "none", mesh=None):
     """-> (VisualCLAModel on ``device`` in ``dtype``, VisualCLAConfig).  Leaves
     stream from the file one at a time straight into the module's tensors.
 
@@ -157,20 +176,50 @@ def load_checkpoint(ckpt_dir: str, *, device=None, dtype=torch.bfloat16,
     slice at a time, as the JAX loader does: the layer matmuls and the LM
     head per output channel (int8) or grouped (int4, group
     ``effective_group(in)``), the embedding table per row (int8 at both
-    tiers).  The dense original of a quantized leaf never reaches the device."""
+    tiers).  The dense original of a quantized leaf never reaches the device.
+
+    ``mesh``: the model is built at this rank's shard shapes
+    (``parallel.sharding``) and each leaf is read a layer at a time, only
+    the rank's slice of it copied out of the map; a leaf quantized on load is
+    read whole, quantized, then sliced (an int8 scale is the whole
+    contraction's)."""
     from ..models.visualcla import VisualCLAModel
 
     check_quantize(quantize)
     cfg = VisualCLAConfig.from_pretrained(ckpt_dir)
     path = os.path.join(ckpt_dir, "params.safetensors")
-    header, _ = read_header(path)
-    model = VisualCLAModel(cfg, device=device, dtype=dtype, quant=quantize)
-    wrap_lora_(model, lora_specs({k: (tuple(m["shape"]), m["dtype"])
+    header, offset = read_header(path)
+    shapes = {k: tuple(m["shape"]) for k, m in header.items() if k != "__metadata__"}
+    model = VisualCLAModel(cfg, device="meta" if mesh is not None else device, dtype=dtype,
+                           quant=quantize)
+    wrap_lora_(model, lora_specs({k: (shapes[k], m["dtype"])
                                   for k, m in header.items() if k != "__metadata__"}))
-    placer = StatePlacer(model, cfg, quantize)
-    for key, value in iter_safetensors(path):
-        placer.put(key, value)
+    if mesh is None:
+        placer = StatePlacer(model, cfg, quantize)
+        for key, value in iter_safetensors(path):
+            placer.put(key, value)
+        placer.finish()
+        return model, cfg
+    from ..parallel import sharding, tp
+
+    specs = sharding.materialize_local(model, mesh, device)
+    if model.resampler is not None:
+        model.resampler.head_mask.fill_(1.0)  # no pruned heads unless the file says so
+    placer = StatePlacer(model, cfg, quantize, specs=specs, mesh=mesh)
+    leaf = sharding.leaf_specs(shapes, mesh)
+    for key, shape in shapes.items():
+        if not cfg.use_visual_resampler and key.startswith("resampler/"):
+            continue
+        whole = quantize != "none" and key in INT8_TEXT_LEAVES
+        stacked = len(key.split("/")) > 2 and key.split("/")[1] == "layers"
+        spec = (None,) * len(shape) if whole else leaf[key]
+        for l in (range(shape[0]) if stacked else [None]):
+            idx = sharding.local_slice(spec[1:] if stacked else spec,
+                                       shape[1:] if stacked else shape, mesh)
+            placer.put(key, read_slice(path, key, ((l,) if stacked else ()) + idx,
+                                       (header, offset)), layer=l)
     placer.finish()
+    tp.attach(model, mesh, specs)
     return model, cfg
 
 
@@ -185,10 +234,12 @@ class StatePlacer:
     tower's leaves on the host first at the int8 / int4 tier; ``finish``
     raises if a tensor of the model was never written."""
 
-    def __init__(self, model, cfg: VisualCLAConfig, quantize: str = "none"):
+    def __init__(self, model, cfg: VisualCLAConfig, quantize: str = "none", *,
+                 specs=None, mesh=None):
         check_quantize(quantize)
         self.state = model.state_dict()
         self.cfg, self.quantize = cfg, quantize
+        self.specs, self.mesh = specs, mesh  # over a mesh: a whole leaf is sliced
         self.seen = set()
 
     def put(self, key: str, value, layer=None) -> None:
@@ -204,6 +255,10 @@ class StatePlacer:
         for name, t in leaf_to_state(key, value, layer):
             if name not in self.state:
                 raise KeyError(f"checkpoint leaf {key!r} maps to unknown {name!r}")
+            if self.mesh is not None and tuple(t.shape) != tuple(self.state[name].shape):
+                from ..parallel.sharding import local_slice
+
+                t = t[local_slice(self.specs[name], tuple(t.shape), self.mesh)]
             self.state[name].copy_(t)
             self.seen.add(name)
 

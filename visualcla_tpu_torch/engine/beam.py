@@ -137,6 +137,7 @@ def _prefill_row(model, cfg, input_ids, pixel_values, img_start_pos, alloc: int,
     ids = torch.as_tensor(np.asarray(input_ids, np.int64), device=dev)
     embeds = visualcla.multimodal_embeds(model, cfg, ids, img_pos, pixel_values)
     cache = llama.init_kv_cache(cfg.text_config, 1, alloc, dtype, device=dev,
+                                kv_heads=model.text.kv_heads,
                                 kv_quant=kv_quant)
     kv_valid = torch.zeros(1, alloc, dtype=torch.bool, device=dev)
     kv_valid[:, :S] = True
@@ -414,7 +415,7 @@ class _FusedBeam:
         self.text, self.nb, self.T = model.text, nb, T
         self.kv_quant = kv_quant
         self.cache = llama.init_kv_cache(cfg.text_config, nb, alloc, p.dtype, device=dev,
-                                         kv_quant=kv_quant)
+                                         kv_quant=kv_quant, kv_heads=model.text.kv_heads)
         self.kv_valid = torch.zeros(nb, alloc, dtype=torch.bool, device=dev)
         i64 = dict(dtype=torch.int64, device=dev)
         f32 = dict(dtype=torch.float32, device=dev)

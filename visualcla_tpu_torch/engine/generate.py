@@ -18,7 +18,8 @@ finished, ``cur_slot < Smax``); it is captured once per key and replayed
 tensor, until the host sees the ``cond`` false.  ``start`` (the JAX
 package's jitted prefill and first sample) is captured too, one graph per
 (B, bucket, cache length, image count and size, vision attention, the
-sampler's static config): the host pads the prompt, checks the markers and
+sampler's static config, the data rank's row window of the sampler's
+noise): the host pads the prompt, checks the markers and
 copies ids, mask, marker positions and pixels into the workspace's static
 buffers of that shape, then replays the cache reset, the image encode and
 splice, the text tower at the bucket (kernel B2), the last position's
@@ -36,6 +37,7 @@ KV cache, 1.07 GB for B=1 at 2048 bf16 slots at 7B) and
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import itertools
 import threading
@@ -47,10 +49,12 @@ import torch
 from ..core.config import VisualCLAConfig
 
 from ..models import llama, visualcla
-from ..ops.attention import vision_attention_impl
+from ..ops.attention import attention_mesh_scope, vision_attention_impl
+from ..parallel import tp
+from ..parallel.sharding import bind
 from ..utils.profiling import GLOBAL_COUNTERS, PhaseTimer
 from .graphs import LOCK, Graphs
-from .sampling import SamplingConfig, sample_step
+from .sampling import SamplingConfig, current_rows, global_rows, sample_step
 
 PROMPT_BUCKETS = (128, 256, 512, 1024, 2048)
 DECODE_CHUNK = 8  # decode steps (replays of the captured step) between host reads
@@ -86,7 +90,8 @@ class Workspace:
         self.key = (B, cache_len)
         self.busy = False  # claimed by a request (Engine.workspace .. release)
         self.cache = llama.init_kv_cache(eng.cfg.text_config, B, cache_len, eng.dtype,
-                                         device=dev, kv_quant=eng.kv_quant)
+                                         device=dev, kv_quant=eng.kv_quant,
+                                         kv_heads=eng.model.text.kv_heads)
         self.kv_valid = torch.zeros(B, cache_len, dtype=torch.bool, device=dev)
         self.gen_ids = torch.zeros(B, cache_len, dtype=torch.int64, device=dev)
         z = dict(dtype=torch.int64, device=dev)
@@ -174,7 +179,21 @@ class DecodeState:
 
 
 class Engine:
-    """Prefill and decode for one model on one device."""
+    """Prefill and decode for one model on one device, or over a mesh.
+
+    ``mesh``: a ``DeviceMesh`` with dims ("data", "model") or ("data",
+    "seq") (``parallel.sharding.make_mesh``), the model sharded over it
+    (``shard_params``; done here if it is not yet).  The engine's programs
+    run on every rank with the same arguments (one process per device,
+    explicit SPMD) and every rank returns the same result.  The cache holds
+    the rank's kv heads (``model``); ``generate`` splits the rows over a
+    ``data`` axis of more than one rank where they divide and gathers the
+    generated ids at the end (padded to the longest), the sampler's noise
+    drawn for the whole batch;
+    with a ``seq`` axis that divides the prompt bucket the prefill is
+    context-parallel (each rank a chunk, ``ring_attention``).  ``stream``
+    splits the rows too and gathers each host read's tokens; the speculative
+    decoder and beams run every row on every data rank."""
 
     def __init__(
         self,
@@ -185,7 +204,11 @@ class Engine:
         pad_token_id: int = 0,
         max_seq_len: int = 2048,
         kv_quant: str = "none",  # "int8": int8 K/V with per-token-per-head scales
+        mesh=None,
     ):
+        bind(model, mesh)
+        self.mesh = mesh
+        self.data, self.ring = tp.axis(mesh, "data"), tp.axis(mesh, "seq")
         if kv_quant not in ("none", "int8"):
             raise ValueError(f"kv_quant must be 'none' or 'int8', got {kv_quant!r}")
         self.kv_quant = kv_quant
@@ -294,7 +317,8 @@ class Engine:
         positions = (inp.mask.cumsum(-1) - 1).clamp(min=0)
         ws.kv_valid.zero_()
         ws.kv_valid[:, :inp.ids.shape[1]] = inp.mask.bool()
-        hidden, _ = self.model.text(embeds, positions, ws.cache, ws.kv_valid, 0)
+        ring = self.ring if self.ring and inp.ids.shape[1] % self.ring.size == 0 else None
+        hidden, _ = self.model.text(embeds, positions, ws.cache, ws.kv_valid, 0, ring=ring)
         self.counts["prefill_passes"] += 1
         return hidden, positions
 
@@ -311,7 +335,7 @@ class Engine:
             ws = self.workspace(np.asarray(input_ids).shape[0], cache_len)
         try:
             inp = self.stage_prompt(ws, input_ids, pixel_values, img_start_pos)
-            with LOCK:
+            with LOCK, attention_mesh_scope(self.mesh):
                 hidden, positions = self._prefill_device(ws, inp)
             return hidden, ws.cache, ws.kv_valid, positions
         finally:
@@ -357,10 +381,12 @@ class Engine:
             inp = self.stage_prompt(ws, input_ids, pixel_values, img_start_pos)
             ws.generator.manual_seed(seed)
             ws.max_steps.fill_(sampling.max_new_tokens)
-            self.graphs.run((ws.token, "start", inp.key, vision_attention_impl(),
-                             static_key(sampling)),
-                            lambda: self._start_step(ws, inp, sampling), self.device,
-                            generators=[ws.generator], counters=[self.counts], space="prefill")
+            with attention_mesh_scope(self.mesh):
+                self.graphs.run((ws.token, "start", inp.key, vision_attention_impl(),
+                                 static_key(sampling), current_rows()),
+                                lambda: self._start_step(ws, inp, sampling), self.device,
+                                generators=[ws.generator], counters=[self.counts],
+                                space="prefill")
         except BaseException:
             self.release(ws)
             raise
@@ -402,9 +428,10 @@ class Engine:
 
     def _decode(self, state: DecodeState, sampling: SamplingConfig, n: int) -> None:
         """``n`` gated steps: replays of the step captured on the card."""
-        self.graphs.run((state.ws.token, "decode", static_key(sampling)),
-                        lambda: self.step(state, sampling), self.device,
-                        generators=[state.generator], counters=[self.counts], replays=n)
+        with attention_mesh_scope(self.mesh):
+            self.graphs.run((state.ws.token, "decode", static_key(sampling), current_rows()),
+                            lambda: self.step(state, sampling), self.device,
+                            generators=[state.generator], counters=[self.counts], replays=n)
 
     @staticmethod
     def control(state: DecodeState) -> Tuple[int, int, bool]:
@@ -433,8 +460,38 @@ class Engine:
                  sampling: Optional[SamplingConfig] = None, seed: int = 0) -> np.ndarray:
         """(B, <= max_new_tokens) generated ids.  Times the "prefill" and
         "decode" phases on ``timer`` and adds ``generated_tokens`` and
-        ``requests`` to ``GLOBAL_COUNTERS``, as the JAX engine does."""
+        ``requests`` to ``GLOBAL_COUNTERS``, as the JAX engine does.  Over a
+        ``data`` axis of more than one rank that divides B, each data rank
+        generates its rows and the ids are gathered once (a row that ends
+        early is padded, as in the unsplit run)."""
         sampling = sampling or SamplingConfig.greedy()
+        input_ids = np.asarray(input_ids)
+        rows = self.data_rows(input_ids.shape[0])
+        if rows is None:
+            return self._generate(input_ids, pixel_values, img_start_pos, sampling, seed)
+        with global_rows(input_ids.shape[0], rows.start):
+            out = self._generate(*_take_rows(rows, input_ids, pixel_values, img_start_pos),
+                                 sampling, seed)
+        # one gather: each row's length, then its ids padded to max_new_tokens
+        full = np.full((out.shape[0], 1 + sampling.max_new_tokens), self.pad_token_id, np.int64)
+        full[:, 0] = out.shape[1]
+        full[:, 1:1 + out.shape[1]] = out
+        d = self.data
+        got = tp.gather_rows_from_data(torch.from_numpy(full).to(self.device), d.group,
+                                       d.size).cpu().numpy()
+        return got[:, 1:1 + int(got[:, 0].max())]
+
+    def data_rows(self, B: int) -> Optional[slice]:
+        """This data rank's rows of a B-row call, or None where the call runs
+        unsplit: no ``data`` axis, one data rank, or B does not divide."""
+        d = self.data
+        if d is None or d.size == 1 or B % d.size:
+            return None
+        b = B // d.size
+        return slice(d.rank * b, (d.rank + 1) * b)
+
+    def _generate(self, input_ids, pixel_values, img_start_pos, sampling: SamplingConfig,
+                  seed: int) -> np.ndarray:
         with self.timer.phase("prefill") as p:
             state = self.start(input_ids, pixel_values, img_start_pos, sampling, seed)
             p["sync_on"] = state.last_token
@@ -457,11 +514,50 @@ class Engine:
         ``chunk_size > 1`` replays the captured step that many times between
         host reads (one copy of the chunk's tokens instead of one a step)
         and still yields token by token; the stream ends after the step at
-        which every row has finished, as with ``chunk_size=1``."""
+        which every row has finished, as with ``chunk_size=1``.  Over a
+        ``data`` axis of more than one rank that divides B, each data rank
+        streams its rows and the tokens of each host read are gathered (a
+        rank whose rows have all finished gives pad, as the unsplit stream
+        does)."""
         sampling = sampling or SamplingConfig.greedy()
+        input_ids = np.asarray(input_ids)
+        B = input_ids.shape[0]
+        rows = self.data_rows(B)
+        if rows is None:
+            with contextlib.closing(self._chunks(input_ids, pixel_values, img_start_pos,
+                                                 sampling, seed, chunk_size)) as chunks:
+                for chunk in chunks:
+                    yield from chunk.T
+            return
+        d, b, k = self.data, rows.stop - rows.start, max(chunk_size, 1)
+        local = self._chunks(*_take_rows(rows, input_ids, pixel_values, img_start_pos),
+                             sampling, seed, chunk_size)
+        try:
+            while True:
+                with global_rows(B, rows.start):  # only while the local stream runs
+                    chunk = next(local, None)
+                # this rank's count of new steps, then its (b, k) tokens, pad past the count
+                row = np.full((1 + b * k,), self.pad_token_id, np.int64)
+                row[0] = 0 if chunk is None else chunk.shape[1]
+                if chunk is not None:
+                    row[1:].reshape(b, k)[:, :chunk.shape[1]] = chunk
+                got = tp.gather_rows_from_data(torch.from_numpy(row).to(self.device)[None],
+                                               d.group, d.size).cpu().numpy()
+                n = int(got[:, 0].max())
+                if n == 0:
+                    return
+                yield from got[:, 1:].reshape(B, k)[:, :n].T
+        finally:
+            local.close()
+
+    def _chunks(self, input_ids, pixel_values, img_start_pos, sampling: SamplingConfig,
+                seed: int, chunk_size: int) -> Iterator[np.ndarray]:
+        """The stream's tokens one host read at a time: (B, n) arrays, the
+        first the prefill's token, then up to ``chunk_size`` steps each."""
         state = self.start(input_ids, pixel_values, img_start_pos, sampling, seed)
         try:
-            yield state.last_token.cpu().numpy()
+            # a copy: on the CPU .numpy() would alias the workspace's buffer
+            yield state.last_token.cpu().numpy().copy()[:, None]
             T = sampling.max_new_tokens
             Smax = state.kv_valid.shape[1]
             B = state.last_token.shape[0]
@@ -476,9 +572,14 @@ class Engine:
                                  state.gen_ids[:, gen_len:gen_len + k].reshape(-1)])
                 row = row.cpu().numpy()
                 new_len, cur_slot, done = int(row[0]), int(row[1]), bool(row[2])
-                toks = row[3:].reshape(B, -1)
-                for j in range(new_len - gen_len):
-                    yield toks[:, j]
+                if new_len > gen_len:
+                    yield row[3:].reshape(B, -1)[:, :new_len - gen_len]
                 gen_len = new_len
         finally:
             self.release(state.ws)
+
+
+def _take_rows(rows: slice, input_ids, pixel_values, img_start_pos):
+    """A data rank's rows of a call's inputs."""
+    return (input_ids[rows], None if pixel_values is None else pixel_values[rows],
+            None if img_start_pos is None else np.asarray(img_start_pos)[rows])

@@ -22,8 +22,14 @@ memory pool.  A capture or replay that fails raises: there is no eager
 fallback on the card.
 
 Launch counts: while a chunk is captured nothing runs, so the counters it
-bumps (the kernels' ``LAUNCHES`` and the caller's own) are put back, and
-each replay adds what the capture recorded: the counters count what ran.
+bumps (the kernels' ``LAUNCHES``, the mesh's collectives ``parallel.tp.CALLS``
+and the caller's own) are put back, and each replay adds what the capture
+recorded: the counters count what ran.
+
+Over a mesh (NCCL): a step's collectives are captured with it.  The
+warm-up runs every collective once eagerly, on the capture stream, which
+builds the group's NCCL communicator before the capture; every rank runs
+the same calls, so every rank captures the same graphs in the same order.
 
 Threads: every ``run`` (capture and replays) holds the process-wide
 ``LOCK``, so a capture never meets another thread's replay, its counter
@@ -48,8 +54,10 @@ import torch
 from ..ops.cuda import flash_attention as _fa
 from ..ops.cuda import int4_matmul as _i4
 from ..ops.cuda import paged_attention as _pa
+from ..parallel import tp as _tp
 
-KERNEL_COUNTERS = (_fa.LAUNCHES, _i4.LAUNCHES, _pa.LAUNCHES)
+# the kernels' launch counters, and the mesh's collectives (parallel.tp.CALLS)
+KERNEL_COUNTERS = (_fa.LAUNCHES, _i4.LAUNCHES, _pa.LAUNCHES, _tp.CALLS)
 # graphs a Graphs keeps a key space (the least recently replayed goes first)
 MAX_GRAPHS = {"decode": 16, "prefill": 12}
 _EAGER = [False]

@@ -46,6 +46,7 @@ from ..ops.cuda.paged_attention import paged_append_attention
 from ..ops.linear import Int4Linear
 from ..ops.quantization import quantize_kv
 from ..ops.rope import apply_rope, rope_table
+from ..parallel.sharding import bind
 from .generate import pick_bucket
 from .graphs import LOCK, Graphs
 from .sampling import SamplingConfig, sample_step_rowwise
@@ -53,10 +54,12 @@ from .server import _check_serving_sampling, knob_flags, knob_kwargs, sampling_k
 
 
 def init_pools(cfg, num_blocks: int, block_size: int, dtype=torch.bfloat16,
-               kv_quant: str = "none", *, device=None):
+               kv_quant: str = "none", *, device=None, kv_heads: Optional[int] = None):
     """-> (k_pool, v_pool, k_scales | None, v_scales | None): zeroed pools
-    (L, NB, BS, Nkv*hd) in ``dtype``, or int8 with scales that start at one."""
-    L, Nkv, hd = cfg.num_hidden_layers, cfg.num_key_value_heads, cfg.head_dim
+    (L, NB, BS, Nkv*hd) in ``dtype``, or int8 with scales that start at one.
+    ``kv_heads``: the heads a rank holds over a mesh (default the config's)."""
+    L, hd = cfg.num_hidden_layers, cfg.head_dim
+    Nkv = cfg.num_key_value_heads if kv_heads is None else kv_heads
     shape = (L, num_blocks, block_size, Nkv * hd)
     if kv_quant == "int8":
         sshape = (L, num_blocks, block_size, Nkv)
@@ -75,21 +78,14 @@ def pool_layer(layer: llama.DecoderLayer, h, cos, sin, state: "PagedState", atte
     -> (int8 pool: K and V quantized per token and head, together) ->
     ``attend(q, k, v, k_scales, v_scales)``, a paged kernel that appends the
     new K/V to the pools in place and attends -> o_proj -> MLP."""
-    B, Sq, _ = h.shape
-    cfg = layer.cfg
-    N, Nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     x = layer.input_norm(h)
-    q = layer.q_proj(x).reshape(B, Sq, N, hd)
-    k = layer.k_proj(x).reshape(B, Sq, Nkv, hd)
-    v = layer.v_proj(x).reshape(B, Sq, Nkv, hd)
+    q, k, v = layer.project_qkv(x)  # over a mesh: the rank's heads
     q, k = apply_rope(q, k, cos, sin)
     if state.k_scales is not None:
         (k, v), (ksc, vsc) = (t.unbind(0) for t in quantize_kv(torch.stack((k, v))))
     else:
         k, v, ksc, vsc = k.to(state.k_pool.dtype), v.to(state.v_pool.dtype), None, None
-    h = h + layer.o_proj(attend(q, k, v, ksc, vsc).reshape(B, Sq, N * hd))
-    x2 = layer.post_norm(h)
-    return h + layer.down_proj(layer.act(layer.gate_proj(x2)) * layer.up_proj(x2))
+    return layer.out_mlp(h, attend(q, k, v, ksc, vsc))
 
 
 def paged_decode_forward(text: llama.Llama, embeds, positions, state: "PagedState",
@@ -163,10 +159,8 @@ class PagedServingEngine:
         #   many live rows (None: 2 at the int4 tier, else 4)
         spec_max_ngram: int = 3,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a paged pool over a multi-device mesh is not ported yet "
-                "(ROADMAP, open item 11: multi-device)")
+        bind(model, mesh)
+        self.mesh = mesh  # the pools hold the rank's kv heads; rows are not split
         self.model = model
         self.cfg = cfg
         self.kv_quant = kv_quant
@@ -212,7 +206,8 @@ class PagedServingEngine:
 
         dev, B, T = self.device, self.B, self.T
         k_pool, v_pool, k_scales, v_scales = init_pools(
-            cfg.text_config, num_blocks, block_size, self.dtype, kv_quant, device=dev)
+            cfg.text_config, num_blocks, block_size, self.dtype, kv_quant, device=dev,
+            kv_heads=model.text.kv_heads)
         self._state = PagedState(
             k_pool=k_pool, v_pool=v_pool, k_scales=k_scales, v_scales=v_scales,
             last_token=torch.zeros(B, dtype=torch.int64, device=dev),
@@ -327,7 +322,8 @@ class PagedServingEngine:
         return ids, mask, img_pos, pixel_values, blocks, nb_prompt, S, L
 
     def _scratch(self, L: int) -> dict:
-        return llama.init_kv_cache(self.cfg.text_config, 1, L, self.dtype, device=self.device)
+        return llama.init_kv_cache(self.cfg.text_config, 1, L, self.dtype, device=self.device,
+                                   kv_heads=self.model.text.kv_heads)
 
     def _scatter_scratch(self, scratch: dict, block_ids) -> None:
         """Copy a contiguous scratch cache's prompt K/V (L, 1, Nkv, S, hd)

@@ -17,7 +17,9 @@ that no row needs leaves every row's tokens as they are.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
@@ -58,11 +60,50 @@ class SamplingConfig:
                    top_k=0, top_p=1.0, repetition_penalty=1.0, no_repeat_ngram_size=0)
 
 
+_ROWS = threading.local()
+
+
+@contextlib.contextmanager
+def global_rows(total: int, start: int):
+    """Within the block (on this thread), the rows a sampler sees are rows
+    ``start ..`` of a ``total``-row batch (a data rank's slice under DP):
+    each draw is made for the whole batch and the slice taken, so a split
+    run draws what the unsplit run draws for its rows."""
+    stack = getattr(_ROWS, "stack", None)
+    if stack is None:
+        stack = _ROWS.stack = []
+    stack.append((total, start))
+    try:
+        yield
+    finally:
+        stack.pop()
+
+
+def current_rows() -> Optional[Tuple[int, int]]:
+    """The innermost ``global_rows`` window (total, start) of this thread, or
+    None: ``row_noise`` reads it while a graph is captured, so it is part of
+    every captured program's key that samples."""
+    stack = getattr(_ROWS, "stack", None)
+    return stack[-1] if stack else None
+
+
+def row_noise(like: torch.Tensor, fill) -> torch.Tensor:
+    """``fill(t)`` of a new tensor ``t`` shaped like ``like`` (rows first),
+    drawn for the whole batch under ``global_rows`` and sliced to ours."""
+    window = current_rows()
+    if window is None:
+        return fill(torch.empty_like(like))
+    total, start = window
+    full = fill(torch.empty((total,) + tuple(like.shape[1:]), dtype=like.dtype,
+                            device=like.device))
+    return full[start:start + like.shape[0]]
+
+
 def draw(logits: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
     """A categorical draw per row from softmax(logits): the exponential race
     argmax(p / E), E ~ Exp(1), picks index i with probability p_i."""
     probs = torch.softmax(logits, dim=-1)
-    race = torch.empty_like(probs).exponential_(generator=generator)
+    race = row_noise(probs, lambda t: t.exponential_(generator=generator))
     return (probs / race).argmax(dim=-1)
 
 

@@ -155,7 +155,8 @@ class ServingEngine:
         default_knobs = sampling_knobs(self.sampling, None)
         z = dict(dtype=torch.int64, device=dev)
         self._state = PoolState(
-            cache=llama.init_kv_cache(cfg.text_config, B, max_seq_len, self.dtype, device=dev),
+            cache=llama.init_kv_cache(cfg.text_config, B, max_seq_len, self.dtype, device=dev,
+                                      kv_heads=model.text.kv_heads),
             kv_valid=torch.zeros(B, max_seq_len, dtype=torch.bool, device=dev),
             cur_slot=torch.zeros(B, **z), positions=torch.zeros(B, **z),
             last_token=torch.zeros(B, **z), gen_ids=torch.zeros(B, T, **z),
@@ -168,7 +169,7 @@ class ServingEngine:
         # an admission's one-row scratch cache (its first L slots at bucket L),
         # its static inputs by shape, and its row, limit and knobs
         self._scratch = llama.init_kv_cache(cfg.text_config, 1, max_seq_len, self.dtype,
-                                            device=dev)
+                                            device=dev, kv_heads=model.text.kv_heads)
         self._inputs: dict = {}
         self._row = torch.zeros(1, **z)
         self._max_new = torch.zeros(1, **z)

@@ -27,6 +27,7 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
+from ..ops.attention import attention_mesh_scope
 from ..utils.profiling import GLOBAL_COUNTERS
 from .generate import DecodeState, Engine, Workspace
 from .sampling import SamplingConfig, draw, sample_step, warped_logits
@@ -287,13 +288,16 @@ class SpeculativeDecoder:
                           spec_k=self.spec_k, max_ngram=self.max_ngram)
 
     def _run(self, spec, prompt_ids, prompt_start, sampling, n: int) -> None:
-        """``n`` gated verify chunks: replays of the one captured on the card."""
+        """``n`` gated verify chunks: replays of the one captured on the card,
+        under the engine's mesh scope (over a mesh every row runs on every
+        data rank)."""
         eng = self.engine
         key = (spec.ws.token, "spec", prompt_ids.shape[1], sampling, self.spec_k,
                self.max_ngram)
-        eng.graphs.run(key, lambda: self._chunk(spec, prompt_ids, prompt_start, sampling),
-                       eng.device, generators=[spec.generator], counters=[eng.counts],
-                       replays=n)
+        with attention_mesh_scope(eng.mesh):
+            eng.graphs.run(key, lambda: self._chunk(spec, prompt_ids, prompt_start, sampling),
+                           eng.device, generators=[spec.generator], counters=[eng.counts],
+                           replays=n)
 
     def _control(self, spec) -> np.ndarray:
         """[loop's cond, chunks, emitted by chunks, row-chunks, gen_len (B,)]:
@@ -353,7 +357,8 @@ class SpeculativeDecoder:
             spec, prompt_ids, prompt_start = self._start(input_ids, pixel_values,
                                                          img_start_pos, sampling, seed)
         try:
-            yield spec.last_token.cpu().numpy()
+            # a copy: on the CPU .numpy() would alias the workspace's buffer
+            yield spec.last_token.cpu().numpy().copy()
             emitted = 1
             finished = bool(spec.finished[0])
             while not finished and emitted < sampling.max_new_tokens:

@@ -25,6 +25,7 @@ from ..ops.activations import ACT2FN
 from ..ops.attention import full_attention, vision_attention_impl
 from ..ops.linear import Linear
 from ..ops.norms import LayerNorm
+from ..parallel import tp
 
 
 def _torch_bicubic_1d(in_size: int, out_size: int) -> torch.Tensor:
@@ -99,16 +100,17 @@ class ViTLayer(nn.Module):
         self.fc2 = Linear(I, H, True, **kw)
 
     def forward(self, h: torch.Tensor, impl: Optional[str] = None) -> torch.Tensor:
+        """Over a mesh, the attention runs on the rank's heads (``heads``)
+        and the row-parallel ``o_proj`` / ``fc2`` sum their partial outputs
+        (``parallel.tp``)."""
         B, S, _ = h.shape
-        N, hd = self.num_heads, self.head_dim
+        hd = self.head_dim
         y = self.ln1(h)
-        q = self.q_proj(y).reshape(B, S, N, hd)
-        k = self.k_proj(y).reshape(B, S, N, hd)
-        v = self.v_proj(y).reshape(B, S, N, hd)
+        q, k, v = (t.reshape(B, S, -1, hd) for t in tp.qkv(self, y))
         attn = full_attention(q, k, v, impl=impl)  # bidirectional, no mask
-        h = h + self.o_proj(attn.reshape(B, S, N * hd))
+        h = h + tp.out_proj(self.o_proj, attn.reshape(B, S, -1), getattr(self, "heads", None))
         y = self.ln2(h)
-        return h + self.fc2(self.act(self.fc1(y)))
+        return h + tp.mlp((self.fc1,), self.fc2, y, self.act)
 
 
 class CLIPVisionTower(nn.Module):
@@ -125,6 +127,10 @@ class CLIPVisionTower(nn.Module):
         self.layers = nn.ModuleList(
             ViTLayer(cfg, **kw) for _ in range(cfg.num_hidden_layers))
         self.post_layernorm = LayerNorm(H, cfg.layer_norm_eps, **kw)
+        # over a mesh (parallel.tp.attach): the patch and position embeddings
+        # hold the rank's H-columns, gathered after their sum
+        self.tp = None
+        self.embed_local = False
 
     def forward(self, pixel_values: torch.Tensor, remat: bool = False) -> torch.Tensor:
         """(B, 3, 224, 224) -> (B, 257, H), post-LN over the full sequence;
@@ -133,9 +139,13 @@ class CLIPVisionTower(nn.Module):
         H = self.cfg.hidden_size
         patches = patchify(pixel_values, self.cfg.patch_size).to(
             self.patch_embedding.weight.dtype)
-        cls = self.class_embedding[None, None, :].expand(B, 1, H)
-        x = torch.cat([cls, self.patch_embedding(patches)], dim=1)
-        x = self.pre_layernorm(x + self.position_embedding[None])
+        cls = self.class_embedding
+        if self.embed_local:
+            cls = tp.local_columns(cls, self.tp)
+        x = torch.cat([cls[None, None, :].expand(B, 1, cls.shape[0]),
+                       self.patch_embedding(patches)], dim=1)
+        x = tp.whole(x + self.position_embedding[None], self.embed_local, self.tp)
+        x = self.pre_layernorm(x)
         impl = vision_attention_impl()  # read once: a recompute runs outside any scope
         for layer in self.layers:
             x = (torch.utils.checkpoint.checkpoint(layer, x, impl, use_reentrant=False)

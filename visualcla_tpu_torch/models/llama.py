@@ -34,16 +34,21 @@ from ..ops.linear import Int8Table, make_linear
 from ..ops.norms import RMSNorm
 from ..ops.quantization import quantize_kv
 from ..ops.rope import apply_rope, rope_table
+from ..parallel import tp
+from ..parallel.ring import ring_attention
 
 WriteSlot = Union[int, torch.Tensor]  # int, or (B,) per-row slots
 
 
 def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int, dtype, *,
-                  device=None, kv_quant: str = "none") -> dict:
+                  device=None, kv_quant: str = "none", kv_heads: Optional[int] = None) -> dict:
     """Zeroed {'k', 'v'} buffers of shape (L, B, Nkv, max_len, hd) in the
     model's dtype; ``kv_quant="int8"``: int8 buffers plus {'k_scale',
-    'v_scale'} (L, B, Nkv, max_len) f32 scales that start at one."""
-    shape = (cfg.num_hidden_layers, batch, cfg.num_key_value_heads, max_len, cfg.head_dim)
+    'v_scale'} (L, B, Nkv, max_len) f32 scales that start at one.
+    ``kv_heads``: the heads a rank holds over a mesh (``Llama.kv_heads``;
+    default the config's)."""
+    nkv = cfg.num_key_value_heads if kv_heads is None else kv_heads
+    shape = (cfg.num_hidden_layers, batch, nkv, max_len, cfg.head_dim)
     if kv_quant == "int8":
         return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
                 "v": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -108,42 +113,61 @@ class DecoderLayer(nn.Module):
         self.up_proj = make_linear(H, I, **lin)
         self.down_proj = make_linear(I, H, **lin)
 
+    def project_qkv(self, x: torch.Tensor):
+        """q (B, Sq, N, hd), k and v (B, Sq, Nkv, hd) of the normed input, on
+        this rank's heads over a mesh (``parallel.tp.qkv``)."""
+        B, Sq = x.shape[:2]
+        hd = self.cfg.head_dim
+        q, k, v = tp.qkv(self, x)
+        return q.reshape(B, Sq, -1, hd), k.reshape(B, Sq, -1, hd), v.reshape(B, Sq, -1, hd)
+
     def forward(self, h, cos, sin, cache: Optional[dict], kv_valid, write_slot: WriteSlot,
-                slots: Optional[torch.Tensor], l: int) -> torch.Tensor:
+                slots: Optional[torch.Tensor], l: int, ring=None) -> torch.Tensor:
         """qkv -> rope -> cache write at (l, write_slot) -> attention over the
         cache -> mlp.  ``slots`` is write_slot as a (B,) int32 tensor.
         ``cache=None``: attention over the chunk's own K/V, kv_valid's first
-        Sq columns."""
-        B, Sq, _ = h.shape
-        cfg = self.cfg
-        N, Nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+        Sq columns.  ``ring`` (a ``parallel.tp.Axis``): ``h`` is this rank's
+        chunk of a prefill from slot 0 sharded over the ring; the chunks'
+        K/V are gathered for the cache write and the attention is
+        ``ring_attention`` over the chunk's own K/V (the JAX package's
+        ``ring_axis``)."""
         x = self.input_norm(h)
-        q = self.q_proj(x).reshape(B, Sq, N, hd)
-        k = self.k_proj(x).reshape(B, Sq, Nkv, hd)
-        v = self.v_proj(x).reshape(B, Sq, Nkv, hd)
+        q, k, v = self.project_qkv(x)
         q, k = apply_rope(q, k, cos, sin)
         k, v = k.transpose(1, 2), v.transpose(1, 2)  # cache order (B, Nkv, Sq, hd)
         if cache is None:
-            attn = chunk_causal_attention(q, k, v, kv_valid[:, :Sq])
-            return self._out(h, attn)
+            attn = chunk_causal_attention(q, k, v, kv_valid[:, :q.shape[1]])
+            return self.out_mlp(h, attn)
+        if ring is not None:
+            ck, cv = (tp.gather_from_model(t, ring.group, ring.size, dim=2) for t in (k, v))
+        else:
+            ck, cv = k, v
         if "k_scale" in cache:  # int8 cache: K and V quantized per token and head, together
-            (kq, vq), (ks, vs) = (t.unbind(0) for t in quantize_kv(torch.stack((k, v))))
+            (kq, vq), (ks, vs) = (t.unbind(0) for t in quantize_kv(torch.stack((ck, cv))))
             writes = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
         else:
-            writes = {"k": k.to(cache["k"].dtype), "v": v.to(cache["v"].dtype)}
+            writes = {"k": ck.to(cache["k"].dtype), "v": cv.to(cache["v"].dtype)}
         for name, chunk in writes.items():
             put_chunk(cache[name], chunk, l, write_slot)
+        if ring is not None:
+            Sq = q.shape[1]
+            pos = (ring.rank * Sq + torch.arange(Sq, device=q.device))[None].expand(q.shape[0], Sq)
+            attn = ring_attention(q, k.transpose(1, 2), v.transpose(1, 2), pos, pos,
+                                  kv_valid[:, ring.rank * Sq:(ring.rank + 1) * Sq], ring)
+            return self.out_mlp(h, attn)
         attn = cached_attention(q, cache["k"], cache["v"], kv_valid, slots,
                                 k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
                                 layer_index=l)
-        return self._out(h, attn)
+        return self.out_mlp(h, attn)
 
-    def _out(self, h, attn):
-        """The output projection's residual, then the MLP's."""
+    def out_mlp(self, h, attn):
+        """The output projection's residual, then the MLP's (over a mesh:
+        ``parallel.tp``'s row-parallel sums)."""
         B, Sq = attn.shape[:2]
-        h = h + self.o_proj(attn.reshape(B, Sq, -1))
+        h = h + tp.out_proj(self.o_proj, attn.reshape(B, Sq, -1), getattr(self, "heads", None))
         x2 = self.post_norm(h)
-        return h + self.down_proj(self.act(self.gate_proj(x2)) * self.up_proj(x2))
+        return h + tp.mlp((self.gate_proj, self.up_proj), self.down_proj, x2,
+                          lambda g, u: self.act(g) * u)
 
 
 class Llama(nn.Module):
@@ -172,12 +196,20 @@ class Llama(nn.Module):
             for _ in range(cfg.num_hidden_layers))
         self.final_norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, **kw)
         self.lm_head = make_linear(cfg.hidden_size, cfg.vocab_size, head_quant, **kw)
+        # over a mesh (parallel.tp.attach): the kv heads a rank's cache holds,
+        # its model axis, and whether the table holds its H-columns only
+        self.kv_heads = cfg.num_key_value_heads
+        self.tp = None
+        self.embed_local = False
 
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
-        """(B, S) ids -> (B, S, H) in the model's dtype."""
+        """(B, S) ids -> (B, S, H) in the model's dtype (over a mesh, the
+        rank's columns gathered)."""
         if isinstance(self.embed_tokens, Int8Table):
-            return self.embed_tokens(input_ids).to(self.final_norm.weight.dtype)
-        return F.embedding(input_ids, self.embed_tokens)
+            e = self.embed_tokens(input_ids)
+        else:
+            e = F.embedding(input_ids, self.embed_tokens)
+        return tp.whole(e, self.embed_local, self.tp).to(self.final_norm.weight.dtype)
 
     def forward(
         self,
@@ -187,28 +219,42 @@ class Llama(nn.Module):
         kv_valid: torch.Tensor,  # (B, S) bool — valid AFTER this chunk is written
         write_slot: WriteSlot,  # cache slot of the chunk's first token
         remat: bool = False,  # recompute each layer in the backward
+        ring=None,  # a parallel.tp.Axis: a context-parallel prefill from slot 0
     ) -> Tuple[torch.Tensor, Optional[dict]]:
         """Run the decoder stack: (final-normed hidden (B, Sq, H), kv_cache).
         ``kv_cache=None``: the cache-free training forward (the chunk from
-        slot 0, kv_valid its (B, Sq) mask); it returns None for the cache."""
+        slot 0, kv_valid its (B, Sq) mask); it returns None for the cache.
+        ``ring``: each rank of the ring runs its contiguous chunk of the
+        prompt (Sq divisible by the ring's size), attends by
+        ``ring_attention`` and writes the whole prompt's K/V; the hidden
+        states are gathered at the end."""
         cfg = self.cfg
         B = inputs_embeds.shape[0]
+        h = inputs_embeds
+        if ring is not None:
+            w = h.shape[1] // ring.size
+            h = h[:, ring.rank * w:(ring.rank + 1) * w]
+            rope_positions = rope_positions[:, ring.rank * w:(ring.rank + 1) * w]
         cos, sin = rope_table(rope_positions, cfg.head_dim, cfg.rope_theta)
         slots = (None if kv_cache is None
                  else slot_vector(write_slot, B, inputs_embeds.device))  # once, not per layer
-        h = inputs_embeds
         for l, layer in enumerate(self.layers):
             if remat:
                 h = torch.utils.checkpoint.checkpoint(
                     layer, h, cos, sin, kv_cache, kv_valid, write_slot, slots, l,
                     use_reentrant=False)
             else:
-                h = layer(h, cos, sin, kv_cache, kv_valid, write_slot, slots, l)
-        return self.final_norm(h), kv_cache
+                h = layer(h, cos, sin, kv_cache, kv_valid, write_slot, slots, l, ring=ring)
+        h = self.final_norm(h)
+        if ring is not None:
+            h = tp.gather_from_model(h, ring.group, ring.size, dim=1)
+        return h, kv_cache
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
-        """LM head, accumulated and returned in fp32 (dense, int8 or int4)."""
-        return self.lm_head.forward_f32(hidden)
+        """LM head, accumulated and returned in fp32 (dense, int8 or int4;
+        over a mesh, the rank's vocabulary columns gathered)."""
+        y, local = tp.linear(self.lm_head, hidden, f32=True)
+        return tp.whole(y, local, self.tp)
 
     def forward_logits(self, input_ids: torch.Tensor,
                        attention_mask: Optional[torch.Tensor] = None,

@@ -21,6 +21,7 @@ from ..ops.activations import ACT2FN
 from ..ops.attention import full_attention, vision_attention_impl
 from ..ops.linear import Linear
 from ..ops.norms import LayerNorm
+from ..parallel import tp
 
 
 class ResamplerLayer(nn.Module):
@@ -41,17 +42,22 @@ class ResamplerLayer(nn.Module):
 
     def forward(self, h: torch.Tensor, image_embeds: torch.Tensor,
                 head_mask: torch.Tensor, impl: Optional[str] = None) -> torch.Tensor:
+        """Over a mesh, the attention runs on the rank's heads (``heads``,
+        with their rows of ``head_mask``) and the row-parallel ``attn_out`` /
+        ``out`` sum their partial outputs (``parallel.tp``)."""
         B, Nq, H = h.shape
-        N, hd = self.num_heads, self.head_dim
+        hd = self.head_dim
         kv_in = torch.cat([h, image_embeds], dim=1)  # (B, Nq + S_img, H)
         Skv = kv_in.shape[1]
-        q = self.q_proj(h).reshape(B, Nq, N, hd)
-        k = self.k_proj(kv_in).reshape(B, Skv, N, hd)
-        v = self.v_proj(kv_in).reshape(B, Skv, N, hd)
+        q, k, v = tp.qkv(self, h, kv_in)
+        q, k, v = q.reshape(B, Nq, -1, hd), k.reshape(B, Skv, -1, hd), v.reshape(B, Skv, -1, hd)
+        heads = getattr(self, "heads", None)
+        if heads is not None and heads[3]:
+            head_mask = head_mask[heads[2]:heads[2] + heads[0]]
         ctx = full_attention(q, k, v, softmax_dtype="native", impl=impl)
-        ctx = (ctx * head_mask[None, None, :, None].to(ctx.dtype)).reshape(B, Nq, H)
-        attn_out = self.attn_ln(self.attn_out(ctx) + h)
-        ffn = self.out(self.act(self.inter(attn_out)))
+        ctx = (ctx * head_mask[None, None, :, None].to(ctx.dtype)).reshape(B, Nq, -1)
+        attn_out = self.attn_ln(tp.out_proj(self.attn_out, ctx, heads) + h)
+        ffn = tp.mlp((self.inter,), self.out, attn_out, self.act)
         return self.out_ln(ffn + attn_out)
 
 

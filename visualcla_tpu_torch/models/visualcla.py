@@ -18,6 +18,7 @@ from torch import nn
 from ..core.config import VisualCLAConfig
 
 from ..ops.linear import Int8Table, Linear, quantize_linear
+from ..parallel import tp
 from .clip_vit import CLIPVisionTower
 from .llama import Llama
 from .resampler import Resampler
@@ -100,7 +101,8 @@ def encode_image(model: VisionTowers, cfg: VisualCLAConfig,
     image_embeds = model.vision(pixel_values, remat=remat)
     if cfg.use_visual_resampler:
         image_embeds = model.resampler(image_embeds, remat=remat)
-    return model.projection(image_embeds)
+    y, local = tp.linear(model.projection, image_embeds)  # over a mesh: gathered
+    return tp.whole(y, local, getattr(model.projection, "tp", None))
 
 
 def check_img_start_pos(img_start_pos, num_image_tokens: int, seq_len: int) -> None:

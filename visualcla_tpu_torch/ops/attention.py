@@ -18,6 +18,7 @@ from typing import Optional
 
 import torch
 
+from ..parallel import tp
 from .cuda.flash_attention import (flash_attention, flash_attention_ref, flash_decode_stacked,
                                    flash_decode_stacked_ref, flash_prefill_stacked,
                                    flash_prefill_stacked_ref)
@@ -72,6 +73,65 @@ def attention_impl_scope(name: str):
         yield
     finally:
         stack.pop()
+
+
+def current_attention_mesh():
+    """The mesh in effect on the calling thread: its innermost
+    ``attention_mesh_scope``, else None."""
+    stack = getattr(_TLS, "mesh_override", None)
+    return stack[-1] if stack else None
+
+
+@contextlib.contextmanager
+def attention_mesh_scope(mesh):
+    """Put ``mesh`` (which may be None) in effect on this thread for the
+    block: the engines run every program under their own mesh's scope, so a
+    meshed and an unmeshed engine in one process never see each other's.
+    Thread-local: the serving Scheduler steps its engine on its own thread."""
+    stack = getattr(_TLS, "mesh_override", None)
+    if stack is None:
+        stack = _TLS.mesh_override = []
+    stack.append(mesh)
+    try:
+        yield
+    finally:
+        stack.pop()
+
+
+def _flash_sharded(q, k, v, kv_valid, write_slot, mesh, *, k_scale=None, v_scale=None):
+    """B2u's mesh form (the JAX package's ``_flash_sharded``): causal flash
+    attention of the whole (B, Sq, N, hd) q over the whole bnsh (B, Nkv, S,
+    hd) K/V (int8 with (B, Nkv, S) scales), every rank running kernel B2u (B1
+    at Sq == 1) on its rows (``data``) and kv heads (``model``) and the
+    output gathered back whole.  Heads are independent, so no other
+    collective runs.  -> None where the mesh lacks ``data`` or ``model``
+    (a ('data', 'seq') mesh) or the heads or rows do not divide, as in the
+    JAX package: the caller then runs B2u on the whole arrays, which every
+    rank holds."""
+    data, model = tp.axis(mesh, "data"), tp.axis(mesh, "model")
+    if data is None or model is None:
+        return None
+    B, _, N, _ = q.shape
+    Nkv = k.shape[1]
+    if N % model.size or Nkv % model.size or B % data.size:
+        return None
+
+    def part(x, ax, dim):
+        if x is None or (isinstance(x, torch.Tensor) and x.dim() == 0):
+            return x
+        w = x.shape[dim] // ax.size
+        return x.narrow(dim, ax.rank * w, w)
+
+    q_l = part(part(q, data, 0), model, 2)
+    k_l, v_l = (part(part(t, data, 0), model, 1) for t in (k, v))
+    ks_l, vs_l = (part(part(t, data, 0), model, 1) for t in (k_scale, v_scale))
+    slot = write_slot
+    if isinstance(slot, torch.Tensor) and slot.dim() == 1:
+        slot = part(slot, data, 0)
+    out = flash_attention(q_l, k_l, v_l, part(kv_valid, data, 0), slot, causal=True,
+                          k_scale=ks_l, v_scale=vs_l, kv_layout="bnsh")
+    out = tp.gather_from_model(out, model.group, model.size, dim=2)
+    return tp.gather_from_model(out, data.group, data.size, dim=0)
 
 
 def vision_attention_impl() -> str:
@@ -130,10 +190,19 @@ def cached_attention(
     kernel (B2), both reading an int8 cache with its scales in place; on CPU
     tensors both run their plain PyTorch versions.  ``layer_index=None``
     takes one layer's bnsh K/V, the JAX package's single-device contract
-    without a mesh: Sq == 1 goes to B1, Sq > 1 to B2u (causal)."""
+    without a mesh: Sq == 1 goes to B1, Sq > 1 to B2u (causal); under an
+    ``attention_mesh_scope`` whose rows and heads divide, each rank runs
+    them on its shard (``_flash_sharded``), else on the whole arrays, which
+    every rank holds.  On the stacked cache every rank holds its own shard
+    already and runs B1 / B2 in place."""
     if layer_index is None:
-        return flash_attention(q, k_cache, v_cache, kv_valid, write_slot, causal=True,
-                               k_scale=k_scale, v_scale=v_scale, kv_layout="bnsh")
+        mesh = current_attention_mesh()
+        out = None if mesh is None else _flash_sharded(
+            q, k_cache, v_cache, kv_valid, write_slot, mesh, k_scale=k_scale, v_scale=v_scale)
+        if out is None:
+            out = flash_attention(q, k_cache, v_cache, kv_valid, write_slot, causal=True,
+                                  k_scale=k_scale, v_scale=v_scale, kv_layout="bnsh")
+        return out
     fn = flash_decode_stacked if q.shape[1] == 1 else flash_prefill_stacked
     return fn(q, k_cache, v_cache, kv_valid, write_slot, layer_index,
               k_scale=k_scale, v_scale=v_scale)
@@ -149,3 +218,4 @@ def cached_attention_ref(q, k_cache, v_cache, kv_valid, write_slot, *, k_scale=N
     fn = flash_decode_stacked_ref if q.shape[1] == 1 else flash_prefill_stacked_ref
     return fn(q, k_cache, v_cache, kv_valid, write_slot, layer_index,
               k_scale=k_scale, v_scale=v_scale)
+

@@ -89,6 +89,18 @@ class Linear(nn.Module):
             return _mm_f32(x, w)
         return F.linear(x.float(), w.float())
 
+    def partial(self, x: torch.Tensor, f32: bool = False, bias: bool = True) -> torch.Tensor:
+        """A row-parallel shard's product (``parallel.tp.linear``): x's
+        columns against this rank's rows of the weight, with the bias when
+        ``bias``; ``finish`` follows the sum over the shards."""
+        if f32:
+            y = self.forward_f32(x)
+            return y + self.bias.float() if bias and self.bias is not None else y
+        return F.linear(x, self.weight, self.bias if bias else None)
+
+    def finish(self, y: torch.Tensor) -> torch.Tensor:
+        return y
+
 
 class Int8Linear(nn.Module):
     """Per-output-channel int8 weight, no bias."""
@@ -120,6 +132,16 @@ class Int8Linear(nn.Module):
             y = F.linear(x.float(), self.q.float())
         return y * self.scale
 
+    def partial(self, x: torch.Tensor, f32: bool = False, bias: bool = True) -> torch.Tensor:
+        """A row-parallel shard's unscaled product; ``finish`` scales the sum
+        (the per-column scale is the whole leaf's: it commutes with the sum)."""
+        if not f32 or x.dtype == torch.float32:
+            return F.linear(x, self.q.to(x.dtype))
+        return _mm_f32(x, self.q.to(x.dtype)) if x.is_cuda else F.linear(x.float(), self.q.float())
+
+    def finish(self, y: torch.Tensor) -> torch.Tensor:
+        return y * self.scale.to(y.dtype)
+
 
 class Int4Linear(nn.Module):
     """Grouped int4 weight (v2 carrier), no bias; the product is kernel B3."""
@@ -148,6 +170,13 @@ class Int4Linear(nn.Module):
     def forward_f32(self, x: torch.Tensor) -> torch.Tensor:
         _refuse_int4_grad(x)
         return int4_matmul(x, self.q, self.scale, out_dtype=torch.float32)
+
+    def partial(self, x: torch.Tensor, f32: bool = False, bias: bool = True) -> torch.Tensor:
+        """A row-parallel shard's product over its whole groups (B3)."""
+        return self.forward_f32(x) if f32 else self(x)
+
+    def finish(self, y: torch.Tensor) -> torch.Tensor:
+        return y
 
 
 def _refuse_int4_grad(x: torch.Tensor) -> None:

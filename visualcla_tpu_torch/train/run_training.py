@@ -86,7 +86,7 @@ def main(argv=None):
     for flag, used in (("--n_data", args.n_data > 0), ("--pipeline", args.pipeline > 1),
                        ("--fsdp", args.fsdp), ("--n_micro", args.n_micro is not None)):
         if used:
-            raise _not_ported(f"training over a mesh ({flag})", "11: multi-device")
+            raise _not_ported(f"training over a mesh ({flag})", "17: training over a mesh")
     device = torch.device(args.device) if args.device else _default_device()
 
     model, cfg = load_checkpoint(args.checkpoint, device=device, dtype=torch.float32)

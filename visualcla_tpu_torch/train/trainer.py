@@ -71,7 +71,7 @@ def train_forward_logits(model: nn.Module, cfg: VisualCLAConfig, input_ids: torc
     training forward never reaches kernel B2u, ``VISUALCLA_VIT_ATTN`` or
     not).  Positions are cumsum(mask) - 1 clamped at 0."""
     if pipeline_mesh is not None:
-        raise _not_ported("pipeline-parallel training", "11: multi-device")
+        raise _not_ported("pipeline-parallel training", "17: training over a mesh")
     with attention_impl_scope("xla"):
         embeds = multimodal_embeds(model, cfg, input_ids, img_start_pos, pixel_values,
                                    remat=remat)
@@ -266,7 +266,7 @@ def make_train_step(model: nn.Module, cfg: VisualCLAConfig, optimizer: Optimizer
     pixel_values (B, 3, H, W) or None.  Metrics: loss, grad_norm (of the
     masked gradients, before the clip)."""
     if pipeline_mesh is not None:
-        raise _not_ported("pipeline-parallel training", "11: multi-device")
+        raise _not_ported("pipeline-parallel training", "17: training over a mesh")
     paths = param_paths(model)
 
     def train_step(state: TrainState, batch):
@@ -333,7 +333,7 @@ def make_train_step_subset(model: nn.Module, cfg: VisualCLAConfig, optimizer: Op
     never requires grad.  ``train_step(state, frozen, batch) -> (state,
     metrics)``."""
     if pipeline_mesh is not None:
-        raise _not_ported("pipeline-parallel training", "11: multi-device")
+        raise _not_ported("pipeline-parallel training", "17: training over a mesh")
 
     def train_step(state: TrainState, frozen: Params, batch):
         for p in frozen.values():
