@@ -208,6 +208,22 @@ Phases, one line of findings each:
                each layer's ring output against B2's on the same q/k/v, the
                captured run's ids equal the eager one's, and an fp32
                2-layer copy's ids equal the unmeshed engine's;
+ 14. mesh train — (after 11) training over a device mesh at world size 1
+               over NCCL at the 7B's full width: (a) ``parallel.pipeline``'s
+               cached form on a seeded bf16 32-layer text tower over a
+               (pipe 1, data 1) mesh, B = 2, a 512-token prefill and 16
+               decode steps, with a bf16 and an int8 cache: n_micro 1
+               bitwise ``Llama.forward`` (hidden states and cache), n_micro 2
+               bitwise two B = 1 unmeshed runs, exactly 32 x M B2 launches a
+               prefill and 32 x M B1 launches a step, device ms a pass
+               beside the unmeshed pass's; (b) phase 11's 7B QLoRA stage-2
+               step on a (data 1, model 1) mesh (LoRA over the TP layers),
+               as is and with ``fsdp=True``, against the unmeshed step on
+               the same seed and batch (loss and grad_norm within
+               MESH_TRAIN_RTOL), with host and device ms, peak memory and
+               the collectives a step; (c) the same step with
+               ``pipeline_mesh`` (pipe 1, data 1), n_micro 2, B = 2, against
+               the unmeshed step at B = 2 (within PIPE_TRAIN_RTOL);
  10. the seconds each phase took, the kernel summary as one JSON line, then
      the result line.
 Exits non-zero if any phase fails.  Needs no network and no JAX.
@@ -4427,6 +4443,232 @@ def phase_mesh(smi: str, cfg, tokenizer, sl: dict, prompt_bucket: int) -> dict:
     return {"rows": rows, "ttft_ms": ttft * 1e3, "decode_tok_s": rate, "counts": counts}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: training over a device mesh (torch.distributed, NCCL, world size 1)
+# ---------------------------------------------------------------------------
+
+PIPE_PREFILL, PIPE_DECODE, PIPE_SMAX = 512, 16, 1024  # phase 14 (a)
+# (b): the meshed step against the unmeshed one, bf16 at world size 1 (the
+# loss and the clip's norm sum their pieces in another grouping)
+MESH_TRAIN_RTOL = 2e-3
+# (c): n_micro 2 runs each microbatch's bf16 products on one row (cuBLAS
+# rounds by shape) against the unmeshed step's two rows
+PIPE_TRAIN_RTOL = 2e-2
+
+
+def _cached_passes(text, tc, embeds, kv_quant, mesh=None, M=1):
+    """A PIPE_PREFILL-token prefill then PIPE_DECODE one-token steps of
+    ``text`` over its own cache (``parallel.pipeline`` over ``mesh`` with
+    ``M`` microbatches, else ``Llama.forward``) -> each pass's hidden
+    states, the cache, each pass's kernel launches and device ms."""
+    from visualcla_tpu_torch.parallel import pipeline as pp
+
+    B, S0 = embeds.shape[0], PIPE_PREFILL
+    if mesh is None:
+        cache = llama_mod.init_kv_cache(tc, B, PIPE_SMAX, torch.bfloat16, device="cuda",
+                                        kv_quant=kv_quant)
+    else:
+        cache = pp.pipeline_kv_cache(tc, B, PIPE_SMAX, torch.bfloat16, mesh, kv_quant=kv_quant)
+    valid = torch.zeros(B, PIPE_SMAX, dtype=torch.bool, device="cuda")
+    valid[:, :S0] = True
+    hs, counts, ms = [], [], []
+    steps = [(embeds[:, :S0], torch.arange(S0, device="cuda")[None].expand(B, S0), valid, 0)]
+    for t in range(PIPE_DECODE):
+        valid = valid.clone()
+        valid[:, S0 + t] = True
+        steps.append((embeds[:, S0 + t:S0 + t + 1],
+                      torch.full((B, 1), S0 + t, device="cuda"), valid, S0 + t))
+    with torch.no_grad():
+        for e, pos, v, slot in steps:
+            fa.reset_launch_counts()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            if mesh is None:
+                h, _ = text(e, pos, cache, v, slot)
+            else:
+                h, _ = pp.pipeline_forward(text, tc, e, pos, cache, v, slot, mesh, n_micro=M)
+            b.record()
+            torch.cuda.synchronize()
+            hs.append(h)
+            counts.append({k: n for k, n in fa.LAUNCHES.items() if n})
+            ms.append(a.elapsed_time(b))
+    return hs, cache, counts, ms
+
+
+def _pipeline_cached(cfg, smi: str) -> dict:
+    """(a): the pipeline's cached form at M = 1 and 2, bf16 and int8 caches."""
+    from visualcla_tpu_torch.parallel import pipeline as pp
+
+    tc = cfg.text_config
+    L = tc.num_hidden_layers
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    text = init_random_(llama_mod.Llama(tc, device="cuda", dtype=torch.bfloat16), gen)
+    mesh = pp.make_pipe_mesh(1, 1)
+    pp.shard_text_params(text, mesh)
+    ids = torch.randint(5, tc.vocab_size, (2, PIPE_PREFILL + PIPE_DECODE), generator=gen,
+                        device="cuda")
+    with torch.no_grad():
+        embeds = text.embed(ids)
+    launches, lines = {}, []
+    for kv in ("none", "int8"):
+        suffix = "_kv8" if kv == "int8" else ""
+        for M in (1, 2):
+            hp, cp, np_, msp = _cached_passes(text, tc, embeds, kv, mesh, M)
+            if M == 1:
+                hw, cw, nw, msw = _cached_passes(text, tc, embeds, kv)
+            else:  # each row alone: the microbatches' own shapes
+                rows = [_cached_passes(text, tc, embeds[r:r + 1], kv) for r in range(2)]
+                hw = [torch.cat([rows[0][0][i], rows[1][0][i]]) for i in range(len(rows[0][0]))]
+                cw = {k: torch.cat([rows[0][1][k], rows[1][1][k]], dim=1) for k in rows[0][1]}
+                msw = [rows[0][3][i] + rows[1][3][i] for i in range(len(rows[0][3]))]
+            for i, (a, b) in enumerate(zip(hp, hw)):
+                if not torch.equal(a, b):
+                    raise RuntimeError(f"(a) {kv} cache, M={M}: pass {i}'s hidden states differ "
+                                       f"from the unmeshed run's by "
+                                       f"{float((a.float() - b.float()).abs().max()):.3e}")
+            for k in cw:
+                if not torch.equal(cp[k], cw[k]):
+                    raise RuntimeError(f"(a) {kv} cache, M={M}: the cache's {k} differs")
+            want = [{f"flash_prefill{suffix}": L * M}] + [{f"flash_decode{suffix}": L * M}] * \
+                PIPE_DECODE
+            if np_ != want:
+                raise RuntimeError(f"(a) {kv} cache, M={M}: launches {np_[:2]}..., expected "
+                                   f"{want[:2]}...")
+            for name in (f"flash_prefill{suffix}", f"flash_decode{suffix}"):
+                launches[name] = launches.get(name, 0) + sum(n.get(name, 0) for n in np_)
+            # the times from a second run of each, warm, the unmeshed first
+            if M == 1:
+                msw = _cached_passes(text, tc, embeds, kv)[3]
+            else:
+                rows = [_cached_passes(text, tc, embeds[r:r + 1], kv)[3] for r in range(2)]
+                msw = [a + b for a, b in zip(*rows)]
+            msp = _cached_passes(text, tc, embeds, kv, mesh, M)[3]
+            lines.append(f"{'int8' if kv == 'int8' else 'bf16'} cache M={M}: prefill "
+                         f"{msp[0]:.3f} ms vs {msw[0]:.3f} unmeshed"
+                         f"{'' if M == 1 else ' (two B=1 runs)'}, decode step p50 "
+                         f"{statistics.median(msp[1:]):.3f} vs {statistics.median(msw[1:]):.3f}")
+    print(f"[14 mesh train] (a) parallel.pipeline over (pipe 1, data 1), NCCL world size 1: a "
+          f"seeded bf16 {L}-layer 7B text tower, B=2, a {PIPE_PREFILL}-token prefill then "
+          f"{PIPE_DECODE} decode steps; M=1 bitwise Llama.forward and M=2 bitwise two B=1 runs "
+          f"(hidden states every pass, the whole cache), exactly {L} x M B2 launches a prefill and "
+          f"{L} x M B1 launches a step; device ms a pass (CUDA events over the eager passes of "
+          f"a second, warm run of each): " + "; ".join(lines) + f"; card {smi}", flush=True)
+    del text
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _mesh_step(model, cfg, batch, pipeline_mesh=None, steps: int = 2) -> dict:
+    """``steps`` stage-2 subset steps (constant lr TRAIN_LR, remat; over
+    ``pipeline_mesh`` with n_micro 2 when given): the first step's loss and
+    grad_norm (the same initial state as the unmeshed step's), the last
+    step's host and device ms, collectives and hand-kernel launches, and the
+    peak memory of the steps over what was allocated before them."""
+    from visualcla_tpu_torch.train.lora import lora_trainable
+    from visualcla_tpu_torch.train.trainer import (init_train_state, make_optimizer,
+                                                   make_train_step_subset, partition_params)
+
+    opt = make_optimizer(learning_rate=TRAIN_LR, schedule="const")
+    train, frozen = partition_params(model, lora_trainable)
+    state = init_train_state(train, opt)
+    step = make_train_step_subset(model, cfg, opt, lora_trainable, remat=True,
+                                  pipeline_mesh=pipeline_mesh, n_micro=2)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    first = None
+    for i in range(steps):
+        calls0 = dict(tp_mod.CALLS)
+        _reset_counters()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        state, m = step(state, frozen, batch)
+        b.record()
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) * 1e3
+        if first is None:
+            first = (float(m["loss"]), float(m["grad_norm"]))
+    launches = {k: v for k, v in _counters().items() if v}
+    if launches:
+        raise RuntimeError(f"the training step launched hand kernels: {launches}")
+    if not all(np.isfinite(first)):
+        raise RuntimeError(f"non-finite loss or grad_norm {first}")
+    return {"loss": first[0], "grad_norm": first[1], "host_ms": host, "ms": a.elapsed_time(b),
+            "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+            "calls": {k: tp_mod.CALLS[k] - calls0[k] for k in calls0}}
+
+
+def _mesh_train_steps(cfg, tokenizer, smi: str, phase11: dict) -> None:
+    """(b) and (c): the 7B QLoRA step unmeshed, on a (data 1, model 1) mesh
+    as is and with FSDP, and over a (pipe 1, data 1) pipeline at B = 2."""
+    from visualcla_tpu_torch.fixtures import train_batch, train_model
+    from visualcla_tpu_torch.parallel import pipeline as pp
+    from visualcla_tpu_torch.parallel.sharding import shard_params
+
+    b1 = train_batch(cfg, tokenizer)
+    b2 = {k: np.concatenate([v, train_batch(cfg, tokenizer, seed=SEED + 1)[k]])
+          for k, v in b1.items()}
+    runs = {}
+    for name, batch, kind in (("unmeshed", b1, None), ("mesh", b1, "tp"), ("fsdp", b1, "fsdp"),
+                              ("unmeshed B=2", b2, None), ("pipeline", b2, "pipe")):
+        model = train_model(cfg, 2)
+        pipe = None
+        if kind in ("tp", "fsdp"):
+            shard_params(model, make_mesh(1, 1), fsdp=kind == "fsdp")
+        elif kind == "pipe":
+            pipe = pp.make_pipe_mesh(1, 1)
+            pp.shard_text_params(model, pipe)
+        runs[name] = _mesh_step(model, cfg, batch, pipe)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    first11 = phase11["stage2"]["losses"][0]
+    checks = [("unmeshed", "phase 11's first step", runs["unmeshed"]["loss"], first11,
+               MESH_TRAIN_RTOL)]
+    for name, ref, tol in (("mesh", "unmeshed", MESH_TRAIN_RTOL),
+                           ("fsdp", "unmeshed", MESH_TRAIN_RTOL),
+                           ("pipeline", "unmeshed B=2", PIPE_TRAIN_RTOL)):
+        for key in ("loss", "grad_norm"):
+            checks.append((f"{name} {key}", ref, runs[name][key], runs[ref][key], tol))
+    for what, ref, got, want, tol in checks:
+        if not abs(got - want) <= tol * abs(want):
+            raise RuntimeError(f"(b/c) {what} {got} vs the {ref} {want} (rtol {tol})")
+
+    def line(name):
+        r = runs[name]
+        return (f"{name}: loss {r['loss']:.6f}, grad_norm {r['grad_norm']:.6f}, step "
+                f"{r['ms']:.1f} ms device / {r['host_ms']:.1f} ms host, peak +{r['peak_gb']:.2f} "
+                f"GB, collectives a step {_collectives_line(r['calls']) or 'none'}")
+
+    print(f"[14 mesh train] (b) the 7B QLoRA stage-2 step (phase 11 (a)'s model, seed and "
+          f"batch, B=1 S={b1['input_ids'].shape[1]}, remat, lr {TRAIN_LR}) on a (data 1, model "
+          f"1) NCCL mesh, LoRA over the TP layers, as is and with fsdp=True, the first step's "
+          f"loss and grad_norm within rtol {MESH_TRAIN_RTOL} of the unmeshed step's (which is "
+          f"phase 11's first loss {first11:.6f}); the second step timed: "
+          + "; ".join(line(n) for n in ("unmeshed", "mesh", "fsdp")) + f"; card {smi}",
+          flush=True)
+    print(f"[14 mesh train] (c) the same step over parallel.pipeline (pipe 1, data 1), "
+          f"n_micro 2, B=2, within rtol {PIPE_TRAIN_RTOL} of the unmeshed B=2 step: "
+          + "; ".join(line(n) for n in ("unmeshed B=2", "pipeline")) + f"; card {smi}",
+          flush=True)
+
+
+def phase_mesh_train(smi: str, cfg, tokenizer, phase11: dict) -> dict:
+    """Phase 14: training over a mesh at world size 1 over NCCL."""
+    import torch.distributed as dist
+
+    store = tempfile.mkdtemp()
+    distributed.initialize("cuda", init_method=f"file://{store}/store", world_size=1, rank=0)
+    if dist.get_backend() != "nccl":
+        raise RuntimeError(f"the mesh runs on {dist.get_backend()}, not NCCL")
+    launches = _pipeline_cached(cfg, smi)
+    _mesh_train_steps(cfg, tokenizer, smi, phase11)
+    dist.destroy_process_group()
+    return launches
+
+
 def _kernels_vs_plain_logits(engine, input_ids, pixel_values, img_pos):
     """Last-token prefill logits through the kernels and, on the same model,
     with the kernels' plain versions swapped in."""
@@ -4499,7 +4741,8 @@ def main() -> int:
                        tokenizer)
     serve4 = timed("8 serve int4", phase_serve_int4, info["smi"], cfg, tokenizer)
     timed("9 reference", phase_reference, info["smi"], cfg, tokenizer, sl["ids"])
-    timed("11 train", phase_train, info["smi"], cfg, tokenizer)
+    train = timed("11 train", phase_train, info["smi"], cfg, tokenizer)
+    pipe_launches = timed("14 mesh train", phase_mesh_train, info["smi"], cfg, tokenizer, train)
     print(f"[10 time] seconds a phase {seconds}; the whole run "
           f"{time.perf_counter() - t_start:.1f} s after the imports", flush=True)
     # each kernel's launches from the run of the path that drives it
@@ -4524,6 +4767,8 @@ def main() -> int:
                "launches": n, "max_abs_err": kern["worst"][name], **kern["main"][name]}
         if name in notes:
             row["note"] = notes[name]
+        if name in pipe_launches:  # phase 14 (a): the pipeline's cached form, a path of its own
+            row["pipeline_launches"] = pipe_launches[name]
         kernels.append(row)
     for name, r in mesh["rows"].items():  # phase 13 (d): one rank's shard shapes
         base = name.rsplit("_tp", 1)[0].replace("_mesh", "").replace("_vit", "")

@@ -44,6 +44,7 @@ def test_port_never_imports_jax():
             "from visualcla_tpu_torch.processor import native_img, pil_resample\n"
             "from visualcla_tpu_torch.train import (trainer, lora, data, checkpointing,\n"
             "                                        run_training)\n"
+            "from visualcla_tpu_torch.parallel import pipeline as pp, fsdp\n"
             "from visualcla_tpu_torch.apps import gradio_demo, parity_check\n"
             "from visualcla_tpu_torch.utils import profiling\n"
             "from visualcla_tpu_torch.integrations.text_generation_webui.visualcla_torch_pipeline \\\n"
@@ -57,10 +58,12 @@ def test_port_never_imports_jax():
 
 
 def test_parallel_imports_neither_jax_nor_the_jax_package():
-    """``visualcla_tpu_torch.parallel`` (sharding, distributed, tp, ring)
+    """``visualcla_tpu_torch.parallel`` (sharding, distributed, tp, ring,
+    fsdp, pipeline)
     loads neither jax nor any module of ``visualcla_tpu``."""
     code = ("import sys\n"
-            "from visualcla_tpu_torch.parallel import sharding, distributed, tp, ring\n"
+            "from visualcla_tpu_torch.parallel import (sharding, distributed, tp, ring, fsdp,\n"
+            "                                       pipeline)\n"
             "bad = sorted(m for m in sys.modules if m in ('jax', 'visualcla_tpu')\n"
             "             or m.startswith(('jax.', 'visualcla_tpu.')))\n"
             "assert not bad, bad\n")
@@ -93,8 +96,9 @@ def test_new_front_ends_import_lazily():
 
 
 def test_entry_points_raise_without_a_gpu(tmp_path):
-    """Called without ``device`` and without a GPU, the factory and
-    ``VisualCLA`` raise instead of running on the CPU."""
+    """Called without ``device`` and without a GPU, the factory,
+    ``VisualCLA`` and ``pipeline_kv_cache`` raise instead of running on the
+    CPU."""
     from tests.test_api import make_native_ckpt
 
     path, _ = make_native_ckpt(str(tmp_path))
@@ -117,6 +121,15 @@ def test_entry_points_raise_without_a_gpu(tmp_path):
             "    raise SystemExit('VisualCLA ran without a GPU')\n"
             "except RuntimeError as e:\n"
             "    assert 'no CUDA device' in str(e), e\n"
+            "from visualcla_tpu_torch.parallel.pipeline import pipeline_kv_cache\n"
+            "tc = VisualCLAConfig.from_pretrained(ckpt).text_config\n"
+            "try:\n"
+            "    pipeline_kv_cache(tc, 2, 8, torch.float32, {'pipe': 1, 'data': 1})\n"
+            "    raise SystemExit('pipeline_kv_cache ran without a GPU')\n"
+            "except RuntimeError as e:\n"
+            "    assert 'no CUDA device' in str(e), e\n"
+            "c = pipeline_kv_cache(tc, 2, 8, torch.float32, {'pipe': 1, 'data': 1}, device='cpu')\n"
+            "assert c['k'].device.type == 'cpu'\n"
             "print('raised')\n")
     proc = subprocess.run([sys.executable, "-c", code, path], cwd=ROOT,
                           env=_env(CUDA_VISIBLE_DEVICES=""), capture_output=True,

@@ -3,7 +3,8 @@ CPU: a saved and restored state continues bit for bit, the CLI end to end at
 both stages (the merged checkpoint, the adapter, train states), ``--resume``
 equal to an uninterrupted run, the trained output chatting through the
 factory and its adapter folding to the merged model through the unmerged
-loader, and the mesh flags raising ROADMAP item 17.
+loader, and the mesh flags (``--n_data``, ``--pipeline``, ``--n_micro``,
+``--fsdp``) in two gloo ranks against the one-rank CLI.
 
 Tolerances: resumed runs bit for bit; the folded adapter's logits against
 the bf16 merged checkpoint's within 0.05 + 2 % (bf16 rounding of both)."""
@@ -196,11 +197,86 @@ def test_cli_stage1(run_dir):
                            base.projection.weight.to(torch.bfloat16).float())
 
 
-@pytest.mark.parametrize("flag", [["--pipeline", "2"], ["--n_data", "2"], ["--fsdp"],
-                                  ["--n_micro", "2"]])
-def test_cli_mesh_flags_raise_item_11(run_dir, flag):
-    with pytest.raises(NotImplementedError, match="17: training over a mesh"):
-        main(_args(run_dir, os.path.join(run_dir["tmp"], "mesh"), "--steps", "1", *flag))
+MESH_RUNS = {"n_data": ["--n_data", "2"], "pipeline": ["--pipeline", "2", "--n_micro", "2"],
+             "fsdp": ["--n_data", "2", "--fsdp"]}
+
+
+@pytest.fixture(scope="module")
+def mesh_runs(run_dir):
+    """The CLI under each set of mesh flags in two gloo ranks
+    (``tests/torch_mesh_ranks.py``), and the one-rank CLI on the same
+    arguments: 2 steps each, saving every step, then a run resumed from
+    step 1."""
+    from tests.torch_mesh_ranks import spawn
+
+    root = os.path.join(run_dir["tmp"], "mesh")
+    args = _args(run_dir, "", "--stage", "2", "--steps", "2")
+    i = args.index("--output")
+    del args[i:i + 2]
+    main(args + ["--output", os.path.join(root, "one_rank"), "--save_every", "1"])
+    ranks = spawn("cli", 2, os.path.join(root, "ranks"),
+                  {"root": root, "args": args, "runs": MESH_RUNS})
+    return root, ranks
+
+
+def _state(path):
+    return torch.load(os.path.join(path, "train_state", "step_2", "train_state.pt"),
+                      weights_only=True)
+
+
+@pytest.mark.parametrize("name", sorted(MESH_RUNS))
+def test_cli_mesh_flags_match_one_rank(mesh_runs, name):
+    """``--n_data 2``, ``--pipeline 2 --n_micro 2`` and ``--n_data 2 --fsdp``
+    over two ranks: the train state, the adapter (fp32, atol 1e-5: the data
+    ranks' sums add in another order) and the bf16 merged checkpoint (within
+    one bf16 ulp) of the one-rank CLI, written once by rank 0."""
+    from visualcla_tpu_torch.checkpoint.serialize import iter_safetensors
+
+    root, ranks = mesh_runs
+    assert all(r[name] == (2, 2) for r in ranks)
+    a, b = _state(os.path.join(root, "one_rank")), _state(os.path.join(root, name))
+    assert a["step"] == b["step"] == 2 and a["opt_state"]["count"] == b["opt_state"]["count"]
+    for part in ("params", ("opt_state", "mu"), ("opt_state", "nu")):
+        x = a[part] if isinstance(part, str) else a[part[0]][part[1]]
+        y = b[part] if isinstance(part, str) else b[part[0]][part[1]]
+        assert sorted(x) == sorted(y)
+        for k in x:
+            np.testing.assert_allclose(y[k].numpy(), x[k].numpy(), atol=1e-5, err_msg=k)
+    ad = [torch.load(os.path.join(root, d, "adapter", "adapter_model.bin"), weights_only=True)
+          for d in ("one_rank", name)]
+    assert sorted(ad[0]) == sorted(ad[1])
+    for k in ad[0]:
+        np.testing.assert_allclose(ad[1][k].numpy(), ad[0][k].numpy(), atol=1e-5, err_msg=k)
+    ck = [{k: torch.as_tensor(v) for k, v in
+           iter_safetensors(os.path.join(root, d, "params.safetensors"))}
+          for d in ("one_rank", name)]
+    assert sorted(ck[0]) == sorted(ck[1])
+    for k in ck[0]:
+        np.testing.assert_allclose(ck[1][k].float().numpy(), ck[0][k].float().numpy(),
+                                   rtol=2 ** -8, atol=1e-6, err_msg=k)
+    assert os.path.exists(os.path.join(root, name, "tokenizer.model"))
+
+
+@pytest.mark.parametrize("name", sorted(MESH_RUNS))
+def test_cli_mesh_resume_equals_uninterrupted(mesh_runs, name):
+    root, _ = mesh_runs
+    a, b = _state(os.path.join(root, name)), _state(os.path.join(root, name + "_resumed"))
+    for part in ("params", ("opt_state", "mu"), ("opt_state", "nu")):
+        x = a[part] if isinstance(part, str) else a[part[0]][part[1]]
+        y = b[part] if isinstance(part, str) else b[part[0]][part[1]]
+        for k in x:
+            assert torch.equal(x[k], y[k]), k
+    with open(os.path.join(root, name, "params.safetensors"), "rb") as f, \
+            open(os.path.join(root, name + "_resumed", "params.safetensors"), "rb") as g:
+        assert f.read() == g.read()
+
+
+def test_cli_pipeline_layers_must_divide(run_dir):
+    """``--pipeline 3`` over the 2-layer text tower raises ValueError, as the
+    JAX CLI does, before any process group comes up."""
+    with pytest.raises(ValueError, match="not divisible by pipe=3"):
+        main(_args(run_dir, os.path.join(run_dir["tmp"], "pipe3"), "--steps", "1",
+                   "--pipeline", "3"))
 
 
 def test_cli_needs_a_gpu_unless_asked_for_the_cpu(run_dir):

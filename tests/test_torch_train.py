@@ -442,12 +442,51 @@ def test_partition_params_raises_on_integer_leaf(cfg):
         step(t_trainer.init_train_state(model, opt), make_batch(cfg))
 
 
-def test_pipeline_mesh_raises_item_11(cfg):
-    model = port_model(base_params(cfg), cfg)
-    opt = t_trainer.make_optimizer()
-    for fn in (t_trainer.make_train_step, t_trainer.make_train_step_subset):
-        with pytest.raises(NotImplementedError, match="17: training over a mesh"):
-            fn(model, t_cfg(cfg), opt, j_lora.lora_trainable, pipeline_mesh=object())
+def test_pipeline_mesh_steps_run_at_world_size_1(cfg, tmp_path):
+    """``make_train_step`` and ``make_train_step_subset`` with
+    ``pipeline_mesh=`` a (pipe 1, data 1) mesh (one gloo rank, a file store):
+    one stage, two microbatches, against the unmeshed steps (fp32: the same
+    products on the microbatches' rows; loss and grad_norm rtol 1e-6,
+    parameters atol 1e-6)."""
+    import torch.distributed as dist
+
+    from visualcla_tpu_torch.parallel import pipeline as t_pp
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        mesh = t_pp.make_pipe_mesh(1, 1)
+        batch = make_batch(cfg, pad=3)
+        for subset in (False, True):
+            out = []
+            for pm in (None, mesh):
+                model = port_model(lora_params(base_params(cfg)), cfg)
+                if pm is not None:
+                    t_pp.shard_text_params(model, pm)
+                opt = t_trainer.make_optimizer(learning_rate=1e-3, schedule="const")
+                if subset:
+                    train, frozen = t_trainer.partition_params(model, j_lora.lora_trainable)
+                    step = t_trainer.make_train_step_subset(
+                        model, t_cfg(cfg), opt, j_lora.lora_trainable, pipeline_mesh=pm,
+                        n_micro=2)
+                    state, m = step(t_trainer.init_train_state(train, opt), frozen, batch)
+                else:
+                    step = t_trainer.make_train_step(model, t_cfg(cfg), opt, j_lora.lora_trainable,
+                                                     pipeline_mesh=pm, n_micro=2)
+                    state, m = step(t_trainer.init_train_state(model, opt), batch)
+                out.append((float(m["loss"]), float(m["grad_norm"]),
+                            {n: p.detach().clone() for n, p in state.params.items()}))
+            (l0, g0, p0), (l1, g1, p1) = out
+            np.testing.assert_allclose([l1, g1], [l0, g0], rtol=1e-6)
+            for n in p0:
+                np.testing.assert_allclose(p1[n].numpy(), p0[n].numpy(), atol=1e-6, err_msg=n)
+        with pytest.raises(ValueError, match="n_micro"):
+            t_trainer.train_forward_logits(
+                model, t_cfg(cfg), *(torch.as_tensor(batch[k]) for k in (
+                    "input_ids", "attention_mask")), batch["img_start_pos"],
+                torch.as_tensor(batch["pixel_values"]), pipeline_mesh=mesh, n_micro=3)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_training_forward_pins_dense_vision_attention(cfg, monkeypatch):

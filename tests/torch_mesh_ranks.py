@@ -35,6 +35,8 @@ def spawn(suite: str, world: int, workdir: str, payload: dict) -> list:
         while not ctx.join(timeout=5):
             if time.monotonic() > deadline:
                 raise TimeoutError(f"suite {suite!r}: ranks still running after {JOIN_S} s")
+    except mp.ProcessRaisedException:
+        pass  # the ranks' tracebacks are in their .err files, read below
     finally:
         for p in ctx.processes:
             if p.is_alive():
@@ -258,4 +260,211 @@ def run_pool(cls, model, p: dict, mesh_, spec_k: int = 0) -> list:
     return [list(eng.collect_row(r)) for r in range(8)]
 
 
-SUITES = {"forward": forward_suite, "engine": engine_suite, "paged": paged_suite}
+# ---------------------------------------------------------------------------
+# training over a mesh: the pipeline, the (data, model) steps, the CLI
+# ---------------------------------------------------------------------------
+
+def _model(flat, cfg, dtype):
+    from visualcla_tpu_torch.checkpoint.from_jax import build_model
+
+    return build_model(flat, cfg, device="cpu", dtype=dtype)
+
+
+def _local_cache(cache) -> dict:
+    return {k: v.clone() for k, v in cache.items()}
+
+
+def _pipe_mesh(P, n_other, other="data"):
+    """A (rep, pipe, ``other``) mesh over the 4 ranks: ``rep`` copies of a
+    (P, n_other) mesh."""
+    return mesh((4 // (P * n_other), P, n_other), ("rep", "pipe", other))
+
+
+def _coords(m) -> dict:
+    return {n: m.get_local_rank(n) for n in m.mesh_dim_names}
+
+
+def pipeline_suite(p: dict) -> dict:
+    """Prefill cases over (P, data, M), decode steps, per-row slots, an int8
+    cache, PP x TP, the refusal of a bad microbatch count, gradients through
+    the schedule and the composite train step."""
+    from visualcla_tpu_torch.parallel import pipeline as pp
+    from visualcla_tpu_torch.train import trainer
+
+    cfg = p["cfg"]
+    tc = cfg.text_config
+    ids, Smax = torch.from_numpy(p["ids"]), p["Smax"]
+    B, S = ids.shape
+    pos = torch.arange(S)[None].expand(B, S)
+    valid = torch.zeros(B, Smax, dtype=torch.bool)
+    valid[:, :S] = True
+    out = {}
+    with torch.no_grad():
+        for (P, nd, M) in p["cases"]:
+            m = _pipe_mesh(P, nd)
+            for name, dtype in (("f32", torch.float32), ("f64", torch.float64)):
+                model = _model(p["flat"][name], cfg, dtype)
+                pp.shard_text_params(model, m)
+                text = model.text
+                cache = pp.pipeline_kv_cache(tc, B, Smax, dtype, m, device="cpu")
+                h, cache = pp.pipeline_forward(text, tc, text.embed(ids), pos, cache, valid, 0, m,
+                                               n_micro=M)
+                out[("prefill", P, nd, M, name)] = (h.numpy(), _local_cache(cache), _coords(m))
+                if (P, nd, M, name) == (2, 1, 1, "f32"):
+                    # a rank holds its stage's layers only; the decode steps follow
+                    out["held"] = (sum(t.numel() for t in text.layers.parameters()),
+                                   [l for l, layer in enumerate(text.layers)
+                                    if layer.q_proj.weight.numel()])
+                    steps = []
+                    kv = valid.clone()
+                    for step, tok in enumerate(p["decode"]):
+                        kv[:, S + step] = True
+                        h, cache = pp.pipeline_forward(
+                            text, tc, text.embed(torch.from_numpy(tok)),
+                            torch.full((B, 1), S + step), cache, kv, S + step, m)
+                        steps.append(h.numpy())
+                    out["decode"] = steps
+        m = _pipe_mesh(2, 1)
+        for name, dtype in (("f32", torch.float32), ("f64", torch.float64)):
+            model = _model(p["flat"][name], cfg, dtype)
+            pp.shard_text_params(model, m)
+            text = model.text
+            # per-row write slots: one token a row at slots 3 and 7
+            slot = torch.tensor([3, 7])
+            kvr = torch.arange(Smax)[None, :] <= slot[:, None]
+            cache = pp.pipeline_kv_cache(tc, 2, Smax, dtype, m, device="cpu")
+            h, cache = pp.pipeline_forward(text, tc, text.embed(ids[:2, :1]), slot[:, None], cache,
+                                           kvr, slot, m)
+            out[("per_row", name)] = (h.numpy(), _local_cache(cache), _coords(m))
+        model = _model(p["flat"]["f32"], cfg, torch.float32)
+        pp.shard_text_params(model, m)
+        cache = pp.pipeline_kv_cache(tc, B, Smax, torch.float32, m, kv_quant="int8", device="cpu")
+        h, cache = pp.pipeline_forward(model.text, tc, model.text.embed(ids), pos, cache, valid, 0, m)
+        out["int8"] = (h.numpy(), _local_cache(cache), _coords(m))
+        try:
+            pp.pipeline_forward(model.text, tc, model.text.embed(ids[:2]), pos[:2], None,
+                                valid[:2, :S], 0, m, n_micro=3)
+        except ValueError as e:
+            out["n_micro_3"] = str(e)
+        # PP x TP: (pipe 2, model 2)
+        tpm = mesh((2, 2), ("pipe", "model"))
+        for name, dtype in (("f32", torch.float32), ("f64", torch.float64)):
+            model = _model(p["flat"][name], cfg, dtype)
+            pp.shard_text_params(model, tpm)
+            cache = pp.pipeline_kv_cache(tc, B, Smax, dtype, tpm, kv_heads=model.text.kv_heads,
+                                         device="cpu")
+            h, cache = pp.pipeline_forward(model.text, tc, model.text.embed(ids), pos, cache,
+                                           valid, 0, tpm)
+            out[("pp_tp", name)] = (h.numpy(), _local_cache(cache), {
+                **_coords(tpm), "kv_local": model.text.kv_heads < tc.num_key_value_heads})
+    # gradients of sum(h^2) through the cache-free schedule (f64, M = 2)
+    model = _model(p["flat"]["f64"], cfg, torch.float64)
+    pp.shard_text_params(model, m)
+    for t in model.parameters():
+        t.requires_grad_(True)
+    text = model.text
+    h, _ = pp.pipeline_forward(text, tc, text.embed(ids), pos, None, valid[:, :S], 0, m, n_micro=2)
+    (h ** 2).sum().backward()
+    out["grads"] = {n: t.grad.clone() for n, t in model.named_parameters()
+                    if t.grad is not None and t.grad.numel()}
+    out["grad_coords"] = _coords(m)
+    # the composite train step: (pipe 2, data 1) in f32 against JAX, and
+    # (pipe 2, data 2) in f64 against the port's unmeshed step
+    for key, (P, nd), name, dtype in ((("step", 2, 1), (2, 1), "f32", torch.float32),
+                                      (("step", 2, 2), (2, 2), "f64", torch.float64)):
+        sm = _pipe_mesh(P, nd)
+        model = _model(p["flat_vis"][name], cfg, dtype)
+        pp.shard_text_params(model, sm)
+        opt = trainer.make_optimizer(learning_rate=1e-3, schedule="const")
+        step = trainer.make_train_step(model, cfg, opt, pipeline_mesh=sm, n_micro=2)
+        state = trainer.init_train_state(model, opt)
+        metrics = []
+        for _ in range(2):
+            state, mt = step(state, p["batch"])
+            metrics.append((float(mt["loss"]), float(mt["grad_norm"])))
+        from visualcla_tpu_torch.checkpoint.from_jax import params_to_jax
+
+        out[key] = (metrics, {k: v.numpy() for k, v in params_to_jax(model).items()})
+    return out
+
+
+def _steps(model, cfg, trainable, batch, n: int, clip: float, subset: bool):
+    """``n`` steps of the subset (or masked) step over ``model``'s mesh ->
+    ([(loss, grad_norm)], the trainable leaves whole, JAX layout)."""
+    from visualcla_tpu_torch.checkpoint.from_jax import params_to_jax
+    from visualcla_tpu_torch.train import trainer
+
+    opt = trainer.make_optimizer(learning_rate=1e-3, schedule="const", grad_clip=clip)
+    if subset:
+        train, frozen = trainer.partition_params(model, trainable)
+        step = trainer.make_train_step_subset(model, cfg, opt, trainable)
+        state = trainer.init_train_state(train, opt)
+    else:
+        step = trainer.make_train_step(model, cfg, opt, trainable)
+        state = trainer.init_train_state(model, opt)
+    metrics = []
+    for _ in range(n):
+        state, m = (step(state, frozen, batch) if subset else step(state, batch))
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+    flat = params_to_jax(model)  # whole, every rank taking part
+    return metrics, {k: v.numpy() for k, v in flat.items() if trainable(tuple(k.split("/")))}
+
+
+def mesh_train_suite(p: dict) -> dict:
+    """Steps over a (data 2, model 2) mesh: stage 1, stage 2 over an int8
+    (QLoRA) base with a clip that engages, unequal token counts over the data
+    ranks, FSDP against TP-only, and the adapter export and merge."""
+    from visualcla_tpu_torch.checkpoint.from_jax import build_model, params_to_jax
+    from visualcla_tpu_torch.train import lora, trainer
+
+    cfg, m = p["cfg"], mesh()
+    out = {}
+    for key, tree, pred, subset, clip, batch in (
+            ("stage1", "dense", trainer.stage1_trainable, False, 1.0, "batch"),
+            ("stage2", "qlora", lora.lora_trainable, True, 1e-3, "batch"),
+            ("unequal", "dense", trainer.stage1_trainable, False, 1.0, "unequal")):
+        model = build_model(p["trees"][tree], cfg, device="cpu", dtype=torch.float32, mesh=m)
+        out[key] = _steps(model, cfg, pred, p[batch], p["n_steps"], clip, subset)
+    # FSDP against TP-only: the stage-2 step over a dense base with LoRA
+    layer_bytes = {}
+    for fsdp in (False, True):
+        model = build_model(p["trees"]["lora"], cfg, device="cpu", dtype=torch.float32, mesh=m)
+        if fsdp:
+            from visualcla_tpu_torch.parallel.fsdp import shard_layers
+
+            shard_layers(model, m)
+        layer_bytes[fsdp] = sum(t.numel() * t.element_size()
+                                for t in model.text.layers.parameters())
+        out[("fsdp", fsdp)] = _steps(model, cfg, lora.lora_trainable, p["batch"], p["n_steps"],
+                                     1.0, True)
+    out["layer_bytes"] = layer_bytes
+    # the adapter written and the merge folded over the mesh (FSDP too)
+    model = build_model(p["trees"]["lora"], cfg, device="cpu", dtype=torch.float32, mesh=m)
+    from visualcla_tpu_torch.parallel.fsdp import shard_layers
+
+    shard_layers(model, m)
+    lora.export_adapter(model, p["adapter_dir"], r=p["r"], alpha=p["alpha"])
+    lora.merge_lora(model)
+    flat = params_to_jax(model)
+    if torch.distributed.get_rank() == 0:
+        out["merged"] = {k: v.numpy() for k, v in flat.items()}
+    return out
+
+
+def cli_suite(p: dict) -> dict:
+    """``run_training.main`` under each set of mesh flags: 2 steps saving
+    every step, then a run resumed from step 1."""
+    from visualcla_tpu_torch.train.run_training import main
+
+    out = {}
+    for name, flags in p["runs"].items():
+        d = os.path.join(p["root"], name)
+        st = main(p["args"] + ["--output", d, "--save_every", "1", *flags])
+        re = main(p["args"] + ["--output", d + "_resumed", "--save_every", "1", "--resume",
+                               os.path.join(d, "train_state", "step_1"), *flags])
+        out[name] = (st.step, re.step)
+    return out
+
+
+SUITES = {"forward": forward_suite, "engine": engine_suite, "paged": paged_suite,
+          "pipeline": pipeline_suite, "mesh_train": mesh_train_suite, "cli": cli_suite}

@@ -2,6 +2,7 @@
 
     python3 tools/profile_torch_slice.py [--out profile.json] [--bits 4|8] [--kv_quant int8]
     python3 tools/profile_torch_slice.py --train 2|1 [--out train_profile.json]
+    python3 tools/profile_torch_slice.py --train 2 --mesh none,tp,fsdp,pipeline
 
 VisualCLA-7B at full width on seeded random bf16 weights (as chip_smoke.py
 builds it), its text tower quantized on the card with ``--bits``, its KV
@@ -15,7 +16,12 @@ QLoRA step, 1: stage 1; B=1, S=512, remat): the step's forward, backward
 and optimizer by CUDA events, ``Int8Linear``'s weight copies and the fp32
 attention timed alone at the step's shapes, and a torch.profiler breakdown
 of one step (device time by kind of kernel, the idle share, the largest
-kernels).  Prints one JSON object (and writes it to ``--out``).
+kernels).  ``--mesh`` profiles that step over each listed mesh at world
+size 1 over NCCL (``chip_smoke.py`` phase 14: ``tp`` a (data 1, model 1)
+mesh, ``fsdp`` the same with FSDP, ``pipeline`` a (pipe 1, data 1) pipeline
+at n_micro 2 and B=2; ``none`` the unmeshed step, B=2 beside ``pipeline``):
+the step's device ms, its profile and the host operators that take the most
+self time.  Prints one JSON object (and writes it to ``--out``).
 """
 from __future__ import annotations
 
@@ -98,6 +104,74 @@ def _events_ms(fn, n: int = 3) -> float:
     return statistics.median(times)
 
 
+def _host_ops(fn, top: int = 12) -> list:
+    """torch.profiler over one call of ``fn``: the host operators with the
+    most self CPU time, [ms, calls, name]."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(e.self_cpu_time_total / 1e3, e.count, e.key[:80]) for e in prof.key_averages()]
+    return [list(r) for r in sorted(rows, reverse=True)[:top]]
+
+
+def profile_mesh_train(kinds) -> dict:
+    """The QLoRA step of ``chip_smoke.py`` phase 14 (b) / (c) over each mesh
+    in ``kinds`` at world size 1."""
+    import tempfile
+
+    import numpy as np
+
+    from visualcla_tpu_torch.fixtures import train_batch, train_model
+    from visualcla_tpu_torch.parallel import distributed
+    from visualcla_tpu_torch.parallel import pipeline as pp
+    from visualcla_tpu_torch.parallel import tp
+    from visualcla_tpu_torch.parallel.sharding import make_mesh, shard_params
+    from visualcla_tpu_torch.train.lora import lora_trainable
+    from visualcla_tpu_torch.train.trainer import (init_train_state, make_optimizer,
+                                                   make_train_step_subset, partition_params)
+
+    distributed.initialize("cuda", init_method=f"file://{tempfile.mkdtemp()}/store",
+                           world_size=1, rank=0)
+    cfg = visualcla_config_for_size("7B")
+    tok = make_tokenizer(cfg.text_config.vocab_size)
+    b1 = train_batch(cfg, tok)
+    b2 = {k: np.concatenate([v, train_batch(cfg, tok, seed=SEED + 1)[k]]) for k, v in b1.items()}
+    res = {"device": torch.cuda.get_device_name(0)}
+    for kind in kinds:
+        model = train_model(cfg, 2)
+        pipe = None
+        if kind in ("tp", "fsdp"):
+            shard_params(model, make_mesh(1, 1), fsdp=kind == "fsdp")
+        elif kind == "pipeline":
+            pipe = pp.make_pipe_mesh(1, 1)
+            pp.shard_text_params(model, pipe)
+        opt = make_optimizer(learning_rate=1e-4, schedule="const")
+        train, frozen = partition_params(model, lora_trainable)
+        state = init_train_state(train, opt)
+        step = make_train_step_subset(model, cfg, opt, lora_trainable, remat=True,
+                                      pipeline_mesh=pipe, n_micro=2)
+        for batch, label in ((b1, kind), (b2, kind + " B=2")):
+            if (kind == "pipeline") != (batch is b2) and kind != "none":
+                continue
+            for _ in range(2):  # warm-up
+                state, _ = step(state, frozen, batch)
+            calls = dict(tp.CALLS)
+            ms = _events_ms(lambda: step(state, frozen, batch))
+            prof = _profile_kernels(lambda: step(state, frozen, batch))
+            res[label] = {"step_ms": ms, "wall_ms": prof["wall_ms"],
+                          "device_busy_ms": prof["device_ms"], "idle_share": prof["idle_share"],
+                          "collectives_a_step": {k: (tp.CALLS[k] - calls[k]) // 4
+                                                 for k in calls},
+                          "device_ms_by_kind": prof["device_ms_by_kind"],
+                          "host_ops_ms": _host_ops(lambda: step(state, frozen, batch))}
+        del model, state, frozen, train
+        torch.cuda.empty_cache()
+    return res
+
+
 def profile_train(stage: int) -> dict:
     """The training step of ``chip_smoke.py`` phase 11 at full width."""
     from visualcla_tpu_torch.fixtures import (TRAIN_SEQ, train_batch, train_model,
@@ -178,11 +252,16 @@ def main(argv=None) -> int:
     ap.add_argument("--kv_quant", choices=("none", "int8"), default="none")
     ap.add_argument("--train", type=int, choices=(1, 2), default=None,
                     help="profile the full-width training step of this stage instead")
+    ap.add_argument("--mesh", default=None,
+                    help="with --train 2: comma-separated meshes among none, tp, fsdp, "
+                         "pipeline (world size 1)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_slice: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.train and args.mesh:
+        return _emit(profile_mesh_train(args.mesh.split(",")), args.out)
     if args.train:
         return _emit(profile_train(args.train), args.out)
 

@@ -52,10 +52,6 @@ logger = logging.getLogger(__name__)
 DEFAULT_GENERATION_CONFIG = SamplingConfig()  # the reference's default sampled config
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP, open item {item})")
-
-
 def _default_device() -> torch.device:
     """The card: the port's entry points run on a CUDA device unless the
     caller passes ``device="cpu"``; without a GPU they raise."""

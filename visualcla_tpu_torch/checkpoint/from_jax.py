@@ -168,7 +168,8 @@ def wrap_lora_(model: nn.Module, specs: Dict[str, dict], dtype=None) -> nn.Modul
     by a ``LoraLinear`` (A, B in ``dtype``, default the model's float dtype)
     over a base of the leaf's tier, in place: the linear itself when it is of
     that tier, else a new one whose values come from the state load; the
-    linear's bias moves to the wrapper."""
+    linear's bias moves to the wrapper.  Over a mesh the wrapper runs as its
+    base's spec says, and A and B are whole."""
     if dtype is None:
         dtype = model.projection.weight.dtype  # the model's float dtype at every tier
     kinds = {"dense": Linear, "int8": Int8Linear, "int4": Int4Linear}
@@ -189,8 +190,10 @@ def wrap_lora_(model: nn.Module, specs: Dict[str, dict], dtype=None) -> nn.Modul
                 base = Int8Linear(in_f, out_f, device=dev)
             else:
                 base = Int4Linear(in_f, out_f, effective_group(in_f), device=dev)
-            setattr(layer, name, LoraLinear(base, spec["rank"], bias=bias, device=dev,
-                                            dtype=dtype))
+            wrapped = LoraLinear(base, spec["rank"], bias=bias, device=dev, dtype=dtype)
+            if hasattr(old, "tp"):  # over a mesh: the base's spec (parallel.tp.attach)
+                wrapped.tp, wrapped.tp_in, wrapped.tp_out = old.tp, old.tp_in, old.tp_out
+            setattr(layer, name, wrapped)
     return model
 
 
@@ -312,10 +315,20 @@ def params_to_jax(model: nn.Module, stack: bool = True, grads: bool = False
     ``stack=False``: each layer leaf is the list of its layers' views of the
     model's own tensors, where they lie (nothing is copied).  ``grads=True``:
     the parameters' ``.grad``s in the same layout instead (the parameters
-    without one are left out)."""
+    without one are left out).  Over a mesh (``parallel.sharding``) the
+    tensors are the whole ones, assembled from the ranks' pieces: every rank
+    calls it."""
+    from ..parallel.sharding import gather_whole, is_placed
+
     leaves: Dict[str, object] = {}
-    entries = (((n, p.grad) for n, p in model.named_parameters() if p.grad is not None)
-               if grads else model.state_dict().items())
+    if grads:
+        entries = ((n, p.grad) for n, p in model.named_parameters() if p.grad is not None)
+    else:
+        entries = model.state_dict().items()
+        named = dict(model.named_parameters())
+        if any(is_placed(p) for p in named.values()):
+            entries = [(n, gather_whole(named[n]) if n in named and is_placed(named[n]) else t)
+                       for n, t in entries]
     for name, t in entries:
         key, layer, t = _state_to_leaf(name, t)
         if key is None:

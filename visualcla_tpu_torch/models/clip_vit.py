@@ -25,7 +25,7 @@ from ..ops.activations import ACT2FN
 from ..ops.attention import full_attention, vision_attention_impl
 from ..ops.linear import Linear
 from ..ops.norms import LayerNorm
-from ..parallel import tp
+from ..parallel import fsdp, tp
 
 
 def _torch_bicubic_1d(in_size: int, out_size: int) -> torch.Tensor:
@@ -148,6 +148,6 @@ class CLIPVisionTower(nn.Module):
         x = self.pre_layernorm(x)
         impl = vision_attention_impl()  # read once: a recompute runs outside any scope
         for layer in self.layers:
-            x = (torch.utils.checkpoint.checkpoint(layer, x, impl, use_reentrant=False)
-                 if remat else layer(x, impl))
+            x = (torch.utils.checkpoint.checkpoint(fsdp.call, layer, x, impl, use_reentrant=False)
+                 if remat else fsdp.call(layer, x, impl))
         return self.post_layernorm(x)

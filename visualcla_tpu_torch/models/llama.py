@@ -34,7 +34,7 @@ from ..ops.linear import Int8Table, make_linear
 from ..ops.norms import RMSNorm
 from ..ops.quantization import quantize_kv
 from ..ops.rope import apply_rope, rope_table
-from ..parallel import tp
+from ..parallel import fsdp, tp
 from ..parallel.ring import ring_attention
 
 WriteSlot = Union[int, torch.Tensor]  # int, or (B,) per-row slots
@@ -241,10 +241,11 @@ class Llama(nn.Module):
         for l, layer in enumerate(self.layers):
             if remat:
                 h = torch.utils.checkpoint.checkpoint(
-                    layer, h, cos, sin, kv_cache, kv_valid, write_slot, slots, l,
+                    fsdp.call, layer, h, cos, sin, kv_cache, kv_valid, write_slot, slots, l,
                     use_reentrant=False)
             else:
-                h = layer(h, cos, sin, kv_cache, kv_valid, write_slot, slots, l, ring=ring)
+                h = fsdp.call(layer, h, cos, sin, kv_cache, kv_valid, write_slot, slots, l,
+                              ring=ring)
         h = self.final_norm(h)
         if ring is not None:
             h = tp.gather_from_model(h, ring.group, ring.size, dim=1)

@@ -21,7 +21,7 @@ from ..ops.activations import ACT2FN
 from ..ops.attention import full_attention, vision_attention_impl
 from ..ops.linear import Linear
 from ..ops.norms import LayerNorm
-from ..parallel import tp
+from ..parallel import fsdp, tp
 
 
 class ResamplerLayer(nn.Module):
@@ -81,9 +81,9 @@ class Resampler(nn.Module):
         h = self.query_embedding[None].expand(B, -1, -1).to(image_embeds.dtype)
         impl = vision_attention_impl()  # read once: a recompute runs outside any scope
         for layer, mask in zip(self.layers, self.head_mask):
-            h = (torch.utils.checkpoint.checkpoint(layer, h, image_embeds, mask, impl,
+            h = (torch.utils.checkpoint.checkpoint(fsdp.call, layer, h, image_embeds, mask, impl,
                                                    use_reentrant=False) if remat
-                 else layer(h, image_embeds, mask, impl))
+                 else fsdp.call(layer, h, image_embeds, mask, impl))
         return h
 
 

@@ -81,10 +81,10 @@ class Linear(nn.Module):
         return F.linear(x, self.weight, self.bias)
 
     def forward_f32(self, x: torch.Tensor) -> torch.Tensor:
-        """fp32-accumulated product in fp32 (the LM head)."""
+        """fp32-accumulated product in fp32 (the LM head; an fp64 input stays fp64)."""
         w = self.weight
-        if x.dtype == torch.float32:
-            return F.linear(x, w.float())
+        if x.dtype in (torch.float32, torch.float64):
+            return F.linear(x, w.to(x.dtype))
         if x.is_cuda:  # fp32 accumulation and output without an fp32 copy of w
             return _mm_f32(x, w)
         return F.linear(x.float(), w.float())
@@ -222,22 +222,35 @@ class LoraLinear(nn.Module):
         self.lora_A = _frozen(torch.zeros(rank, in_f, **kw))
         self.lora_B = _frozen(torch.zeros(out_f, rank, **kw))
         self.lora_scale = _frozen(torch.ones((), dtype=torch.float32, device=device))
-        self.bias = None if bias is None else _frozen(bias)
+        # a Parameter moves as it is (its placement over a mesh with it)
+        self.bias = bias if bias is None or isinstance(bias, nn.Parameter) else _frozen(bias)
+
+    def lora_term(self, x: torch.Tensor) -> torch.Tensor:
+        """``((x A) B) * scale`` in x's dtype."""
+        down = F.linear(x, self.lora_A.to(x.dtype))
+        return F.linear(down, self.lora_B.to(x.dtype)) * self.lora_scale.to(x.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        down = F.linear(x, self.lora_A.to(x.dtype))
-        up = F.linear(down, self.lora_B.to(x.dtype))
-        y = self.base(x) + up * self.lora_scale.to(x.dtype)
+        term = self.lora_term(x)  # first: the backward sums x's gradients in this order
+        y = self.base(x) + term
         return y if self.bias is None else y + self.bias
 
 
 def base_features(mod: nn.Module) -> Tuple[int, int]:
-    """(in, out) of a dense, int8 or int4 linear."""
+    """(in, out) of a dense, int8 or int4 linear: the whole layer's over a
+    mesh (``parallel.tp.attach`` marks a sharded side), its own tensors'
+    otherwise."""
     if isinstance(mod, Int4Linear):
         G, half, out_f = mod.q.shape
-        return G * half * 2, out_f
-    w = mod.q if isinstance(mod, Int8Linear) else mod.weight
-    return w.shape[1], w.shape[0]
+        in_f = G * half * 2
+    else:
+        w = mod.q if isinstance(mod, Int8Linear) else mod.weight
+        in_f, out_f = w.shape[1], w.shape[0]
+    tp = getattr(mod, "tp", None)
+    if tp is not None:
+        in_f *= tp.size if mod.tp_in else 1
+        out_f *= tp.size if mod.tp_out else 1
+    return in_f, out_f
 
 
 def make_linear(in_features: int, out_features: int, quant: str = "none", *, device=None,

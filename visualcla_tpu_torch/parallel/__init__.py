@@ -1,9 +1,17 @@
-"""Serving over a device mesh on ``torch.distributed`` (port of
-visualcla_tpu/parallel/, its serving half): the partition rules
-(``sharding``), the process group (``distributed``), the collectives and
-the tensor-parallel layers (``tp``) and ring attention (``ring``).  The
-pipeline schedule (``parallel/pipeline.py``) and FSDP at runtime belong to
-training over a mesh, ROADMAP item 17."""
+"""Serving and training over a device mesh on ``torch.distributed`` (port of
+visualcla_tpu/parallel/): the partition rules (``sharding``), the process
+group (``distributed``), the collectives and the tensor-parallel layers
+(``tp``), ring attention (``ring``), FSDP at runtime (``fsdp``) and the
+GPipe schedule of the decoder stack (``pipeline``)."""
+from .pipeline import (  # noqa: F401
+    PIPE,
+    make_pipe_mesh,
+    make_pipe_tp_mesh,
+    pipeline_forward,
+    pipeline_kv_cache,
+    shard_text_params,
+    stage_param_specs,
+)
 from .sharding import (  # noqa: F401
     DATA,
     MODEL,

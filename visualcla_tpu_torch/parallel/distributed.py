@@ -47,6 +47,20 @@ def initialize(device: str = "cuda", *, init_method: Optional[str] = None,
     logger.info("torch.distributed up: rank %d/%d on %s", rank, world_size, backend)
 
 
+def rank() -> int:
+    """This process's rank (0 without a process group)."""
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def world() -> int:
+    """The processes of this run: the group's, else torchrun's ``WORLD_SIZE``."""
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_initialized() else int(os.environ.get("WORLD_SIZE", 1))
+
+
 def pod_mesh(n_data: Optional[int] = None):
     """The global (data, model) mesh: ``data`` across nodes (only the batch's
     gather crosses them), ``model`` within a node (default: ``n_data`` the

@@ -188,8 +188,8 @@ def param_specs(params: dict, fsdp: bool = False) -> dict:
     layout; leaves need only ``ndim``).
 
     ``fsdp=True`` also shards every stacked layer tensor's leading layer axis
-    over ``data`` (ZeRO-style, for training).  Only the specs are ported:
-    training over a mesh is ROADMAP item 17."""
+    over ``data`` (ZeRO-style, for training; ``parallel.fsdp`` is its
+    runtime)."""
     specs = {}
     if "text" in params:
         specs["text"] = _tree_specs(params["text"], _LLAMA_RULES)
@@ -302,8 +302,8 @@ def state_specs(model, mesh) -> Dict[str, Spec]:
     specs = leaf_specs(leaves, mesh)
     out = {}
     for name, t in state.items():
-        if name not in entries:
-            out[name] = _p()
+        if name not in entries or name.rsplit(".", 1)[-1] in _LORA_LEAVES:
+            out[name] = _p()  # LoRA's A and B stay whole (the JAX CLI adds them unsharded)
             continue
         key, layer, flipped = entries[name]
         spec = specs[key]
@@ -312,6 +312,9 @@ def state_specs(model, mesh) -> Dict[str, Spec]:
         spec = spec + (None,) * (t.dim() - len(spec))
         out[name] = spec[::-1] if flipped else spec
     return out
+
+
+_LORA_LEAVES = ("lora_A", "lora_B", "lora_scale")
 
 
 def local_slice(spec: Spec, shape: tuple, mesh) -> Tuple[slice, ...]:
@@ -365,24 +368,97 @@ def materialize_local(model, mesh, device) -> Dict[str, Spec]:
 
 
 @torch.no_grad()
+def slice_tensors(model, specs: Dict[str, Spec], mesh) -> None:
+    """Cut each of ``model``'s tensors to this rank's shard by ``specs``, in
+    place."""
+    tensors = dict(model.named_parameters())
+    tensors.update(dict(model.named_buffers()))
+    for name, spec in specs.items():
+        if any(spec):
+            t = tensors[name]
+            t.data = t.data[local_slice(spec, tuple(t.shape), mesh)].clone()
+
+
+@torch.no_grad()
 def shard_params(model, mesh, fsdp: bool = False):
     """Slice each of ``model``'s tensors to this rank's shard, in place, by
     ``state_specs``, and set up the model's collectives
     (``parallel.tp.attach``): the leaf's actual spec decides each one.  Axes
-    that do not divide stay replicated, as ``_valid_spec`` says.  ->
-    ``model``."""
-    if fsdp:
-        raise NotImplementedError(
-            "FSDP at runtime is not ported (ROADMAP, open item 17: training over a mesh)")
+    that do not divide stay replicated, as ``_valid_spec`` says.  ``fsdp``
+    then shards every layer stack's layer axis over ``data``
+    (``parallel.fsdp.shard_layers``).  -> ``model``."""
     from . import tp
 
     specs = state_specs(model, mesh)
-    tensors = dict(model.named_parameters())
-    tensors.update(dict(model.named_buffers()))
-    for name, spec in specs.items():
-        if not any(spec):
-            continue
-        t = tensors[name]
-        t.data = t.data[local_slice(spec, tuple(t.shape), mesh)].clone()
+    slice_tensors(model, specs, mesh)
     tp.attach(model, mesh, specs)
+    if fsdp:
+        from .fsdp import shard_layers
+
+        shard_layers(model, mesh)
     return model
+
+
+# ---------------------------------------------------------------------------
+# a parameter's placement: whole tensors from shards and back
+# ---------------------------------------------------------------------------
+#
+# ``tp.attach`` marks a model-sharded parameter ``p.shard = (model Axis, dim)``;
+# ``fsdp.shard_layers`` and ``pipeline.shard_text_params`` mark a parameter
+# that one rank of an axis holds ``p.owner = (Axis, rank, its shape)``, the
+# other ranks of that axis holding an empty tensor in its place.
+
+
+def is_placed(p: torch.Tensor) -> bool:
+    """True if ``p`` is sharded over ``model`` or held by one rank of an axis."""
+    return hasattr(p, "shard") or hasattr(p, "owner")
+
+
+def held(p: torch.Tensor) -> bool:
+    """True unless ``p`` is held by another rank of its owner axis."""
+    owner = getattr(p, "owner", None)
+    return owner is None or owner[0].rank == owner[1]
+
+
+def norm_axes(p: torch.Tensor) -> tuple:
+    """The axes over which ``p``'s pieces make the logical array."""
+    axes = []
+    if hasattr(p, "shard"):
+        axes.append(p.shard[0])
+    if hasattr(p, "owner"):
+        axes.append(p.owner[0])
+    return tuple(axes)
+
+
+@torch.no_grad()
+def gather_whole(p: torch.Tensor, t: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The logical (whole) tensor of ``t`` (default ``p`` itself; else a
+    tensor placed as ``p`` is, such as its optimizer moments) on every rank:
+    broadcast from its owner, then gathered over ``model``.  Every rank calls
+    it for the same parameters in the same order."""
+    from . import tp
+
+    t = p.detach() if t is None else t
+    owner = getattr(p, "owner", None)
+    if owner is not None:
+        ax, r, shape = owner
+        buf = t.clone() if ax.rank == r else torch.empty(shape, dtype=t.dtype, device=t.device)
+        t = tp.broadcast(buf, ax.group, r)
+    shard = getattr(p, "shard", None)
+    if shard is not None:
+        ax, dim = shard
+        t = tp.gather_from_model(t, ax.group, ax.size, dim)
+    return t
+
+
+def take_local(p: torch.Tensor, whole: torch.Tensor) -> torch.Tensor:
+    """This rank's piece of ``whole`` placed as ``p`` (an empty tensor where
+    another rank holds it)."""
+    if not held(p):
+        return whole.new_empty(0)
+    shard = getattr(p, "shard", None)
+    if shard is not None:
+        ax, dim = shard
+        w = whole.shape[dim] // ax.size
+        whole = whole.narrow(dim, ax.rank * w, w)
+    return whole

@@ -27,6 +27,8 @@ from torch import nn
 from ..checkpoint.from_jax import params_to_jax, wrap_lora_
 from ..ops.linear import Int4Linear, Int8Linear, Linear, LoraLinear, base_features
 from ..ops.quantization import dequantize_grouped
+from ..parallel.distributed import rank
+from ..parallel.sharding import held
 
 TEXT_TARGETS = ("q_proj", "k_proj", "v_proj", "o_proj",
                 "gate_proj", "up_proj", "down_proj")
@@ -89,24 +91,46 @@ def _dense_weight(base: nn.Module) -> torch.Tensor:
 def merge_lora(model: nn.Module) -> nn.Module:
     """Fold every ``LoraLinear`` into a dense ``Linear`` in place: W + B A *
     scale in fp32, back to the base's dtype (a quantized base is dequantized
-    and folds to the model's float dtype).  -> the model."""
+    and folds to the model's float dtype).  Over a mesh each rank folds its
+    piece of the base (the rows or columns of B A its shard holds; nothing
+    where another rank holds the layer) and the dense layer keeps the
+    base's placement.  -> the model."""
     dtype = model.projection.weight.dtype
     for tower in ("text", "vision"):
         for layer in getattr(model, tower).layers:
             for name, mod in list(layer.named_children()):
-                if not isinstance(mod, LoraLinear):
-                    continue
-                base = mod.base
-                w = _dense_weight(base) + (mod.lora_B.float() @ mod.lora_A.float()) * \
-                    mod.lora_scale.float()
-                out_dtype = base.weight.dtype if isinstance(base, Linear) else dtype
-                fin, fout = base_features(base)
-                dense = Linear(fin, fout, mod.bias is not None, device=w.device, dtype=out_dtype)
-                dense.weight.copy_(w.to(out_dtype))
-                if mod.bias is not None:
-                    dense.bias.copy_(mod.bias)
-                setattr(layer, name, dense)
+                if isinstance(mod, LoraLinear):
+                    setattr(layer, name, _folded(mod, dtype))
     return model
+
+
+def _folded(mod: LoraLinear, dtype) -> Linear:
+    base = mod.base
+    out_dtype = base.weight.dtype if isinstance(base, Linear) else dtype
+    carrier = base.weight if isinstance(base, Linear) else base.q
+    dim = 1 if getattr(mod, "tp_in", False) else 0 if getattr(mod, "tp_out", False) else None
+    if held(carrier):
+        w = _dense_weight(base)
+        fold = (mod.lora_B.float() @ mod.lora_A.float()) * mod.lora_scale.float()
+        if dim is not None:  # this rank's rows (column-parallel) or columns (row-parallel)
+            n = w.shape[dim]
+            fold = fold.narrow(dim, mod.tp.rank * n, n)
+        weight = (w + fold).to(out_dtype)
+    else:
+        weight = carrier.new_empty(0, dtype=out_dtype)
+    dense = Linear(1, 1, False, device="meta")
+    dense.weight = nn.Parameter(weight, requires_grad=False)
+    dense.bias = mod.bias  # the Parameter, with its placement
+    if hasattr(mod, "tp"):
+        dense.tp, dense.tp_in, dense.tp_out = mod.tp, mod.tp_in, mod.tp_out
+        if dim is not None:
+            dense.weight.shard = (mod.tp, dim)
+    if hasattr(carrier, "owner"):  # the (out, in) the owner holds
+        ax, r, shape = carrier.owner
+        if isinstance(base, Int4Linear):  # carrier (G, gs/2, out)
+            shape = (shape[2], shape[0] * shape[1] * 2)
+        dense.weight.owner = (ax, r, tuple(shape))
+    return dense
 
 
 # HF key formats for export (reverse of checkpoint/mapping.py)
@@ -133,7 +157,9 @@ def export_adapter(model: nn.Module, out_dir: str, *, r: int, alpha: float) -> N
     """Write a reference-layout composite adapter: LoRA pairs in PEFT (out,
     in) orientation under ``base_model.model.{text_model|vision_model}``
     prefixes, plus the full resampler, projector, embed_tokens and lm_head
-    (the keys of the reference's ``convert_ckpt_for_tgwebui.py``), fp32."""
+    (the keys of the reference's ``convert_ckpt_for_tgwebui.py``), fp32.
+    Over a mesh every rank calls it (the tensors are assembled whole) and
+    rank 0 writes."""
     views = params_to_jax(model, stack=False)  # the model's own tensors, not copied
     flat = {k: (torch.stack(v) if isinstance(v, list) else v).float().cpu()
             for k, v in views.items()
@@ -169,6 +195,8 @@ def export_adapter(model: nn.Module, out_dir: str, *, r: int, alpha: float) -> N
         sd["base_model.model.image_projection_layer.weight"] = flat["projection/weight"].t()
         sd["base_model.model.image_projection_layer.bias"] = flat["projection/bias"]
 
+    if rank() != 0:  # over a mesh every rank assembled the tensors; rank 0 writes
+        return
     os.makedirs(out_dir, exist_ok=True)
     torch.save({k: v.contiguous().clone() for k, v in sd.items()},
                os.path.join(out_dir, "adapter_model.bin"))

@@ -20,7 +20,17 @@ restores one and continues from its step: the batches it had consumed are
 skipped, so the run goes on as if it had not stopped.  Outputs: the native
 checkpoint (LoRA merged, bf16) at --output with the checkpoint's tokenizer
 and preprocessor files, and the adapter in PEFT format at --output/adapter.
-Meshes (``--n_data``, ``--pipeline``, ``--fsdp``, ``--n_micro``) raise.
+
+Over several devices, one process each (``torchrun --nproc_per_node N -m
+visualcla_tpu_torch.train.run_training ... --n_data D``), with the JAX CLI's
+rules: ``--pipeline P`` (> 1) builds a (pipe P, data max(n_data, 1)) mesh
+and no (data, model) mesh, GPipe over ``--n_micro`` microbatches (default
+2); else ``--n_data D`` (> 0) builds a (data D, model N / D) mesh, and
+``--fsdp`` also shards every layer stack over ``data``; one device gets no
+mesh (``--fsdp`` has no effect there).  Every rank reads the same global
+batch from the seeded loader and takes its rows; rank 0 alone writes the
+train states, the adapter, the checkpoint and the logs, each the same as a
+one-device run's.
 """
 from __future__ import annotations
 
@@ -51,7 +61,8 @@ def main(argv=None):
     ap.add_argument("--grad_clip", type=float, default=1.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--n_data", type=int, default=0,
-                    help="data-parallel axis size (multi-device: not ported)")
+                    help="data-parallel axis size; 0 = no mesh; the rest of the devices "
+                         "go to the TP axis")
     ap.add_argument("--log_every", type=int, default=10)
     ap.add_argument("--save_every", type=int, default=0,
                     help="save the train state every N steps (0 = off)")
@@ -60,21 +71,25 @@ def main(argv=None):
     ap.add_argument("--remat", action="store_true",
                     help="recompute each layer in the backward (memory for FLOPs)")
     ap.add_argument("--pipeline", type=int, default=0,
-                    help="pipeline-parallel stages (multi-device: not ported)")
-    ap.add_argument("--n_micro", type=int, default=None,
-                    help="GPipe microbatches per step, 2 (with --pipeline: not ported)")
+                    help="pipeline-parallel stages for the text tower (GPipe over a 'pipe' "
+                         "axis; 0 = off; layers must divide evenly; combines with --n_data "
+                         "as DP)")
+    ap.add_argument("--n_micro", type=int, default=2,
+                    help="GPipe microbatches per step (with --pipeline)")
     ap.add_argument("--fsdp", action="store_true",
-                    help="layer-axis parameter sharding (multi-device: not ported)")
+                    help="layer-axis parameter sharding over the data axis (needs "
+                         "num_layers %% n_data == 0)")
     ap.add_argument("--device", default=None, help="default: the GPU; 'cpu' to run there")
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
 
     import torch
 
-    from ..api import _default_device, _not_ported
+    from ..api import _default_device
     from ..checkpoint.convert import SIDE_FILES
     from ..checkpoint.from_jax import params_to_jax
     from ..checkpoint.serialize import load_checkpoint, save_checkpoint
+    from ..parallel import distributed
     from ..processor import ImageProcessor
     from ..text import VisualCLATokenizer
     from .checkpointing import latest_step_dir, restore_train_state, save_train_state
@@ -83,13 +98,32 @@ def main(argv=None):
     from .trainer import (init_train_state, make_optimizer, make_train_step_subset,
                           partition_params, stage1_trainable)
 
-    for flag, used in (("--n_data", args.n_data > 0), ("--pipeline", args.pipeline > 1),
-                       ("--fsdp", args.fsdp), ("--n_micro", args.n_micro is not None)):
-        if used:
-            raise _not_ported(f"training over a mesh ({flag})", "17: training over a mesh")
     device = torch.device(args.device) if args.device else _default_device()
+    mesh = pipe_mesh = None
+    if args.pipeline > 1:  # layers % stages, as JAX checks, before any process group
+        from ..core.config import VisualCLAConfig
+        from ..parallel.pipeline import stage_param_specs
 
-    model, cfg = load_checkpoint(args.checkpoint, device=device, dtype=torch.float32)
+        stage_param_specs(args.pipeline, VisualCLAConfig.from_pretrained(args.checkpoint)
+                          .text_config)
+    if args.pipeline > 1 or (args.n_data > 0 and distributed.world() > 1):
+        distributed.initialize(device.type)
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+        if args.pipeline <= 1:
+            from ..parallel.sharding import make_mesh
+
+            mesh = make_mesh(args.n_data)
+    elif distributed.world() > 1:
+        raise ValueError(f"{distributed.world()} processes and no mesh: pass --n_data or --pipeline")
+    lead = distributed.rank() == 0
+
+    # the pipeline shards the text tower itself, after the whole model loads
+    model, cfg = load_checkpoint(args.checkpoint, device=device, dtype=torch.float32, mesh=mesh)
+    if args.pipeline > 1:
+        from ..parallel.pipeline import make_pipe_mesh
+
+        pipe_mesh = make_pipe_mesh(args.pipeline, max(args.n_data, 1))
     tokenizer = VisualCLATokenizer.from_pretrained(args.checkpoint)
     if os.path.exists(os.path.join(args.checkpoint, "preprocessor_config.json")):
         ip = ImageProcessor.from_pretrained(args.checkpoint)
@@ -103,6 +137,14 @@ def main(argv=None):
         trainable = lora_trainable
     else:
         trainable = stage1_trainable
+    if pipe_mesh is not None:
+        from ..parallel.pipeline import shard_text_params
+
+        shard_text_params(model, pipe_mesh)
+    if mesh is not None and args.fsdp:
+        from ..parallel.fsdp import shard_layers
+
+        shard_layers(model, mesh)
 
     records = load_records(args.data)
     builder = ExampleBuilder(
@@ -115,7 +157,8 @@ def main(argv=None):
         total_steps=total, grad_clip=args.grad_clip,
     )
     train, frozen = partition_params(model, trainable)
-    step_fn = make_train_step_subset(model, cfg, optimizer, trainable, remat=args.remat)
+    step_fn = make_train_step_subset(model, cfg, optimizer, trainable, remat=args.remat,
+                                     pipeline_mesh=pipe_mesh, n_micro=args.n_micro)
     state = init_train_state(train, optimizer)
     if args.resume:
         src = latest_step_dir(args.resume) or args.resume
@@ -141,7 +184,7 @@ def main(argv=None):
             step = state.step
             if args.save_every and step % args.save_every == 0:
                 save_train_state(os.path.join(args.output, "train_state", f"step_{step}"), state)
-            if step % args.log_every == 0:
+            if lead and step % args.log_every == 0:
                 logger.info("step %d/%d loss %.4f gnorm %.3f (%.2f s/step)",
                             step, total, float(metrics["loss"]), float(metrics["grad_norm"]),
                             (time.time() - t0) / (step - start))
@@ -152,13 +195,20 @@ def main(argv=None):
         export_adapter(model, os.path.join(args.output, "adapter"),
                        r=args.lora_r, alpha=args.lora_alpha)
         merge_lora(model)
-    save_checkpoint(args.output, params_to_jax(model), cfg, dtype="bfloat16")
-    for name in SIDE_FILES:
-        src = os.path.join(args.checkpoint, name)
-        if os.path.exists(src):
-            shutil.copy(src, os.path.join(args.output, name))
-    logger.info("saved trained checkpoint -> %s (step %d)", args.output, step)
+    flat = params_to_jax(model)  # over a mesh: the whole tensors, every rank taking part
+    if lead:
+        save_checkpoint(args.output, flat, cfg, dtype="bfloat16")
+        for name in SIDE_FILES:
+            src = os.path.join(args.checkpoint, name)
+            if os.path.exists(src):
+                shutil.copy(src, os.path.join(args.output, name))
+        logger.info("saved trained checkpoint -> %s (step %d)", args.output, step)
+    if mesh is not None or pipe_mesh is not None:
+        import torch.distributed as dist
+
+        dist.barrier()
     return state
+
 
 
 if __name__ == "__main__":

@@ -18,6 +18,19 @@ grad.  ``make_optimizer`` is optax's ``chain(clip_by_global_norm,
 adamw)`` over such dicts (``Optimizer``).  The forward is cache-free and
 runs dense attention only: no hand kernel has a backward, and the JAX
 package's training runs no Pallas kernel either.
+
+Over a mesh (explicit SPMD: every rank makes the same calls with the same
+global batch) a step runs on the model's ``(data, model)`` mesh
+(``parallel.sharding.shard_params``, with ``fsdp=True`` or not) or, with
+``pipeline_mesh``, on a ``(pipe, data)`` or ``(pipe, model)`` mesh
+(``parallel.pipeline``, ``n_micro`` microbatches).  Each data rank runs its
+rows of the batch; the loss is the global token-weighted mean, as GSPMD
+computes it over the whole batch: the masked NLL and the token count are
+summed over ``data``, and so are the gradients (an FSDP leaf's onto its
+owner).  The clip's global norm is the norm of the logical arrays: a
+leaf's pieces are summed over the axes that shard it (``model``, and the
+axis whose one rank holds it: ``data`` under FSDP, ``pipe`` under PP), a
+replicated leaf counts once; so the clip decides the same on every rank.
 """
 from __future__ import annotations
 
@@ -31,10 +44,11 @@ from torch import nn
 
 from ..core.config import VisualCLAConfig
 
-from ..api import _not_ported
 from ..checkpoint.from_jax import jax_key
 from ..models.visualcla import multimodal_embeds
 from ..ops.attention import attention_impl_scope
+from ..parallel import tp
+from ..parallel.sharding import DATA, is_placed, norm_axes
 
 IGNORE_INDEX = -100
 Params = Dict[str, torch.Tensor]
@@ -50,16 +64,60 @@ class TrainState:
     step: int
 
 
-def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Next-token cross-entropy of (B, S, V) logits against (B, S) labels,
-    the mean over the non-ignored positions (HF: shift inside, ignore -100;
-    an all-ignored batch gives 0)."""
-    logits = logits[:, :-1].float()
+def masked_nll(logits: torch.Tensor, labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sum of the next-token NLL over the non-ignored positions, their
+    count) of (B, S, V) logits against (B, S) labels (HF: shift inside,
+    ignore -100); in fp32 (fp64 for fp64 logits)."""
+    logits = logits[:, :-1]
+    logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
     targets = labels[:, 1:].long()
     mask = (targets != IGNORE_INDEX).float()
     safe = torch.where(targets == IGNORE_INDEX, torch.zeros_like(targets), targets)
     nll = -torch.log_softmax(logits, dim=-1).gather(-1, safe[..., None])[..., 0]
-    return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+    return (nll * mask).sum(), mask.sum()
+
+
+def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Next-token cross-entropy of (B, S, V) logits against (B, S) labels,
+    the mean over the non-ignored positions (an all-ignored batch gives 0)."""
+    total, count = masked_nll(logits, labels)
+    return total / count.clamp(min=1.0)
+
+
+def _step_mesh(model: nn.Module, pipeline_mesh):
+    """The mesh a step runs on: ``pipeline_mesh``, else the model's own."""
+    return pipeline_mesh if pipeline_mesh is not None else getattr(model, "mesh", None)
+
+
+def data_rows(batch: Mapping, data: Optional[tp.Axis]) -> dict:
+    """This data rank's rows of a global batch (all of it without a
+    ``data`` axis of more than one rank)."""
+    if data is None or data.size == 1:
+        return dict(batch)
+    B = batch["input_ids"].shape[0]
+    if B % data.size:
+        raise ValueError(f"batch {B} must be divisible by data={data.size}")
+    w = B // data.size
+    rows = slice(data.rank * w, (data.rank + 1) * w)
+    return {k: (None if v is None else v[rows]) for k, v in batch.items()}
+
+
+def _local_logits(model: nn.Module, cfg: VisualCLAConfig, input_ids, attention_mask,
+                  img_start_pos, pixel_values, remat: bool, pipeline_mesh,
+                  n_micro: int) -> torch.Tensor:
+    with attention_impl_scope("xla"):
+        embeds = multimodal_embeds(model, cfg, input_ids, img_start_pos, pixel_values,
+                                   remat=remat)
+        positions = (attention_mask.long().cumsum(-1) - 1).clamp(min=0)
+        if pipeline_mesh is not None:
+            from ..parallel.pipeline import stack_forward
+
+            hidden = stack_forward(model.text, cfg.text_config, embeds, positions, None,
+                                   attention_mask.bool(), 0, pipeline_mesh, n_micro, remat)
+        else:
+            hidden, _ = model.text(embeds, positions, None, attention_mask.bool(), 0,
+                                   remat=remat)
+        return model.text.logits(hidden)
 
 
 def train_forward_logits(model: nn.Module, cfg: VisualCLAConfig, input_ids: torch.Tensor,
@@ -69,15 +127,23 @@ def train_forward_logits(model: nn.Module, cfg: VisualCLAConfig, input_ids: torc
     """The full multimodal forward for training: (B, S) -> (B, S, V) fp32
     logits, cache-free, with dense attention pinned on the vision side (a
     training forward never reaches kernel B2u, ``VISUALCLA_VIT_ATTN`` or
-    not).  Positions are cumsum(mask) - 1 clamped at 0."""
-    if pipeline_mesh is not None:
-        raise _not_ported("pipeline-parallel training", "17: training over a mesh")
-    with attention_impl_scope("xla"):
-        embeds = multimodal_embeds(model, cfg, input_ids, img_start_pos, pixel_values,
-                                   remat=remat)
-        positions = (attention_mask.long().cumsum(-1) - 1).clamp(min=0)
-        hidden, _ = model.text(embeds, positions, None, attention_mask.bool(), 0, remat=remat)
-        return model.text.logits(hidden)
+    not).  Positions are cumsum(mask) - 1 clamped at 0.  ``pipeline_mesh``:
+    the decoder stack runs GPipe over its ``pipe`` axis (``n_micro``
+    microbatches; B divisible by n_micro x data), each data rank its rows,
+    and the logits are gathered back whole."""
+    if pipeline_mesh is None:
+        return _local_logits(model, cfg, input_ids, attention_mask, img_start_pos,
+                             pixel_values, remat, None, 1)
+    from ..parallel.pipeline import check_batch
+
+    data = tp.axis(pipeline_mesh, DATA)
+    n_data = data.size if data is not None else 1
+    check_batch(input_ids.shape[0], n_micro, n_data)
+    b = data_rows({"input_ids": input_ids, "attention_mask": attention_mask,
+                   "img_start_pos": img_start_pos, "pixel_values": pixel_values}, data)
+    logits = _local_logits(model, cfg, b["input_ids"], b["attention_mask"], b["img_start_pos"],
+                           b["pixel_values"], remat, pipeline_mesh, n_micro)
+    return tp.gather_rows_from_data(logits, data.group, n_data) if n_data > 1 else logits
 
 
 def batch_to_device(model: nn.Module, batch: Mapping) -> dict:
@@ -106,6 +172,50 @@ def loss_fn(model: nn.Module, cfg: VisualCLAConfig, batch: Mapping,
     logits = train_forward_logits(model, cfg, b["input_ids"], b["attention_mask"],
                                   b["img_start_pos"], b["pixel_values"], remat=remat)
     return causal_lm_loss(logits, b["labels"])
+
+
+def step_loss(model: nn.Module, cfg: VisualCLAConfig, batch: Mapping, remat: bool = False,
+              pipeline_mesh=None, n_micro: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (this rank's differentiable share of the loss, the loss) of a global
+    batch.  Unmeshed: both the loss.  Over a mesh with a ``data`` axis: the
+    rank's rows' masked NLL over the global token count, and their sum over
+    ``data`` (the global token-weighted mean)."""
+    mesh = _step_mesh(model, pipeline_mesh)
+    if mesh is None:
+        loss = loss_fn(model, cfg, batch, remat=remat)
+        return loss, loss.detach()
+    data = tp.axis(mesh, DATA)
+    if pipeline_mesh is not None:
+        from ..parallel.pipeline import check_batch
+
+        check_batch(batch["input_ids"].shape[0], n_micro, data.size if data else 1)
+    b = batch_to_device(model, data_rows(batch, data))
+    logits = _local_logits(model, cfg, b["input_ids"], b["attention_mask"], b["img_start_pos"],
+                           b["pixel_values"], remat, pipeline_mesh, n_micro)
+    total, count = masked_nll(logits, b["labels"])
+    if data is None:
+        loss = total / count.clamp(min=1.0)
+        return loss, loss.detach()
+    count = tp.reduce_from_model(count.detach().clone(), data.group)
+    share = total / count.clamp(min=1.0)
+    return share, tp.reduce_from_model(share.detach().clone(), data.group)
+
+
+@torch.no_grad()
+def reduce_data_grads(params: Params, grads: Params, mesh) -> None:
+    """Sum the gradients over ``mesh``'s ``data`` axis, in place, one
+    all-reduce a dtype; an FSDP leaf's gradient was summed onto its owner
+    already (``parallel.fsdp``)."""
+    data = tp.axis(mesh, DATA)
+    if data is None:
+        return
+    gs = [grads[n] for n, p in params.items()
+          if getattr(p, "owner", (None,))[0] is None or p.owner[0].name != DATA]
+    for dtype in sorted({g.dtype for g in gs}, key=str):
+        part = [g for g in gs if g.dtype == dtype]
+        flat = tp.reduce_from_model(torch.cat([g.reshape(-1) for g in part]), data.group)
+        for g, v in zip(part, flat.split([g.numel() for g in part])):
+            g.copy_(v.view_as(g))
 
 
 # ---------------------------------------------------------------------------
@@ -199,8 +309,7 @@ class Optimizer:
         gs = [grads[n] for n in names]
         mus = [state["mu"][n] for n in names]
         nus = [state["nu"][n] for n in names]
-        norm = torch.linalg.vector_norm(torch.stack(
-            torch._foreach_norm(gs, 2, dtype=torch.float32)))
+        norm = global_norm(ps, gs)
         if bool(norm >= self.grad_clip):  # optax: (g / norm) * max_norm, norm in g's dtype
             for dtype in {g.dtype for g in gs}:
                 part = [g for g in gs if g.dtype == dtype]
@@ -224,6 +333,28 @@ class Optimizer:
         torch._foreach_add_(ps, upd, alpha=-lr)
         state["count"] = count_inc
         return norm
+
+
+def global_norm(params, grads) -> torch.Tensor:
+    """The global norm of ``grads`` as logical arrays: each leaf's
+    squares summed over the axes whose pieces make it (``norm_axes`` of its
+    parameter), a replicated leaf's once."""
+    # fp32 (fp64 for an fp64 tree)
+    dtype = torch.float64 if any(g.dtype == torch.float64 for g in grads) else torch.float32
+    if not any(is_placed(p) for p in params):
+        return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads, 2, dtype=dtype)))
+    buckets = {}
+    for p, g in zip(params, grads):
+        axes = norm_axes(p)
+        buckets.setdefault(tuple(a.name for a in axes), (axes, []))[1].append(g)
+    total = None
+    for key in sorted(buckets):
+        axes, gs = buckets[key]
+        sq = torch.stack(torch._foreach_norm(gs, 2, dtype=dtype)).square().sum()
+        for ax in axes:
+            sq = tp.reduce_from_model(sq, ax.group)
+        total = sq if total is None else total + sq
+    return total.sqrt()
 
 
 def make_optimizer(learning_rate: float = 1e-4, weight_decay: float = 0.0, b1: float = 0.9,
@@ -264,10 +395,11 @@ def make_train_step(model: nn.Module, cfg: VisualCLAConfig, optimizer: Optimizer
     ``trainable`` are zeroed, and the optimizer steps them all.  ``batch``
     keys: input_ids, attention_mask, labels (B, S), img_start_pos (B,),
     pixel_values (B, 3, H, W) or None.  Metrics: loss, grad_norm (of the
-    masked gradients, before the clip)."""
-    if pipeline_mesh is not None:
-        raise _not_ported("pipeline-parallel training", "17: training over a mesh")
+    masked gradients, before the clip).  Over a mesh (the model's, or
+    ``pipeline_mesh`` with ``n_micro`` microbatches) every rank passes the
+    same global batch."""
     paths = param_paths(model)
+    mesh = _step_mesh(model, pipeline_mesh)
 
     def train_step(state: TrainState, batch):
         ints = [(n, str(p.dtype)) for n, p in state.params.items() if not _is_float(p)]
@@ -281,16 +413,18 @@ def make_train_step(model: nn.Module, cfg: VisualCLAConfig, optimizer: Optimizer
         for p in state.params.values():
             p.requires_grad_(True)
             p.grad = None
-        loss = loss_fn(model, cfg, batch, remat=remat)
-        loss.backward()
+        share, loss = step_loss(model, cfg, batch, remat, pipeline_mesh, n_micro)
+        share.backward()
         grads = _grads(state.params)
+        if mesh is not None:
+            reduce_data_grads(state.params, grads, mesh)
         if trainable is not None:
             for n, g in grads.items():
                 if not trainable(paths[n]):
                     g.zero_()
         gnorm = optimizer.update_(state.params, grads, state.opt_state)
         return (TrainState(params=state.params, opt_state=state.opt_state, step=state.step + 1),
-                {"loss": loss.detach(), "grad_norm": gnorm})
+                {"loss": loss, "grad_norm": gnorm})
 
     return train_step
 
@@ -331,9 +465,8 @@ def make_train_step_subset(model: nn.Module, cfg: VisualCLAConfig, optimizer: Op
     partition (``partition_params``): gradients and optimizer state exist for
     it alone, and the frozen partition (the int8 base of QLoRA included)
     never requires grad.  ``train_step(state, frozen, batch) -> (state,
-    metrics)``."""
-    if pipeline_mesh is not None:
-        raise _not_ported("pipeline-parallel training", "17: training over a mesh")
+    metrics)``; a mesh as ``make_train_step``'s."""
+    mesh = _step_mesh(model, pipeline_mesh)
 
     def train_step(state: TrainState, frozen: Params, batch):
         for p in frozen.values():
@@ -341,10 +474,13 @@ def make_train_step_subset(model: nn.Module, cfg: VisualCLAConfig, optimizer: Op
         for p in state.params.values():
             p.requires_grad_(True)
             p.grad = None
-        loss = loss_fn(model, cfg, batch, remat=remat)
-        loss.backward()
-        gnorm = optimizer.update_(state.params, _grads(state.params), state.opt_state)
+        share, loss = step_loss(model, cfg, batch, remat, pipeline_mesh, n_micro)
+        share.backward()
+        grads = _grads(state.params)
+        if mesh is not None:
+            reduce_data_grads(state.params, grads, mesh)
+        gnorm = optimizer.update_(state.params, grads, state.opt_state)
         return (TrainState(params=state.params, opt_state=state.opt_state, step=state.step + 1),
-                {"loss": loss.detach(), "grad_norm": gnorm})
+                {"loss": loss, "grad_norm": gnorm})
 
     return train_step
