@@ -207,7 +207,15 @@ Phases, one line of findings each:
                (data 1, seq 1) mesh: the ring prefill of a 2048-token prompt,
                each layer's ring output against B2's on the same q/k/v, the
                captured run's ids equal the eager one's, and an fp32
-               2-layer copy's ids equal the unmeshed engine's;
+               2-layer copy's ids equal the unmeshed engine's; (f) a meshed
+               model served through ``PoolWorker`` -> ``Scheduler`` -> the
+               contiguous pool and the paged int8-KV pool (speculating):
+               4 requests one at a time with ids equal the unmeshed
+               worker's, 8 concurrent /chat_stream requests over HTTP (all
+               answered, exact B2 / B1 / B4 / B5 launches, TTFT p50 / max,
+               aggregate tok/s), and the contiguous pool by direct calls
+               over the mesh with ids equal the unmeshed pool's (summary
+               rows gain ``scheduler_mesh_launches``);
  14. mesh train — (after 11) training over a device mesh at world size 1
                over NCCL at the 7B's full width: (a) ``parallel.pipeline``'s
                cached form on a seeded bf16 32-layer text tower over a
@@ -4047,6 +4055,148 @@ def _mesh_pool(model, cfg, tokenizer, reqs, mesh, kv_quant: str) -> dict:
     return run
 
 
+def _mesh_contiguous(model, cfg, tokenizer, reqs, mesh) -> dict:
+    """``reqs`` on a 4-row contiguous ``ServingEngine(mesh=)`` through direct
+    ``_pool_run`` calls (a first run capturing the graphs, then the counted
+    run): its ids, B1's and B2's launches against one a layer a decode /
+    prefill pass, the device ms a pass."""
+    eng = server_mod.ServingEngine(
+        model, cfg, eos_token_id=tokenizer.eos_token_id, pad_token_id=tokenizer.pad_token_id,
+        pool_size=4, max_seq_len=2048, max_new_tokens_cap=32,
+        sampling=SamplingConfig.greedy(32), mesh=mesh)
+    _pool_run(eng, reqs, None, 24, spec=False, eager=False)  # captures
+    _reset_counters()
+    _reset_passes(eng)
+    run = _pool_run(eng, reqs, None, 24, spec=False, eager=False)
+    L = cfg.text_config.num_hidden_layers
+    _check_counts(_counters(), {"flash_prefill": L * eng.counts["prefill_passes"],
+                                "flash_decode": L * eng.counts["decode_passes"]})
+    run["b1"] = L * eng.counts["decode_passes"]
+    run["b2"] = L * eng.counts["prefill_passes"]
+    del eng
+    torch.cuda.empty_cache()
+    return run
+
+
+SCHED_NEW_TOKENS = 24  # phase 13 (f)'s sequential requests
+
+
+def _http_round(worker, overrides, L: int, paged: bool) -> dict:
+    """8 concurrent /chat_stream requests through the HTTP handler on
+    ``worker``: every one answered, exact launches (B2 once a layer an
+    admission or chunk; B1 or B4 once a layer a decode pass, B5 once a layer
+    a speculative one), TTFT and the aggregate rate on the host clock."""
+    engine, sched = worker.engine, worker.scheduler
+    server = ThreadingHTTPServer(("127.0.0.1", 0), serve_app.make_handler(worker))
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    port = server.server_address[1]
+    gc_ = {**overrides, "max_new_tokens": SERVE_NEW_TOKENS}
+    records = [{} for _ in range(8)]
+    torch.cuda.synchronize()
+    _reset_counters()
+    _reset_passes(engine)
+    stats0 = sched.stats()
+    t0 = time.perf_counter()
+    _run_all([lambda i=i: _http(port, "/chat_stream", {
+        "text": PROMPT, "generation_config": gc_,
+        "image_b64": _npy_b64(random_image(SEED + 20 + i))}, records[i]) for i in range(8)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, stats1 = _counters(), sched.stats()
+    server.shutdown()
+    server.server_close()
+    for i, r in enumerate(records):
+        res = r.get("result")
+        if res is None or not isinstance(res.get("response"), str) or not r.get("partials"):
+            raise RuntimeError(f"PoolWorker(paged={paged}) HTTP request {i}: {r}")
+    admissions = stats1["prefills"] - stats0["prefills"]
+    if paged:
+        _check_serve_counts(engine, stats0, stats1, counts, L, "paged_append_kv8",
+                            "paged_verify_kv8")
+        used = {k: counts[k] for k in ("flash_prefill", "paged_append_kv8", "paged_verify_kv8")}
+    else:
+        passes = engine.counts
+        if admissions != 8 or passes["prefill_passes"] != admissions:
+            raise RuntimeError(f"{admissions} admissions in {passes['prefill_passes']} prefill "
+                               "passes (an admission captured inside the round?)")
+        _check_counts(counts, {"flash_prefill": L * passes["prefill_passes"],
+                               "flash_decode": L * passes["decode_passes"]})
+        used = {"flash_prefill": counts["flash_prefill"],
+                "flash_decode_pool": counts["flash_decode"]}
+    ttfts = sorted((r["t_first"] - r["t0"]) * 1e3 for r in records)
+    tokens = sum(r["partials"] for r in records)
+    return {"launches": used, "wall": wall, "tok_s": tokens / wall, "tokens": tokens,
+            "ttft_p50": statistics.median(ttfts), "ttft_max": ttfts[-1],
+            "admissions": admissions, "chunked": stats1["chunked_admissions"]
+            - stats0["chunked_admissions"]}
+
+
+def _scheduler_mesh(b13, bundle, cfg, tokenizer, reqs, smi) -> dict:
+    """Phase 13 (f): a meshed model served through the normal entry point,
+    ``PoolWorker`` -> ``Scheduler`` -> each pool (contiguous, and paged with
+    int8 KV speculating at ``spec_k`` SPEC_K) over the (1, 1) mesh, and the
+    same on the unmeshed bundle: ``reqs`` one at a time, each alone in its
+    pool, the meshed ids equal to the unmeshed; then ``_http_round`` on each
+    worker; and the contiguous pool by direct calls over the mesh against
+    the unmeshed pool.  -> {kernel: launches} of the meshed runs."""
+    L = cfg.text_config.num_hidden_layers
+    launches, lines = {}, []
+    for paged in (False, True):
+        kw = dict(pool_size=4, max_new_tokens_cap=SERVE_KW["max_new_tokens_cap"])
+        if paged:
+            kw.update(paged=True, kv_quant="int8", spec_k=SPEC_K)
+        over = SPEC_GREEDY if paged else GREEDY_OVERRIDES
+        ids, rounds = {}, {}
+        for name, b in (("meshed", b13), ("plain", bundle)):
+            worker = serve_app.PoolWorker(b, **kw)
+            if (worker.engine.mesh is None) != (name == "plain"):
+                raise RuntimeError(f"PoolWorker built its {name} pool with mesh "
+                                   f"{worker.engine.mesh}")
+            ids[name] = [server_mod.generate_sync(worker.scheduler, *req,
+                                                  max_new_tokens=SCHED_NEW_TOKENS,
+                                                  sampling_overrides=over).tolist()
+                         for req in reqs]
+            rounds[name] = _http_round(worker, over, L, paged)
+            worker.close()
+            del worker
+            gc.collect()
+            torch.cuda.empty_cache()
+        if ids["meshed"] != ids["plain"]:
+            raise RuntimeError(f"meshed PoolWorker(paged={paged}) ids {ids['meshed']} != "
+                               f"unmeshed {ids['plain']}")
+        for k, v in rounds["meshed"]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        m, p = rounds["meshed"], rounds["plain"]
+        lines.append(
+            (f"paged int8 KV, spec_k {SPEC_K}" if paged else "contiguous")
+            + f": {len(reqs)} sequential requests x {SCHED_NEW_TOKENS} new, ids equal the "
+            f"unmeshed PoolWorker's; 8 concurrent /chat_stream x {SERVE_NEW_TOKENS} new, all "
+            f"answered: meshed {m['wall']:.2f} s, {m['tok_s']:.1f} tok/s aggregate, TTFT p50 "
+            f"{m['ttft_p50']:.1f} ms, max {m['ttft_max']:.1f} ms vs unmeshed {p['wall']:.2f} "
+            f"s, {p['tok_s']:.1f} tok/s, {p['ttft_p50']:.1f} / {p['ttft_max']:.1f} ms (host "
+            f"clock, {m['tokens']} tokens streamed); meshed {m['admissions']} one-shot and "
+            f"{m['chunked']} chunked admissions, launches {m['launches']} (exact: "
+            + ("B2 = 32 x prefills and chunks, B4 = 32 x decode passes, B5 = 32 x speculative "
+               "passes" if paged else "B2 = 32 x prefill passes, B1 = 32 x decode passes")
+            + ")")
+    meshed = _mesh_contiguous(b13.model, cfg, tokenizer, reqs, b13.mesh)
+    plain = _mesh_contiguous(bundle.model, cfg, tokenizer, reqs, None)
+    if meshed["ids"] != plain["ids"]:
+        raise RuntimeError(f"meshed contiguous pool ids {meshed['ids']} != unmeshed "
+                           f"{plain['ids']}")
+    launches["flash_decode_pool"] += meshed["b1"]
+    launches["flash_prefill"] += meshed["b2"]
+    print(f"[13 mesh] (f) PoolWorker over the (1, 1) mesh -> Scheduler -> pool (world size "
+          f"1: the Scheduler drives the pool itself, no message); {'; '.join(lines)}; the "
+          f"concurrent ids are not compared: admission timing changes the batch and bf16 "
+          f"batching is not bitwise; ServingEngine(mesh=) by direct calls, 4 rows x 24 new: "
+          f"ids equal the unmeshed pool's, B1 {meshed['b1']} and B2 {meshed['b2']} launches "
+          f"(one a layer a decode / prefill pass), device {meshed['pass_ms']:.3f} ms a pass "
+          f"meshed vs {plain['pass_ms']:.3f} unmeshed; world size > 1 is the CPU tests' "
+          f"(NCCL refuses two ranks on one device); card {smi}", flush=True)
+    return launches
+
+
 def _mesh_flash_cases(gen, nm, prompt_bucket, rows, failures, mesh) -> list:
     """B1 and B2 at 32/nm heads over 32 layers (the main path's shapes), and
     B2u's mesh form at 32/nm heads (bnsh, causal, B 2, Sq 512, S 2048) as the
@@ -4411,6 +4561,7 @@ def phase_mesh(smi: str, cfg, tokenizer, sl: dict, prompt_bucket: int) -> dict:
                       f"(one a layer a decode pass), device {m['pass_ms']:.3f} ms a pass "
                       f"meshed vs {p['pass_ms']:.3f} unmeshed"
                       for k, (m, p) in pools.items()) + f"; card {smi}", flush=True)
+    sched_launches = _scheduler_mesh(b13, bundle, cfg, tokenizer, reqs, smi)
     del b13, model13
     gc.collect()
     torch.cuda.empty_cache()
@@ -4440,7 +4591,8 @@ def phase_mesh(smi: str, cfg, tokenizer, sl: dict, prompt_bucket: int) -> dict:
           f"2-layer copy: ring within {F32_TOL} of B2 (max err {got32['max_err']:.2e}) and ids "
           f"equal the unmeshed engine's; card {smi}", flush=True)
     dist.destroy_process_group()
-    return {"rows": rows, "ttft_ms": ttft * 1e3, "decode_tok_s": rate, "counts": counts}
+    return {"rows": rows, "ttft_ms": ttft * 1e3, "decode_tok_s": rate, "counts": counts,
+            "scheduler_launches": sched_launches}
 
 
 # ---------------------------------------------------------------------------
@@ -4769,6 +4921,8 @@ def main() -> int:
             row["note"] = notes[name]
         if name in pipe_launches:  # phase 14 (a): the pipeline's cached form, a path of its own
             row["pipeline_launches"] = pipe_launches[name]
+        if name in mesh["scheduler_launches"]:  # phase 13 (f): PoolWorker over the mesh
+            row["scheduler_mesh_launches"] = mesh["scheduler_launches"][name]
         kernels.append(row)
     for name, r in mesh["rows"].items():  # phase 13 (d): one rank's shard shapes
         base = name.rsplit("_tp", 1)[0].replace("_mesh", "").replace("_vit", "")

@@ -1,8 +1,11 @@
 """Guards of the PyTorch port: it never imports jax nor the JAX package, its
 entry points and chip_smoke.py refuse to run without a GPU unless asked for
 the CPU, the quantized load options load, beams and the reference layouts
-run, a mesh that is not a torch DeviceMesh is refused, and the port's mesh
-package imports neither jax nor the JAX package."""
+run, a mesh that is not a torch DeviceMesh is refused, the port's mesh
+package imports neither jax nor the JAX package, and every public name of
+every JAX module and subpackage ``__init__`` has its port or a stated
+reason not to (``NOT_PORTED``), the names F9 added held against the JAX
+functions."""
 import os
 import subprocess
 import sys
@@ -49,6 +52,12 @@ def test_port_never_imports_jax():
             "from visualcla_tpu_torch.utils import profiling\n"
             "from visualcla_tpu_torch.integrations.text_generation_webui.visualcla_torch_pipeline \\\n"
             "    import pipelines, visualcla as webui_visualcla, chat_picture\n"
+            "from visualcla_tpu_torch.engine import (DecodeState, Engine, SamplingConfig,\n"
+            "    default_sampling_config, sample_step, Request, Scheduler, ServingEngine,\n"
+            "    generate_sync)\n"
+            "from visualcla_tpu_torch.models import clip_vit, llama, resampler, visualcla\n"
+            "from visualcla_tpu_torch.processor import device_preprocess\n"
+            "from visualcla_tpu_torch.parallel import serving\n"
             "bad = sorted(m for m in sys.modules if m in ('jax', 'visualcla_tpu')\n"
             "             or m.startswith(('jax.', 'visualcla_tpu.')))\n"
             "assert not bad, bad\n")
@@ -59,11 +68,11 @@ def test_port_never_imports_jax():
 
 def test_parallel_imports_neither_jax_nor_the_jax_package():
     """``visualcla_tpu_torch.parallel`` (sharding, distributed, tp, ring,
-    fsdp, pipeline)
+    fsdp, pipeline, serving)
     loads neither jax nor any module of ``visualcla_tpu``."""
     code = ("import sys\n"
             "from visualcla_tpu_torch.parallel import (sharding, distributed, tp, ring, fsdp,\n"
-            "                                       pipeline)\n"
+            "                                       pipeline, serving)\n"
             "bad = sorted(m for m in sys.modules if m in ('jax', 'visualcla_tpu')\n"
             "             or m.startswith(('jax.', 'visualcla_tpu.')))\n"
             "assert not bad, bad\n")
@@ -384,6 +393,271 @@ def test_port_exports_every_public_name_of_the_jax_package(name):
 
     assert getattr(vj, name) is not None  # the list is right
     assert getattr(vt, name) is not None
+
+
+# JAX modules and names with no port, each with its reason: the functional
+# JAX idiom that nn.Module replaces, or TPU-only code (ROADMAP.md §2, "Do not
+# port").  ``ops/pallas/`` is ported as the CUDA kernels and is not listed.
+NOT_PORTED_MODULES = {
+    "utils.cache": "XLA compile-cache set-up (TPU/XLA only; ROADMAP §2, do not port)",
+    "utils.cpu_cache_guard": "a guard of XLA's CPU compile cache (ROADMAP §2, do not port)",
+    "utils.tpu_cache_guard": "a guard of XLA's TPU compile cache (ROADMAP §2, do not port)",
+}
+NOT_PORTED = {
+    "utils": {
+        "enable_compilation_cache": "XLA compile-cache export (utils.cache)",
+        "enable_cpu_compilation_cache": "XLA compile-cache export (utils.cache)",
+    },
+    "pipeline": {"logger": "a module logger; the port's module logs nothing"},
+    "engine.paged": {
+        "logger": "a module logger; the port's module logs nothing",
+        "paged_layer_step": "the functional per-layer step over param dicts; the port's "
+                            "is engine.paged.pool_layer over a DecoderLayer module",
+    },
+    "engine.generate": {
+        "hbm_limit": "sizes the flat vs nested decode loops to a TPU's HBM (ROADMAP §2)",
+    },
+    "ops.attention": {
+        "set_attention_impl": "a process-wide Pallas / XLA switch; the port chooses by "
+                              "device (a CUDA tensor runs the kernel, a CPU tensor its plain "
+                              "version), so no switch can put the card on the plain path; "
+                              "the vision backend is attention_impl_scope / VISUALCLA_VIT_ATTN",
+        "attention_impl": "reads set_attention_impl's switch (see there); "
+                          "vision_attention_impl reads the vision backend",
+        "set_attention_mesh": "a process-wide mesh; the port has only the thread-local "
+                              "attention_mesh_scope, which each engine enters for its own mesh",
+    },
+    "ops.linear": {
+        "linear": "the product over a param-dict leaf; the port's leaves are modules "
+                  "(Linear, Int8Linear, Int4Linear, LoraLinear)",
+        "is_lora": "a predicate on LoRA param dicts; the port's LoRA leaf is LoraLinear",
+    },
+    "ops.quantization": {
+        "attach_layer": "a stacked int4 leaf's layer index for XLA's scan (modules per layer)",
+        "dequantize": "dequantizes a param-dict leaf; the modules hold their carriers "
+                      "(dequantize_grouped covers the int4 carrier)",
+        "device_put_quantized": "jax.device_put of a quantized dict; modules load onto "
+                                "their device",
+        "is_quantized": "a predicate on quantized param dicts (the port tests module types)",
+        "is_grouped": "a predicate on quantized param dicts (the port tests module types)",
+        "is_packed_grouped": "a predicate on quantized param dicts (module types)",
+        "is_stacked_lazy": "a predicate on the stacked scan layout (modules per layer)",
+        "split_stacked_grouped": "splits the stacked scan layout (modules per layer)",
+        "q_matmul": "the product over a quantized param dict; Int8Linear / Int4Linear",
+        "quantize_tree": "quantizes a param tree; the port quantizes modules "
+                         "(models.visualcla.quantize_text_tower_, ops.linear.quantize_linear)",
+        "quantize_llama_tree": "quantizes the text tower's tree; see quantize_tree",
+    },
+    "models.clip_vit": {
+        "Params": "the param-dict type; modules hold their parameters",
+        "init_params": "builds a param tree; modules are built by their constructors and "
+                       "drawn by models.visualcla.init_random_",
+        "forward": "the functional forward; CLIPVisionTower.forward",
+    },
+    "models.resampler": {
+        "Params": "the param-dict type; modules hold their parameters",
+        "init_params": "builds a param tree; see models.visualcla.init_random_",
+        "forward": "the functional forward; Resampler.forward",
+    },
+    "models.llama": {
+        "Params": "the param-dict type; modules hold their parameters",
+        "init_params": "builds a param tree; see models.visualcla.init_random_",
+        "forward": "the functional forward; Llama.forward",
+        "forward_logits": "the functional forward; Llama.forward_logits",
+        "embed": "the functional lookup; Llama.embed",
+        "logits": "the functional head; Llama.logits",
+        "layer_forward": "the scan body over stacked params; DecoderLayer.forward",
+        "decoder_stack": "the lax.scan over stacked layers; Llama.forward loops its layers",
+    },
+    "models.visualcla": {
+        "Params": "the param-dict type; modules hold their parameters",
+        "init_params": "builds a param tree; VisualCLAModel and init_random_",
+    },
+    "checkpoint.export": {
+        "SD": "a type alias (checkpoint.mapping.SD in the port)",
+        "llama_sd_from_tree": "maps a param tree to the reference's keys; the port's "
+                              "mapping.sd_from_tower_leaves covers every tower",
+        "vit_sd_from_tree": "see llama_sd_from_tree",
+        "resampler_sd_from_tree": "see llama_sd_from_tree",
+        "projection_sd_from_tree": "see llama_sd_from_tree",
+    },
+    "checkpoint.mapping": {
+        "llama_tree_from_sd": "maps reference keys to a param tree; the port's "
+                              "mapping.tower_tree_from_sd covers every tower",
+        "vit_tree_from_sd": "see llama_tree_from_sd",
+        "resampler_tree_from_sd": "see llama_tree_from_sd",
+        "projection_tree_from_sd": "see llama_tree_from_sd",
+    },
+}
+
+
+def _jax_modules():
+    """Every module of the JAX package but ``ops/pallas/``, dotted, relative
+    to the package ("" for its ``__init__``)."""
+    base = os.path.join(ROOT, "visualcla_tpu")
+    out = []
+    for d, _, files in os.walk(base):
+        rel = os.path.relpath(d, base)
+        if rel.split(os.sep)[0] == "ops" and "pallas" in rel.split(os.sep):
+            continue
+        for f in sorted(files):
+            if f.endswith(".py"):
+                parts = [] if rel == "." else rel.split(os.sep)
+                if f != "__init__.py":
+                    parts.append(f[:-3])
+                out.append(".".join(parts))
+    return sorted(out)
+
+
+def _ast_of(module: str):
+    import ast
+
+    base = os.path.join(ROOT, "visualcla_tpu", *module.split(".")) if module else os.path.join(
+        ROOT, "visualcla_tpu")
+    path = os.path.join(base, "__init__.py") if os.path.isdir(base) else base + ".py"
+    with open(path) as f:
+        return ast.parse(f.read())
+
+
+def _defined_names(module: str):
+    """Public names a JAX module defines at its top level (functions, classes,
+    assignments), read from its source."""
+    import ast
+
+    names = set()
+    for node in _ast_of(module).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names |= {t.id for t in node.targets if isinstance(t, ast.Name)}
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target, ast.Name):
+            names.add(node.target.id)
+    return sorted(n for n in names if not n.startswith("_"))
+
+
+def _subpackage_exports():
+    """(subpackage, name) for each name a JAX subpackage's ``__init__``
+    imports (the top-level ``__init__`` has its own guard above)."""
+    import ast
+
+    out = []
+    for module in _jax_modules():
+        if module.count(".") or not module or not os.path.isdir(
+                os.path.join(ROOT, "visualcla_tpu", module)):
+            continue
+        for node in _ast_of(module).body:
+            if isinstance(node, ast.ImportFrom):
+                out += [(module, a.asname or a.name) for a in node.names]
+    return out
+
+
+def _port_module(module: str):
+    import importlib
+
+    return importlib.import_module("visualcla_tpu_torch" + ("." + module if module else ""))
+
+
+@pytest.mark.parametrize("sub,name", _subpackage_exports())
+def test_port_subpackage_exports_the_jax_subpackage_s_names(sub, name):
+    """F9: ``from visualcla_tpu_torch.<sub> import <name>`` works wherever
+    ``visualcla_tpu.<sub>`` exports it, or the name is listed as not ported."""
+    if name in NOT_PORTED.get(sub, {}):
+        assert not hasattr(_port_module(sub), name)  # the table is not stale
+        return
+    assert getattr(_port_module(sub), name) is not None
+
+
+@pytest.mark.parametrize("module", _jax_modules())
+def test_port_module_has_every_public_name_of_the_jax_module(module):
+    """Each public top-level name of a JAX module exists in the port's module
+    of the same name, or the table above says why not; every entry of the
+    table names something the JAX module defines and the port lacks."""
+    if module in NOT_PORTED_MODULES:
+        with pytest.raises(ImportError):
+            _port_module(module)
+        return
+    port = _port_module(module)
+    exempt = NOT_PORTED.get(module, {})
+    missing = [n for n in _defined_names(module) if not hasattr(port, n) and n not in exempt]
+    assert not missing, f"visualcla_tpu_torch.{module} lacks {missing}"
+    defined = set(_defined_names(module)) | {n for m, n in _subpackage_exports() if m == module}
+    for name, reason in exempt.items():
+        assert name in defined and not hasattr(port, name) and reason, name
+
+
+def test_default_sampling_config_is_the_jax_package_s():
+    import dataclasses
+
+    from visualcla_tpu.engine import sampling as j_samp
+
+    got, want = t_samp.default_sampling_config(), j_samp.default_sampling_config()
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got == t_samp.SamplingConfig()
+    assert vt.DEFAULT_GENERATION_CONFIG == got
+
+
+@pytest.mark.parametrize("k,p", [(40, 0.9), (5, 0.5), (1, 0.9), (100, 0.99), (40, 0.1),
+                                 (150, 0.8), (0, 0.9), (40, 1.0)])
+def test_fused_top_k_top_p_and_temperature_match_the_jax_warpers(k, p):
+    """``warp_top_k_top_p_fused`` bit for bit the port's sequential warpers
+    and the JAX fused warper on seeded logits (ties across the slice's edge
+    included); ``warp_temperature`` the JAX one."""
+    import jax.numpy as jnp
+
+    from visualcla_tpu.engine import sampling as j_samp
+
+    rng = np.random.default_rng(k * 100 + int(p * 100))
+    cases = [rng.standard_normal((3, 512)).astype(np.float32) * 4,
+             rng.standard_normal((2, 200)).astype(np.float32)]
+    tied = rng.standard_normal((1, 512)).astype(np.float32)
+    tied[0, 10:300] = 1.5  # a tie beyond the JAX warper's top-M slice
+    cases.append(tied)
+    for x in cases:
+        xt = torch.from_numpy(x)
+        got = t_samp.warp_top_k_top_p_fused(xt, k, p)
+        assert torch.equal(got, t_samp.warp_top_p(t_samp.warp_top_k(xt, k), p))
+        np.testing.assert_array_equal(
+            got.numpy(), np.asarray(j_samp.warp_top_k_top_p_fused(jnp.asarray(x), k, p)))
+        np.testing.assert_array_equal(
+            t_samp.warp_temperature(xt, 0.7).numpy(),
+            np.asarray(j_samp.warp_temperature(jnp.asarray(x), 0.7)))
+
+
+def test_padding_bias_and_gelus_match_the_jax_ops():
+    """``padding_bias`` exactly; ``gelu_exact`` / ``gelu_tanh`` within 1e-6
+    (fp32; XLA's and torch's erf / tanh differ in the last bits)."""
+    import jax.numpy as jnp
+
+    from visualcla_tpu.ops import activations as j_act
+    from visualcla_tpu.ops import attention as j_attn
+    from visualcla_tpu_torch.ops import activations as t_act
+    from visualcla_tpu_torch.ops import attention as t_attn
+
+    rng = np.random.default_rng(9)
+    valid = rng.random((3, 11)) > 0.4
+    got = t_attn.padding_bias(torch.from_numpy(valid))
+    assert got.dtype == torch.float32 and got.shape == (3, 1, 1, 11)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(j_attn.padding_bias(
+        jnp.asarray(valid))))
+    x = (rng.standard_normal((4, 64)) * 3).astype(np.float32)
+    for name in ("gelu_exact", "gelu_tanh"):
+        np.testing.assert_allclose(getattr(t_act, name)(torch.from_numpy(x)).numpy(),
+                                   np.asarray(getattr(j_act, name)(jnp.asarray(x))),
+                                   atol=1e-6, rtol=1e-6)
+    assert t_act.gelu is t_act.gelu_exact
+    for key, fn in j_act.ACT2FN.items():
+        np.testing.assert_allclose(t_act.ACT2FN[key](torch.from_numpy(x)).numpy(),
+                                   np.asarray(fn(jnp.asarray(x))), atol=1e-6, rtol=1e-6)
+
+
+def test_global_timer_is_a_phase_timer():
+    from visualcla_tpu_torch.utils import profiling
+
+    assert isinstance(profiling.GLOBAL_TIMER, profiling.PhaseTimer)
+    with profiling.GLOBAL_TIMER.phase("guard"):
+        pass
+    assert profiling.GLOBAL_TIMER.summary()["guard"]["count"] >= 1
+    profiling.GLOBAL_TIMER.reset()
 
 
 def _preset_names():

@@ -260,6 +260,139 @@ def run_pool(cls, model, p: dict, mesh_, spec_k: int = 0) -> list:
     return [list(eng.collect_row(r)) for r in range(8)]
 
 
+def run_contiguous(cls, model, p: dict, mesh_) -> list:
+    """The contiguous pool through direct calls: 4 prompts admitted into a
+    4-row pool (the second with an image), 3 chunks of ``step_n(3)`` with a
+    snapshot after each, as the Scheduler reads."""
+    from visualcla_tpu_torch.engine.sampling import SamplingConfig
+
+    eng = cls(model, p["cfg"], eos_token_id=p["eos"], pad_token_id=0, pool_size=4,
+              max_seq_len=96, max_new_tokens_cap=8, prompt_buckets=(16, 32, 48),
+              sampling=SamplingConfig.greedy(max_new_tokens=8), mesh=mesh_)
+    for r, prompt in enumerate(p["prompts"][:4]):
+        image = r == 1
+        eng.prefill_row(r, prompt, p["pixels"] if image else None, 2 if image else None, 8)
+    for _ in range(3):
+        eng.step_n(3)
+        eng.snapshot()
+    return [[int(t) for t in eng.collect_row(r)] for r in range(4)]
+
+
+def scheduler_requests(p: dict, scheduler) -> list:
+    """``p["requests"]`` through ``generate_sync``, each from its own thread
+    (the Scheduler batches them as they come) -> each request's ids."""
+    import threading
+
+    from visualcla_tpu_torch.engine.server import generate_sync
+
+    outs = [None] * len(p["requests"])
+
+    def one(i):
+        ids, pixels, img, new = p["requests"][i]
+        outs[i] = [int(t) for t in generate_sync(scheduler, ids, pixels, img, new,
+                                                 sampling_overrides=p["greedy"], timeout=120)]
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(len(outs))]
+    for t in threads:
+        t.start()
+        time.sleep(0.02)  # the queue's order, so the long prompt comes fifth
+    for t in threads:
+        t.join()
+    return outs
+
+
+def serving_suite(p: dict) -> dict:
+    """The contiguous ``ServingEngine(mesh=)`` by direct calls on (2, 2) and
+    (1, 4); ``PoolWorker`` over the (2, 2) model for each pool, rank 0's
+    Scheduler leading and ranks 1-3 following; an unmeshed ``PoolWorker``
+    serving on every rank; then rank 0's loop crashing, stopping after an
+    idle spell, and going silent."""
+    import torch.distributed as dist
+
+    from visualcla_tpu_torch.apps.serve import PoolWorker
+    from visualcla_tpu_torch.checkpoint.from_jax import build_model
+    from visualcla_tpu_torch.engine.server import ServingEngine, generate_sync
+
+    rank = dist.get_rank()
+    out = {}
+    for shape in ((2, 2), (1, 4)):
+        model = build_model(p["tree"], p["cfg"], device="cpu", dtype=torch.float32)
+        out[f"contiguous{shape}"] = run_contiguous(ServingEngine, model, p, mesh(shape))
+    bundle = _load(p, mesh())
+    greedy = p["greedy"]
+
+    def served(worker, label):
+        if rank == 0:
+            out[label] = scheduler_requests(p, worker.scheduler)
+            out[label + "_stats"] = worker.scheduler.stats()
+            worker.close()
+            out[label + "_messages"] = worker.scheduler.engine.messages
+        else:
+            out[label + "_followed"] = worker.follow()
+
+    served(PoolWorker(bundle, pool_size=4, deadline_s=60), "contiguous")
+    worker = PoolWorker(bundle, pool_size=4, paged=True, deadline_s=60, spec_k=3)
+    if worker.scheduler is not None:
+        worker.scheduler.prefill_chunk = p["prefill_chunk"]
+    served(worker, "paged")
+
+    def until_released(worker) -> tuple:
+        t0 = time.monotonic()
+        try:
+            worker.follow()
+            return "returned", time.monotonic() - t0, ""
+        except Exception as e:  # noqa: BLE001 — what the follower raised is the result
+            return type(e).__name__, time.monotonic() - t0, str(e)
+
+    # an unmeshed model: every rank serves on its own (one server per device)
+    worker = PoolWorker(_load(p, None), pool_size=4)
+    ids, pixels, img, new = p["requests"][rank]
+    out["own"] = [int(t) for t in generate_sync(worker.scheduler, ids, pixels, img, new,
+                                                sampling_overrides=greedy, timeout=60)]
+    worker.close()
+    try:
+        worker.follow()
+        out["own_follow"] = "returned"
+    except RuntimeError as e:
+        out["own_follow"] = str(e)
+
+    # rank 0's loop dies at its first snapshot (a read on rank 0 alone)
+    worker = PoolWorker(bundle, pool_size=4, deadline_s=60)
+    if rank == 0:
+        def boom():
+            raise RuntimeError("forced failure")
+
+        worker.engine.snapshot = boom
+        ids, pixels, img, new = p["requests"][0]
+        try:
+            generate_sync(worker.scheduler, ids, pixels, img, new, sampling_overrides=greedy,
+                          timeout=60)
+            out["crash"] = "served"
+        except RuntimeError as e:
+            out["crash"] = str(e)
+    else:
+        out["crash"] = until_released(worker)
+    # idle for twice the heartbeat, then stop: the followers return
+    worker = PoolWorker(bundle, pool_size=4, deadline_s=p["deadline_s"])
+    if rank == 0:
+        ids, pixels, img, new = p["requests"][3]
+        out["stop_ids"] = [int(t) for t in generate_sync(
+            worker.scheduler, ids, pixels, img, new, sampling_overrides=greedy, timeout=60)]
+        time.sleep(1.5 * p["deadline_s"])  # idle: only heartbeats go out
+        worker.close()
+    else:
+        out["stop"] = until_released(worker)
+    # the loop ends without a word: the followers time out at their deadline
+    worker = PoolWorker(bundle, pool_size=4, deadline_s=p["deadline_s"])
+    if rank == 0:
+        worker.scheduler._stop.set()
+        worker.scheduler.thread.join()
+        time.sleep(p["deadline_s"] + 1)  # outlive the followers' deadline
+    else:
+        out["silent"] = until_released(worker)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # training over a mesh: the pipeline, the (data, model) steps, the CLI
 # ---------------------------------------------------------------------------
@@ -467,4 +600,5 @@ def cli_suite(p: dict) -> dict:
 
 
 SUITES = {"forward": forward_suite, "engine": engine_suite, "paged": paged_suite,
-          "pipeline": pipeline_suite, "mesh_train": mesh_train_suite, "cli": cli_suite}
+          "serving": serving_suite, "pipeline": pipeline_suite, "mesh_train": mesh_train_suite,
+          "cli": cli_suite}

@@ -41,7 +41,7 @@ from .checkpoint.from_jax import build_model
 from .checkpoint.serialize import flatten_tree
 from .engine.beam import beam_generate, beam_generate_fused, beam_sample_generate
 from .engine.generate import Engine
-from .engine.sampling import SamplingConfig
+from .engine.sampling import SamplingConfig, default_sampling_config
 from .engine.speculative import SpeculativeDecoder
 from .models.visualcla import VisualCLAModel
 from .ops.attention import attention_mesh_scope
@@ -49,7 +49,7 @@ from .parallel.sharding import check_mesh
 
 logger = logging.getLogger(__name__)
 
-DEFAULT_GENERATION_CONFIG = SamplingConfig()  # the reference's default sampled config
+DEFAULT_GENERATION_CONFIG = default_sampling_config()  # the reference's sampled config
 
 
 def _default_device() -> torch.device:

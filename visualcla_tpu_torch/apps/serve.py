@@ -54,17 +54,26 @@ def decode_image(b64: str):
 class PoolWorker:
     """Continuous-batching backend: requests prefill into a fixed pool of
     rows and decode together, token-interleaved; the contiguous pool
-    (``ServingEngine``) by default, the paged one with ``paged=True``."""
+    (``ServingEngine``) by default, the paged one with ``paged=True``.
+
+    A model loaded with ``mesh=`` is served over its mesh (both pools take
+    ``mesh=model.mesh``).  At world size > 1 every rank builds its
+    ``PoolWorker`` with the same arguments; rank 0's ``Scheduler`` leads
+    (``parallel.serving.Leader``) and every other rank calls ``follow()``,
+    which returns when rank 0's worker closes and raises when rank 0's loop
+    dies or sends nothing for ``deadline_s``."""
 
     def __init__(self, model, pool_size: int = 4, paged: bool = False,
                  block_size: int = 64, num_blocks: int = 0, kv_quant: str = "none",
-                 **engine_kw):
+                 deadline_s: float = 600.0, **engine_kw):
         from ..engine.server import Scheduler, ServingEngine
+        from ..parallel import distributed, serving
 
         self.model = model
+        mesh = getattr(model, "mesh", None)
         common = dict(eos_token_id=model.tokenizer.eos_token_id,
                       pad_token_id=model.tokenizer.pad_token_id, pool_size=pool_size,
-                      max_seq_len=model.engine.max_seq_len, **engine_kw)
+                      max_seq_len=model.engine.max_seq_len, mesh=mesh, **engine_kw)
         if paged:
             from ..engine.paged import PagedServingEngine
 
@@ -77,10 +86,29 @@ class PoolWorker:
                 raise ValueError(f"kv_quant={kv_quant!r} needs the paged pool (--paged): "
                                  "the contiguous pool keeps its cache in the model's dtype")
             self.engine = ServingEngine(model.model, model.config, **common)
-        self.scheduler = Scheduler(self.engine)
+        # over a mesh of more than one rank: rank 0 leads, the others follow
+        self._group = None
+        self._deadline_s = deadline_s
+        if mesh is not None and distributed.world() > 1:
+            self._group = serving.control_group(deadline_s)
+        self.scheduler = None  # a follower has none
+        if self._group is None:
+            self.scheduler = Scheduler(self.engine)
+        elif distributed.rank() == serving.LEADER:
+            self.scheduler = Scheduler(serving.Leader(self.engine, self._group, deadline_s))
+
+    def follow(self) -> dict:
+        """On a rank > 0: make rank 0's engine calls until its worker closes
+        (``parallel.serving.follow``)."""
+        from ..parallel import serving
+
+        if self._group is None:
+            raise RuntimeError("follow() serves a meshed model at world size > 1")
+        return serving.follow(self.engine, self._group, self._deadline_s)
 
     def close(self) -> None:
-        self.scheduler.stop()
+        if self.scheduler is not None:
+            self.scheduler.stop()
 
     def _prepare_request(self, req: dict):
         """Shared /chat and /chat_stream prep: decode the image(s), build the

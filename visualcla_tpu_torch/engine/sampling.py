@@ -60,6 +60,12 @@ class SamplingConfig:
                    top_k=0, top_p=1.0, repetition_penalty=1.0, no_repeat_ngram_size=0)
 
 
+def default_sampling_config() -> SamplingConfig:
+    """The reference's DEFAULT_GENERATION_CONFIG (modeling_utils.py:36-47):
+    the dataclass's defaults (``api.DEFAULT_GENERATION_CONFIG`` is this)."""
+    return SamplingConfig()
+
+
 _ROWS = threading.local()
 
 
@@ -196,6 +202,10 @@ def apply_no_repeat_ngram_rowwise(logits, gen_ids, gen_len, n: torch.Tensor):
 # warpers (distribution shaping)
 # ---------------------------------------------------------------------------
 
+def warp_temperature(logits, temperature: float):
+    return logits / temperature
+
+
 def warp_top_k(logits, k: int):
     if k <= 0:
         return logits
@@ -221,6 +231,13 @@ def warp_top_p(logits, p: float, min_tokens_to_keep: int = 1):
     if p >= 1.0:
         return logits
     return _top_p(logits, 1.0 - p, min_tokens_to_keep)
+
+
+def warp_top_k_top_p_fused(logits, k: int, p: float):
+    """The JAX package's name for ``warp_top_p(warp_top_k(logits, k), p)``:
+    its fused warper equals the sequential one bit for bit, so the port
+    keeps the sequential warpers alone."""
+    return warp_top_p(warp_top_k(logits, k), p)
 
 
 def _tfs_remove(logits, tfs: torch.Tensor, min_tokens_to_keep: int):
@@ -359,7 +376,7 @@ def warped_logits(logits, gen_ids, gen_len, cfg: SamplingConfig):
     sampling distribution (not for mirostat, whose truncation is stateful)."""
     logits = processed_logits(logits, gen_ids, gen_len, cfg)
     if cfg.temperature != 1.0:
-        logits = logits / cfg.temperature
+        logits = warp_temperature(logits, cfg.temperature)
     logits = warp_top_k(logits, cfg.top_k)
     logits = warp_top_p(logits, cfg.top_p)
     logits = warp_tfs(logits, cfg.tfs)

@@ -16,6 +16,10 @@ requests at token granularity:
   stops (n steps run, no row running, or a row finished inside the chunk);
 - ``snapshot`` copies the rows' control fields to the host once.
 
+Over a mesh (``mesh=``, the model sharded by ``parallel.sharding``) every
+rank holds its kv heads of every row and runs every row: the same calls on
+every rank, as ``parallel.serving`` arranges for the ``Scheduler``.
+
 ``Scheduler`` is a host thread that multiplexes a request queue onto the pool
 of either engine (this one or ``engine.paged.PagedServingEngine``, whose
 extra entry points it reaches through ``getattr``): a request prefills into
@@ -38,7 +42,8 @@ import torch.nn.functional as F
 
 from ..core.config import VisualCLAConfig
 from ..models import llama, visualcla
-from ..ops.attention import vision_attention_impl
+from ..ops.attention import attention_mesh_scope, vision_attention_impl
+from ..parallel.sharding import bind
 from .generate import PrefillInputs, host_pixels, pick_bucket
 from .graphs import Graphs
 from .sampling import SamplingConfig, rowwise_flags, sample_step_rowwise
@@ -120,8 +125,16 @@ class PoolState:
 
 
 class ServingEngine:
-    """Fixed-pool continuous batching over one model on one device (the
-    JAX package's ``ServingEngine``); drives ``Scheduler``."""
+    """Fixed-pool continuous batching over one model (the JAX package's
+    ``ServingEngine``); drives ``Scheduler``.
+
+    ``mesh``: a ``DeviceMesh`` the model is sharded over (``bind``: done here
+    if it is not yet).  The cache holds the rank's kv heads
+    (``model.text.kv_heads``); rows are not split over ``data``: every rank
+    runs every row, as the paged pool does.  Every admission and decode step
+    runs under ``attention_mesh_scope(mesh)``.  The mesh is fixed for the
+    engine and nothing of it varies from call to call, so it is not part of
+    the graph keys (each engine captures its own graphs)."""
 
     def __init__(
         self,
@@ -136,7 +149,10 @@ class ServingEngine:
         prompt_buckets=(128, 256, 512, 1024),
         sampling: Optional[SamplingConfig] = None,
         seed: int = 0,
+        mesh=None,
     ):
+        bind(model, mesh)
+        self.mesh = mesh
         self.model = model
         self.cfg = cfg
         self.eos = eos_token_id
@@ -275,10 +291,12 @@ class ServingEngine:
         self._row.fill_(row)
         self._max_new.fill_(max_new)
         self._admit_knobs.copy_(torch.from_numpy(knobs))
-        self.graphs.run(("admit", inp.key, vision_attention_impl(), tuple(sorted(flags.items()))),
-                        lambda: self._prefill_step(inp, flags), self.device,
-                        generators=[self._state.generator], counters=[self.counts],
-                        space="prefill")
+        with attention_mesh_scope(self.mesh):
+            self.graphs.run(("admit", inp.key, vision_attention_impl(),
+                             tuple(sorted(flags.items()))),
+                            lambda: self._prefill_step(inp, flags), self.device,
+                            generators=[self._state.generator], counters=[self.counts],
+                            space="prefill")
         self._host_active[row] = True
         self._host_finished[row] = False
         self._host_gen_len[row] = 1
@@ -337,10 +355,11 @@ class ServingEngine:
             n = min(n, max(1, int(to_cap[run].min())))
         flags = knob_flags(self._host_knobs[self._host_active])
         self._finished0.copy_(self._state.finished)
-        self.graphs.run(("decode", tuple(sorted(flags.items()))),
-                        lambda: self._decode_step(flags), self.device,
-                        generators=[self._state.generator], counters=[self.counts],
-                        replays=n)
+        with attention_mesh_scope(self.mesh):
+            self.graphs.run(("decode", tuple(sorted(flags.items()))),
+                            lambda: self._decode_step(flags), self.device,
+                            generators=[self._state.generator], counters=[self.counts],
+                            replays=n)
 
     def step(self) -> None:
         """One decode step for every running row."""
@@ -450,8 +469,13 @@ class Scheduler:
                     break
 
     def stop(self) -> None:
+        """Stop the loop; over a mesh (``parallel.serving.Leader``) the other
+        ranks' ``follow`` then returns."""
         self._stop.set()
         self.thread.join(timeout=30)
+        release = getattr(self.engine, "release_followers", None)
+        if release is not None:
+            release()
 
     def _free_rows(self):
         return [r for r in range(self.engine.B) if r not in self._rows]
@@ -481,12 +505,21 @@ class Scheduler:
                     self.requests.get_nowait().out.put(("error", msg))
                 except queue.Empty:
                     break
+            # last: a broadcast to ranks that already died blocks until the
+            # group's timeout, and no waiter should wait for it
+            release = getattr(self.engine, "release_followers", None)
+            if release is not None:
+                try:  # the other ranks' follow raises with the message
+                    release(msg)
+                except Exception:  # noqa: BLE001 — a lost rank cannot be told
+                    logger.exception("releasing the following ranks failed")
 
     def _run_inner(self):
         eng = self.engine
         st = self._stats
         deferred = None  # a request waiting for KV blocks
         self._pending = None  # (PendingPrefill, row, Request)
+        idle = getattr(eng, "idle", None)  # over a mesh: the leader's heartbeat
         while not self._stop.is_set():
             st["iterations"] += 1
             did_work = False
@@ -617,6 +650,8 @@ class Scheduler:
                 did_work = True
             if not did_work:
                 st["idle_sleeps"] += 1
+                if idle is not None:
+                    idle()
                 time.sleep(self.poll_interval or 0.005)
 
 

@@ -93,6 +93,60 @@ def init_random_(model: nn.Module, generator: torch.Generator,
     return model
 
 
+@torch.no_grad()
+def resize_token_embeddings(model: VisualCLAModel, new_size: int,
+                            generator: Optional[torch.Generator] = None,
+                            initializer_range: float = 0.02) -> VisualCLAModel:
+    """Grow (or truncate) the text tower's vocabulary in place: the rows of
+    ``text.embed_tokens`` and of ``text.lm_head``'s (V, H) weight, the
+    reference's ``resize_token_embeddings`` before a LoRA adapter loads
+    (scripts/inference/inference.py:66-74).  New rows are drawn N(0,
+    ``initializer_range``) in fp32 from ``generator`` (default: a CPU
+    generator seeded 0), the embedding's first and then the head's, and cast
+    to each leaf's dtype on its device; kept rows are untouched.
+
+    After the call the forward reads the vocabulary size from the modules'
+    widths (the embedding's rows, the head's outputs).  ``cfg.text_config.
+    vocab_size`` is left as it was, as the JAX function, which returns a new
+    tree, leaves the config to its caller: replace it before writing a
+    checkpoint.  Float leaves only, as the JAX function: an int8 embedding
+    table or a quantized or LoRA head raises a ValueError naming its tier.
+    A model sharded over a mesh raises too: each rank holds a slice of the
+    head's rows and of the embedding's columns, so resize before
+    ``shard_params``."""
+    text = model.text
+    if getattr(model, "mesh", None) is not None or text.tp is not None:
+        raise ValueError("resize_token_embeddings: the model is sharded over a mesh; resize "
+                         "it before shard_params (each rank holds a slice of the vocabulary)")
+    if isinstance(text.embed_tokens, Int8Table):
+        raise ValueError("resize_token_embeddings: the embedding table is at the int8 tier "
+                         "(Int8Table); only float tables resize")
+    if type(text.lm_head) is not Linear:
+        tier = {"Int8Linear": "int8", "Int4Linear": "int4", "LoraLinear": "LoRA"}.get(
+            type(text.lm_head).__name__, type(text.lm_head).__name__)
+        raise ValueError(f"resize_token_embeddings: the LM head is at the {tier} tier "
+                         f"({type(text.lm_head).__name__}); only a float head resizes")
+    if new_size <= 0:
+        raise ValueError(f"new_size must be positive, got {new_size}")
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+
+    def resized(w: torch.Tensor) -> nn.Parameter:
+        old = w.shape[0]
+        if new_size <= old:
+            data = w[:new_size].clone()
+        else:
+            extra = torch.randn((new_size - old,) + tuple(w.shape[1:]), generator=generator,
+                                dtype=torch.float32, device=generator.device)
+            extra = (extra * initializer_range).to(device=w.device, dtype=w.dtype)
+            data = torch.cat([w, extra], dim=0)
+        return nn.Parameter(data, requires_grad=w.requires_grad)
+
+    text.embed_tokens = resized(text.embed_tokens)
+    text.lm_head.weight = resized(text.lm_head.weight)
+    return model
+
+
 def encode_image(model: VisionTowers, cfg: VisualCLAConfig,
                  pixel_values: torch.Tensor, remat: bool = False) -> torch.Tensor:
     """(B, 3, H, W) pixels -> (B, num_image_tokens, text_hidden): ViT (full

@@ -173,6 +173,12 @@ def causal_bias(
     return bias.float()[:, None, :, :]
 
 
+def padding_bias(kv_valid: torch.Tensor) -> torch.Tensor:
+    """Additive fp32 bias (B, 1, 1, Sk) masking invalid kv slots (bidirectional)."""
+    bias = torch.zeros(kv_valid.shape, dtype=torch.float32, device=kv_valid.device)
+    return bias.masked_fill(~kv_valid.bool(), NEG_INF)[:, None, None, :]
+
+
 def cached_attention(
     q: torch.Tensor,  # (B, Sq, N, hd)
     k_cache: torch.Tensor,  # (L, B, Nkv, S, hd) — the FULL stacked cache (int8 or q's dtype),

@@ -1,2 +1,2 @@
-from .image import CLIP_MEAN, CLIP_STD, ImageProcessor  # noqa: F401
+from .image import CLIP_MEAN, CLIP_STD, ImageProcessor, device_preprocess  # noqa: F401
 from .processing import VisualCLAProcessor  # noqa: F401

@@ -119,3 +119,4 @@ class Counters:
 
 
 GLOBAL_COUNTERS = Counters()
+GLOBAL_TIMER = PhaseTimer()
