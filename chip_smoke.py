@@ -141,11 +141,12 @@ Phases, one line of findings each:
                independent fp32 fold (at most 1 bf16 ulp), the tables equal
                to the adapter's, a greedy chat with finite logits; seconds,
                GB/s, peak RSS and its private part for each step;
- 11. train   — (after 9, before the summary; no hand kernel is on its path,
-               and its steps must launch none) (a) a full-width VisualCLA-7B
-               stage-2 QLoRA step (``fixtures.train_model``: int8 decoder
-               matmuls, bf16 embed_tokens / lm_head / vision / resampler /
-               projection, bf16 LoRA r=8 on the text and vision targets;
+ 11. train   — (after 9, before the summary; no hand kernel is on the paths
+               of (a)-(d), and their steps must launch none; B3 is on (e)'s)
+               (a) a full-width VisualCLA-7B stage-2 QLoRA step
+               (``fixtures.train_model``: int8 decoder matmuls, bf16
+               embed_tokens / lm_head / vision / resampler / projection,
+               bf16 LoRA r=8 on the text and vision targets;
                ``lora_trainable``, remat, constant lr 1e-4) on B=1, S=512
                with ``<img>`` at 2 and the first 80 labels ignored: a warm
                step and 5 timed ones (``make_train_step_subset``): each loss,
@@ -165,7 +166,17 @@ Phases, one line of findings each:
                ``--save_every 2 --remat``), a resume from step_2 equal to
                the run, the output through the factory and a greedy chat, the
                adapter folded by the unmerged loader against the merged
-               output within bf16 rounding;
+               output within bf16 rounding; (e) stage 1 at full width over
+               the frozen int4 text tower (``fixtures.train_model(bits=4)``:
+               int4 layers and head, per-row int8 table), remat, 1 warm + 1
+               timed step: (b)'s fields and checks (the carriers and scales
+               bitwise unchanged), B3's launches exactly 2 x (7 x 32 x 2 + 1)
+               (forward, the remat recompute, the head), the head's dX
+               through ``Int4MatmulFn`` against ``int4_matmul_grad_ref`` (B3's
+               tolerance) with its forward and backward ms, step ms and peak
+               beside (b)'s; the tiny fp32 int4 step's gradients on the card
+               (B3) against the CPU within INT4_TRAIN_TOL (B3 rounds x to
+               bf16); the kernels line's B3 rows gain ``train_launches``;
  12. apps    — (after 4f, on phase 4's model) (a) the Gradio demo's callback
                (``apps.gradio_demo.make_predict``) streamed and blocking with
                the sliders at 32 tokens, top-k 1, top-p .9, temperature .5:
@@ -3651,7 +3662,7 @@ def phase_reference(smi: str, cfg, tokenizer, phase4_ids) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 11: training (no hand kernel on its path)
+# phase 11: training (no hand kernel on (a)-(d)'s paths; B3 on (e)'s)
 # ---------------------------------------------------------------------------
 
 TRAIN_LR = 1e-4
@@ -3660,6 +3671,9 @@ TRAIN_RTOL, TRAIN_ATOL = 1e-5, 1e-6
 # (d): logits of the adapter folded at load (fp32) against the bf16-saved
 # merged checkpoint: bf16 rounding of the merged weights
 FOLD_RTOL, FOLD_ATOL = 2e-2, 5e-2
+# (e): the tiny fp32 int4 step on the card against the CPU: loss and
+# grad_norm relative, each gradient against the largest (``_int4_card_vs_cpu``)
+INT4_TRAIN_TOL = (5e-4, 1.5e-2, 2e-2)
 
 
 def _step_rounds_away(p: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor, count: int,
@@ -3679,15 +3693,17 @@ def _step_rounds_away(p: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor, count
     return bool((u.abs() < half).all())
 
 
-def _train_run(model, cfg, batch, trainable, steps: int, base: int) -> dict:
+def _train_run(model, cfg, batch, trainable, steps: int, base: int,
+               expect: dict = None) -> dict:
     """``steps`` subset steps (constant lr TRAIN_LR, remat) of ``model`` on
     one batch, the first a warm-up: losses, step ms by CUDA events and the
     host clock (p50 of the timed steps), the peak memory of the steps, the
-    hand-kernel launches they made (0 expected), and the checks: finite
-    losses, every frozen leaf bitwise unchanged (against a copy on the card,
-    left out of the peak, as is ``base``: what was allocated before the
-    model was made), every trainable leaf changed (but those whose
-    last step is below half an ulp of every value: ``_step_rounds_away``)."""
+    hand-kernel launches they made (exactly ``expect``, by kernel; none by
+    default), and the checks: finite losses, every frozen leaf bitwise
+    unchanged (against a copy on the card, left out of the peak, as is
+    ``base``: what was allocated before the model was made), every
+    trainable leaf changed (but those whose last step is below half an ulp
+    of every value: ``_step_rounds_away``)."""
     from visualcla_tpu_torch.train.trainer import (init_train_state, make_optimizer,
                                                    make_train_step_subset, partition_params)
 
@@ -3723,8 +3739,8 @@ def _train_run(model, cfg, batch, trainable, steps: int, base: int) -> dict:
     exempt = [n for n in still if _step_rounds_away(train[n], mu[n], nu[n], count, TRAIN_LR)]
     if not all(np.isfinite(losses)):
         raise RuntimeError(f"non-finite training loss: {losses}")
-    if launches:
-        raise RuntimeError(f"the training steps launched hand kernels: {launches}")
+    if launches != (expect or {}):
+        raise RuntimeError(f"the training steps launched {launches}, expected {expect or {}}")
     if bad:
         raise RuntimeError(f"{len(bad)} frozen leaves changed, e.g. {bad[:4]}")
     if set(still) - set(exempt):
@@ -3734,7 +3750,8 @@ def _train_run(model, cfg, batch, trainable, steps: int, base: int) -> dict:
     q = sum(p.numel() for p in frozen.values() if p.dtype == torch.int8)
     return {"losses": losses, "ms": statistics.median(dev), "host_ms": statistics.median(host),
             "peak_gb": peak_gb, "trainable_m": n_train / 1e6, "frozen": len(frozen),
-            "int8_elems": q, "exempt": exempt, "snapshot_gb": snapshot / 1e9}
+            "int8_elems": q, "exempt": exempt, "snapshot_gb": snapshot / 1e9,
+            "launches": launches}
 
 
 def _train_line(r: dict, flops: dict, tokens: int, smi: str) -> str:
@@ -3883,6 +3900,105 @@ def _cli_end_to_end(tokenizer, smi: str) -> dict:
             "reply_chars": len(reply)}
 
 
+def _b3_train_counts(steps: int, T: int, layers: int) -> dict:
+    """B3's launches, by form, of ``steps`` remat training steps over the 7B
+    int4 text tower at T tokens: each step's forward (7 a layer, then the
+    head: ``_b3_pass_counts``) and the recompute of every layer in the
+    backward (7 a layer again); the backward itself launches none (dX is a
+    dequantize and one cuBLAS product)."""
+    counts = _b3_pass_counts(T, layers)
+    for in_dim, out in LAYER_SHAPES.values():
+        counts[_b3_form(T, in_dim, out)] += layers
+    return {k: steps * v for k, v in counts.items() if v}
+
+
+def _int4_head_dx(model, T: int) -> dict:
+    """B3 under autograd at the int4 head's shape (T tokens, 4096 -> 49958,
+    fp32 out): the forward through the kernel (one launch), dX through
+    ``Int4MatmulFn``'s backward against ``int4_matmul_grad_ref`` within
+    B3_TOL of its largest value, the backward's dequantize bitwise
+    ``dequantize_grouped``'s; the device ms (CUDA events, 3 calls) of the
+    forward and of the backward, and the backward's bound: the carrier,
+    scales and g read once and dX written once, against its product's
+    operations at the bf16 rate."""
+    head = model.text.lm_head
+    q, s = head.q, head.scale
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn(T, 2 * q.shape[0] * q.shape[1], generator=gen,
+                    device="cuda").to(torch.bfloat16).requires_grad_(True)
+    g = torch.randn(T, q.shape[2], generator=gen, device="cuda")
+    _reset_counters()
+    y = i4.int4_matmul(x, q, s, out_dtype=torch.float32)
+    launches = {k: v for k, v in _counters().items() if v}
+    y.backward(g)
+    ref = i4.int4_matmul_grad_ref(g, q, s, torch.bfloat16).float()
+    err = float((x.grad.float() - ref).abs().max())
+    if not torch.equal(i4._dequantized(q, s, torch.bfloat16),
+                       dequantize_grouped(q, s, torch.bfloat16)):
+        raise RuntimeError("(e) the backward's dequantize differs from dequantize_grouped")
+    if not (err <= B3_TOL * float(ref.abs().max()) and bool(torch.isfinite(x.grad).all())):
+        raise RuntimeError(f"(e) the head's dX through Int4MatmulFn differs by {err:.3e}")
+    if launches != {_b3_form(T, *HEAD_SHAPE): 1}:
+        raise RuntimeError(f"(e) the head's forward under autograd launched {launches}")
+
+    def backward():
+        x.grad = None
+        i4.int4_matmul(x, q, s, out_dtype=torch.float32).backward(g)
+
+    total = event_ms(backward, 3)
+    fwd = event_ms(lambda: i4.int4_matmul(x.detach(), q, s, out_dtype=torch.float32), 3)
+    in_dim, out = HEAD_SHAPE
+    moved = nbytes(q, s, g) + 2 * T * in_dim  # the function's inputs and its bf16 dX
+    b_ms, b_by = bound(moved, 2.0 * T * in_dim * out)
+    return {"err": err, "ms": total - fwd, "fwd_ms": fwd, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def _int4_card_vs_cpu() -> dict:
+    """The tiny fp32 stage-1 step's gradients over an int4 text tower
+    (``quantize_text_tower_(model, 4)``: int4 layers and head, gs 16 and
+    32) on the card, through B3's decode form, against the CPU's plain
+    version.  B3 rounds its fp32 input to bf16 (relative 2^-9), the plain
+    version does not, so the two agree to that rounding: INT4_TRAIN_TOL
+    holds at least 4x what that rounding alone makes on the CPU
+    (``tests/test_torch_train.py::test_int4_card_tolerance_covers_b3_rounding``,
+    seeds 0-2)."""
+    import copy
+
+    from visualcla_tpu_torch.core.config import tiny_visualcla_config
+    from visualcla_tpu_torch.train.trainer import loss_fn, partition_params, stage1_trainable
+
+    cfg = tiny_visualcla_config()
+    cpu = init_random_(VisualCLAModel(cfg, dtype=torch.float32),
+                       torch.Generator().manual_seed(SEED), std=0.1)
+    quantize_text_tower_(cpu, 4)
+    card = copy.deepcopy(cpu).to("cuda")
+    batch = _tiny_train_batch(cfg)
+    out = {}
+    _reset_counters()
+    for name, model in (("cpu", cpu), ("cuda", card)):
+        train, _ = partition_params(model, stage1_trainable)
+        loss = loss_fn(model, cfg, batch)
+        loss.backward()
+        grads = {n: p.grad.detach().cpu() for n, p in train.items() if p.grad is not None}
+        norm = float(torch.linalg.vector_norm(torch.stack([g.norm() for g in grads.values()])))
+        out[name] = (float(loss.detach()), norm, grads)
+    launches = {k: v for k, v in _counters().items() if v}
+    (l0, n0, g0), (l1, n1, g1) = out["cpu"], out["cuda"]
+    top = max(float(g.abs().max()) for g in g0.values())
+    worst = max(float((g1[n] - g0[n]).abs().max()) for n in g0) / top
+    loss_tol, norm_tol, grad_tol = INT4_TRAIN_TOL
+    if set(g0) != set(g1) or not launches:
+        raise RuntimeError(f"(e) tiny step: leaves {len(g0)} / {len(g1)}, launches {launches}")
+    for what, a, b, tol in (("loss", l1, l0, loss_tol), ("grad_norm", n1, n0, norm_tol)):
+        if not abs(a - b) <= tol * abs(b):
+            raise RuntimeError(f"(e) tiny int4 step: {what} on the card {a} vs the CPU {b}")
+    if not worst <= grad_tol:
+        raise RuntimeError(f"(e) tiny int4 step: a gradient differs by {worst:.3e} of the "
+                           f"largest")
+    return {"loss": (l1, l0), "grad_norm": (n1, n0), "worst": worst, "n": len(g0),
+            "launches": launches}
+
+
 def phase_train(smi: str, cfg, tokenizer) -> dict:
     """(a) a full-width VisualCLA-7B stage-2 QLoRA step, (b) a stage-1 step at
     full width, (c) the tiny model's step on the card against the CPU, (d)
@@ -3896,30 +4012,58 @@ def phase_train(smi: str, cfg, tokenizer) -> dict:
     torch.cuda.empty_cache()
     batch = train_batch(cfg, tokenizer)
     numbers = {}
-    for stage, trainable, steps in ((2, lora_trainable, 6), (1, stage1_trainable, 2)):
+    L = cfg.text_config.num_hidden_layers
+    for key, stage, trainable, steps, bits in (("stage2", 2, lora_trainable, 6, None),
+                                               ("stage1", 1, stage1_trainable, 2, None),
+                                               ("stage1_int4", 1, stage1_trainable, 2, 4)):
         base = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
-        model = train_model(cfg, stage)
+        model = train_model(cfg, stage, bits=bits)
         torch.cuda.synchronize()
         made = time.perf_counter() - t0
-        r = _train_run(model, cfg, batch, trainable, steps, base)
+        expect = _b3_train_counts(steps, TRAIN_SEQ, L) if bits == 4 else None
+        r = _train_run(model, cfg, batch, trainable, steps, base, expect)
         if stage == 2 and not r["losses"][-1] < r["losses"][0]:
             raise RuntimeError(f"(a) the loss did not fall: {r['losses']}")
         flops = train_step_flops(cfg, stage, TRAIN_SEQ)
-        label = ("(a) VisualCLA-7B stage-2 QLoRA (int8 decoder, bf16 embed/head/vision/"
-                 "resampler/projection, bf16 LoRA r=8 on text and vision), remat, B=1 "
-                 f"S={TRAIN_SEQ}, 1 warm + 5 timed steps" if stage == 2 else
-                 "(b) stage 1 at full width (bf16 text tower frozen; vision, resampler, "
-                 "projection trainable), remat, 1 warm + 1 timed step")
+        label = {"stage2": "(a) VisualCLA-7B stage-2 QLoRA (int8 decoder, bf16 embed/head/"
+                           "vision/resampler/projection, bf16 LoRA r=8 on text and vision), "
+                           f"remat, B=1 S={TRAIN_SEQ}, 1 warm + 5 timed steps",
+                 "stage1": "(b) stage 1 at full width (bf16 text tower frozen; vision, "
+                           "resampler, projection trainable), remat, 1 warm + 1 timed step",
+                 "stage1_int4": "(e) stage 1 at full width over the frozen int4 text tower "
+                                "(fixtures.train_model(bits=4): int4 layers and head, gs 128, "
+                                "per-row int8 table; B3 forward and in the remat recompute, "
+                                "dX by Int4MatmulFn), remat, 1 warm + 1 timed step"}[key]
+        quant = (f"{r['int8_elems'] / 1e9:.2f} G int8 carrier values among them" if bits is None
+                 else "the uint8 carriers and f32 scales among them")
         print(f"[11 train] {label} (model made in {made:.1f} s; {r['frozen']} frozen leaves "
-              f"bitwise unchanged, {r['int8_elems'] / 1e9:.2f} G int8 carrier values among "
-              f"them; every trainable leaf changed but {len(r['exempt'])} whose last Adam step "
-              f"is below half a bf16 ulp of every value, e.g. {r['exempt'][:3]}; 0 hand-kernel "
-              f"launches): " + _train_line(r, flops, TRAIN_SEQ, smi), flush=True)
-        numbers[f"stage{stage}"] = {**r, "tflop": flops["total"] / 1e12}
+              f"bitwise unchanged, {quant}; every trainable leaf changed but "
+              f"{len(r['exempt'])} whose last Adam step is below half a bf16 ulp of every "
+              f"value, e.g. {r['exempt'][:3]}; hand-kernel launches {r['launches'] or 0}, "
+              f"exactly as expected): " + _train_line(r, flops, TRAIN_SEQ, smi), flush=True)
+        numbers[key] = {**r, "tflop": flops["total"] / 1e12}
+        if bits == 4:
+            numbers["int4_head_dx"] = hd = _int4_head_dx(model, TRAIN_SEQ)
+            b = numbers["stage1"]
+            print(f"[11 train] (e) against (b): step {r['ms']:.1f} / {b['ms']:.1f} ms device "
+                  f"({r['ms'] / b['ms']:.3f}x), {r['host_ms']:.1f} / {b['host_ms']:.1f} ms host "
+                  f"({r['host_ms'] / b['host_ms']:.3f}x), peak {r['peak_gb']:.2f} / "
+                  f"{b['peak_gb']:.2f} GB ({r['peak_gb'] - b['peak_gb']:+.2f}); B3 under "
+                  f"autograd at the head's shape (T {TRAIN_SEQ}, 4096 -> 49958, fp32 out): dX "
+                  f"through Int4MatmulFn against int4_matmul_grad_ref max |err| "
+                  f"{hd['err']:.3e} (tol {B3_TOL} of the largest), forward {hd['fwd_ms']:.3f} "
+                  f"ms, backward (dequantize + cuBLAS) {hd['ms']:.3f} ms against a bound of "
+                  f"{hd['bound_ms']:.3f} ms ({hd['bound_by']}); card {smi}", flush=True)
         del model
         gc.collect()
         torch.cuda.empty_cache()
+    e = _int4_card_vs_cpu()
+    print(f"[11 train] (e) tiny fp32 stage-1 step over an int4 text tower, card (B3's "
+          f"{sorted(e['launches'])}) against CPU (plain version): loss {e['loss'][0]:.7f} / "
+          f"{e['loss'][1]:.7f}, grad_norm {e['grad_norm'][0]:.7f} / {e['grad_norm'][1]:.7f}, "
+          f"{e['n']} gradients within {e['worst']:.2e} of the largest (tolerances loss, "
+          f"grad_norm, gradient {INT4_TRAIN_TOL}: B3 rounds x to bf16)", flush=True)
     c = _card_vs_cpu()
     print(f"[11 train] (c) tiny fp32 stage-2 step, card against CPU (TF32 off): loss "
           f"{c['loss'][0]:.7f} / {c['loss'][1]:.7f}, grad_norm {c['grad_norm'][0]:.7f} / "
@@ -4923,6 +5067,8 @@ def main() -> int:
             row["pipeline_launches"] = pipe_launches[name]
         if name in mesh["scheduler_launches"]:  # phase 13 (f): PoolWorker over the mesh
             row["scheduler_mesh_launches"] = mesh["scheduler_launches"][name]
+        if name.startswith("int4"):  # phase 11 (e): stage 1 over the int4 tower
+            row["train_launches"] = train["stage1_int4"]["launches"].get(name, 0)
         kernels.append(row)
     for name, r in mesh["rows"].items():  # phase 13 (d): one rank's shard shapes
         base = name.rsplit("_tp", 1)[0].replace("_mesh", "").replace("_vit", "")

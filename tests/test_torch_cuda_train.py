@@ -1,7 +1,10 @@
 """Training on the card: the tiny fp32 model's stage-2 subset step on the
-card against the same step on the CPU (TF32 off), and remat on against off
-at a 2-layer model of VisualCLA-7B's widths in fp32.  Needs an NVIDIA GPU;
-skipped without.
+card against the same step on the CPU (TF32 off), remat on against off at
+a 2-layer model of VisualCLA-7B's widths in fp32, and B3 under autograd:
+the input gradient of ``int4_matmul`` (the forward through the kernel, the
+backward ``Int4MatmulFn``'s dequantize and product) against
+``int4_matmul_grad_ref`` at the 7B text tower's four carrier shapes and
+T = 512.  Needs an NVIDIA GPU; skipped without.
 
 On the machine with the card (which has no JAX, hence no conftest):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_train.py
@@ -9,7 +12,9 @@ On the machine with the card (which has no JAX, hence no conftest):
 Tolerances: card against CPU, loss and grad_norm rtol 1e-5, parameters
 rtol 1e-5 / atol 1e-6 after a step at lr 1e-3; remat on against off, loss
 rtol 1e-6 and parameters atol 1e-6 after two steps (fp32: only the
-recompute's summation order may differ)."""
+recompute's summation order may differ); B3's input gradient and output
+within 1e-2 of the largest value (B3's tolerance: bf16 rounding of the
+dequantized weight and of dY, another summation order)."""
 import copy
 import dataclasses
 
@@ -18,6 +23,8 @@ import pytest
 import torch
 
 from visualcla_tpu_torch.core.config import tiny_visualcla_config, visualcla_config_for_size
+from visualcla_tpu_torch.ops.cuda import int4_matmul as i4
+from visualcla_tpu_torch.ops.quantization import quantize_grouped
 from visualcla_tpu_torch.models.visualcla import VisualCLAModel, init_random_
 from visualcla_tpu_torch.train.lora import add_lora, lora_trainable
 from visualcla_tpu_torch.train.trainer import (init_train_state, make_optimizer,
@@ -105,3 +112,35 @@ def test_remat_equals_no_remat_at_full_width():
         np.testing.assert_allclose(b["loss"], a["loss"], rtol=1e-6)
     for n in pa:
         torch.testing.assert_close(pb[n], pa[n], rtol=0, atol=1e-6, msg=n)
+
+
+B3_TOL = 1e-2
+
+
+@pytest.mark.parametrize("shape", [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 49958)],
+                         ids=["qkvo", "gate_up", "down", "head"])
+def test_int4_input_grad_through_the_kernel(shape):
+    """One B3 launch forward (bf16 out, fp32 for the head as the LM head
+    runs it), then dX through ``Int4MatmulFn`` against the plain backward;
+    the forward against the plain version."""
+    in_dim, out = shape
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    wq = quantize_grouped((torch.randn(in_dim, out, generator=gen, device="cuda") * 0.02)
+                          .to(torch.bfloat16), group=128)
+    q, s = wq["q"], wq["scale"]
+    out_dtype = torch.float32 if out == 49958 else torch.bfloat16
+    x = torch.randn(512, in_dim, generator=gen, device="cuda").to(torch.bfloat16)
+    x.requires_grad_(True)
+    g = torch.randn(512, out, generator=gen, device="cuda").to(out_dtype)
+    before = sum(i4.LAUNCHES.values())
+    y = i4.int4_matmul(x, q, s, out_dtype=out_dtype)
+    assert sum(i4.LAUNCHES.values()) == before + 1
+    assert y.requires_grad and y.dtype == out_dtype
+    y.backward(g)
+    assert sum(i4.LAUNCHES.values()) == before + 1  # the backward launches no B3
+    for got, want in ((y, i4.int4_matmul_ref(x.detach().float(), q, s)),
+                      (x.grad, i4.int4_matmul_grad_ref(g, q, s, torch.bfloat16))):
+        want = want.float()
+        err = float((got.float() - want).abs().max())
+        assert torch.isfinite(got).all() and err <= B3_TOL * float(want.abs().max()), err
+    assert x.grad.dtype == torch.bfloat16

@@ -11,13 +11,20 @@ Cases: the stage-1 masked step; the stage-2 LoRA subset step over an int8
 different token counts (the loss is the global token-weighted mean, not
 the mean of the ranks' means); FSDP against TP-only, with each rank's layer
 bytes; the adapter export and the merge over the mesh against the unmeshed
-files.
+files; the stage-1 subset step over a frozen int4 text tower (JAX's
+``quantize_tree(bits=4)`` of the config at text width 256: every layer's
+carrier has an even group count, so it splits over ``model`` and B3's
+products run column- and row-parallel under autograd), on the (data, model)
+mesh, with FSDP, and pipelined on a (pipe 2, data 2) mesh against JAX's
+pipelined step (JAX's ``pipeline.shard_text_params`` refuses a quantized
+tree, so its step runs on the tree as it stands).
 
 Tolerances (fp32): loss and grad_norm rtol 1e-5, parameters after 2 steps
 atol 1e-5, against JAX and against the unmeshed port (the sums over the
 mesh's ranks add in another order); FSDP against TP-only, which add the
 same partial sums, rtol 1e-6 and atol 1e-7; the adapter file and the merged
 tensors bitwise."""
+import dataclasses
 import os
 
 import numpy as np
@@ -31,6 +38,7 @@ from visualcla_tpu_torch.checkpoint.from_jax import build_model, params_to_jax
 
 RTOL = ATOL = 1e-5
 R, ALPHA = 4, 8.0
+INT4_WIDTHS = (256, 512)  # hidden, intermediate: 2 and 4 groups of 128 a column
 N_STEPS = 2
 
 
@@ -58,9 +66,12 @@ def _batch(rng, jcfg, counts=None):
             "pixel_values": rng.standard_normal((B, 3, size, size)).astype(np.float32)}
 
 
-def _jax_steps(tree, jcfg, trainable, batch, clip, subset, mesh):
+def _jax_steps(tree, jcfg, trainable, batch, clip, subset, mesh, fsdp=False,
+               pipeline_mesh=None):
     """JAX's step jitted over ``mesh`` (``shard_params`` tree, batch on
-    ``data``), N_STEPS times -> (metrics, the trainable leaves)."""
+    ``data``), N_STEPS times -> (metrics, the trainable leaves).  With
+    ``pipeline_mesh`` the step runs GPipe over it (2 microbatches) on the
+    tree and batch as they stand."""
     import jax
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
@@ -70,14 +81,20 @@ def _jax_steps(tree, jcfg, trainable, batch, clip, subset, mesh):
     from visualcla_tpu.train import trainer as j_trainer
 
     opt = j_trainer.make_optimizer(learning_rate=1e-3, schedule="const", grad_clip=clip)
-    tree = j_shd.shard_params(jax.tree.map(jnp.asarray, unflatten_tree(tree)), mesh)
-    b = {k: jax.device_put(jnp.asarray(v), NamedSharding(mesh, P("data")))
-         for k, v in batch.items()}
+    tree = jax.tree.map(jnp.asarray, unflatten_tree(tree))
+    pipe = {} if pipeline_mesh is None else {"pipeline_mesh": pipeline_mesh, "n_micro": 2}
+    if pipeline_mesh is None:
+        tree = j_shd.shard_params(tree, mesh, fsdp=fsdp)
+        b = {k: jax.device_put(jnp.asarray(v), NamedSharding(mesh, P("data")))
+             for k, v in batch.items()}
+    else:
+        mesh = pipeline_mesh
+        b = {k: jnp.asarray(v) for k, v in batch.items()}
     metrics = []
     with mesh:
         if subset:
             train, frozen = j_trainer.partition_params(tree, trainable)
-            step = jax.jit(j_trainer.make_train_step_subset(jcfg, opt, trainable))
+            step = jax.jit(j_trainer.make_train_step_subset(jcfg, opt, trainable, **pipe))
             state = j_trainer.init_train_state(train, opt)
             for _ in range(N_STEPS):
                 state, m = step(state, frozen, b)
@@ -121,6 +138,8 @@ def setup(tmp_path_factory):
 
     from tests.test_torch_train import qlora_base
     from visualcla_tpu.models import visualcla as j_vis
+    from visualcla_tpu.ops.quantization import quantize_tree
+    from visualcla_tpu.parallel.pipeline import make_pipe_mesh
     from visualcla_tpu.train import lora as j_lora
     from visualcla_tpu.train import trainer as j_trainer
 
@@ -136,6 +155,10 @@ def setup(tmp_path_factory):
                     rng.standard_normal(node["lora_B"].shape).astype(np.float32) * 0.05)
     ql = j_lora.add_lora(qlora_base(base), r=R, alpha=ALPHA, rng=jax.random.PRNGKey(7))
     trees = {"dense": _flat(base), "lora": _flat(lp), "qlora": _flat(ql)}
+    jcfg4 = dataclasses.replace(jcfg, text_config=dataclasses.replace(
+        jcfg.text_config, hidden_size=INT4_WIDTHS[0], intermediate_size=INT4_WIDTHS[1]))
+    trees["int4"] = _flat(quantize_tree(j_vis.init_params(jax.random.PRNGKey(8), jcfg4,
+                                                          jnp.float32), bits=4))
     batch = _batch(rng, jcfg)
     # data rank 0 (rows 0-1) trains 2 tokens a row, data rank 1 (rows 2-3) 14
     unequal = _batch(rng, jcfg, counts=[2, 2, 14, 14])
@@ -144,8 +167,14 @@ def setup(tmp_path_factory):
     want = {"stage1": _jax_steps(trees["dense"], jcfg, stage1, batch, 1.0, False, mesh),
             "stage2": _jax_steps(trees["qlora"], jcfg, j_lora.lora_trainable, batch, 1e-3,
                                  True, mesh),
-            "unequal": _jax_steps(trees["dense"], jcfg, stage1, unequal, 1.0, False, mesh)}
-    cfg = port_config(jcfg)
+            "unequal": _jax_steps(trees["dense"], jcfg, stage1, unequal, 1.0, False, mesh),
+            "int4": _jax_steps(trees["int4"], jcfg4, stage1, batch, 1.0, True, mesh),
+            "int4_fsdp": _jax_steps(trees["int4"], jcfg4, stage1, batch, 1.0, True, mesh,
+                                    fsdp=True),
+            "int4_pipeline": _jax_steps(trees["int4"], jcfg4, stage1, batch, 1.0, True, mesh,
+                                        pipeline_mesh=make_pipe_mesh(
+                                            2, 2, devices=jax.devices()[:4]))}
+    cfg, cfg4 = port_config(jcfg), port_config(jcfg4)
     from visualcla_tpu_torch.train import lora as t_lora
     from visualcla_tpu_torch.train import trainer as t_trainer
 
@@ -154,8 +183,11 @@ def setup(tmp_path_factory):
              "stage2": _port_steps(trees["qlora"], cfg, t_lora.lora_trainable, batch, 1e-3,
                                    True),
              "unequal": _port_steps(trees["dense"], cfg, t_trainer.stage1_trainable, unequal,
-                                    1.0, False)}
-    payload = {"cfg": cfg, "trees": trees, "batch": batch, "unequal": unequal,
+                                    1.0, False),
+             "int4": _port_steps(trees["int4"], cfg4, t_trainer.stage1_trainable, batch, 1.0,
+                                 True)}
+    plain["int4_fsdp"] = plain["int4_pipeline"] = plain["int4"]
+    payload = {"cfg": cfg, "cfg4": cfg4, "trees": trees, "batch": batch, "unequal": unequal,
                "n_steps": N_STEPS, "adapter_dir": os.path.join(tmp, "adapter_mesh"),
                "r": R, "alpha": ALPHA}
     ranks = spawn("mesh_train", 4, os.path.join(tmp, "ranks"), payload)
@@ -176,11 +208,25 @@ def test_ranks_load_no_jax(setup):
     assert not any(r["jax_loaded"] for r in setup["ranks"])
 
 
-@pytest.mark.parametrize("case", ["stage1", "stage2", "unequal"])
+@pytest.mark.parametrize("case", ["stage1", "stage2", "unequal", "int4", "int4_fsdp",
+                                  "int4_pipeline"])
 def test_mesh_step_matches_jax_and_unmeshed(setup, case):
     for r in setup["ranks"]:
         _close(r[case], setup["want"][case])
         _close(r[case], setup["plain"][case])
+
+
+def test_int4_products_run_row_and_column_parallel(setup):
+    """On the (data, model) mesh the int4 tower's q / k / v / gate / up run
+    column-parallel and o / down row-parallel (each rank's groups, summed),
+    and B3 ran (its plain version, on CPU tensors) under autograd."""
+    for r in setup["ranks"]:
+        specs = r["int4_specs"]
+        for name in ("q_proj", "k_proj", "v_proj", "gate_proj", "up_proj"):
+            assert specs[name] == (False, True), (name, specs[name])
+        for name in ("o_proj", "down_proj"):
+            assert specs[name] == (True, False), (name, specs[name])
+        assert r["int4_grad_calls"] > 0
 
 
 def test_clip_engages(setup):

@@ -1,13 +1,17 @@
 """Training in the PyTorch port against the JAX package, on the CPU in fp32
 on the tiny config: the loss, the cache-free forward, per-leaf gradients
-(stage 1, stage 2 with LoRA, QLoRA over an int8 base), parameters after
-three optimizer steps against optax (the masked step, the subset step, the
-cosine schedule), remat, the partition guard, the kernels' refusal of
+(stage 1, stage 2 with LoRA, QLoRA over an int8 base, stage 1 over an int4
+text tower), parameters after three optimizer steps against optax (the
+masked step, the subset step, the cosine schedule, stage 1 over int4 with
+and without remat), remat, the partition guard, B3's input gradient
+against ``jax.vjp`` of the XLA form, the attention kernels' refusal of
 autograd, and the chat after a training step.
 
 Tolerances (fp32, the two packages sum in different orders): loss and
 grad_norm rtol 1e-5; gradients rtol 1e-4 / atol 1e-6; parameters after 3
-steps at lr 1e-3 atol 1e-5; logits 1e-5."""
+steps at lr 1e-3 atol 1e-5; logits 1e-5; B3's input gradient rtol 1e-5 /
+atol 1e-6 (one product of the same dequantized weight in JAX's large-T
+branch; per group, scaled after the product, in its small-T branch)."""
 import dataclasses
 
 import jax
@@ -23,7 +27,10 @@ from visualcla_tpu.core.config import tiny_visualcla_config
 from visualcla_tpu.models import llama as j_llama
 from visualcla_tpu.models import visualcla as j_vmod
 from visualcla_tpu.ops.quantization import INT8_TEXT_LEAVES
+from visualcla_tpu.ops.quantization import _q_matmul_grouped as j_q_matmul_grouped
 from visualcla_tpu.ops.quantization import quantize as j_quantize
+from visualcla_tpu.ops.quantization import quantize_grouped as j_quantize_grouped
+from visualcla_tpu.ops.quantization import quantize_tree as j_quantize_tree
 from visualcla_tpu.train import lora as j_lora
 from visualcla_tpu.train import trainer as j_trainer
 from visualcla_tpu_torch.checkpoint import from_jax
@@ -43,6 +50,7 @@ LOSS_RTOL = 1e-5
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6
 PARAM_ATOL = 1e-5
 LOGIT_ATOL = 1e-5
+I4_GRAD_RTOL, I4_GRAD_ATOL = 1e-5, 1e-6
 
 
 def t_cfg(cfg) -> TConfig:
@@ -253,11 +261,23 @@ def _jax_subset_grads(params, cfg, batch, trainable):
     return float(loss), {k: np.asarray(v) for k, v in j_flatten(g).items() if v is not None}
 
 
-@pytest.mark.parametrize("case", ["stage1", "stage2_lora", "qlora_int8"])
+def int4_base(params):
+    """The JAX int4 tier's tree: ``quantize_tree(bits=4)`` (int4 layers and
+    head, per-row int8 embedding table; the tiny widths take groups of 16
+    and 32), the vision side untouched."""
+    return j_quantize_tree(params, bits=4)
+
+
+@pytest.mark.parametrize("case", ["stage1", "stage2_lora", "qlora_int8", "stage1_int4"])
 def test_grads_match_jax(cfg, case):
+    """Per-leaf gradients of the trainable partition; over the int4 tower
+    they pass through every layer's B3 products and the int4 head into the
+    spliced image embeddings."""
     params = base_params(cfg)
-    if case == "stage1":
+    if case in ("stage1", "stage1_int4"):
         trainable = j_trainer.stage1_trainable
+        if case == "stage1_int4":
+            params = int4_base(params)
     else:
         params = lora_params(qlora_base(params) if case == "qlora_int8" else params)
         trainable = j_lora.lora_trainable
@@ -277,6 +297,10 @@ def test_grads_match_jax(cfg, case):
     if case == "qlora_int8":
         assert any(k.endswith("lora_A") for k in t_grads)
         assert not any(k.endswith(("/q", "/scale")) for k in t_grads)
+    if case == "stage1_int4":
+        assert isinstance(model.text.lm_head, t_linear.Int4Linear)
+        assert any(k.startswith("vision/") for k in t_grads)
+        assert not any(k.startswith("text/") for k in t_grads)
 
 
 # ---------------------------------------------------------------------------
@@ -302,8 +326,8 @@ def _run_jax(params, cfg, batch, trainable, form, opt, n=3):
     return flat_np(j_trainer.merge_params(st.params, frozen)), metrics
 
 
-def _run_port(params, cfg, batch, trainable, form, opt, n=3, remat=False):
-    model = port_model(params, cfg)
+def _run_port(params, cfg, batch, trainable, form, opt, n=3, remat=False, model=None):
+    model = port_model(params, cfg) if model is None else model
     tc = t_cfg(cfg)
     if form == "full":
         step = t_trainer.make_train_step(model, tc, opt, trainable=trainable, remat=remat)
@@ -418,6 +442,142 @@ def test_remat_equals_no_remat(cfg):
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
+def _jax_int4_steps(params, cfg, batch, opt, remat, n=3):
+    train, frozen = j_trainer.partition_params(params, j_trainer.stage1_trainable)
+    step = jax.jit(j_trainer.make_train_step_subset(cfg, opt, j_trainer.stage1_trainable,
+                                                    remat=remat))
+    st = j_trainer.TrainState(params=train, opt_state=opt.init(train), step=jnp.int32(0))
+    metrics = []
+    for _ in range(n):
+        st, m = step(st, frozen, j_batch(batch))
+        metrics.append(m)
+    return flat_np(j_trainer.merge_params(st.params, frozen)), metrics
+
+
+@pytest.mark.parametrize("remat", [False, True], ids=["no_remat", "remat"])
+def test_int4_stage1_steps_match_jax(cfg, remat, monkeypatch):
+    """Three stage-1 subset steps over the frozen int4 tower (an image
+    spliced into each row) against JAX's: loss and grad_norm each step, the
+    trainable leaves after them, the int4 carriers and scales bitwise
+    untouched.  The port's tower is ``quantize_text_tower_(model, 4)`` of
+    the dense model: bitwise JAX's ``quantize_tree(bits=4)``.  Each step
+    runs B3 once a product forward; with remat the recompute runs each
+    layer's seven again (B3 re-run, no dequantized weight kept).  The
+    whole-tree step refuses the int4 leaves, as JAX's does."""
+    dense = base_params(cfg)
+    params = int4_base(dense)
+    model = t_vmod.quantize_text_tower_(port_model(dense, cfg), 4)
+    ported = {k: v.numpy() for k, v in from_jax.params_to_jax(model).items()}
+    want = flat_np(params)
+    assert set(ported) == set(want)
+    for k in want:
+        np.testing.assert_array_equal(ported[k], want[k], err_msg=k)
+    kw = dict(learning_rate=1e-3, grad_clip=0.5, schedule="const")
+    batch = make_batch(cfg, pad=3)
+    j_flat, j_metrics = _jax_int4_steps(params, cfg, batch, j_trainer.make_optimizer(**kw),
+                                        remat)
+    calls = []
+    forward = t_i4._forward
+    monkeypatch.setattr(t_i4, "_forward", lambda *a: calls.append(1) or forward(*a))
+    _, t_flat, t_metrics = _run_port(params, cfg, batch, j_trainer.stage1_trainable, "subset",
+                                     t_trainer.make_optimizer(**kw), remat=remat, model=model)
+    L = cfg.text_config.num_hidden_layers
+    assert len(calls) == 3 * ((2 if remat else 1) * 7 * L + 1)
+    for jm, tm in zip(j_metrics, t_metrics):
+        np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]), rtol=LOSS_RTOL)
+        np.testing.assert_allclose(float(tm["grad_norm"]), float(jm["grad_norm"]),
+                                   rtol=LOSS_RTOL)
+    assert set(t_flat) == set(j_flat)
+    assert_tree_close(t_flat, j_flat, atol=PARAM_ATOL)
+    before = flat_np(params)
+    for k in before:
+        if k.startswith("text/"):
+            np.testing.assert_array_equal(t_flat[k], before[k], err_msg=k)
+    assert t_flat["text/lm_head/q"].dtype == np.uint8
+    opt = t_trainer.make_optimizer(schedule="const")
+    step = t_trainer.make_train_step(model, t_cfg(cfg), opt)
+    with pytest.raises(TypeError, match="integer-dtype leaves"):
+        step(t_trainer.init_train_state(model, opt), batch)
+
+
+@pytest.mark.parametrize("T", [4, 40], ids=["grouped_T4", "dequant_T40"])
+@pytest.mark.parametrize("f32", [False, True], ids=["forward", "forward_f32"])
+def test_int4_input_grad_matches_jax_vjp(T, f32):
+    """``Int4Linear``'s input gradient (B3's ``Int4MatmulFn`` backward)
+    against ``jax.vjp`` of ``_q_matmul_grouped`` in both of its XLA
+    branches (gs 32: T <= 16 one product per group, T > 16 through the
+    dequantized weight), and against the plain backward."""
+    rng = np.random.default_rng(T)
+    in_dim, out, gs = 64, 24, 32
+    w = j_quantize_grouped(jnp.asarray(rng.standard_normal((in_dim, out)).astype(np.float32)),
+                           group=gs)
+    x = rng.standard_normal((2, T // 2, in_dim)).astype(np.float32)
+    g = rng.standard_normal((2, T // 2, out)).astype(np.float32)
+    _, vjp = jax.vjp(lambda a: j_q_matmul_grouped(a, w), jnp.asarray(x))
+    want = np.asarray(vjp(jnp.asarray(g))[0])
+    lin = t_linear.Int4Linear(in_dim, out, gs)
+    lin.q.data = torch.from_numpy(np.array(w["q"]))
+    lin.scale.data = torch.from_numpy(np.array(w["scale"]))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    y = lin.forward_f32(xt) if f32 else lin(xt)
+    y.backward(torch.from_numpy(g))
+    np.testing.assert_allclose(xt.grad.numpy(), want, rtol=I4_GRAD_RTOL, atol=I4_GRAD_ATOL)
+    plain = t_i4.int4_matmul_grad_ref(torch.from_numpy(g), lin.q, lin.scale, torch.float32)
+    np.testing.assert_array_equal(xt.grad.numpy(), plain.numpy())
+    assert lin.q.grad is None and lin.scale.grad is None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_int4_backward_dequantizes_as_dequantize_grouped(dtype):
+    """The backward's dequantize (int8 shifts, the scale product rounded as
+    it is stored) gives ``dequantize_grouped``'s values bit for bit, over
+    every carrier byte."""
+    from visualcla_tpu_torch.ops.quantization import dequantize_grouped
+
+    q = torch.arange(256, dtype=torch.int32).to(torch.uint8).reshape(2, 4, 32)
+    scale = torch.from_numpy(np.random.default_rng(0).uniform(1e-3, 0.2, (2, 32))
+                             .astype(np.float32))
+    got = t_i4._dequantized(q, scale, dtype)
+    assert got.dtype == dtype and torch.equal(got, dequantize_grouped(q, scale, dtype))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_int4_card_tolerance_covers_b3_rounding(seed, monkeypatch):
+    """``chip_smoke.py``'s INT4_TRAIN_TOL (the tiny int4 step's gradients on
+    the card against the CPU) holds at least 4x the difference that B3's
+    one rounding, of its fp32 input to bf16, makes: the CPU step with B3's
+    plain version fed x rounded as the kernel rounds it, against the step
+    without, on the same model and batch as the card check."""
+    import copy
+
+    import chip_smoke
+
+    tc = t_cfg(tiny_visualcla_config())
+    model = t_vmod.init_random_(t_vmod.VisualCLAModel(tc, dtype=torch.float32),
+                                torch.Generator().manual_seed(seed), std=0.1)
+    t_vmod.quantize_text_tower_(model, 4)
+    batch = chip_smoke._tiny_train_batch(tc, seed)
+    out = []
+    for rounded in (False, True):
+        m = copy.deepcopy(model)
+        if rounded:
+            monkeypatch.setattr(t_i4, "_forward", lambda x, q, s, o: t_i4.int4_matmul_ref(
+                x.to(torch.bfloat16).float(), q, s, out_dtype=o))
+        train, _ = t_trainer.partition_params(m, t_trainer.stage1_trainable)
+        loss = t_trainer.loss_fn(m, tc, batch)
+        loss.backward()
+        grads = {n: p.grad for n, p in train.items() if p.grad is not None}
+        norm = torch.linalg.vector_norm(torch.stack([g.norm() for g in grads.values()]))
+        out.append((float(loss), float(norm), grads))
+    (l0, n0, g0), (l1, n1, g1) = out
+    top = max(float(g.abs().max()) for g in g0.values())
+    worst = max(float((g1[n] - g0[n]).abs().max()) for n in g0) / top
+    loss_tol, norm_tol, grad_tol = chip_smoke.INT4_TRAIN_TOL
+    assert 0 < abs(l1 - l0) <= loss_tol / 4 * abs(l0)
+    assert abs(n1 - n0) <= norm_tol / 4 * abs(n0)
+    assert worst <= grad_tol / 4
+
+
 def test_partition_params_raises_on_integer_leaf(cfg):
     """A quantized lm_head under a trainable path raises JAX's message."""
     params = j_flatten(base_params(cfg))
@@ -525,36 +685,50 @@ def _flash_args(B=1, Sq=1, S=8, N=2, hd=4, L=2):
 
 def _refusals():
     q, kc, vc, valid, slot = _flash_args()
-    yield "B1", lambda: t_fa.flash_decode_stacked(q, kc, vc, valid, slot, 0)
+    yield "B1", lambda: t_fa.flash_decode_stacked(q, kc, vc, valid, slot, 0), None
     q2, kc2, vc2, valid2, _ = _flash_args(Sq=3)
-    yield "B2", lambda: t_fa.flash_prefill_stacked(q2, kc2, vc2, valid2, 0, 1)
+    yield "B2", lambda: t_fa.flash_prefill_stacked(q2, kc2, vc2, valid2, 0, 1), None
     yield "B2u", lambda: t_fa.flash_attention(q2, kc2[0].transpose(1, 2), vc2[0].transpose(1, 2),
-                                              valid2, 0, causal=False)
+                                              valid2, 0, causal=False), None
     x = torch.randn(2, 16, requires_grad=True)
     lin = t_linear.Int4Linear.from_dense(torch.randn(8, 16), 16)
-    yield "B3", lambda: t_i4.int4_matmul(x, lin.q, lin.scale)
-    yield "item 15", lambda: lin(x)
-    yield "item 15", lambda: t_linear.LoraLinear(lin, 2)(x)
+    # B3 is differentiable in x: its three cases check x's gradient
+    yield "B3", lambda: t_i4.int4_matmul(x, lin.q, lin.scale), (x, lin)
+    yield "B3", lambda: lin(x), (x, lin)
+    yield "B3", lambda: t_linear.LoraLinear(lin, 2)(x), (x, lin)  # A = B = 0
     from visualcla_tpu_torch import fixtures
     case = fixtures.paged_case([3, 5], 4, 2, hd=64, block_size=8, dtype=torch.float32)
     case["q"].requires_grad_(True)
-    yield "B4", lambda: t_pa.paged_append_attention(**case)
+    yield "B4", lambda: t_pa.paged_append_attention(**case), None
     vcase = fixtures.paged_verify_case([3, 5], 2, 4, 2, hd=64, block_size=8,
                                        dtype=torch.float32)
     vcase["q"].requires_grad_(True)
-    yield "B5", lambda: t_pa.paged_verify_attention(**vcase)
+    yield "B5", lambda: t_pa.paged_verify_attention(**vcase), None
     dargs = fixtures.paged_decode_args(case)
-    yield "B6", lambda: t_pa.paged_decode_attention(**dargs)
+    yield "B6", lambda: t_pa.paged_decode_attention(**dargs), None
+    scale = lin.scale.detach().clone().requires_grad_(True)  # a trainable scale
+    yield "B3", lambda: t_i4.int4_matmul(torch.randn(2, 16), lin.q, scale), None
 
 
-@pytest.mark.parametrize("i", range(9))
+@pytest.mark.parametrize("i", range(10))
 def test_kernel_wrappers_refuse_autograd(i):
-    """Each hand kernel's wrapper (and an int4 base) raises under autograd
-    when an input requires grad, naming the kernel (or ROADMAP item 15);
-    under ``no_grad`` the same call runs."""
-    name, call = list(_refusals())[i]
-    with pytest.raises(RuntimeError, match=name):
-        call()
+    """Each attention kernel's wrapper raises under autograd when an input
+    requires grad, naming the kernel, and so does B3 given a scale that
+    requires grad; B3 given an x that requires grad (the wrapper, an int4
+    base, LoRA over it) gives x's gradient of the plain backward.  Under
+    ``no_grad`` every call runs."""
+    name, call, grad = list(_refusals())[i]
+    if grad is None:
+        with pytest.raises(RuntimeError, match=name):
+            call()
+    else:
+        x, lin = grad
+        x.grad = None
+        y = call()
+        g = torch.randn_like(y)
+        y.backward(g)
+        want = t_i4.int4_matmul_grad_ref(g, lin.q, lin.scale, x.dtype)
+        np.testing.assert_allclose(x.grad.numpy(), want.numpy(), rtol=1e-6, atol=1e-6)
     with torch.no_grad():
         assert torch.isfinite(call()).all()
 

@@ -521,16 +521,19 @@ def pipeline_suite(p: dict) -> dict:
     return out
 
 
-def _steps(model, cfg, trainable, batch, n: int, clip: float, subset: bool):
-    """``n`` steps of the subset (or masked) step over ``model``'s mesh ->
-    ([(loss, grad_norm)], the trainable leaves whole, JAX layout)."""
+def _steps(model, cfg, trainable, batch, n: int, clip: float, subset: bool,
+           pipeline_mesh=None):
+    """``n`` steps of the subset (or masked) step over ``model``'s mesh (or
+    pipelined over ``pipeline_mesh``, 2 microbatches) -> ([(loss,
+    grad_norm)], the trainable leaves whole, JAX layout)."""
     from visualcla_tpu_torch.checkpoint.from_jax import params_to_jax
     from visualcla_tpu_torch.train import trainer
 
     opt = trainer.make_optimizer(learning_rate=1e-3, schedule="const", grad_clip=clip)
     if subset:
         train, frozen = trainer.partition_params(model, trainable)
-        step = trainer.make_train_step_subset(model, cfg, opt, trainable)
+        pipe = {} if pipeline_mesh is None else {"pipeline_mesh": pipeline_mesh, "n_micro": 2}
+        step = trainer.make_train_step_subset(model, cfg, opt, trainable, **pipe)
         state = trainer.init_train_state(train, opt)
     else:
         step = trainer.make_train_step(model, cfg, opt, trainable)
@@ -546,8 +549,13 @@ def _steps(model, cfg, trainable, batch, n: int, clip: float, subset: bool):
 def mesh_train_suite(p: dict) -> dict:
     """Steps over a (data 2, model 2) mesh: stage 1, stage 2 over an int8
     (QLoRA) base with a clip that engages, unequal token counts over the data
-    ranks, FSDP against TP-only, and the adapter export and merge."""
+    ranks, FSDP against TP-only, the adapter export and merge, and stage 1
+    over an int4 text tower (TP, FSDP, and pipelined on (pipe 2, data 2))."""
     from visualcla_tpu_torch.checkpoint.from_jax import build_model, params_to_jax
+    from visualcla_tpu_torch.ops.cuda import int4_matmul as i4
+    from visualcla_tpu_torch.ops.linear import Int4Linear
+    from visualcla_tpu_torch.parallel import pipeline as pp
+    from visualcla_tpu_torch.parallel.fsdp import shard_layers
     from visualcla_tpu_torch.train import lora, trainer
 
     cfg, m = p["cfg"], mesh()
@@ -563,18 +571,39 @@ def mesh_train_suite(p: dict) -> dict:
     for fsdp in (False, True):
         model = build_model(p["trees"]["lora"], cfg, device="cpu", dtype=torch.float32, mesh=m)
         if fsdp:
-            from visualcla_tpu_torch.parallel.fsdp import shard_layers
-
             shard_layers(model, m)
         layer_bytes[fsdp] = sum(t.numel() * t.element_size()
                                 for t in model.text.layers.parameters())
         out[("fsdp", fsdp)] = _steps(model, cfg, lora.lora_trainable, p["batch"], p["n_steps"],
                                      1.0, True)
     out["layer_bytes"] = layer_bytes
+    # stage 1 over the frozen int4 tower: B3's backward through each
+    # collective's transpose (counted: Int4MatmulFn's forwards)
+    calls = []
+    apply = i4.Int4MatmulFn.apply
+    i4.Int4MatmulFn.apply = lambda *a: calls.append(1) or apply(*a)
+    try:
+        for key, fsdp in (("int4", False), ("int4_fsdp", True)):
+            model = build_model(p["trees"]["int4"], p["cfg4"], device="cpu",
+                                dtype=torch.float32, mesh=m)
+            if fsdp:
+                shard_layers(model, m)
+            else:
+                out["int4_specs"] = {n.rsplit(".", 1)[-1]: (mod.tp_in, mod.tp_out)
+                                     for n, mod in model.text.layers[0].named_modules()
+                                     if isinstance(mod, Int4Linear)}
+            out[key] = _steps(model, p["cfg4"], trainer.stage1_trainable, p["batch"],
+                              p["n_steps"], 1.0, True)
+        model = build_model(p["trees"]["int4"], p["cfg4"], device="cpu", dtype=torch.float32)
+        pm = mesh((2, 2), ("pipe", "data"))
+        pp.shard_text_params(model, pm)
+        out["int4_pipeline"] = _steps(model, p["cfg4"], trainer.stage1_trainable, p["batch"],
+                                      p["n_steps"], 1.0, True, pipeline_mesh=pm)
+    finally:
+        i4.Int4MatmulFn.apply = apply
+    out["int4_grad_calls"] = len(calls)
     # the adapter written and the merge folded over the mesh (FSDP too)
     model = build_model(p["trees"]["lora"], cfg, device="cpu", dtype=torch.float32, mesh=m)
-    from visualcla_tpu_torch.parallel.fsdp import shard_layers
-
     shard_layers(model, m)
     lora.export_adapter(model, p["adapter_dir"], r=p["r"], alpha=p["alpha"])
     lora.merge_lora(model)

@@ -2,6 +2,7 @@
 
     python3 tools/profile_torch_slice.py [--out profile.json] [--bits 4|8] [--kv_quant int8]
     python3 tools/profile_torch_slice.py --train 2|1 [--out train_profile.json]
+    python3 tools/profile_torch_slice.py --train 1 --bits 4
     python3 tools/profile_torch_slice.py --train 2 --mesh none,tp,fsdp,pipeline
 
 VisualCLA-7B at full width on seeded random bf16 weights (as chip_smoke.py
@@ -12,12 +13,15 @@ kernels and with their plain PyTorch versions swapped in, and a
 torch.profiler breakdown of 10 decode steps (wall vs device time, device
 time by kind of kernel, the largest kernels).  ``--train 2`` profiles
 ``chip_smoke.py`` phase 11's full-width training step instead (2: the
-QLoRA step, 1: stage 1; B=1, S=512, remat): the step's forward, backward
-and optimizer by CUDA events, ``Int8Linear``'s weight copies and the fp32
-attention timed alone at the step's shapes, and a torch.profiler breakdown
-of one step (device time by kind of kernel, the idle share, the largest
-kernels).  ``--mesh`` profiles that step over each listed mesh at world
-size 1 over NCCL (``chip_smoke.py`` phase 14: ``tp`` a (data 1, model 1)
+QLoRA step, 1: stage 1; B=1, S=512, remat; ``--train 1 --bits 4`` stage 1
+over the frozen int4 text tower, ``chip_smoke.py`` phase 11 (e)): the
+step's forward, backward and optimizer by CUDA events, ``Int8Linear``'s
+weight copies, the int4 weights' dequantize of the backward
+(``Int4MatmulFn``) and the fp32 attention timed alone at the step's
+shapes, and a torch.profiler breakdown of one step (device time by kind of
+kernel, B3 as ``int4_matmul``, the idle share, the largest kernels).
+``--mesh`` profiles that step over each listed mesh at world size 1 over
+NCCL (``chip_smoke.py`` phase 14: ``tp`` a (data 1, model 1)
 mesh, ``fsdp`` the same with FSDP, ``pipeline`` a (pipe 1, data 1) pipeline
 at n_micro 2 and B=2; ``none`` the unmeshed step, B=2 beside ``pipeline``):
 the step's device ms, its profile and the host operators that take the most
@@ -172,12 +176,14 @@ def profile_mesh_train(kinds) -> dict:
     return res
 
 
-def profile_train(stage: int) -> dict:
-    """The training step of ``chip_smoke.py`` phase 11 at full width."""
+def profile_train(stage: int, bits=None) -> dict:
+    """The training step of ``chip_smoke.py`` phase 11 at full width (stage
+    1 over a text tower quantized to ``bits``: phase 11 (e) at 4)."""
     from visualcla_tpu_torch.fixtures import (TRAIN_SEQ, train_batch, train_model,
                                               train_step_flops)
     from visualcla_tpu_torch.models.llama import chunk_causal_attention
-    from visualcla_tpu_torch.ops.linear import Int8Linear
+    from visualcla_tpu_torch.ops.cuda import int4_matmul as i4
+    from visualcla_tpu_torch.ops.linear import Int4Linear, Int8Linear
     from visualcla_tpu_torch.train.lora import lora_trainable
     from visualcla_tpu_torch.train.trainer import (init_train_state, loss_fn, make_optimizer,
                                                    make_train_step_subset, partition_params,
@@ -185,7 +191,7 @@ def profile_train(stage: int) -> dict:
 
     cfg = visualcla_config_for_size("7B")
     tok = make_tokenizer(cfg.text_config.vocab_size)
-    model = train_model(cfg, stage)
+    model = train_model(cfg, stage, bits=bits)
     batch = train_batch(cfg, tok)
     trainable = lora_trainable if stage == 2 else stage1_trainable
     opt = make_optimizer(learning_rate=1e-4, schedule="const")
@@ -196,7 +202,8 @@ def profile_train(stage: int) -> dict:
         state, _ = step(state, frozen, batch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    res = {"device": torch.cuda.get_device_name(0), "stage": stage, "seq": TRAIN_SEQ,
+    res = {"device": torch.cuda.get_device_name(0), "stage": stage, "bits": bits or 16,
+           "seq": TRAIN_SEQ,
            "step_ms": _events_ms(lambda: step(state, frozen, batch)),
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
            "tflop_a_step": train_step_flops(cfg, stage)["total"] / 1e12}
@@ -225,6 +232,10 @@ def profile_train(stage: int) -> dict:
     int8 = [m for m in model.modules() if isinstance(m, Int8Linear)]
     res["int8_copy_ms_a_step"] = 2 * _events_ms(
         lambda: [m.q.to(torch.bfloat16) for m in int8]) if int8 else 0.0
+    # the int4 weights dequantized (bf16) for the input gradients, once a step
+    int4 = [m for m in model.modules() if isinstance(m, Int4Linear)]
+    res["int4_dequant_ms_a_step"] = _events_ms(
+        lambda: [i4._dequantized(m.q, m.scale, torch.bfloat16) for m in int4]) if int4 else 0.0
     # the decoder's fp32 attention: forward twice (remat) and backward, 32 layers
     t = cfg.text_config
     q = torch.randn(1, TRAIN_SEQ, t.num_attention_heads, t.head_dim, device="cuda",
@@ -248,7 +259,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None)
     ap.add_argument("--new_tokens", type=int, default=64)
     ap.add_argument("--bits", type=int, choices=(4, 8), default=None,
-                    help="quantize the text tower to int4 or int8")
+                    help="quantize the text tower to int4 or int8 (with --train: stage 1's, "
+                         "or 8 for stage 2's QLoRA tree)")
     ap.add_argument("--kv_quant", choices=("none", "int8"), default="none")
     ap.add_argument("--train", type=int, choices=(1, 2), default=None,
                     help="profile the full-width training step of this stage instead")
@@ -263,7 +275,7 @@ def main(argv=None) -> int:
     if args.train and args.mesh:
         return _emit(profile_mesh_train(args.mesh.split(",")), args.out)
     if args.train:
-        return _emit(profile_train(args.train), args.out)
+        return _emit(profile_train(args.train, args.bits), args.out)
 
     cfg = visualcla_config_for_size("7B")
     gen = torch.Generator(device="cuda").manual_seed(SEED)

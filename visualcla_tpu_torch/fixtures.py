@@ -1,9 +1,9 @@
 """Inputs for driving the port at full width without files: an in-process
 tokenizer of the model's exact vocabulary size, a seeded image, the chat
 prompt, seeded inputs of the paged kernels B4, B5 and B6, the training
-step's models (QLoRA and stage 1), its batch and its FLOPs reckoned from the
-shapes, and a switch that
-routes the kernels of the model (cached attention, the int4 matmul, the
+step's models (QLoRA, and stage 1 over a bf16 or quantized text tower),
+its batch and its FLOPs reckoned from the shapes, and a switch that routes
+the kernels of the model (cached attention, the int4 matmul, the
 paged append and verify attention, the vision towers' flash attention)
 through their plain PyTorch versions.
 ``chip_smoke.py`` and ``tools/profile_torch_slice.py`` share them, so both
@@ -188,16 +188,23 @@ def paged_decode_args(case: dict, layer: Optional[int] = None) -> dict:
 
 
 def train_model(cfg: VisualCLAConfig, stage: int, device="cuda", seed: int = SEED,
-                dtype=torch.bfloat16) -> VisualCLAModel:
+                dtype=torch.bfloat16, bits: Optional[int] = None) -> VisualCLAModel:
     """The training step's model on seeded random weights made on ``device``:
     stage 2 is the QLoRA tree (int8 decoder matmuls, float embed_tokens,
     lm_head, vision, resampler and projection, LoRA r=LORA_R on the text and
-    vision targets in ``dtype``); stage 1 the dense model."""
+    vision targets in ``dtype``); stage 1 the dense model, or with ``bits``
+    (8 or 4) its text tower quantized on ``device`` (``quantize_text_tower_``:
+    the layers and the head at that tier, the embedding table per-row int8;
+    at 4 the layout of the JAX package's ``quantize_tree(bits=4)``)."""
+    if stage == 2 and bits not in (None, 8):
+        raise ValueError(f"the stage-2 model is the int8 QLoRA tree, got bits={bits}")
     gen = torch.Generator(device=device).manual_seed(seed)
     model = init_random_(VisualCLAModel(cfg, device=device, dtype=dtype), gen)
     if stage == 2:
         quantize_text_tower_(model, 8, head=False)
         add_lora(model, r=LORA_R, alpha=LORA_ALPHA, generator=gen, dtype=dtype)
+    elif bits is not None:
+        quantize_text_tower_(model, bits)
     return model
 
 

@@ -24,8 +24,19 @@ scaled in fp32 and summed over groups; more tokens one product with the
 weight dequantized (f32, then rounded to x's dtype).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
-launches the kernel or raises.  Under autograd a wrapper raises if an input
-requires grad: no kernel has a backward.  ``LAUNCHES`` counts kernel launches.
+launches the kernel or raises.  ``LAUNCHES`` counts kernel launches.
+
+Under autograd (an x that requires grad) the wrapper runs ``Int4MatmulFn``:
+its forward is the same kernel (or plain version), its backward the input
+gradient alone, dX = dY W^T.  That is the transpose of the JAX package's XLA
+form, which ``jax.grad`` differentiates wherever its Pallas B3 is not used
+(off the TPU, under a TP mesh): the Pallas kernel has no VJP, and neither
+does this one.  So the backward is no kernel: W is dequantized (each value
+in f32, rounded once to x's dtype, with no weight-sized f32 temporary), and
+one product of dY rounded to x's dtype follows (``torch.matmul``, cuBLAS on
+the card).  The carrier and the scales are frozen: a ``scale`` that
+requires grad raises.  ``int4_matmul_grad_ref`` is the backward's plain
+version, for the tests.
 """
 from __future__ import annotations
 
@@ -34,7 +45,7 @@ import ctypes
 import torch
 
 from ..quantization import dequantize_grouped, unpack_s4_halves
-from . import build, refuse_autograd
+from . import build
 
 # The decode form's blocks (``csrc/int4_matmul.cu``): 8 warps over two
 # 64-column slices (128 columns) and up to 16 tokens, each of a slice's 4
@@ -129,11 +140,62 @@ def int4_matmul_ref(x, q, scale, *, out_dtype=None):
 
 def int4_matmul(x, q, scale, *, out_dtype=None):
     """B3: x @ W4 through the kernel on CUDA tensors, the plain version on CPU
-    tensors."""
-    refuse_autograd("B3 (int4_matmul)", x, q, scale)
+    tensors; differentiable in x (``Int4MatmulFn``) when x requires grad."""
+    if torch.is_grad_enabled():
+        if scale.requires_grad:  # (a uint8 carrier cannot require grad)
+            raise RuntimeError(
+                "kernel B3 (int4_matmul) has no gradient with respect to its scale: the int4 "
+                "weight is frozen (keep it out of the trainable partition)")
+        if x.requires_grad:
+            return Int4MatmulFn.apply(x, q, scale, out_dtype)
+    return _forward(x, q, scale, out_dtype)
+
+
+def _forward(x, q, scale, out_dtype):
     if x.device.type == "cpu":
         return int4_matmul_ref(x, q, scale, out_dtype=out_dtype)
     return _launch(x, q, scale, out_dtype)
+
+
+class Int4MatmulFn(torch.autograd.Function):
+    """B3 under autograd: forward the kernel (the plain version on CPU
+    tensors), backward dX = dY W^T in x's dtype.  Saves the carrier and the
+    scales only, so a recompute under remat runs B3 again."""
+
+    @staticmethod
+    def forward(ctx, x, q, scale, out_dtype):
+        ctx.save_for_backward(q, scale)
+        ctx.x_dtype = x.dtype
+        return _forward(x, q, scale, out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, scale = ctx.saved_tensors
+        w = _dequantized(q, scale, ctx.x_dtype)
+        dx = g.reshape(-1, g.shape[-1]).to(ctx.x_dtype) @ w.t()
+        return dx.reshape(*g.shape[:-1], dx.shape[-1]), None, None, None
+
+
+def _dequantized(q, scale, dtype):
+    """``dequantize_grouped(q, scale, dtype)`` in four elementwise launches
+    and without its int32 and f32 temporaries (~6 bytes a weight moved
+    instead of ~40): the signed nibbles by arithmetic shifts of the carrier
+    seen as int8, then each half times its scales, computed in f32 and
+    rounded once to ``dtype`` as it is stored (the same values)."""
+    G, gsh, out = q.shape
+    qi = q.view(torch.int8)
+    s = scale[:, None, :]
+    w = torch.empty(G, 2, gsh, out, dtype=dtype, device=q.device)
+    torch.mul((qi << 4) >> 4, s, out=w[:, 0])  # low nibbles: rows [0, gs/2) of a group
+    torch.mul(qi >> 4, s, out=w[:, 1])
+    return w.view(G * 2 * gsh, out)
+
+
+def int4_matmul_grad_ref(g, q, scale, x_dtype):
+    """Plain version of ``Int4MatmulFn``'s backward: the input gradient of
+    x @ W4 for the output cotangent ``g`` (..., out), in ``x_dtype``."""
+    w = dequantize_grouped(q, scale, x_dtype)
+    return g.to(x_dtype) @ w.t()
 
 
 def _launch(x, q, scale, out_dtype=None, form=None, tile=None):

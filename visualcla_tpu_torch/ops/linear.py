@@ -15,8 +15,9 @@ the JAX numerics (``ops/quantization.py:q_matmul``):
   ``base(x) + (x A) B * scale (+ bias)``, the low-rank path kept apart as
   the JAX package's ``{"w", "lora_A", "lora_B", "lora_scale"}`` leaf keeps it.
 ``forward_f32`` is the LM head's product: fp32 accumulation and fp32 out.
-Every form but ``Int4Linear`` is differentiable (the training path): B3 has
-no backward, so an int4 base raises when its input requires grad.
+Every form is differentiable in its input (the training path); an int4
+product's input gradient is B3's ``Int4MatmulFn`` backward.  The quantized
+weights themselves are frozen.
 The layer kind is the module's type, as the JAX package tells a quantized
 leaf by its structure.
 """
@@ -164,11 +165,9 @@ class Int4Linear(nn.Module):
         return mod
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        _refuse_int4_grad(x)
         return int4_matmul(x, self.q, self.scale)
 
     def forward_f32(self, x: torch.Tensor) -> torch.Tensor:
-        _refuse_int4_grad(x)
         return int4_matmul(x, self.q, self.scale, out_dtype=torch.float32)
 
     def partial(self, x: torch.Tensor, f32: bool = False, bias: bool = True) -> torch.Tensor:
@@ -177,14 +176,6 @@ class Int4Linear(nn.Module):
 
     def finish(self, y: torch.Tensor) -> torch.Tensor:
         return y
-
-
-def _refuse_int4_grad(x: torch.Tensor) -> None:
-    if torch.is_grad_enabled() and x.requires_grad:
-        raise NotImplementedError(
-            "training over an int4 base is not ported (ROADMAP, open item 15: training "
-            "over an int4 base: B3 has no backward, and the JAX package's Pallas B3 has "
-            "no VJP either); train over a dense or int8 base")
 
 
 class Int8Table(nn.Module):

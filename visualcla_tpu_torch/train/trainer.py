@@ -13,11 +13,14 @@ same leaves in both packages.
 gradients, as the JAX step does (its optimizer then steps every leaf, so a
 frozen one still decays with ``weight_decay > 0``); ``make_train_step_subset``
 keeps gradients and optimizer state for the trainable partition only, the
-QLoRA form: the frozen partition, the int8 base included, never requires
+QLoRA form: the frozen partition, an int8 or int4 base included, never requires
 grad.  ``make_optimizer`` is optax's ``chain(clip_by_global_norm,
 adamw)`` over such dicts (``Optimizer``).  The forward is cache-free and
-runs dense attention only: no hand kernel has a backward, and the JAX
-package's training runs no Pallas kernel either.
+runs dense attention only (the attention kernels have no backward, and the
+JAX package's training runs no Pallas attention either).  Over a frozen
+int4 text tower every product runs kernel B3 forward, and its input
+gradient is ``Int4MatmulFn``'s backward: the transpose of the XLA form that
+``jax.grad`` differentiates in the JAX package.
 
 Over a mesh (explicit SPMD: every rank makes the same calls with the same
 global batch) a step runs on the model's ``(data, model)`` mesh
@@ -463,7 +466,7 @@ def make_train_step_subset(model: nn.Module, cfg: VisualCLAConfig, optimizer: Op
                            pipeline_mesh=None, n_micro: int = 1):
     """Like ``make_train_step``, but ``state.params`` holds only the trainable
     partition (``partition_params``): gradients and optimizer state exist for
-    it alone, and the frozen partition (the int8 base of QLoRA included)
+    it alone, and the frozen partition (an int8 or int4 base included)
     never requires grad.  ``train_step(state, frozen, batch) -> (state,
     metrics)``; a mesh as ``make_train_step``'s."""
     mesh = _step_mesh(model, pipeline_mesh)
