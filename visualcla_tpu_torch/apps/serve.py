@@ -33,6 +33,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 
 from ..processor.image import NPY_MAGIC
+from ..utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -113,7 +114,11 @@ class PoolWorker:
     def _prepare_request(self, req: dict):
         """Shared /chat and /chat_stream prep: decode the image(s), build the
         prompt, locate the markers, record the instruction in the (mutated)
-        history, pick the sampling overrides."""
+        history, pick the sampling overrides (span ``serve.prepare``)."""
+        with span("serve.prepare"):
+            return self._prepare(req)
+
+    def _prepare(self, req: dict):
         from ..engine.server import KNOB_NAMES
         from ..text import encoding_text
         from ..text.prompt import all_img_marker_positions, img_marker_positions

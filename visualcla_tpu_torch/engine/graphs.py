@@ -55,6 +55,7 @@ from ..ops.cuda import flash_attention as _fa
 from ..ops.cuda import int4_matmul as _i4
 from ..ops.cuda import paged_attention as _pa
 from ..parallel import tp as _tp
+from ..utils.profiling import span
 
 # the kernels' launch counters, and the mesh's collectives (parallel.tp.CALLS)
 KERNEL_COUNTERS = (_fa.LAUNCHES, _i4.LAUNCHES, _pa.LAUNCHES, _tp.CALLS)
@@ -145,7 +146,8 @@ class Graphs:
         graphs = self._graphs[space]
         graph = graphs.get(key)
         if graph is None:
-            graph = graphs[key] = self._capture(fn, device, generators, counters)
+            with span("graphs.capture", space=space):
+                graph = graphs[key] = self._capture(fn, device, generators, counters)
             while len(graphs) > MAX_GRAPHS[space]:
                 graphs.popitem(last=False)
         else:

@@ -47,6 +47,7 @@ from ..ops.linear import Int4Linear
 from ..ops.quantization import quantize_kv
 from ..ops.rope import apply_rope, rope_table
 from ..parallel.sharding import bind
+from ..utils.profiling import span
 from .generate import pick_bucket
 from .graphs import LOCK, Graphs
 from .sampling import SamplingConfig, sample_step_rowwise
@@ -235,8 +236,9 @@ class PagedServingEngine:
         self._rows = torch.arange(self.B, device=dev)
         self.graphs = Graphs()
         # forward passes run on the device, gated ones included: each
-        # launches B4 (decode) or B5 (speculative) once a layer
-        self.counts = {"decode_passes": 0, "spec_passes": 0}
+        # launches B4 (decode) or B5 (speculative) once a layer; and the live
+        # (ungated) decode passes, read back after each chunk
+        self.counts = {"decode_passes": 0, "spec_passes": 0, "live_decode_passes": 0}
 
     def pool_bytes(self) -> int:
         """Device bytes of the K/V pools and their scales."""
@@ -294,6 +296,12 @@ class PagedServingEngine:
         0..S-1 hold the prompt), normalize the image marker, reserve every
         block the request can touch.
         -> (ids, mask, img_pos, pixel_values, blocks, nb_prompt, S, L)."""
+        with span("admit.host"):
+            return self._prepare_admission_host(row, input_ids, img_start_pos, pixel_values,
+                                                max_new_tokens)
+
+    def _prepare_admission_host(self, row, input_ids, img_start_pos, pixel_values,
+                                max_new_tokens):
         input_ids = np.asarray(input_ids).reshape(-1)
         S = len(input_ids)
         L = self.bucket_len(S)
@@ -391,17 +399,22 @@ class PagedServingEngine:
             knobs = sampling_knobs(self.sampling, overrides)
             dev = self.device
             with LOCK:
-                embeds = visualcla.multimodal_embeds(
-                    self.model, self.cfg, torch.as_tensor(ids, device=dev), img_pos,
-                    pixel_values)
-                mask_t = torch.as_tensor(mask, device=dev)
-                positions = (mask_t.cumsum(-1) - 1).clamp(min=0)
-                scratch = self._scratch(L)
-                hidden, scratch = self.model.text(embeds, positions, scratch, mask_t.bool(), 0)
-                self._scatter_scratch(scratch, blocks[:nb_prompt])
+                with span("admit.encode"):
+                    embeds = visualcla.multimodal_embeds(
+                        self.model, self.cfg, torch.as_tensor(ids, device=dev), img_pos,
+                        pixel_values)
+                with span("admit.tower"):
+                    mask_t = torch.as_tensor(mask, device=dev)
+                    positions = (mask_t.cumsum(-1) - 1).clamp(min=0)
+                    scratch = self._scratch(L)
+                    hidden, scratch = self.model.text(embeds, positions, scratch,
+                                                      mask_t.bool(), 0)
+                with span("admit.scatter"):
+                    self._scatter_scratch(scratch, blocks[:nb_prompt])
                 # prompts are RIGHT-padded: sample from the last REAL token
-                self._admit_row(row, hidden[:, S - 1:S], S - 1, min(max_new_tokens, self.T),
-                                knobs, ids)
+                with span("admit.first_token"):
+                    self._admit_row(row, hidden[:, S - 1:S], S - 1,
+                                    min(max_new_tokens, self.T), knobs, ids)
         except Exception:
             # roll the allocator back: no leaked blocks, no dead active row
             self._free_row(row)
@@ -484,22 +497,26 @@ class PagedServingEngine:
         steps, the rows' generated lengths and finished flags come back
         after it in one device-to-host copy.  A decode chunk replays no step
         past the first row's cap (its max_new_tokens or Smax, known on the
-        host): the loop stops there, and later replays would only be gated."""
-        run = self._host_active & ~self._host_finished
-        if kind == "decode" and run.any():
-            to_cap = np.minimum(self._host_max_len - self._host_gen_len,
-                                self.Smax - 1 - self.ctx_len.astype(np.int64))
-            n = min(n, max(1, int(to_cap[run].min())))
-        flags = knob_flags(self._host_knobs[self._host_active])
-        self._tables_dev.copy_(torch.from_numpy(self.tables))
-        self._lens_dev.copy_(torch.from_numpy(self.ctx_len.astype(np.int64)))
-        self._finished0.copy_(self._state.finished)
-        self.graphs.run((kind, tuple(sorted(flags.items()))), lambda: step(flags), self.device,
-                        generators=[self._state.generator], counters=[self.counts],
-                        replays=n)
-        s = self._state
-        ctl = torch.cat([self._lens_dev, s.gen_len, s.finished.long(),
-                         self._live]).cpu().numpy()
+        host): the loop stops there, and later replays would only be gated.
+        Recorded as spans ``decode.launch`` (host prep, copies up, replays)
+        and ``decode.readback`` (the copy back, which waits for the chunk)."""
+        with span("decode.launch"):
+            run = self._host_active & ~self._host_finished
+            if kind == "decode" and run.any():
+                to_cap = np.minimum(self._host_max_len - self._host_gen_len,
+                                    self.Smax - 1 - self.ctx_len.astype(np.int64))
+                n = min(n, max(1, int(to_cap[run].min())))
+            flags = knob_flags(self._host_knobs[self._host_active])
+            self._tables_dev.copy_(torch.from_numpy(self.tables))
+            self._lens_dev.copy_(torch.from_numpy(self.ctx_len.astype(np.int64)))
+            self._finished0.copy_(self._state.finished)
+            self.graphs.run((kind, tuple(sorted(flags.items()))), lambda: step(flags),
+                            self.device, generators=[self._state.generator],
+                            counters=[self.counts], replays=n)
+        with span("decode.readback"):
+            s = self._state
+            ctl = torch.cat([self._lens_dev, s.gen_len, s.finished.long(),
+                             self._live]).cpu().numpy()
         B = self.B
         self.ctx_len = ctl[:B].astype(np.int32)
         self._host_gen_len = ctl[B:2 * B].copy()
@@ -508,6 +525,7 @@ class PagedServingEngine:
         self._live_host = ctl[3 * B:]
         self.decode_steps += int(live[0])
         self.spec_steps += int(live[1])
+        self.counts["live_decode_passes"] += int(live[0])
 
     @torch.no_grad()
     def step(self) -> None:
@@ -697,27 +715,31 @@ class PendingPrefill:
         try:
             dev = eng.device
             if self._embeds is None:
-                self._embeds = visualcla.multimodal_embeds(
-                    eng.model, eng.cfg, torch.as_tensor(self.ids, device=dev), self.img_pos,
-                    self.pixel_values)
-                self._mask = torch.as_tensor(self.mask, device=dev).bool()
-                self._positions = (self._mask.long().cumsum(-1) - 1).clamp(min=0)
-                self._scratch = eng._scratch(self.L)
+                with span("admit.encode"):
+                    self._embeds = visualcla.multimodal_embeds(
+                        eng.model, eng.cfg, torch.as_tensor(self.ids, device=dev),
+                        self.img_pos, self.pixel_values)
+                    self._mask = torch.as_tensor(self.mask, device=dev).bool()
+                    self._positions = (self._mask.long().cumsum(-1) - 1).clamp(min=0)
+                    self._scratch = eng._scratch(self.L)
                 return False
             c0, c1 = self.starts[self.i], self.starts[self.i] + self.chunk
-            # real slots before the chunk's end: a query at slot j sees the
-            # valid kv slots <= j, exactly the one-shot prefill's set
-            kv_valid = self._mask & (torch.arange(self.L, device=dev) < c1)[None]
-            hidden, self._scratch = eng.model.text(
-                self._embeds[:, c0:c1], self._positions[:, c0:c1], self._scratch,
-                kv_valid, c0)
+            with span("admit.tower"):
+                # real slots before the chunk's end: a query at slot j sees
+                # the valid kv slots <= j, exactly the one-shot prefill's set
+                kv_valid = self._mask & (torch.arange(self.L, device=dev) < c1)[None]
+                hidden, self._scratch = eng.model.text(
+                    self._embeds[:, c0:c1], self._positions[:, c0:c1], self._scratch,
+                    kv_valid, c0)
             self.i += 1
             if self.i < self.n_chunks:
                 return False
-            eng._scatter_scratch(self._scratch, self.blocks[:self.nb_prompt])
+            with span("admit.scatter"):
+                eng._scatter_scratch(self._scratch, self.blocks[:self.nb_prompt])
             j = self.S - 1 - self.starts[-1]  # the last real token, in the last chunk
-            eng._admit_row(self.row, hidden[:, j:j + 1], self.S - 1, self.max_new, self.knobs,
-                           self.ids)
+            with span("admit.first_token"):
+                eng._admit_row(self.row, hidden[:, j:j + 1], self.S - 1, self.max_new,
+                               self.knobs, self.ids)
             self.done = True
             self._embeds = self._scratch = None
             return True

@@ -25,11 +25,17 @@ of either engine (this one or ``engine.paged.PagedServingEngine``, whose
 extra entry points it reaches through ``getattr``): a request prefills into
 a free row, all live rows decode together, and a finished row is reused by
 the next queued request without draining the others.  Each iteration streams
-every new token to its request's queue.
+every new token to its request's queue.  Its work is recorded as spans
+(``utils.profiling``) while spans are recorded: ``request`` and
+``sched.queue_wait`` on the submitting thread, ``sched.admit`` /
+``sched.admit_begin`` / ``sched.admit_stage``, ``sched.decode``,
+``sched.snapshot``, ``sched.stream`` (``sched.release`` inside) and
+``sched.idle`` on its own, each admission's carrying the request's ``rid``.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import logging
 import queue
 import threading
@@ -44,6 +50,7 @@ from ..core.config import VisualCLAConfig
 from ..models import llama, visualcla
 from ..ops.attention import attention_mesh_scope, vision_attention_impl
 from ..parallel.sharding import bind
+from ..utils.profiling import add_span, span
 from .generate import PrefillInputs, host_pixels, pick_bucket
 from .graphs import Graphs
 from .sampling import SamplingConfig, rowwise_flags, sample_step_rowwise
@@ -206,8 +213,9 @@ class ServingEngine:
         self.decode_steps = 0  # live decode steps run (counts["decode_passes"]: all)
         self.graphs = Graphs()
         # forward passes run on the device, gated ones included: a decode
-        # pass launches B1 once a layer, an admission B2 once a layer
-        self.counts = {"decode_passes": 0, "prefill_passes": 0}
+        # pass launches B1 once a layer, an admission B2 once a layer; the
+        # live (ungated) decode passes as of the last snapshot
+        self.counts = {"decode_passes": 0, "prefill_passes": 0, "live_decode_passes": 0}
 
     def pool_bytes(self) -> int:
         """Device bytes of the K/V cache."""
@@ -291,7 +299,7 @@ class ServingEngine:
         self._row.fill_(row)
         self._max_new.fill_(max_new)
         self._admit_knobs.copy_(torch.from_numpy(knobs))
-        with attention_mesh_scope(self.mesh):
+        with attention_mesh_scope(self.mesh), span("admit.replay"):
             self.graphs.run(("admit", inp.key, vision_attention_impl(),
                              tuple(sorted(flags.items()))),
                             lambda: self._prefill_step(inp, flags), self.device,
@@ -374,6 +382,7 @@ class ServingEngine:
         packed = torch.cat([packed, self._live]).cpu().numpy()
         live = int(packed[-1])
         self.decode_steps += live - self._live_host
+        self.counts["live_decode_passes"] += live - self._live_host
         self._live_host = live
         packed = packed[:-1].reshape(self.B, -1)
         snap = {"last_token": packed[:, 0], "gen_len": packed[:, 1],
@@ -417,6 +426,20 @@ class Request:
     max_new_tokens: int
     out: "queue.Queue"  # receives ('token', id) ... then ('done', ids) or ('error', msg)
     sampling_overrides: Optional[dict] = None  # per-request knobs (KNOB_NAMES)
+    # set by Scheduler.submit: the request's id, when (time.time_ns) and on
+    # which OS thread it was submitted; when its first token was put
+    rid: int = 0
+    t_submit_ns: int = 0
+    submit_tid: int = 0
+    t_first_ns: int = 0
+
+    def close(self, kind: str, payload) -> None:
+        """Put the request's last item, ('done', ids) or ('error', msg), and
+        record its ``request`` span (submit to now, on the submitting
+        thread)."""
+        self.out.put((kind, payload))
+        add_span("request", self.t_submit_ns, time.time_ns(), rid=self.rid, tid=self.submit_tid,
+                 first_token_ns=self.t_first_ns or None, end=kind)
 
 
 class Scheduler:
@@ -440,13 +463,14 @@ class Scheduler:
         self._pending = None  # in-flight chunked admission
         self._stop = threading.Event()
         self._crash: Optional[str] = None  # set when the loop dies
-        # wall-clock attribution of the loop (seconds / counts), via stats()
+        self._rids = itertools.count(1)
+        # wall-clock attribution of the loop (seconds / counts), via stats();
+        # t_queue_wait sums submit -> admission start over the admissions
+        # started (prefills + chunked_admissions)
         self._stats = {
-            "iterations": 0, "prefills": 0, "chunked_admissions": 0, "prefill_chunks": 0,
-            "chunk_dispatches": 0, "spec_dispatches": 0, "single_steps": 0, "idle_sleeps": 0,
-            "collects": 0,
-            "t_prefill": 0.0, "t_step": 0.0, "t_snapshot": 0.0, "t_collect": 0.0,
-            "t_stream": 0.0,
+            "prefills": 0, "chunked_admissions": 0, "prefill_chunks": 0,
+            "chunk_dispatches": 0, "spec_dispatches": 0, "idle_sleeps": 0,
+            "t_prefill": 0.0, "t_snapshot": 0.0, "t_stream": 0.0, "t_queue_wait": 0.0,
         }
         self.thread = threading.Thread(target=self._run, daemon=True)
         self.thread.start()
@@ -456,15 +480,18 @@ class Scheduler:
         return dict(self._stats)
 
     def submit(self, req: Request) -> None:
+        req.rid = next(self._rids)
+        req.t_submit_ns = time.time_ns()
+        req.submit_tid = threading.get_native_id()
         if self._crash is not None:
-            req.out.put(("error", self._crash))  # nothing will drain the queue
+            req.close("error", self._crash)  # nothing will drain the queue
             return
         self.requests.put(req)
         if self._crash is not None:
             # the crash handler's drain may have raced this put: drain again
             while True:
                 try:
-                    self.requests.get_nowait().out.put(("error", self._crash))
+                    self.requests.get_nowait().close("error", self._crash)
                 except queue.Empty:
                     break
 
@@ -495,14 +522,14 @@ class Scheduler:
                     pp.abort()
                 except Exception:  # noqa: BLE001 — the engine may be unusable
                     logger.exception("aborting pending admission failed")
-                preq.out.put(("error", msg))
+                preq.close("error", msg)
                 self._pending = None
             for req, _ in self._rows.values():
-                req.out.put(("error", msg))
+                req.close("error", msg)
             self._rows.clear()
             while True:
                 try:
-                    self.requests.get_nowait().out.put(("error", msg))
+                    self.requests.get_nowait().close("error", msg)
                 except queue.Empty:
                     break
             # last: a broadcast to ranks that already died blocks until the
@@ -514,6 +541,11 @@ class Scheduler:
                 except Exception:  # noqa: BLE001 — a lost rank cannot be told
                     logger.exception("releasing the following ranks failed")
 
+    def _queue_wait(self, req: Request, t_ns: int) -> None:
+        """An admission of ``req`` started at ``t_ns``: its time in the queue."""
+        self._stats["t_queue_wait"] += (t_ns - req.t_submit_ns) * 1e-9
+        add_span("sched.queue_wait", req.t_submit_ns, t_ns, rid=req.rid, tid=req.submit_tid)
+
     def _run_inner(self):
         eng = self.engine
         st = self._stats
@@ -521,24 +553,27 @@ class Scheduler:
         self._pending = None  # (PendingPrefill, row, Request)
         idle = getattr(eng, "idle", None)  # over a mesh: the leader's heartbeat
         while not self._stop.is_set():
-            st["iterations"] += 1
             did_work = False
             # advance the in-flight chunked admission by one stage
             if self._pending is not None:
                 pp, prow, preq = self._pending
+                t0 = time.time_ns()
+                done = False
                 try:
-                    t0 = time.perf_counter()
                     chunk_before = pp.i
                     done = pp.step()
+                    t1 = time.time_ns()
                     st["prefill_chunks"] += pp.i - chunk_before
-                    st["t_prefill"] += time.perf_counter() - t0
+                    st["t_prefill"] += (t1 - t0) * 1e-9
                     if done:
                         self._rows[prow] = [preq, 0]
                         self._pending = None
                 except Exception as e:  # noqa: BLE001 — isolate the request
+                    t1 = time.time_ns()
                     logger.exception("chunked prefill failed for a request")
-                    preq.out.put(("error", str(e)))
+                    preq.close("error", str(e))
                     self._pending = None  # abort() returned the blocks
+                add_span("sched.admit_stage", t0, t1, rid=preq.rid, stage=pp.i, done=done)
                 did_work = True
             # admit queued requests into free rows
             for row in self._free_rows():
@@ -556,7 +591,7 @@ class Scheduler:
                     if self._rows or self._pending is not None:
                         deferred = req  # blocks free up as rows finish
                         break
-                    req.out.put(("error", "request exceeds the engine's KV pool"))
+                    req.close("error", "request exceeds the engine's KV pool")
                     continue
                 # ADAPTIVE admission: chunked admission bounds the live rows'
                 # stalls but admits one request at a time, so it is used only
@@ -571,6 +606,7 @@ class Scheduler:
                 if wants_chunked and self._pending is not None:
                     deferred = req  # one chunked admission at a time
                     break
+                t0 = time.time_ns()
                 if wants_chunked:
                     try:
                         self._pending = (begin(
@@ -580,20 +616,26 @@ class Scheduler:
                         st["chunked_admissions"] += 1
                     except Exception as e:  # noqa: BLE001
                         logger.exception("begin_prefill failed for a request")
-                        req.out.put(("error", str(e)))
+                        req.close("error", str(e))
                         continue
+                    finally:
+                        add_span("sched.admit_begin", t0, time.time_ns(), rid=req.rid)
+                    self._queue_wait(req, t0)
                     did_work = True
                     break
                 try:
-                    t0 = time.perf_counter()
                     eng.prefill_row(row, req.input_ids, req.pixel_values, req.img_start_pos,
                                     req.max_new_tokens, overrides=req.sampling_overrides)
-                    st["t_prefill"] += time.perf_counter() - t0
-                    st["prefills"] += 1
                 except Exception as e:  # noqa: BLE001 — isolate the request
                     logger.exception("prefill failed for a request")
-                    req.out.put(("error", str(e)))
+                    req.close("error", str(e))
                     continue
+                finally:
+                    t1 = time.time_ns()
+                    add_span("sched.admit", t0, t1, rid=req.rid)
+                st["t_prefill"] += (t1 - t0) * 1e-9
+                st["prefills"] += 1
+                self._queue_wait(req, t0)
                 self._rows[row] = [req, 0]
                 did_work = True
             if self._rows:
@@ -603,7 +645,7 @@ class Scheduler:
                 nothing_waiting = deferred is None and self.requests.empty()
                 pool_full = len(self._rows) >= eng.B
                 block_bound = deferred is not None
-                t0 = time.perf_counter()
+                t0 = time.time_ns()
                 if (self.step_chunk > 1 and self._pending is None
                         and (nothing_waiting or pool_full or block_bound)):
                     # at low occupancy, speculative iterations commit up to
@@ -620,12 +662,12 @@ class Scheduler:
                         st["chunk_dispatches"] += 1
                 else:
                     eng.step()
-                    st["single_steps"] += 1
-                t1 = time.perf_counter()
+                t1 = time.time_ns()
                 snap = eng.snapshot()
-                t2 = time.perf_counter()
-                st["t_step"] += t1 - t0
-                st["t_snapshot"] += t2 - t1
+                t2 = time.time_ns()
+                add_span("sched.decode", t0, t1)
+                add_span("sched.snapshot", t1, t2)
+                st["t_snapshot"] += (t2 - t1) * 1e-9
                 retiring = []  # (row, Request, ids), released as one batch
                 for row in list(self._rows):
                     req, emitted = self._rows[row]
@@ -633,26 +675,29 @@ class Scheduler:
                     if gl > emitted:
                         # every token since the last snapshot; emitted starts
                         # at 0, so the prefill's first token goes out too
+                        if emitted == 0:
+                            req.t_first_ns = time.time_ns()
                         for tok in snap["gen_ids"][row][emitted:gl]:
                             req.out.put(("token", int(tok)))
                         self._rows[row][1] = gl
                     if bool(snap["finished"][row]):
                         retiring.append((row, req, np.array(snap["gen_ids"][row][:gl])))
                 if retiring:
-                    t3 = time.perf_counter()
-                    eng.release_rows([row for row, _, _ in retiring])
-                    st["t_collect"] += time.perf_counter() - t3
-                    st["collects"] += len(retiring)
+                    with span("sched.release"):
+                        eng.release_rows([row for row, _, _ in retiring])
                     for row, req, ids in retiring:
-                        req.out.put(("done", ids))
+                        req.close("done", ids)
                         del self._rows[row]
-                st["t_stream"] += time.perf_counter() - t2
+                t3 = time.time_ns()
+                add_span("sched.stream", t2, t3)
+                st["t_stream"] += (t3 - t2) * 1e-9
                 did_work = True
             if not did_work:
                 st["idle_sleeps"] += 1
-                if idle is not None:
-                    idle()
-                time.sleep(self.poll_interval or 0.005)
+                with span("sched.idle"):
+                    if idle is not None:
+                        idle()
+                    time.sleep(self.poll_interval or 0.005)
 
 
 def _submit(scheduler: Scheduler, input_ids, pixel_values, img_start_pos, max_new_tokens,
