@@ -2726,10 +2726,17 @@ def _check_serve_counts(engine, stats0, stats1, counts, L, b4_name, b5_name=None
     """B4 launched once a layer per plain decode pass, B5 (``b5_name``, a
     speculative pool's) once a layer per speculative pass (gated passes of a
     captured chunk included: they run every layer), B2 once a layer per
-    prefill and per prefill chunk; every other attention kernel never."""
+    tower pass of an admission (``counts["prefill_passes"]``: a one-shot
+    admission's, each chunk's, and a capture's warm-up, which runs the stage
+    once), no fewer than the Scheduler's prefills and chunks; every other
+    attention kernel never.  -> the Scheduler's prefills and chunks."""
     prefills = (stats1["prefills"] - stats0["prefills"]
                 + stats1["prefill_chunks"] - stats0["prefill_chunks"])
-    expect = {b4_name: L * engine.counts["decode_passes"], "flash_prefill": L * prefills}
+    if engine.counts["prefill_passes"] < prefills:
+        raise RuntimeError(f"{engine.counts['prefill_passes']} tower passes for {prefills} "
+                           "prefills and chunks")
+    expect = {b4_name: L * engine.counts["decode_passes"],
+              "flash_prefill": L * engine.counts["prefill_passes"]}
     if b5_name:
         expect[b5_name] = L * engine.counts["spec_passes"]
     for name in ("paged_append", "paged_append_kv8", "paged_verify", "paged_verify_kv8",

@@ -1,6 +1,6 @@
 """The port's decode loops replayed from captured CUDA graphs against the same
 chunks run eagerly (``graphs.eager()``), on the card: ``Engine.generate``
-and ``stream``, the paged pool's ``step_n`` and ``spec_step_n``, the
+and ``stream``, the paged pool's ``step_n``, ``spec_step_n`` and admissions, the
 contiguous pool's ``prefill_row`` and ``step_n``, ``SpeculativeDecoder`` and
 ``beam_generate_fused``, greedy and sampled (the generators registered with
 the graphs draw what the eager chunks draw); the captured ``Engine.start``
@@ -100,6 +100,72 @@ def test_pool(model, spec_k):
         want = run(pool())
     assert got == want
     assert graphed.graphs.captures >= 1 and graphed.graphs.replays >= 12
+
+
+def test_pool_admissions(model):
+    """The paged pool's admissions replayed (encode, tower chunks, scatter,
+    first token) against the same calls under ``graphs.eager()``: equal
+    snapshots after every call.  In bucket 128: one-shot and chunked (32
+    tokens a chunk), greedy and sampled, prompts of 100, 76 (with an image:
+    its chunks stop at slot 96) and 90 tokens, a one-shot admission while a
+    chunked one is part way, a row re-admitted with a 110-token prompt.  A
+    second round of the same calls captures nothing and replays every
+    stage."""
+    m, cfg = model
+    s = cfg.vision_config.image_size
+    pix = np.random.default_rng(4).standard_normal((1, 3, s, s)).astype(np.float32)
+    with_image = prompt(11, n=76)[0]
+    sampled = {"do_sample": True, "top_k": 40, "temperature": 0.7}
+
+    def pool():
+        return PagedServingEngine(m, cfg, eos_token_id=EOS, pad_token_id=0, pool_size=3,
+                                  block_size=16, num_blocks=64, max_seq_len=256,
+                                  max_new_tokens_cap=24, prompt_buckets=(32, 64, 128, 256),
+                                  sampling=GREEDY, seed=5)
+
+    def run(eng):
+        snaps, rounds = [], []
+
+        def snap():
+            snaps.append({k: v.tolist() for k, v in eng.snapshot().items()})
+            snaps.append(eng.ctx_len.tolist())
+
+        for _ in range(2):
+            c0 = dict(eng.counts)
+            eng.prefill_row(0, prompt(0, n=100)[0], None, None, 20)
+            snap()
+            pending = eng.begin_prefill(1, with_image, pix, 2, 13, overrides=sampled, chunk=32)
+            stage = 0
+            while not pending.step():
+                if stage == 1:
+                    eng.prefill_row(2, prompt(2, n=90)[0], None, None, 7, overrides=sampled)
+                eng.step()
+                snap()
+                stage += 1
+            for _ in range(3):
+                eng.step_n(4)
+                snap()
+            eng.release_rows([2])
+            pending = eng.begin_prefill(2, prompt(3, n=110)[0], None, None, 9, chunk=32)
+            while not pending.step():
+                eng.step()
+                snap()
+            for _ in range(6):
+                eng.step_n(4)
+                snap()
+            eng.release_rows([0, 1, 2])
+            rounds.append((eng.graphs.captures,
+                           *(eng.counts[k] - c0[k] for k in ("admit_stages", "admit_replays"))))
+        return snaps, rounds
+
+    graphed = pool()
+    got, rounds = run(graphed)
+    with t_graphs.eager():
+        want, eager_rounds = run(pool())
+    assert got == want
+    (captures1, _, _), (captures2, stages2, replays2) = rounds
+    assert captures2 == captures1 and replays2 == stages2 == 4 + 6 + 4 + 7
+    assert all(r[2] == 0 for r in eager_rounds)
 
 
 def test_contiguous_pool(model):

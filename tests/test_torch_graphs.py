@@ -376,7 +376,8 @@ def guard(monkeypatch):
 
 @pytest.mark.parametrize("loop", ["generate", "stream", "step_n", "spec_step_n",
                                   "speculative", "beam", "start", "pool_step_n",
-                                  "pool_prefill_row", "encode"])
+                                  "pool_prefill_row", "encode", "paged_admit_one_shot",
+                                  "paged_admit_chunked"])
 def test_captured_steps_read_nothing_back(both, guard, loop):
     _, tm, _, ids, pix, img = both
     sampled = t_samp.SamplingConfig(**dict(SAMPLED, max_new_tokens=9, top_k=5))
@@ -395,6 +396,21 @@ def test_captured_steps_read_nothing_back(both, guard, loop):
                        overrides={"do_sample": True, "top_k": 300, "repetition_penalty": 1.2})
         for _ in range(4):
             (te.spec_step_n if loop == "spec_step_n" else te.step_n)(3)
+    elif loop in ("paged_admit_one_shot", "paged_admit_chunked"):  # the paged pool's stages
+        for name in ("_encode_stage", "_tower_stage", "_scatter_stage", "_tail_stage"):
+            guard(t_paged.PagedServingEngine, name)
+        _, te = pools(both)
+        over = {"do_sample": True, "top_k": 300, "repetition_penalty": 1.2}
+        if loop == "paged_admit_one_shot":
+            te.prefill_row(0, LOOPING, None, None, 9)
+            te.prefill_row(1, ids[0], pix, int(img[0]), 9, overrides=over)
+        else:
+            for row, prompt in enumerate([(LOOPING, None, None), (ids[0], pix, int(img[0]))]):
+                pending = te.begin_prefill(row, *prompt, 9, overrides=over if row else None,
+                                           chunk=16)
+                while not pending.step():
+                    te.step()
+        assert te.counts["admit_stages"] >= 8 and te.counts["admit_replays"] == 0
     elif loop == "speculative":
         guard(t_spec, "spec_chunk")
         _, te = engines(both, case_eos(both, 5))

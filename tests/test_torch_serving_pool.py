@@ -380,6 +380,94 @@ def test_multi_image_admission_matches_engine(both):
     np.testing.assert_array_equal(got[:len(want)], want)
 
 
+def _two_image_prompt(tm, n_text, seed):
+    """A prompt of ``n_text`` text tokens around two image markers: (ids,
+    markers, (K, 3, H, W) pixels)."""
+    tok, cfg = tm.tokenizer, tm.config
+    rng = np.random.default_rng(seed)
+    marker = [tok.img_start_token_id] + [tok.img_token_id] * cfg.num_image_tokens + [
+        tok.img_end_token_id]
+    text = rng.integers(3, tok.pad_token_id, n_text).tolist()
+    a, b = n_text // 3, 2 * n_text // 3
+    ids = np.array(text[:a] + marker + text[a:b] + marker + text[b:], np.int64)
+    pos = [int(p) for p in all_img_marker_positions(ids[None], tok.img_start_token_id)[0]]
+    s = cfg.vision_config.image_size
+    return ids, pos, rng.standard_normal((2, 3, s, s)).astype(np.float32)
+
+
+def test_paged_admissions_match_jax(both):
+    """The paged pool's one admission path (a one-shot admission is one
+    chunk as wide as the bucket; on the card each stage a graph replay)
+    against the JAX paged pool, in fp32, equal snapshots after every call:
+    uneven prompts in one 160-slot bucket, text-only and with two images;
+    chunked admissions whose 48-token chunks stop short of the bucket's end
+    (slots 144-159 never written), a one-shot admission while a chunked one
+    is part way, a sampled (top-k 1) row, a re-admitted row; ``abort()``
+    part way returns every block."""
+    from visualcla_tpu.engine.paged import PagedServingEngine as JPaged
+    from visualcla_tpu_torch.engine.paged import PagedServingEngine as TPaged
+
+    jm, tm, _ = both
+    tok = tm.tokenizer
+    kw = dict(eos_token_id=tok.eos_token_id, pad_token_id=tok.pad_token_id, pool_size=3,
+              block_size=16, num_blocks=40, max_seq_len=256, max_new_tokens_cap=12,
+              prompt_buckets=(160,))
+    je = JPaged(jm.params, jm.config, dtype=jnp.float32,
+                sampling=j_samp.SamplingConfig.greedy(12), **kw)
+    te = TPaged(tm.model, tm.config, sampling=t_samp.SamplingConfig.greedy(12), **kw)
+    rng = np.random.default_rng(13)
+    text_a = rng.integers(3, tok.pad_token_id, 140)
+    text_c = rng.integers(3, tok.pad_token_id, 100)
+    ids_b, pos_b, pix_b = _two_image_prompt(tm, 40, 1)
+    ids_d, pos_d, pix_d = _two_image_prompt(tm, 110, 2)
+    sampled = {"do_sample": True, "top_k": 1, "temperature": 0.7, "repetition_penalty": 1.2}
+    free0 = sorted(te._free)
+
+    def chunked(eng, row, prompt, one_shot=None):
+        """A chunked admission (encode, 3 chunks: the JAX pool finishes in a
+        stage of its own, the port with the last chunk), a decode step after
+        each of the first three stages, ``one_shot`` after the first chunk."""
+        pending = eng.begin_prefill(row, *prompt, 10, chunk=48)
+        stage = 0
+        while not pending.step():
+            if stage == 1 and one_shot is not None:
+                one_shot(eng)
+            if stage <= 2:
+                eng.step()
+            stage += 1
+
+    def run(eng):
+        chunked(eng, 0, (text_a, None, None),
+                lambda e: e.prefill_row(1, ids_b, pix_b, pos_b, 10))
+        eng.step_n(3)
+        yield "a"
+        eng.prefill_row(2, text_c, None, None, 10, overrides=sampled)
+        eng.step_n(3)
+        yield "c"
+        eng.release_rows([0])
+        yield sorted(eng._free)
+        pending = eng.begin_prefill(0, ids_d, pix_d, pos_d, 10, chunk=48)
+        pending.step()
+        pending.step()
+        pending.abort()
+        yield sorted(eng._free)
+        chunked(eng, 0, (ids_d, pix_d, pos_d))
+        for _ in range(6):
+            eng.step_n(3)
+            yield "d"
+
+    for got, want in zip(run(te), run(je)):
+        assert got == want
+        live = ~snapshots_equal(je, te)["finished"]  # (the JAX host mirror runs on past an end)
+        np.testing.assert_array_equal(te.ctx_len[live], np.asarray(je.ctx_len)[live])
+    # stages: A and D 6 each (encode, 3 chunks, scatter, first token), B and
+    # C 4 each, the aborted admission 2; tower passes 3 + 1 + 1 + 1 + 3
+    assert te.counts["admit_stages"] == 6 + 6 + 4 + 4 + 2
+    assert te.counts["prefill_passes"] == 9 and te.counts["admit_replays"] == 0
+    te.release_rows(range(3))
+    assert sorted(te._free) == free0 and te.num_active() == 0
+
+
 def test_kv_int8_needs_the_paged_pool(both):
     from visualcla_tpu_torch.apps.serve import PoolWorker
 

@@ -60,7 +60,7 @@ from ..utils.profiling import span
 # the kernels' launch counters, and the mesh's collectives (parallel.tp.CALLS)
 KERNEL_COUNTERS = (_fa.LAUNCHES, _i4.LAUNCHES, _pa.LAUNCHES, _tp.CALLS)
 # graphs a Graphs keeps a key space (the least recently replayed goes first)
-MAX_GRAPHS = {"decode": 16, "prefill": 12}
+MAX_GRAPHS = {"decode": 16, "prefill": 32}
 _EAGER = [False]
 # held by every capture and replay, and by eager device work that launches
 # counted kernels, so that no capture in another thread sees its counts

@@ -15,9 +15,9 @@ The same scheduling surface as the JAX package's (``server.Scheduler`` drives
 - every decode step runs kernel B4 (``ops.cuda.paged_attention``) once per
   layer: the new token's K/V are appended to the pool and attended over in
   one launch;
-- a prefill runs the text tower over a contiguous scratch cache (kernel B2)
-  and scatters the prompt's blocks into the pool; prompts are RIGHT-padded to
-  a bucket, so the real tokens sit in slots 0..S-1.
+- an admission runs the text tower over a contiguous scratch cache (kernel
+  B2) and scatters the prompt's blocks into the pool; prompts are
+  RIGHT-padded to a bucket, so the real tokens sit in slots 0..S-1.
 
 A row costs ceil(len / BS) blocks, so the pool admits requests by tokens,
 not by rows x max_seq_len.  ``step_n`` is the JAX package's ``_step_n_impl``
@@ -30,7 +30,18 @@ branch flags come from the host's copy of the knobs and are part of the
 graph's key.  With ``spec_k > 0``, ``spec_step_n`` runs speculative
 iterations the same way (``engine/paged_spec.py``, kernel B5): each commits
 1..spec_k+1 tokens a greedy row.  The JAX flat / nested loop choice is a TPU
-workaround, not ported.  Meshes are not ported yet.
+workaround, not ported.
+
+Admissions are replays too, in key space "prefill": a one-shot admission
+(``prefill_row``) is a chunked one (``begin_prefill``) whose one chunk is as
+wide as the bucket, and both run the same stages over static buffers:
+encode (key: form, bucket, image shapes, vision attention), tower chunk
+(form, bucket, chunk start and width), scatter (form, bucket), and the
+first token (bucket, the sampler's flags; the row, S - 1, the limit and the
+knobs in device buffers).  The one-shot form and the chunked one keep
+buffers of their own, as a one-shot admission may run while a chunked one is
+part way; the first token's stage, which follows the last chunk in the same
+call, is shared by both.
 """
 from __future__ import annotations
 
@@ -39,16 +50,18 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..core.config import VisualCLAConfig
 from ..models import llama, visualcla
+from ..ops.attention import vision_attention_impl
 from ..ops.cuda.paged_attention import paged_append_attention
 from ..ops.linear import Int4Linear
 from ..ops.quantization import quantize_kv
 from ..ops.rope import apply_rope, rope_table
 from ..parallel.sharding import bind
 from ..utils.profiling import span
-from .generate import pick_bucket
+from .generate import PrefillInputs, host_pixels, pick_bucket
 from .graphs import LOCK, Graphs
 from .sampling import SamplingConfig, sample_step_rowwise
 from .server import _check_serving_sampling, knob_flags, knob_kwargs, sampling_knobs
@@ -132,6 +145,18 @@ class PagedState:
     mu: torch.Tensor  # (B,) f32 mirostat state
     knobs: torch.Tensor  # (B, 11) f32 per-request knobs (server.sampling_knobs)
     generator: torch.Generator
+
+
+@dataclasses.dataclass
+class _AdmitBuffers:
+    """One admission form's static device buffers at one bucket L."""
+
+    inputs: dict  # PrefillInputs by shape: the padded ids and mask, markers, pixels
+    embeds: torch.Tensor  # (1, L, H) the spliced embeddings
+    positions: torch.Tensor  # (1, L) rope positions
+    mask: torch.Tensor  # (1, L) bool, the real slots
+    scratch: dict  # one-row cache of L slots (llama.init_kv_cache)
+    blocks: torch.Tensor  # (L / BS,) the prompt's pool blocks
 
 
 class PagedServingEngine:
@@ -235,10 +260,22 @@ class PagedServingEngine:
         self._live_host = np.zeros(2, np.int64)
         self._rows = torch.arange(self.B, device=dev)
         self.graphs = Graphs()
+        # the admissions' static buffers: per (form, bucket), the hidden
+        # states per bucket, and the first token's inputs (row, S - 1,
+        # max_new_tokens; knobs; the padded ids)
+        self._admit_bufs: dict = {}
+        self._hidden: dict = {}
+        self._tail_ctl = torch.zeros(3, dtype=torch.int64, device=dev)
+        self._tail_knobs = torch.zeros(11, dtype=torch.float32, device=dev)
+        self._tail_ids = torch.zeros(1, max_seq_len, dtype=torch.int64, device=dev)
+        self._chunked_busy = False
         # forward passes run on the device, gated ones included: each
-        # launches B4 (decode) or B5 (speculative) once a layer; and the live
-        # (ungated) decode passes, read back after each chunk
-        self.counts = {"decode_passes": 0, "spec_passes": 0, "live_decode_passes": 0}
+        # launches B4 (decode) or B5 (speculative) once a layer, a tower
+        # chunk (prefill_passes) B2; the live (ungated) decode passes, read
+        # back after each chunk; admission stages run, and those replayed
+        # from a graph
+        self.counts = {"decode_passes": 0, "spec_passes": 0, "live_decode_passes": 0,
+                       "prefill_passes": 0, "admit_stages": 0, "admit_replays": 0}
 
     def pool_bytes(self) -> int:
         """Device bytes of the K/V pools and their scales."""
@@ -292,16 +329,10 @@ class PagedServingEngine:
 
     def _prepare_admission(self, row: int, input_ids, img_start_pos, pixel_values,
                            max_new_tokens: int):
-        """Shared one-shot / chunked admission: RIGHT-pad to the bucket (slots
-        0..S-1 hold the prompt), normalize the image marker, reserve every
-        block the request can touch.
-        -> (ids, mask, img_pos, pixel_values, blocks, nb_prompt, S, L)."""
-        with span("admit.host"):
-            return self._prepare_admission_host(row, input_ids, img_start_pos, pixel_values,
-                                                max_new_tokens)
-
-    def _prepare_admission_host(self, row, input_ids, img_start_pos, pixel_values,
-                                max_new_tokens):
+        """Host half of an admission: RIGHT-pad to the bucket (slots 0..S-1
+        hold the prompt), normalize the image marker, reserve every block the
+        request can touch.
+        -> (ids, mask, img_pos, host pixels, blocks, nb_prompt, S, L)."""
         input_ids = np.asarray(input_ids).reshape(-1)
         S = len(input_ids)
         L = self.bucket_len(S)
@@ -316,10 +347,9 @@ class PagedServingEngine:
             img_pos = np.asarray([-1 if img_start_pos is None or img_start_pos < 0
                                   else img_start_pos], np.int64)
         visualcla.check_img_start_pos(img_pos, self.cfg.num_image_tokens, L)
-        if pixel_values is not None:
-            pixel_values = torch.as_tensor(np.asarray(pixel_values)).to(self.device, self.dtype)
-            if img_pos.ndim == 2 and pixel_values.dim() == 4:
-                pixel_values = pixel_values[None]  # (1, K, 3, H, W)
+        pixels = host_pixels(pixel_values)
+        if pixels is not None and img_pos.ndim == 2 and pixels.dim() == 4:
+            pixels = pixels[None]  # (1, K, 3, H, W)
         self._free_row(row)
         # blocks for the whole padded prompt + headroom for decode, never
         # past Smax or the table's max_blocks entries
@@ -327,99 +357,125 @@ class PagedServingEngine:
         nb_total = (S + min(max_new_tokens, self.T) + 1 + self.BS - 1) // self.BS
         nb_total = min(max(nb_total, nb_prompt), self.max_blocks)
         blocks = self._alloc_blocks(row, nb_total)
-        return ids, mask, img_pos, pixel_values, blocks, nb_prompt, S, L
+        return ids, mask, img_pos, pixels, blocks, nb_prompt, S, L
 
-    def _scratch(self, L: int) -> dict:
-        return llama.init_kv_cache(self.cfg.text_config, 1, L, self.dtype, device=self.device,
-                                   kv_heads=self.model.text.kv_heads)
+    def _admit_buffers(self, owner: str, L: int) -> _AdmitBuffers:
+        """The static buffers of ``owner``'s admissions at bucket L (made at
+        first use, outside any capture); the bucket's hidden states too."""
+        key = (owner, L)
+        if key not in self._admit_bufs:
+            dev, H = self.device, self.cfg.text_config.hidden_size
+            self._admit_bufs[key] = _AdmitBuffers(
+                inputs={},
+                embeds=torch.zeros(1, L, H, dtype=self.dtype, device=dev),
+                positions=torch.zeros(1, L, dtype=torch.int64, device=dev),
+                mask=torch.zeros(1, L, dtype=torch.bool, device=dev),
+                scratch=llama.init_kv_cache(self.cfg.text_config, 1, L, self.dtype, device=dev,
+                                            kv_heads=self.model.text.kv_heads),
+                blocks=torch.zeros(L // self.BS, dtype=torch.int64, device=dev))
+            if L not in self._hidden:
+                self._hidden[L] = torch.zeros(1, L, H, dtype=self.dtype, device=dev)
+        return self._admit_bufs[key]
 
-    def _scatter_scratch(self, scratch: dict, block_ids) -> None:
-        """Copy a contiguous scratch cache's prompt K/V (L, 1, Nkv, S, hd)
-        into the pool blocks ``block_ids`` (int8 pool: quantized per token and
-        head on the way)."""
+    def _run_stage(self, key, fn, generators=()) -> None:
+        """One admission stage ``fn``: a replay of its graph, captured under
+        ``key`` in key space "prefill" at first use (eagerly on CPU tensors
+        and in ``graphs.eager()``).  ``counts["admit_stages"]`` counts the
+        stages run (bumped inside the step, so a replay adds it),
+        ``counts["admit_replays"]`` those replayed from a graph."""
+        def stage():
+            fn()
+            self.counts["admit_stages"] += 1
+
+        replays = self.graphs.replays
+        self.graphs.run(key, stage, self.device, generators=generators, counters=[self.counts],
+                        space="prefill")
+        self.counts["admit_replays"] += self.graphs.replays - replays
+
+    def _encode_stage(self, buf: _AdmitBuffers, inp: PrefillInputs) -> None:
+        """The image encode and splice over the padded prompt (the device
+        position form: nothing read back), into ``buf``'s embeddings, rope
+        positions and mask."""
+        embeds = visualcla.multimodal_embeds(self.model, self.cfg, inp.ids, inp.img_pos,
+                                             inp.pixels)
+        buf.embeds.copy_(embeds)
+        buf.mask.copy_(inp.mask.bool())
+        buf.positions.copy_((inp.mask.cumsum(-1) - 1).clamp(min=0))
+
+    def _tower_stage(self, buf: _AdmitBuffers, c0: int, width: int) -> None:
+        """The text tower over slots [c0, c0 + width) into ``buf``'s scratch
+        cache; the hidden states into the bucket's static buffer."""
+        L = buf.mask.shape[1]
+        c1 = c0 + width
+        # real slots before the chunk's end: a query at slot j sees the valid
+        # kv slots <= j, exactly the one-shot prefill's set
+        kv_valid = buf.mask & (torch.arange(L, device=buf.mask.device) < c1)[None]
+        hidden, _ = self.model.text(buf.embeds[:, c0:c1], buf.positions[:, c0:c1], buf.scratch,
+                                    kv_valid, c0)
+        self._hidden[L][:, c0:c1].copy_(hidden)
+        self.counts["prefill_passes"] += 1
+
+    def _scatter_stage(self, buf: _AdmitBuffers) -> None:
+        """Copy the scratch cache's K/V (L, 1, Nkv, Lb, hd) into the pool
+        blocks ``buf.blocks`` (int8 pool: quantized per token and head on the
+        way).  Slots the chunks never wrote carry a stale earlier admission's
+        values into the row's blocks: they lie at or past the prompt's end,
+        where decode writes each slot before any query reads it."""
         s = self._state
-        Lyr, _, Nkv, S, hd = scratch["k"].shape
-        nb = S // self.BS
-        idx = torch.as_tensor(np.asarray(block_ids, np.int64), device=self.device)
+        Lyr, _, Nkv, Lb, hd = buf.scratch["k"].shape
+        nb = Lb // self.BS
 
-        def blocks(t):  # (L, 1, Nkv, S, hd) -> (L, nb, BS, Nkv, hd)
+        def blocks(t):  # (L, 1, Nkv, Lb, hd) -> (L, nb, BS, Nkv, hd)
             return t[:, 0].transpose(1, 2).reshape(Lyr, nb, self.BS, Nkv, hd)
 
-        kb, vb = blocks(scratch["k"]), blocks(scratch["v"])
+        kb, vb = blocks(buf.scratch["k"]), blocks(buf.scratch["v"])
         if s.k_scales is not None:
             (kb, vb), (ks, vs) = (t.unbind(0) for t in quantize_kv(torch.stack((kb, vb))))
-            s.k_scales[:, idx] = ks
-            s.v_scales[:, idx] = vs
-        s.k_pool[:, idx] = kb.reshape(Lyr, nb, self.BS, Nkv * hd).to(s.k_pool.dtype)
-        s.v_pool[:, idx] = vb.reshape(Lyr, nb, self.BS, Nkv * hd).to(s.v_pool.dtype)
+            s.k_scales.index_copy_(1, buf.blocks, ks)
+            s.v_scales.index_copy_(1, buf.blocks, vs)
+        for pool, t in ((s.k_pool, kb), (s.v_pool, vb)):
+            pool.index_copy_(1, buf.blocks, t.reshape(Lyr, nb, self.BS, Nkv * hd).to(pool.dtype))
 
-    def _admit_row(self, row: int, hidden_last, last_idx: int, max_new_tokens: int,
-                   knobs: np.ndarray, ids: np.ndarray) -> None:
+    def _tail_stage(self, L: int, flags: dict) -> None:
         """Sample the first token from the last REAL prompt position's hidden
-        and activate the row (shared by the one-shot and chunked prefills).
-        The right-padded prompt ``ids`` (1, L) seeds the row's token history,
-        the first token goes to its index last_idx + 1."""
+        state (``_tail_ctl``: row, S - 1, max_new_tokens) with the knobs
+        ``_tail_knobs`` and activate the row at a device row index; the
+        right-padded ids ``_tail_ids`` seed its token history, the first
+        token goes to index S."""
         s = self._state
-        logits = self.model.text.logits(hidden_last)[:, 0]  # (1, V)
-        kn = torch.as_tensor(knobs, device=self.device)[None]  # (1, 11)
-        mu0 = 2.0 * kn[:, 7]
+        dev, T = self.device, self.T
+        row, last, max_new = self._tail_ctl[0:1], self._tail_ctl[1:2], self._tail_ctl[2:3]
+        hidden = self._hidden[L].index_select(1, last)  # (1, 1, H)
+        logits = self.model.text.logits(hidden)[:, 0]  # (1, V)
+        kn = self._tail_knobs[None]  # (1, 11)
         token, mu_row = sample_step_rowwise(
-            logits, torch.zeros(1, self.T, dtype=torch.int64, device=self.device),
-            torch.zeros(1, dtype=torch.int64, device=self.device), s.generator,
-            self.sampling, **knob_kwargs(kn, mu0), flags=knob_flags(knobs[None]))
-        s.last_token[row] = token[0]
-        s.all_ids[row, :ids.shape[1]] = torch.as_tensor(ids[0], device=self.device)
-        s.all_ids[row, min(last_idx + 1, self.Smax - 1)] = token[0]
-        s.positions[row] = last_idx + 1
-        s.gen_ids[row] = 0
-        s.gen_ids[row, 0] = token[0]
-        s.gen_len[row] = 1
-        s.max_len[row] = max_new_tokens
-        s.active[row] = True
+            logits, torch.zeros(1, T, dtype=torch.int64, device=dev),
+            torch.zeros(1, dtype=torch.int64, device=dev), s.generator, self.sampling,
+            **knob_kwargs(kn, 2.0 * kn[:, 7]), flags=flags)
+        s.all_ids.index_put_((row.expand(L), torch.arange(L, device=dev)), self._tail_ids[0, :L])
+        s.all_ids.index_put_((row, (last + 1).clamp(max=self.Smax - 1)), token)
+        s.last_token.index_copy_(0, row, token)
+        s.positions.index_copy_(0, row, last + 1)
+        s.gen_ids.index_copy_(0, row, F.pad(token[:, None], (0, T - 1)))
+        s.gen_len.index_fill_(0, row, 1)
+        s.max_len.index_copy_(0, row, max_new)
+        s.active.index_fill_(0, row, True)
         # the admission commits token 1: a max_new_tokens=1 request is complete
-        s.finished[row] = (token[0] == self.eos) | (max_new_tokens <= 1)
-        s.mu[row] = mu_row[0]
-        s.knobs[row] = kn[0]
-        self._host_knobs[row] = knobs
-        self.ctx_len[row] = last_idx + 1
-        self._host_active[row] = True
-        self._host_finished[row] = False
-        self._host_gen_len[row] = 1
-        self._host_max_len[row] = max_new_tokens
+        s.finished.index_copy_(0, row, (token == self.eos) | (max_new <= 1))
+        s.mu.index_copy_(0, row, mu_row)
+        s.knobs.index_copy_(0, row, kn)
 
     @torch.no_grad()
     def prefill_row(self, row: int, input_ids: np.ndarray, pixel_values, img_start_pos,
                     max_new_tokens: int, overrides: Optional[dict] = None) -> None:
-        """One-shot admission: the whole padded prompt through the text tower
-        into a scratch cache, its blocks into the pool, the first token."""
-        ids, mask, img_pos, pixel_values, blocks, nb_prompt, S, L = (
-            self._prepare_admission(row, input_ids, img_start_pos, pixel_values,
-                                    max_new_tokens))
-        try:
-            knobs = sampling_knobs(self.sampling, overrides)
-            dev = self.device
-            with LOCK:
-                with span("admit.encode"):
-                    embeds = visualcla.multimodal_embeds(
-                        self.model, self.cfg, torch.as_tensor(ids, device=dev), img_pos,
-                        pixel_values)
-                with span("admit.tower"):
-                    mask_t = torch.as_tensor(mask, device=dev)
-                    positions = (mask_t.cumsum(-1) - 1).clamp(min=0)
-                    scratch = self._scratch(L)
-                    hidden, scratch = self.model.text(embeds, positions, scratch,
-                                                      mask_t.bool(), 0)
-                with span("admit.scatter"):
-                    self._scatter_scratch(scratch, blocks[:nb_prompt])
-                # prompts are RIGHT-padded: sample from the last REAL token
-                with span("admit.first_token"):
-                    self._admit_row(row, hidden[:, S - 1:S], S - 1,
-                                    min(max_new_tokens, self.T), knobs, ids)
-        except Exception:
-            # roll the allocator back: no leaked blocks, no dead active row
-            self._free_row(row)
-            self._host_active[row] = False
-            raise
+        """One-shot admission: a chunked admission whose one chunk is as wide
+        as the bucket, every stage in this call (buffers of its own, so it
+        may run while a chunked admission is part way)."""
+        pending = PendingPrefill(self, row, input_ids, pixel_values, img_start_pos,
+                                 max_new_tokens, overrides, chunk=None)
+        with LOCK:
+            while not pending._step():
+                pass
 
     def begin_prefill(self, row: int, input_ids: np.ndarray, pixel_values, img_start_pos,
                       max_new_tokens: int, overrides: Optional[dict] = None,
@@ -428,7 +484,9 @@ class PagedServingEngine:
         ``chunk`` tokens a call of ``step()`` on the returned object, so the
         scheduler can run decode steps for the other rows between chunks.
         Same tokens as ``prefill_row``; blocks are reserved up front and
-        ``abort()`` returns them."""
+        ``abort()`` returns them.  One chunked admission at a time."""
+        if self._chunked_busy:
+            raise RuntimeError("a chunked admission is already in flight (one at a time)")
         return PendingPrefill(self, row, input_ids, pixel_values, img_start_pos,
                               max_new_tokens, overrides, chunk)
 
@@ -667,24 +725,29 @@ class PagedServingEngine:
 
 
 class PendingPrefill:
-    """Host state machine for one chunked admission (see ``begin_prefill``).
+    """Host state machine for one admission (see ``begin_prefill``).
 
-    Each ``step()`` runs one bounded stage: 0. the image encode and splice
-    over the whole padded prompt; 1..n. a text-tower chunk into the scratch
-    cache; the last chunk's call also scatters the scratch into the pool,
-    samples the first token and activates the row.  The row stays parked
-    (inactive) until then, so decode, snapshot and release never see a
-    half-admitted row."""
+    Each ``step()`` runs one bounded stage, a replay of its graph:
+    0. the image encode and splice over the whole padded prompt; 1..n. a
+    text-tower chunk into the scratch cache; the last chunk's call also
+    scatters the scratch into the pool, samples the first token and
+    activates the row.  The row stays parked (inactive) until then, so
+    decode, snapshot and release never see a half-admitted row.  ``chunk``
+    None: one chunk as wide as the bucket (``prefill_row``'s one-shot form,
+    on buffers of its own)."""
 
     def __init__(self, eng: PagedServingEngine, row, input_ids, pixel_values, img_start_pos,
                  max_new_tokens, overrides, chunk):
         self.eng = eng
         self.row = int(row)
-        (ids, mask, img_pos, pixel_values, self.blocks, self.nb_prompt, S, L) = (
-            eng._prepare_admission(row, input_ids, img_start_pos, pixel_values,
-                                   max_new_tokens))
+        self.knobs = sampling_knobs(eng.sampling, overrides)  # raises before any block moves
+        with span("admit.host"):
+            (self.ids, self.mask, self.img_pos, self.pixels, blocks, nb_prompt, S, L) = (
+                eng._prepare_admission(row, input_ids, img_start_pos, pixel_values,
+                                       max_new_tokens))
+        self.owner = "one_shot" if chunk is None else "chunked"
         BS = eng.BS
-        chunk = max(BS, (int(chunk) // BS) * BS)
+        chunk = L if chunk is None else max(BS, (int(chunk) // BS) * BS)
         chunk = min(chunk, L)  # a window must fit the padded bucket
         # chunk START slots: every window is ``chunk`` wide, and the last one
         # shifts LEFT to end at the bucket's edge; it re-forwards slots done
@@ -694,13 +757,12 @@ class PendingPrefill:
         self.starts = [min(i * chunk, L - chunk) for i in range(n_chunks)]
         self.n_chunks = n_chunks
         self.S, self.L, self.chunk = S, L, chunk
-        self.i = 0
-        self.ids, self.mask, self.img_pos = ids, mask, img_pos
-        self.pixel_values = pixel_values
+        self.blocks = np.asarray(blocks[:nb_prompt], np.int64)
+        self.i = 0  # tower chunks run
         self.max_new = min(max_new_tokens, eng.T)
-        self.knobs = sampling_knobs(eng.sampling, overrides)
-        self.done = False
-        self._embeds = self._positions = self._mask = self._scratch = None
+        self.encoded = self.done = False
+        if self.owner == "chunked":
+            eng._chunked_busy = True
 
     @torch.no_grad()
     def step(self) -> bool:
@@ -709,43 +771,57 @@ class PendingPrefill:
             return self._step()
 
     def _step(self) -> bool:
-        eng = self.eng
         if self.done:
             return True
         try:
-            dev = eng.device
-            if self._embeds is None:
-                with span("admit.encode"):
-                    self._embeds = visualcla.multimodal_embeds(
-                        eng.model, eng.cfg, torch.as_tensor(self.ids, device=dev),
-                        self.img_pos, self.pixel_values)
-                    self._mask = torch.as_tensor(self.mask, device=dev).bool()
-                    self._positions = (self._mask.long().cumsum(-1) - 1).clamp(min=0)
-                    self._scratch = eng._scratch(self.L)
-                return False
-            c0, c1 = self.starts[self.i], self.starts[self.i] + self.chunk
-            with span("admit.tower"):
-                # real slots before the chunk's end: a query at slot j sees
-                # the valid kv slots <= j, exactly the one-shot prefill's set
-                kv_valid = self._mask & (torch.arange(self.L, device=dev) < c1)[None]
-                hidden, self._scratch = eng.model.text(
-                    self._embeds[:, c0:c1], self._positions[:, c0:c1], self._scratch,
-                    kv_valid, c0)
-            self.i += 1
-            if self.i < self.n_chunks:
-                return False
-            with span("admit.scatter"):
-                eng._scatter_scratch(self._scratch, self.blocks[:self.nb_prompt])
-            j = self.S - 1 - self.starts[-1]  # the last real token, in the last chunk
-            with span("admit.first_token"):
-                eng._admit_row(self.row, hidden[:, j:j + 1], self.S - 1, self.max_new,
-                               self.knobs, self.ids)
-            self.done = True
-            self._embeds = self._scratch = None
-            return True
+            return self._stage()
         except Exception:
             self.abort()
             raise
+
+    def _stage(self) -> bool:
+        eng, L, owner = self.eng, self.L, self.owner
+        buf = eng._admit_buffers(owner, L)
+        if not self.encoded:
+            with span("admit.encode"):
+                inp = PrefillInputs.staged(buf.inputs, self.ids, self.mask, self.img_pos,
+                                           self.pixels, eng.device, eng.dtype)
+                eng._run_stage(("encode", owner, inp.key, vision_attention_impl()),
+                               lambda: eng._encode_stage(buf, inp))
+            self.encoded = True
+            return False
+        c0 = self.starts[self.i]
+        with span("admit.tower"):
+            eng._run_stage(("tower", owner, L, c0, self.chunk),
+                           lambda: eng._tower_stage(buf, c0, self.chunk))
+        self.i += 1
+        if self.i < self.n_chunks:
+            return False
+        with span("admit.scatter"):
+            buf.blocks.copy_(torch.from_numpy(self.blocks))
+            eng._run_stage(("scatter", owner, L), lambda: eng._scatter_stage(buf))
+        with span("admit.first_token"):
+            flags = knob_flags(self.knobs[None])
+            eng._tail_ctl.copy_(torch.tensor([self.row, self.S - 1, self.max_new]))
+            eng._tail_knobs.copy_(torch.from_numpy(self.knobs))
+            eng._tail_ids[:, :L].copy_(torch.from_numpy(self.ids))
+            eng._run_stage(("tail", L, tuple(sorted(flags.items()))),
+                           lambda: eng._tail_stage(L, flags), generators=[eng._state.generator])
+        row = self.row
+        eng._host_knobs[row] = self.knobs
+        eng.ctx_len[row] = self.S
+        eng._host_active[row] = True
+        eng._host_finished[row] = False
+        eng._host_gen_len[row] = 1
+        eng._host_max_len[row] = self.max_new
+        self._finish()
+        return True
+
+    def _finish(self) -> None:
+        self.done = True
+        self.pixels = None
+        if self.owner == "chunked":
+            self.eng._chunked_busy = False
 
     def abort(self) -> None:
         """Return the reserved blocks (a failed or cancelled admission)."""
@@ -753,5 +829,4 @@ class PendingPrefill:
             eng = self.eng
             eng._free_row(self.row)
             eng._host_active[self.row] = False
-            self._embeds = self._scratch = None
-            self.done = True
+            self._finish()
