@@ -243,6 +243,20 @@ Phases, one line of findings each:
                the collectives a step; (c) the same step with
                ``pipeline_mesh`` (pipe 1, data 1), n_micro 2, B = 2, against
                the unmeshed step at B = 2 (within PIPE_TRAIN_RTOL);
+ 15. jamba  — (after 14) kernels B7 and B8 at the Jamba2-Mini cell's shapes
+               against their plain versions, with device times, bounds and
+               plain times: B7 over one MoE layer (16 experts, 4096 ->
+               2 x 14336 -> 4096) at a 32-row decode pass with 32, 14 and 8
+               rows running (the rest routed to no expert, as the MoE routes
+               them) and at 256-token admission chunks (all real, 120 real);
+               B8 over one Mamba layer (D 8192, N 16) in its chunk form (256
+               and 120 real tokens) and its step form (32 rows, 32 / 14 / 8
+               running; idle rows' states unchanged bit for bit); then a
+               Jamba tower of the cell's layer pattern at width 512 (int4,
+               int8 K/V) served by ``PoolWorker(paged=True)``: 6 concurrent
+               chats after a warm-up, with exact launches of B7 (2 a MoE
+               layer and pass), B8 (2 a Mamba layer and pass), B4 and B2
+               against the engine's passes (the kernels line's B7 / B8 rows);
  10. the seconds each phase took, the kernel summary as one JSON line, then
      the result line.
 Exits non-zero if any phase fails.  Needs no network and no JAX.
@@ -256,6 +270,7 @@ import dataclasses
 import gc
 import io
 import json
+import math
 import resource
 import statistics
 import subprocess
@@ -272,7 +287,7 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
-from visualcla_tpu_torch.core.config import visualcla_config_for_size
+from visualcla_tpu_torch.core.config import JambaConfig, visualcla_config_for_size
 from visualcla_tpu_torch.processor import ImageProcessor
 from visualcla_tpu_torch.text import VisualCLATokenizer
 from visualcla_tpu_torch.text.prompt import encoding_text, img_marker_positions
@@ -295,6 +310,7 @@ from visualcla_tpu_torch.integrations.text_generation_webui.visualcla_torch_pipe
 from visualcla_tpu_torch.fixtures import (PROMPT, SEED, make_tokenizer, paged_case,
                                           paged_decode_args, paged_verify_case, plain_kernels,
                                           random_image)
+from visualcla_tpu_torch.models import jamba as jamba_mod
 from visualcla_tpu_torch.models import llama as llama_mod
 from visualcla_tpu_torch.models.resampler import Resampler
 from visualcla_tpu_torch.models.visualcla import (VisionTowers, VisualCLAModel, encode_image,
@@ -304,6 +320,8 @@ from visualcla_tpu_torch.ops.cuda import build
 from visualcla_tpu_torch.ops.cuda import flash_attention as fa
 from visualcla_tpu_torch.ops.cuda import int4_matmul as i4
 from visualcla_tpu_torch.ops.cuda import paged_attention as pa
+from visualcla_tpu_torch.ops.cuda import moe_int4 as b7
+from visualcla_tpu_torch.ops.cuda import selective_scan as b8
 from visualcla_tpu_torch.ops.cuda.bench_int4 import CROSSOVER_TOKENS
 from visualcla_tpu_torch.ops.attention import attention_mesh_scope, cached_attention
 from visualcla_tpu_torch.ops.quantization import dequantize_grouped, quantize_grouped, quantize_kv
@@ -442,13 +460,13 @@ def phase_device() -> dict:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    build.build(["flash_attention", "int4_matmul", "paged_attention"])
-    fa.build_kernels()
-    i4.build_kernels()
-    pa.build_kernels()
+    build.build(["flash_attention", "int4_matmul", "paged_attention", "moe_int4",
+                 "selective_scan"])
+    for kernels in (fa, i4, pa, b7, b8):
+        kernels.build_kernels()
     nvcc = ", ".join(f"{k}.cu {v:.2f} s" for k, v in build.build_seconds.items())
-    print(f"[2 build] flash_attention.cu, int4_matmul.cu and paged_attention.cu built in "
-          f"parallel and loaded in "
+    print(f"[2 build] flash_attention.cu, int4_matmul.cu, paged_attention.cu, moe_int4.cu and "
+          f"selective_scan.cu built in parallel and loaded in "
           f"{time.perf_counter() - t0:.2f} s (nvcc: {nvcc})", flush=True)
 
 
@@ -2706,13 +2724,12 @@ def _step_logits(engine, ctx):
 
 
 def _counters() -> dict:
-    return {**fa.LAUNCHES, **i4.LAUNCHES, **pa.LAUNCHES}
+    return {**fa.LAUNCHES, **i4.LAUNCHES, **pa.LAUNCHES, **b7.LAUNCHES, **b8.LAUNCHES}
 
 
 def _reset_counters() -> None:
-    fa.reset_launch_counts()
-    i4.reset_launch_counts()
-    pa.reset_launch_counts()
+    for kernels in (fa, i4, pa, b7, b8):
+        kernels.reset_launch_counts()
 
 
 def _reset_passes(engine) -> None:
@@ -4972,6 +4989,284 @@ def phase_mesh_train(smi: str, cfg, tokenizer, phase11: dict) -> dict:
     return launches
 
 
+# -- phase 15: a Jamba text tower (kernels B7 and B8, the paged pool) ------------------
+
+# one MoE layer and one Mamba layer of the Jamba cell (AI21-Jamba2-Mini)
+JAMBA_H, JAMBA_I, JAMBA_E, JAMBA_D, JAMBA_N = 4096, 14336, 16, 8192, 16
+# B7 written in f32 sums the plain version's exact-nibble products in another
+# order (the mma's); B8 computes in f32 from bf16 inputs as its plain version
+# does: bf16 outputs within one rounding of the largest, f32 states within
+# 1e-4 of theirs (exp and softplus differ by ulps)
+B7_TOL, B8_TOL, B8_STATE_TOL = 1e-4, 2e-2, 1e-4
+JAMBA_SOURCE = {"moe_int4_matmul": "visualcla_tpu_torch/csrc/moe_int4.cu",
+                "selective_scan": "visualcla_tpu_torch/csrc/selective_scan.cu"}
+
+
+def _b7_layer(gen):
+    """One MoE layer's experts at the int4 tier: (gate/up, down) stacked
+    carriers and scales."""
+    def stacked(K, Nout):
+        parts = [quantize_grouped((torch.randn(K, Nout, generator=gen, device="cuda") * 0.02)
+                                  .to(torch.bfloat16), group=128) for _ in range(JAMBA_E)]
+        return (torch.stack([p["q"] for p in parts]).contiguous(),
+                torch.stack([p["scale"] for p in parts]).contiguous())
+
+    return stacked(JAMBA_H, 2 * JAMBA_I), stacked(JAMBA_I, JAMBA_H)
+
+
+def _b7_check(x, q, s, offs, T, label, failures) -> float:
+    """B7 against its plain version on the routed rows (f32 within B7_TOL of
+    the largest; the bf16 form the MoE runs equal to the f32 one rounded).
+    -> the worst error over the largest."""
+    n = int(offs[-1])
+    got = b7.moe_int4_matmul(x, q, s, offs, T, out_dtype=torch.float32)[:n]
+    want = b7.moe_int4_matmul_ref(x, q, s, offs, out_dtype=torch.float32)[:n]
+    bf = b7.moe_int4_matmul(x, q, s, offs, T)[:n]
+    err = float((got - want).abs().max() / want.abs().max())
+    if not err <= B7_TOL or not torch.equal(bf, got.to(torch.bfloat16)):
+        failures.append(f"B7 {label}: error {err:.2e} of the largest (limit {B7_TOL}), bf16 "
+                        f"form equal to the f32 one rounded: {torch.equal(bf, got.to(bf.dtype))}")
+    return err
+
+
+def _b7_cases(gen, failures) -> list:
+    """B7 at the Jamba cell's shapes: a 32-row decode pass with 32, 14 (the
+    cell's mean) and 8 rows running, the others routed to no expert as the
+    MoE routes them; admission chunks of 256 tokens, all real and 120 real
+    (a 376-token prompt's second chunk).  The routing uniform at random;
+    four layers' carriers in turn for the times, so no call finds its
+    expert in L2."""
+    layers = [_b7_layer(gen) for _ in range(4)]
+    H, I, k = JAMBA_H, JAMBA_I, 2
+    expert_bytes = H * 2 * I // 2 + (H // 128) * 2 * I * 4 + I * H // 2 + (I // 128) * H * 4
+    rows = []
+    for name, T, n_live in (("decode 32 rows, 32 running", 32, 32),
+                            ("decode 32 rows, 14 running", 32, 14),
+                            ("decode 32 rows, 8 running", 32, 8),
+                            ("chunk 256", 256, 256), ("chunk 256, 120 real", 256, 120)):
+        live = (torch.arange(T, device="cuda") < n_live)[:, None]
+        idx = torch.rand(T, JAMBA_E, generator=gen, device="cuda").topk(k, dim=-1).indices
+        order, offs, counts = jamba_mod.dispatch(torch.where(live, idx, JAMBA_E), JAMBA_E + 1)
+        offs, hit = offs[:JAMBA_E + 1].contiguous(), int((counts[:JAMBA_E] > 0).sum())
+        A, n = T * k, n_live * k
+        x = (torch.randn(A, H, generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
+        h = (torch.randn(A, I, generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
+        (gq, gs), (dq, ds) = layers[0]
+        err = max(_b7_check(x, gq, gs, offs, T, name + " gate/up", failures),
+                  _b7_check(h, dq, ds, offs, T, name + " down", failures))
+        card = (device_ms(lambda i: b7.moe_int4_matmul(x, *layers[i % 4][0], offs, T))
+                + device_ms(lambda i: b7.moe_int4_matmul(h, *layers[i % 4][1], offs, T)))
+        plain = event_ms(lambda: b7.moe_int4_matmul_ref(
+            F.silu(b7.moe_int4_matmul_ref(x, gq, gs, offs)[:, :I]), dq, ds, offs), n=1)
+        least, by = bound(hit * expert_bytes + n * (2 * (H + 2 * I) + 2 * (I + H)),
+                          n * 2.0 * 3 * H * I)
+        rows.append({"kernel": "B7", "case": name, "assignments": n, "experts_hit": hit,
+                     "card_us": card * 1e3, "bound_us": least * 1e3, "bound_by": by,
+                     "plain_us": plain * 1e3, "max_rel_err": err})
+    return rows
+
+
+def _b8_inputs(gen, B, W):
+    D, N = JAMBA_D, JAMBA_N
+
+    def r(*shape, std=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda") * std).to(torch.bfloat16)
+
+    xz = r(B, W, 2 * D)
+    dt = torch.exp(torch.rand(D, generator=gen, device="cuda") * math.log(100.0) + math.log(1e-3))
+    return dict(x=xz[..., :D], z=xz[..., D:], w=r(D, 4, std=0.5), bias=r(D, std=0.1),
+                dt=r(B, W, D, std=0.5), dt_bias=(dt + torch.log(-torch.expm1(-dt))).to(
+                    torch.bfloat16),
+                A_log=(torch.log(torch.arange(1, N + 1, device="cuda").float()).expand(D, N)
+                       + torch.randn(D, N, generator=gen, device="cuda") * 0.1).to(torch.bfloat16),
+                Bm=r(B, W, N), Cm=r(B, W, N), Dsk=r(D), conv=r(B, D, 3),
+                ssm=torch.randn(B, D, N, generator=gen, device="cuda"))
+
+
+def _b8_scan_args(i, at=slice(None)):
+    return (i["dt"][:, at], i["dt_bias"], i["A_log"], i["Bm"][:, at], i["Cm"][:, at], i["Dsk"],
+            i["z"][:, at])
+
+
+def _b8_close(got, want, tol) -> float:
+    return float((got.float().cpu() - want.float()).abs().max() / want.float().abs().max())
+
+
+def _b8_cases(gen, failures) -> list:
+    """B8 at one Mamba layer of the cell (D 8192, N 16): the chunk form at 256
+    tokens (all real, 120 real), the step form over a 32-row pool with 32,
+    14 and 8 rows running; outputs and states against the plain versions
+    (run on CPU copies), the states of rows that do not run unchanged bit
+    for bit."""
+    D, N = JAMBA_D, JAMBA_N
+    rows = []
+    for name, n_real in (("chunk 256", 256), ("chunk 256, 120 real", 120)):
+        i = _b8_inputs(gen, 1, 256)
+        lens = torch.tensor([n_real], device="cuda")
+        conv, ssm = i["conv"].clone(), i["ssm"].clone()
+        u = b8.conv_chunk(i["x"], i["w"], i["bias"], conv, lens)
+        y = b8.scan_chunk(u, *_b8_scan_args(i), ssm, lens)
+        c = {k: v.cpu() for k, v in i.items()}
+        conv_r, ssm_r = c["conv"].clone(), c["ssm"].clone()
+        u_r = b8.conv_chunk_ref(c["x"], c["w"], c["bias"], conv_r, lens.cpu())
+        y_r = b8.scan_ref(u.cpu(), *_b8_scan_args(c), ssm_r, lens.cpu())
+        errs = (_b8_close(u[:, :n_real], u_r[:, :n_real], B8_TOL),
+                _b8_close(y[:, :n_real], y_r[:, :n_real], B8_TOL),
+                _b8_close(ssm, ssm_r, B8_STATE_TOL))
+        if errs[0] > B8_TOL or errs[1] > B8_TOL or errs[2] > B8_STATE_TOL or \
+                not torch.equal(conv.cpu(), conv_r):
+            failures.append(f"B8 {name}: errors (conv out, scan out, ssm state) {errs}, conv "
+                            f"state equal {torch.equal(conv.cpu(), conv_r)}")
+
+        def chunk(_=0, i=i, lens=lens, fn=(b8.conv_chunk, b8.scan_chunk)):
+            uu = fn[0](i["x"], i["w"], i["bias"], i["conv"], lens)
+            return fn[1](uu, *_b8_scan_args(i), i["ssm"], lens)
+
+        nb = n_real * (2 * 2 * D + 2 * (4 * D + 2 * N))
+        least, by = bound(nb, n_real * (7.0 * D * N + 14 * D))
+        rows.append({"kernel": "B8", "case": name, "card_us": device_ms(chunk) * 1e3,
+                     "bound_us": least * 1e3, "bound_by": by, "max_rel_err": max(errs),
+                     "plain_us": event_ms(lambda: chunk(fn=(b8.conv_chunk_ref, b8.scan_ref)),
+                                          n=1) * 1e3})
+    i = _b8_inputs(gen, 32, 1)
+    for running in (32, 14, 8):
+        run = torch.zeros(32, dtype=torch.bool, device="cuda")
+        run[:running] = True
+        conv, ssm = i["conv"].clone(), i["ssm"].clone()
+        u = b8.conv_step(i["x"][:, 0], i["w"], i["bias"], conv, run)
+        y = b8.scan_step(u, *_b8_scan_args(i, 0), ssm, run)
+        c = {k: v.cpu() for k, v in i.items()}
+        conv_r, ssm_r, r = c["conv"].clone(), c["ssm"].clone(), run.cpu()
+        u_r = b8.conv_step_ref(c["x"][:, 0], c["w"], c["bias"], conv_r, r)
+        y_r = b8.scan_step(u.cpu(), *_b8_scan_args(c, 0), ssm_r, r)
+        errs = (_b8_close(u[run], u_r[r], B8_TOL), _b8_close(y[run], y_r[r], B8_TOL),
+                _b8_close(ssm, ssm_r, B8_STATE_TOL))
+        kept = torch.equal(conv[~run], i["conv"][~run]) and torch.equal(ssm[~run], i["ssm"][~run])
+        if errs[0] > B8_TOL or errs[1] > B8_TOL or errs[2] > B8_STATE_TOL or not kept or \
+                not torch.equal(conv.cpu(), conv_r):
+            failures.append(f"B8 step, {running} of 32 running: errors {errs}, idle rows' "
+                            f"states unchanged {kept}")
+
+        def step(_=0, run=run):
+            uu = b8.conv_step(i["x"][:, 0], i["w"], i["bias"], i["conv"], run)
+            return b8.scan_step(uu, *_b8_scan_args(i, 0), i["ssm"], run)
+
+        def plain_step(run=run):
+            uu = b8.conv_step_ref(i["x"][:, 0], i["w"], i["bias"], i["conv"], run)
+            return b8.scan_ref(uu[:, None], *_b8_scan_args(i, slice(0, 1)), i["ssm"], run)
+
+        nb = running * (2 * 2 * D + 2 * (4 * D + 2 * N) + 2 * (D * N * 4 + D * 3 * 2))
+        least, by = bound(nb, running * (7.0 * D * N + 14 * D))
+        rows.append({"kernel": "B8", "case": f"step 32 rows, {running} running",
+                     "card_us": device_ms(step) * 1e3, "bound_us": least * 1e3, "bound_by": by,
+                     "max_rel_err": max(errs), "plain_us": event_ms(plain_step, n=1) * 1e3})
+    return rows
+
+
+def _jamba_pool_model(cfg):
+    """VisualCLA-7B's vision side over a Jamba tower of the cell's layer
+    pattern and heads at a small width: 8 layers (attention at 4, Mamba
+    elsewhere; a 16-expert top-2 MoE in the odd layers), hidden 512 (4
+    heads of 128, GQA 2), the 7B's vocabulary; seeded random bf16 weights
+    quantized on the card to the int4 tier."""
+    hf = dict(model_type="jamba", vocab_size=cfg.text_config.vocab_size, hidden_size=512,
+              intermediate_size=256, num_hidden_layers=8, num_attention_heads=4,
+              num_key_value_heads=2, attn_layer_period=8, attn_layer_offset=4,
+              expert_layer_period=2, expert_layer_offset=1, num_experts=16,
+              num_experts_per_tok=2, mamba_d_state=16, mamba_d_conv=4, mamba_expand=2,
+              mamba_dt_rank="auto", mamba_conv_bias=True, mamba_proj_bias=False,
+              rms_norm_eps=1e-6, tie_word_embeddings=False, hidden_act="silu")
+    jcfg = dataclasses.replace(cfg, text_config=JambaConfig.from_hf_dict(hf))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    model = init_random_(VisualCLAModel(jcfg, device="cuda", dtype=torch.bfloat16), gen)
+    quantize_text_tower_(model, 4)
+    return model, jcfg
+
+
+def _jamba_serve(cfg, tokenizer) -> dict:
+    """The Jamba pool's own run: ``PoolWorker(paged=True)`` -> ``Scheduler``
+    -> ``PagedServingEngine`` (8 rows, int8 K/V, chunks of 256), a warm-up
+    request, then 6 concurrent chats with the counters zeroed just before
+    them: every launch of B7, B8, B4, B2 and B3 against the engine's passes.
+    -> the launches."""
+    model, jcfg = _jamba_pool_model(cfg)
+    tc = jcfg.text_config
+    L_moe, L_mamba, L_attn = len(model.text.moe_index), tc.num_mamba_layers, tc.num_attention_layers
+    bundle = api.VisualCLA(model, jcfg, tokenizer,
+                           ImageProcessor(image_size=jcfg.vision_config.image_size),
+                           max_seq_len=1024)
+    worker = serve_app.PoolWorker(bundle, pool_size=8, paged=True, block_size=64, num_blocks=64,
+                                  kv_quant="int8", max_new_tokens_cap=64)
+    engine, sched = worker.engine, worker.scheduler
+    reqs = [_chat_request(bundle, tokenizer, random_image(SEED + 90 + i),
+                          text=PROMPT + " 请详细描述。" * (8 * i)) for i in range(6)]
+    server_mod.generate_sync(sched, *reqs[0], max_new_tokens=4)  # warm-up: captures
+    _reset_counters()
+    _reset_passes(engine)
+    stats0 = sched.stats()
+    outs = [None] * len(reqs)
+
+    def one(i):
+        outs[i] = server_mod.generate_sync(sched, *reqs[i], max_new_tokens=24)
+
+    _run_all([lambda i=i: one(i) for i in range(len(reqs))])
+    torch.cuda.synchronize()
+    counts, stats1 = _counters(), sched.stats()
+    worker.close()
+    dec, pre = engine.counts["decode_passes"], engine.counts["prefill_passes"]
+    chunks = stats1["prefill_chunks"] - stats0["prefill_chunks"]
+    expect = {"moe_int4_matmul": 2 * L_moe * (dec + pre),
+              "selective_conv_step": L_mamba * dec, "selective_scan_step": L_mamba * dec,
+              "selective_conv_chunk": L_mamba * pre, "selective_scan_chunk": L_mamba * pre,
+              "paged_append_kv8": L_attn * dec, "flash_prefill": L_attn * pre,
+              "paged_append": 0, "flash_decode": 0, "flash_prefill_kv8": 0}
+    bad = {k: (counts[k], v) for k, v in expect.items() if counts[k] != v}
+    if bad or dec == 0 or pre == 0 or any(o is None or len(o) == 0 for o in outs) or \
+            counts["int4_matmul_decode"] == 0 or counts["int4_matmul_prefill"] == 0:
+        raise RuntimeError(f"Jamba serve launches (got, expected): {bad}; passes "
+                           f"{engine.counts}, chunked admissions' chunks {chunks}, B3 "
+                           f"{counts['int4_matmul_decode']} / {counts['int4_matmul_prefill']}, "
+                           f"outputs {[None if o is None else len(o) for o in outs]}")
+    print(f"[15 jamba] pool run (PoolWorker(paged=True) -> Scheduler -> PagedServingEngine, "
+          f"8 layers: {L_attn} attention, {L_mamba} Mamba, {L_moe} MoE of 16 experts): "
+          f"{len(reqs)} chats, {dec} decode passes, {pre} tower passes ({chunks} chunks of "
+          f"chunked admissions); launches exact: B7 {counts['moe_int4_matmul']}, B8 step "
+          f"{counts['selective_scan_step']} + conv {counts['selective_conv_step']}, chunk "
+          f"{counts['selective_scan_chunk']} + conv {counts['selective_conv_chunk']}, B4 int8 "
+          f"{counts['paged_append_kv8']}, B2 {counts['flash_prefill']}; B3 decode "
+          f"{counts['int4_matmul_decode']}, prefill {counts['int4_matmul_prefill']}; "
+          f"moe_experts_hit {engine.counts['moe_experts_hit']}", flush=True)
+    return {"moe_int4_matmul": counts["moe_int4_matmul"],
+            "selective_scan": sum(counts[k] for k in b8.LAUNCHES)}
+
+
+def phase_jamba(smi: str, cfg, tokenizer) -> dict:
+    """B7 and B8 against their plain versions at the Jamba cell's shapes, with
+    device times, bounds and plain times; then the Jamba pool's own run with
+    exact launch counts.  -> the kernel summary's rows."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    failures: list = []
+    cases = _b8_cases(gen, failures) + _b7_cases(gen, failures)
+    for c in cases:
+        print(json.dumps(c), flush=True)
+    if failures:
+        raise RuntimeError("; ".join(failures))
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = _jamba_serve(cfg, tokenizer)
+    print(f"[15 jamba] {smi}: B7 and B8 equal their plain versions at the cell's shapes "
+          f"({len(cases)} cases)", flush=True)
+    rows = []
+    for name, kernel in (("moe_int4_matmul", "B7"), ("selective_scan", "B8")):
+        mine = [c for c in cases if c["kernel"] == kernel]
+        rows.append({"name": name, "route": "cuda", "source": JAMBA_SOURCE[name],
+                     "replaces": None, "launches": launches[name],
+                     "max_abs_err": max(c["max_rel_err"] for c in mine),
+                     "cases": {c["case"]: {k: c[k] for k in ("card_us", "bound_us", "plain_us")}
+                               for c in mine}})
+    return {"rows": rows}
+
+
 def _kernels_vs_plain_logits(engine, input_ids, pixel_values, img_pos):
     """Last-token prefill logits through the kernels and, on the same model,
     with the kernels' plain versions swapped in."""
@@ -5046,6 +5341,7 @@ def main() -> int:
     timed("9 reference", phase_reference, info["smi"], cfg, tokenizer, sl["ids"])
     train = timed("11 train", phase_train, info["smi"], cfg, tokenizer)
     pipe_launches = timed("14 mesh train", phase_mesh_train, info["smi"], cfg, tokenizer, train)
+    jamba = timed("15 jamba", phase_jamba, info["smi"], cfg, tokenizer)
     print(f"[10 time] seconds a phase {seconds}; the whole run "
           f"{time.perf_counter() - t_start:.1f} s after the imports", flush=True)
     # each kernel's launches from the run of the path that drives it
@@ -5082,6 +5378,7 @@ def main() -> int:
         source, replaces = KERNELS[base]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         **r})
+    kernels += jamba["rows"]  # phase 15: B7 and B8, launches from the Jamba pool's run
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

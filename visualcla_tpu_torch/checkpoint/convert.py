@@ -34,7 +34,7 @@ from typing import Optional
 
 import torch
 
-from ..core.config import LlamaConfig, ViTConfig, VisualCLAConfig
+from ..core.config import JambaConfig, LlamaConfig, ViTConfig, VisualCLAConfig
 
 from . import lora as lora_lib
 from .mapping import iter_leaves, tower_tree_from_sd
@@ -226,10 +226,16 @@ def load_state_dicts(sds: dict, cfg: VisualCLAConfig, *, device, dtype=torch.bfl
     tensor goes onto ``device`` as it is read (consumed from its dict),
     quantized on the host first at the int8 / int4 tier.  HF's (out, in) is
     the modules' own layout, so no tower is restacked or transposed.
-    ``towers_only``: the vision side alone (``VisionTowers``)."""
+    ``towers_only``: the vision side alone (``VisionTowers``).  A Jamba text
+    config reads the text tower's HF names (``checkpoint.jamba``), each
+    tensor quantized on ``device`` as it arrives at ``quantize="int4"``."""
     from ..models.visualcla import VisionTowers, VisualCLAModel
 
     check_quantize(quantize)
+    jamba = isinstance(cfg.text_config, JambaConfig) and not towers_only
+    text_sd = sds["text"] if jamba else None
+    if jamba:
+        sds = {t: v for t, v in sds.items() if t != "text"}
     shapes = {}
     for tower, (sd, prefix) in sds.items():
         shape = sd.shape if isinstance(sd, lora_lib.FoldingStateDict) else (lambda k: sd[k].shape)
@@ -250,6 +256,11 @@ def load_state_dicts(sds: dict, cfg: VisualCLAConfig, *, device, dtype=torch.bfl
             if tower not in sds and tower in fresh:
                 for key, t in flatten_tree({tower: fresh[tower]}).items():
                     placer.put(key, t)
+        if jamba:
+            from .jamba import load_text_
+
+            load_text_(model.text, text_sd[0], text_sd[1] or "")
+            placer.seen |= {k for k in placer.state if k.startswith("text.")}
     placer.finish()
     return model, cfg
 

@@ -22,9 +22,16 @@ def _take(d: Mapping[str, Any], cls) -> dict:
     return {k: v for k, v in d.items() if k in names}
 
 
+# text ``model_type`` values whose equations are LLaMA's (absent: LLaMA)
+LLAMA_TYPES = ("llama", "mistral")
+
+
 @dataclasses.dataclass(frozen=True)
 class LlamaConfig:
-    """Decoder config (schema-compatible with HF LlamaConfig JSON)."""
+    """Decoder config (schema-compatible with HF LlamaConfig JSON).  The
+    reader refuses a ``model_type`` other than LLaMA's and Mistral's, and a
+    ``rope_scaling`` or ``sliding_window`` that is set: this decoder has
+    neither, and dropping them would serve another model."""
 
     vocab_size: int = 32000
     hidden_size: int = 4096
@@ -47,9 +54,103 @@ class LlamaConfig:
     def head_dim(self) -> int:
         return self.hidden_size // self.num_attention_heads
 
+    @property
+    def num_attention_layers(self) -> int:
+        """Every layer attends (``JambaConfig``'s attention layers are fewer)."""
+        return self.num_hidden_layers
+
     @classmethod
     def from_hf_dict(cls, d: Mapping[str, Any]) -> "LlamaConfig":
+        kind = d.get("model_type")
+        if kind is not None and kind not in LLAMA_TYPES:
+            raise ValueError(f"text model_type {kind!r}: the LLaMA reader takes "
+                             f"{LLAMA_TYPES} (or none)")
+        for key in ("rope_scaling", "sliding_window"):
+            if d.get(key) is not None:
+                raise ValueError(f"text config sets {key}={d[key]!r}: the LLaMA decoder has "
+                                 f"no {key}")
         return cls(**_take(d, cls))
+
+
+@dataclasses.dataclass(frozen=True)
+class JambaConfig:
+    """Jamba decoder config (HF ``JambaConfig``'s keys): layer ``i`` is
+    attention where ``i % attn_layer_period == attn_layer_offset`` and Mamba
+    otherwise; its feed-forward is a ``num_experts`` MoE (top
+    ``num_experts_per_tok``) where ``i % expert_layer_period ==
+    expert_layer_offset`` and a dense SiLU MLP otherwise
+    (transformers/models/jamba/configuration_jamba.py:216-227)."""
+
+    vocab_size: int = 65536
+    hidden_size: int = 4096
+    intermediate_size: int = 14336
+    num_hidden_layers: int = 32
+    num_attention_heads: int = 32
+    num_key_value_heads: int = 8
+    max_position_embeddings: int = 262144
+    rms_norm_eps: float = 1e-6
+    tie_word_embeddings: bool = False
+    hidden_act: str = "silu"
+    attn_layer_period: int = 8
+    attn_layer_offset: int = 4
+    expert_layer_period: int = 2
+    expert_layer_offset: int = 1
+    num_experts: int = 16
+    num_experts_per_tok: int = 2
+    mamba_d_state: int = 16
+    mamba_d_conv: int = 4
+    mamba_expand: int = 2
+    mamba_dt_rank: Any = "auto"
+    mamba_conv_bias: bool = True
+    mamba_proj_bias: bool = False
+    model_type: str = "jamba"
+
+    def __post_init__(self):
+        if self.mamba_dt_rank == "auto":
+            object.__setattr__(self, "mamba_dt_rank", -(-self.hidden_size // 16))
+        for name in ("attn", "expert"):
+            if getattr(self, f"{name}_layer_offset") >= getattr(self, f"{name}_layer_period"):
+                raise ValueError(f"{name}_layer_offset must be below {name}_layer_period")
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+    @property
+    def mamba_inner(self) -> int:
+        return self.mamba_expand * self.hidden_size
+
+    @property
+    def layers_block_type(self) -> tuple:
+        return tuple("attention" if i % self.attn_layer_period == self.attn_layer_offset
+                     else "mamba" for i in range(self.num_hidden_layers))
+
+    @property
+    def layers_num_experts(self) -> tuple:
+        return tuple(self.num_experts if i % self.expert_layer_period == self.expert_layer_offset
+                     else 1 for i in range(self.num_hidden_layers))
+
+    @property
+    def num_attention_layers(self) -> int:
+        return self.layers_block_type.count("attention")
+
+    @property
+    def num_mamba_layers(self) -> int:
+        return self.layers_block_type.count("mamba")
+
+    @classmethod
+    def from_hf_dict(cls, d: Mapping[str, Any]) -> "JambaConfig":
+        if d.get("sliding_window") is not None:
+            raise ValueError(f"text config sets sliding_window={d['sliding_window']!r}: the "
+                             "Jamba tower's attention has no window")
+        return cls(**_take(d, cls))
+
+
+def text_config_from_hf_dict(d: Mapping[str, Any]):
+    """The text tower's config by its ``model_type``: Jamba's, or LLaMA's."""
+    if d.get("model_type") == "jamba":
+        return JambaConfig.from_hf_dict(d)
+    return LlamaConfig.from_hf_dict(d)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,7 +215,7 @@ class ResamplerConfig:
 class VisualCLAConfig:
     """Composite config (reference: models/visualcla/configuration_visualcla.py:10-40)."""
 
-    text_config: LlamaConfig = dataclasses.field(default_factory=LlamaConfig)
+    text_config: Any = dataclasses.field(default_factory=LlamaConfig)  # or a JambaConfig
     vision_config: ViTConfig = dataclasses.field(default_factory=ViTConfig)
     use_visual_resampler: bool = True
     visual_resampler_config: ResamplerConfig = dataclasses.field(
@@ -138,7 +239,7 @@ class VisualCLAConfig:
 
     @classmethod
     def from_hf_dict(cls, d: Mapping[str, Any]) -> "VisualCLAConfig":
-        text = LlamaConfig.from_hf_dict(d.get("text_config") or {})
+        text = text_config_from_hf_dict(d.get("text_config") or {})
         vision = ViTConfig.from_hf_dict(d.get("vision_config") or {})
         res = ResamplerConfig.from_hf_dict(d.get("visual_resampler_config") or {})
         return cls(

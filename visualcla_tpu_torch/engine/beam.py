@@ -266,6 +266,7 @@ def beam_generate(
     decode (prompt + generated slots); the cache holds at least
     ``cache_slots`` slots (a multiple of 256).  ``stats``, if given, receives
     the number of device steps and the returned hypotheses' scores."""
+    model.text.require("beams")
     nb = num_beams
     state = _BeamState(model, cfg, input_ids, pixel_values, img_start_pos, nb,
                        max_new_tokens, max_seq_len, cache_slots, kv_quant)
@@ -608,6 +609,7 @@ def beam_generate_fused(
     of the same (nb, cache slots, max_new_tokens) on ``model``, one a model.
     ``stats``, if given, receives the steps run, the forwards run (gated
     ones included) and the graphs' capture counts."""
+    model.text.require("beams")
     _check_one_row(input_ids)
     nb, T = num_beams, max_new_tokens
     S = np.asarray(input_ids).shape[1]

@@ -257,6 +257,7 @@ class Engine:
         """Claim a workspace of this shape for one request: the cached one if
         it is free, else a private one, dropped with its graphs at
         ``release``.  The claim is atomic: two requests never share one."""
+        self.model.text.require("engine")
         key = (B, cache_len)
         with self._lock:
             ws = self._workspaces.get(key)

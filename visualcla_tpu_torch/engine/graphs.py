@@ -53,12 +53,15 @@ import torch
 
 from ..ops.cuda import flash_attention as _fa
 from ..ops.cuda import int4_matmul as _i4
+from ..ops.cuda import moe_int4 as _b7
 from ..ops.cuda import paged_attention as _pa
+from ..ops.cuda import selective_scan as _b8
 from ..parallel import tp as _tp
 from ..utils.profiling import span
 
 # the kernels' launch counters, and the mesh's collectives (parallel.tp.CALLS)
-KERNEL_COUNTERS = (_fa.LAUNCHES, _i4.LAUNCHES, _pa.LAUNCHES, _tp.CALLS)
+KERNEL_COUNTERS = (_fa.LAUNCHES, _i4.LAUNCHES, _pa.LAUNCHES, _b7.LAUNCHES, _b8.LAUNCHES,
+                   _tp.CALLS)
 # graphs a Graphs keeps a key space (the least recently replayed goes first)
 MAX_GRAPHS = {"decode": 16, "prefill": 32}
 _EAGER = [False]

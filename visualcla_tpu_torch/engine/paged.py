@@ -19,6 +19,22 @@ The same scheduling surface as the JAX package's (``server.Scheduler`` drives
   B2) and scatters the prompt's blocks into the pool; prompts are
   RIGHT-padded to a bucket, so the real tokens sit in slots 0..S-1.
 
+The engine reads its text tower through one surface (``Llama``'s and
+``Jamba``'s): ``init_kv_cache`` (an admission's scratch), ``pool_state``
+(what a row keeps beside its K/V), ``stateful`` and ``require(path)`` (a
+tower that does not serve a path raises).  A stateful tower (Jamba,
+``models/jamba.py``) keeps two kinds of state in one pool: the paged K/V of
+its attention layers alone, and per row and Mamba layer the conv and SSM
+states (``PagedState.conv`` / ``ssm``).  Its admissions chain the Mamba
+states through the scratch from chunk to chunk (the chunks' windows never
+overlap, for any tower: a state must not see a token twice; each chunk
+starts from a saved copy, chosen by the chunk's index mod 2, which is part
+of its key, so that a capture's warm-up run leaves the states as one run
+does), and the scatter stage writes the row's states into its slot (a
+device row index) beside its K/V blocks; the captured decode step updates
+the states of the running rows only (kernel B8's step form) and routes the
+others' tokens to no expert.  Speculation and meshes refuse such a tower.
+
 A row costs ceil(len / BS) blocks, so the pool admits requests by tokens,
 not by rows x max_seq_len.  ``step_n`` is the JAX package's ``_step_n_impl``
 on a captured CUDA graph (``engine/graphs.py``): ``n`` replays of one
@@ -70,9 +86,10 @@ from .server import _check_serving_sampling, knob_flags, knob_kwargs, sampling_k
 def init_pools(cfg, num_blocks: int, block_size: int, dtype=torch.bfloat16,
                kv_quant: str = "none", *, device=None, kv_heads: Optional[int] = None):
     """-> (k_pool, v_pool, k_scales | None, v_scales | None): zeroed pools
-    (L, NB, BS, Nkv*hd) in ``dtype``, or int8 with scales that start at one.
-    ``kv_heads``: the heads a rank holds over a mesh (default the config's)."""
-    L, hd = cfg.num_hidden_layers, cfg.head_dim
+    (L, NB, BS, Nkv*hd) in ``dtype``, or int8 with scales that start at one;
+    L the config's attention layers.  ``kv_heads``: the heads a rank holds
+    over a mesh (default the config's)."""
+    L, hd = cfg.num_attention_layers, cfg.head_dim
     Nkv = cfg.num_key_value_heads if kv_heads is None else kv_heads
     shape = (L, num_blocks, block_size, Nkv * hd)
     if kv_quant == "int8":
@@ -103,10 +120,14 @@ def pool_layer(layer: llama.DecoderLayer, h, cos, sin, state: "PagedState", atte
 
 
 def paged_decode_forward(text: llama.Llama, embeds, positions, state: "PagedState",
-                         tables, blk, off, lens):
+                         tables, blk, off, lens, run=None):
     """One decode step over the pool, kernel B4 in every layer: embeds
     (B, 1, H), rope positions (B,), ``lens`` (B,) INCLUDING the new token.
-    -> final-normed hidden (B, 1, H)."""
+    -> final-normed hidden (B, 1, H).  A stateful tower (Jamba) runs its own
+    step, which takes the pass's ``run`` vector too (``Jamba.paged_decode``:
+    B4 in its attention layers, B8's step form in its Mamba layers)."""
+    if text.stateful:
+        return text.paged_decode(embeds, state, tables, blk, off, lens, run, state.moe_tally)
     cos, sin = rope_table(positions[:, None], text.cfg.head_dim, text.cfg.rope_theta)
 
     def first(t):
@@ -145,6 +166,11 @@ class PagedState:
     mu: torch.Tensor  # (B,) f32 mirostat state
     knobs: torch.Tensor  # (B, 11) f32 per-request knobs (server.sampling_knobs)
     generator: torch.Generator
+    # a Jamba tower's: the rows' Mamba states (Lm, B, D, 3) / (Lm, B, D, N)
+    # f32, and the MoE counters (assignments (L_moe, E), experts hit ())
+    conv: Optional[torch.Tensor] = None
+    ssm: Optional[torch.Tensor] = None
+    moe_tally: Optional[tuple] = None
 
 
 @dataclasses.dataclass
@@ -185,6 +211,11 @@ class PagedServingEngine:
         #   many live rows (None: 2 at the int4 tier, else 4)
         spec_max_ngram: int = 3,
     ):
+        self.stateful = model.text.stateful
+        if spec_k > 0:
+            model.text.require("speculation")
+        if mesh is not None:
+            model.text.require("mesh")
         bind(model, mesh)
         self.mesh = mesh  # the pools hold the rank's kv heads; rows are not split
         self.model = model
@@ -247,6 +278,7 @@ class PagedServingEngine:
             mu=torch.full((B,), 2.0 * self.sampling.mirostat_tau, device=dev),
             knobs=torch.as_tensor(self._host_knobs, device=dev),
             generator=torch.Generator(device=dev).manual_seed(seed),
+            **model.text.pool_state(B, self.dtype, device=dev),
         )
         # the captured chunks' static inputs: the block tables and context
         # lengths (uploaded from the host's before a chunk, the lengths
@@ -269,6 +301,7 @@ class PagedServingEngine:
         self._tail_knobs = torch.zeros(11, dtype=torch.float32, device=dev)
         self._tail_ids = torch.zeros(1, max_seq_len, dtype=torch.int64, device=dev)
         self._chunked_busy = False
+        self._admit_row = torch.zeros(1, dtype=torch.int64, device=dev)  # the scatter's row
         # forward passes run on the device, gated ones included: each
         # launches B4 (decode) or B5 (speculative) once a layer, a tower
         # chunk (prefill_passes) B2; the live (ungated) decode passes, read
@@ -276,6 +309,15 @@ class PagedServingEngine:
         # from a graph
         self.counts = {"decode_passes": 0, "spec_passes": 0, "live_decode_passes": 0,
                        "prefill_passes": 0, "admit_stages": 0, "admit_replays": 0}
+        if self.stateful:
+            # Mamba states scattered by admissions (one a layer and row); the
+            # MoE counters as of the last decode chunk's read back: the
+            # assignments each (MoE layer, expert) got and the sum over MoE
+            # passes of the experts that got any (gated passes included: B7
+            # ran them)
+            self.counts.update(ssm_state_writes=0,
+                               moe_expert_tokens=tuple([0] * self._state.moe_tally[0].numel()),
+                               moe_experts_hit=0)
 
     def pool_bytes(self) -> int:
         """Device bytes of the K/V pools and their scales."""
@@ -370,8 +412,7 @@ class PagedServingEngine:
                 embeds=torch.zeros(1, L, H, dtype=self.dtype, device=dev),
                 positions=torch.zeros(1, L, dtype=torch.int64, device=dev),
                 mask=torch.zeros(1, L, dtype=torch.bool, device=dev),
-                scratch=llama.init_kv_cache(self.cfg.text_config, 1, L, self.dtype, device=dev,
-                                            kv_heads=self.model.text.kv_heads),
+                scratch=self.model.text.init_kv_cache(1, L, self.dtype, device=dev),
                 blocks=torch.zeros(L // self.BS, dtype=torch.int64, device=dev))
             if L not in self._hidden:
                 self._hidden[L] = torch.zeros(1, L, H, dtype=self.dtype, device=dev)
@@ -402,16 +443,20 @@ class PagedServingEngine:
         buf.mask.copy_(inp.mask.bool())
         buf.positions.copy_((inp.mask.cumsum(-1) - 1).clamp(min=0))
 
-    def _tower_stage(self, buf: _AdmitBuffers, c0: int, width: int) -> None:
+    def _tower_stage(self, buf: _AdmitBuffers, c0: int, width: int,
+                     parity: Optional[int] = None) -> None:
         """The text tower over slots [c0, c0 + width) into ``buf``'s scratch
-        cache; the hidden states into the bucket's static buffer."""
+        cache; the hidden states into the bucket's static buffer.  A Jamba
+        tower's chunk starts from saved state ``parity`` (``Jamba.forward``)."""
         L = buf.mask.shape[1]
         c1 = c0 + width
         # real slots before the chunk's end: a query at slot j sees the valid
         # kv slots <= j, exactly the one-shot prefill's set
         kv_valid = buf.mask & (torch.arange(L, device=buf.mask.device) < c1)[None]
+        kw = ({"tally": self._state.moe_tally, "chunk_parity": parity} if self.stateful
+              else {})
         hidden, _ = self.model.text(buf.embeds[:, c0:c1], buf.positions[:, c0:c1], buf.scratch,
-                                    kv_valid, c0)
+                                    kv_valid, c0, **kw)
         self._hidden[L][:, c0:c1].copy_(hidden)
         self.counts["prefill_passes"] += 1
 
@@ -435,6 +480,10 @@ class PagedServingEngine:
             s.v_scales.index_copy_(1, buf.blocks, vs)
         for pool, t in ((s.k_pool, kb), (s.v_pool, vb)):
             pool.index_copy_(1, buf.blocks, t.reshape(Lyr, nb, self.BS, Nkv * hd).to(pool.dtype))
+        if self.stateful:  # the row's Mamba states, at the last real token
+            s.conv.index_copy_(1, self._admit_row, buf.scratch["conv"])
+            s.ssm.index_copy_(1, self._admit_row, buf.scratch["ssm"])
+            self.counts["ssm_state_writes"] += s.ssm.shape[0]
 
     def _tail_stage(self, L: int, flags: dict) -> None:
         """Sample the first token from the last REAL prompt position's hidden
@@ -522,7 +571,7 @@ class PagedServingEngine:
         blk, off, lens_attn = self.decode_inputs(lens, run, self._tables_dev)
         text = self.model.text
         hidden = paged_decode_forward(text, text.embed(s.last_token[:, None]), s.positions,
-                                      s, self._tables_dev, blk, off, lens_attn)
+                                      s, self._tables_dev, blk, off, lens_attn, run=run)
         self._finish_step(run, lens, text.logits(hidden)[:, 0], flags)
         self._live[0] += go.long()
         self.counts["decode_passes"] += 1
@@ -573,9 +622,15 @@ class PagedServingEngine:
                             counters=[self.counts], replays=n)
         with span("decode.readback"):
             s = self._state
+            moe = [s.moe_tally[0].reshape(-1), s.moe_tally[1][None]] if self.stateful else []
             ctl = torch.cat([self._lens_dev, s.gen_len, s.finished.long(),
-                             self._live]).cpu().numpy()
+                             self._live, *moe]).cpu().numpy()
         B = self.B
+        if self.stateful:
+            n = s.moe_tally[0].numel()
+            self.counts["moe_expert_tokens"] = tuple(int(v) for v in ctl[3 * B + 2:3 * B + 2 + n])
+            self.counts["moe_experts_hit"] = int(ctl[-1])
+            ctl = ctl[:3 * B + 2]
         self.ctx_len = ctl[:B].astype(np.int32)
         self._host_gen_len = ctl[B:2 * B].copy()
         self._host_finished = ctl[2 * B:3 * B].astype(bool)
@@ -749,12 +804,13 @@ class PendingPrefill:
         BS = eng.BS
         chunk = L if chunk is None else max(BS, (int(chunk) // BS) * BS)
         chunk = min(chunk, L)  # a window must fit the padded bucket
-        # chunk START slots: every window is ``chunk`` wide, and the last one
-        # shifts LEFT to end at the bucket's edge; it re-forwards slots done
-        # already, whose recomputed K/V are the same values, and every query
-        # still sees exactly the kv slots up to its own
+        # the windows: ``chunk`` wide from slot 0, never overlapping (a Mamba
+        # state must see each token once), the last one ending at the
+        # bucket's edge where it must, narrower; every query sees exactly the
+        # kv slots up to its own
         n_chunks = -(-S // chunk)
-        self.starts = [min(i * chunk, L - chunk) for i in range(n_chunks)]
+        self.starts = [i * chunk for i in range(n_chunks)]
+        self.widths = [min(chunk, L - c0) for c0 in self.starts]
         self.n_chunks = n_chunks
         self.S, self.L, self.chunk = S, L, chunk
         self.blocks = np.asarray(blocks[:nb_prompt], np.int64)
@@ -790,15 +846,18 @@ class PendingPrefill:
                                lambda: eng._encode_stage(buf, inp))
             self.encoded = True
             return False
-        c0 = self.starts[self.i]
+        c0, width = self.starts[self.i], self.widths[self.i]
+        parity = self.i % 2 if eng.stateful else None
         with span("admit.tower"):
-            eng._run_stage(("tower", owner, L, c0, self.chunk),
-                           lambda: eng._tower_stage(buf, c0, self.chunk))
+            eng._run_stage(("tower", owner, L, c0, width) + (() if parity is None else (parity,)),
+                           lambda: eng._tower_stage(buf, c0, width, parity))
         self.i += 1
         if self.i < self.n_chunks:
             return False
         with span("admit.scatter"):
             buf.blocks.copy_(torch.from_numpy(self.blocks))
+            if eng.stateful:
+                eng._admit_row.fill_(self.row)
             eng._run_stage(("scatter", owner, L), lambda: eng._scatter_stage(buf))
         with span("admit.first_token"):
             flags = knob_flags(self.knobs[None])

@@ -158,6 +158,7 @@ class ServingEngine:
         seed: int = 0,
         mesh=None,
     ):
+        model.text.require("contiguous_pool")
         bind(model, mesh)
         self.mesh = mesh
         self.model = model

@@ -239,6 +239,7 @@ class SpeculativeDecoder:
     def __init__(self, engine: Engine, spec_k: int = 8, max_ngram: int = 3):
         if spec_k < 1:
             raise ValueError("spec_k must be >= 1")
+        engine.model.text.require("speculation")
         self.engine = engine
         self.spec_k = spec_k
         self.max_ngram = max_ngram

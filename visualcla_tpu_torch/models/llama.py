@@ -202,6 +202,22 @@ class Llama(nn.Module):
         self.tp = None
         self.embed_local = False
 
+    # the tower keeps nothing per row beside its K/V (``Jamba`` keeps its
+    # Mamba states); every path of the port serves it
+    stateful = False
+
+    def require(self, path: str) -> None:
+        """Every path serves a LLaMA tower (``Jamba.require`` refuses some)."""
+
+    def init_kv_cache(self, batch: int, max_len: int, dtype, *, device=None) -> dict:
+        """``init_kv_cache`` of this tower's layers and kv heads."""
+        return init_kv_cache(self.cfg, batch, max_len, dtype, device=device,
+                             kv_heads=self.kv_heads)
+
+    def pool_state(self, rows: int, dtype, *, device=None) -> dict:
+        """What a paged pool keeps per row beside the K/V: nothing."""
+        return {}
+
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
         """(B, S) ids -> (B, S, H) in the model's dtype (over a mesh, the
         rank's columns gathered)."""

@@ -15,11 +15,12 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..core.config import VisualCLAConfig
+from ..core.config import JambaConfig, VisualCLAConfig
 
 from ..ops.linear import Int8Table, Linear, quantize_linear
 from ..parallel import tp
 from .clip_vit import CLIPVisionTower
+from .jamba import Jamba, quantize_jamba_
 from .llama import Llama
 from .resampler import Resampler
 
@@ -44,12 +45,14 @@ class VisualCLAModel(VisionTowers):
     Matrices start uninitialised: load a checkpoint or call ``init_random_``.
     ``quant`` ("none", "int8", "int4") is the text tower's weight tier and
     ``head_quant`` that of its embedding and LM head (``Llama``); the ViT,
-    resampler and projection stay dense, as in the JAX package."""
+    resampler and projection stay dense, as in the JAX package.  The text
+    tower is ``Llama``, or ``Jamba`` for a ``JambaConfig``."""
 
     def __init__(self, cfg: VisualCLAConfig, *, device=None, dtype=None, quant: str = "none",
                  head_quant: Optional[str] = None):
         super().__init__(cfg, device=device, dtype=dtype)
-        self.text = Llama(cfg.text_config, quant=quant, head_quant=head_quant, device=device,
+        tower = Jamba if isinstance(cfg.text_config, JambaConfig) else Llama
+        self.text = tower(cfg.text_config, quant=quant, head_quant=head_quant, device=device,
                           dtype=dtype)
 
 
@@ -61,11 +64,18 @@ def quantize_text_tower_(model: VisualCLAModel, bits: int, head: bool = True) ->
     table to per-row int8.  ``head=False`` keeps the embedding table and the
     LM head in float (the QLoRA tree: they train).  Each dense original is
     dropped as soon as its quantized form exists, so the peak is one weight
-    above the result."""
+    above the result.  A Jamba tower takes ``bits=4`` alone
+    (``jamba.quantize_jamba_``: its experts and Mamba's in_proj / out_proj
+    too)."""
     quant = {8: "int8", 4: "int4"}.get(bits)
     if quant is None:
         raise ValueError(f"bits must be 8 or 4, got {bits}")
     text = model.text
+    if isinstance(text, Jamba):
+        if bits != 4:
+            raise NotImplementedError("the Jamba tower is served at the int4 tier alone")
+        quantize_jamba_(text, head=head)
+        return model
     if not isinstance(text.layers[0].q_proj, Linear):
         raise ValueError("the text tower is quantized already")
     for layer in text.layers:

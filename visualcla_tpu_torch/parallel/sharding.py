@@ -389,6 +389,7 @@ def shard_params(model, mesh, fsdp: bool = False):
     (``parallel.fsdp.shard_layers``).  -> ``model``."""
     from . import tp
 
+    model.text.require("mesh")
     specs = state_specs(model, mesh)
     slice_tensors(model, specs, mesh)
     tp.attach(model, mesh, specs)

@@ -401,6 +401,7 @@ def make_train_step(model: nn.Module, cfg: VisualCLAConfig, optimizer: Optimizer
     masked gradients, before the clip).  Over a mesh (the model's, or
     ``pipeline_mesh`` with ``n_micro`` microbatches) every rank passes the
     same global batch."""
+    model.text.require("training")
     paths = param_paths(model)
     mesh = _step_mesh(model, pipeline_mesh)
 
@@ -469,6 +470,7 @@ def make_train_step_subset(model: nn.Module, cfg: VisualCLAConfig, optimizer: Op
     it alone, and the frozen partition (an int8 or int4 base included)
     never requires grad.  ``train_step(state, frozen, batch) -> (state,
     metrics)``; a mesh as ``make_train_step``'s."""
+    model.text.require("training")
     mesh = _step_mesh(model, pipeline_mesh)
 
     def train_step(state: TrainState, frozen: Params, batch):
