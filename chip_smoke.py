@@ -121,10 +121,15 @@ Phases, one line of findings each:
   8. serve int4 — the int4 tier with the int8 KV pool: 3 requests, exact
                launch counts of B4's int8 form, finite decode logits; then 2
                greedy requests on a speculative int8 pool (B5's int8 form);
-               the device time of one decode step of the default 8-row pool,
-               B3's forms as the wrapper and as the parent commit pick them;
-               3 requests on a contiguous pool at this tier, B3's launches
-               by form exactly;
+               the device time of one decode step of a 32-row pool (the
+               benchmark's), B3's forms as the wrapper and as the parent
+               commit pick them, and B3's launches by form in that step
+               exactly (7 x 32 + 1 of the decode form); 3 requests on a
+               contiguous pool at this tier, B3's launches by form exactly;
+               B3 over one 32-row pass of Mistral-7B's shapes (32 layers' own
+               carriers and the head) in both choices, every call within
+               B3_TOL of the plain version, beside its bound and the plain
+               version's time, and the same pass at 1 and 16 tokens;
   9. reference layout — phase 4's model made anew (the same seed: the same
                bits), exported with ``export_reference_merged`` in bfloat16
                into a temporary directory with the tokenizer; loaded back
@@ -322,7 +327,7 @@ from visualcla_tpu_torch.ops.cuda import int4_matmul as i4
 from visualcla_tpu_torch.ops.cuda import paged_attention as pa
 from visualcla_tpu_torch.ops.cuda import moe_int4 as b7
 from visualcla_tpu_torch.ops.cuda import selective_scan as b8
-from visualcla_tpu_torch.ops.cuda.bench_int4 import CROSSOVER_TOKENS
+from visualcla_tpu_torch.ops.cuda.bench_int4 import CROSSOVER_TOKENS, pass_b3
 from visualcla_tpu_torch.ops.attention import attention_mesh_scope, cached_attention
 from visualcla_tpu_torch.ops.quantization import dequantize_grouped, quantize_grouped, quantize_kv
 from visualcla_tpu_torch.parallel import distributed
@@ -386,10 +391,12 @@ LAYER_SHAPES = {"q_proj": (4096, 4096), "k_proj": (4096, 4096), "v_proj": (4096,
                 "up_proj": (4096, 11008), "down_proj": (11008, 4096)}
 HEAD_SHAPE = (4096, 49958)
 # the parent commit's choice of B3's form, timed beside ``i4.decode_form``'s
-# on the int4 decode and speculative steps (both on this tree's kernels): its
-# cost model, fitted to its two-launch decode form of 1-8-token slices
-PARENT_DECODE_COLUMNS_PER_SM = 83
-PARENT_DECODE_SLICE_COST = {1: 0.32, 2: 0.45, 4: 0.64, 8: 1.0}
+# on the int4 pool's pass (both on this tree's kernels): its cost model,
+# fitted to its decode form of 16-token slices (each a fixed cost plus the
+# carrier's bytes at its rate) against the prefill form's waves
+PARENT_DECODE_FIXED_US = 16.0
+PARENT_DECODE_BYTES_PER_US = 1.8e6
+PASS_ROWS = 32  # the benchmark's paged pool: B3 at T = 32 in every decode pass
 
 
 def device_ms(fn, calls: int = 10, replays: int = 5) -> float:
@@ -1215,18 +1222,17 @@ def _b3_pass_counts(T: int, layers: int, head_tokens: int = None) -> dict:
 
 
 def _parent_decode_form(T: int, in_dim: int, out: int, sms: int) -> bool:
-    """The parent commit's ``decode_form`` (in_dim cancelled out of it): the
-    decode form while its 8-token slices cost less than the prefill form's
-    waves at T."""
-    tt = 1
-    while tt < min(T, 8):
-        tt *= 2
-    slices = -(-T // tt) * PARENT_DECODE_SLICE_COST[tt]
-    rows = i4.PREFILL_TILES[i4.prefill_tiling(T, out, sms)]
-    waves = -(-(-(-out // 128) * -(-T // rows)) // sms)
+    """The parent commit's ``decode_form``: the decode form while its
+    16-token slices, each re-reading the carrier, cost less than the prefill
+    form's waves at 64 tokens."""
+    slices = -(-T // min(T, 16))
+    decode = slices * (PARENT_DECODE_FIXED_US + in_dim * out / 2 / PARENT_DECODE_BYTES_PER_US)
+    rows = i4.PREFILL_TILES[i4.prefill_tiling(64, out, sms)]
+    prefill = -(-(-(-out // 128) * -(-64 // rows)) // sms) * in_dim * i4._PREFILL_US_PER_IN
     if out % 16:
-        waves *= i4._UNALIGNED_PREFILL_COST
-    return slices * out < PARENT_DECODE_COLUMNS_PER_SM * sms * waves
+        decode *= i4._UNALIGNED_DECODE_COST
+        prefill *= i4._UNALIGNED_PREFILL_COST
+    return decode < prefill
 
 
 @contextlib.contextmanager
@@ -2642,7 +2648,6 @@ GREEDY_OVERRIDES = {"do_sample": False, "repetition_penalty": 1.0, "no_repeat_ng
 # engine-wide default keeps top-k 40, which makes a row ineligible)
 SPEC_GREEDY = {**GREEDY_OVERRIDES, "top_k": 0}
 SERVE_NEW_TOKENS = 32
-POOL_ROWS = 8  # PagedServingEngine's default pool_size
 SERVE_KW = dict(pool_size=4, block_size=64, num_blocks=64, max_new_tokens_cap=64,
                 max_seq_len=2048)
 
@@ -3344,6 +3349,7 @@ def phase_serve_int4(smi: str, cfg, tokenizer) -> dict:
                            f"{spec_counts}")
     step_ms = _int4_pool_step_device_ms(model, cfg, tokenizer, reqs)
     cont = _contiguous_int4(model, cfg, tokenizer, reqs)
+    b3_pass = _b3_pass_rows(step_ms[2])
     print(f"[8 serve int4] VisualCLA-7B int4 text tower (quantized on the card) with the int8 "
           f"KV pool, built in {setup_s:.1f} s; 3 concurrent greedy requests x "
           f"{SERVE_NEW_TOKENS} new complete ({[len(o) for o in outs]} tokens); "
@@ -3354,15 +3360,52 @@ def phase_serve_int4(smi: str, cfg, tokenizer) -> dict:
           f"({[len(o) for o in spec_outs]} tokens), {spec.spec_steps} speculative iterations, "
           f"{spec.decode_steps} plain steps, {spec_prefills} prefills and chunks, launches "
           f"{spec_counts}; {_pool_line(busy, f'the 3 requests again, rows driven directly through step_n(8)')}; "
-          f"a pool of the default {POOL_ROWS} rows, every row decoding (eager): device "
+          f"a pool of {PASS_ROWS} rows, every row decoding (eager): device "
           f"{step_ms[0]:.2f} ms a decode step ({step_ms[1]:.2f} with the parent's form choice, "
           f"its cost model on this tree's kernels; torch.profiler, 4 steps "
-          f"each); the contiguous pool (ServingEngine, 4 rows, bf16 cache) at this tier: 3 "
-          f"greedy requests ({cont['tokens']} tokens) in {cont['prefill_passes']} prefill and "
+          f"each; B3's launches in a step {step_ms[2]} exactly); {b3_pass['line']}; the "
+          f"contiguous pool (ServingEngine, 4 rows, bf16 cache) at this tier: 3 greedy requests ({cont['tokens']} tokens) in {cont['prefill_passes']} prefill and "
           f"{cont['decode_passes']} decode passes, launches {cont['launches']} exactly (B3's "
           f"decode form at T = 4 rows, its prefill form at the bucket); card {smi}", flush=True)
     return {"launches": counts, "pool_bytes": pool_int8, "spec_launches": spec_counts,
-            "pool_step_device_ms": step_ms, "busy": busy, "contiguous": cont}
+            "pool_step_device_ms": step_ms[:2], "busy": busy, "contiguous": cont,
+            "b3_pass": b3_pass["row"]}
+
+
+def _b3_pass_rows(pool_launches: dict) -> dict:
+    """B3 in one decode pass of the benchmark's 32-row pool over Mistral-7B's
+    text tower (32 layers' own carriers, 7 products a layer and the head, T =
+    32), in the form the wrapper picks and in the parent's choice (on this
+    tree's kernels), beside its bound and the plain version; every call
+    within B3_TOL of the plain version (raises otherwise).  Also B3 at one
+    and 16 tokens.  ``pool_launches``: B3's launches by form in one step of
+    the 32-row pool (``_int4_pool_step_device_ms``), the row's launches."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    r = pass_b3(gen, "mistral", PASS_ROWS)
+    with _parent_b3_forms():
+        parent = pass_b3(gen, "mistral", PASS_ROWS, r["weights"])
+    few = {T: pass_b3(gen, "mistral", T, r["weights"]) for T in (1, 16)}
+    for what, e in (("the wrapper's forms", r["err"]), ("the parent's choice", parent["err"]),
+                    *((f"T = {T}", f["err"]) for T, f in few.items())):
+        if not e <= B3_TOL:
+            raise RuntimeError(f"B3 over a Mistral-7B pass ({what}) is {e:.2e} of max|ref| + "
+                               f"|ref| off the plain version (tol {B3_TOL})")
+    line = (f"B3 in a {PASS_ROWS}-row pass on Mistral-7B's shapes (32 layers + head, "
+            f"{sum(r['launches'].values())} calls of its forms {r['launches']}, every call "
+            f"within {max(r['err'], parent['err']):.1e} of max|ref| + |ref| of the plain "
+            f"version): {r['ms'] * 1e3:.1f} us ({parent['ms'] * 1e3:.1f} us in the parent's "
+            f"choice, its forms {parent['launches']}), bound {r['bound_ms'] * 1e3:.1f} us "
+            f"({100 * r['bound_ms'] / r['ms']:.1f} % of it), plain version "
+            f"{r['plain_ms'] * 1e3:.0f} us; at T = 1 {few[1]['ms'] * 1e3:.1f} us, T = 16 "
+            f"{few[16]['ms'] * 1e3:.1f} us; products: "
+            + ", ".join(f"{k} {v * 1e3:.1f}us" for k, v in r["products"].items()))
+    row = {"card_us": r["ms"] * 1e3, "parent_choice_us": parent["ms"] * 1e3,
+           "bound_us": r["bound_ms"] * 1e3, "plain_us": r["plain_ms"] * 1e3,
+           "launches": pool_launches, "err": max(r["err"], parent["err"]),
+           "t1_us": few[1]["ms"] * 1e3, "t16_us": few[16]["ms"] * 1e3}
+    del r, parent, few
+    torch.cuda.empty_cache()
+    return {"line": line, "row": row}
 
 
 def _contiguous_int4(model, cfg, tokenizer, reqs) -> dict:
@@ -3402,20 +3445,30 @@ def _contiguous_int4(model, cfg, tokenizer, reqs) -> dict:
 
 def _int4_pool_step_device_ms(model, cfg, tokenizer, reqs) -> tuple:
     """Device time of one decode step of an int4 + int8-pool
-    ``PagedServingEngine`` of the default ``POOL_ROWS`` rows, every row
-    decoding (B3 at T = POOL_ROWS): (the wrapper's B3 forms, the parent's)."""
+    ``PagedServingEngine`` of the benchmark's ``PASS_ROWS`` rows, every row
+    decoding (B3 at T = PASS_ROWS): (the wrapper's B3 forms, the parent's,
+    B3's launches by form in one step, exactly 7 a layer + the head of the
+    decode form)."""
     engine = paged_mod.PagedServingEngine(
         model, cfg, eos_token_id=tokenizer.eos_token_id, pad_token_id=tokenizer.pad_token_id,
         sampling=SamplingConfig.greedy(SERVE_NEW_TOKENS), kv_quant="int8",
-        **{**SERVE_KW, "pool_size": POOL_ROWS, "num_blocks": 96})  # 8 blocks a prompt
-    for row in range(POOL_ROWS):
+        **{**SERVE_KW, "pool_size": PASS_ROWS, "num_blocks": 9 * PASS_ROWS + 1})
+    for row in range(PASS_ROWS):  # 8 blocks a prompt
         engine.prefill_row(row, *reqs[row % len(reqs)], 64)
     with graphs_mod.eager():  # the profiler times the eager step's kernels
+        i4.reset_launch_counts()
+        engine.step()
+        torch.cuda.synchronize()
+        launches = dict(i4.LAUNCHES)
         ours = _profiled_device_ms(engine.step)
         with _parent_b3_forms():
             parent = _profiled_device_ms(engine.step)
-    engine.release_rows(range(POOL_ROWS))
-    return ours, parent
+    engine.release_rows(range(PASS_ROWS))
+    L = cfg.text_config.num_hidden_layers
+    want = {"int4_matmul_decode": 7 * L + 1, "int4_matmul_prefill": 0}
+    if launches != want:
+        raise RuntimeError(f"B3 in a {PASS_ROWS}-row pool's step launched {launches}, not {want}")
+    return ours, parent, launches
 
 
 def _private_kb() -> int:
@@ -5378,6 +5431,9 @@ def main() -> int:
         source, replaces = KERNELS[base]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         **r})
+    # phase 8: B3 over a 32-row pass of Mistral-7B's shapes
+    kernels.append({"name": "int4_matmul_pass32", "route": "cuda", "source": INT4_SOURCE,
+                    "replaces": KERNELS["int4_matmul_decode"][1], **serve4["b3_pass"]})
     kernels += jamba["rows"]  # phase 15: B7 and B8, launches from the Jamba pool's run
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -216,7 +216,7 @@ def test_kv8_kernels_match_plain(dev, dtype, kind, N, Nkv):
     assert bool((out[-1] == 0).all()) if decode else bool((out[-1, 0] == 0).all())
 
 
-@pytest.mark.parametrize("T", [1, 3, 8, 16, 64, 130])
+@pytest.mark.parametrize("T", [1, 3, 8, 16, 17, 24, 32, 48, 64, 130])
 @pytest.mark.parametrize("in_dim,out,gs", [(512, 384, 128), (384, 250, 128), (256, 200, 64),
                                            (256, 66, 32), (96, 40, 16), (256, 49, 128)])
 def test_int4_kernel_matches_plain(dev, T, in_dim, out, gs):
@@ -251,6 +251,66 @@ def test_int4_kernel_forms_agree_and_stacked_layer(dev):
     assert dec.dtype == torch.float32
     for y in (dec, pre):
         assert bool(((y - ref).abs() <= 1e-2 * ref.abs().max() + 1e-2 * ref.abs()).all())
+
+
+@pytest.mark.parametrize("in_dim,out", [(4096, 4096), (4096, 1024), (14336, 4096), (4096, 32768),
+                                        (384, 250)])
+def test_int4_decode_row_is_its_token_alone(dev, in_dim, out):
+    """Row i of a 32-token call of the decode form equals the same token
+    alone (T = 1) and in a 16- and a 64-token call, bit for bit: the splits
+    and the sum order do not depend on the token count."""
+    g = torch.Generator(device=dev).manual_seed(in_dim + out)
+    w = (torch.randn(in_dim, out, generator=g, device=dev) * 0.02).to(torch.bfloat16)
+    wq = quantize_grouped(w, group=128)
+    x = torch.randn(64, in_dim, generator=g, device=dev).to(torch.bfloat16)
+    calls = {T: i4._launch(x[:T], wq["q"], wq["scale"], torch.float32, form="decode")
+             for T in (16, 32, 64)}
+    for i in (0, 5, 16, 31):
+        alone = i4._launch(x[i:i + 1], wq["q"], wq["scale"], torch.float32, form="decode")
+        assert torch.equal(calls[32][i], alone[0]), i
+        assert torch.equal(calls[64][i], alone[0]), i
+        if i < 16:
+            assert torch.equal(calls[16][i], alone[0]), i
+
+
+def test_int4_launches_of_a_32_row_pool_pass(dev):
+    """A 2-layer tower at Mistral-7B's widths (int4, int8 K/V) in a 32-row
+    paged pool: one decode pass launches the decode form for each layer's 7
+    products and the head (T = 32 rows, the free and gated ones included),
+    and no prefill form; an admission at the 256-token bucket launches the
+    prefill form for the layers' products and the decode form for the head
+    (one token)."""
+    import dataclasses
+
+    from visualcla_tpu_torch.core.config import tiny_visualcla_config
+    from visualcla_tpu_torch.engine import graphs
+    from visualcla_tpu_torch.engine.paged import PagedServingEngine
+    from visualcla_tpu_torch.engine.sampling import SamplingConfig
+    from visualcla_tpu_torch.models.visualcla import (VisualCLAModel, init_random_,
+                                                      quantize_text_tower_)
+
+    cfg = tiny_visualcla_config(vocab_size=32768, hidden_size=4096)
+    cfg = dataclasses.replace(cfg, text_config=dataclasses.replace(
+        cfg.text_config, intermediate_size=14336, num_attention_heads=32, num_key_value_heads=8,
+        max_position_embeddings=512))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = init_random_(VisualCLAModel(cfg, device=dev, dtype=torch.bfloat16), gen)
+    quantize_text_tower_(model, 4)
+    eng = PagedServingEngine(model, cfg, eos_token_id=2, pad_token_id=0, pool_size=32,
+                             block_size=64, num_blocks=64, max_seq_len=512,
+                             max_new_tokens_cap=16, prompt_buckets=(256, 512),
+                             sampling=SamplingConfig.greedy(16), kv_quant="int8", seed=5)
+    L = cfg.text_config.num_hidden_layers
+    prompt = torch.randint(3, 32768, (200,), generator=torch.Generator().manual_seed(1)).numpy()
+    with graphs.eager():
+        i4.reset_launch_counts()
+        passes = eng.counts["prefill_passes"]
+        eng.prefill_row(0, prompt, None, None, 8)
+        assert eng.counts["prefill_passes"] == passes + 1
+        assert i4.LAUNCHES == {"int4_matmul_decode": 1, "int4_matmul_prefill": 7 * L}
+        i4.reset_launch_counts()
+        eng.step_n(1)
+        assert i4.LAUNCHES == {"int4_matmul_decode": 7 * L + 1, "int4_matmul_prefill": 0}
 
 
 def _int4_case(dev, in_dim, out, gs, T, seed):
@@ -719,7 +779,9 @@ def test_paged_append_kernel_replays_in_a_cuda_graph(dev, kv_int8):
 
 B3_SHAPES = {"7b_qkvo": (4096, 4096), "7b_gate_up": (4096, 11008), "7b_down": (11008, 4096),
              "7b_head": (4096, 49958), "13b_qkvo": (5120, 5120), "13b_gate_up": (5120, 13824),
-             "13b_down": (13824, 5120)}
+             "13b_down": (13824, 5120), "mistral_kv": (4096, 1024),
+             "mistral_gate_up": (4096, 14336), "mistral_down": (14336, 4096),
+             "mistral_head": (4096, 32768)}
 
 
 def _b3_decode_check(x, q, s, out_dtype):
@@ -736,11 +798,12 @@ def _b3_decode_check(x, q, s, out_dtype):
     return y
 
 
-@pytest.mark.parametrize("T", [1, 2, 8, 9, 16])
+@pytest.mark.parametrize("T", [1, 2, 8, 9, 16, 32, 64])
 @pytest.mark.parametrize("shape", list(B3_SHAPES))
 def test_int4_decode_7b_13b_shapes(dev, shape, T):
-    """The 7B and 13B text towers' shapes (gs 128), the head written in f32;
-    each token's row equals, bit for bit, the same token served alone."""
+    """The 7B, 13B and Mistral-7B text towers' shapes (gs 128; Mistral's at
+    the paged pool's 32-row pass), the head written in f32; each token's
+    row equals, bit for bit, the same token served alone."""
     in_dim, out = B3_SHAPES[shape]
     out_dtype = torch.float32 if shape.endswith("head") else torch.bfloat16
     x, q, s = _int4_case(dev, in_dim, out, 128, T, seed=T + out)
@@ -750,12 +813,17 @@ def test_int4_decode_7b_13b_shapes(dev, shape, T):
                            y[t:t + 1]), t
 
 
-@pytest.mark.parametrize("T", [1, 9, 16, 40])
+@pytest.mark.parametrize("T", [1, 9, 16, 40, 65])
 @pytest.mark.parametrize("in_dim,out,gs", [(384, 250, 128), (512, 66, 64), (256, 49, 128),
-                                           (768, 200, 192), (1536, 384, 64), (96, 40, 16)],
-                         ids=["ragged", "gs64_ragged", "odd_out", "gs192", "gs64", "gs16"])
+                                           (768, 200, 192), (1536, 384, 64), (96, 40, 16),
+                                           (96, 40, 6), (160, 66, 10), (288, 250, 18),
+                                           (192, 48, 12)],
+                         ids=["ragged", "gs64_ragged", "odd_out", "gs192", "gs64", "gs16", "gs6",
+                              "gs10", "gs18", "gs12"])
 def test_int4_decode_ragged_and_group_sizes(dev, in_dim, out, gs, T):
     """Widths not a multiple of 16 (rows copied from the 16-byte boundary
-    below them), odd widths, gs 16/64/128/192, several 16-token tiles."""
+    below them), odd widths, gs 16/64/128/192, gs whose half is not a
+    multiple of 8 (x copied element by element; 6, 10 and 18 put a group's
+    high rows off 4 bytes), one to three token tiles."""
     for out_dtype in (torch.bfloat16, torch.float32):
         _b3_decode_check(*_int4_case(dev, in_dim, out, gs, T, seed=T + out + gs), out_dtype)

@@ -23,8 +23,8 @@ versions' arithmetic is held here in plain PyTorch:
   Pallas B4 in interpret mode; f32 pools 1e-5, bf16 and int8 pools one bf16
   step (2e-2).
 - B3's decode form: each group's dot over the exact nibbles in fp32, times
-  its scale, the groups summed in the kernel's fixed order (a warp's groups
-  in turn, the warps in order, the splits in order), held against
+  its scale, the groups summed in the kernel's fixed order (a split's groups
+  in turn, the splits in order), held against
   ``int4_matmul_ref`` and the JAX ``int4_matmul`` (interpret mode) within
   chip_smoke.py's B3 tolerance; the nibble-to-bf16 trick the kernel uses is
   exact; the splits depend on the weight's shape alone.
@@ -200,11 +200,19 @@ def test_int4_form_changes_once_from_decode_to_prefill(in_dim, out, sms):
 @pytest.mark.parametrize("T,in_dim,out,decode", [
     (8, 4096, 4096, True), (16, 4096, 4096, True), (25, 4096, 4096, True),  # q/k/v/o
     (4, 4096, 11008, True), (8, 4096, 11008, True), (9, 4096, 11008, True),  # gate/up
-    (8, 4096, 49958, True), (9, 4096, 49958, True)])  # the head
+    (8, 4096, 49958, True), (9, 4096, 49958, True),  # the head
+    # the 32-row pool's pass: Mistral-7B's q/o, k/v, gate/up, down, head
+    (32, 4096, 4096, True), (32, 4096, 1024, True), (32, 4096, 14336, True),
+    (32, 14336, 4096, True), (32, 4096, 32768, True),
+    # Jamba2-Mini's: Mamba's in_proj and out_proj, the head (the rest as Mistral's)
+    (32, 4096, 16384, True), (32, 8192, 4096, True), (32, 4096, 65536, True),
+    # an admission's 256-token chunk stays on the prefill form
+    (256, 4096, 4096, False), (256, 4096, 14336, False), (256, 14336, 4096, False)])
 def test_int4_form_at_the_pool_steps_of_the_7b_shapes(T, in_dim, out, decode):
     """The form an H100 runs faster (bench_int4.py's sweep, PERF.md §6) at a
-    default pool's decode step (8 rows), a speculative chunk (9) and
-    speculative pool steps (up to 25)."""
+    default pool's decode step (8 rows), a speculative chunk (9), speculative
+    pool steps (up to 25), the 32-row pool's decode pass and an admission's
+    256-token chunk."""
     assert i4.decode_form(T, in_dim, out, 132) == decode
 
 
@@ -360,24 +368,22 @@ B3_TOL = 1e-2  # chip_smoke.py's: |err| <= B3_TOL * max|ref| + B3_TOL * |ref|
 
 def int4_decode_emulation(x, q, scale, *, sms=132):
     """B3's decode form in fp32 on bf16 x: each group's dot over its exact
-    nibbles, times the group's scale; warp w of a column slice of split s
-    adds its groups s * gps + w, + 4, ... in turn, the block adds the slice's
-    4 warps in order, the splits are added in order (``i4.decode_splits``)."""
+    nibbles in fp32, times the group's scale and added to its split's total
+    in one rounding (the kernel's fma), the groups of a split in order; the
+    splits' totals added in split order (``i4.decode_splits``).  The same
+    order at every token count."""
     G, gsh, out = q.shape
     T = x.shape[0]
     lo, hi = unpack_s4_halves(q)
     xg = x.float().reshape(T, G, 2 * gsh).transpose(0, 1)  # (G, T, gs)
-    dots = (xg[..., :gsh] @ lo.float() + xg[..., gsh:] @ hi.float()) * scale[:, None, :]
+    dots = xg[..., :gsh] @ lo.float() + xg[..., gsh:] @ hi.float()  # (G, T, out) fp32
     splits, gps = i4.decode_splits(G, gsh, out, sms)
     y = torch.zeros(T, out)
     for s in range(splits):
-        block = torch.zeros(T, out)
-        for w in range(i4._DECODE_SLICE_WARPS):
-            total = torch.zeros(T, out)
-            for g in range(s * gps + w, min(G, (s + 1) * gps), i4._DECODE_SLICE_WARPS):
-                total = total + dots[g]
-            block = block + total
-        y = y + block
+        total = torch.zeros(T, out)
+        for g in range(s * gps, min(G, (s + 1) * gps)):
+            total = (total.double() + dots[g].double() * scale[g].double()).float()
+        y = y + total
     return y
 
 
@@ -385,7 +391,7 @@ def _b3_tol(ref):
     return B3_TOL * ref.abs().max() + B3_TOL * ref.abs()
 
 
-@pytest.mark.parametrize("T", [1, 8, 16])
+@pytest.mark.parametrize("T", [1, 8, 16, 32, 64])
 @pytest.mark.parametrize("in_dim,out,gs", [(1024, 384, 128), (384, 250, 128), (1536, 200, 64),
                                            (768, 96, 192)])
 def test_int4_decode_emulation_matches_plain_and_pallas(in_dim, out, gs, T):
@@ -421,10 +427,11 @@ def test_int4_decode_nibble_pairs_are_exact():
 @pytest.mark.parametrize("sms", [132, 114])
 def test_int4_decode_splits_cover_the_groups(in_dim, out, sms):
     """Every group in exactly one split, no split empty, at most one cluster
-    of splits a column tile, and a split only where each warp keeps a
-    group."""
+    of splits a column tile, and more than one split only where the blocks
+    still fit one wave of two an SM."""
     G, gsh = in_dim // 128, 64
     splits, gps = i4.decode_splits(G, gsh, out, sms)
     assert (splits - 1) * gps < G <= splits * gps
     assert 1 <= splits <= i4._DECODE_MAX_SPLITS
-    assert splits == 1 or gps >= i4._DECODE_SLICE_WARPS
+    tiles = -(-out // i4._DECODE_COLS)
+    assert splits == 1 or tiles * splits <= i4._DECODE_BLOCKS_PER_SM * sms

@@ -184,7 +184,7 @@ def test_int4_wrapper_rejects_bad_arguments(w4):
     assert not any(i4.LAUNCHES.values())  # CPU tensors: the plain version, no launch
 
 
-@pytest.mark.parametrize("T,want", [(1, 1), (2, 2), (3, 3), (8, 8), (16, 16), (300, 16)])
+@pytest.mark.parametrize("T,want", [(1, 1), (2, 2), (3, 3), (8, 8), (16, 16), (300, 64)])
 def test_decode_tokens_per_block(T, want):
     assert i4.decode_tokens_per_block(T) == want
 

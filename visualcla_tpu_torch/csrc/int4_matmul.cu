@@ -10,31 +10,43 @@
 // scale[g], written as f32 or bf16 (round to nearest even).
 //
 // Two forms, chosen by the wrapper from T and the width of the weight:
-//   int4_decode_kernel (up to 16 tokens a block, one launch) should be bound
-//   by the carrier's bytes.  The TPU kernel's per-group product, dot(x_group,
+//   int4_decode_kernel (up to 64 tokens, one launch) should be bound by the
+//   carrier's bytes.  The TPU kernel's per-group product, dot(x_group,
 //   nibbles as bf16, fp32 accumulation) * scale[g], is a tensor-core product
 //   on exact values (-8..7 are exact in bf16), so the products run as
-//   mma.sync.m16n8k16 with the tokens as the 16 rows (padded) and the
-//   nibbles as the B operand: a call at 16 tokens costs little more than one
-//   at 1 token.  A pair of nibbles becomes an exact bf16x2 in three
-//   instructions (a byte_perm puts the nibbles of two rows of one column in
-//   place, one lop3 masks them and sets the exponent: 0x43nn is 128 + nn for
-//   the nibble's bits ^ 8, and a bf16x2 fma subtracts 136), and the mma's k
-//   order is chosen so that a byte feeds two k of one column and x is read as
-//   it lies.  A block is 8 warps over 128 columns (two 64-column slices, so it
-//   reads 128 contiguous bytes of a carrier row) and one run of groups (a
-//   split); each warp keeps 4 steps of 16 carrier rows in flight by 16-byte
-//   cp.async in a ring of its own, runs each group's dot in fp32, multiplies
-//   it by the group's scale once and adds it to its total, in group order;
-//   the block sums a slice's warps in order; where the groups are split over
-//   blocks (to fill the card) a column tile's splits run as one cluster and
-//   sum each other's sums in split order from shared memory.  The sum order
+//   mma.sync.m16n8k16 with the tokens as the rows (one, two or four 16-row
+//   tiles, from T) and the nibbles as the B operand: each dequantized B
+//   fragment serves every token tile, so a carrier byte is read and
+//   dequantized once a call up to 64 tokens.  A pair of nibbles becomes an
+//   exact bf16x2 in three instructions (a byte_perm puts the nibbles of two
+//   rows of one column in place, one lop3 masks them and sets the exponent:
+//   0x43nn is 128 + nn for the nibble's bits ^ 8, and a bf16x2 fma subtracts
+//   136), and the mma's k order is chosen so that a byte feeds two k of one
+//   column and x is read as it lies (ldmatrix).  A block is 256 columns (256
+//   contiguous bytes of a carrier row) and one run of groups (a split); it
+//   streams the run through a ring of 6 steps (32 carrier rows, the step's
+//   x, a group's scales).  Where rows are 16-byte aligned and a step is 32
+//   whole rows of a group, one thread puts a step in flight as four TMA boxes
+//   (two 128-byte carrier panels, x's low and high rows; swizzled, so a
+//   warp's reads meet no bank conflict) and one bulk copy of the scales;
+//   else every thread copies 16-byte pieces by cp.async.  (The TMA's bulk
+//   copies of single 256-byte rows, or thread-issued 16-byte pieces, held a
+//   block to ~6 GB/s and the card to ~1.5 TB/s on an H100.)  The 8 warps
+//   lie side by side over the columns, 32 each (the two sets of fp32 sums
+//   stay within 128 registers up to 32 tokens, so an SM holds two blocks):
+//   every warp walks every group of the run, runs each group's dot in fp32,
+//   multiplies it by the group's scale once and adds it to its total, in
+//   group order, and needs no other warp's sums.  Where the groups are split
+//   over blocks, a column tile's splits (up to 16) run as one cluster and sum
+//   each other's totals in split order from shared memory.  The sum order
 //   depends on the shapes and the card, never on scheduling or on the token
 //   count: a call repeats bit for bit, and a token's row does not depend on
-//   the other tokens.  What holds it from its bound at one token is not the
-//   products or the conversion (switching either off moves little): it is
-//   each block's fixed path of copies in flight, the ring, the sums and the
-//   cluster's barriers (PERF.md §6).
+//   the other tokens or on the token tile.  Launched as a programmatic
+//   dependent, a call puts its first stages' carrier in flight while the
+//   kernel before it finishes.  What bounds it: the dequantizing
+//   instructions and mma.sync (on registers alone they reach ~2.5 TB/s of
+//   carrier at 16 tokens and ~2.0 at 32 with two blocks an SM on an H100),
+//   then each call's fixed path (the ring's fill, the cluster's sums).
 //   int4_prefill_kernel (the prompt) is bound by the tensor cores: it does
 //   T multiply-adds per weight element, and dequantizing an element costs
 //   about four instructions (byte_perm and a subtraction make the nibble a
@@ -454,29 +466,62 @@ int4_prefill_kernel(const __grid_constant__ CUtensorMap x_map,
 // decode form (tensor cores: mma.sync on the exact nibbles)
 // ---------------------------------------------------------------------------
 
-constexpr int kDecWarps = 8;     // a block's warps: each takes whole groups of the split
-constexpr int kDecCols = 64;     // columns of a warp
-// 64-column slices of a block, side by side, each served by kDecWarps /
-// kDecSlices warps: a block reads 128 contiguous bytes of each carrier row
-constexpr int kDecSlices = 2;
-constexpr int kDecSliceWarps = kDecWarps / kDecSlices;
-constexpr int kDecBlockCols = kDecSlices * kDecCols;
-constexpr int kDecTokens = 16;   // tokens of a block: the mma's 16 rows
-constexpr int kDecStepRows = 16;  // carrier rows of a step: two k16 chunks of the mma
-constexpr int kDecStages = 4;  // steps in flight a warp
-constexpr int kDecMaxSplits = 8;  // a cluster's blocks (the portable cluster size)
+// cuTensorMapEncodeTiled, from the driver through the runtime (no link to libcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+constexpr int kDecBlockCols = 256;  // columns of a block: 256 contiguous bytes of a carrier row
+constexpr int kDecCols = 32;        // columns of a warp
+constexpr int kDecWarps = kDecBlockCols / kDecCols;
 constexpr int kDecThreads = 32 * kDecWarps;
-// A stage of a warp's ring: 16 carrier rows of 80 bytes (the 64 the block
-// reads, from the 16-byte boundary at or below their start), then the step's
-// x (16 tokens x 64 bytes: the 16 low rows' bf16, then the 16 high rows'),
-// then the group's 64 scales (filled by the group's last step).
-constexpr int kDecRowBytes = kDecCols + 16;
-constexpr int kDecXOff = kDecStepRows * kDecRowBytes;
-constexpr int kDecXToken = 4 * kDecStepRows;  // bytes of a token's x in a stage
-constexpr int kDecScaleOff = kDecXOff + kDecTokens * kDecXToken;
-constexpr int kDecStageBytes = kDecScaleOff + kDecCols * 4;
-constexpr int kDecRingBytes = kDecWarps * kDecStages * kDecStageBytes;
-constexpr int kDecSmemBytes = kDecRingBytes + kDecTokens * kDecBlockCols * 4;  // + the block's sums
+constexpr int kDecStepRows = 32;    // carrier rows of a step: four k16 chunks of the mma
+constexpr int kDecStages = 6;       // steps in flight a block
+constexpr int kDecMaxSplits = 16;   // a cluster's blocks (16: a non-portable size Hopper takes)
+constexpr int kDecSumStride = kDecBlockCols + 2;  // floats a token of the block's sums
+
+// The decode form's stage of up to 16 kMT tokens.  kTma: the step's carrier
+// rows as two 128-byte panels (32 rows each, the TMA's 128-byte swizzle),
+// its x as two panels (the 32 low rows' bf16 and the 32 high ones of each
+// token, 64 bytes a token, the 64-byte swizzle), then the group's 256 scales;
+// the reads of a warp land on distinct banks.  Else (cp.async): the carrier
+// rows at 272 bytes (from the 16-byte boundary at or below the row's start,
+// 17 pieces), x at 144 bytes a token (low, then high rows, then 16 bytes
+// that put the rows of 8 tokens on distinct banks), then the scales.
+template <bool kTma, int kMT>
+struct DecTile {
+  static constexpr int kTokens = 16 * kMT;
+  static constexpr int kRowBytes = kTma ? 128 : kDecBlockCols + 16;  // a carrier row of a panel
+  static constexpr int kPanelBytes = kDecStepRows * 128;             // kTma: a carrier panel
+  static constexpr int kXToken = kTma ? 2 * kDecStepRows : 4 * kDecStepRows + 16;
+  static constexpr int kXOff = kTma ? 2 * kPanelBytes : kDecStepRows * kRowBytes;
+  static constexpr int kXHalf = kTma ? kTokens * kXToken : 2 * kDecStepRows;  // low -> high rows
+  static constexpr int kScaleOff = kXOff + (kTma ? 2 : 1) * kTokens * kXToken;
+  static constexpr int kStageBytes = kScaleOff + kDecBlockCols * 4;  // kTma: a multiple of 1024
+  static constexpr int kRingBytes = kDecStages * kStageBytes;
+  static constexpr int kBarOff = kRingBytes;  // kTma: the full mbarrier of each stage
+  static constexpr int kSumBytes = kTokens * kDecSumStride * 4;  // aliases the ring
+  static constexpr int kSmemBytes =
+      (kBarOff + 8 * kDecStages > kSumBytes ? kBarOff + 8 * kDecStages : kSumBytes) + 1024;
+  static constexpr int kMinBlocks = kMT <= 2 ? 2 : 1;  // blocks an SM holds
+  // cp.async: x pieces of 16 bytes a step (8 a token), and a thread's share
+  static constexpr int kXPieces = 2 * kDecStepRows / 8 * kTokens;
+  static constexpr int kXPerThread = (kXPieces + kDecThreads - 1) / kDecThreads;
+};
 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
@@ -493,14 +538,21 @@ template <int kPending>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
+// the four 8x8 bf16 matrices whose rows lanes 8i .. 8i + 7 point at, as
+// registers 0-3 (an m16k16 A fragment)
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
 // d (16 x 8, fp32) += a (16 x 16, bf16) * b (16 x 8, bf16)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 // every thread of every block of the cluster gets here (release / acquire)
 __device__ __forceinline__ void cluster_sync() {
@@ -528,71 +580,339 @@ __device__ __forceinline__ uint32_t nibble_pair(uint32_t t) {
   return r;
 }
 
-// One step of a warp: 8 carrier rows of one group times the x columns they
-// multiply, into 8 n8 tiles.  The k order of the mma's 16 is chosen so that
-// one byte serves two k of a column and x is read as it lies: k = 2q, 2q + 1
-// are the low nibbles of rows 2q and 2q + 1, k = 2q + 8, 2q + 9 their high
-// nibbles (q = lane % 4).  Lane (g, q) holds the bytes of columns 8g .. 8g +
-// 7 of rows 2q (u) and 2q + 1 (v): byte j is column g of n8 tile j.
-__device__ __forceinline__ void decode_step(float (&acc)[8][4], const uint32_t (&u)[2],
-                                            const uint32_t (&v)[2], uint32_t a0, uint32_t a1,
-                                            uint32_t a2, uint32_t a3) {
+// One k16 chunk of a warp: 8 carrier rows of one group times the x columns
+// they multiply, for each live m16 token tile, into 4 n8 tiles.  The k order
+// of the mma's 16 is chosen so that one byte serves two k of a column and x
+// is read as it lies: k = 2q, 2q + 1 are the low nibbles of rows 2q and 2q +
+// 1, k = 2q + 8, 2q + 9 their high nibbles (q = lane % 4).  Lane (g, q) holds
+// the bytes of columns 4g .. 4g + 3 of rows 2q (u) and 2q + 1 (v): byte j is
+// column g of n8 tile j.  Each dequantized B fragment serves every token
+// tile.
+template <int kMT>
+__device__ __forceinline__ void decode_chunk(float (&acc)[kMT][4][4], uint32_t u, uint32_t v,
+                                             const uint32_t (&a)[kMT][4], int mt_live) {
+  const uint32_t uh = u >> 4, vh = v >> 4;
 #pragma unroll
-  for (int w = 0; w < 2; ++w) {
-    const uint32_t uh = u[w] >> 4, vh = v[w] >> 4;
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t sel = j | (j << 4) | ((4 + j) << 8) | ((4 + j) << 12);
+    const uint32_t b0 = nibble_pair(__byte_perm(u, v, sel));
+    const uint32_t b1 = nibble_pair(__byte_perm(uh, vh, sel));
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const uint32_t sel = j | (j << 4) | ((4 + j) << 8) | ((4 + j) << 12);
-      const uint32_t b0 = nibble_pair(__byte_perm(u[w], v[w], sel));
-      const uint32_t b1 = nibble_pair(__byte_perm(uh, vh, sel));
-      mma_bf16(acc[4 * w + j], a0, a1, a2, a3, b0, b1);
-    }
+    for (int m = 0; m < kMT; ++m)
+      if (kMT == 1 || m < mt_live) mma_bf16(acc[m][j], a[m], b0, b1);
   }
 }
 
-// The block's sums of its warps' totals (a slice's warps in order), then,
-// with several splits, the sum of the cluster's blocks' sums (split order);
-// cb is the block's first column.
-__device__ __forceinline__ void decode_epilogue(const float (&total)[8][4], uint8_t* smem,
-                                                float* block_sum, void* out, int t0, int tt,
-                                                int cb, int out_dim, int out_bf16, int split,
-                                                int splits) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+// a 1-d copy of ``bytes`` (a multiple of 16) by the TMA, counted against ``bar``
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// y[t, col] = sum over groups g of (x[t, group g] @ W4[group g, col]) *
+// scale[g, col] for the block's up to 16 kMT tokens (blockIdx.z) and 256
+// columns (blockIdx.x: 256 contiguous bytes of each carrier row); the groups
+// are cut into ``splits`` runs of ``gps`` (blockIdx.y: the blocks of one
+// cluster).  The block streams its run's steps (32 carrier rows, the step's
+// x, at a group's last step its scales) through one ring of kDecStages
+// stages.  kTma (out % 16 == 0 and gs % 64 == 0): one thread puts a step in
+// flight as four boxes of the TMA (two carrier panels, x's low and high
+// rows) and one bulk copy of the scales, counted on the stage's mbarrier;
+// else every thread copies its 16-byte pieces by cp.async, each row from the
+// 16-byte boundary at or below its start (the TMA's 256-byte rows or
+// thread-issued copies of them do not keep the card's bandwidth), and x the
+// same way where gs / 2 % 8 == 0, else element by element.  The 8
+// warps lie side by side over the columns, 32 each: every warp walks every
+// group of the run, runs each group's dot on the tensor cores in fp32,
+// multiplies it by the group's scale and adds it to its total in group
+// order.  So a carrier byte is read once a call up to 64 tokens, and a warp's
+// registers hold every token's sums of its columns.  The cluster's blocks sum
+// the blocks' totals in split order from their shared memory: nothing is
+// atomic and nothing goes through device memory but the output.  A token's
+// sums do not depend on kMT or on the other tokens.  Launched as a
+// programmatic dependent: the first stages' carrier and scales are put in
+// flight before the kernel waits for the one before it (x is its output),
+// and the kernel lets the one after it launch at once.
+template <bool kTma, int kMT>
+__global__ void __launch_bounds__(kDecThreads, DecTile<kTma, kMT>::kMinBlocks)
+int4_decode_kernel(const __grid_constant__ CUtensorMap q_map,
+                   const __grid_constant__ CUtensorMap x_map, const __nv_bfloat16* __restrict__ x,
+                   const uint8_t* __restrict__ qw, const float* __restrict__ scale,
+                   void* __restrict__ out, int T, int in_dim, int G, int gsh, int out_dim,
+                   int out_bf16, int gps) {
+  using L = DecTile<kTma, kMT>;
+  extern __shared__ uint8_t dec_smem_raw[];
+  uint8_t* dec_smem = dec_smem_raw + ((1024 - (smem_u32(dec_smem_raw) & 1023)) & 1023);
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int g8 = lane / 4, q = lane % 4;
-  // total[j][e] of lane (g8, q): token g8 (e < 2) or g8 + 8, column 16q + j
-  // (e even) or 16q + 8 + j of the warp's slice
-  float* red = reinterpret_cast<float*>(smem);  // (warp, token, column)
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int t = g8 + 8 * (e / 2), c = 16 * q + 8 * (e % 2) + j;
-      if (t < tt) red[(warp * kDecTokens + t) * kDecCols + c] = total[j][e];
+  const int cb = blockIdx.x * kDecBlockCols;  // the block's first column
+  const int cw = warp * kDecCols;             // the warp's first column in the block
+  const int split = blockIdx.y, splits = gridDim.y;
+  const int t0 = blockIdx.z * L::kTokens;
+  const int tt = min(L::kTokens, T - t0);
+  const int mt_live = (tt + 15) / 16;
+  const int gs = 2 * gsh;
+  const int spg = (gsh + kDecStepRows - 1) / kDecStepRows;  // steps a group
+  const int g_begin = split * gps;
+  const int steps = max(0, min(gps, G - g_begin)) * spg;
+  const size_t step_bytes = (size_t)kDecStepRows * out_dim;
+  const uint32_t ring = smem_u32(dec_smem);
+  const uint32_t full = ring + L::kBarOff;
+  const int ncols = min(kDecBlockCols, out_dim - cb);  // columns of the block in the weight
+  if constexpr (kTma) {
+    if (tid == 0) {
+      for (int i = 0; i < kDecStages; ++i) mbar_init(full + 8 * i, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
-  __syncthreads();
-  for (int i = threadIdx.x; i < tt * kDecBlockCols; i += kDecThreads) {
-    const int t = i / kDecBlockCols, sl = (i % kDecBlockCols) / kDecCols, c = i % kDecCols;
-    float sum = 0.f;
+    __syncthreads();
+  }
+
+  // kTma: thread 0 puts step i in flight, its weights (the carrier panels,
+  // the scales with a group's last step) and its x, on the stage's mbarrier
+  auto tma_weights = [&](int i, int grp, int st) {
+    const uint32_t stage = ring + (i % kDecStages) * L::kStageBytes, bar = full + 8 * (i % kDecStages);
+    const int row = grp * gsh + st * kDecStepRows;
+    const bool second = ncols > 128;  // the second panel holds columns of the weight
+    mbar_expect(bar, (second ? 2 : 1) * L::kPanelBytes + 2 * L::kTokens * L::kXToken +
+                         (st == spg - 1 ? 4 * ncols : 0));
+    tma_load_2d(stage, &q_map, cb, row, bar);
+    if (second) tma_load_2d(stage + L::kPanelBytes, &q_map, cb + 128, row, bar);
+    if (st == spg - 1)
+      bulk_load(stage + L::kScaleOff, scale + (size_t)grp * out_dim + cb, 4 * ncols, bar);
+  };
+  auto tma_activations = [&](int i, int grp, int st) {
+    const uint32_t stage = ring + (i % kDecStages) * L::kStageBytes, bar = full + 8 * (i % kDecStages);
+    const int k0 = grp * gs + st * kDecStepRows;
+    tma_load_2d(stage + L::kXOff, &x_map, k0, t0, bar);
+    tma_load_2d(stage + L::kXOff + L::kXHalf, &x_map, k0 + gsh, t0, bar);
+  };
+
+  // cp.async: this thread's x pieces of a step (where gs / 2 % 8 == 0: 8
+  // rows of a token, half and row block fixed), destinations and sources
+  uint32_t x_dst[L::kXPerThread];
+  const __nv_bfloat16* x_src[L::kXPerThread];
+  int x_row[L::kXPerThread];
+  if constexpr (!kTma) {
 #pragma unroll
-    for (int w = 0; w < kDecSliceWarps; ++w)
-      sum += red[((sl * kDecSliceWarps + w) * kDecTokens + t) * kDecCols + c];
-    const int col = cb + i % kDecBlockCols;
-    if (splits == 1) {
-      if (col < out_dim) store_out(out, (size_t)(t0 + t) * out_dim + col, sum, out_bf16);
-    } else {
-      block_sum[i] = sum;
+    for (int k = 0; k < L::kXPerThread; ++k) {  // piece p: token p / 8, half (p / 4) % 2, rows 8 (p % 4) ..
+      const int p = tid + k * kDecThreads, tok = p / 8;
+      x_dst[k] = L::kXOff + tok * L::kXToken + 16 * (p % 8);
+      x_row[k] = tok < tt ? 8 * (p % 4) : -1;  // -1: past the tokens, never copied
+      x_src[k] = x + (size_t)(t0 + min(tok, tt - 1)) * in_dim + ((p / 4) % 2) * gsh + 8 * (p % 4);
     }
   }
-  if (splits == 1) return;
-  // the cluster's blocks are the splits of this tile, rank = split: each
-  // sums its share of the tile's outputs over the blocks' sums, in split
-  // order, then every block may leave.  A thread puts all its remote loads
-  // in flight before it adds (it issues in order: a sum load by load would
-  // wait out each one).
+  const size_t q_bytes = (size_t)G * gsh * out_dim;
+  auto cp_weights = [&](int i, int grp, int st, size_t row0) {
+    const uint32_t stage = ring + (i % kDecStages) * L::kStageBytes;
+    const int r0 = st * kDecStepRows;
+    for (int p = tid; p < kDecStepRows * 17; p += kDecThreads) {
+      const int row = p / 17, ch = p % 17;
+      const size_t at = row0 + (size_t)row * out_dim;
+      const size_t from = (at & ~(size_t)15) + 16 * ch;
+      const int bytes = r0 + row < gsh && from < q_bytes && (ch < 16 || (at & 15))
+                            ? (int)min((size_t)16, q_bytes - from)
+                            : 0;
+      cp_async16(stage + row * L::kRowBytes + 16 * ch, bytes ? qw + from : qw, bytes);
+    }
+    if (st == spg - 1) {  // the group's scales, with its last step
+      const bool ok = cb + tid < out_dim;
+      cp_async4(stage + L::kScaleOff + 4 * tid,
+                ok ? scale + (size_t)grp * out_dim + cb + tid : scale, ok ? 4 : 0);
+    }
+  };
+  auto cp_activations = [&](int i, int grp, int st) {
+    const uint32_t stage = ring + (i % kDecStages) * L::kStageBytes;
+    const int r0 = st * kDecStepRows;
+    const size_t off = (size_t)grp * gs + r0;
+    if (gsh % 8 == 0) {
+#pragma unroll
+      for (int k = 0; k < L::kXPerThread; ++k) {
+        if (x_row[k] < 0) continue;  // (a zero-byte copy still fills its 16 bytes)
+        const bool ok = r0 + x_row[k] < gsh;
+        cp_async16(stage + x_dst[k], ok ? x_src[k] + off : x, ok ? 16 : 0);
+      }
+    } else {  // element k: token k / 2R, half (k / R) % 2, row k % R, loaded and stored
+      constexpr int R = kDecStepRows;  // (an odd gs / 2 puts the high rows off 4 bytes)
+      __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(
+          dec_smem + (i % kDecStages) * L::kStageBytes + L::kXOff);
+      for (int k = tid; k < 2 * R * tt; k += kDecThreads) {
+        const int rr = k % R, h = (k / R) % 2, tok = k / (2 * R);
+        xs[(tok * L::kXToken + L::kXHalf * h) / 2 + rr] =
+            r0 + rr < gsh ? x[(size_t)(t0 + tok) * in_dim + off + h * gsh + rr]
+                          : __float2bfloat16(0.f);
+      }
+    }
+  };
+
+  // the first stages: their weights need nothing of the kernel before this
+  // one, then (after it) their x
+  int igrp = g_begin, ist = 0;
+  size_t irow = (size_t)g_begin * gsh * out_dim + cb;
+  auto advance = [&]() {
+    irow += step_bytes;
+    if (++ist == spg) {
+      ist = 0;
+      irow = (size_t)++igrp * gsh * out_dim + cb;
+    }
+  };
+  const int head = min(steps, kDecStages - 1);
+  {
+    int grp = igrp, st = ist;
+    size_t row0 = irow;
+    for (int i = 0; i < head; ++i) {
+      if constexpr (kTma) {
+        if (tid == 0) tma_weights(i, grp, st);
+      } else {
+        cp_weights(i, grp, st, row0);
+      }
+      row0 += step_bytes;
+      if (++st == spg) {
+        st = 0;
+        row0 = (size_t)++grp * gsh * out_dim + cb;
+      }
+    }
+  }
+  if constexpr (!kTma) cp_async_commit();
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");  // x is the kernel before's output
+#pragma unroll 1
+  for (int i = 0; i < kDecStages - 1; ++i) {
+    if (i < head) {
+      if constexpr (kTma) {
+        if (tid == 0) tma_activations(i, igrp, ist);
+      } else {
+        cp_activations(i, igrp, ist);
+      }
+      advance();
+    }
+    if constexpr (!kTma) cp_async_commit();  // an empty group past the last step keeps the count
+  }
+
+  float total[kMT][4][4], acc[kMT][4][4];
+#pragma unroll
+  for (int m = 0; m < kMT; ++m)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) total[m][j][e] = acc[m][j][e] = 0.f;
+  // ldmatrix: lane l points at token 16 m + tl, tl = l % 8 + 8 ((l / 8) % 2),
+  // its low (l < 16) or high x rows of the chunk
+  const int tl = lane % 8 + 8 * ((lane / 8) % 2);
+  const uint32_t x_lane = (uint32_t)(tl * L::kXToken + L::kXHalf * (lane / 16));
+  const int x_swz = (tl >> 1) & 3;  // kTma: the 64-byte swizzle of the lane's token rows
+  const int col_off = cw + 4 * g8;  // lane (g8, q): columns col_off .. + 3
+  // kTma: the lane's bytes of row r lie in panel col_off / 128 at chunk
+  // (col_off % 128 / 16) ^ (r % 8)
+  const uint32_t q_lane = (uint32_t)((col_off / 128) * L::kPanelBytes + (col_off % 16));
+  const int q_chunk = (col_off % 128) / 16;
+  size_t crow = (size_t)g_begin * gsh * out_dim + cb;  // the step's first row (unaligned reads)
+  int cst = 0;
+  for (int i = 0; i < steps; ++i) {
+    if constexpr (kTma) {
+      __syncthreads();  // every warp is done with step i - 1's stage
+      if (tid == 0 && i + kDecStages - 1 < steps) {
+        tma_weights(i + kDecStages - 1, igrp, ist);
+        tma_activations(i + kDecStages - 1, igrp, ist);
+      }
+      if (i + kDecStages - 1 < steps) advance();
+      mbar_wait(full + 8 * (i % kDecStages), (i / kDecStages) & 1);
+    } else {
+      cp_async_wait<kDecStages - 2>();
+      __syncthreads();  // step i landed; every warp is done with step i - 1's stage
+      if (i + kDecStages - 1 < steps) {
+        cp_weights(i + kDecStages - 1, igrp, ist, irow);
+        cp_activations(i + kDecStages - 1, igrp, ist);
+        advance();
+      }
+      cp_async_commit();
+    }
+    const uint8_t* stage = dec_smem + (i % kDecStages) * L::kStageBytes;
+    const uint32_t xs = ring + (i % kDecStages) * L::kStageBytes + L::kXOff + x_lane;
+#pragma unroll
+    for (int c = 0; c < kDecStepRows / 8; ++c) {  // the step's k16 chunks
+      uint32_t uv[2];  // rows 8c + 2q (u), 8c + 2q + 1 (v)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = 8 * c + 2 * q + h;
+        if constexpr (kTma) {
+          uv[h] = *reinterpret_cast<const uint32_t*>(stage + q_lane + row * 128 +
+                                                     ((q_chunk ^ (row % 8)) << 4));
+        } else {  // from its copy's start
+          const int o = (int)((crow + (size_t)row * out_dim) & 15) + col_off;
+          const uint32_t* w =
+              reinterpret_cast<const uint32_t*>(stage + row * L::kRowBytes + (o & ~3));
+          uv[h] = __funnelshift_r(w[0], w[1], 8 * (o & 3));
+        }
+      }
+      uint32_t a[kMT][4];  // A: tokens of tile m, x rows 8c + 2q, + 1: low, then high
+#pragma unroll
+      for (int m = 0; m < kMT; ++m)
+        if (kMT == 1 || m < mt_live)
+          ldmatrix_x4(a[m], xs + 16 * m * L::kXToken + 16 * (kTma ? c ^ x_swz : c));
+      decode_chunk<kMT>(acc, uv[0], uv[1], a, mt_live);
+    }
+    if (++cst == spg) {  // the group's dot times its scale, into the total
+      cst = 0;
+      // columns 8q + j (e even) and 8q + 4 + j (e odd) of the warp
+      const float4* sp = reinterpret_cast<const float4*>(stage + L::kScaleOff) + (cw + 8 * q) / 4;
+      const float4 s0 = sp[0], s1 = sp[1];
+      const float sc[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+#pragma unroll
+      for (int m = 0; m < kMT; ++m)
+        if (kMT == 1 || m < mt_live) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              total[m][j][e] = fmaf(acc[m][j][e], sc[4 * (e % 2) + j], total[m][j][e]);
+              acc[m][j][e] = 0.f;
+            }
+          }
+        }
+      if constexpr (!kTma) crow = (size_t)(g_begin + (i + 1) / spg) * gsh * out_dim + cb;
+    } else if constexpr (!kTma) {
+      crow += step_bytes;
+    }
+  }
+  if constexpr (!kTma) cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the ring: it holds the block's sums now
+
+  // total[m][j][e] of lane (g8, q): token 16m + g8 (e < 2) or + 8, column 8q
+  // + 4 (e % 2) + j of the warp
+  float* block_sum = reinterpret_cast<float*>(dec_smem);  // (token, column)
+#pragma unroll
+  for (int m = 0; m < kMT; ++m)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int t = 16 * m + g8 + 8 * (e / 2);
+        if (t < tt) block_sum[t * kDecSumStride + cw + 8 * q + 4 * (e % 2) + j] = total[m][j][e];
+      }
+  __syncthreads();
+  const int n = tt * kDecBlockCols;
+  if (splits == 1) {
+    for (int i = tid; i < n; i += kDecThreads) {
+      const int t = i / kDecBlockCols, col = cb + i % kDecBlockCols;
+      if (col < out_dim)
+        store_out(out, (size_t)(t0 + t) * out_dim + col,
+                  block_sum[t * kDecSumStride + i % kDecBlockCols], out_bf16);
+    }
+    return;
+  }
+  // the cluster's blocks are the splits of this tile, rank = split: each sums
+  // its share of the tile's outputs over the blocks' sums, in split order,
+  // then every block may leave.  A thread puts all its remote loads in flight
+  // before it adds (it issues in order: a sum load by load would wait out
+  // each one).
   cluster_sync();
-  const int n = tt * kDecBlockCols, share = (n + splits - 1) / splits;
-  for (int i = split * share + threadIdx.x; i < min(n, (split + 1) * share); i += kDecThreads) {
-    const uint32_t addr = smem_u32(block_sum + i);
+  const int share = (n + splits - 1) / splits;
+  for (int i = split * share + tid; i < min(n, (split + 1) * share); i += kDecThreads) {
+    const int t = i / kDecBlockCols, col = cb + i % kDecBlockCols;
+    const uint32_t addr = smem_u32(block_sum + t * kDecSumStride + i % kDecBlockCols);
     float part[kDecMaxSplits];
 #pragma unroll
     for (int s = 0; s < kDecMaxSplits; ++s) part[s] = s < splits ? ld_cluster(addr, s) : 0.f;
@@ -600,272 +920,86 @@ __device__ __forceinline__ void decode_epilogue(const float (&total)[8][4], uint
 #pragma unroll
     for (int s = 1; s < kDecMaxSplits; ++s)
       if (s < splits) sum += part[s];
-    const int col = cb + i % kDecBlockCols;
-    if (col < out_dim) store_out(out, (size_t)(t0 + i / kDecBlockCols) * out_dim + col, sum, out_bf16);
+    if (col < out_dim) store_out(out, (size_t)(t0 + t) * out_dim + col, sum, out_bf16);
   }
   cluster_sync();  // every block is done reading the others' shared memory
 }
 
-// y[t, col] = sum over groups g of (x[t, group g] @ W4[group g, col]) *
-// scale[g, col] for the block's up to 16 tokens (blockIdx.z) and 128 columns
-// (blockIdx.x: two 64-column slices side by side, so the block reads 128
-// contiguous bytes of a carrier row); the groups are cut into ``splits`` runs
-// of ``gps`` (blockIdx.y: the blocks of one cluster), and warp w of a slice
-// takes its groups w, w + 4, ... in turn.  Each warp keeps kDecStages steps
-// in flight by cp.async in a ring of its own (the carrier rows, the step's x,
-// at a group's last step its scales), runs each group's dot on the tensor
-// cores in fp32, multiplies it by the group's scale and adds it to its total
-// in group order.  The block sums a slice's warps in order; the cluster's
-// blocks sum the blocks' sums in split order from their shared memory:
-// nothing is atomic and nothing goes through device memory but the output.
-// kAligned: out % 16 == 0, so every row of the block's columns starts 16-byte
-// aligned and is copied as 4 pieces; else each row is copied from the
-// 16-byte boundary at or below its start (5 pieces) and read at its offset.
-// The loop keeps running pointers and counters and does its address
-// arithmetic once a group.
-template <bool kAligned>
-__global__ void __launch_bounds__(kDecThreads)
-int4_decode_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ qw,
-                   const float* __restrict__ scale, void* __restrict__ out, int T, int in_dim,
-                   int G, int gsh, int out_dim, int out_bf16, int gps) {
-  extern __shared__ __align__(16) uint8_t dec_smem[];
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int g8 = lane / 4, q = lane % 4;
-  // this warp's slice of the block's columns, and its place among the slice's warps
-  const int gw = warp % kDecSliceWarps;
-  const int c0 = blockIdx.x * kDecBlockCols + (warp / kDecSliceWarps) * kDecCols;
-  const int split = blockIdx.y, splits = gridDim.y;
-  const int t0 = blockIdx.z * kDecTokens;
-  const int tt = min(kDecTokens, T - t0);
-  const int gs = 2 * gsh;
-  const bool whole = gsh % kDecStepRows == 0;  // every step whole rows (x rows 16-byte aligned)
-  const int spg = (gsh + kDecStepRows - 1) / kDecStepRows;  // steps a group
-  const int g_begin = split * gps;
-  const int n_groups = max(0, min(gps, G - g_begin));
-  const int my_groups =
-      n_groups > gw ? (n_groups - gw + kDecSliceWarps - 1) / kDecSliceWarps : 0;
-  const int my_steps = my_groups * spg;
-  const size_t q_bytes = (size_t)G * gsh * out_dim;
-  const size_t step_bytes = (size_t)kDecStepRows * out_dim;
-  uint8_t* ring = dec_smem + warp * kDecStages * kDecStageBytes;
-  float* block_sum = reinterpret_cast<float*>(dec_smem + kDecRingBytes);  // (token, column)
-
-  // this lane's carrier pieces of a step: kAligned, pieces lane and lane + 32
-  // of 4 a row; else pieces lane, lane + 32 and lane + 64 (< 80) of 5 a row
-  constexpr int kPieces = kAligned ? 4 : 5;
-  auto piece_dst = [](int p) { return (uint32_t)((p / kPieces) * kDecRowBytes + 16 * (p % kPieces)); };
-  const bool col_ok = c0 + 16 * (lane % 4) < out_dim;  // kAligned: whole pieces in or out
-  // this lane's x pieces of a step (16 bytes: 8 rows of one token, low or
-  // high): piece k is token k / 4, half (k / 2) % 2, rows 8 (k % 2) ..
-  auto x_dst = [](int k) { return (uint32_t)(kDecXOff + (k / 4) * kDecXToken + 16 * (k % 4)); };
-  auto x_src = [&](int k, int grp) {
-    return x + (size_t)(t0 + k / 4) * in_dim + (size_t)grp * gs + ((k / 2) % 2) * gsh + 8 * (k % 2);
-  };
-
-  // the issue side: the next step's group (warp-local), its step, the offset
-  // of its first row (of the block's columns) from the carrier, x's addresses
-  int igi = 0, ist = 0;
-  size_t irow = 0;
-  const __nv_bfloat16 *ix_a = x, *ix_b = x;
-  auto start_group = [&](int gi) {
-    const int grp = g_begin + gw + kDecSliceWarps * gi;
-    irow = (size_t)grp * gsh * out_dim + c0;
-    ix_a = x_src(lane, grp);
-    ix_b = x_src(lane + 32, grp);
-  };
-  start_group(0);
-  auto issue = [&](int i) {
-    if (i < my_steps) {
-      uint8_t* stage_p = ring + (i % kDecStages) * kDecStageBytes;
-      const uint32_t stage = smem_u32(stage_p);
-      const int r0 = ist * kDecStepRows;
-      if constexpr (kAligned) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int row = lane / 4 + 8 * h;
-          const bool ok = col_ok && (whole || r0 + row < gsh);
-          cp_async16(stage + piece_dst(lane + 32 * h),
-                     qw + irow + (size_t)row * out_dim + 16 * (lane % 4), ok ? 16 : 0);
-        }
-      } else {
-#pragma unroll
-        for (int h = 0; h < 3; ++h) {
-          const int p = lane + 32 * h, row = p / 5, ch = p % 5;
-          if (p < kDecStepRows * 5) {
-            const size_t at = irow + (size_t)row * out_dim;
-            const size_t from = (at & ~(size_t)15) + 16 * ch;
-            const int bytes = (whole || r0 + row < gsh) && from < q_bytes && (ch < 4 || (at & 15))
-                                  ? (int)min((size_t)16, q_bytes - from)
-                                  : 0;
-            cp_async16(stage + piece_dst(p), bytes ? qw + from : qw, bytes);
-          }
-        }
-      }
-      if (whole) {
-        if (lane < 4 * tt) cp_async16(stage + x_dst(lane), ix_a + r0, 16);
-        if (lane + 32 < 4 * tt) cp_async16(stage + x_dst(lane + 32), ix_b + r0, 16);
-      } else {  // the x of a part step, by hand
-        const int grp = g_begin + gw + kDecSliceWarps * igi;
-        const __nv_bfloat16* xg = x + (size_t)t0 * in_dim + (size_t)grp * gs + r0;
-        __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(stage_p + kDecXOff);
-        for (int e = lane; e < tt * 2 * kDecStepRows; e += 32) {  // token e / 32, half, row
-          const int t = e / 32, h = (e / 16) % 2, row = e % 16;
-          xs[e] = r0 + row < gsh ? xg[(size_t)t * in_dim + h * gsh + row] : __float2bfloat16(0.f);
-        }
-      }
-      if (ist == spg - 1) {  // the group's scales, with its last step
-        const float* sp = scale + (size_t)(g_begin + gw + kDecSliceWarps * igi) * out_dim + c0;
-        for (int c = lane; c < kDecCols; c += 32) {
-          const bool ok = c0 + c < out_dim;
-          cp_async4(stage + kDecScaleOff + 4 * c, ok ? sp + c : scale, ok ? 4 : 0);
-        }
-      }
-      irow += step_bytes;
-      if (++ist == spg) {
-        ist = 0;
-        start_group(++igi);
-      }
-    }
-    cp_async_commit();  // an empty group past the last step keeps the count of groups
-  };
-#pragma unroll
-  for (int i = 0; i < kDecStages; ++i) issue(i);
-
-  float total[8][4], acc[8][4];
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) total[j][e] = acc[j][e] = 0.f;
-  // lane (g8, q) reads columns 8 g8 .. 8 g8 + 7 of rows 8c + 2q (u) and 8c +
-  // 2q + 1 (v) for chunk c; unaligned rows start (row offset & 15) bytes into
-  // their copy, an offset that moves by step_bytes & 15 a step
-  const uint32_t u_off = 2 * q * kDecRowBytes + 8 * g8;
-  const int step_mis = (int)(step_bytes & 15);
-  int st = 0, mis[4] = {0, 0, 0, 0};  // rows 2q, 2q + 1, 8 + 2q, 9 + 2q
-  auto group_mis = [&](int gi) {
-    const size_t row0 = (size_t)(g_begin + gw + kDecSliceWarps * gi) * gsh * out_dim + c0;
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-      mis[k] = (int)((row0 + (size_t)(8 * (k / 2) + 2 * q + k % 2) * out_dim) & 15);
-  };
-  if (!kAligned) group_mis(0);
-  int gi_now = 0;
-  const bool two_tiles = tt > 8;  // tokens 8-15 present
-  for (int i = 0; i < my_steps; ++i) {
-    cp_async_wait<kDecStages - 1>();
-    __syncwarp();
-    const uint8_t* stage = ring + (i % kDecStages) * kDecStageBytes;
-    const uint32_t* xw = reinterpret_cast<const uint32_t*>(stage + kDecXOff);
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {  // the step's two k16 chunks
-      uint32_t u[2], v[2];
-      if constexpr (kAligned) {
-        const uint2 uu = *reinterpret_cast<const uint2*>(stage + u_off + 8 * c * kDecRowBytes);
-        const uint2 vv =
-            *reinterpret_cast<const uint2*>(stage + u_off + (8 * c + 1) * kDecRowBytes);
-        u[0] = uu.x, u[1] = uu.y, v[0] = vv.x, v[1] = vv.y;
-      } else {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {  // each row from its copy's start
-          const int o = mis[2 * c + h] + 8 * g8;
-          const uint32_t* w = reinterpret_cast<const uint32_t*>(
-              stage + (8 * c + 2 * q + h) * kDecRowBytes + (o & ~3));
-          const uint32_t w0 = w[0], w1 = w[1], w2 = w[2];
-          const uint32_t lo = __funnelshift_r(w0, w1, 8 * (o & 3));
-          const uint32_t hi = __funnelshift_r(w1, w2, 8 * (o & 3));
-          if (h) v[0] = lo, v[1] = hi;
-          else u[0] = lo, u[1] = hi;
-        }
-      }
-      // A: token g8 (and g8 + 8), x rows 8c + 2q, + 1: low, then high
-      uint32_t a0 = 0u, a1 = 0u, a2 = 0u, a3 = 0u;
-      if (g8 < tt) a0 = xw[g8 * 16 + 4 * c + q], a2 = xw[g8 * 16 + 8 + 4 * c + q];
-      if (two_tiles && g8 + 8 < tt)
-        a1 = xw[(g8 + 8) * 16 + 4 * c + q], a3 = xw[(g8 + 8) * 16 + 8 + 4 * c + q];
-      decode_step(acc, u, v, a0, a1, a2, a3);
-    }
-    if (++st == spg) {  // the group's dot times its scale, into the total
-      st = 0;
-      const float4* sp = reinterpret_cast<const float4*>(stage + kDecScaleOff) + 4 * q;
-      float sc[16];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const float4 f = sp[k];
-        sc[4 * k] = f.x, sc[4 * k + 1] = f.y, sc[4 * k + 2] = f.z, sc[4 * k + 3] = f.w;
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        total[j][0] += acc[j][0] * sc[j];
-        total[j][1] += acc[j][1] * sc[8 + j];
-        total[j][2] += acc[j][2] * sc[j];
-        total[j][3] += acc[j][3] * sc[8 + j];
-        acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-      }
-      if (!kAligned) group_mis(++gi_now);
-    } else if (!kAligned) {
-#pragma unroll
-      for (int k = 0; k < 4; ++k) mis[k] = (mis[k] + step_mis) & 15;
-    }
-    __syncwarp();  // every lane is done with the stage: it takes step i + kDecStages
-    issue(i + kDecStages);
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // every warp is done with its ring: it holds the warps' totals now
-  decode_epilogue(total, dec_smem, block_sum, out, t0, tt, blockIdx.x * kDecBlockCols, out_dim,
-                  out_bf16, split, splits);
+template <bool kTma, int kMT>
+cudaError_t configure_decode() {
+  cudaError_t err = cudaFuncSetAttribute(int4_decode_kernel<kTma, kMT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         DecTile<kTma, kMT>::kSmemBytes);
+  if (err == cudaSuccess)  // all of an SM's shared memory: blocks side by side
+    err = cudaFuncSetAttribute(int4_decode_kernel<kTma, kMT>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout, 100);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(int4_decode_kernel<kTma, kMT>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return err;
 }
 
-// The decode form's launch: a column tile's splits as one cluster.
-template <bool kAligned>
+// The decode form's launch: a column tile's splits as one cluster, as a
+// programmatic dependent of the kernel before it on the stream.  kTma: the
+// tensor maps of the carrier (boxes of 128 bytes x 32 rows, 128-byte
+// swizzle) and of x (32 rows' bf16 x the block's tokens, 64-byte swizzle;
+// tokens past T zero-filled).
+template <bool kTma, int kMT>
 cudaError_t launch_decode(const void* x, const void* qw, const void* scale, void* out, int T,
                           int in_dim, int G, int gsh, int out_dim, int out_bf16, int splits,
                           int gps, cudaStream_t stream) {
-  static bool configured = false;  // once per instance: keeps the call out of graph capture
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        int4_decode_kernel<kAligned>, cudaFuncAttributeMaxDynamicSharedMemorySize, kDecSmemBytes);
-    if (err == cudaSuccess)  // all of an SM's shared memory: two blocks side by side
-      err = cudaFuncSetAttribute(int4_decode_kernel<kAligned>,
-                                 cudaFuncAttributePreferredSharedMemoryCarveout, 100);
-    if (err != cudaSuccess) return err;
-    configured = true;
+  using L = DecTile<kTma, kMT>;
+  CUtensorMap q_map = {}, x_map = {};
+  if constexpr (kTma) {
+    const EncodeTiled encode = encode_tiled();
+    if (encode == nullptr) return cudaErrorSymbolNotFound;
+    const cuuint32_t ones[2] = {1, 1};
+    const cuuint64_t q_dims[2] = {(cuuint64_t)out_dim, (cuuint64_t)G * gsh};
+    const cuuint64_t q_strides[1] = {(cuuint64_t)out_dim};
+    const cuuint32_t q_box[2] = {128, (cuuint32_t)kDecStepRows};
+    const cuuint64_t x_dims[2] = {(cuuint64_t)in_dim, (cuuint64_t)T};
+    const cuuint64_t x_strides[1] = {(cuuint64_t)in_dim * 2};
+    const cuuint32_t x_box[2] = {(cuuint32_t)kDecStepRows, (cuuint32_t)L::kTokens};
+    if (encode(&q_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(qw), q_dims, q_strides,
+               q_box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS ||
+        encode(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(x), x_dims,
+               x_strides, x_box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return cudaErrorInvalidValue;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim =
-      dim3((out_dim + kDecBlockCols - 1) / kDecBlockCols, splits, (T + kDecTokens - 1) / kDecTokens);
+  cfg.gridDim = dim3((out_dim + kDecBlockCols - 1) / kDecBlockCols, splits,
+                     (T + L::kTokens - 1) / L::kTokens);
   cfg.blockDim = dim3(kDecThreads);
-  cfg.dynamicSmemBytes = kDecSmemBytes;
+  cfg.dynamicSmemBytes = L::kSmemBytes;
   cfg.stream = stream;
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = 1;
-  attr.val.clusterDim.y = splits;
-  attr.val.clusterDim.z = 1;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, int4_decode_kernel<kAligned>,
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = splits;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 2;
+  return cudaLaunchKernelEx(&cfg, int4_decode_kernel<kTma, kMT>, q_map, x_map,
                             static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(qw),
                             static_cast<const float*>(scale), out, T, in_dim, G, gsh, out_dim,
                             out_bf16, gps);
 }
 
-// cuTensorMapEncodeTiled, from the driver through the runtime (no link to libcuda)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
-            cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
+// the block's token tile from T: 16, 32, then 64 tokens (over several blocks
+// past 64)
+template <bool kTma>
+cudaError_t decode_for_tokens(const void* x, const void* qw, const void* scale, void* out, int T,
+                              int in_dim, int G, int gsh, int out_dim, int out_bf16, int splits,
+                              int gps, cudaStream_t st) {
+#define VCLA_DEC_ARGS x, qw, scale, out, T, in_dim, G, gsh, out_dim, out_bf16, splits, gps, st
+  if (T <= 16) return launch_decode<kTma, 1>(VCLA_DEC_ARGS);
+  if (T <= 32) return launch_decode<kTma, 2>(VCLA_DEC_ARGS);
+  return launch_decode<kTma, 4>(VCLA_DEC_ARGS);
+#undef VCLA_DEC_ARGS
 }
 
 template <int KC, int kMma, int kXStages, int kRStages>
@@ -935,22 +1069,37 @@ cudaError_t prefill_for_tile(int tile, const void* x, const void* qw, const void
 // ``stream`` is a cudaStream_t.  Returns a cudaError_t (0 = launched).
 extern "C" {
 
-// The decode form: one launch.  The caller picks ``splits`` (<= 8) runs of
+// The decode form: one launch.  The caller picks ``splits`` (<= 16) runs of
 // ``gps`` groups; each column tile's splits run as one cluster.
 int vcla_int4_matmul_decode(const void* x, const void* qw, const void* scale, void* out, int T,
                             int in_dim, int G, int gsh, int out_dim, int out_bf16, int splits,
                             int gps, void* stream) {
-  if (gsh <= 0 || G * 2 * gsh != in_dim || splits < 1 || splits > kDecMaxSplits || gps < 1 ||
-      (splits - 1) * gps >= G || splits * gps < G || (reinterpret_cast<uintptr_t>(qw) & 15) ||
-      (gsh % 16 == 0 && (reinterpret_cast<uintptr_t>(x) & 15)))
+  const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
+  if (gsh <= 0 || G * 2 * gsh != in_dim || splits < 1 || splits > kDecMaxSplits ||
+      gps < 1 || (splits - 1) * gps >= G || splits * gps < G ||
+      (reinterpret_cast<uintptr_t>(qw) & 15) || (xa & (gsh % 8 == 0 ? 15 : 1)) ||
+      (reinterpret_cast<uintptr_t>(scale) & 3))
     return static_cast<int>(cudaErrorInvalidValue);
+  // every instance at once, at the first call: keeps the calls out of graph capture
+  static const cudaError_t configured = [] {
+    cudaError_t err = configure_decode<true, 1>();
+    if (err == cudaSuccess) err = configure_decode<true, 2>();
+    if (err == cudaSuccess) err = configure_decode<true, 4>();
+    if (err == cudaSuccess) err = configure_decode<false, 1>();
+    if (err == cudaSuccess) err = configure_decode<false, 2>();
+    if (err == cudaSuccess) err = configure_decode<false, 4>();
+    return err;
+  }();
+  if (configured != cudaSuccess) return static_cast<int>(configured);
   if (T == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (out_dim % 16 == 0)
-    return launch_decode<true>(x, qw, scale, out, T, in_dim, G, gsh, out_dim, out_bf16, splits,
-                               gps, st);
-  return launch_decode<false>(x, qw, scale, out, T, in_dim, G, gsh, out_dim, out_bf16, splits,
-                              gps, st);
+  // the TMA takes the carrier and x where rows are 16-byte aligned and every
+  // step is 32 whole rows of one group
+  if (out_dim % 16 == 0 && gsh % kDecStepRows == 0 && (reinterpret_cast<uintptr_t>(scale) & 15) == 0)
+    return decode_for_tokens<true>(x, qw, scale, out, T, in_dim, G, gsh, out_dim, out_bf16,
+                                   splits, gps, st);
+  return decode_for_tokens<false>(x, qw, scale, out, T, in_dim, G, gsh, out_dim, out_bf16,
+                                  splits, gps, st);
 }
 
 int vcla_int4_matmul_prefill(const void* x, const void* qw, const void* scale, void* out, int T,

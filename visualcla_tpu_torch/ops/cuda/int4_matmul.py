@@ -47,32 +47,39 @@ import torch
 from ..quantization import dequantize_grouped, unpack_s4_halves
 from . import build
 
-# The decode form's blocks (``csrc/int4_matmul.cu``): 8 warps over two
-# 64-column slices (128 columns) and up to 16 tokens, each of a slice's 4
-# warps taking whole groups of the block's split; a column tile's splits run
-# as one cluster (at most 8 blocks).
-_DECODE_SLICE_WARPS = 4
-_DECODE_COLS = 128
-_DECODE_TOKENS = 16
-_DECODE_MAX_SPLITS = 8
+# The decode form's blocks (``csrc/int4_matmul.cu``): 256 columns and up to
+# 64 tokens (16, 32 or 64 a block, from T), streaming their run of groups
+# through a ring, 8 warps of 32 columns each over every group of it; a column
+# tile's splits run as one cluster (at most 16 blocks, a size Hopper takes as
+# non-portable), and the blocks stay within one wave of 2 an SM.
+_DECODE_COLS = 256
+_DECODE_TOKENS = 64
+_DECODE_MAX_SPLITS = 16
+_DECODE_BLOCKS_PER_SM = 2
+_DECODE_MIN_GROUPS = 4  # groups a split keeps once every SM has a block
 # The prefill form's block tilings, tokens a block: 1 -> 64, 2 -> 128 (both
 # 128 columns wide); ``prefill_tiling`` picks one from the grid.
 PREFILL_TILES = {1: 64, 2: 128}
 # The cost model behind ``decode_form``, fitted on an H100 (80GB HBM3, 700 W)
-# to bench_int4.py's sweep of both forms on the 7B and 13B shapes and heads
-# at 1-256 tokens (PERF.md §6).  The decode form takes, for each slice of
-# ``decode_tokens_per_block(T)`` (16) tokens, a fixed _DECODE_FIXED_US plus
-# the carrier's bytes at _DECODE_BYTES_PER_US; each prefill block walks all
-# of in_dim, so at few tokens the prefill form takes its waves of blocks (one
-# block an SM; counted at 64 tokens, where its time is still flat in T) times
-# in_dim at _PREFILL_US_PER_IN.  Where ``out`` is not a multiple of 16 both
-# read the carrier without 16-byte rows (the decode form _UNALIGNED_DECODE_COST,
-# the prefill form _UNALIGNED_PREFILL_COST times longer).  The decode form's
-# cost grows with T and the prefill form's does not, so the form changes once.
-_DECODE_FIXED_US = 16.0
-_DECODE_BYTES_PER_US = 1.8e6
+# to bench_int4.py's sweep of both forms on the LLaMA-7B, Mistral-7B and
+# Jamba shapes and heads at 1-256 tokens, each shape's calls on carriers that
+# do not stay in the L2 (PERF.md §6).  The decode form takes a fixed
+# _DECODE_FIXED_US (the ring's fill, the cluster's sums) plus the carrier's
+# bytes at _DECODE_BYTES_PER_US times its token tile's cost (_DECODE_TILE_COST:
+# 16, 32 or 64 tokens a block; its products grow with the tile); each prefill
+# block walks all of in_dim, so at few tokens the prefill form takes its
+# waves of blocks (one block an SM; counted at 64 tokens, where its time is
+# still flat in T) times in_dim at _PREFILL_US_PER_IN.  Where ``out`` is not a
+# multiple of 16 both read the carrier without 16-byte rows (the decode form
+# _UNALIGNED_DECODE_COST, the prefill form _UNALIGNED_PREFILL_COST times
+# longer).  The decode form's cost grows with T, the prefill form's does not,
+# and past one block's 64 tokens the prefill form serves, so the form changes
+# once as T grows.
+_DECODE_FIXED_US = 7.3
+_DECODE_BYTES_PER_US = 2.24e6
+_DECODE_TILE_COST = {16: 1.0, 32: 1.46, 64: 2.78}
 _PREFILL_US_PER_IN = 0.0105
-_UNALIGNED_DECODE_COST = 1.2
+_UNALIGNED_DECODE_COST = 1.7
 _UNALIGNED_PREFILL_COST = 2.3
 LAUNCHES = {"int4_matmul_decode": 0, "int4_matmul_prefill": 0}
 FORMS = ("decode", "prefill")
@@ -249,9 +256,12 @@ def _launch(x, q, scale, out_dtype=None, form=None, tile=None):
 def decode_form(T: int, in_dim: int, out: int, sms: int) -> bool:
     """Whether the decode form serves T tokens of an (in_dim, out) weight on
     a card of ``sms`` SMs: the cost model above, the prefill form's waves
-    taken at 64 tokens and the tiling ``prefill_tiling`` picks there."""
-    slices = -(-T // decode_tokens_per_block(T))
-    decode = slices * (_DECODE_FIXED_US + in_dim * out / 2 / _DECODE_BYTES_PER_US)
+    taken at 64 tokens and the tiling ``prefill_tiling`` picks there.  Past
+    one block's 64 tokens the prefill form serves."""
+    if T > _DECODE_TOKENS:
+        return False
+    tile = 16 if T <= 16 else 32 if T <= 32 else 64
+    decode = _DECODE_FIXED_US + in_dim * out / 2 / _DECODE_BYTES_PER_US * _DECODE_TILE_COST[tile]
     rows = PREFILL_TILES[prefill_tiling(64, out, sms)]
     prefill = -(-(-(-out // 128) * -(-64 // rows)) // sms) * in_dim * _PREFILL_US_PER_IN
     if out % 16:
@@ -262,13 +272,16 @@ def decode_form(T: int, in_dim: int, out: int, sms: int) -> bool:
 
 def decode_splits(G: int, gsh: int, out: int, sms: int) -> tuple:
     """(splits, groups a split) of the decode form for a carrier of G groups
-    of ``gsh`` rows and ``out`` columns on ``sms`` SMs: enough splits that
-    the blocks (128 columns each) fill the card twice, as long as every warp
-    keeps a group and a tile's splits fit one cluster.  A function of the
-    weight's shape and the card alone, never of the token count, so a
-    token's row is summed in the same order whatever the batch."""
+    of ``gsh`` rows and ``out`` columns on ``sms`` SMs.  The blocks (256
+    columns each) stay within one wave of 2 an SM and a cluster of 16; within
+    that, a split keeps 4 groups or more once the blocks give every SM one (a
+    block's fixed path, its ring's fill and the cluster's sums, weighs on
+    fewer groups), and fewer groups only to give every SM a block.  A
+    function of the weight's shape and the card alone, never of the token
+    count, so a token's row is summed in the same order whatever the batch."""
     tiles = -(-out // _DECODE_COLS)
-    splits = max(1, min(-(-2 * sms // tiles), G // _DECODE_SLICE_WARPS, _DECODE_MAX_SPLITS))
+    want = max(G // _DECODE_MIN_GROUPS, -(-sms // tiles))
+    splits = max(1, min(_DECODE_BLOCKS_PER_SM * sms // tiles, _DECODE_MAX_SPLITS, G, want))
     gps = -(-G // splits)
     return -(-G // gps), gps
 
@@ -292,6 +305,6 @@ def _sm_count(device) -> int:
 
 
 def decode_tokens_per_block(T: int) -> int:
-    """Tokens one decode-form block serves: T up to 16 (the mma's rows),
-    then 16 a block over several blocks."""
+    """Tokens one decode-form block serves: T up to 64 (in tiles of 16, 32
+    or 64), then 64 a block over several blocks."""
     return min(T, _DECODE_TOKENS)
