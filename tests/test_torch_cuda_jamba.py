@@ -209,7 +209,7 @@ def test_jamba_pool_captured_equals_eager(dev):
         eng.step_n(8)
         snap = eng.snapshot()
         s = eng._state
-        return snap["gen_ids"], s.conv.clone(), s.ssm.clone()
+        return snap["gen_ids"], s.rows["conv"].clone(), s.rows["ssm"].clone()
 
     b7.reset_launch_counts()
     b8.reset_launch_counts()

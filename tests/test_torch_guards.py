@@ -412,7 +412,7 @@ NOT_PORTED = {
     "engine.paged": {
         "logger": "a module logger; the port's module logs nothing",
         "paged_layer_step": "the functional per-layer step over param dicts; the port's "
-                            "is engine.paged.pool_layer over a DecoderLayer module",
+                            "is the tower's paged_decode over its layer modules",
     },
     "engine.generate": {
         "hbm_limit": "sizes the flat vs nested decode loops to a TPU's HBM (ROADMAP §2)",

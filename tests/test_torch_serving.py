@@ -7,9 +7,12 @@ version within 1e-5 of the Pallas kernel run in interpret mode (fp32, another
 summation order; the int8 pool rounds to bf16 at the same points in both),
 pools bitwise; engines token for token in fp32.  Draws come from different
 generators, so they are compared by distribution."""
+import ast
 import base64
+import inspect
 import io
 import json
+import textwrap
 import threading
 import urllib.request
 from http.server import ThreadingHTTPServer
@@ -27,10 +30,12 @@ from visualcla_tpu.engine import sampling as j_samp
 from visualcla_tpu.engine.paged import PagedServingEngine as JPaged
 from visualcla_tpu.ops.pallas.paged_attention import paged_append_attention as j_b4
 from visualcla_tpu_torch.engine import sampling as t_samp
+from visualcla_tpu_torch.engine import pool as t_pool
 from visualcla_tpu_torch.engine import server as t_server
 from visualcla_tpu_torch.engine.paged import PagedServingEngine as TPaged
 from visualcla_tpu_torch.fixtures import paged_case
 from visualcla_tpu_torch.ops.cuda import paged_attention as pa
+from visualcla_tpu_torch.parallel import serving as t_serving
 from visualcla_tpu_torch.text import encoding_text
 
 V = 97
@@ -437,6 +442,35 @@ def test_unported_serving_options_raise(models):
         TPaged(tm.model, tm.config, mesh=object(), **kw)
     with pytest.raises(ValueError, match="mirostat"):
         t_server.sampling_knobs(t_samp.SamplingConfig(), {"mirostat_mode": 1})
+
+
+def _scheduler_calls() -> set:
+    """The members ``Scheduler`` calls on its engine, read from its source."""
+    tree = ast.parse(textwrap.dedent(inspect.getsource(t_server.Scheduler)))
+    calls = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute):
+            owner = node.func.value
+            if ((isinstance(owner, ast.Name) and owner.id == "eng")
+                    or (isinstance(owner, ast.Attribute) and owner.attr == "engine")):
+                calls.add(node.func.attr)
+    return calls
+
+
+@pytest.mark.parametrize("klass", [t_server.ServingEngine, TPaged, t_serving.Leader],
+                         ids=lambda k: k.__name__)
+def test_scheduler_contract(klass):
+    """Every member the Scheduler calls on its engine is defined on the
+    pool's class itself or on ``RowPool``: none is reached through
+    ``__getattr__`` (``Leader`` forwards only attributes it reads)."""
+    calls = _scheduler_calls()
+    assert {"prefill_row", "begin_prefill", "step_n", "step", "spec_step_n", "snapshot",
+            "release_rows", "can_admit", "spec_ready", "idle", "release_followers"} <= calls
+    for name in sorted(calls):
+        owner = next((k for k in klass.__mro__ if name in vars(k)), None)
+        assert owner in (klass, t_pool.RowPool), (name, owner)
+        member = vars(owner)[name]
+        assert callable(member) and member.__name__ == name, name
 
 
 # ---------------------------------------------------------------------------

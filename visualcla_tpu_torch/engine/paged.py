@@ -2,38 +2,39 @@
 
 The same scheduling surface as the JAX package's (``server.Scheduler`` drives
 ``prefill_row`` / ``begin_prefill`` / ``step`` / ``step_n`` / ``snapshot`` /
-``release_rows``), with the KV cache in a global block pool:
+``release_rows``; the rows' control is ``pool.RowPool``'s), with the KV cache
+in a global block pool:
 
 - ``(L, NB, BS, Nkv*hd)`` pools (int8 with ``(L, NB, BS, Nkv)`` f32 scales
-  at ``kv_quant="int8"``) and a host free-list allocator whose block 0 is the
-  dummy target of unused table entries and parked rows: it is never handed
-  out;
+  at ``kv_quant="int8"``: ``pool_kv`` is the format) and a host free-list
+  allocator whose block 0 is the dummy target of unused table entries and
+  parked rows: it is never handed out;
 - per-row block tables and context lengths on the host, which the host
   mutates between chunks (admission, release); before a chunk they go into
   static device buffers, the chunk advances the lengths on the device, and
   the host's copy of the lengths is read back once after it;
 - every decode step runs kernel B4 (``ops.cuda.paged_attention``) once per
-  layer: the new token's K/V are appended to the pool and attended over in
-  one launch;
+  attention layer (``append_attend``): the new token's K/V are appended to
+  the pool and attended over in one launch;
 - an admission runs the text tower over a contiguous scratch cache (kernel
   B2) and scatters the prompt's blocks into the pool; prompts are
   RIGHT-padded to a bucket, so the real tokens sit in slots 0..S-1.
 
 The engine reads its text tower through one surface (``Llama``'s and
-``Jamba``'s): ``init_kv_cache`` (an admission's scratch), ``pool_state``
-(what a row keeps beside its K/V), ``stateful`` and ``require(path)`` (a
-tower that does not serve a path raises).  A stateful tower (Jamba,
-``models/jamba.py``) keeps two kinds of state in one pool: the paged K/V of
-its attention layers alone, and per row and Mamba layer the conv and SSM
-states (``PagedState.conv`` / ``ssm``).  Its admissions chain the Mamba
-states through the scratch from chunk to chunk (the chunks' windows never
-overlap, for any tower: a state must not see a token twice; each chunk
-starts from a saved copy, chosen by the chunk's index mod 2, which is part
-of its key, so that a capture's warm-up run leaves the states as one run
-does), and the scatter stage writes the row's states into its slot (a
-device row index) beside its K/V blocks; the captured decode step updates
-the states of the running rows only (kernel B8's step form) and routes the
-others' tokens to no expert.  Speculation and meshes refuse such a tower.
+``Jamba``'s): ``init_kv_cache`` (an admission's scratch), ``paged_decode``
+(its decode step over the pool), ``pool_state`` (what the pool keeps beside
+the K/V) and ``require(path)`` (a tower that does not serve a path raises).
+``pool_state`` returns data, which the engine handles alike for every
+tower: ``rows``, per-row states ``(layers, B, ...)`` (Jamba's Mamba conv and
+SSM states), which an admission's chunks chain through the scratch (the
+chunks' windows never overlap, for any tower: a state must not see a token
+twice; each chunk starts from a saved copy, chosen by the chunk's index mod
+2, which is part of its key, so that a capture's warm-up run leaves the
+states as one run does) and its scatter stage writes into the row's slot (a
+device row index) beside its K/V blocks, counting ``admit_counts``;
+``tallies``, device counters the passes add to (Jamba's MoE counters),
+published in ``counts`` by each decode chunk's read back.  A LLaMA tower
+keeps none.  Speculation and meshes refuse a Jamba tower (``require``).
 
 A row costs ceil(len / BS) blocks, so the pool admits requests by tokens,
 not by rows x max_seq_len.  ``step_n`` is the JAX package's ``_step_n_impl``
@@ -66,21 +67,18 @@ from typing import List, Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..core.config import VisualCLAConfig
-from ..models import llama, visualcla
+from ..models import visualcla
 from ..ops.attention import vision_attention_impl
 from ..ops.cuda.paged_attention import paged_append_attention
 from ..ops.linear import Int4Linear
 from ..ops.quantization import quantize_kv
-from ..ops.rope import apply_rope, rope_table
-from ..parallel.sharding import bind
 from ..utils.profiling import span
-from .generate import PrefillInputs, host_pixels, pick_bucket
-from .graphs import LOCK, Graphs
+from .generate import PrefillInputs
+from .graphs import LOCK
+from .pool import RowPool, RowState, knob_flags, knob_kwargs, sampling_knobs
 from .sampling import SamplingConfig, sample_step_rowwise
-from .server import _check_serving_sampling, knob_flags, knob_kwargs, sampling_knobs
 
 
 def init_pools(cfg, num_blocks: int, block_size: int, dtype=torch.bfloat16,
@@ -104,73 +102,50 @@ def init_pools(cfg, num_blocks: int, block_size: int, dtype=torch.bfloat16,
             torch.zeros(shape, dtype=dtype, device=device), None, None)
 
 
-def pool_layer(layer: llama.DecoderLayer, h, cos, sin, state: "PagedState", attend):
-    """One decoder layer over the pool for Sq new tokens a row: qkv -> rope
-    -> (int8 pool: K and V quantized per token and head, together) ->
-    ``attend(q, k, v, k_scales, v_scales)``, a paged kernel that appends the
-    new K/V to the pools in place and attends -> o_proj -> MLP."""
-    x = layer.input_norm(h)
-    q, k, v = layer.project_qkv(x)  # over a mesh: the rank's heads
-    q, k = apply_rope(q, k, cos, sin)
-    if state.k_scales is not None:
-        (k, v), (ksc, vsc) = (t.unbind(0) for t in quantize_kv(torch.stack((k, v))))
-    else:
-        k, v, ksc, vsc = k.to(state.k_pool.dtype), v.to(state.v_pool.dtype), None, None
-    return layer.out_mlp(h, attend(q, k, v, ksc, vsc))
+def pool_kv(state: "PagedState", k, v):
+    """New K and V (..., Nkv, hd) in the pool's format: int8 per token and
+    head with f32 scales (..., Nkv), or the pools' dtype and None, None."""
+    if state.k_scales is None:
+        return k.to(state.k_pool.dtype), v.to(state.v_pool.dtype), None, None
+    (k, v), (ksc, vsc) = (t.unbind(0) for t in quantize_kv(torch.stack((k, v))))
+    return k, v, ksc, vsc
 
 
-def paged_decode_forward(text: llama.Llama, embeds, positions, state: "PagedState",
-                         tables, blk, off, lens, run=None):
-    """One decode step over the pool, kernel B4 in every layer: embeds
-    (B, 1, H), rope positions (B,), ``lens`` (B,) INCLUDING the new token.
-    -> final-normed hidden (B, 1, H).  A stateful tower (Jamba) runs its own
-    step, which takes the pass's ``run`` vector too (``Jamba.paged_decode``:
-    B4 in its attention layers, B8's step form in its Mamba layers)."""
-    if text.stateful:
-        return text.paged_decode(embeds, state, tables, blk, off, lens, run, state.moe_tally)
-    cos, sin = rope_table(positions[:, None], text.cfg.head_dim, text.cfg.rope_theta)
+def append_attend(state: "PagedState", tables, blk, off, lens):
+    """-> ``attend(l, q, k, v)``: kernel B4 at attention layer ``l`` appends
+    the new K/V (B, 1, Nkv, hd) (``pool_kv``) at (``blk``, ``off``) and
+    attends q (B, 1, N, hd) over ``lens`` slots -> (B, 1, N, hd)."""
+    def attend(l, q, k, v):
+        k, v, ksc, vsc = (None if t is None else t[:, 0] for t in pool_kv(state, k, v))
+        return paged_append_attention(q[:, 0], k, v, state.k_pool, state.v_pool, tables, lens,
+                                      blk, off, l, ksc, vsc, state.k_scales,
+                                      state.v_scales)[:, None]
+    return attend
 
-    def first(t):
-        return None if t is None else t[:, 0]
 
-    h = embeds
-    for l, layer in enumerate(text.layers):
-        def attend(q, k, v, ksc, vsc, l=l):
-            return paged_append_attention(
-                q[:, 0], k[:, 0], v[:, 0], state.k_pool, state.v_pool, tables, lens, blk, off,
-                l, first(ksc), first(vsc), state.k_scales, state.v_scales)[:, None]
-
-        h = pool_layer(layer, h, cos, sin, state, attend)
-    return text.final_norm(h)
+def paged_decode_forward(text, embeds, positions, state: "PagedState", tables, blk, off, lens,
+                         run=None):
+    """One decode step over the pool, the tower's own with B4: embeds (B, 1,
+    H), rope positions (B,), ``lens`` (B,) INCLUDING the new token, ``run``
+    (B,) the rows that run.  -> final-normed hidden (B, 1, H)."""
+    return text.paged_decode(embeds, positions[:, None], state,
+                             append_attend(state, tables, blk, off, lens), run)
 
 
 @dataclasses.dataclass
-class PagedState:
-    """The pool's device state (every tensor has the pool's rows first but
-    the pools)."""
+class PagedState(RowState):
+    """The pool's device state: the rows' control, the K/V pools and what
+    the tower keeps beside them (``pool_state``)."""
 
     k_pool: torch.Tensor  # (L, NB, BS, Nkv*hd)
     v_pool: torch.Tensor
     k_scales: Optional[torch.Tensor]  # (L, NB, BS, Nkv) f32 at kv_quant="int8"
     v_scales: Optional[torch.Tensor]
-    last_token: torch.Tensor  # (B,) int64
-    positions: torch.Tensor  # (B,) next rope position
-    gen_ids: torch.Tensor  # (B, T)
-    gen_len: torch.Tensor  # (B,)
     # (B, Smax) prompt + generated tokens a row, the speculative drafts'
     # source; valid length positions + 1 (the last token is not in the pool)
     all_ids: torch.Tensor
-    max_len: torch.Tensor  # (B,) per-request max_new_tokens
-    active: torch.Tensor  # (B,) bool
-    finished: torch.Tensor  # (B,) bool: hit EOS or a limit, awaiting collection
-    mu: torch.Tensor  # (B,) f32 mirostat state
-    knobs: torch.Tensor  # (B, 11) f32 per-request knobs (server.sampling_knobs)
-    generator: torch.Generator
-    # a Jamba tower's: the rows' Mamba states (Lm, B, D, 3) / (Lm, B, D, N)
-    # f32, and the MoE counters (assignments (L_moe, E), experts hit ())
-    conv: Optional[torch.Tensor] = None
-    ssm: Optional[torch.Tensor] = None
-    moe_tally: Optional[tuple] = None
+    rows: dict = dataclasses.field(default_factory=dict)
+    tallies: dict = dataclasses.field(default_factory=dict)
 
 
 @dataclasses.dataclass
@@ -181,13 +156,16 @@ class _AdmitBuffers:
     embeds: torch.Tensor  # (1, L, H) the spliced embeddings
     positions: torch.Tensor  # (1, L) rope positions
     mask: torch.Tensor  # (1, L) bool, the real slots
-    scratch: dict  # one-row cache of L slots (llama.init_kv_cache)
+    scratch: dict  # one-row cache of L slots (the tower's init_kv_cache)
     blocks: torch.Tensor  # (L / BS,) the prompt's pool blocks
 
 
-class PagedServingEngine:
-    """Block-paged pool engine for one model on one device; duck-type
-    compatible with ``server.Scheduler``."""
+class PagedServingEngine(RowPool):
+    """Block-paged pool engine for one model on one device; a ``RowPool``
+    that admits in chunks and speculates."""
+
+    live_counters = 2  # live decode steps, live speculative iterations
+    chunked_admission = True
 
     def __init__(
         self,
@@ -211,33 +189,22 @@ class PagedServingEngine:
         #   many live rows (None: 2 at the int4 tier, else 4)
         spec_max_ngram: int = 3,
     ):
-        self.stateful = model.text.stateful
         if spec_k > 0:
             model.text.require("speculation")
         if mesh is not None:
             model.text.require("mesh")
-        bind(model, mesh)
-        self.mesh = mesh  # the pools hold the rank's kv heads; rows are not split
-        self.model = model
-        self.cfg = cfg
+        super().__init__(model, cfg, eos_token_id=eos_token_id, pad_token_id=pad_token_id,
+                         pool_size=pool_size, max_seq_len=max_seq_len,
+                         max_new_tokens_cap=max_new_tokens_cap, sampling=sampling, mesh=mesh)
         self.kv_quant = kv_quant
-        self.eos = eos_token_id
-        self.pad = pad_token_id
-        self.B = pool_size
         self.BS = block_size
         self.NB = num_blocks
-        self.Smax = max_seq_len
-        self.T = max_new_tokens_cap
         self.max_blocks = (max_seq_len + block_size - 1) // block_size
         self.prompt_buckets = tuple(b for b in prompt_buckets if b <= max_seq_len)
         bad = [b for b in self.prompt_buckets if b % block_size]
         if bad:
             raise ValueError(f"prompt buckets {bad} are not multiples of "
                              f"block_size={block_size} (prefill scatters whole blocks)")
-        self.sampling = _check_serving_sampling(sampling or SamplingConfig())
-        p = model.text.final_norm.weight  # a float leaf at every weight tier
-        self.device, self.dtype = p.device, p.dtype
-        self.decode_steps = 0  # live decode steps run (counts["decode_passes"]: all)
         self.spec_steps = 0  # live speculative iterations run
         self.spec_k = int(spec_k)
         if spec_max_active is None:
@@ -251,47 +218,23 @@ class PagedServingEngine:
         self.tables = np.zeros((self.B, self.max_blocks), np.int32)
         self.row_blocks: List[List[int]] = [[] for _ in range(self.B)]
         self.ctx_len = np.zeros((self.B,), np.int32)
-        # host mirrors: active is host-driven; finished and the rows'
-        # generated lengths as of the last chunk or snapshot (a row that
-        # ends at its admission shows only at the next one)
-        self._host_active = np.zeros((self.B,), bool)
-        self._host_finished = np.zeros((self.B,), bool)
-        self._host_gen_len = np.zeros((self.B,), np.int64)
-        self._host_max_len = np.zeros((self.B,), np.int64)
-        default_knobs = sampling_knobs(self.sampling, None)
-        self._host_knobs = np.tile(default_knobs, (self.B, 1))
 
-        dev, B, T = self.device, self.B, self.T
+        dev, B = self.device, self.B
         k_pool, v_pool, k_scales, v_scales = init_pools(
             cfg.text_config, num_blocks, block_size, self.dtype, kv_quant, device=dev,
             kv_heads=model.text.kv_heads)
+        extra = model.text.pool_state(B, self.dtype, device=dev)
         self._state = PagedState(
             k_pool=k_pool, v_pool=v_pool, k_scales=k_scales, v_scales=v_scales,
-            last_token=torch.zeros(B, dtype=torch.int64, device=dev),
-            positions=torch.zeros(B, dtype=torch.int64, device=dev),
-            gen_ids=torch.zeros(B, T, dtype=torch.int64, device=dev),
-            gen_len=torch.zeros(B, dtype=torch.int64, device=dev),
             all_ids=torch.zeros(B, max_seq_len, dtype=torch.int64, device=dev),
-            max_len=torch.zeros(B, dtype=torch.int64, device=dev),
-            active=torch.zeros(B, dtype=torch.bool, device=dev),
-            finished=torch.zeros(B, dtype=torch.bool, device=dev),
-            mu=torch.full((B,), 2.0 * self.sampling.mirostat_tau, device=dev),
-            knobs=torch.as_tensor(self._host_knobs, device=dev),
-            generator=torch.Generator(device=dev).manual_seed(seed),
-            **model.text.pool_state(B, self.dtype, device=dev),
-        )
-        # the captured chunks' static inputs: the block tables and context
-        # lengths (uploaded from the host's before a chunk, the lengths
-        # advanced on the device and read back after it), the finished
-        # flags at the chunk's start, and the live (ungated) steps and
-        # speculative iterations run so far
+            rows=extra["rows"], tallies=extra["tallies"], **self._row_fields(seed))
+        # the counts an admission's scatter adds (one a row state written)
+        self._admit_counts = extra["admit_counts"]
+        # the captured chunks' static inputs beside RowPool's: the block
+        # tables and context lengths (uploaded from the host's before a
+        # chunk, the lengths advanced on the device and read back after it)
         self._tables_dev = torch.zeros(self.B, self.max_blocks, dtype=torch.int32, device=dev)
         self._lens_dev = torch.zeros(self.B, dtype=torch.int64, device=dev)
-        self._finished0 = torch.zeros(self.B, dtype=torch.bool, device=dev)
-        self._live = torch.zeros(2, dtype=torch.int64, device=dev)
-        self._live_host = np.zeros(2, np.int64)
-        self._rows = torch.arange(self.B, device=dev)
-        self.graphs = Graphs()
         # the admissions' static buffers: per (form, bucket), the hidden
         # states per bucket, and the first token's inputs (row, S - 1,
         # max_new_tokens; knobs; the padded ids)
@@ -302,22 +245,13 @@ class PagedServingEngine:
         self._tail_ids = torch.zeros(1, max_seq_len, dtype=torch.int64, device=dev)
         self._chunked_busy = False
         self._admit_row = torch.zeros(1, dtype=torch.int64, device=dev)  # the scatter's row
-        # forward passes run on the device, gated ones included: each
-        # launches B4 (decode) or B5 (speculative) once a layer, a tower
-        # chunk (prefill_passes) B2; the live (ungated) decode passes, read
-        # back after each chunk; admission stages run, and those replayed
-        # from a graph
-        self.counts = {"decode_passes": 0, "spec_passes": 0, "live_decode_passes": 0,
-                       "prefill_passes": 0, "admit_stages": 0, "admit_replays": 0}
-        if self.stateful:
-            # Mamba states scattered by admissions (one a layer and row); the
-            # MoE counters as of the last decode chunk's read back: the
-            # assignments each (MoE layer, expert) got and the sum over MoE
-            # passes of the experts that got any (gated passes included: B7
-            # ran them)
-            self.counts.update(ssm_state_writes=0,
-                               moe_expert_tokens=tuple([0] * self._state.moe_tally[0].numel()),
-                               moe_experts_hit=0)
+        # beside RowPool's: B5 passes (spec_passes); admission stages run,
+        # and those replayed from a graph; the tower's counts (its tallies as
+        # of the last decode chunk's read back, and admit_counts)
+        self.counts.update(spec_passes=0, admit_stages=0, admit_replays=0,
+                           **dict.fromkeys(self._admit_counts, 0),
+                           **{name: tuple([0] * t.numel()) if t.dim() else 0
+                              for name, t in self._state.tallies.items()})
 
     def pool_bytes(self) -> int:
         """Device bytes of the K/V pools and their scales."""
@@ -356,42 +290,21 @@ class PagedServingEngine:
         self.tables[row, :] = 0
         self.ctx_len[row] = 0
 
-    def bucket_len(self, n: int) -> int:
-        try:
-            return pick_bucket(self.prompt_buckets, n)
-        except ValueError:
-            # past the buckets: a block-size multiple up to Smax (decode
-            # stops at Smax via hit_cap)
-            L = -(-n // self.BS) * self.BS
-            if L <= self.Smax:
-                return L
-            raise
+    def _overflow_len(self, n: int) -> int:
+        # past the buckets: a block-size multiple up to Smax (decode stops at
+        # Smax via hit_cap)
+        return -(-n // self.BS) * self.BS
 
     # -- admission -------------------------------------------------------------
 
     def _prepare_admission(self, row: int, input_ids, img_start_pos, pixel_values,
                            max_new_tokens: int):
         """Host half of an admission: RIGHT-pad to the bucket (slots 0..S-1
-        hold the prompt), normalize the image marker, reserve every block the
+        hold the prompt), check the image markers, reserve every block the
         request can touch.
         -> (ids, mask, img_pos, host pixels, blocks, nb_prompt, S, L)."""
-        input_ids = np.asarray(input_ids).reshape(-1)
-        S = len(input_ids)
-        L = self.bucket_len(S)
-        ids = np.full((1, L), self.pad, np.int64)
-        mask = np.zeros((1, L), np.int64)
-        ids[0, :S] = input_ids
-        mask[0, :S] = 1
-        if img_start_pos is not None and np.ndim(img_start_pos) > 0:
-            # multi-image admission: (K,) markers with (1, K, 3, H, W) pixels
-            img_pos = np.asarray(img_start_pos, np.int64).reshape(1, -1)
-        else:
-            img_pos = np.asarray([-1 if img_start_pos is None or img_start_pos < 0
-                                  else img_start_pos], np.int64)
-        visualcla.check_img_start_pos(img_pos, self.cfg.num_image_tokens, L)
-        pixels = host_pixels(pixel_values)
-        if pixels is not None and img_pos.ndim == 2 and pixels.dim() == 4:
-            pixels = pixels[None]  # (1, K, 3, H, W)
+        ids, mask, img_pos, pixels, S, L = self._host_prompt(input_ids, img_start_pos,
+                                                             pixel_values, left=False)
         self._free_row(row)
         # blocks for the whole padded prompt + headroom for decode, never
         # past Smax or the table's max_blocks entries
@@ -446,15 +359,17 @@ class PagedServingEngine:
     def _tower_stage(self, buf: _AdmitBuffers, c0: int, width: int,
                      parity: Optional[int] = None) -> None:
         """The text tower over slots [c0, c0 + width) into ``buf``'s scratch
-        cache; the hidden states into the bucket's static buffer.  A Jamba
-        tower's chunk starts from saved state ``parity`` (``Jamba.forward``)."""
+        cache; the hidden states into the bucket's static buffer.  With row
+        states the chunk starts from saved state ``parity`` (``Jamba.forward``);
+        the tower's tallies count the chunk."""
         L = buf.mask.shape[1]
         c1 = c0 + width
         # real slots before the chunk's end: a query at slot j sees the valid
         # kv slots <= j, exactly the one-shot prefill's set
         kv_valid = buf.mask & (torch.arange(L, device=buf.mask.device) < c1)[None]
-        kw = ({"tally": self._state.moe_tally, "chunk_parity": parity} if self.stateful
-              else {})
+        kw = {"tally": self._state.tallies} if self._state.tallies else {}
+        if parity is not None:
+            kw["chunk_parity"] = parity
         hidden, _ = self.model.text(buf.embeds[:, c0:c1], buf.positions[:, c0:c1], buf.scratch,
                                     kv_valid, c0, **kw)
         self._hidden[L][:, c0:c1].copy_(hidden)
@@ -462,10 +377,11 @@ class PagedServingEngine:
 
     def _scatter_stage(self, buf: _AdmitBuffers) -> None:
         """Copy the scratch cache's K/V (L, 1, Nkv, Lb, hd) into the pool
-        blocks ``buf.blocks`` (int8 pool: quantized per token and head on the
-        way).  Slots the chunks never wrote carry a stale earlier admission's
-        values into the row's blocks: they lie at or past the prompt's end,
-        where decode writes each slot before any query reads it."""
+        blocks ``buf.blocks`` in the pool's format (``pool_kv``), and the
+        row states (at the last real token) into the row ``_admit_row``.
+        Slots the chunks never wrote carry a stale earlier admission's values
+        into the row's blocks: they lie at or past the prompt's end, where
+        decode writes each slot before any query reads it."""
         s = self._state
         Lyr, _, Nkv, Lb, hd = buf.scratch["k"].shape
         nb = Lb // self.BS
@@ -473,17 +389,16 @@ class PagedServingEngine:
         def blocks(t):  # (L, 1, Nkv, Lb, hd) -> (L, nb, BS, Nkv, hd)
             return t[:, 0].transpose(1, 2).reshape(Lyr, nb, self.BS, Nkv, hd)
 
-        kb, vb = blocks(buf.scratch["k"]), blocks(buf.scratch["v"])
-        if s.k_scales is not None:
-            (kb, vb), (ks, vs) = (t.unbind(0) for t in quantize_kv(torch.stack((kb, vb))))
+        kb, vb, ks, vs = pool_kv(s, blocks(buf.scratch["k"]), blocks(buf.scratch["v"]))
+        if ks is not None:
             s.k_scales.index_copy_(1, buf.blocks, ks)
             s.v_scales.index_copy_(1, buf.blocks, vs)
         for pool, t in ((s.k_pool, kb), (s.v_pool, vb)):
-            pool.index_copy_(1, buf.blocks, t.reshape(Lyr, nb, self.BS, Nkv * hd).to(pool.dtype))
-        if self.stateful:  # the row's Mamba states, at the last real token
-            s.conv.index_copy_(1, self._admit_row, buf.scratch["conv"])
-            s.ssm.index_copy_(1, self._admit_row, buf.scratch["ssm"])
-            self.counts["ssm_state_writes"] += s.ssm.shape[0]
+            pool.index_copy_(1, buf.blocks, t.reshape(Lyr, nb, self.BS, Nkv * hd))
+        for name, t in s.rows.items():
+            t.index_copy_(1, self._admit_row, buf.scratch[name])
+        for name, n in self._admit_counts.items():
+            self.counts[name] += n
 
     def _tail_stage(self, L: int, flags: dict) -> None:
         """Sample the first token from the last REAL prompt position's hidden
@@ -503,16 +418,9 @@ class PagedServingEngine:
             **knob_kwargs(kn, 2.0 * kn[:, 7]), flags=flags)
         s.all_ids.index_put_((row.expand(L), torch.arange(L, device=dev)), self._tail_ids[0, :L])
         s.all_ids.index_put_((row, (last + 1).clamp(max=self.Smax - 1)), token)
-        s.last_token.index_copy_(0, row, token)
-        s.positions.index_copy_(0, row, last + 1)
-        s.gen_ids.index_copy_(0, row, F.pad(token[:, None], (0, T - 1)))
-        s.gen_len.index_fill_(0, row, 1)
-        s.max_len.index_copy_(0, row, max_new)
-        s.active.index_fill_(0, row, True)
         # the admission commits token 1: a max_new_tokens=1 request is complete
-        s.finished.index_copy_(0, row, (token == self.eos) | (max_new <= 1))
-        s.mu.index_copy_(0, row, mu_row)
-        s.knobs.index_copy_(0, row, kn)
+        self._activate(row, token, mu_row, kn, max_new, last + 1,
+                       (token == self.eos) | (max_new <= 1))
 
     @torch.no_grad()
     def prefill_row(self, row: int, input_ids: np.ndarray, pixel_values, img_start_pos,
@@ -551,15 +459,6 @@ class PagedServingEngine:
         off = new_slot % self.BS
         return blk, off, torch.where(run, lens, torch.ones_like(lens))
 
-    def _gate(self):
-        """(run, go): the running rows and the JAX ``_step_n_impl`` cond (a
-        row runs, none finished since the chunk began), ANDed into run."""
-        s = self._state
-        run = s.active & ~s.finished
-        go = (run.any() & ~(s.finished & ~self._finished0).any()
-              & self.graphs.enable(self.device))
-        return run & go, go
-
     def _decode_step(self, flags: dict) -> None:
         """One gated decode step over the static buffers, in place: every
         running row appends its token at ``lens`` (B4 in every layer) and
@@ -577,25 +476,20 @@ class PagedServingEngine:
         self.counts["decode_passes"] += 1
 
     def _finish_step(self, run, lens, step_logits, flags: dict) -> None:
+        """Sample every row's next token and commit it for the rows in
+        ``run`` (``lens``: their lengths with this step's token)."""
         s = self._state
-        rows = self._rows
         token, new_mu = sample_step_rowwise(
             step_logits, s.gen_ids, s.gen_len, s.generator, self.sampling,
             **knob_kwargs(s.knobs, s.mu), flags=flags)
-        s.mu.copy_(torch.where(run, new_mu, s.mu))
-        token = torch.where(run, token, torch.full_like(token, self.pad))
-        idx = s.gen_len.clamp(max=self.T - 1)
-        s.gen_ids[rows, idx] = torch.where(run, token, s.gen_ids[rows, idx])
-        s.gen_len += run.long()
+        self._commit(run, token, new_mu, lens)
+
+    def _record(self, run, token) -> None:
         # the token history's next index is positions + 1
+        s, rows = self._state, self._rows
         aidx = (s.positions + 1).clamp(max=self.Smax - 1)
         s.all_ids[rows, aidx] = torch.where(run & (s.positions + 1 < self.Smax), token,
                                             s.all_ids[rows, aidx])
-        hit_eos = run & (token == self.eos)
-        hit_cap = run & ((s.gen_len >= s.max_len) | (lens + 1 >= self.Smax))
-        s.last_token.copy_(torch.where(run, token, s.last_token))
-        s.positions += run.long()
-        s.finished |= hit_eos | hit_cap
 
     def _run_chunk(self, kind: str, n: int, step) -> None:
         """A chunk of ``n`` gated steps ``step(flags)``: replays of the step
@@ -608,42 +502,25 @@ class PagedServingEngine:
         Recorded as spans ``decode.launch`` (host prep, copies up, replays)
         and ``decode.readback`` (the copy back, which waits for the chunk)."""
         with span("decode.launch"):
-            run = self._host_active & ~self._host_finished
-            if kind == "decode" and run.any():
-                to_cap = np.minimum(self._host_max_len - self._host_gen_len,
-                                    self.Smax - 1 - self.ctx_len.astype(np.int64))
-                n = min(n, max(1, int(to_cap[run].min())))
-            flags = knob_flags(self._host_knobs[self._host_active])
+            if kind == "decode":
+                n = self._chunk_len(n, self.Smax - 1 - self.ctx_len.astype(np.int64))
             self._tables_dev.copy_(torch.from_numpy(self.tables))
             self._lens_dev.copy_(torch.from_numpy(self.ctx_len.astype(np.int64)))
-            self._finished0.copy_(self._state.finished)
-            self.graphs.run((kind, tuple(sorted(flags.items()))), lambda: step(flags),
-                            self.device, generators=[self._state.generator],
-                            counters=[self.counts], replays=n)
+            self._replay(kind, n, step)
         with span("decode.readback"):
             s = self._state
-            moe = [s.moe_tally[0].reshape(-1), s.moe_tally[1][None]] if self.stateful else []
-            ctl = torch.cat([self._lens_dev, s.gen_len, s.finished.long(),
-                             self._live, *moe]).cpu().numpy()
+            ctl = torch.cat([self._lens_dev, s.gen_len, s.finished.long(), self._live,
+                             *(t.reshape(-1) for t in s.tallies.values())]).cpu().numpy()
         B = self.B
-        if self.stateful:
-            n = s.moe_tally[0].numel()
-            self.counts["moe_expert_tokens"] = tuple(int(v) for v in ctl[3 * B + 2:3 * B + 2 + n])
-            self.counts["moe_experts_hit"] = int(ctl[-1])
-            ctl = ctl[:3 * B + 2]
         self.ctx_len = ctl[:B].astype(np.int32)
         self._host_gen_len = ctl[B:2 * B].copy()
         self._host_finished = ctl[2 * B:3 * B].astype(bool)
-        live = ctl[3 * B:] - self._live_host
-        self._live_host = ctl[3 * B:]
-        self.decode_steps += int(live[0])
-        self.spec_steps += int(live[1])
-        self.counts["live_decode_passes"] += int(live[0])
-
-    @torch.no_grad()
-    def step(self) -> None:
-        """One decode step for every running row."""
-        self._run_chunk("decode", 1, self._decode_step)
+        self.spec_steps += int(self._count_live(ctl[3 * B:3 * B + 2])[1])
+        at = 3 * B + 2
+        for name, t in s.tallies.items():  # the tower's counters, as they stand
+            got = ctl[at:at + t.numel()]
+            self.counts[name] = tuple(int(v) for v in got) if t.dim() else int(got[0])
+            at += t.numel()
 
     @torch.no_grad()
     def step_n(self, n: int) -> None:
@@ -742,41 +619,10 @@ class PagedServingEngine:
             raise ValueError("spec_step_n needs an engine built with spec_k > 0")
         self._run_chunk("spec", n, self._spec_step)
 
-    def snapshot(self) -> dict:
-        """The rows' control fields in one device-to-host copy."""
-        s = self._state
-        packed = torch.cat([s.last_token[:, None], s.gen_len[:, None], s.active[:, None].long(),
-                            s.finished[:, None].long(), s.gen_ids], dim=1).cpu().numpy()
-        snap = {"last_token": packed[:, 0], "gen_len": packed[:, 1],
-                "active": packed[:, 2].astype(bool), "finished": packed[:, 3].astype(bool),
-                "gen_ids": packed[:, 4:]}
-        self._host_finished = snap["finished"].copy()
-        self._host_gen_len = snap["gen_len"].astype(np.int64)
-        return snap
-
-    def release_row(self, row: int) -> None:
-        self.release_rows([row])
-
-    def release_rows(self, rows) -> None:
-        """Deactivate finished rows without a device fetch and return their
-        blocks to the allocator."""
-        rows = list(rows)
-        idx = torch.as_tensor(rows, dtype=torch.int64, device=self.device)
-        self._state.active[idx] = False
-        self._state.finished[idx] = False
+    def _release(self, rows: list, idx: torch.Tensor) -> None:
+        # the rows' blocks back to the allocator
         for row in rows:
-            self._host_active[row] = False
-            self._host_finished[row] = False
             self._free_row(row)
-
-    def collect_row(self, row: int) -> np.ndarray:
-        gen_len = int(self._state.gen_len[row])
-        ids = self._state.gen_ids[row, :gen_len].cpu().numpy().copy()
-        self.release_row(row)
-        return ids
-
-    def num_active(self) -> int:
-        return int(self._state.active.sum())
 
 
 class PendingPrefill:
@@ -847,7 +693,7 @@ class PendingPrefill:
             self.encoded = True
             return False
         c0, width = self.starts[self.i], self.widths[self.i]
-        parity = self.i % 2 if eng.stateful else None
+        parity = self.i % 2 if eng._state.rows else None  # row states chain by parity
         with span("admit.tower"):
             eng._run_stage(("tower", owner, L, c0, width) + (() if parity is None else (parity,)),
                            lambda: eng._tower_stage(buf, c0, width, parity))
@@ -856,7 +702,7 @@ class PendingPrefill:
             return False
         with span("admit.scatter"):
             buf.blocks.copy_(torch.from_numpy(self.blocks))
-            if eng.stateful:
+            if eng._state.rows:
                 eng._admit_row.fill_(self.row)
             eng._run_stage(("scatter", owner, L), lambda: eng._scatter_stage(buf))
         with span("admit.first_token"):
@@ -866,13 +712,8 @@ class PendingPrefill:
             eng._tail_ids[:, :L].copy_(torch.from_numpy(self.ids))
             eng._run_stage(("tail", L, tuple(sorted(flags.items()))),
                            lambda: eng._tail_stage(L, flags), generators=[eng._state.generator])
-        row = self.row
-        eng._host_knobs[row] = self.knobs
-        eng.ctx_len[row] = self.S
-        eng._host_active[row] = True
-        eng._host_finished[row] = False
-        eng._host_gen_len[row] = 1
-        eng._host_max_len[row] = self.max_new
+        eng._host_activate(self.row, self.max_new, self.knobs)
+        eng.ctx_len[self.row] = self.S
         self._finish()
         return True
 

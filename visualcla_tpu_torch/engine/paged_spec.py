@@ -20,10 +20,8 @@ from __future__ import annotations
 
 import torch
 
-from ..models import llama
 from ..ops.cuda.paged_attention import paged_verify_attention
-from ..ops.rope import rope_table
-from .paged import PagedState, pool_layer
+from .paged import PagedState, pool_kv
 from .speculative import ngram_draft
 
 
@@ -33,34 +31,32 @@ def draft_all_rows(all_ids: torch.Tensor, total_len: torch.Tensor, k: int,
     return ngram_draft(all_ids, 0, total_len, k, max_ngram)
 
 
-def paged_verify_forward(text: llama.Llama, embeds, positions, state: PagedState, tables,
-                         base, run) -> torch.Tensor:
+def paged_verify_forward(text, embeds, positions, state: PagedState, tables, base,
+                         run) -> torch.Tensor:
     """Forward (B, Sq) tokens over the pool, kernel B5 in every layer: embeds
     (B, Sq, H), positions (B, Sq) rope positions, base (B,) the pool slot of
     token 0 (token j goes to slot base + j), run (B,) the running rows.  The
-    pools are updated in place.  Parked rows pass length Sq over a ZEROED
-    table (a row mid-way through a chunked admission has its blocks reserved
-    and its prompt half written), so they touch only dummy block 0, as do
-    slots past a row's table.  -> final-normed hidden (B, Sq, H)."""
+    pools are updated in place, in the pool's format (``pool_kv``).  Parked
+    rows pass length Sq over a ZEROED table (a row mid-way through a chunked
+    admission has its blocks reserved and its prompt half written), so they
+    touch only dummy block 0, as do slots past a row's table.  The tower's
+    own pass (``Llama.paged_decode``).  -> final-normed hidden (B, Sq, H)."""
     Sq = embeds.shape[1]
-    cos, sin = rope_table(positions, text.cfg.head_dim, text.cfg.rope_theta)
     lens_total = torch.where(run, base + Sq, torch.full_like(base, Sq))
     tables = torch.where(run[:, None], tables, torch.zeros_like(tables))
-    h = embeds
-    for l, layer in enumerate(text.layers):
-        def attend(q, k, v, ksc, vsc, l=l):
-            return paged_verify_attention(q, k, v, state.k_pool, state.v_pool, tables,
-                                          lens_total, l, ksc, vsc, state.k_scales,
-                                          state.v_scales)
 
-        h = pool_layer(layer, h, cos, sin, state, attend)
-    return text.final_norm(h)
+    def attend(l, q, k, v):
+        k, v, ksc, vsc = pool_kv(state, k, v)
+        return paged_verify_attention(q, k, v, state.k_pool, state.v_pool, tables, lens_total,
+                                      l, ksc, vsc, state.k_scales, state.v_scales)
+
+    return text.paged_decode(embeds, positions, state, attend, run)
 
 
 def spec_eligible(knobs):
     """(B,) rows whose committed tokens are a pure argmax chain, the rows
     speculative acceptance is exact for, from (B, 11) knob rows
-    (``server.sampling_knobs`` order; numpy on the host or a device tensor):
+    (``pool.sampling_knobs`` order; numpy on the host or a device tensor):
     no sampling, repetition penalty, n-gram ban, mirostat or top-k."""
     return ((knobs[:, 3] <= 0.5) & (knobs[:, 2] == 1.0) & (knobs[:, 10] == 0)
             & (knobs[:, 6] <= 1.5) & (knobs[:, 9] == 0))

@@ -2,7 +2,7 @@
 
 ``ServingEngine`` keeps a fixed pool of B cache rows on the device, the
 stacked ``(L, B, Nkv, Smax, hd)`` cache of ``models.llama``, and interleaves
-requests at token granularity:
+requests at token granularity; its rows' control is ``pool.RowPool``'s:
 
 - ``prefill_row`` runs one LEFT-padded prompt into a free row: the text tower
   over a one-row scratch cache at the bucket (kernel B2), the prompt's K/V
@@ -20,12 +20,12 @@ Over a mesh (``mesh=``, the model sharded by ``parallel.sharding``) every
 rank holds its kv heads of every row and runs every row: the same calls on
 every rank, as ``parallel.serving`` arranges for the ``Scheduler``.
 
-``Scheduler`` is a host thread that multiplexes a request queue onto the pool
-of either engine (this one or ``engine.paged.PagedServingEngine``, whose
-extra entry points it reaches through ``getattr``): a request prefills into
-a free row, all live rows decode together, and a finished row is reused by
-the next queued request without draining the others.  Each iteration streams
-every new token to its request's queue.  Its work is recorded as spans
+``Scheduler`` is a host thread that multiplexes a request queue onto a
+``RowPool`` (this one or ``engine.paged.PagedServingEngine``), through the
+contract ``RowPool`` states: a request prefills into a free row, all live
+rows decode together, and a finished row is reused by the next queued
+request without draining the others.  Each iteration streams every new
+token to its request's queue.  Its work is recorded as spans
 (``utils.profiling``) while spans are recorded: ``request`` and
 ``sched.queue_wait`` on the submitting thread, ``sched.admit`` /
 ``sched.admit_begin`` / ``sched.admit_stage``, ``sched.decode``,
@@ -44,94 +44,30 @@ from typing import Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..core.config import VisualCLAConfig
 from ..models import llama, visualcla
 from ..ops.attention import attention_mesh_scope, vision_attention_impl
-from ..parallel.sharding import bind
 from ..utils.profiling import add_span, span
-from .generate import PrefillInputs, host_pixels, pick_bucket
-from .graphs import Graphs
-from .sampling import SamplingConfig, rowwise_flags, sample_step_rowwise
+from .generate import PrefillInputs
+from .pool import (KNOB_NAMES, RowPool, RowState, knob_flags, knob_kwargs,  # noqa: F401
+                   sampling_knobs)
+from .sampling import SamplingConfig, sample_step_rowwise
 
 logger = logging.getLogger(__name__)
 
-KNOB_NAMES = ("temperature", "top_p", "repetition_penalty", "do_sample", "tfs", "top_a",
-              "mirostat_mode", "mirostat_tau", "mirostat_eta", "top_k",
-              "no_repeat_ngram_size")
-
-
-def _check_serving_sampling(s: SamplingConfig) -> SamplingConfig:
-    """The pool samples with ``sample_step_rowwise``, which covers the
-    reference's whole sampler surface per row; only unknown mirostat modes
-    are refused."""
-    if s.mirostat_mode not in (0, 2):
-        raise ValueError(f"mirostat_mode={s.mirostat_mode} is not a thing (the reference "
-                         "implements mirostat v2 only; use mirostat_mode=2)")
-    return s
-
-
-def sampling_knobs(sampling: SamplingConfig, overrides: Optional[dict]) -> np.ndarray:
-    """A request's knob vector, (11,) f32 in ``KNOB_NAMES`` order (do_sample
-    as 0/1), from its overrides over the engine-wide defaults."""
-    o = overrides or {}
-    mode = int(o.get("mirostat_mode", sampling.mirostat_mode))
-    if mode not in (0, 2):
-        raise ValueError(f"mirostat_mode={mode} unsupported (0 or 2)")
-    return np.asarray([
-        float(o.get("temperature", sampling.temperature)),
-        float(o.get("top_p", sampling.top_p)),
-        float(o.get("repetition_penalty", sampling.repetition_penalty)),
-        1.0 if o.get("do_sample", sampling.do_sample) else 0.0,
-        float(o.get("tfs", sampling.tfs)),
-        float(o.get("top_a", sampling.top_a)),
-        float(mode),
-        float(o.get("mirostat_tau", sampling.mirostat_tau)),
-        float(o.get("mirostat_eta", sampling.mirostat_eta)),
-        float(o.get("top_k", sampling.top_k)),
-        float(o.get("no_repeat_ngram_size", sampling.no_repeat_ngram_size)),
-    ], np.float32)
-
-
-def knob_kwargs(knobs: torch.Tensor, mu: torch.Tensor) -> dict:
-    """``sample_step_rowwise`` keyword arguments from (B, 11) device knobs
-    and the rows' mirostat state."""
-    return dict(
-        temperature=knobs[:, 0], top_p=knobs[:, 1], repetition_penalty=knobs[:, 2],
-        do_sample=knobs[:, 3] > 0.5, tfs=knobs[:, 4], top_a=knobs[:, 5],
-        mirostat=knobs[:, 6] > 1.5, miro_tau=knobs[:, 7], miro_eta=knobs[:, 8], mu=mu,
-        top_k=knobs[:, 9].long(), ngram=knobs[:, 10].long())
-
-
-def knob_flags(knobs: np.ndarray) -> dict:
-    """``rowwise_flags`` from host knob rows (B', 11) (``sampling_knobs``)."""
-    return rowwise_flags(top_p=knobs[:, 1], repetition_penalty=knobs[:, 2],
-                         do_sample=knobs[:, 3] > 0.5, tfs=knobs[:, 4], top_a=knobs[:, 5],
-                         mirostat=knobs[:, 6] > 1.5, top_k=knobs[:, 9], ngram=knobs[:, 10])
-
 
 @dataclasses.dataclass
-class PoolState:
-    """The contiguous pool's device state (every tensor has the rows first
-    but the cache)."""
+class PoolState(RowState):
+    """The contiguous pool's device state: the rows' control and the cache
+    (every tensor has the rows first but the cache)."""
 
     cache: dict  # {"k", "v"}: (L, B, Nkv, Smax, hd)
     kv_valid: torch.Tensor  # (B, Smax) bool
     cur_slot: torch.Tensor  # (B,) next cache slot a row writes
-    positions: torch.Tensor  # (B,) next rope position
-    last_token: torch.Tensor  # (B,)
-    gen_ids: torch.Tensor  # (B, T)
-    gen_len: torch.Tensor  # (B,)
-    max_len: torch.Tensor  # (B,) per-request max_new_tokens
-    active: torch.Tensor  # (B,) bool
-    finished: torch.Tensor  # (B,) bool: hit EOS or a limit, awaiting collection
-    mu: torch.Tensor  # (B,) f32 mirostat state
-    knobs: torch.Tensor  # (B, 11) f32 per-request knobs (sampling_knobs)
-    generator: torch.Generator
 
 
-class ServingEngine:
+class ServingEngine(RowPool):
     """Fixed-pool continuous batching over one model (the JAX package's
     ``ServingEngine``); drives ``Scheduler``.
 
@@ -159,37 +95,20 @@ class ServingEngine:
         mesh=None,
     ):
         model.text.require("contiguous_pool")
-        bind(model, mesh)
-        self.mesh = mesh
-        self.model = model
-        self.cfg = cfg
-        self.eos = eos_token_id
-        self.pad = pad_token_id
-        self.B = pool_size
-        self.Smax = max_seq_len
-        self.T = max_new_tokens_cap
+        super().__init__(model, cfg, eos_token_id=eos_token_id, pad_token_id=pad_token_id,
+                         pool_size=pool_size, max_seq_len=max_seq_len,
+                         max_new_tokens_cap=max_new_tokens_cap, sampling=sampling, mesh=mesh)
         # every bucket leaves decode room: a prompt bucketed to Smax would
         # set cur_slot == Smax.  Buckets >= Smax are dropped; the prompts they
         # covered take bucket_len's overflow path (32-quantized lengths < Smax)
         self.prompt_buckets = tuple(b for b in prompt_buckets if b < max_seq_len)
-        self.sampling = _check_serving_sampling(sampling or SamplingConfig())
-        p = model.text.final_norm.weight  # a float leaf at every weight tier
-        self.device, self.dtype = p.device, p.dtype
-        dev, B, T = self.device, self.B, self.T
-        default_knobs = sampling_knobs(self.sampling, None)
+        dev, B = self.device, self.B
         z = dict(dtype=torch.int64, device=dev)
         self._state = PoolState(
             cache=llama.init_kv_cache(cfg.text_config, B, max_seq_len, self.dtype, device=dev,
                                       kv_heads=model.text.kv_heads),
             kv_valid=torch.zeros(B, max_seq_len, dtype=torch.bool, device=dev),
-            cur_slot=torch.zeros(B, **z), positions=torch.zeros(B, **z),
-            last_token=torch.zeros(B, **z), gen_ids=torch.zeros(B, T, **z),
-            gen_len=torch.zeros(B, **z), max_len=torch.zeros(B, **z),
-            active=torch.zeros(B, dtype=torch.bool, device=dev),
-            finished=torch.zeros(B, dtype=torch.bool, device=dev),
-            mu=torch.full((B,), 2.0 * self.sampling.mirostat_tau, device=dev),
-            knobs=torch.as_tensor(np.tile(default_knobs, (B, 1)), device=dev),
-            generator=torch.Generator(device=dev).manual_seed(seed))
+            cur_slot=torch.zeros(B, **z), **self._row_fields(seed))
         # an admission's one-row scratch cache (its first L slots at bucket L),
         # its static inputs by shape, and its row, limit and knobs
         self._scratch = llama.init_kv_cache(cfg.text_config, 1, max_seq_len, self.dtype,
@@ -198,40 +117,16 @@ class ServingEngine:
         self._row = torch.zeros(1, **z)
         self._max_new = torch.zeros(1, **z)
         self._admit_knobs = torch.zeros(11, dtype=torch.float32, device=dev)
-        # the decode chunk's static inputs: the finished flags at its start,
-        # and the live (ungated) steps run so far
-        self._finished0 = torch.zeros(B, dtype=torch.bool, device=dev)
-        self._live = torch.zeros(1, **z)
-        self._live_host = 0
-        self._rows = torch.arange(B, device=dev)
-        # host mirrors: active is host-driven; the rest as of the last snapshot
-        self._host_active = np.zeros(B, bool)
-        self._host_finished = np.zeros(B, bool)
-        self._host_gen_len = np.zeros(B, np.int64)
-        self._host_max_len = np.zeros(B, np.int64)
         self._host_bucket = np.zeros(B, np.int64)
-        self._host_knobs = np.tile(default_knobs, (B, 1))
-        self.decode_steps = 0  # live decode steps run (counts["decode_passes"]: all)
-        self.graphs = Graphs()
-        # forward passes run on the device, gated ones included: a decode
-        # pass launches B1 once a layer, an admission B2 once a layer; the
-        # live (ungated) decode passes as of the last snapshot
-        self.counts = {"decode_passes": 0, "prefill_passes": 0, "live_decode_passes": 0}
 
     def pool_bytes(self) -> int:
         """Device bytes of the K/V cache."""
         return sum(t.numel() * t.element_size() for t in self._state.cache.values())
 
-    def bucket_len(self, n: int) -> int:
-        try:
-            return pick_bucket(self.prompt_buckets, n)
-        except ValueError:
-            # overflow path: the prompt fits no bucket but does fit the cache:
-            # a 32-quantized length, leaving at least one decode slot
-            L = min(-(-n // 32) * 32, self.Smax - 1)
-            if n <= L:
-                return L
-            raise
+    def _overflow_len(self, n: int) -> int:
+        # a prompt past the buckets that fits the cache: a 32-quantized
+        # length, leaving at least one decode slot
+        return min(-(-n // 32) * 32, self.Smax - 1)
 
     # -- admission -------------------------------------------------------------
 
@@ -258,15 +153,8 @@ class ServingEngine:
             torch.zeros(1, dtype=torch.int64, device=self.device), s.generator, self.sampling,
             **knob_kwargs(kn, 2.0 * kn[:, 7]), flags=flags)
         s.cur_slot.index_fill_(0, row, L)
-        s.positions.index_copy_(0, row, positions[:, -1] + 1)
-        s.last_token.index_copy_(0, row, token)
-        s.gen_ids.index_copy_(0, row, F.pad(token[:, None], (0, self.T - 1)))
-        s.gen_len.index_fill_(0, row, 1)
-        s.max_len.index_copy_(0, row, self._max_new)
-        s.active.index_fill_(0, row, True)
-        s.finished.index_copy_(0, row, token == self.eos)
-        s.mu.index_copy_(0, row, mu_row)
-        s.knobs.index_copy_(0, row, kn)
+        self._activate(row, token, mu_row, kn, self._max_new, positions[:, -1] + 1,
+                       token == self.eos)
         self.counts["prefill_passes"] += 1
 
     @torch.no_grad()
@@ -274,24 +162,8 @@ class ServingEngine:
                     max_new_tokens: int, overrides: Optional[dict] = None) -> None:
         """Admit one prompt (S,) into pool row ``row`` and sample its first
         token: the host pads and checks, the device work is a replay."""
-        input_ids = np.asarray(input_ids, np.int64).reshape(-1)
-        S = len(input_ids)
-        L = self.bucket_len(S)
-        ids = np.full((1, L), self.pad, np.int64)
-        mask = np.zeros((1, L), np.int64)
-        ids[0, L - S:] = input_ids
-        mask[0, L - S:] = 1
-        if img_start_pos is not None and np.ndim(img_start_pos) > 0:
-            # multi-image: (K,) markers, shifted by the left padding; -1 stays
-            ip = np.asarray(img_start_pos, np.int64).reshape(1, -1)
-            img_pos = np.where(ip < 0, -1, ip + (L - S))
-        else:
-            img_pos = np.asarray([-1 if img_start_pos is None or img_start_pos < 0
-                                  else img_start_pos + (L - S)], np.int64)
-        visualcla.check_img_start_pos(img_pos, self.cfg.num_image_tokens, L)
-        pixels = host_pixels(pixel_values)
-        if pixels is not None and img_pos.ndim == 2 and pixels.dim() == 4:
-            pixels = pixels[None]  # (1, K, 3, H, W)
+        ids, mask, img_pos, pixels, _, L = self._host_prompt(input_ids, img_start_pos,
+                                                             pixel_values, left=True)
         knobs = sampling_knobs(self.sampling, overrides)
         max_new = min(max_new_tokens, self.T)
         flags = knob_flags(knobs[None])
@@ -306,28 +178,19 @@ class ServingEngine:
                             lambda: self._prefill_step(inp, flags), self.device,
                             generators=[self._state.generator], counters=[self.counts],
                             space="prefill")
-        self._host_active[row] = True
-        self._host_finished[row] = False
-        self._host_gen_len[row] = 1
-        self._host_max_len[row] = max_new
+        self._host_activate(row, max_new, knobs)
         self._host_bucket[row] = L
-        self._host_knobs[row] = knobs
 
     # -- decode ----------------------------------------------------------------
 
     def _decode_step(self, flags: dict) -> None:
         """One gated decode step over the static buffers, in place: every
         running row writes its token's K/V at its ``cur_slot`` and attends
-        (B1 in every layer), then commits the next token.  ``go`` is the JAX
-        ``_step_n_impl`` cond (a row runs, none finished since the chunk
-        began), ANDed into ``run``; rows that do not run write into their
-        ``cur_slot``, which stays invalid."""
+        (B1 in every layer), then commits the next token; rows that do not
+        run write into their ``cur_slot``, which stays invalid."""
         s, text = self._state, self.model.text
-        rows, Smax, T = self._rows, self.Smax, self.T
-        run = s.active & ~s.finished
-        go = (run.any() & ~(s.finished & ~self._finished0).any()
-              & self.graphs.enable(self.device))
-        run = run & go
+        rows, Smax = self._rows, self.Smax
+        run, go = self._gate()
         slot = s.cur_slot.clamp(max=Smax - 1)
         s.kv_valid[rows, slot] = s.kv_valid[rows, slot] | run
         hidden, _ = text(text.embed(s.last_token[:, None]), s.positions[:, None], s.cache,
@@ -335,17 +198,8 @@ class ServingEngine:
         token, new_mu = sample_step_rowwise(
             text.logits(hidden)[:, 0], s.gen_ids, s.gen_len, s.generator, self.sampling,
             **knob_kwargs(s.knobs, s.mu), flags=flags)
-        s.mu.copy_(torch.where(run, new_mu, s.mu))
-        token = torch.where(run, token, torch.full_like(token, self.pad))
-        idx = s.gen_len.clamp(max=T - 1)
-        s.gen_ids[rows, idx] = torch.where(run, token, s.gen_ids[rows, idx])
-        s.gen_len += run.long()
-        hit_eos = run & (token == self.eos)
-        hit_cap = run & ((s.gen_len >= s.max_len) | (s.cur_slot + 1 >= Smax))
+        self._commit(run, token, new_mu, s.cur_slot)
         s.cur_slot += run.long()
-        s.positions += run.long()
-        s.last_token.copy_(torch.where(run, token, s.last_token))
-        s.finished |= hit_eos | hit_cap
         self._live += go.long()
         self.counts["decode_passes"] += 1
 
@@ -357,66 +211,19 @@ class ServingEngine:
         runs; rows finished before the chunk do not stop it.  No step is
         replayed past the first running row's cap (its max_new_tokens or the
         cache's end, from the host mirrors): the loop stops there."""
-        run = self._host_active & ~self._host_finished
-        if run.any():
-            cur = self._host_bucket + self._host_gen_len - 1
-            to_cap = np.minimum(self._host_max_len - self._host_gen_len, self.Smax - cur)
-            n = min(n, max(1, int(to_cap[run].min())))
-        flags = knob_flags(self._host_knobs[self._host_active])
-        self._finished0.copy_(self._state.finished)
+        n = self._chunk_len(n, self.Smax - (self._host_bucket + self._host_gen_len - 1))
         with attention_mesh_scope(self.mesh):
-            self.graphs.run(("decode", tuple(sorted(flags.items()))),
-                            lambda: self._decode_step(flags), self.device,
-                            generators=[self._state.generator], counters=[self.counts],
-                            replays=n)
-
-    def step(self) -> None:
-        """One decode step for every running row."""
-        self.step_n(1)
+            self._replay("decode", n, self._decode_step)
 
     def snapshot(self) -> dict:
-        """The rows' control fields in one device-to-host copy (and the live
-        steps run, for ``decode_steps``)."""
-        s = self._state
-        packed = torch.cat([s.last_token[:, None], s.gen_len[:, None], s.active[:, None].long(),
-                            s.finished[:, None].long(), s.gen_ids], dim=1).reshape(-1)
-        packed = torch.cat([packed, self._live]).cpu().numpy()
-        live = int(packed[-1])
-        self.decode_steps += live - self._live_host
-        self.counts["live_decode_passes"] += live - self._live_host
-        self._live_host = live
-        packed = packed[:-1].reshape(self.B, -1)
-        snap = {"last_token": packed[:, 0], "gen_len": packed[:, 1],
-                "active": packed[:, 2].astype(bool), "finished": packed[:, 3].astype(bool),
-                "gen_ids": packed[:, 4:]}
-        self._host_finished = snap["finished"].copy()
-        self._host_gen_len = snap["gen_len"].astype(np.int64)
-        return snap
+        """The rows' control fields and the live steps run (for
+        ``decode_steps``) in one device-to-host copy."""
+        packed = torch.cat([self._control().reshape(-1), self._live]).cpu().numpy()
+        self._count_live(packed[-1:])
+        return self._read_control(packed[:-1].reshape(self.B, -1))
 
-    def release_row(self, row: int) -> None:
-        self.release_rows([row])
-
-    def release_rows(self, rows) -> None:
-        """Free finished rows without a device fetch (the scheduler holds
-        their ids from its snapshot): one update for every row retiring."""
-        rows = list(rows)
-        idx = torch.as_tensor(rows, dtype=torch.int64, device=self.device)
-        s = self._state
-        s.active[idx] = False
-        s.finished[idx] = False
-        s.kv_valid[idx] = False
-        self._host_active[rows] = False
-        self._host_finished[rows] = False
-
-    def collect_row(self, row: int) -> np.ndarray:
-        """The generated ids of a finished row, then free it."""
-        gen_len = int(self._state.gen_len[row])
-        ids = self._state.gen_ids[row, :gen_len].cpu().numpy().copy()
-        self.release_row(row)
-        return ids
-
-    def num_active(self) -> int:
-        return int(self._state.active.sum())
+    def _release(self, rows: list, idx: torch.Tensor) -> None:
+        self._state.kv_valid[idx] = False
 
 
 @dataclasses.dataclass
@@ -501,9 +308,7 @@ class Scheduler:
         ranks' ``follow`` then returns."""
         self._stop.set()
         self.thread.join(timeout=30)
-        release = getattr(self.engine, "release_followers", None)
-        if release is not None:
-            release()
+        self.engine.release_followers()
 
     def _free_rows(self):
         return [r for r in range(self.engine.B) if r not in self._rows]
@@ -535,12 +340,10 @@ class Scheduler:
                     break
             # last: a broadcast to ranks that already died blocks until the
             # group's timeout, and no waiter should wait for it
-            release = getattr(self.engine, "release_followers", None)
-            if release is not None:
-                try:  # the other ranks' follow raises with the message
-                    release(msg)
-                except Exception:  # noqa: BLE001 — a lost rank cannot be told
-                    logger.exception("releasing the following ranks failed")
+            try:  # over a mesh the other ranks' follow raises with the message
+                self.engine.release_followers(msg)
+            except Exception:  # noqa: BLE001 — a lost rank cannot be told
+                logger.exception("releasing the following ranks failed")
 
     def _queue_wait(self, req: Request, t_ns: int) -> None:
         """An admission of ``req`` started at ``t_ns``: its time in the queue."""
@@ -552,7 +355,6 @@ class Scheduler:
         st = self._stats
         deferred = None  # a request waiting for KV blocks
         self._pending = None  # (PendingPrefill, row, Request)
-        idle = getattr(eng, "idle", None)  # over a mesh: the leader's heartbeat
         while not self._stop.is_set():
             did_work = False
             # advance the in-flight chunked admission by one stage
@@ -587,8 +389,7 @@ class Scheduler:
                         req = self.requests.get_nowait()
                     except queue.Empty:
                         break
-                can_admit = getattr(eng, "can_admit", None)
-                if can_admit is not None and not can_admit(len(req.input_ids)):
+                if not eng.can_admit(len(req.input_ids)):
                     if self._rows or self._pending is not None:
                         deferred = req  # blocks free up as rows finish
                         break
@@ -599,8 +400,7 @@ class Scheduler:
                 # while the queue is shallow; a backlog drains with one-shot
                 # prefills
                 backlog = self.requests.qsize() + (deferred is not None)
-                begin = getattr(eng, "begin_prefill", None)
-                wants_chunked = (begin is not None and self.prefill_chunk > 0
+                wants_chunked = (eng.chunked_admission and self.prefill_chunk > 0
                                  and (self._rows or self._pending is not None)
                                  and backlog <= self.chunked_backlog_limit
                                  and len(req.input_ids) > self.prefill_chunk)
@@ -610,7 +410,7 @@ class Scheduler:
                 t0 = time.time_ns()
                 if wants_chunked:
                     try:
-                        self._pending = (begin(
+                        self._pending = (eng.begin_prefill(
                             row, req.input_ids, req.pixel_values, req.img_start_pos,
                             req.max_new_tokens, overrides=req.sampling_overrides,
                             chunk=self.prefill_chunk), row, req)
@@ -653,9 +453,7 @@ class Scheduler:
                     # spec_k+1 tokens a greedy row for about one step's
                     # weight reads; only when some running row can accept
                     # drafts (an ineligible row commits one token either way)
-                    spec_ready = getattr(eng, "spec_ready", None)
-                    if (spec_ready is not None and len(self._rows) <= eng.spec_max_active
-                            and spec_ready()):
+                    if len(self._rows) <= eng.spec_max_active and eng.spec_ready():
                         eng.spec_step_n(self.step_chunk)
                         st["spec_dispatches"] += 1
                     else:
@@ -696,8 +494,7 @@ class Scheduler:
             if not did_work:
                 st["idle_sleeps"] += 1
                 with span("sched.idle"):
-                    if idle is not None:
-                        idle()
+                    eng.idle()  # over a mesh: the leader's heartbeat
                     time.sleep(self.poll_interval or 0.005)
 
 

@@ -32,8 +32,8 @@ gives the same states as running it once; each row's real tokens in the chunk ar
 ``kv_valid`` slots inside it, and positions past them leave the states
 unchanged (kernel B8's chunk form), so the state kept is the one at the
 last real token.  ``paged_decode`` is one decode step over the paged pool:
-B4 in the attention layers, B8's step form in the Mamba layers (masked by
-the pass's ``run`` vector), B7 or B3 in the feed-forward.
+the pool's attend (B4) in the attention layers, B8's step form in the Mamba
+layers (masked by the pass's ``run`` vector), B7 or B3 in the feed-forward.
 
 Weight tiers: "none" (dense, the CPU tests) and "int4" (the card's): every
 large product (attention, Mamba's ``in_proj`` / ``out_proj``, the dense MLP,
@@ -57,10 +57,9 @@ from ..core.config import JambaConfig
 from ..ops.attention import cached_attention
 from ..ops.cuda import moe_int4, selective_scan as b8
 from ..ops.cuda.flash_attention import slot_vector
-from ..ops.cuda.paged_attention import paged_append_attention
 from ..ops.linear import Int4Linear, Int8Table, Linear, make_linear, quantize_linear
 from ..ops.norms import RMSNorm
-from ..ops.quantization import effective_group, quantize_grouped, quantize_kv
+from ..ops.quantization import effective_group, quantize_grouped
 from .llama import put_chunk
 
 # what serves a Jamba tower today: the paged pool without speculation
@@ -331,9 +330,6 @@ class Jamba(nn.Module):
         moe = [i for i, n in enumerate(cfg.layers_num_experts) if n > 1]
         self.moe_index = {i: j for j, i in enumerate(moe)}
 
-    # a paged pool keeps the rows' Mamba states beside the K/V (``pool_state``)
-    stateful = True
-
     def require(self, path: str) -> None:
         """Raise ``NotImplementedError`` where ``path`` (a key of ``REFUSED``)
         does not serve the tower."""
@@ -365,12 +361,16 @@ class Jamba(nn.Module):
                 "ssm": torch.zeros(Lm, rows, D, N, dtype=torch.float32, device=device)}
 
     def pool_state(self, rows: int, dtype, *, device=None) -> dict:
-        """What a paged pool keeps per row beside the K/V: the Mamba states
-        (``init_state``), and the MoE counters (assignments (L_moe, E),
-        experts hit ()) the pool's passes add to on the device."""
-        tally = (torch.zeros(len(self.moe_index), self.cfg.num_experts, dtype=torch.int64,
-                             device=device), torch.zeros((), dtype=torch.int64, device=device))
-        return {**self.init_state(rows, dtype, device=device), "moe_tally": tally}
+        """What a paged pool keeps beside the K/V: ``rows``, the rows' Mamba
+        states (``init_state``); ``tallies``, the MoE counters (assignments
+        (L_moe, E), experts hit ()) by count name; ``admit_counts``, what an
+        admission adds to the counts: an SSM state a Mamba layer."""
+        z = dict(dtype=torch.int64, device=device)
+        return {"rows": self.init_state(rows, dtype, device=device),
+                "tallies": {"moe_expert_tokens": torch.zeros(len(self.moe_index),
+                                                             self.cfg.num_experts, **z),
+                            "moe_experts_hit": torch.zeros((), **z)},
+                "admit_counts": {"ssm_state_writes": self.cfg.num_mamba_layers}}
 
     # -- the surface the engines read --------------------------------------------
 
@@ -390,8 +390,8 @@ class Jamba(nn.Module):
         """A chunk of an admission (or a whole prompt) from cache slot
         ``write_slot`` (an int): -> (final-normed hidden (B, Sq, H), the
         cache).  ``rope_positions`` is unused: Jamba's attention has no
-        positional encoding.  ``tally``: the MoE counters (``MoE.forward``),
-        (tokens (L_moe, E), hit ()) on the device.  ``chunk_parity``: start
+        positional encoding.  ``tally``: the MoE counters on the device
+        (``pool_state``'s ``tallies``).  ``chunk_parity``: start
         from saved state ``chunk_parity`` and save the end state in the
         other (see the module's docstring)."""
         if not isinstance(write_slot, int):
@@ -430,33 +430,24 @@ class Jamba(nn.Module):
     def _tally(self, tally, i):
         if tally is None or i not in self.moe_index:
             return None
-        return tally[0][self.moe_index[i]], tally[1]
+        return tally["moe_expert_tokens"][self.moe_index[i]], tally["moe_experts_hit"]
 
-    def paged_decode(self, embeds, state, tables, blk, off, lens, run, tally=None):
-        """One decode step over the paged pool: embeds (B, 1, H); ``state`` a
-        ``PagedState`` holding the attention layers' pools and the rows'
-        Mamba states (``conv`` / ``ssm``); lens (B,) the attended length
-        including the new token; ``run`` (B,) bool, the rows that run: the
-        others' Mamba states are left unwritten and their tokens routed to no
+    def paged_decode(self, embeds, positions, state, attend, run):
+        """One decode step over the paged pool: embeds (B, 1, H); in each
+        attention layer ``attend(l, q, k, v)`` appends the new K/V to the
+        pool and attends; ``state.rows`` / ``tallies`` (``pool_state``); the
+        rows outside ``run`` (B,) keep their Mamba states and route to no
         expert.  -> final-normed hidden (B, 1, H)."""
         h = embeds
         for i, layer in enumerate(self.layers):
             x = layer.input_norm(h)
             if layer.kind == "attention":
-                q, k, v = layer.qkv(x)
-                if state.k_scales is not None:
-                    (k, v), (ksc, vsc) = (t.unbind(0) for t in quantize_kv(torch.stack((k, v))))
-                    ksc, vsc = ksc[:, 0], vsc[:, 0]
-                else:
-                    k, v, ksc, vsc = k.to(state.k_pool.dtype), v.to(state.v_pool.dtype), None, None
-                attn = paged_append_attention(
-                    q[:, 0], k[:, 0], v[:, 0], state.k_pool, state.v_pool, tables, lens, blk, off,
-                    self.attn_index[i], ksc, vsc, state.k_scales, state.v_scales)
+                attn = attend(self.attn_index[i], *layer.qkv(x))
                 h = h + layer.o_proj(attn.reshape(attn.shape[0], 1, -1))
             else:
                 m = self.mamba_index[i]
-                h = h + layer.mamba.step(x, state.conv[m], state.ssm[m], run)
-            h = layer.feed_forward(h, self._tally(tally, i), run)
+                h = h + layer.mamba.step(x, state.rows["conv"][m], state.rows["ssm"][m], run)
+            h = layer.feed_forward(h, self._tally(state.tallies, i), run)
         return self.final_norm(h)
 
     @torch.no_grad()

@@ -202,10 +202,6 @@ class Llama(nn.Module):
         self.tp = None
         self.embed_local = False
 
-    # the tower keeps nothing per row beside its K/V (``Jamba`` keeps its
-    # Mamba states); every path of the port serves it
-    stateful = False
-
     def require(self, path: str) -> None:
         """Every path serves a LLaMA tower (``Jamba.require`` refuses some)."""
 
@@ -215,8 +211,22 @@ class Llama(nn.Module):
                              kv_heads=self.kv_heads)
 
     def pool_state(self, rows: int, dtype, *, device=None) -> dict:
-        """What a paged pool keeps per row beside the K/V: nothing."""
-        return {}
+        """What a paged pool keeps beside the K/V (``Jamba.pool_state``):
+        nothing."""
+        return {"rows": {}, "tallies": {}, "admit_counts": {}}
+
+    def paged_decode(self, embeds, positions, state, attend, run=None) -> torch.Tensor:
+        """Sq new tokens a row over a paged pool (embeds (B, Sq, H), rope
+        positions (B, Sq)): in each layer ``attend(l, q, k, v)`` appends the
+        new K/V to the pool and attends (B4; B5 to verify drafts).  ``state``
+        and ``run`` go unread.  -> final-normed hidden (B, Sq, H)."""
+        cos, sin = rope_table(positions, self.cfg.head_dim, self.cfg.rope_theta)
+        h = embeds
+        for l, layer in enumerate(self.layers):
+            q, k, v = layer.project_qkv(layer.input_norm(h))  # over a mesh: the rank's heads
+            q, k = apply_rope(q, k, cos, sin)
+            h = layer.out_mlp(h, attend(l, q, k, v))
+        return self.final_norm(h)
 
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
         """(B, S) ids -> (B, S, H) in the model's dtype (over a mesh, the

@@ -5,10 +5,11 @@ The port runs one process per device (explicit SPMD), and every forward pass
 of a meshed model runs the mesh's collectives, so every rank must make the
 same engine calls in the same order.  The JAX package's single controller
 gets that for free; here rank 0's ``engine.server.Scheduler`` drives its pool
-through a ``Leader``, a proxy that broadcasts each call of the Scheduler's
-that launches device work or changes host state the ranks share before it
-makes it: ``prefill_row``, ``begin_prefill`` and each ``PendingPrefill.step``
-/ ``abort``, ``step`` / ``step_n`` / ``spec_step_n`` and ``release_rows``.
+through a ``Leader``, a proxy that implements the Scheduler's contract
+(``engine.pool.RowPool``'s) and broadcasts each call that launches device
+work or changes host state the ranks share before it makes it:
+``prefill_row``, ``begin_prefill`` and each ``PendingPrefill.step`` /
+``abort``, ``step`` / ``step_n`` / ``spec_step_n`` and ``release_rows``.
 Every other rank runs ``follow(engine, group)``, which makes the same calls
 in the same order until the stop message.  Host reads without a collective
 (``snapshot``, ``num_active``, ``can_admit``, ``spec_ready``) stay on rank
@@ -32,7 +33,6 @@ rows draw the same noise everywhere.
 """
 from __future__ import annotations
 
-import functools
 import itertools
 import logging
 import threading
@@ -75,11 +75,21 @@ def _host(obj):
     return obj
 
 
+def _broadcast(name: str):
+    """A ``Leader`` method for the call ``name``: broadcast, then made."""
+    def call(self, *args, **kwargs):
+        self._send("call", (name, args, kwargs))
+        return getattr(self._engine, name)(*args, **kwargs)
+
+    call.__name__ = name
+    return call
+
+
 class Leader:
-    """Rank 0's proxy over its engine: the calls in ``CALLS`` and
-    ``begin_prefill`` are broadcast, then made; every other attribute is the
-    engine's (an attribute the engine lacks stays missing, so the
-    ``Scheduler``'s ``getattr`` probes see the engine's own surface)."""
+    """Rank 0's proxy over its engine: each member the ``Scheduler`` calls is
+    its own (the calls in ``CALLS`` and ``begin_prefill`` are broadcast, then
+    made); the engine's attributes (``B``, ``counts``, ``graphs``, ...) are
+    read through."""
 
     def __init__(self, engine, group, deadline_s: float = DEADLINE_S):
         self._engine = engine
@@ -105,28 +115,25 @@ class Leader:
             self.messages += 1
 
     def __getattr__(self, name):
-        attr = getattr(self._engine, name)
-        if name in CALLS:
-            return functools.partial(self._call, name)
-        if name == "begin_prefill":
-            return self._begin
-        if name == "snapshot":
-            return self._snapshot
-        return attr
+        return getattr(self._engine, name)
 
-    def _call(self, name, *args, **kwargs):
-        self._send("call", (name, args, kwargs))
-        return getattr(self._engine, name)(*args, **kwargs)
+    prefill_row, step, step_n, spec_step_n, release_rows = map(_broadcast, CALLS)
 
-    def _snapshot(self):
+    def snapshot(self):
         snap = self._engine.snapshot()
         self._snapped = True
         return snap
 
-    def _begin(self, *args, **kwargs):
+    def begin_prefill(self, *args, **kwargs):
         handle = next(self._handles)
         self._send("begin", (handle, args, kwargs))
         return _Pending(self, handle, self._engine.begin_prefill(*args, **kwargs))
+
+    def can_admit(self, prompt_len: int) -> bool:
+        return self._engine.can_admit(prompt_len)
+
+    def spec_ready(self) -> bool:
+        return self._engine.spec_ready()
 
     def idle(self) -> None:
         """A heartbeat, if nothing went out for a quarter of the deadline."""
